@@ -1,0 +1,91 @@
+"""4-bit quantization codebooks (numpy, host side).
+
+The port's own copy of the 16-entry tables of the JAX package's
+``codebooks.py``. Tables are in code order (index = 4-bit code),
+normalized to [-1, 1]; FP4 is non-monotone, NF4/int4/af4 are monotone.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["NF4_CODE", "FP4_CODE", "get_4bit_type", "code_midpoints"]
+
+# NF4 of the QLoRA paper (arxiv 2305.14314): equal-area bins under N(0, 1)
+NF4_CODE = np.array(
+    [
+        -1.0,
+        -0.6961928009986877,
+        -0.5250730514526367,
+        -0.39491748809814453,
+        -0.28444138169288635,
+        -0.18477343022823334,
+        -0.09105003625154495,
+        0.0,
+        0.07958029955625534,
+        0.16093020141124725,
+        0.24611230194568634,
+        0.33791524171829224,
+        0.44070982933044434,
+        0.5626170039176941,
+        0.7229568362236023,
+        1.0,
+    ],
+    dtype=np.float32,
+)
+
+# FP4 (e2m1, bias 3) in code order, normalized by its absmax (12)
+FP4_CODE = np.array([0.0, 0.0625, 8.0, 12.0, 4.0, 6.0, 2.0, 3.0], dtype=np.float32) / 12.0
+FP4_CODE = np.concatenate([FP4_CODE, -FP4_CODE]).astype(np.float32)
+
+# AF4 (arxiv 2306.06965), blocksize-64 table, stored in code order
+_AF4_RAW = np.array(
+    [
+        -1.0,
+        -0.69441008,
+        -0.51243739,
+        -0.3736951,
+        -0.25607552,
+        -0.14982478,
+        -0.04934812,
+        0.0,
+        0.04273164,
+        0.12934483,
+        0.21961274,
+        0.31675666,
+        0.42563882,
+        0.55496234,
+        0.72424863,
+        1.0,
+    ],
+    dtype=np.float32,
+)[::-1]
+
+
+def get_4bit_type(typename: str, blocksize: int = 64) -> np.ndarray:
+    """16-entry 4-bit codebook in code order, normalized to [-1, 1]."""
+    if typename == "nf4":
+        data = NF4_CODE
+    elif typename == "fp4":
+        data = FP4_CODE
+    elif typename == "int4":
+        # index 8 holds -0.0, so the table's sort order puts it before +0.0
+        data = np.array(
+            [7, 6, 5, 4, 3, 2, 1, 0, -0.0, -1, -2, -3, -4, -5, -6, -7],
+            dtype=np.float32,
+        )
+    elif typename == "af4":
+        if blocksize != 64:
+            raise NotImplementedError("AF4 only supports blocksize 64.")
+        data = _AF4_RAW
+    else:
+        raise NotImplementedError(f"4-bit type {typename!r} not supported")
+    data = np.asarray(data, dtype=np.float32)
+    return data / np.abs(data).max()
+
+
+def code_midpoints(code_sorted: np.ndarray) -> np.ndarray:
+    """Decision boundaries between adjacent sorted entries; encoding is
+    ``searchsorted(mids, x, side='left')``, so ties go to the lower code."""
+    code_sorted = np.asarray(code_sorted, dtype=np.float32)
+    return ((code_sorted[1:] + code_sorted[:-1]) / 2.0).astype(np.float32)

@@ -1,0 +1,72 @@
+"""Turn the JAX package's Llama parameters into the port's.
+
+The input is the JAX parameter tree with its arrays converted to numpy
+(``jax.tree.map(np.asarray, params)``): quantized linears stay objects (or
+dicts) with ``packed``, ``absmax``, ``shape``, ``blocksize``, ``quant_type``
+and ``dtype``. The bytes are the same in both packages, so the result
+holds bit-identical weights. bfloat16 arrays arrive as numpy's extension
+type; they are read through a uint16 view, so nothing here needs it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .ops.common import QLinearWeight, resolve_device
+
+__all__ = ["params_from_jax", "tensor_from_numpy"]
+
+_QFIELDS = ("packed", "absmax", "shape", "blocksize", "quant_type", "dtype")
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """numpy array (bfloat16 included) -> torch tensor on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _field(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _is_qweight(obj) -> bool:
+    if isinstance(obj, dict):
+        return all(k in obj for k in _QFIELDS)
+    return all(hasattr(obj, k) for k in _QFIELDS)
+
+
+def _convert(obj, device):
+    if _is_qweight(obj):
+        scale = _field(obj, "absmax_scale") if not isinstance(obj, dict) else obj.get("absmax_scale")
+        if scale is not None:
+            raise NotImplementedError(
+                "compressed statistics are not ported yet (ROADMAP Queue A #1)")
+        return QLinearWeight(
+            packed=tensor_from_numpy(_field(obj, "packed"), device),
+            absmax=tensor_from_numpy(_field(obj, "absmax"), device),
+            shape=tuple(int(s) for s in _field(obj, "shape")),
+            blocksize=int(_field(obj, "blocksize")),
+            quant_type=str(_field(obj, "quant_type")),
+            dtype=str(_field(obj, "dtype")),
+        )
+    if isinstance(obj, dict):
+        if "CB" in obj:
+            raise NotImplementedError("int8 linears are not ported yet (ROADMAP Queue B #7)")
+        return {k: _convert(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_convert(v, device) for v in obj]
+    return tensor_from_numpy(obj, device)
+
+
+def params_from_jax(tree: Dict, cfg, device=None) -> Dict:
+    """The JAX package's llama params (numpy leaves) as the port's params:
+    embed, norms, per-layer QLinearWeights and the optional lm_head."""
+    if getattr(cfg, "num_experts", 1) > 1:
+        raise NotImplementedError("MoE is not ported yet (ROADMAP Queue A #10)")
+    dev = resolve_device(device)
+    return _convert(tree, dev)

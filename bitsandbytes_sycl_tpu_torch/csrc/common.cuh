@@ -1,0 +1,66 @@
+// Helpers shared by the port's kernels: typed loads and stores, warp and
+// block reductions, and the fixed-order reduction of split-K partials.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define BNB_FULL_MASK 0xffffffffu
+
+__device__ __forceinline__ float ld_f(const void* p, size_t i, int bf16) {
+  return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
+              : reinterpret_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void st_f(void* p, size_t i, float v, int bf16) {
+  if (bf16) {
+    reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  } else {
+    reinterpret_cast<float*>(p)[i] = v;
+  }
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(BNB_FULL_MASK, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(BNB_FULL_MASK, v, o);
+  return v;
+}
+
+// Block-wide max or sum (blockDim.x a multiple of 32); every thread gets
+// the result. `red` holds at least 32 floats of shared memory.
+template <bool kMax>
+__device__ float block_reduce(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  v = kMax ? warp_max(v) : warp_sum(v);
+  __syncthreads();  // red may still be read by a previous reduction
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int w = 1; w < nwarps; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
+  return r;
+}
+
+// out[m, n] = (sum over s, in order, of part[s, m, n]) * row_absmax[m] / 127
+// (when row_absmax is given) + bias[n] (when given), stored as f32 or bf16.
+__global__ void reduce_partials_kernel(const float* __restrict__ part, int ksplit, int M, int N,
+                                       const float* __restrict__ row_absmax,
+                                       const float* __restrict__ bias, void* out, int out_bf16) {
+  const size_t MN = (size_t)M * N;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= MN) return;
+  float acc = part[i];
+  for (int s = 1; s < ksplit; ++s) acc += part[(size_t)s * MN + i];
+  if (row_absmax != nullptr) acc = acc * (row_absmax[i / N] / 127.0f);
+  if (bias != nullptr) acc = acc + bias[i % N];
+  st_f(out, i, acc, out_bf16);
+}

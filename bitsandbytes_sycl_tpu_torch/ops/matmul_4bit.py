@@ -1,0 +1,168 @@
+"""Exact 4-bit dequant-matmul (kernel B, ``mm4_fused``).
+
+``out = x[:, :K/2] @ (dec(hi) * s_hi) + x[:, K/2:] @ (dec(lo) * s_lo)``
+with f32 accumulation, the numerics of the JAX package's
+``ops/matmul_4bit.py``:
+
+- bf16 compute with a table codebook decodes in bf16: the table entry and
+  the scale are rounded to bf16 and so is their product;
+- int4 decodes arithmetically, ``(7 - (i & 7)) / 7`` or ``-(i & 7) / 7``
+  for ``i >= 8``, and f32 compute decodes in f32; the product is then cast
+  to x's dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import _build
+from .common import QLinearWeight, check_cuda_tensors, pick_tile
+
+__all__ = ["matmul_4bit_fused", "mm4_fused", "PREFILL_MIN_M", "PREFILL_MIN_M_UNALIGNED"]
+
+# rows from which the JAX package decodes the weight once to a dense array
+# (its _dequant_kernel); that route is not ported yet
+PREFILL_MIN_M = 2048
+PREFILL_MIN_M_UNALIGNED = 256
+
+_MODE_F32_TABLE, _MODE_F32_INT4, _MODE_BF16_TABLE = 0, 1, 2
+
+
+def _nk_tiles(w: QLinearWeight, N: int, K: int):
+    """The JAX kernel's tileability test: (tn, tkb) or None entries."""
+    tn = pick_tile(N, (256, 128))
+    half = K // 2
+    tkb = None
+    for c in (8 * w.blocksize, 16 * w.blocksize):
+        if half % c == 0:
+            tkb = c
+            break
+    if tkb is None and half % w.blocksize == 0 and tn and half * tn <= 4 * 1024 * 1024:
+        tkb = half  # whole half-plane as one K step
+    return tn, tkb
+
+
+def _decode_mode(w: QLinearWeight, compute_dtype, decode_dtype) -> int:
+    if decode_dtype is None:
+        use16 = w.quant_type != "int4" and compute_dtype == torch.bfloat16
+        decode_dtype = torch.bfloat16 if use16 else torch.float32
+    if decode_dtype == torch.bfloat16:
+        return _MODE_BF16_TABLE
+    return _MODE_F32_INT4 if w.quant_type == "int4" else _MODE_F32_TABLE
+
+
+def _decode_planes(w: QLinearWeight, mode: int, x_dtype) -> tuple:
+    """Both scaled planes (K/2, N) in x's dtype, as the kernel decodes them."""
+    K2 = w.packed.shape[0]
+    N = w.shape[0]
+    hi_c, lo_c = (w.packed >> 4).long(), (w.packed & 0xF).long()
+    s = w.scales_f32()
+    s_rep = [torch.repeat_interleave(s[p], w.blocksize, dim=0)[:K2] for p in (0, 1)]
+    planes = []
+    for codes, sp in zip((hi_c, lo_c), s_rep):
+        if mode == _MODE_BF16_TABLE:
+            tbl = torch.tensor(np.asarray(w.code, np.float32)).to(codes.device, torch.bfloat16)
+            val = tbl[codes] * sp.to(torch.bfloat16)  # bf16 product, rounded once
+        elif mode == _MODE_F32_INT4:
+            mag = (codes & 7).float()
+            val = torch.where((codes & 8) != 0, -mag, 7.0 - mag) * np.float32(1.0 / 7.0)
+            val = val * sp
+        else:
+            tbl = torch.tensor(np.asarray(w.code, np.float32)).to(codes.device)
+            val = tbl[codes] * sp
+        planes.append(val.to(x_dtype).reshape(K2, N))
+    return planes
+
+
+def _mm4_plain(x2, w: QLinearWeight, bias, compute_dtype, mode: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel B."""
+    K2 = w.packed.shape[0]
+    w_hi, w_lo = _decode_planes(w, mode, x2.dtype)
+    xf = x2.float()
+    out = xf[:, :K2] @ w_hi.float() + xf[:, K2:] @ w_lo.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(compute_dtype)
+
+
+def mm4_fused(x2: torch.Tensor, w: QLinearWeight, bias: Optional[torch.Tensor],
+              compute_dtype, decode_dtype=None) -> torch.Tensor:
+    """Kernel B on CUDA tensors; the plain version on CPU tensors.
+    x2 (M, K) already in compute_dtype -> (M, N) in compute_dtype."""
+    mode = _decode_mode(w, compute_dtype, decode_dtype)
+    if not check_cuda_tensors("mm4_fused", x2, w.packed, w.absmax, bias):
+        return _mm4_plain(x2, w, bias, compute_dtype, mode)
+    M, K = x2.shape
+    N = w.shape[0]
+    bs = w.blocksize
+    if compute_dtype not in (torch.float32, torch.bfloat16) or x2.dtype != compute_dtype:
+        raise ValueError(f"mm4_fused: x ({x2.dtype}) must be in compute_dtype f32/bf16")
+    if not x2.is_contiguous() or not w.packed.is_contiguous() or not w.absmax.is_contiguous():
+        raise ValueError("mm4_fused: tensors must be contiguous")
+    if w.absmax.dtype not in (torch.float32, torch.bfloat16) or w.compressed:
+        raise NotImplementedError(
+            "mm4_fused: compressed statistics are not ported yet (ROADMAP Queue A #1)")
+    if N % 128 or K % (2 * bs) or bs % 4 or w.shape[1] != K or M == 0:
+        raise ValueError(f"mm4_fused: untileable shape M={M} N={N} K={K} bs={bs}")
+    from .matmul_w4a8 import _ksplit
+
+    nbh = K // (2 * bs)
+    g, ksplit = _ksplit(nbh, N // 128, -(-M // 4))
+    dev = x2.device
+    out = torch.empty((M, N), dtype=compute_dtype, device=dev)
+    part = torch.empty((ksplit, M, N), dtype=torch.float32, device=dev)
+    b = None if bias is None else bias.float().contiguous()
+    tbl = np.asarray(w.code, np.float32)
+    if mode == _MODE_BF16_TABLE:
+        tbl = torch.tensor(tbl).to(torch.bfloat16).float().numpy()
+    table = (ctypes.c_float * 16)(*[float(v) for v in tbl])
+    fn = _build.kernel_fn("mm4_fused", "mm4_fused", 17, int_args=range(7, 16))
+    err = fn(
+        x2.data_ptr(), w.packed.data_ptr(), w.absmax.data_ptr(),
+        None if b is None else b.data_ptr(), out.data_ptr(), part.data_ptr(),
+        ctypes.addressof(table),
+        M, N, K, bs, g, ksplit,
+        int(compute_dtype == torch.bfloat16), int(w.absmax.dtype == torch.bfloat16),
+        mode,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("mm4_fused", err)
+    mm4_fused.launches += 1
+    return out
+
+
+mm4_fused.launches = 0
+
+
+def matmul_4bit_fused(
+    x: torch.Tensor,
+    w: QLinearWeight,
+    bias: Optional[torch.Tensor] = None,
+    compute_dtype=torch.bfloat16,
+    decode_dtype=None,
+) -> torch.Tensor:
+    """out = x @ dequant(W)^T (+ bias) in compute_dtype; the weight stays
+    4-bit. Shapes the kernel cannot tile take a plain dequantize and
+    matmul, as the JAX package does."""
+    N, K = w.shape
+    lead = x.shape[:-1]
+    M = int(np.prod(lead)) if lead else 1
+    x2 = x.reshape(M, K).to(compute_dtype)
+    tn, tkb = _nk_tiles(w, N, K)
+    if M == 0 or tn is None or tkb is None or K % (2 * w.blocksize) != 0:
+        wd = w.dequantize().to(compute_dtype)
+        out = (x2.float() @ wd.float().T).to(compute_dtype)
+        if bias is not None:
+            out = out + bias
+        return out.reshape(*lead, N)
+    whole_half = tkb == K // 2 and (K // 2) % (8 * w.blocksize) != 0
+    if M >= (PREFILL_MIN_M_UNALIGNED if whole_half else PREFILL_MIN_M):
+        raise NotImplementedError(
+            f"matmul_4bit_fused at M={M}: the dequantize-once route (_dequant_kernel) "
+            "is not ported yet (ROADMAP Queue B #9)")
+    out = mm4_fused(x2.contiguous(), w, bias, compute_dtype, decode_dtype)
+    return out.reshape(*lead, N)

@@ -1,0 +1,74 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points run on CUDA unless the caller asks for the CPU."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import bitsandbytes_sycl_tpu_torch as port
+from bitsandbytes_sycl_tpu_torch import convert
+from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine, init_page_pool
+from bitsandbytes_sycl_tpu_torch.models import llama as TL
+from bitsandbytes_sycl_tpu_torch.ops.common import check_cuda_tensors, resolve_device
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "bitsandbytes_sycl_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(".__init__", "")
+    for p in PORT.rglob("*.py"))
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m.split('.')[0] == 'bitsandbytes_sycl_tpu')\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_file_imports_jax_or_the_jax_package(path):
+    pat = re.compile(r"^\s*(from|import)\s+(jax|bitsandbytes_sycl_tpu)(?!_torch)\b", re.M)
+    assert not pat.search(path.read_text()), path
+
+
+def test_kernel_sources_are_in_the_package():
+    names = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
+    assert names == ["mm4_fused", "paged_attn_int8", "prefill_attn_int8", "w4a8_gemv"]
+
+
+def test_entry_points_need_cuda_unless_given_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TL.LlamaConfig.tiny(num_layers=1, head_dim=128, num_heads=2, num_kv_heads=1,
+                              max_seq_len=128)
+    for call in (
+        lambda: resolve_device(),
+        lambda: TL.init_params(cfg),
+        lambda: TL.init_kv_cache(cfg, 1),
+        lambda: init_page_pool(cfg, 2, 128),
+        lambda: convert.params_from_jax({"embed": np.zeros((2, 2), np.float32)}, cfg),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    params = TL.init_params(cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngine(cfg, params, EngineConfig(paged=True))
+    eng = InferenceEngine(cfg, params, EngineConfig(paged=True, max_new_tokens=2), device="cpu")
+    assert len(eng.generate([[1, 2, 3]])[0]) == 2
+
+
+def test_wrappers_dispatch_on_the_tensor_device():
+    assert check_cuda_tensors("t", torch.zeros(1), None) is False
+    with pytest.raises(ValueError):
+        check_cuda_tensors("t", torch.zeros(1), torch.zeros(1, device="meta"))
+    assert port.QLinearWeight is TL.QLinearWeight
