@@ -266,10 +266,6 @@ def _kv_quantize(x: torch.Tensor, levels: float = 127.0):
     return q.to(torch.int8), absmax
 
 
-def _kv_dequantize(q: torch.Tensor, absmax: torch.Tensor, dtype, levels: float = 127.0):
-    return (q.float() * (absmax[..., None] / levels)).to(dtype)
-
-
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -335,42 +331,21 @@ def _paged_write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg):
     cache["v"][li, pages, :, offs] = vq[:, 0]
     cache["k_scale"][li, pages, :, offs] = ks[:, 0]
     cache["v_scale"][li, pages, :, offs] = vs[:, 0]
-    lengths = positions[:, 0]
     attn = paged_decode_attention_int8_stacked(
         q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], li,
-        cache["page_table"], lengths, new_kv=(kq[:, 0], ks[:, 0], vq[:, 0], vs[:, 0]),
+        cache["page_table"], positions[:, 0], new_kv=(kq[:, 0], ks[:, 0], vq[:, 0], vs[:, 0]),
         window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
         sm_scale=_sm_scale(cfg), pages_hint=cfg.pages_hint,
     )
-    if attn is not None:
-        return attn, cache
-    # shapes the kernel declines: gather the mapped pages into a contiguous
-    # view, append the current token, attend without the kernel
-    pt = cache["page_table"].long()
-    B, MAXP = pt.shape
-    kg, vg = cache["k"][li][pt], cache["v"][li][pt]  # (B, MAXP, H, P, D)
-    ksg, vsg = cache["k_scale"][li][pt], cache["v_scale"][li][pt]  # (B, MAXP, H, P)
-    S = MAXP * kg.shape[3]
-    H = kg.shape[2]
-    k_full = _kv_dequantize(kg.permute(0, 1, 3, 2, 4).reshape(B, S, H, -1),
-                            ksg.permute(0, 1, 3, 2).reshape(B, S, H), cfg.dtype)
-    v_full = _kv_dequantize(vg.permute(0, 1, 3, 2, 4).reshape(B, S, H, -1),
-                            vsg.permute(0, 1, 3, 2).reshape(B, S, H), cfg.dtype)
-    k_full = torch.cat([k_full, _kv_dequantize(kq, ks, cfg.dtype)], dim=1)
-    v_full = torch.cat([v_full, _kv_dequantize(vq, vs, cfg.dtype)], dim=1)
-    ar = torch.arange(S, device=q.device)[None, None, :]
-    mask = ar < positions[:, :, None]
-    if cfg.sliding_window is not None:
-        mask = mask & (positions[:, :, None] - ar < cfg.sliding_window)
-    mask = torch.cat([mask, torch.ones((B, q.shape[1], 1), dtype=torch.bool, device=q.device)], dim=2)
-    return _attention(q, k_full, v_full, mask, cfg.dtype, sm_scale=_sm_scale(cfg),
-                      softcap=cfg.attn_logit_softcap), cache
+    return attn, cache
 
 
-def write_and_attend(cache: Dict, li: int, q, k, v, positions, mask, cfg):
+def write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg):
     """Write this step's k/v into layer li of the cache and attend q over
     it: the paged decode step, or the contiguous prefill. Returns
-    (attn (B, T, Hq, hd), cache); the cache is updated in place."""
+    (attn (B, T, Hq, hd), cache); the cache is updated in place. The
+    attention kernels take the shapes the JAX package's kernels take and
+    raise ValueError on the others: there is no dequantize-and-attend path."""
     from ..ops.attention import prefill_attention_int8_stacked
 
     starts = positions[:, 0]
@@ -404,14 +379,7 @@ def write_and_attend(cache: Dict, li: int, q, k, v, positions, mask, cfg):
         starts=starts, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
         sm_scale=_sm_scale(cfg),
     )
-    if attn is not None:
-        return attn, cache
-    # shapes the kernel declines: dequantize the layer, seq-major views
-    k_full = _kv_dequantize(cache["k"][li].transpose(2, 3), cache["k_scale"][li],
-                            cfg.dtype).transpose(1, 2)
-    v_full = _kv_dequantize(cache["v"][li], cache["v_scale"][li], cfg.dtype).transpose(1, 2)
-    return _attention(q, k_full, v_full, mask, cfg.dtype, sm_scale=_sm_scale(cfg),
-                      softcap=cfg.attn_logit_softcap), cache
+    return attn, cache
 
 
 @torch.no_grad()
@@ -442,24 +410,16 @@ def llama_forward(
     norm_off = cfg.norm_offset
     use_cache = cache is not None
     sw = cfg.sliding_window
-    if use_cache:
-        S = cache["k"].shape[-1] if "page_table" not in cache else 0
-        s_ids = torch.arange(S, device=dev)[None, None, :]
-        q_pos = positions[:, :, None]
-        mask = s_ids <= q_pos
-        if sw is not None:
-            mask = mask & (q_pos - s_ids < sw)
-    else:
-        mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))[None]
+    mask = mask_global = None  # with a cache the kernels mask by position
+    if not use_cache:
+        mask = mask_global = torch.tril(
+            torch.ones((T, T), dtype=torch.bool, device=dev))[None].expand(B, T, T)
         if sw is not None:
             q_ids = torch.arange(T, device=dev)[:, None]
             mask = mask & ((q_ids - torch.arange(T, device=dev)[None, :]) < sw)[None]
-        mask = mask.expand(B, T, T)
     alternating = cfg.sliding_alternating and sw is not None
     if alternating:
         cfg_global = dataclasses.replace(cfg, sliding_window=None)
-        mask_global = (s_ids <= q_pos) if use_cache else torch.tril(
-            torch.ones((T, T), dtype=torch.bool, device=dev))[None].expand(B, T, T)
 
     for li, layer in enumerate(params["layers"]):
         if "experts" in layer:
@@ -479,7 +439,7 @@ def llama_forward(
         k = _rope(k.reshape(B, T, cfg.num_kv_heads, cfg.hd), positions, cfg.rope_theta)
         v = v.reshape(B, T, cfg.num_kv_heads, cfg.hd)
         if use_cache:
-            attn, cache = write_and_attend(cache, li, q, k, v, positions, lmask, lcfg)
+            attn, cache = write_and_attend(cache, li, q, k, v, positions, lcfg)
         else:
             attn = _attention(q, k, v, lmask, cfg.dtype, sm_scale=_sm_scale(cfg),
                               softcap=cfg.attn_logit_softcap)

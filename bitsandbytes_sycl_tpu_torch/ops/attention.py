@@ -107,22 +107,23 @@ def prefill_attention_int8_stacked(
     softcap: Optional[float] = None,
     sm_scale: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,  # (Hq,)
-) -> Optional[torch.Tensor]:
-    """Causal flash attention of q over layer ``li`` of the int8 cache.
-    Returns (B, T, Hq, D), or None for the shapes the JAX kernel declines
-    (the caller then takes the dequantize-and-attend path)."""
+) -> torch.Tensor:
+    """Causal flash attention of q over layer ``li`` of the int8 cache,
+    (B, T, Hq, D). Raises ValueError on the shapes the JAX kernel declines
+    (D not a multiple of 128, Hq not a multiple of Hkv, T or S that its
+    tiles cannot cover); the JAX package attends those without the kernel,
+    and the port has no such path."""
     B, T, Hq, D = q.shape
     Hkv, S = vq.shape[2], vq.shape[3]
-    if D % 128 != 0 or Hq % Hkv != 0:
-        return None
     tq = min(tq, T)
     while T % tq != 0 and tq > 8:
         tq //= 2
     ts = min(ts, S)
     while S % ts != 0 and ts >= 256:
         ts //= 2
-    if T % tq != 0 or S % ts != 0 or tq < 8 or ts < 128:
-        return None
+    if D % 128 != 0 or Hq % Hkv != 0 or T % tq != 0 or S % ts != 0 or tq < 8 or ts < 128:
+        raise ValueError(f"prefill_attention_int8_stacked: the kernel does not take "
+                         f"T={T}, S={S}, D={D}, Hq={Hq}, Hkv={Hkv}")
     if window is not None and window >= S:
         window = None  # can never bind
     sm = sm_scale if sm_scale is not None else 1.0 / float(np.sqrt(D))

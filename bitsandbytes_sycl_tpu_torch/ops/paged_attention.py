@@ -144,16 +144,17 @@ def paged_decode_attention_int8_stacked(
     sm_scale: Optional[float] = None,
     pages_hint: Optional[int] = None,
     alibi_slopes: Optional[torch.Tensor] = None,  # (Hq,)
-) -> Optional[torch.Tensor]:
-    """Single-step attention over layer ``li`` of the paged pool. Returns
-    (B, 1, Hq, D) in q's dtype, or None for the shapes the JAX kernel
-    declines (the caller gathers the pages and attends without it)."""
+) -> torch.Tensor:
+    """Single-step attention over layer ``li`` of the paged pool, (B, 1, Hq,
+    D) in q's dtype. Raises ValueError on the shapes the JAX kernel declines
+    (T != 1, D or P not a multiple of 128, Hq not a multiple of Hkv); the
+    JAX package attends those without the kernel, and the port has no such
+    path."""
     B, T, Hq, D = q.shape
     Hkv, P = vp.shape[2], vs.shape[3]
-    if T != 1 or D % 128 != 0 or Hq % Hkv != 0 or P % 128 != 0:
-        return None
-    if vp.shape[3] not in (P, P // 2):
-        return None
+    if T != 1 or D % 128 != 0 or Hq % Hkv != 0 or P % 128 != 0 or vp.shape[3] not in (P, P // 2):
+        raise ValueError(f"paged_decode_attention_int8_stacked: the kernel does not take "
+                         f"T={T}, D={D}, P={P}, Hq={Hq}, Hkv={Hkv}, pages {tuple(vp.shape)}")
     if vp.dtype == torch.uint8:
         raise NotImplementedError("int4 (kv_bits=4) pages are not ported yet (ROADMAP Queue B #3)")
     if window is not None and window >= page_table.shape[1] * P:

@@ -6,12 +6,16 @@
 Phases, each of which exits non-zero on failure:
   1. build the hand-written kernels (nvcc, csrc/*.cu) and print the card;
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes the 7B serving path gives it, and time kernel, plain version
-     and one PyTorch library call that computes the same function;
+     shapes the 7B serving path gives it (attention inputs with O(1)
+     scores, and the plain version fed deliberate faults must land outside
+     the tolerance), and time kernel, plain version and one PyTorch
+     library call that computes the same function;
   3. serve Llama-7B (NF4, bs 64, bf16 scales, W4A8 decode, int8 paged KV,
      random weights from a seed) through the paged engine: 8 prompts, 4
      slots, 32 new tokens each; the W4A8, prefill and paged-attention
-     kernels must have been launched;
+     kernels must have been launched; then profile decode steps on the
+     device (torch.profiler) and on the host (cProfile, and each step
+     against a host-speed yardstick);
   4. the same weights, 4 layers, on the exact path (a8_decode=False): the
      exact 4-bit kernel must have been launched;
   5. a 2-layer model at full 7B width from one seed, on the card and on
@@ -82,6 +86,20 @@ def max_err(torch, got, ref):
     return float((g - r).abs().max()), float(r.abs().max())
 
 
+def faults_exceed(torch, name, ref, faults, tol):
+    """The tolerance must tell apart a kernel that computes the wrong
+    function: each plain version fed a deliberate fault (wrong K head, K
+    of another layer, k_scale dropped, ...) must land outside it. Returns
+    the smallest fault error over the tolerance."""
+    worst = float("inf")
+    for label, fn in faults:
+        err, _ = max_err(torch, fn(), ref)
+        need(err > tol, f"{name}: a plain version with {label} lands within the tolerance "
+                        f"({err} <= {tol}), so the check cannot see that fault")
+        worst = min(worst, err / tol)
+    return worst
+
+
 # --------------------------------------------------------------- phase 2
 def check_linears(torch, report):
     from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit, matmul_w4a8
@@ -146,7 +164,10 @@ def check_prefill(torch, report):
     q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
     kq = torch.randint(-127, 128, (L, B, H, D, S), generator=gen, device="cuda", dtype=torch.int8)
     vq = torch.randint(-127, 128, (L, B, H, S, D), generator=gen, device="cuda", dtype=torch.int8)
-    ks = torch.rand((L, B, H, S), generator=gen, device="cuda") * 0.02
+    # k scales in [1, 3) give O(1) scores (q ~ N(0, 1) and codes uniform in
+    # +-127 make q.k_i8 ~ 73 sqrt(D) wide, times ks / (127 sqrt(D))), so a
+    # wrong QK product moves the softmax well past the tolerance
+    ks = torch.rand((L, B, H, S), generator=gen, device="cuda") * 2 + 1
     vs = torch.rand((L, B, H, S), generator=gen, device="cuda") + 0.5
     starts = torch.zeros((B,), dtype=torch.int32, device="cuda")
     scale = (1.0 / D ** 0.5) / 127.0
@@ -157,17 +178,30 @@ def check_prefill(torch, report):
     err, mag = max_err(torch, got, ref)
     tol = 1e-2 * mag
     need(err <= tol, f"prefill_attn_int8: max err {err} > {tol}")
+    k_other = kq.clone()
+    k_other[li] = kq[li - 1]
+    margin = faults_exceed(torch, "prefill_attn_int8", ref, [
+        ("K of the next kv head", lambda: attention._prefill_plain(
+            q, kq.roll(1, dims=2), ks, vq, vs, li, starts, scale, None, None, None)),
+        ("K of another layer", lambda: attention._prefill_plain(
+            q, k_other, ks, vq, vs, li, starts, scale, None, None, None)),
+        ("k_scale dropped", lambda: attention._prefill_plain(
+            q, kq, torch.full_like(ks, 2.0), vq, vs, li, starts, scale, None, None, None)),
+    ], tol)
+    del k_other
     kd = (kq[li, :, :, :, :T].float() * (ks[li, :, :, None, :T] / 127)).permute(0, 1, 3, 2).to(torch.bfloat16)
     vd = (vq[li, :, :, :T].float() * (vs[li, :, :, :T, None] / 127)).to(torch.bfloat16)
     qh = q.permute(0, 2, 1, 3).contiguous()
     lib = lambda: Fnn.scaled_dot_product_attention(qh, kd, vd, is_causal=True)  # noqa: E731
     nbytes = 2 * B * T * H * D * 2 + 2 * B * H * T * D + 2 * B * H * T * 4
     flops = 4 * B * H * T * (T + 1) // 2 * D
-    row = dict(B=B, T=T, H=H, D=D, S=S, max_abs_err=err, tol=tol, ms=time_cold(torch, kern),
+    row = dict(B=B, T=T, H=H, D=D, S=S, max_abs_err=err, tol=tol, fault_margin=margin,
+               ms=time_cold(torch, kern),
                plain_ms=time_cold(torch, plain, iters=5), library_ms=time_cold(torch, lib),
                bytes=nbytes, bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations")
-    print(f"  prefill_attn_int8 B={B} T={T} S={S} err={err:.3g} rel={err / mag:.2g} (tol {tol:.3g})"
+    print(f"  prefill_attn_int8 B={B} T={T} S={S} err={err:.3g} rel={err / mag:.2g} (tol {tol:.3g};"
+          f" faults >= {margin:.3g}x tol)"
           f" kernel {row['ms']*1e3:.1f} us plain {row['plain_ms']*1e3:.1f} us sdpa"
           f" {row['library_ms']*1e3:.1f} us bound {row['bound_ms']*1e3:.2f} us"
           f" ({row['bound_ms'] / row['ms']:.0%})", flush=True)
@@ -183,16 +217,18 @@ def check_paged(torch, report):
     NP = B * MAXP + 1
     kp = torch.randint(-127, 128, (L, NP, H, P, D), generator=gen, device="cuda", dtype=torch.int8)
     vp = torch.randint(-127, 128, (L, NP, H, P, D), generator=gen, device="cuda", dtype=torch.int8)
-    ks = torch.rand((L, NP, H, P), generator=gen, device="cuda") * 0.02
+    ks = torch.rand((L, NP, H, P), generator=gen, device="cuda") * 2 + 1  # O(1) scores
     vs = torch.rand((L, NP, H, P), generator=gen, device="cuda") + 0.5
     perm = torch.randperm(NP - 1, generator=gen, device="cuda")[: B * MAXP] + 1
     table = perm.reshape(B, MAXP).to(torch.int32)
     q = torch.randn((B, H, 1, D), generator=gen, device="cuda").to(torch.bfloat16)
     new_kv = (torch.randint(-127, 128, (B, H, D), generator=gen, device="cuda", dtype=torch.int8),
-              torch.rand((B, H), generator=gen, device="cuda") * 0.02,
+              torch.rand((B, H), generator=gen, device="cuda") * 2 + 1,
               torch.randint(-127, 128, (B, H, D), generator=gen, device="cuda", dtype=torch.int8),
               torch.rand((B, H), generator=gen, device="cuda") + 0.5)
     scale = (1.0 / D ** 0.5) / 127.0
+    k_other = kp.clone()
+    k_other[li] = kp[li - 1]
     rows = []
     for label, lens_l in (("1 page", [40, 64, 17, 33]), ("16 pages", [2047, 1500, 900, 2000])):
         lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
@@ -205,6 +241,17 @@ def check_paged(torch, report):
         err, mag = max_err(torch, got, ref)
         tol = 1e-2 * mag
         need(err <= tol, f"paged_attn_int8 ({label}): max err {err} > {tol}")
+
+        def plain_with(kp_=kp, ks_=ks, table_=table):
+            return paged_attention._paged_plain(q, kp_, ks_, vp, vs, li, table_, lens, new_kv,
+                                                scale, None, None, None)
+
+        margin = faults_exceed(torch, f"paged_attn_int8 ({label})", ref, [
+            ("K of the next kv head", lambda: plain_with(kp_=kp.roll(1, dims=2))),
+            ("K of another layer", lambda: plain_with(kp_=k_other)),
+            ("k_scale dropped", lambda: plain_with(ks_=torch.full_like(ks, 2.0))),
+            ("the page table read one entry off", lambda: plain_with(table_=table.roll(1, dims=1))),
+        ], tol)
         Smax = max(lens_l) + 1
         used = [-(-n // P) for n in lens_l]
         pt = table.long()
@@ -217,19 +264,24 @@ def check_paged(torch, report):
         kd, vd = gathered(kp, ks), gathered(vp, vs)
         mask = (torch.arange(Smax, device="cuda")[None, :] <= lens[:, None])[:, None, None, :]
         lib = lambda: Fnn.scaled_dot_product_attention(q, kd, vd, attn_mask=mask)  # noqa: E731
-        nbytes = (sum(used) * H * P * (2 * D + 8) + 2 * B * H * D * 2 + B * H * (2 * D + 8)
-                  + B * 4 * (MAXP + 1))
-        flops = 4 * sum(lens_l) * H * D
-        row = dict(label=label, lens=lens_l, max_abs_err=err, tol=tol, ms=time_cold(torch, kern),
+        # the K/V rows the lengths need (token-major rows: a kernel can stop
+        # at len), q and out, the new token, the used table entries, lengths
+        nbytes = (sum(lens_l) * H * (2 * D + 8) + 2 * B * H * D * 2 + B * H * (2 * D + 8)
+                  + 4 * sum(used) + 4 * B)
+        flops = 4 * (sum(lens_l) + B) * H * D
+        row = dict(label=label, lens=lens_l, max_abs_err=err, tol=tol, fault_margin=margin,
+                   ms=time_cold(torch, kern),
                    plain_ms=time_cold(torch, plain, iters=5), library_ms=time_cold(torch, lib),
                    bytes=nbytes,
                    bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
                    bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations")
         rows.append(row)
-        print(f"  paged_attn_int8 B={B} {label} err={err:.3g} rel={err / mag:.2g} (tol {tol:.3g})"
+        print(f"  paged_attn_int8 B={B} {label} err={err:.3g} rel={err / mag:.2g} (tol {tol:.3g};"
+              f" faults >= {margin:.3g}x tol)"
               f" kernel {row['ms']*1e3:.1f} us plain {row['plain_ms']*1e3:.1f} us sdpa"
               f" {row['library_ms']*1e3:.1f} us bound {row['bound_ms']*1e3:.2f} us"
               f" ({row['bound_ms'] / row['ms']:.0%})", flush=True)
+    del k_other
     report["paged_attn_int8"] = dict(rows[0], shapes=rows)
 
 
@@ -269,7 +321,7 @@ def check_edges(torch):
     L, B, T, Hkv, D, S = 2, 2, 24, 2, 128, 256
     kq = torch.randint(-127, 128, (L, B, Hkv, D, S), generator=gen, device="cuda", dtype=torch.int8)
     vq = torch.randint(-127, 128, (L, B, Hkv, S, D), generator=gen, device="cuda", dtype=torch.int8)
-    ks = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") * 0.05
+    ks = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") * 0.2 + 0.05  # O(1) scores
     vs = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") + 0.5
     starts = torch.tensor([0, 100], dtype=torch.int32, device="cuda")
     slopes = torch.tensor([0.5, 0.25, 0.125, 0.0625], device="cuda")
@@ -283,12 +335,12 @@ def check_edges(torch):
     NP, P, MAXP = 9, 128, 4
     kp = torch.randint(-127, 128, (L, NP, Hkv, P, D), generator=gen, device="cuda", dtype=torch.int8)
     vp = torch.randint(-127, 128, (L, NP, Hkv, P, D), generator=gen, device="cuda", dtype=torch.int8)
-    kps = torch.rand((L, NP, Hkv, P), generator=gen, device="cuda") * 0.05
+    kps = torch.rand((L, NP, Hkv, P), generator=gen, device="cuda") * 0.2 + 0.05
     vps = torch.rand((L, NP, Hkv, P), generator=gen, device="cuda") + 0.5
     table = (torch.randperm(NP - 1, generator=gen, device="cuda")[: 2 * MAXP] + 1).reshape(2, MAXP)
     table = table.to(torch.int32)
     new_kv = (torch.randint(-127, 128, (2, Hkv, D), generator=gen, device="cuda", dtype=torch.int8),
-              torch.rand((2, Hkv), generator=gen, device="cuda") * 0.05,
+              torch.rand((2, Hkv), generator=gen, device="cuda") * 0.2 + 0.05,
               torch.randint(-127, 128, (2, Hkv, D), generator=gen, device="cuda", dtype=torch.int8),
               torch.rand((2, Hkv), generator=gen, device="cuda") + 0.5)
     for rep in (1, 2, 4):
@@ -355,9 +407,84 @@ def serve(torch, cfg, params, prompts, max_new, device="cuda", record=None):
     return outs, time.perf_counter() - t0, steps
 
 
+def host_yardsticks(torch):
+    """Host speed, read in the same run as the serving step so that steps
+    of runs on different hosts can be compared: a fixed pure-Python loop,
+    and the host time to enqueue one small CUDA op while a spin kernel
+    keeps the device busy (so only the enqueue is timed)."""
+    def loop():
+        t0, acc = time.perf_counter(), 0
+        for i in range(200_000):
+            acc += i * i
+        return time.perf_counter() - t0
+
+    x = torch.zeros(1, device="cuda")
+    enqueue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)  # tens of ms of device time
+        t0 = time.perf_counter()
+        for _ in range(500):
+            x.add_(1)
+        enqueue.append((time.perf_counter() - t0) / 500)
+    torch.cuda.synchronize()
+    return dict(python_loop_ms=sorted(loop() for _ in range(7))[3] * 1e3,
+                enqueue_us=sorted(enqueue)[2] * 1e6, cpus=len(os.sched_getaffinity(0)),
+                loadavg_1min=os.getloadavg()[0], torch_threads=torch.get_num_threads())
+
+
+def host_profile(torch, eng, n=3):
+    """cProfile of n decode steps: where the host's time goes (the step is
+    host-bound). The full table goes to chiprun_out/host_profile.txt."""
+    import cProfile
+    import io
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    prof.disable()
+    buf = io.StringIO()
+    stats = pstats.Stats(prof, stream=buf).sort_stats("tottime")
+    stats.print_stats(40)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "host_profile.txt"), "w") as f:
+        f.write(buf.getvalue())
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:10]
+    return [(f"{os.path.basename(fn)}:{line}({name})", tt / n * 1e3, nc // n)
+            for (fn, line, name), (_, nc, tt, _, _) in rows]
+
+
+def step_vs_host_speed(torch, eng, n=16):
+    """n decode steps, each followed by the enqueue yardstick of
+    host_yardsticks: pairs (step ms, enqueue us) and their correlation,
+    which says whether the step's spread is the host's speed."""
+    import numpy as np
+
+    x = torch.zeros(1, device="cuda")
+    pairs = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        eng.step()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            x.add_(1)
+        pairs.append((step_ms, (time.perf_counter() - t0) / 200 * 1e6))
+        torch.cuda.synchronize()
+    a = np.asarray(pairs)
+    return dict(pairs=pairs, corr=float(np.corrcoef(a[:, 0], a[:, 1])[0, 1]))
+
+
 def profile_steps(torch, cfg, params, prompts, n=4):
     """Device busy time of n steady decode steps (B=4) against their wall
-    time, from torch.profiler's per-kernel device times."""
+    time, from torch.profiler's per-kernel device times; then where the
+    host's time goes, from cProfile, and whether the step follows the
+    host's speed."""
     from torch.profiler import ProfilerActivity, profile
 
     from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
@@ -379,7 +506,9 @@ def profile_steps(torch, cfg, params, prompts, n=4):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy if busy > 0 else None,
-                top=[(e.key, e.self_device_time_total / 1e3 / n, e.count // n) for e in top])
+                kernels_per_step=sum(e.count for e in kernels) / n,
+                top=[(e.key, e.self_device_time_total / 1e3 / n, e.count // n) for e in top],
+                host_top=host_profile(torch, eng), step_vs_host=step_vs_host_speed(torch, eng))
 
 
 def main() -> int:
@@ -434,6 +563,7 @@ def main() -> int:
         prompts = prompts_from_seed(0, 8, cfg.vocab_size)
         serve(torch, dataclasses.replace(cfg, num_layers=1),  # compile-free warm-up
               dict(params, layers=params["layers"][:1]), prompts[:1], 2)
+        host = host_yardsticks(torch)
         reset_counts(KERNELS)
         outs, wall, steps = serve(torch, cfg, params, prompts, 32)
         counts = read_counts(KERNELS)
@@ -444,7 +574,9 @@ def main() -> int:
         steady = sorted(steps)[len(steps) // 2]
         serve_stats = dict(tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
                            decode_steps=len(steps), decode_ms_per_step_median=steady * 1e3,
-                           launches=counts)
+                           decode_ms_per_step_quartiles=[sorted(steps)[len(steps) // 4] * 1e3,
+                                                         sorted(steps)[3 * len(steps) // 4] * 1e3],
+                           launches=counts, host=host)
         print(f"[3] llama7b NF4 paged serve: {n_tok} tokens in {wall:.2f} s = "
               f"{n_tok / wall:.1f} tok/s; {len(steps)} decode steps, median "
               f"{steady * 1e3:.2f} ms/step (B<=4); launches {counts}", flush=True)
@@ -462,6 +594,19 @@ def main() -> int:
                                  if busy else "not measured"))
         for key, ms, cnt in prof["top"]:
             print(f"      {ms:8.3f} ms/step  {cnt:5d}x  {key[:90]}")
+        print(f"[3] host: {prof['kernels_per_step']:.0f} kernels per step, "
+              f"{steady * 1e3 / prof['kernels_per_step'] * 1e3:.1f} us of step per kernel; "
+              f"yardsticks {json.dumps({k: round(v, 3) for k, v in host.items()})}")
+        print("[3] host time per decode step under cProfile (tottime):")
+        for key, ms, cnt in prof["host_top"]:
+            print(f"      {ms:8.3f} ms/step  {cnt:6d}x  {key[:90]}")
+        svh = prof["step_vs_host"]
+        ratios = sorted(st / (prof["kernels_per_step"] * en * 1e-3) for st, en in svh["pairs"])
+        print(f"[3] {len(svh['pairs'])} steps, each then the enqueue yardstick: step "
+              f"{min(p[0] for p in svh['pairs']):.1f}-{max(p[0] for p in svh['pairs']):.1f} ms, "
+              f"enqueue {min(p[1] for p in svh['pairs']):.2f}-{max(p[1] for p in svh['pairs']):.2f} us, "
+              f"correlation {svh['corr']:.2f}; step / (kernels x enqueue) "
+              f"{ratios[0]:.2f}-{ratios[-1]:.2f}")
 
         # 4. the exact path (kernel B), 4 layers of the same weights
         t0 = time.perf_counter()
@@ -495,12 +640,13 @@ def main() -> int:
         rel = float((lg_gpu.cpu() - lg_cpu).norm() / lg_cpu.norm())
         # W4A8 requantizes every activation row on a grid of absmax / 127,
         # so a bf16 rounding that differs between two summation orders
-        # flips some int8 codes and moves the logits by ~1% per layer
-        # (measured 2.3% relative L2 and 2.9% of the largest logit, two
-        # layers deep, on an H100): allow 5% relative L2 and 8% at most
-        tol = 8e-2 * mag
+        # flips some int8 codes and moves the logits (measured on an H100:
+        # 2.27% relative L2 and 2.85% of the largest logit, two layers
+        # deep): the limits of the CPU tests against the JAX package, which
+        # see the same effect, 4% relative L2 and 5% of the largest logit
+        tol = 5e-2 * mag
         need(torch.isfinite(lg_gpu).all().item(), "non-finite logits on the card")
-        need(rel <= 5e-2, f"prefill logits card vs CPU: relative L2 error {rel} > 0.05")
+        need(rel <= 4e-2, f"prefill logits card vs CPU: relative L2 error {rel} > 0.04")
         need(err <= tol, f"prefill logits card vs CPU: max err {err} > {tol}")
         rec_cpu, rec_gpu = [], []
         pr2 = prompts_from_seed(2, 2, cfg.vocab_size)
@@ -516,7 +662,7 @@ def main() -> int:
                     break  # the two trajectories part here
                 checked += 1
         phases["cpu_vs_card_s"] = time.perf_counter() - t0
-        print(f"[5] 2-layer 7B-width card vs CPU: prefill logits relative L2 {rel:.3g} (tol 0.05),"
+        print(f"[5] 2-layer 7B-width card vs CPU: prefill logits relative L2 {rel:.3g} (tol 0.04),"
               f" max err {err:.4g} (tol {tol:.4g});"
               f" {checked} of 10 greedy tokens compared equal", flush=True)
     except SmokeFailure as e:
