@@ -1,5 +1,6 @@
 // Helpers shared by the port's kernels: typed loads and stores, warp and
-// block reductions, and the fixed-order reduction of split-K partials.
+// block reductions, the per-row int8 quantization of activations, and the
+// fixed-order reduction of split-K partials.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -7,6 +8,14 @@
 #include <stdint.h>
 
 #define BNB_FULL_MASK 0xffffffffu
+
+// A grid-stride loop's grid: at most 16 blocks per SM of the H100's 132.
+constexpr size_t kMaxBlocks = 132 * 16;
+
+// The 16 decoded values of a 4-bit codebook, passed by value to a kernel.
+struct TableF16 {
+  float v[16];
+};
 
 __device__ __forceinline__ float ld_f(const void* p, size_t i, int bf16) {
   return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
@@ -48,6 +57,26 @@ __device__ float block_reduce(float v, float* red) {
   float r = red[0];
   for (int w = 1; w < nwarps; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
   return r;
+}
+
+// One block per row m: row_absmax[m] = max |x[m, :]| and
+// xq[m, k] = clip(rint(x[m, k] * (127 * safe_inv(row_absmax[m]))), +-127),
+// rint rounding half to even (the JAX package's activation quantization).
+__global__ void quant_rows_kernel(const void* __restrict__ x, int x_bf16, int K,
+                                  int8_t* __restrict__ xq, float* __restrict__ row_absmax) {
+  __shared__ float red[32];
+  const int m = blockIdx.x;
+  const size_t base = (size_t)m * K;
+  float amax = 0.0f;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) amax = fmaxf(amax, fabsf(ld_f(x, base + k, x_bf16)));
+  amax = block_reduce<true>(amax, red);
+  const float f = 127.0f * (amax > 0.0f ? 1.0f / amax : 0.0f);
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    float v = rintf(ld_f(x, base + k, x_bf16) * f);  // half to even
+    v = fminf(fmaxf(v, -127.0f), 127.0f);
+    xq[base + k] = (int8_t)v;
+  }
+  if (threadIdx.x == 0) row_absmax[m] = amax;
 }
 
 // out[m, n] = (sum over s, in order, of part[s, m, n]) * row_absmax[m] / 127

@@ -32,10 +32,6 @@ constexpr int kWarps = 8;
 constexpr int kMT = 4;
 constexpr int kCols = 128;
 
-struct TableF16 {
-  float v[16];
-};
-
 template <int kMode>
 __device__ __forceinline__ float decode(int code, const float* tbl, float s, int x_bf16) {
   if (kMode == 2) {

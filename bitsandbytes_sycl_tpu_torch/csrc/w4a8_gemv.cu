@@ -36,23 +36,6 @@ struct Table16 {
   int8_t v[16];
 };
 
-__global__ void quant_rows_kernel(const void* __restrict__ x, int x_bf16, int K,
-                                  int8_t* __restrict__ xq, float* __restrict__ row_absmax) {
-  __shared__ float red[32];
-  const int m = blockIdx.x;
-  const size_t base = (size_t)m * K;
-  float amax = 0.0f;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) amax = fmaxf(amax, fabsf(ld_f(x, base + k, x_bf16)));
-  amax = block_reduce<true>(amax, red);
-  const float f = 127.0f * (amax > 0.0f ? 1.0f / amax : 0.0f);
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    float v = rintf(ld_f(x, base + k, x_bf16) * f);  // half to even
-    v = fminf(fmaxf(v, -127.0f), 127.0f);
-    xq[base + k] = (int8_t)v;
-  }
-  if (threadIdx.x == 0) row_absmax[m] = amax;
-}
-
 __global__ void __launch_bounds__(32 * kWarps)
 w4a8_kernel(const int8_t* __restrict__ xq, const uint32_t* __restrict__ packed,
             const void* __restrict__ scales, int s_bf16, float* __restrict__ part,

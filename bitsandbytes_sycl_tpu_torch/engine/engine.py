@@ -6,7 +6,9 @@ contiguous scratch cache that is then copied into pool pages; every decode
 step advances all active slots at once through the page tables; finished
 slots refill from the pending queue. Prompt lengths are bucketed (at least
 32) and the prefill batch is padded to a power of two, so the row counts
-that route the linears are the JAX engine's.
+that route the linears are the JAX engine's. With
+``EngineConfig.prefill_chunk`` > 0, prompts longer than a chunk prefill
+chunk by chunk at absolute offsets into the scratch cache.
 """
 
 from __future__ import annotations
@@ -81,8 +83,6 @@ class InferenceEngine:
             raise NotImplementedError(
                 "the contiguous engine (paged=False, _attn_kernel) is not ported yet "
                 "(ROADMAP Queue A #6, Queue B #4)")
-        if engine_cfg.prefill_chunk:
-            raise NotImplementedError("chunked prefill is not ported yet (ROADMAP Queue A #6)")
         if engine_cfg.w8a8_prefill:
             raise NotImplementedError("w8a8_prefill is not ported yet (ROADMAP Queue A #7)")
         if lora is not None:
@@ -168,10 +168,29 @@ class InferenceEngine:
             lens[i] = len(prompt)
         dev = self.device
         cacheK = init_kv_cache(self.mcfg, Kb, dev)
-        tokens = torch.as_tensor(toks, device=dev)
-        pos = torch.arange(T, device=dev).expand(Kb, T)
-        logits, cacheK = llama_forward(self.params, self.mcfg, tokens, cacheK, pos)
-        last = logits[torch.arange(Kb, device=dev), torch.as_tensor(lens - 1, device=dev)]
+        rows = torch.arange(Kb, device=dev)
+        chunk = self.ecfg.prefill_chunk
+        # chunking pads T up to a chunk multiple; a prompt whose padded
+        # length overruns the cache takes one whole chunk, as the JAX engine
+        # does (a clamped write would overwrite earlier KV)
+        if not (0 < chunk < T and -(-T // chunk) * chunk <= self.mcfg.max_seq_len):
+            chunk = T
+        # chunks at absolute offsets into the scratch cache; each prompt's
+        # next-token logits come from the chunk holding its last token
+        Tc = -(-T // chunk) * chunk
+        toks_c = np.zeros((Kb, Tc), np.int32)
+        toks_c[:, :T] = toks
+        last = None
+        for off in range(0, Tc, chunk):
+            pos = (off + torch.arange(chunk, device=dev)).expand(Kb, chunk)
+            logits, cacheK = llama_forward(
+                self.params, self.mcfg, torch.as_tensor(toks_c[:, off:off + chunk], device=dev),
+                cacheK, pos)
+            idx = np.clip(lens - 1 - off, 0, chunk - 1)
+            hit = torch.as_tensor((lens - 1 >= off) & (lens - 1 < off + chunk), device=dev)
+            at = logits[rows, torch.as_tensor(idx, device=dev)]
+            last = at if last is None else torch.where(hit[:, None], at, last)
+            del logits
         nxt = self._sample(last)
 
         page_ids = np.zeros((Kb, self._alloc.max_pages), np.int32)

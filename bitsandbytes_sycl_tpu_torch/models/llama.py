@@ -21,7 +21,13 @@ import torch.nn.functional as Fnn
 
 from ..ops.common import QLinearWeight, quantize_4bit_native, resolve_device
 from ..ops.matmul_4bit import matmul_4bit_fused
-from ..ops.matmul_w4a8 import W8A8_PREFILL_MIN_M, grouped_min_m, matmul_4bit_w4a8
+from ..ops.matmul_w4a8 import (
+    W8A8_PREFILL_MIN_M,
+    grouped_min_m,
+    matmul_4bit_w4a8,
+    matmul_4bit_w4a8_grouped,
+    matmul_4bit_w8a8_prefill,
+)
 
 __all__ = [
     "LlamaConfig",
@@ -144,14 +150,13 @@ def apply_linear(x: torch.Tensor, w, cfg: LlamaConfig, lora=None, lora_ids=None)
         if route == "w4a8":
             return matmul_4bit_w4a8(x, w, out_dtype=cfg.dtype)
         if route == "grouped":
-            raise NotImplementedError(
-                "the grouped W4A8 route (_grouped_kernel) is not ported yet (ROADMAP Queue B #6)")
+            return matmul_4bit_w4a8_grouped(x, w, out_dtype=cfg.dtype)
         if route == "w8a8":
-            raise NotImplementedError(
-                "the W8A8 prefill route (_dequant8_kernel) is not ported yet (ROADMAP Queue B #8)")
+            return matmul_4bit_w8a8_prefill(x, w, out_dtype=cfg.dtype)
         return matmul_4bit_fused(x, w, compute_dtype=cfg.dtype)
     if isinstance(w, dict):
-        raise NotImplementedError("int8 linears are not ported yet (ROADMAP Queue B #7)")
+        raise NotImplementedError(
+            "int8 linears (LLM.int8, _mm8_kernel) are not ported yet (ROADMAP Queue A #7, Queue B #7)")
     return (x.float() @ w.float().T).to(cfg.dtype)
 
 

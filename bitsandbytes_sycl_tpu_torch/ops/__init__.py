@@ -4,8 +4,16 @@ plain PyTorch version on CPU tensors."""
 
 from .attention import prefill_attention_int8_stacked, prefill_attn_int8
 from .common import QLinearWeight, quantize_4bit_native, resolve_device
-from .matmul_4bit import matmul_4bit_fused, mm4_fused
-from .matmul_w4a8 import matmul_4bit_w4a8, w4a8_gemv
+from .matmul_4bit import dequantize_transposed, matmul_4bit_fused, mm4_fused
+from .matmul_w4a8 import (
+    dequant_int8,
+    dequantize_to_int8,
+    matmul_4bit_w4a8,
+    matmul_4bit_w4a8_grouped,
+    matmul_4bit_w8a8_prefill,
+    w4a8_gemv,
+    w4a8_grouped,
+)
 from .paged_attention import (
     paged_attn_int8,
     paged_decode_attention_int8,
@@ -13,7 +21,8 @@ from .paged_attention import (
 )
 
 # the wrappers that launch a kernel, each with its `launches` counter
-KERNELS = (w4a8_gemv, mm4_fused, prefill_attn_int8, paged_attn_int8)
+KERNELS = (w4a8_gemv, mm4_fused, prefill_attn_int8, paged_attn_int8,
+           dequantize_transposed, dequant_int8, w4a8_grouped)
 
 __all__ = [
     "QLinearWeight",
@@ -21,6 +30,10 @@ __all__ = [
     "resolve_device",
     "matmul_4bit_w4a8",
     "matmul_4bit_fused",
+    "matmul_4bit_w4a8_grouped",
+    "matmul_4bit_w8a8_prefill",
+    "dequantize_transposed",
+    "dequantize_to_int8",
     "prefill_attention_int8_stacked",
     "paged_decode_attention_int8",
     "paged_decode_attention_int8_stacked",
@@ -28,5 +41,7 @@ __all__ = [
     "mm4_fused",
     "prefill_attn_int8",
     "paged_attn_int8",
+    "dequant_int8",
+    "w4a8_grouped",
     "KERNELS",
 ]

@@ -1,4 +1,5 @@
-"""Exact 4-bit dequant-matmul (kernel B, ``mm4_fused``).
+"""Exact 4-bit dequant-matmul (kernel B, ``mm4_fused``) and the dense
+dequantize of large-M prefill (kernel E, ``dequantize_transposed``).
 
 ``out = x[:, :K/2] @ (dec(hi) * s_hi) + x[:, K/2:] @ (dec(lo) * s_lo)``
 with f32 accumulation, the numerics of the JAX package's
@@ -9,27 +10,39 @@ with f32 accumulation, the numerics of the JAX package's
 - int4 decodes arithmetically, ``(7 - (i & 7)) / 7`` or ``-(i & 7) / 7``
   for ``i >= 8``, and f32 compute decodes in f32; the product is then cast
   to x's dtype.
+
+Kernel E decodes with the same rounding points into a dense W^T (K, N);
+from ``PREFILL_MIN_M`` rows (``PREFILL_MIN_M_UNALIGNED`` for weights whose
+half-K is not a multiple of 8 quantization blocks) ``matmul_4bit_fused``
+decodes the weight once with it and runs one dense matmul, as the JAX
+package does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import codebooks
 from . import _build
 from .common import QLinearWeight, check_cuda_tensors, pick_tile
 
-__all__ = ["matmul_4bit_fused", "mm4_fused", "PREFILL_MIN_M", "PREFILL_MIN_M_UNALIGNED"]
+__all__ = [
+    "matmul_4bit_fused", "mm4_fused", "dequantize_transposed",
+    "PREFILL_MIN_M", "PREFILL_MIN_M_UNALIGNED",
+]
 
-# rows from which the JAX package decodes the weight once to a dense array
-# (its _dequant_kernel); that route is not ported yet
+# rows from which matmul_4bit_fused decodes the weight once to a dense
+# array (kernel E) and runs one dense matmul, the JAX package's thresholds
 PREFILL_MIN_M = 2048
 PREFILL_MIN_M_UNALIGNED = 256
 
 _MODE_F32_TABLE, _MODE_F32_INT4, _MODE_BF16_TABLE = 0, 1, 2
+_INT8_CODES = 3  # the W4A8 kernels' table, not a decode mode
 
 
 def _nk_tiles(w: QLinearWeight, N: int, K: int):
@@ -78,6 +91,81 @@ def _decode_planes(w: QLinearWeight, mode: int, x_dtype) -> tuple:
     return planes
 
 
+@functools.lru_cache(maxsize=None)
+def _decode_table(quant_type: str, blocksize: int, mode: int):
+    """The 16 table values a kernel takes, as a ctypes float array: the
+    bf16-rounded table, int4's arithmetic values (7 - (i & 7)) * fl(1/7)
+    or -(i & 7) * fl(1/7), the f32 table, or (``_INT8_CODES``) the int8
+    codes round(code * 127)."""
+    code = codebooks.get_4bit_type(quant_type, blocksize=blocksize)
+    if mode == _MODE_BF16_TABLE:
+        vals = torch.tensor(np.asarray(code, np.float32)).to(torch.bfloat16).float().numpy()
+    elif mode == _MODE_F32_INT4:
+        i = np.arange(16)
+        mag = (i & 7).astype(np.float32)
+        vals = np.where(i & 8, -mag, np.float32(7.0) - mag).astype(np.float32) * np.float32(1.0 / 7.0)
+    elif mode == _INT8_CODES:
+        from .matmul_w4a8 import _int8_code_table
+
+        vals = _int8_code_table(code)
+    else:
+        vals = np.asarray(code, np.float32)
+    return (ctypes.c_float * 16)(*[float(v) for v in vals])
+
+
+def _dequant4_plain(w: QLinearWeight, out_dtype) -> torch.Tensor:
+    """Plain PyTorch version of kernel E: both planes stacked, (K, N)."""
+    mode = _decode_mode(w, out_dtype, None)
+    return torch.cat(_decode_planes(w, mode, out_dtype), dim=0)
+
+
+def dequantize_transposed(w: QLinearWeight, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """W^T (K, N) densely decoded in out_dtype (f32 or bf16): kernel E on
+    CUDA tensors, its plain version on CPU tensors. The JAX package decodes
+    shapes its Pallas kernel declines (blocksize >= 256 at bf16, or a K
+    that padding to 8 quantization blocks would double) in XLA instead,
+    with one f32 product rounded once; kernel E takes every shape, so
+    there the result can differ from the JAX package's by one rounding."""
+    if not check_cuda_tensors("dequantize_transposed", w.packed, w.absmax):
+        return _dequant4_plain(w, out_dtype)
+    N, K = w.shape
+    bs = w.blocksize
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dequantize_transposed: out_dtype must be f32 or bf16, got {out_dtype}")
+    if w.absmax.dtype not in (torch.float32, torch.bfloat16) or w.compressed:
+        raise NotImplementedError(
+            "dequantize_transposed: compressed statistics are not ported yet (ROADMAP Queue A #1)")
+    if N % 4 or K % (2 * bs) or bs % 4 or tuple(w.packed.shape) != (K // 2, N):
+        raise ValueError(f"dequantize_transposed: unsupported shape N={N} K={K} bs={bs}")
+    if not (w.packed.is_contiguous() and w.absmax.is_contiguous()):
+        raise ValueError("dequantize_transposed: weight tensors must be contiguous")
+    mode = _decode_mode(w, out_dtype, None)
+    out = torch.empty((K, N), dtype=out_dtype, device=w.packed.device)
+    fn = _build.kernel_fn("dequantize_transposed", "dequantize_transposed", 11, int_args=range(4, 10))
+    err = fn(
+        w.packed.data_ptr(), w.absmax.data_ptr(), out.data_ptr(),
+        ctypes.addressof(_decode_table(w.quant_type, bs, mode)),
+        K, N, bs, int(w.absmax.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        int(mode == _MODE_BF16_TABLE),
+        torch.cuda.current_stream(w.packed.device).cuda_stream,
+    )
+    _build.check("dequantize_transposed", err)
+    dequantize_transposed.launches += 1
+    return out
+
+
+dequantize_transposed.launches = 0
+
+
+def _dense_matmul(x2: torch.Tensor, wt: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """x2 @ wt with f32 accumulation, cast to compute_dtype: the dense
+    product the JAX package leaves to XLA. cuBLAS accumulates a bf16
+    product in f32 on the card; the CPU computes it in f32 explicitly."""
+    if x2.is_cuda:
+        return torch.matmul(x2, wt).to(compute_dtype)
+    return (x2.float() @ wt.float()).to(compute_dtype)
+
+
 def _mm4_plain(x2, w: QLinearWeight, bias, compute_dtype, mode: int) -> torch.Tensor:
     """Plain PyTorch version of kernel B."""
     K2 = w.packed.shape[0]
@@ -116,15 +204,11 @@ def mm4_fused(x2: torch.Tensor, w: QLinearWeight, bias: Optional[torch.Tensor],
     out = torch.empty((M, N), dtype=compute_dtype, device=dev)
     part = torch.empty((ksplit, M, N), dtype=torch.float32, device=dev)
     b = None if bias is None else bias.float().contiguous()
-    tbl = np.asarray(w.code, np.float32)
-    if mode == _MODE_BF16_TABLE:
-        tbl = torch.tensor(tbl).to(torch.bfloat16).float().numpy()
-    table = (ctypes.c_float * 16)(*[float(v) for v in tbl])
     fn = _build.kernel_fn("mm4_fused", "mm4_fused", 17, int_args=range(7, 16))
     err = fn(
         x2.data_ptr(), w.packed.data_ptr(), w.absmax.data_ptr(),
         None if b is None else b.data_ptr(), out.data_ptr(), part.data_ptr(),
-        ctypes.addressof(table),
+        ctypes.addressof(_decode_table(w.quant_type, bs, mode)),
         M, N, K, bs, g, ksplit,
         int(compute_dtype == torch.bfloat16), int(w.absmax.dtype == torch.bfloat16),
         mode,
@@ -161,8 +245,10 @@ def matmul_4bit_fused(
         return out.reshape(*lead, N)
     whole_half = tkb == K // 2 and (K // 2) % (8 * w.blocksize) != 0
     if M >= (PREFILL_MIN_M_UNALIGNED if whole_half else PREFILL_MIN_M):
-        raise NotImplementedError(
-            f"matmul_4bit_fused at M={M}: the dequantize-once route (_dequant_kernel) "
-            "is not ported yet (ROADMAP Queue B #9)")
+        # large M: decode the weight once (kernel E), then one dense matmul
+        out = _dense_matmul(x2, dequantize_transposed(w, compute_dtype), compute_dtype)
+        if bias is not None:
+            out = out + bias
+        return out.reshape(*lead, N)
     out = mm4_fused(x2.contiguous(), w, bias, compute_dtype, decode_dtype)
     return out.reshape(*lead, N)

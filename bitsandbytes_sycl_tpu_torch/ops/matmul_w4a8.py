@@ -6,6 +6,20 @@ to even, clipped to +-127), the 4-bit codes decode to the int8 table
 ``round(code * 127)``, each quantization block's dot is an exact int32 sum,
 scaled by ``absmax / 127`` and summed in f32 across blocks, and the row
 scale ``row_absmax / 127`` and the bias apply last.
+
+Past the GEMV's rows the weight moves onto one int8 grid per output
+column, ``f = absmax * 127 * safe_inv(colmax)`` with ``colmax`` the
+column's largest block scale, so one int32 sum runs over all of K:
+
+- the grouped route (kernel G, ``w4a8_grouped``) regrids the int8 codes
+  in the kernel, ``clip(round(i8code * (f * (1/127))), +-127)``;
+- the W8A8 route decodes the weight once to int8 codes (kernel F,
+  ``dequant_int8``), ``clip(round(dec(nibble) * f), +-127)`` with the bf16
+  table value (int4: the f32 arithmetic value), then runs one
+  int8 x int8 -> int32 product.
+
+Both scale the sum by ``colmax / 127`` and the row scale, in the JAX
+package's order.
 """
 
 from __future__ import annotations
@@ -17,9 +31,13 @@ import numpy as np
 import torch
 
 from . import _build
-from .common import QLinearWeight, check_cuda_tensors, safe_inv
+from .common import QLinearWeight, check_cuda_tensors, pick_tile, safe_inv
 
-__all__ = ["matmul_4bit_w4a8", "w4a8_gemv", "grouped_min_m", "W8A8_PREFILL_MIN_M"]
+__all__ = [
+    "matmul_4bit_w4a8", "matmul_4bit_w4a8_grouped", "matmul_4bit_w8a8_prefill",
+    "dequantize_to_int8", "w4a8_gemv", "w4a8_grouped", "dequant_int8",
+    "grouped_min_m", "W8A8_PREFILL_MIN_M",
+]
 
 # routing thresholds of the JAX package (models/llama.apply_linear reads them)
 W8A8_PREFILL_MIN_M = 4096
@@ -35,6 +53,21 @@ def _int8_code_table(code) -> tuple:
     return tuple(int(round(float(v) * 127.0)) for v in code)
 
 
+def _div127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127, correctly rounded on every device: PyTorch's CUDA division
+    by a Python scalar multiplies by its rounded reciprocal instead."""
+    return t / torch.tensor(127.0, dtype=t.dtype, device=t.device)
+
+
+def _quant_rows(x2: torch.Tensor):
+    """(xq (M, K) int8 codes as f32, row_absmax (M,)): the JAX package's
+    per-row activation quantization, in f32."""
+    x2 = x2.float()
+    ra = x2.abs().amax(dim=1)
+    xq = torch.clamp(torch.round(x2 * (127.0 * safe_inv(ra)).reshape(-1, 1)), -127.0, 127.0)
+    return xq, ra
+
+
 def _w4a8_plain(x2: torch.Tensor, w: QLinearWeight, bias, out_dtype) -> torch.Tensor:
     """Plain PyTorch version of kernel A; the integer block dots run in
     float64, which holds them exactly."""
@@ -42,9 +75,7 @@ def _w4a8_plain(x2: torch.Tensor, w: QLinearWeight, bias, out_dtype) -> torch.Te
     N = w.shape[0]
     bs = w.blocksize
     nbh = K // (2 * bs)
-    x2 = x2.float()
-    ra = x2.abs().amax(dim=1)
-    xq = torch.clamp(torch.round(x2 * (127.0 * safe_inv(ra)).reshape(M, 1)), -127.0, 127.0)
+    xq, ra = _quant_rows(x2)
     table = torch.tensor(_int8_code_table(w.code), dtype=torch.float64, device=x2.device)
     wq = torch.cat([table[(w.packed >> 4).long()], table[(w.packed & 0xF).long()]], dim=0)
     # (2*nbh, bs, N) blocks, plane-major; x blocks to match
@@ -138,3 +169,250 @@ def matmul_4bit_w4a8(
         x2 = x2.float()
     out = w4a8_gemv(x2.contiguous(), w, bias, out_dtype)
     return out.reshape(*lead, N)
+
+
+# ---------------------------------------------------------------------------
+# the per-column int8 grid: kernels F (dequant_int8) and G (w4a8_grouped)
+# ---------------------------------------------------------------------------
+
+
+def _col_grid(w: QLinearWeight):
+    """(colmax (N,), f (2, nbh, N)): each column's largest block scale and
+    the factor ``absmax * 127 * safe_inv(colmax)`` that moves a block onto
+    the column's int8 grid, in f32 and in the JAX package's order."""
+    amax = w.scales_f32()
+    colmax = amax.amax(dim=(0, 1))
+    return colmax, (amax * (127.0 * safe_inv(colmax))[None, None, :]).contiguous()
+
+
+def _dequant8_mode(w: QLinearWeight) -> int:
+    from .matmul_4bit import _MODE_BF16_TABLE, _MODE_F32_INT4
+
+    # the JAX kernel decodes table types in bf16 and int4 arithmetically in f32
+    return _MODE_F32_INT4 if w.quant_type == "int4" else _MODE_BF16_TABLE
+
+
+def _dequant8_plain(w: QLinearWeight, f: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel F: int8 (K, N)."""
+    from .matmul_4bit import _decode_table
+
+    mode = _dequant8_mode(w)
+    table = torch.tensor(list(_decode_table(w.quant_type, w.blocksize, mode)),
+                         dtype=torch.float32, device=w.packed.device)
+    K2 = w.packed.shape[0]
+    planes = []
+    for p, codes in enumerate(((w.packed >> 4).long(), (w.packed & 0xF).long())):
+        fp = torch.repeat_interleave(f[p], w.blocksize, dim=0)[:K2]
+        planes.append(torch.clamp(torch.round(table[codes] * fp), -127.0, 127.0))
+    return torch.cat(planes, dim=0).to(torch.int8)
+
+
+def dequant_int8(w: QLinearWeight, f: torch.Tensor) -> torch.Tensor:
+    """Kernel F on CUDA tensors; the plain version on CPU tensors.
+    Returns the int8 codes (K, N) on the per-column grid. On the card they
+    are stored as (N, K) rows and returned as their transposed view, the
+    layout torch._int_mm takes without a copy."""
+    if not check_cuda_tensors("dequant_int8", w.packed, f):
+        return _dequant8_plain(w, f)
+    from .matmul_4bit import _decode_table
+
+    N, K = w.shape
+    bs = w.blocksize
+    if N % 4 or K % (2 * bs) or bs % 4 or tuple(w.packed.shape) != (K // 2, N):
+        raise ValueError(f"dequant_int8: unsupported shape N={N} K={K} bs={bs}")
+    if f.dtype != torch.float32 or tuple(f.shape) != (2, K // (2 * bs), N) \
+            or not f.is_contiguous() or not w.packed.is_contiguous():
+        raise ValueError("dequant_int8: f must be contiguous f32 (2, K/(2 bs), N)")
+    out_t = torch.empty((N, K), dtype=torch.int8, device=w.packed.device)
+    fn = _build.kernel_fn("dequant_int8", "dequant_int8", 8, int_args=range(4, 7))
+    err = fn(
+        w.packed.data_ptr(), f.data_ptr(), out_t.data_ptr(),
+        ctypes.addressof(_decode_table(w.quant_type, bs, _dequant8_mode(w))),
+        K, N, bs, torch.cuda.current_stream(w.packed.device).cuda_stream,
+    )
+    _build.check("dequant_int8", err)
+    dequant_int8.launches += 1
+    return out_t.t()
+
+
+dequant_int8.launches = 0
+
+
+def _int8_declined(w: QLinearWeight) -> bool:
+    """Whether the JAX package's kernel F declines the weight's shape
+    (its tiling: N in 128-column tiles, each half padded to 8 blocks)."""
+    N, K = w.shape
+    half = K // 2
+    bs = w.blocksize
+    tn = pick_tile(N, (256, 128))
+    if tn is None or K % (2 * bs) != 0:
+        return True
+    step = 8 * bs
+    hp = ((half + step - 1) // step) * step
+    if step * tn * 4 > 512 * 256 * 4 and tn == 256 and N % 128 == 0:
+        tn = 128
+    return step * tn * 4 > 512 * 256 * 4 or hp > 2 * half
+
+
+def dequantize_to_int8(w: QLinearWeight):
+    """(wq (K, N) int8, colmax (N,) f32) with dequant(W)^T ~ wq * colmax/127,
+    decoded once by kernel F; (None, None) for the shapes the JAX package's
+    kernel declines, which callers route elsewhere."""
+    if _int8_declined(w):
+        return None, None
+    colmax, f = _col_grid(w)
+    return dequant_int8(w, f), colmax
+
+
+def _quant_rows_kernel(x2: torch.Tensor):
+    """(xq (M, K) int8, row_absmax (M,) f32) of CUDA activations, by the
+    per-row quantization kernel of A and G: the same numbers as
+    _quant_rows."""
+    M, K = x2.shape
+    if x2.dtype not in (torch.float32, torch.bfloat16):
+        x2 = x2.float()
+    x2 = x2.contiguous()
+    xq = torch.empty((M, K), dtype=torch.int8, device=x2.device)
+    ra = torch.empty((M,), dtype=torch.float32, device=x2.device)
+    fn = _build.kernel_fn("dequant_int8", "quant_rows", 7, int_args=range(3, 6))
+    err = fn(x2.data_ptr(), xq.data_ptr(), ra.data_ptr(), M, K, int(x2.dtype == torch.bfloat16),
+             torch.cuda.current_stream(x2.device).cuda_stream)
+    _build.check("quant_rows", err)
+    return xq, ra
+
+
+def _grouped_plain(x2: torch.Tensor, w: QLinearWeight, bias, out_dtype) -> torch.Tensor:
+    """Plain PyTorch version of kernel G."""
+    xq, ra = _quant_rows(x2)
+    colmax, f = _col_grid(w)
+    table = torch.tensor(_int8_code_table(w.code), dtype=torch.float32, device=x2.device)
+    K2 = w.packed.shape[0]
+    planes = []
+    for p, codes in enumerate(((w.packed >> 4).long(), (w.packed & 0xF).long())):
+        g = torch.repeat_interleave(f[p], w.blocksize, dim=0)[:K2] * np.float32(1.0 / 127.0)
+        planes.append(torch.clamp(torch.round(table[codes] * g), -127.0, 127.0))
+    # exact int32 sums, held exactly in float64
+    out = (xq.double() @ torch.cat(planes, dim=0).double()).float()
+    out = out * (colmax * np.float32(1.0 / 127.0))[None, :]
+    out = out * _div127(ra)[:, None]
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(out_dtype)
+
+
+def w4a8_grouped(x2: torch.Tensor, w: QLinearWeight, bias: Optional[torch.Tensor],
+                 out_dtype) -> torch.Tensor:
+    """Kernel G on CUDA tensors; the plain version on CPU tensors.
+    x2 (M, K) f32/bf16 -> (M, N) in out_dtype (f32 or bf16)."""
+    if not check_cuda_tensors("w4a8_grouped", x2, w.packed, w.absmax, bias):
+        return _grouped_plain(x2, w, bias, out_dtype)
+    from .matmul_4bit import _INT8_CODES, _decode_table
+
+    M, K = x2.shape
+    N = w.shape[0]
+    bs = w.blocksize
+    if x2.dtype not in (torch.float32, torch.bfloat16) or not x2.is_contiguous():
+        raise ValueError(f"w4a8_grouped: x must be contiguous f32/bf16, got {x2.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"w4a8_grouped: out_dtype must be f32 or bf16, got {out_dtype}")
+    if w.absmax.dtype not in (torch.float32, torch.bfloat16) or w.compressed:
+        raise ValueError("w4a8_grouped: raw f32/bf16 scales only")
+    if N % 128 or K % (2 * bs) or bs % 4 or w.shape[1] != K or M == 0:
+        raise ValueError(f"w4a8_grouped: untileable shape M={M} N={N} K={K} bs={bs}")
+    if not w.packed.is_contiguous():
+        raise ValueError("w4a8_grouped: weight tensors must be contiguous")
+    colmax, f = _col_grid(w)
+    dev = x2.device
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    xq = torch.empty((M, K), dtype=torch.int8, device=dev)
+    ra = torch.empty((M,), dtype=torch.float32, device=dev)
+    b = None if bias is None else bias.float().contiguous()
+    fn = _build.kernel_fn("w4a8_grouped", "w4a8_grouped", 16, int_args=range(9, 15))
+    err = fn(
+        x2.data_ptr(), w.packed.data_ptr(), f.data_ptr(), colmax.contiguous().data_ptr(),
+        None if b is None else b.data_ptr(), out.data_ptr(), xq.data_ptr(), ra.data_ptr(),
+        ctypes.addressof(_decode_table(w.quant_type, bs, _INT8_CODES)),
+        M, N, K, bs, int(x2.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("w4a8_grouped", err)
+    w4a8_grouped.launches += 1
+    return out
+
+
+w4a8_grouped.launches = 0
+
+
+def matmul_4bit_w4a8_grouped(
+    x: torch.Tensor,
+    w: QLinearWeight,
+    bias: Optional[torch.Tensor] = None,
+    out_dtype=torch.bfloat16,
+    tm: Optional[int] = None,
+) -> torch.Tensor:
+    """out ~= x @ dequant(W)^T with per-row int8 activations and the weight
+    regridded in the kernel onto one int8 grid per column (kernel G), one
+    int32 sum over all of K. Shapes the JAX package's kernel cannot tile
+    take matmul_4bit_fused, as there. ``tm`` (the JAX kernel's row tile)
+    is accepted and unused: rows are independent, and kernel G masks a
+    ragged M."""
+    from .matmul_4bit import _nk_tiles, matmul_4bit_fused
+
+    N, K = w.shape
+    lead = x.shape[:-1]
+    M = int(np.prod(lead)) if lead else 1
+    tn, tkb = _nk_tiles(w, N, K)
+    bs = w.blocksize
+    if (M == 0 or tn is None or tkb is None or w.compressed
+            or K % (2 * bs) != 0 or tkb % bs != 0):
+        return matmul_4bit_fused(x, w, bias, compute_dtype=out_dtype)
+    x2 = x.reshape(M, K)
+    if x2.dtype not in (torch.float32, torch.bfloat16):
+        x2 = x2.float()
+    out = w4a8_grouped(x2.contiguous(), w, bias, out_dtype)
+    return out.reshape(*lead, N)
+
+
+def _w8a8_epilogue(out32, ra, colmax, bias, out_dtype):
+    out = out32.float() * (_div127(ra)[:, None] * _div127(colmax)[None, :])
+    if bias is not None:
+        out = out + bias
+    return out.to(out_dtype)
+
+
+def _w8a8_plain(x2: torch.Tensor, w: QLinearWeight, bias, out_dtype) -> torch.Tensor:
+    """Plain PyTorch version of the W8A8 route; the int8 product runs in
+    float64, which holds each of its sums exactly."""
+    xq, ra = _quant_rows(x2)
+    colmax, f = _col_grid(w)
+    out32 = xq.double() @ _dequant8_plain(w, f).double()
+    return _w8a8_epilogue(out32, ra, colmax, bias, out_dtype)
+
+
+def matmul_4bit_w8a8_prefill(
+    x: torch.Tensor,
+    w: QLinearWeight,
+    bias: Optional[torch.Tensor] = None,
+    out_dtype=torch.bfloat16,
+) -> torch.Tensor:
+    """out ~= x @ dequant(W)^T with the weight decoded once per call to int8
+    codes on the per-column grid (kernel F), per-row int8 activations and
+    one exact int8 product, which the JAX package leaves to XLA and the
+    card runs as torch._int_mm (cuBLAS). Shapes dequantize_to_int8
+    declines take matmul_4bit_fused, as in the JAX package."""
+    from .matmul_4bit import matmul_4bit_fused
+
+    N, K = w.shape
+    lead = x.shape[:-1]
+    M = int(np.prod(lead)) if lead else 1
+    if M == 0 or _int8_declined(w):
+        return matmul_4bit_fused(x, w, bias, compute_dtype=out_dtype)
+    x2 = x.reshape(M, K)
+    if not x2.is_cuda:
+        return _w8a8_plain(x2, w, bias, out_dtype).reshape(*lead, N)
+    wq, colmax = dequantize_to_int8(w)
+    xq, ra = _quant_rows_kernel(x2)
+    if M <= 16:  # torch._int_mm takes more than 16 rows
+        xq = torch.cat([xq, xq.new_zeros((17 - M, K))])
+    out32 = torch._int_mm(xq, wq)[:M]
+    return _w8a8_epilogue(out32, ra, colmax, bias, out_dtype).reshape(*lead, N)

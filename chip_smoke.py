@@ -9,18 +9,27 @@ Phases, each of which exits non-zero on failure:
      shapes the 7B serving path gives it (attention inputs with O(1)
      scores, and the plain version fed deliberate faults must land outside
      the tolerance), and time kernel, plain version and one PyTorch
-     library call that computes the same function;
+     library call that computes the same function; then hold the W8A8
+     route at 4096 rows and the dequantize-once route at 2048 (and 256)
+     rows, glue included, against plain versions at the 7B shapes;
   3. serve Llama-7B (NF4, bs 64, bf16 scales, W4A8 decode, int8 paged KV,
      random weights from a seed) through the paged engine: 8 prompts, 4
      slots, 32 new tokens each; the W4A8, prefill and paged-attention
      kernels must have been launched; then profile decode steps on the
      device (torch.profiler) and on the host (cProfile, and each step
      against a host-speed yardstick);
+  3b. long prompts through the paged engine at full 7B width and depth
+     (max_batch 8): one prompt of 129-256 tokens (256 prefill rows: kernels
+     B and E), four of 257-512 (2048 rows: G), eight of 257-512 (4096 rows:
+     F), each batch decoded to its end; then chunked prefill (256-token
+     chunks) of two 700-1000-token prompts against the whole-prompt engine;
   4. the same weights, 4 layers, on the exact path (a8_decode=False): the
-     exact 4-bit kernel must have been launched;
+     exact 4-bit kernel must have been launched, and a batch of four
+     257-512-token prompts must decode every linear's weight once (E);
   5. a 2-layer model at full 7B width from one seed, on the card and on
-     the CPU (plain versions): prefill logits within tolerance, greedy
-     tokens equal wherever the CPU's top-2 logit gap exceeds it.
+     the CPU (plain versions): prefill logits within tolerance at T=32 and
+     at Kb=2, T=512 (kernel G), greedy tokens equal wherever the CPU's
+     top-2 logit gap exceeds it.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 It imports nothing of JAX.
@@ -113,7 +122,7 @@ def check_linears(torch, report):
         w = quantize_4bit_native(W, 64, "nf4", absmax_dtype=torch.bfloat16)
         Wd = W.to(torch.bfloat16)
         del W
-        for M in (4, 128):
+        for M in (4, 128, 256):
             x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
             for name, kern, plain in (
                 ("w4a8_gemv", lambda: matmul_w4a8.w4a8_gemv(x, w, None, torch.bfloat16),
@@ -122,6 +131,8 @@ def check_linears(torch, report):
                  lambda: matmul_4bit._mm4_plain(x, w, None, torch.bfloat16,
                                                 matmul_4bit._MODE_BF16_TABLE)),
             ):
+                if name == "w4a8_gemv" and M > 128:
+                    continue  # A serves up to 128 rows; B also the 256-row prefill
                 got, ref = kern(), plain()
                 torch.cuda.synchronize()
                 err, scale = max_err(torch, got, ref)
@@ -155,57 +166,268 @@ def check_linears(torch, report):
             max_abs_err=max(r["max_abs_err"] for r in rs))
 
 
+def ulp_ratio(torch, got, ref, dtype, bias=None):
+    """Largest |got - ref| in units of the last place in dtype of ref, or of
+    the bias where that is larger: where the bias cancels the product, a
+    rounding of the product is an ulp of the bias, not of the small sum."""
+    mag = ref.float().abs()
+    if bias is not None:
+        mag = torch.maximum(mag, bias.float().abs()[None, :])
+    _, e = torch.frexp(mag)  # mag = m 2^e, m in [0.5, 1)
+    bits = 24 if dtype == torch.float32 else 8
+    ulp = torch.ldexp(torch.ones_like(mag), (e - bits).float())
+    return float(((got.float() - ref.float()).abs() / ulp).max())
+
+
+def check_prefill_linears(torch, report):
+    """Kernels E (dequantize_transposed), F (dequant_int8) and G (w4a8_grouped) against
+    their plain versions at the four 7B linear shapes. E and F must be bit
+    for bit equal; G within 2 f32 ulps (1 bf16 ulp for bf16 output) of the
+    output, or of the bias where it is larger, since its int32 sum is exact
+    and its epilogue keeps the plain version's order. Each check
+    also feeds the plain version a deliberate fault (E: the planes
+    swapped; F: the lo plane scaled by the hi plane's factors; G: the colmax
+    of the next column), which must land outside the tolerance."""
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit as m4
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_w4a8 as mw
+    from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {"dequantize_transposed": [], "dequant_int8": [], "w4a8_grouped": []}
+    for N, K in [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]:
+        W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+        Wd = W.to(torch.bfloat16)
+        nbh = K // 128
+        for qt in ("nf4", "int4"):
+            w = quantize_4bit_native(W, 64, qt, absmax_dtype=torch.bfloat16)
+            for od in (torch.bfloat16, torch.float32):
+                got, ref = m4.dequantize_transposed(w, od), m4._dequant4_plain(w, od)
+                torch.cuda.synchronize()
+                need(torch.equal(got, ref), f"dequantize_transposed {qt} {od} N={N} K={K}: "
+                                            f"max err {max_err(torch, got, ref)[0]} (must be 0)")
+                lo, hi = m4._decode_planes(w, m4._decode_mode(w, od, None), od)
+                need(not torch.equal(torch.cat([hi, lo]), ref),
+                     "dequantize_transposed: the plain version with the planes swapped matches")
+                row = dict(N=N, K=K, quant=qt, out=str(od), max_abs_err=0.0)
+                if qt == "nf4" and od == torch.bfloat16:
+                    nbytes = K // 2 * N + 2 * nbh * N * 2 + K * N * 2
+                    row.update(ms=time_cold(torch, lambda: m4.dequantize_transposed(w, od)),
+                               plain_ms=time_cold(torch, lambda: m4._dequant4_plain(w, od), iters=5),
+                               library_ms=None, bytes=nbytes,
+                               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+                rows["dequantize_transposed"].append(row)
+                del got, ref, lo, hi
+            colmax, f = mw._col_grid(w)
+            got, ref = mw.dequant_int8(w, f), mw._dequant8_plain(w, f)
+            wq, cm = mw.dequantize_to_int8(w)
+            torch.cuda.synchronize()
+            need(torch.equal(got, ref) and torch.equal(wq, ref),
+                 f"dequant_int8 {qt} N={N} K={K}: codes differ from the plain version")
+            need(torch.equal(cm.cpu(), w.absmax.float().cpu().amax(dim=(0, 1))),
+                 f"dequant_int8 {qt}: colmax differs")
+            f_bad = f.clone()
+            f_bad[1] = f[0]
+            need(not torch.equal(mw._dequant8_plain(w, f_bad), ref),
+                 "dequant_int8: the plain version with the lo plane on the hi plane's factors matches")
+            row = dict(N=N, K=K, quant=qt, max_abs_err=0.0)
+            if qt == "nf4":
+                nbytes = K // 2 * N + 2 * nbh * N * 4 + K * N
+                row.update(ms=time_cold(torch, lambda: mw.dequant_int8(w, f)),
+                           plain_ms=time_cold(torch, lambda: mw._dequant8_plain(w, f), iters=5),
+                           library_ms=None, bytes=nbytes,
+                           bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+            rows["dequant_int8"].append(row)
+            del got, ref, wq, f, f_bad, w
+        for bs in (64, 128):
+            w = quantize_4bit_native(W, bs, "nf4", absmax_dtype=torch.bfloat16)
+            bias = torch.randn((N,), generator=gen, device="cuda")
+            for M in (512, 2048):
+                x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+                for od in (torch.bfloat16, torch.float32):
+                    got = mw.w4a8_grouped(x, w, bias, od)
+                    ref = mw._grouped_plain(x, w, bias, od)
+                    torch.cuda.synchronize()
+                    ratio = ulp_ratio(torch, got, ref, od, bias)
+                    n_ulp = 2 if od == torch.float32 else 1
+                    need(ratio <= n_ulp, f"w4a8_grouped N={N} K={K} M={M} bs={bs} {od}: "
+                                         f"{ratio} ulps > {n_ulp}")
+                    col_grid = mw._col_grid
+                    mw._col_grid = lambda w_: (lambda cm_, f_: (cm_.roll(-1), f_))(*col_grid(w_))
+                    try:
+                        bad = mw._grouped_plain(x, w, bias, od)
+                    finally:
+                        mw._col_grid = col_grid
+                    fault = ulp_ratio(torch, bad, ref, od, bias)
+                    need(fault > n_ulp, f"w4a8_grouped: the plain version with the next column's "
+                                        f"colmax lands within {n_ulp} ulps")
+                    row = dict(N=N, K=K, M=M, bs=bs, out=str(od), ulps=ratio, fault_ulps=fault,
+                               max_abs_err=max_err(torch, got, ref)[0])
+                    if bs == 64 and od == torch.bfloat16:
+                        nbytes = M * K * 2 + K // 2 * N + 2 * (K // (2 * bs)) * N * 2 + M * N * 2
+                        ops_ = 2 * M * N * K
+                        row.update(
+                            ms=time_cold(torch, lambda: mw.w4a8_grouped(x, w, bias, od)),
+                            plain_ms=time_cold(torch, lambda: mw._grouped_plain(x, w, bias, od), iters=3),
+                            library_ms=time_cold(torch, lambda: torch.matmul(x, Wd.T)),
+                            bytes=nbytes, ops=ops_,
+                            bound_ms=max(nbytes / HBM_BYTES_PER_S, ops_ / INT8_OPS_PER_S) * 1e3,
+                            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops_ / INT8_OPS_PER_S
+                            else "operations")
+                    rows["w4a8_grouped"].append(row)
+                    del got, ref, bad
+            del w
+        del W, Wd
+        for name, rs in rows.items():
+            for r in rs:
+                if r["N"] == N and r["K"] == K and "ms" in r:
+                    print(f"  {name:12s} N={N:5d} K={K:5d}" + (f" M={r['M']}" if "M" in r else "")
+                          + f" kernel {r['ms']*1e3:.1f} us plain {r['plain_ms']*1e3:.1f} us"
+                          + (f" bf16 matmul {r['library_ms']*1e3:.1f} us" if r["library_ms"] else "")
+                          + f" bound {r['bound_ms']*1e3:.2f} us ({r['bound_ms'] / r['ms']:.0%},"
+                          f" {r['bound_by']})", flush=True)
+    g = rows["w4a8_grouped"]
+    print(f"  checked: dequantize_transposed {len(rows['dequantize_transposed'])} cases bit-exact,"
+          f" dequant_int8 "
+          f"{len(rows['dequant_int8'])} bit-exact, w4a8_grouped {len(g)} within "
+          f"{max(r['ulps'] for r in g):.3g} ulps (faults >= {min(r['fault_ulps'] for r in g):.3g} ulps)")
+    for name, rs in rows.items():
+        timed = [r for r in rs if "ms" in r and (name != "w4a8_grouped" or r["M"] == 2048)]
+        report[name] = dict(
+            shapes=rs, ms=sum(r["ms"] for r in timed), plain_ms=sum(r["plain_ms"] for r in timed),
+            library_ms=None if name != "w4a8_grouped" else sum(r["library_ms"] for r in timed),
+            bound_ms=sum(r["bound_ms"] for r in timed), bound_by=timed[0]["bound_by"],
+            max_abs_err=max(r["max_abs_err"] for r in rs))
+
+
+def check_routes(torch, report):
+    """The long-prompt routes whole, with the glue around their kernels, at
+    the four 7B shapes and the row counts that reach them:
+    - W8A8 (kernel F, the row quantization kernel, torch._int_mm and the
+      f32 epilogue) at 4096 rows against its plain version (float64 int8
+      product) on the same inputs, within 2 f32 ulps (1 bf16 ulp), with
+      the colmax of the next column as its fault;
+    - dequantize-once (kernel E, then cuBLAS) at 2048 rows, and at 256 for
+      down_proj (half-K not a multiple of 8 blocks), against an f32 product
+      of the plain dense weight, within 1% of the largest output (bf16: the
+      bias lands after the cast), with the planes swapped as its fault.
+    Each call must launch its kernel once and no other linear kernel."""
+    from bitsandbytes_sycl_tpu_torch.ops import KERNELS
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit as m4
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_w4a8 as mw
+    from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for N, K in [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]:
+        W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+        w = quantize_4bit_native(W, 64, "nf4", absmax_dtype=torch.bfloat16)
+        del W
+        bias = torch.randn((N,), generator=gen, device="cuda")
+        cases = [("w8a8", 4096), ("dequantize-once", 2048)]
+        if K == 11008:
+            cases.append(("dequantize-once", 256))
+        for route, M in cases:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            reset_counts(KERNELS)
+            if route == "w8a8":
+                got = mw.matmul_4bit_w8a8_prefill(x, w, bias, torch.bfloat16)
+                want = {"dequant_int8": 1}
+                ref = mw._w8a8_plain(x, w, bias, torch.bfloat16)
+                col_grid = mw._col_grid
+                mw._col_grid = lambda w_: (lambda cm_, f_: (cm_.roll(-1), f_))(*col_grid(w_))
+                try:
+                    bad = mw._w8a8_plain(x, w, bias, torch.bfloat16)
+                finally:
+                    mw._col_grid = col_grid
+                err = ulp_ratio(torch, got, ref, torch.bfloat16, bias)
+                fault, tol = ulp_ratio(torch, bad, ref, torch.bfloat16, bias), 1.0
+                unit = "bf16 ulps"
+            else:
+                got = m4.matmul_4bit_fused(x, w, bias, torch.bfloat16)
+                want = {"dequantize_transposed": 1}
+                hi, lo = m4._decode_planes(w, m4._MODE_BF16_TABLE, torch.bfloat16)
+                ref = x.float() @ torch.cat([hi, lo]).float() + bias
+                bad = x.float() @ torch.cat([lo, hi]).float() + bias
+                del hi, lo
+                err, scale = max_err(torch, got, ref)
+                tol = 1e-2 * scale
+                fault = max_err(torch, bad, ref)[0]
+                unit = "abs"
+            counts = {k: v for k, v in read_counts(KERNELS).items() if v}
+            need(counts == want, f"{route} route N={N} K={K} M={M}: launches {counts}, not {want}")
+            need(err <= tol, f"{route} route N={N} K={K} M={M}: error {err} > {tol} ({unit})")
+            need(fault > tol, f"{route} route N={N} K={K} M={M}: its fault lands within the "
+                              f"tolerance ({fault} <= {tol})")
+            fn = ((lambda: mw.matmul_4bit_w8a8_prefill(x, w, bias, torch.bfloat16)) if route == "w8a8"
+                  else (lambda: m4.matmul_4bit_fused(x, w, bias, torch.bfloat16)))
+            row = dict(route=route, N=N, K=K, M=M, err=err, tol=tol, unit=unit, fault=fault,
+                       ms=time_cold(torch, fn, iters=10))
+            rows.append(row)
+            print(f"  {route:15s} route N={N:5d} K={K:5d} M={M:4d} err {err:.3g} (tol {tol:.3g} {unit};"
+                  f" fault {fault:.3g}) route {row['ms']*1e3:.1f} us", flush=True)
+            del x, got, ref, bad
+        del w, bias
+    reset_counts(KERNELS)
+    report["routes"] = rows
+
+
 def check_prefill(torch, report):
+    """Kernel C at the prefill batch of short prompts (B=4, T=32) and of one
+    long-prompt batch (B=2, T=512), over a 2048-position cache."""
     import torch.nn.functional as Fnn
     from bitsandbytes_sycl_tpu_torch.ops import attention
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    L, B, T, H, D, S, li = 2, 4, 32, 32, 128, 2048, 1
-    q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
-    kq = torch.randint(-127, 128, (L, B, H, D, S), generator=gen, device="cuda", dtype=torch.int8)
-    vq = torch.randint(-127, 128, (L, B, H, S, D), generator=gen, device="cuda", dtype=torch.int8)
-    # k scales in [1, 3) give O(1) scores (q ~ N(0, 1) and codes uniform in
-    # +-127 make q.k_i8 ~ 73 sqrt(D) wide, times ks / (127 sqrt(D))), so a
-    # wrong QK product moves the softmax well past the tolerance
-    ks = torch.rand((L, B, H, S), generator=gen, device="cuda") * 2 + 1
-    vs = torch.rand((L, B, H, S), generator=gen, device="cuda") + 0.5
-    starts = torch.zeros((B,), dtype=torch.int32, device="cuda")
-    scale = (1.0 / D ** 0.5) / 127.0
-    kern = lambda: attention.prefill_attn_int8(q, kq, ks, vq, vs, li, starts, scale)  # noqa: E731
-    plain = lambda: attention._prefill_plain(q, kq, ks, vq, vs, li, starts, scale, None, None, None)  # noqa: E731
-    got, ref = kern(), plain()
-    torch.cuda.synchronize()
-    err, mag = max_err(torch, got, ref)
-    tol = 1e-2 * mag
-    need(err <= tol, f"prefill_attn_int8: max err {err} > {tol}")
-    k_other = kq.clone()
-    k_other[li] = kq[li - 1]
-    margin = faults_exceed(torch, "prefill_attn_int8", ref, [
-        ("K of the next kv head", lambda: attention._prefill_plain(
-            q, kq.roll(1, dims=2), ks, vq, vs, li, starts, scale, None, None, None)),
-        ("K of another layer", lambda: attention._prefill_plain(
-            q, k_other, ks, vq, vs, li, starts, scale, None, None, None)),
-        ("k_scale dropped", lambda: attention._prefill_plain(
-            q, kq, torch.full_like(ks, 2.0), vq, vs, li, starts, scale, None, None, None)),
-    ], tol)
-    del k_other
-    kd = (kq[li, :, :, :, :T].float() * (ks[li, :, :, None, :T] / 127)).permute(0, 1, 3, 2).to(torch.bfloat16)
-    vd = (vq[li, :, :, :T].float() * (vs[li, :, :, :T, None] / 127)).to(torch.bfloat16)
-    qh = q.permute(0, 2, 1, 3).contiguous()
-    lib = lambda: Fnn.scaled_dot_product_attention(qh, kd, vd, is_causal=True)  # noqa: E731
-    nbytes = 2 * B * T * H * D * 2 + 2 * B * H * T * D + 2 * B * H * T * 4
-    flops = 4 * B * H * T * (T + 1) // 2 * D
-    row = dict(B=B, T=T, H=H, D=D, S=S, max_abs_err=err, tol=tol, fault_margin=margin,
-               ms=time_cold(torch, kern),
-               plain_ms=time_cold(torch, plain, iters=5), library_ms=time_cold(torch, lib),
-               bytes=nbytes, bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
-               bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations")
-    print(f"  prefill_attn_int8 B={B} T={T} S={S} err={err:.3g} rel={err / mag:.2g} (tol {tol:.3g};"
-          f" faults >= {margin:.3g}x tol)"
-          f" kernel {row['ms']*1e3:.1f} us plain {row['plain_ms']*1e3:.1f} us sdpa"
-          f" {row['library_ms']*1e3:.1f} us bound {row['bound_ms']*1e3:.2f} us"
-          f" ({row['bound_ms'] / row['ms']:.0%})", flush=True)
-    report["prefill_attn_int8"] = row
+    rows = []
+    for B, T in ((4, 32), (2, 512)):
+        L, H, D, S, li = 2, 32, 128, 2048, 1
+        q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        kq = torch.randint(-127, 128, (L, B, H, D, S), generator=gen, device="cuda", dtype=torch.int8)
+        vq = torch.randint(-127, 128, (L, B, H, S, D), generator=gen, device="cuda", dtype=torch.int8)
+        # k scales in [1, 3) give O(1) scores (q ~ N(0, 1) and codes uniform in
+        # +-127 make q.k_i8 ~ 73 sqrt(D) wide, times ks / (127 sqrt(D))), so a
+        # wrong QK product moves the softmax well past the tolerance
+        ks = torch.rand((L, B, H, S), generator=gen, device="cuda") * 2 + 1
+        vs = torch.rand((L, B, H, S), generator=gen, device="cuda") + 0.5
+        starts = torch.zeros((B,), dtype=torch.int32, device="cuda")
+        scale = (1.0 / D ** 0.5) / 127.0
+        kern = lambda: attention.prefill_attn_int8(q, kq, ks, vq, vs, li, starts, scale)  # noqa: E731
+        plain = lambda: attention._prefill_plain(q, kq, ks, vq, vs, li, starts, scale, None, None, None)  # noqa: E731
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, mag = max_err(torch, got, ref)
+        tol = 1e-2 * mag
+        need(err <= tol, f"prefill_attn_int8 T={T}: max err {err} > {tol}")
+        k_other = kq.clone()
+        k_other[li] = kq[li - 1]
+        margin = faults_exceed(torch, f"prefill_attn_int8 T={T}", ref, [
+            ("K of the next kv head", lambda: attention._prefill_plain(
+                q, kq.roll(1, dims=2), ks, vq, vs, li, starts, scale, None, None, None)),
+            ("K of another layer", lambda: attention._prefill_plain(
+                q, k_other, ks, vq, vs, li, starts, scale, None, None, None)),
+            ("k_scale dropped", lambda: attention._prefill_plain(
+                q, kq, torch.full_like(ks, 2.0), vq, vs, li, starts, scale, None, None, None)),
+        ], tol)
+        del k_other
+        kd = (kq[li, :, :, :, :T].float() * (ks[li, :, :, None, :T] / 127)).permute(0, 1, 3, 2).to(torch.bfloat16)
+        vd = (vq[li, :, :, :T].float() * (vs[li, :, :, :T, None] / 127)).to(torch.bfloat16)
+        qh = q.permute(0, 2, 1, 3).contiguous()
+        lib = lambda: Fnn.scaled_dot_product_attention(qh, kd, vd, is_causal=True)  # noqa: E731
+        nbytes = 2 * B * T * H * D * 2 + 2 * B * H * T * D + 2 * B * H * T * 4
+        flops = 4 * B * H * T * (T + 1) // 2 * D
+        row = dict(B=B, T=T, H=H, D=D, S=S, max_abs_err=err, tol=tol, fault_margin=margin,
+                   ms=time_cold(torch, kern),
+                   plain_ms=time_cold(torch, plain, iters=5), library_ms=time_cold(torch, lib),
+                   bytes=nbytes, bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
+                   bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations")
+        rows.append(row)
+        print(f"  prefill_attn_int8 B={B} T={T} S={S} err={err:.3g} rel={err / mag:.2g} (tol {tol:.3g};"
+              f" faults >= {margin:.3g}x tol)"
+              f" kernel {row['ms']*1e3:.1f} us plain {row['plain_ms']*1e3:.1f} us sdpa"
+              f" {row['library_ms']*1e3:.1f} us bound {row['bound_ms']*1e3:.2f} us"
+              f" ({row['bound_ms'] / row['ms']:.0%})", flush=True)
+        del q, kq, vq, ks, vs, kd, vd, qh
+    report["prefill_attn_int8"] = dict(rows[0], shapes=rows)
 
 
 def check_paged(torch, report):
@@ -288,7 +510,8 @@ def check_paged(torch, report):
 def check_edges(torch):
     """The kernels against their plain versions on small shapes that the
     7B path does not reach: odd row counts, f32 outputs and bias, every
-    decode mode of kernel B, and every option of kernels C and D."""
+    decode mode of kernel B, kernel G's ragged planes, the W8A8 route at
+    few rows, and every option of kernels C and D."""
     from bitsandbytes_sycl_tpu_torch.ops import attention, matmul_4bit, matmul_w4a8
     from bitsandbytes_sycl_tpu_torch.ops import paged_attention
     from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native
@@ -318,6 +541,28 @@ def check_edges(torch):
                     mode = matmul_4bit._decode_mode(w, dt, None)
                     close(f"mm4 {qt} M={M} {dt} mode {mode}", matmul_4bit.mm4_fused(x, w, b, dt),
                           matmul_4bit._mm4_plain(x, w, b, dt, mode))
+    # kernel G where half-K is not a multiple of its 64-row step (blocksize
+    # 32, a whole-half K step in the JAX kernel), also with planes not 16-byte
+    # aligned (K % 32 != 0); the W8A8 route at few rows (torch._int_mm's
+    # padding) and at a whole half
+    for N, K, bs in ((256, 1088, 32), (256, 1040, 8)):
+        W = torch.randn((N, K), generator=gen, device="cuda") * 0.02
+        w = quantize_4bit_native(W, bs, "nf4", absmax_dtype=torch.bfloat16)
+        bias = torch.randn((N,), generator=gen, device="cuda")
+        for M in (1, 67, 300):
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+                got = matmul_w4a8.w4a8_grouped(x, w, bias, dt)
+                ratio = ulp_ratio(torch, got, matmul_w4a8._grouped_plain(x, w, bias, dt), dt, bias)
+                need(ratio <= (2 if dt == torch.float32 else 1),
+                     f"w4a8_grouped N={N} K={K} bs={bs} M={M} {dt}: {ratio} ulps")
+                n += 1
+                if bs == 32:
+                    got = matmul_w4a8.matmul_4bit_w8a8_prefill(x, w, bias, dt)
+                    ratio = ulp_ratio(torch, got, matmul_w4a8._w8a8_plain(x, w, bias, dt), dt, bias)
+                    need(ratio <= (2 if dt == torch.float32 else 1),
+                         f"w8a8 route N={N} K={K} M={M} {dt}: {ratio} ulps")
+                    n += 1
     L, B, T, Hkv, D, S = 2, 2, 24, 2, 128, 256
     kq = torch.randint(-127, 128, (L, B, Hkv, D, S), generator=gen, device="cuda", dtype=torch.int8)
     vq = torch.randint(-127, 128, (L, B, Hkv, S, D), generator=gen, device="cuda", dtype=torch.int8)
@@ -511,6 +756,153 @@ def profile_steps(torch, cfg, params, prompts, n=4):
                 host_top=host_profile(torch, eng), step_vs_host=step_vs_host_speed(torch, eng))
 
 
+def long_prompts(seed, n, lo, hi, vocab):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, size=int(rng.integers(lo, hi + 1))).tolist() for _ in range(n)]
+
+
+def profile_prefill(torch, cfg, params, Kb, T):
+    """One warm prefill forward of the engine's shape (Kb, T) into a fresh
+    scratch cache, under torch.profiler: wall time, the device's busy time
+    (the sum of its kernels' times) and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bitsandbytes_sycl_tpu_torch.models.llama import init_kv_cache, llama_forward
+
+    toks = torch.randint(1, cfg.vocab_size, (Kb, T), device="cuda")
+    pos = torch.arange(T, device="cuda").expand(Kb, T)
+    llama_forward(params, cfg, toks, init_kv_cache(cfg, Kb, "cuda"), pos)
+    cache = init_kv_cache(cfg, Kb, "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        llama_forward(params, cfg, toks, cache, pos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+                top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
+
+
+def serve_long(torch, cfg, params, kernels):
+    """Phase 3b: long prompts through one paged engine (max_batch 8), three
+    prefill batches in turn, each decoded to its end: one prompt of 129-256
+    tokens (256 rows: kernel B, and E for down_proj), four of 257-512 (2048
+    rows: G), eight of 257-512 (4096 rows: F). Returns one dict per batch."""
+    from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
+    from bitsandbytes_sycl_tpu_torch.engine.engine import _bucket, _pow2_bucket
+
+    max_new = 16
+    eng = InferenceEngine(cfg, params, EngineConfig(max_batch=8, paged=True, max_new_tokens=max_new),
+                          device="cuda")
+    batches = [
+        ("rows 256", long_prompts(10, 1, 129, 256, cfg.vocab_size), ("mm4_fused", "dequantize_transposed")),
+        ("rows 2048", long_prompts(11, 4, 257, 512, cfg.vocab_size), ("w4a8_grouped",)),
+        ("rows 4096", long_prompts(12, 8, 257, 512, cfg.vocab_size), ("dequant_int8",)),
+    ]
+    out = []
+    for label, prompts, want in batches:
+        T = _bucket(max(len(p) for p in prompts), eng.ecfg.prefill_buckets)
+        prof = profile_prefill(torch, cfg, params, _pow2_bucket(len(prompts), 8), T)
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        slots = eng.add_requests(prompts)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        counts = read_counts(kernels)
+        steps = []
+        while eng.active.any():
+            t0 = time.perf_counter()
+            eng.step()
+            steps.append(time.perf_counter() - t0)
+        outs = [eng.slot_tokens[s][len(p):] for s, p in zip(slots, prompts)]
+        for k in want:
+            need(counts[k] > 0, f"long prompts ({label}): the prefill never launched {k}")
+        need(all(len(o) == max_new for o in outs), f"long prompts ({label}): wrong output lengths "
+                                                   f"{[len(o) for o in outs]}")
+        need(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+             f"long prompts ({label}): token id out of range")
+        n_tok = sum(len(p) for p in prompts)
+        steps.sort()
+        row = dict(label=label, prompts=len(prompts), prompt_tokens=n_tok,
+                   prefill_s=t_prefill, prefill_tokens_per_s=n_tok / t_prefill,
+                   decode_steps=len(steps), decode_ms_per_step_median=steps[len(steps) // 2] * 1e3,
+                   decode_ms_per_step_quartiles=[steps[len(steps) // 4] * 1e3,
+                                                 steps[3 * len(steps) // 4] * 1e3],
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts,
+                   profile=prof)
+        out.append(row)
+        print(f"[3b] {label}: {len(prompts)} prompts, {n_tok} tokens prefilled in {t_prefill:.3f} s"
+              f" = {n_tok / t_prefill:.0f} tok/s; then {len(steps)} decode steps, median"
+              f" {row['decode_ms_per_step_median']:.2f} ms; peak {row['peak_gb']:.1f} GB;"
+              f" prefill launches {counts}", flush=True)
+        print(f"[3b] {label}: profiled prefill forward {prof['wall_ms']:.1f} ms, device busy"
+              f" {prof['device_busy_ms']:.1f} ms (idle {1 - prof['device_busy_ms'] / prof['wall_ms']:.0%})")
+        for key, ms, cnt in prof["top"]:
+            print(f"      {ms:8.3f} ms  {cnt:5d}x  {key[:90]}")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def chunked_vs_whole(torch, cfg, params):
+    """Phase 3b, chunked prefill: two prompts of 700-1000 tokens prefilled in
+    chunks of 256 (512 rows a chunk) and whole (2048 rows), then 8 greedy
+    tokens each. The prefill's sampled logits must agree within the
+    card-vs-CPU limits (4% relative L2, 5% of the largest), and the tokens
+    wherever the whole-prompt engine's top-2 logit gap exceeds the latter;
+    at least one token must be compared."""
+    from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
+
+    prompts = long_prompts(13, 2, 700, 1000, cfg.vocab_size)
+    runs = {}
+    for chunk in (0, 256):
+        eng = InferenceEngine(cfg, params, EngineConfig(max_batch=2, paged=True, max_new_tokens=8,
+                                                        prefill_chunk=chunk), device="cuda")
+        rec = []
+        sample = eng._sample
+        eng._sample = lambda logits, rec=rec, sample=sample: (rec.append(logits.float().cpu()),
+                                                              sample(logits))[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts)
+        torch.cuda.synchronize()
+        runs[chunk] = (outs, rec, time.perf_counter() - t0)
+        del eng
+        torch.cuda.empty_cache()
+    (whole, rec_w, t_w), (chunked, rec_c, t_c) = runs[0], runs[256]
+    # the prefill's sampled logits: the chunks' attention over the cache
+    # against the whole prompt's, within the card-vs-CPU limits
+    err, mag = max_err(torch, rec_c[0], rec_w[0])
+    rel = float((rec_c[0] - rec_w[0]).norm() / rec_w[0].norm())
+    need(rel <= 4e-2, f"chunked prefill logits: relative L2 {rel} > 0.04 of the whole prompt's")
+    need(err <= 5e-2 * mag, f"chunked prefill logits: max err {err} > {5e-2 * mag}")
+    checked = 0
+    for row in range(2):
+        for i in range(8):
+            lg = rec_w[i][row]
+            top2 = lg.topk(2).values
+            if whole[row][i] != chunked[row][i]:
+                need(float(top2[0] - top2[1]) <= 5e-2 * float(lg.abs().max()),
+                     f"chunked prefill: token {i} of row {row} differs with a clear top-2 gap")
+                break
+            checked += 1
+    need(checked > 0, "chunked prefill: no greedy token was compared")
+    print(f"[3b] chunked prefill (256-token chunks, prompts of {[len(p) for p in prompts]} tokens):"
+          f" prefill logits relative L2 {rel:.3g} (tol 0.04), max err {err:.4g}"
+          f" (tol {5e-2 * mag:.4g}) against whole-prompt prefill; {checked} of 16 greedy tokens"
+          f" equal; generate {t_c:.2f} s chunked, {t_w:.2f} s whole", flush=True)
+    return dict(prompt_tokens=[len(p) for p in prompts], logits_rel_l2=rel, logits_max_err=err,
+                logits_max_abs=mag, tokens_compared_equal=checked,
+                generate_s_chunked=t_c, generate_s_whole=t_w)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -548,10 +940,13 @@ def main() -> int:
         t0 = time.perf_counter()
         print("[2] kernels vs plain versions (cold L2, median of per-call CUDA-event times)")
         check_linears(torch, report)
+        check_prefill_linears(torch, report)
+        check_routes(torch, report)
         check_prefill(torch, report)
         check_paged(torch, report)
         n_edges = check_edges(torch)
-        print(f"[2] {n_edges} edge-case comparisons (odd rows, f32/bias, all B modes, C/D options) ok")
+        print(f"[2] {n_edges} edge-case comparisons (odd rows, f32/bias, all B modes, ragged G"
+              f" planes, W8A8 at few rows, C/D options) ok")
         phases["kernels_s"] = time.perf_counter() - t0
 
         # 3. serve Llama-7B through the paged engine
@@ -608,6 +1003,13 @@ def main() -> int:
               f"correlation {svh['corr']:.2f}; step / (kernels x enqueue) "
               f"{ratios[0]:.2f}-{ratios[-1]:.2f}")
 
+        # 3b. long prompts at full 7B width and depth, then chunked prefill
+        t0 = time.perf_counter()
+        long_stats = serve_long(torch, cfg, params, KERNELS)
+        long_counts = {r["label"]: r["launches"] for r in long_stats}
+        chunk_stats = chunked_vs_whole(torch, cfg, params)
+        phases["long_prompts_s"] = time.perf_counter() - t0
+
         # 4. the exact path (kernel B), 4 layers of the same weights
         t0 = time.perf_counter()
         cfg_x = dataclasses.replace(cfg, a8_decode=False, num_layers=4)
@@ -617,10 +1019,24 @@ def main() -> int:
         counts_x = read_counts(KERNELS)
         need(counts_x["mm4_fused"] > 0, "the exact path never launched mm4_fused")
         need(all(len(o) == 8 for o in outs_x), "exact path: wrong output lengths")
-        phases["exact_path_s"] = time.perf_counter() - t0
         print(f"[4] a8_decode=False, 4 layers: {sum(map(len, outs_x))} tokens, median "
               f"{sorted(steps_x)[len(steps_x) // 2] * 1e3:.2f} ms/step; launches {counts_x}",
               flush=True)
+        # four prompts of 257-512 tokens: 2048 rows, so every linear of the
+        # prefill decodes its weight once (kernel E) and runs a dense matmul
+        long4 = long_prompts(14, 4, 257, 512, cfg.vocab_size)
+        reset_counts(KERNELS)
+        outs_xl, wall_xl, _ = serve(torch, cfg_x, params_x, long4, 2)
+        counts_xl = read_counts(KERNELS)
+        n_linears = 7 * cfg_x.num_layers + 1
+        need(counts_xl["dequantize_transposed"] == n_linears,
+             f"exact path, 2048 rows: dequantize_transposed launched "
+             f"{counts_xl['dequantize_transposed']} times, "
+             f"not once per linear ({n_linears})")
+        need(all(len(o) == 2 for o in outs_xl), "exact path, long prompts: wrong output lengths")
+        phases["exact_path_s"] = time.perf_counter() - t0
+        print(f"[4] a8_decode=False, 4 layers, 4 prompts of {[len(p) for p in long4]} tokens: "
+              f"{wall_xl:.2f} s; launches {counts_xl}", flush=True)
         del params, params_x
         torch.cuda.empty_cache()
 
@@ -661,34 +1077,59 @@ def main() -> int:
                          f"greedy token {i} of row {row} differs with a top-2 gap above {tol}")
                     break  # the two trajectories part here
                 checked += 1
-        phases["cpu_vs_card_s"] = time.perf_counter() - t0
         print(f"[5] 2-layer 7B-width card vs CPU: prefill logits relative L2 {rel:.3g} (tol 0.04),"
               f" max err {err:.4g} (tol {tol:.4g});"
               f" {checked} of 10 greedy tokens compared equal", flush=True)
+        # two prompts of 512 tokens: 1024 rows, the grouped route (kernel G)
+        toks = torch.tensor(long_prompts(15, 2, 512, 512, cfg.vocab_size))
+        reset_counts(KERNELS)
+        lg_gpu, _ = llama_forward(p_gpu, cfg2, toks.cuda(), init_kv_cache(cfg2, 2, "cuda"))
+        need(read_counts(KERNELS)["w4a8_grouped"] == 7 * 2 + 1, "1024 rows did not take kernel G")
+        lg_cpu, _ = llama_forward(p_cpu, cfg2, toks, init_kv_cache(cfg2, 2, "cpu"))
+        err_l, mag_l = max_err(torch, lg_gpu.cpu(), lg_cpu)
+        rel_l = float((lg_gpu.cpu() - lg_cpu).norm() / lg_cpu.norm())
+        need(torch.isfinite(lg_gpu).all().item(), "non-finite logits on the card (T=512)")
+        need(rel_l <= 4e-2, f"T=512 prefill logits card vs CPU: relative L2 error {rel_l} > 0.04")
+        need(err_l <= 5e-2 * mag_l, f"T=512 prefill logits card vs CPU: max err {err_l} > {5e-2 * mag_l}")
+        phases["cpu_vs_card_s"] = time.perf_counter() - t0
+        print(f"[5] 2-layer 7B-width card vs CPU at Kb=2, T=512 (1024 rows, kernel G): relative L2"
+              f" {rel_l:.3g} (tol 0.04), max err {err_l:.4g} (tol {5e-2 * mag_l:.4g})", flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    # each kernel with the path that launched it, and that path's count
     sources = {
-        "w4a8_gemv": ("bitsandbytes_sycl_tpu/ops/matmul_w4a8.py:65", main_counts["w4a8_gemv"]),
-        "mm4_fused": ("bitsandbytes_sycl_tpu/ops/matmul_4bit.py:66", counts_x["mm4_fused"]),
-        "prefill_attn_int8": ("bitsandbytes_sycl_tpu/ops/attention.py:356",
+        "w4a8_gemv": ("bitsandbytes_sycl_tpu/ops/matmul_w4a8.py:65", "7B decode (phase 3)",
+                      main_counts["w4a8_gemv"]),
+        "mm4_fused": ("bitsandbytes_sycl_tpu/ops/matmul_4bit.py:66", "exact path (phase 4)",
+                      counts_x["mm4_fused"]),
+        "prefill_attn_int8": ("bitsandbytes_sycl_tpu/ops/attention.py:356", "7B serve (phase 3)",
                               main_counts["prefill_attn_int8"]),
         "paged_attn_int8": ("bitsandbytes_sycl_tpu/ops/paged_attention.py:139",
-                            main_counts["paged_attn_int8"]),
+                            "7B decode (phase 3)", main_counts["paged_attn_int8"]),
+        "dequantize_transposed": ("bitsandbytes_sycl_tpu/ops/matmul_4bit.py:120",
+                                  "7B prefill, 256 rows (phase 3b)",
+                                  long_counts["rows 256"]["dequantize_transposed"]),
+        "dequant_int8": ("bitsandbytes_sycl_tpu/ops/matmul_w4a8.py:244",
+                         "7B prefill, 4096 rows (phase 3b)", long_counts["rows 4096"]["dequant_int8"]),
+        "w4a8_grouped": ("bitsandbytes_sycl_tpu/ops/matmul_w4a8.py:343",
+                         "7B prefill, 2048 rows (phase 3b)",
+                         long_counts["rows 2048"]["w4a8_grouped"]),
     }
     kernels = []
-    for name, (replaces, launches) in sources.items():
+    for name, (replaces, path, launches) in sources.items():
         r = report[name]
         kernels.append(dict(
             name=name, route="cuda", source=f"bitsandbytes_sycl_tpu_torch/csrc/{name}.cu",
-            replaces=replaces, launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            replaces=replaces, path=path, launches=launches, max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
     phases["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, kernels=report, serve=serve_stats, phases=phases), f, indent=1)
+        json.dump(dict(card=card, kernels=report, serve=serve_stats, long_prompts=long_stats,
+                       chunked=chunk_stats, phases=phases), f, indent=1)
     print(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
     print(card)
     print(json.dumps({"kernels": kernels}))

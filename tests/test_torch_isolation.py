@@ -42,8 +42,14 @@ def test_no_file_imports_jax_or_the_jax_package(path):
 
 
 def test_kernel_sources_are_in_the_package():
+    from bitsandbytes_sycl_tpu_torch.ops import KERNELS
+
     names = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
-    assert names == ["mm4_fused", "paged_attn_int8", "prefill_attn_int8", "w4a8_gemv"]
+    assert names == ["dequant_int8", "dequantize_transposed", "mm4_fused", "paged_attn_int8",
+                     "prefill_attn_int8", "w4a8_gemv", "w4a8_grouped"]
+    # one wrapper with a launch counter for each source
+    assert sorted(k.__name__ for k in KERNELS) == names
+    assert all(k.launches == 0 for k in KERNELS)  # the CPU runs no kernel
 
 
 def test_entry_points_need_cuda_unless_given_cpu(monkeypatch):

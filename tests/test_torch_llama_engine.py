@@ -229,10 +229,35 @@ def test_engine_generate_and_unported_options(models):
     t_eng = InferenceEngine(tc, tp, EngineConfig(max_batch=2, paged=True, temperature=0.8, top_k=5),
                             device="cpu")
     assert all(0 <= t < 256 for o in t_eng.generate(prompts[:2], max_new_tokens=3) for t in o)
-    for bad in (dict(paged=False), dict(paged=True, prefill_chunk=32),
-                dict(paged=True, w8a8_prefill=True)):
+    for bad in (dict(paged=False), dict(paged=True, w8a8_prefill=True)):
         with pytest.raises(NotImplementedError):
             InferenceEngine(tc, tp, EngineConfig(**bad), device="cpu")
+    # chunked prefill (chunks of 8 tokens at absolute offsets) gives the
+    # JAX engine's chunked prefill logits for each prompt's next token
+    jlog, tlog = [], []
+    je = _jax_engine_with_logits(jc, jp, JEngineConfig(max_batch=2, paged=True, prefill_chunk=8),
+                                 jlog)
+    chunk_prefill = je._chunk_prefill
+
+    def chunk_logged(params, tokens_c, off, cacheK, true_len, key, ids):
+        K, C = tokens_c.shape
+        pos = off + jnp.broadcast_to(jnp.arange(C), (K, C))
+        logits, _ = JL.llama_forward(params, jc, tokens_c, cacheK, pos)
+        idx = np.clip(np.asarray(true_len) - 1 - int(off), 0, C - 1)
+        jlog.append(np.asarray(logits)[np.arange(K), idx])
+        return chunk_prefill(params, tokens_c, off, cacheK, true_len, key, ids)
+
+    je._chunk_prefill = chunk_logged
+    c_eng = InferenceEngine(tc, tp, EngineConfig(max_batch=2, paged=True, prefill_chunk=8),
+                            device="cpu")
+    sample = c_eng._sample
+    c_eng._sample = lambda logits: (tlog.append(logits.numpy().copy()), sample(logits))[1]
+    long_prompts = [list(range(1, 21)), list(range(30, 41))]  # last tokens in chunks 3 and 2
+    je.add_requests(long_prompts)
+    c_eng.add_requests(long_prompts)
+    want = np.stack([jlog[2][0], jlog[1][1]])
+    _close_logits(tlog[0], want)
+    assert c_eng.slot_tokens[0][-1] == je.slot_tokens[0][-1]
     with pytest.raises(NotImplementedError):
         eng.register_prefix([1, 2, 3])
     with pytest.raises(NotImplementedError):

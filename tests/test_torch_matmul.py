@@ -1,6 +1,7 @@
 """The port's 4-bit linears (kernels A and B, here their plain versions on
 the CPU) against the JAX package's Pallas kernels in interpret mode, and
-apply_linear's routing against the JAX package's."""
+apply_linear's routing against the JAX package's. The long-prompt routes
+(kernels E, F and G) have their own tests in test_torch_prefill_routes.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -90,14 +91,19 @@ def test_untileable_and_unported_routes():
     np.testing.assert_allclose(
         t_w4a8(torch.from_numpy(x), b, out_dtype=torch.float32).numpy(),
         np.asarray(j_w4a8(jnp.asarray(x), a, out_dtype=jnp.float32)), **F32_TOL)
-    # the dequantize-once route of large M is not ported yet
-    _, b = _pair(256, 1024)
-    with pytest.raises(NotImplementedError):
-        t_fused(torch.zeros((2048, 1024)), b, compute_dtype=torch.float32)
-    _, bw = _pair(256, 1152)  # whole-half K: the route starts at M = 256
-    with pytest.raises(NotImplementedError):
-        t_fused(torch.zeros((256, 1152)), bw, compute_dtype=torch.float32)
-    assert t_fused(torch.zeros((255, 1152)), bw, compute_dtype=torch.float32).shape == (255, 256)
+    # large M decodes the weight once (kernel E) and runs one dense matmul,
+    # from M = 2048, or from M = 256 for a whole-half K
+    a, b = _pair(256, 1024)
+    x = _x(2048, 1024)
+    np.testing.assert_allclose(
+        t_fused(torch.from_numpy(x), b, compute_dtype=torch.float32).numpy(),
+        np.asarray(j_fused(jnp.asarray(x), a, compute_dtype=jnp.float32)), **F32_TOL)
+    aw, bw = _pair(256, 1152)
+    for M in (255, 256):
+        x = _x(M, 1152)
+        np.testing.assert_allclose(
+            t_fused(torch.from_numpy(x), bw, compute_dtype=torch.float32).numpy(),
+            np.asarray(j_fused(jnp.asarray(x), aw, compute_dtype=jnp.float32)), **F32_TOL)
     assert t_fused(torch.zeros((0, 1024)), b, compute_dtype=torch.float32).shape == (0, 256)
 
 
@@ -105,8 +111,10 @@ def test_untileable_and_unported_routes():
 @pytest.mark.parametrize("qt,a8", [("nf4", True), ("int4", True), ("nf4", False)])
 def test_apply_linear_routes_like_jax(monkeypatch, qt, a8, bs):
     """Every row-count threshold of apply_linear sends a weight down the
-    same route as the JAX package; the unported routes raise."""
+    same route as the JAX package; the first row count of the grouped and
+    W8A8 routes gives the JAX package's output there."""
     seen = []
+    jax_fn = {"grouped": JW.matmul_4bit_w4a8_grouped, "w8a8": JW.matmul_4bit_w8a8_prefill}
     for name, route in (("matmul_4bit_w4a8", "w4a8"), ("matmul_4bit_w4a8_grouped", "grouped"),
                         ("matmul_4bit_w8a8_prefill", "w8a8")):
         monkeypatch.setattr(JW, name, lambda *a, _r=route, **k: seen.append(_r))
@@ -119,8 +127,10 @@ def test_apply_linear_routes_like_jax(monkeypatch, qt, a8, bs):
         JL.apply_linear(jnp.zeros((rows, K), jnp.bfloat16), a, jcfg)
         route = TL.linear_route(rows, b, tcfg)
         assert route == seen[-1], (rows, route, seen[-1])
-        if route in ("grouped", "w8a8"):
-            with pytest.raises(NotImplementedError):
-                TL.apply_linear(torch.zeros((rows, K), dtype=torch.bfloat16), b, tcfg)
+        if route in jax_fn:
+            x = _x(rows, K, seed=rows)
+            want = jax_fn.pop(route)(jnp.asarray(x, jnp.bfloat16), a, out_dtype=jnp.bfloat16)
+            got = TL.apply_linear(torch.from_numpy(x).to(torch.bfloat16), b, tcfg)
+            np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **BF16_TOL)
     x = torch.zeros((4, 2, K), dtype=torch.bfloat16)  # rows count every lead dim
     assert TL.linear_route(int(np.prod(x.shape[:-1])), b, tcfg) == TL.linear_route(8, b, tcfg)
