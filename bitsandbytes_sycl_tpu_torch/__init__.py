@@ -1,19 +1,20 @@
 """bitsandbytes_sycl_tpu_torch: the PyTorch and CUDA port of
 bitsandbytes_sycl_tpu for NVIDIA Hopper (H100).
 
-It mirrors the JAX package's module paths. This slice carries NF4
-Llama serving through the paged engine: the 4-bit formats, the W4A8 and
-exact 4-bit linears, int8-KV prefill and paged decode attention, the
-Llama model and the paged continuous-batching engine. Each TPU kernel of
-that path is a hand-written sm_90a CUDA kernel under ``csrc/``, built by
-nvcc at first use. Entry points run on CUDA unless given ``device="cpu"``,
+It mirrors the JAX package's module paths and carries Llama serving: the
+4-bit formats, the W4A8, exact 4-bit and LLM.int8 linears (with the
+serving-time int8 repack), int8-KV prefill, contiguous and paged decode
+attention, the Llama model and the continuous-batching engine in its
+contiguous and paged modes. Each TPU kernel of that path is a
+hand-written sm_90a CUDA kernel under ``csrc/``, built by nvcc at first
+use. Entry points run on CUDA unless given ``device="cpu"``,
 where the kernels' plain PyTorch versions run.
 """
 
-from . import codebooks, convert, functional
+from . import codebooks, convert, functional, utils
 from .ops.common import QLinearWeight, quantize_4bit_native, resolve_device
 
 __version__ = "0.1.0"
 
-__all__ = ["codebooks", "convert", "functional", "QLinearWeight", "quantize_4bit_native",
+__all__ = ["codebooks", "convert", "functional", "utils", "QLinearWeight", "quantize_4bit_native",
            "resolve_device"]

@@ -1,10 +1,12 @@
 """Turn the JAX package's Llama parameters into the port's.
 
 The input is the JAX parameter tree with its arrays converted to numpy
-(``jax.tree.map(np.asarray, params)``): quantized linears stay objects (or
+(``jax.tree.map(np.asarray, params)``): 4-bit linears stay objects (or
 dicts) with ``packed``, ``absmax``, ``shape``, ``blocksize``, ``quant_type``
-and ``dtype``. The bytes are the same in both packages, so the result
-holds bit-identical weights. bfloat16 arrays arrive as numpy's extension
+and ``dtype``; LLM.int8 linears are dicts ``{"CB", "SCB"[, "outliers":
+{"idx", "keep", "subB"}]}`` whose leaves come across as tensors. The bytes
+are the same in both packages, so the result holds bit-identical weights
+(and the JAX package's outlier columns). bfloat16 arrays arrive as numpy's extension
 type; they are read through a uint16 view, so nothing here needs it.
 """
 
@@ -55,8 +57,6 @@ def _convert(obj, device):
             dtype=str(_field(obj, "dtype")),
         )
     if isinstance(obj, dict):
-        if "CB" in obj:
-            raise NotImplementedError("int8 linears are not ported yet (ROADMAP Queue B #7)")
         return {k: _convert(v, device) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
         return [_convert(v, device) for v in obj]
@@ -65,7 +65,8 @@ def _convert(obj, device):
 
 def params_from_jax(tree: Dict, cfg, device=None) -> Dict:
     """The JAX package's llama params (numpy leaves) as the port's params:
-    embed, norms, per-layer QLinearWeights and the optional lm_head."""
+    embed, norms, per-layer QLinearWeights or LLM.int8 dicts and the
+    optional lm_head."""
     if getattr(cfg, "num_experts", 1) > 1:
         raise NotImplementedError("MoE is not ported yet (ROADMAP Queue A #10)")
     dev = resolve_device(device)

@@ -1,14 +1,19 @@
-"""Continuous-batching inference engine over the paged int8 KV pool.
+"""Continuous-batching inference engine over the int8 KV cache.
 
 The scheduler of the JAX package's engine, in PyTorch: each sequence owns
 a batch slot; pending prompts prefill as one padded batch into a
-contiguous scratch cache that is then copied into pool pages; every decode
-step advances all active slots at once through the page tables; finished
-slots refill from the pending queue. Prompt lengths are bucketed (at least
-32) and the prefill batch is padded to a power of two, so the row counts
-that route the linears are the JAX engine's. With
+contiguous scratch cache, whose rows are then copied into their slots of
+the contiguous (B, ...) cache (the default) or into pool pages
+(``EngineConfig(paged=True)``); every decode step advances all slots at
+once, inactive ones riding along (contiguous) or writing to the trash page
+(paged); finished slots refill from the pending queue. Prompt lengths are
+bucketed (at least 32) and the prefill batch is padded to a power of two,
+so the row counts that route the linears are the JAX engine's. With
 ``EngineConfig.prefill_chunk`` > 0, prompts longer than a chunk prefill
-chunk by chunk at absolute offsets into the scratch cache.
+chunk by chunk at absolute offsets into the scratch cache. With
+``EngineConfig.w8a8_prefill``, each prefill batch runs on a transient int8
+repack of the 4-bit weights (``repack_params_int8``), which decode never
+holds.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.llama import LlamaConfig, init_kv_cache, llama_forward
+from ..models.llama import LlamaConfig, init_kv_cache, llama_forward, repack_params_int8
 from ..ops.common import resolve_device
 from .paged import PageAllocator, init_page_pool, paged_ingest
 
@@ -63,8 +68,9 @@ def _grid_bucket(n: int, cap: int) -> int:
 
 
 class InferenceEngine:
-    """Continuous-batching decode of a quantized Llama-family model
-    through the paged KV pool (``EngineConfig(paged=True)``)."""
+    """Continuous-batching decode of a quantized Llama-family model over
+    the contiguous int8 KV cache, or the paged pool with
+    ``EngineConfig(paged=True)``."""
 
     def __init__(
         self,
@@ -79,32 +85,36 @@ class InferenceEngine:
         device=None,
         seed: int = 0,
     ):
-        if not engine_cfg.paged:
-            raise NotImplementedError(
-                "the contiguous engine (paged=False, _attn_kernel) is not ported yet "
-                "(ROADMAP Queue A #6, Queue B #4)")
-        if engine_cfg.w8a8_prefill:
-            raise NotImplementedError("w8a8_prefill is not ported yet (ROADMAP Queue A #7)")
         if lora is not None:
             raise NotImplementedError("multi-LoRA serving is not ported yet (ROADMAP Queue A #10)")
         if mesh is not None:
             raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP Queue A #13)")
         if forward_fn is not None or init_cache_fn is not None:
             raise NotImplementedError("other model families are not ported yet (ROADMAP Queue A #10)")
-        if not model_cfg.kv_quant:
+        if engine_cfg.paged and not model_cfg.kv_quant:
             raise ValueError("paged mode requires kv_quant=True (int8 pages)")
-        if model_cfg.max_seq_len % engine_cfg.page_size:
+        if not model_cfg.kv_quant:
+            raise NotImplementedError(
+                "the bf16 KV cache (kv_quant=False) is not ported yet (ROADMAP Queue A #4)")
+        if engine_cfg.paged and model_cfg.max_seq_len % engine_cfg.page_size:
             raise ValueError("paged mode needs max_seq_len % page_size == 0")
         self.device = resolve_device(device)
         self.mcfg = model_cfg
         self.ecfg = engine_cfg
         self.params = params
+        # prefill calls run under the int8 repack's config with w8a8_prefill
+        self._pf_cfg = (dataclasses.replace(model_cfg, quant="int8", llm_int8_threshold=0.0)
+                        if engine_cfg.w8a8_prefill else model_cfg)
         B = engine_cfg.max_batch
-        maxp = model_cfg.max_seq_len // engine_cfg.page_size
-        n_pages = engine_cfg.num_pages or (B * maxp + 1)
-        # page 0 is the reserved trash page: retired slots keep writing there
-        self._alloc = PageAllocator(n_pages, engine_cfg.page_size, maxp, reserve_page0=True)
-        self.cache = init_page_pool(model_cfg, n_pages, engine_cfg.page_size, self.device)
+        self._alloc = None
+        if engine_cfg.paged:
+            maxp = model_cfg.max_seq_len // engine_cfg.page_size
+            n_pages = engine_cfg.num_pages or (B * maxp + 1)
+            # page 0 is the reserved trash page: retired slots keep writing there
+            self._alloc = PageAllocator(n_pages, engine_cfg.page_size, maxp, reserve_page0=True)
+            self.cache = init_page_pool(model_cfg, n_pages, engine_cfg.page_size, self.device)
+        else:
+            self.cache = init_kv_cache(model_cfg, B, self.device)
         self.seq_lens = np.zeros((B,), np.int32)
         self.active = np.zeros((B,), bool)
         self.slot_tokens: List[List[int]] = [[] for _ in range(B)]
@@ -124,6 +134,14 @@ class InferenceEngine:
             lg = torch.where(lg < kth, torch.full_like(lg, -float("inf")), lg)
         probs = torch.softmax(lg, dim=-1)
         return torch.multinomial(probs, 1, generator=self._gen)[:, 0].tolist()
+
+    def _prefill_params(self) -> Dict:
+        """The params the prefill calls see: the engine's, or with
+        w8a8_prefill an int8 repack built anew for each prefill batch and
+        dropped after it."""
+        if not self.ecfg.w8a8_prefill:
+            return self.params
+        return repack_params_int8(self.params, self.mcfg)[0]
 
     # ----------------------------------------------------------------- slots
     def free_slots(self) -> List[int]:
@@ -181,18 +199,45 @@ class InferenceEngine:
         toks_c = np.zeros((Kb, Tc), np.int32)
         toks_c[:, :T] = toks
         last = None
+        pparams = self._prefill_params()
         for off in range(0, Tc, chunk):
             pos = (off + torch.arange(chunk, device=dev)).expand(Kb, chunk)
             logits, cacheK = llama_forward(
-                self.params, self.mcfg, torch.as_tensor(toks_c[:, off:off + chunk], device=dev),
+                pparams, self._pf_cfg, torch.as_tensor(toks_c[:, off:off + chunk], device=dev),
                 cacheK, pos)
             idx = np.clip(lens - 1 - off, 0, chunk - 1)
             hit = torch.as_tensor((lens - 1 >= off) & (lens - 1 < off + chunk), device=dev)
             at = logits[rows, torch.as_tensor(idx, device=dev)]
             last = at if last is None else torch.where(hit[:, None], at, last)
             del logits
+        del pparams
         nxt = self._sample(last)
 
+        if self._alloc is None:
+            # each prompt's scratch row, whole, into its slot of every leaf
+            for i in range(len(prompts)):
+                for key, leaf in self.cache.items():
+                    leaf[:, slots[i]] = cacheK[key][:, i]
+        else:
+            self._ingest(cacheK, prompts, slots)
+        del cacheK
+
+        out_slots: List[int] = []
+        for i, prompt in enumerate(prompts):
+            slot = slots[i]
+            tok = int(nxt[i])
+            self.slot_tokens[slot] = list(prompt) + [tok]
+            self.seq_lens[slot] = len(prompt)
+            self._last_tokens[slot] = tok
+            self.slot_budget[slot] = budget - 1
+            self.active[slot] = not (tok == self.ecfg.eos_token or self.slot_budget[slot] <= 0)
+            out_slots.append(slot)
+        return out_slots
+
+    def _ingest(self, cacheK: Dict, prompts, slots) -> None:
+        """Paged mode: allocate each prompt's pages and copy its scratch
+        rows into them."""
+        Kb = cacheK["k"].shape[1]
         page_ids = np.zeros((Kb, self._alloc.max_pages), np.int32)
         used = np.zeros((Kb,), np.int32)
         valid = np.zeros((Kb,), bool)
@@ -209,26 +254,10 @@ class InferenceEngine:
                 self._alloc.release_slot(s)
             raise
         paged_ingest(self.cache, cacheK, page_ids, used, valid)
-        del cacheK
 
-        out_slots: List[int] = []
-        for i, prompt in enumerate(prompts):
-            slot = slots[i]
-            tok = int(nxt[i])
-            self.slot_tokens[slot] = list(prompt) + [tok]
-            self.seq_lens[slot] = len(prompt)
-            self._last_tokens[slot] = tok
-            self.slot_budget[slot] = budget - 1
-            self.active[slot] = not (tok == self.ecfg.eos_token or self.slot_budget[slot] <= 0)
-            out_slots.append(slot)
-        return out_slots
-
-    @torch.no_grad()
-    def step(self) -> Dict[int, int]:
-        """One decode step for every active slot. Returns {slot: new_token}
-        and retires finished slots."""
-        if not self.active.any():
-            return {}
+    def _paged_cache(self):
+        """Paged mode: this step's page tables and write places in a cache
+        dict beside the pool, and the config with its page-horizon hint."""
         B = self.ecfg.max_batch
         P = self.ecfg.page_size
         dev = self.device
@@ -248,9 +277,22 @@ class InferenceEngine:
         cache["page_table"] = torch.as_tensor(self._alloc.table_array(range(B)), device=dev)
         cache["write_page"] = torch.as_tensor(wp, device=dev)
         cache["write_off"] = torch.as_tensor(wo, device=dev)
+        return cache, dataclasses.replace(self.mcfg, pages_hint=hint)
+
+    @torch.no_grad()
+    def step(self) -> Dict[int, int]:
+        """One decode step for every active slot. Returns {slot: new_token}
+        and retires finished slots."""
+        if not self.active.any():
+            return {}
+        B = self.ecfg.max_batch
+        dev = self.device
+        if self._alloc is None:  # inactive slots ride along at their last position
+            cache, cfg = self.cache, self.mcfg
+        else:
+            cache, cfg = self._paged_cache()
         tokens = torch.as_tensor(self._last_tokens.reshape(B, 1), device=dev)
         positions = torch.as_tensor(self.seq_lens.reshape(B, 1).astype(np.int64), device=dev)
-        cfg = dataclasses.replace(self.mcfg, pages_hint=hint)
         logits, _ = llama_forward(self.params, cfg, tokens, cache, positions)
         nxt = self._sample(logits[:, 0])
         out: Dict[int, int] = {}
@@ -266,7 +308,8 @@ class InferenceEngine:
             if (tok == self.ecfg.eos_token or self.slot_budget[b] <= 0
                     or self.seq_lens[b] >= self.mcfg.max_seq_len - 1):
                 self.active[b] = False
-                self._alloc.release_slot(b)
+                if self._alloc is not None:
+                    self._alloc.release_slot(b)
         return out
 
     def generate(self, prompts: Sequence[Sequence[int]], max_new_tokens: Optional[int] = None,

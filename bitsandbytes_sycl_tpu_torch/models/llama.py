@@ -1,12 +1,14 @@
-"""Llama-family decoder with 4-bit quantized weights, in PyTorch.
+"""Llama-family decoder with quantized weights, in PyTorch.
 
 Parameters are plain dicts of tensors with the JAX package's structure:
-``{"embed", "layers": [{"q_proj": QLinearWeight, ..., "input_norm",
-"post_attn_norm"}], "final_norm", "lm_head"}``. The KV cache is a dict in
-the JAX package's int8 layout. Decode steps through the paged pool write
-each layer's quantized token in place before attending; the attention
-masks positions ``>= len``, so the early write leaves the result equal to
-the JAX package's deferred write.
+``{"embed", "layers": [{"q_proj": weight, ..., "input_norm",
+"post_attn_norm"}], "final_norm", "lm_head"}``, where a weight is a 4-bit
+``QLinearWeight`` or an LLM.int8 dict ``{"CB", "SCB"[, "outliers"]}``. The
+KV cache is a dict in the JAX package's int8 layout, contiguous or paged.
+Decode steps write each layer's quantized token in place before attending
+with ``lengths = position`` and the token folded in as ``new_kv``; the
+attention masks positions ``>= len``, so the early write leaves the result
+equal to the JAX package's deferred write.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as Fnn
 
+from .. import functional as F
 from ..ops.common import QLinearWeight, quantize_4bit_native, resolve_device
 from ..ops.matmul_4bit import matmul_4bit_fused
 from ..ops.matmul_w4a8 import (
@@ -37,6 +40,7 @@ __all__ = [
     "init_kv_cache",
     "apply_linear",
     "linear_route",
+    "repack_params_int8",
 ]
 
 
@@ -123,8 +127,39 @@ def _quantize_linear(W: torch.Tensor, cfg: LlamaConfig):
             absmax_dtype=getattr(torch, cfg.absmax_dtype),
         )
     if cfg.quant == "int8":
-        raise NotImplementedError("quant='int8' (LLM.int8 linears) is not ported yet (ROADMAP Queue A #7)")
+        CB, SCB = F.int8_vectorwise_quant(W)
+        out = {"CB": CB, "SCB": SCB}
+        if cfg.llm_int8_threshold > 0.0:
+            # static outlier columns, predicted from the weight's statistics
+            from ..utils import find_outlier_dims
+
+            idx = find_outlier_dims(W, reduction_dim=0, topk=min(32, W.shape[1]))
+            out["outliers"] = F.llm_int8_prepare_outliers(CB, SCB, idx)
+        return out
     return W.to(cfg.dtype)
+
+
+@torch.no_grad()
+def repack_params_int8(params: Dict, cfg: LlamaConfig, only=None):
+    """Serving-time 4-bit -> int8 repack: every QLinearWeight leaf becomes
+    the LLM.int8 dict ``{"CB", "SCB"}`` of its dequantized weight (one int8
+    grid per output row), with the matching config (quant="int8",
+    threshold 0: no outlier decomposition). ``only``: the set of key names
+    to repack (e.g. the FFN projections and lm_head); the rest stay 4-bit.
+    Returns (params8, cfg8); the input tree is not changed."""
+    def walk(obj, name=None):
+        if isinstance(obj, QLinearWeight):
+            if only is not None and name not in only:
+                return obj
+            CB, SCB = F.int8_vectorwise_quant(obj.dequantize().float())
+            return {"CB": CB, "SCB": SCB}
+        if isinstance(obj, dict):
+            return {k: walk(v, k) for k, v in obj.items()}
+        if isinstance(obj, list):
+            return [walk(v, name) for v in obj]
+        return obj
+
+    return walk(params), dataclasses.replace(cfg, quant="int8", llm_int8_threshold=0.0)
 
 
 def linear_route(rows: int, w: QLinearWeight, cfg: LlamaConfig) -> str:
@@ -155,8 +190,8 @@ def apply_linear(x: torch.Tensor, w, cfg: LlamaConfig, lora=None, lora_ids=None)
             return matmul_4bit_w8a8_prefill(x, w, out_dtype=cfg.dtype)
         return matmul_4bit_fused(x, w, compute_dtype=cfg.dtype)
     if isinstance(w, dict):
-        raise NotImplementedError(
-            "int8 linears (LLM.int8, _mm8_kernel) are not ported yet (ROADMAP Queue A #7, Queue B #7)")
+        return F.llm_int8_matmul(x, w["CB"], w["SCB"], threshold=cfg.llm_int8_threshold,
+                                 outliers=w.get("outliers"))
     return (x.float() @ w.float().T).to(cfg.dtype)
 
 
@@ -250,7 +285,8 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, device=None) -> Dict:
     """Contiguous int8 cache: K (L, B, H, D, S) transposed, V (L, B, H, S, D),
     scales (L, B, H, S)."""
     if not cfg.kv_quant:
-        raise NotImplementedError("the bf16 KV cache (kv_quant=False) is not ported yet")
+        raise NotImplementedError("the bf16 KV cache (kv_quant=False) is not ported yet "
+                                  "(ROADMAP Queue A #4)")
     dev = resolve_device(device)
     L, B, S, H, D = cfg.num_layers, batch, cfg.max_seq_len, cfg.num_kv_heads, cfg.hd
     return {
@@ -347,11 +383,12 @@ def _paged_write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg):
 
 def write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg):
     """Write this step's k/v into layer li of the cache and attend q over
-    it: the paged decode step, or the contiguous prefill. Returns
-    (attn (B, T, Hq, hd), cache); the cache is updated in place. The
-    attention kernels take the shapes the JAX package's kernels take and
-    raise ValueError on the others: there is no dequantize-and-attend path."""
-    from ..ops.attention import prefill_attention_int8_stacked
+    it: the paged decode step, or the contiguous decode step or prefill.
+    Returns (attn (B, T, Hq, hd), cache); the cache is updated in place.
+    The attention kernels take the shapes the JAX package's kernels take
+    and raise ValueError on the others: there is no dequantize-and-attend
+    path."""
+    from ..ops.attention import decode_attention_int8_stacked, prefill_attention_int8_stacked
 
     starts = positions[:, 0]
     T = q.shape[1]
@@ -362,11 +399,8 @@ def write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg):
             raise ValueError("paged KV cache requires kv_quant=True (int8 pages)")
         return _paged_write_and_attend(cache, li, q, k, v, positions, cfg)
     if not cfg.kv_quant:
-        raise NotImplementedError("the bf16 KV cache (kv_quant=False) is not ported yet")
-    if T == 1:
-        raise NotImplementedError(
-            "contiguous-cache decode (_attn_kernel) is not ported yet (ROADMAP Queue B #4); "
-            "serve through the paged engine")
+        raise NotImplementedError("the bf16 KV cache (kv_quant=False) is not ported yet "
+                                  "(ROADMAP Queue A #4)")
     kq, ks = _kv_quantize(k)
     vq, vs = _kv_quantize(v)
     S = cache["k"].shape[-1]
@@ -379,11 +413,22 @@ def write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg):
     cache["v"][li][bi, :, pos, :] = vq
     cache["k_scale"][li][bi, :, pos] = ks
     cache["v_scale"][li][bi, :, pos] = vs
-    attn = prefill_attention_int8_stacked(
-        q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], li,
-        starts=starts, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
-        sm_scale=_sm_scale(cfg),
-    )
+    # the kernels take the stacked cache and the layer index: a per-layer
+    # copy of the cache would move ~2.2 GB per 7B decode step at B = 8
+    if T == 1:
+        # the step's token is written: attend over the positions before it
+        # with the token folded in, as the JAX package's deferred write
+        attn = decode_attention_int8_stacked(
+            q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], li, starts,
+            new_kv=(kq[:, 0], ks[:, 0], vq[:, 0], vs[:, 0]), window=cfg.sliding_window,
+            softcap=cfg.attn_logit_softcap, sm_scale=_sm_scale(cfg),
+        )
+    else:
+        attn = prefill_attention_int8_stacked(
+            q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], li,
+            starts=starts, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
+            sm_scale=_sm_scale(cfg),
+        )
     return attn, cache
 
 

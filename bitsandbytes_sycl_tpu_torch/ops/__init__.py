@@ -2,7 +2,13 @@
 kernel (``csrc/``) behind a wrapper that runs it on CUDA tensors and its
 plain PyTorch version on CPU tensors."""
 
-from .attention import prefill_attention_int8_stacked, prefill_attn_int8
+from .attention import (
+    decode_attention_int8,
+    decode_attention_int8_stacked,
+    decode_attn_int8,
+    prefill_attention_int8_stacked,
+    prefill_attn_int8,
+)
 from .common import QLinearWeight, quantize_4bit_native, resolve_device
 from .matmul_4bit import dequantize_transposed, matmul_4bit_fused, mm4_fused
 from .matmul_w4a8 import (
@@ -14,6 +20,7 @@ from .matmul_w4a8 import (
     w4a8_gemv,
     w4a8_grouped,
 )
+from .matmul_int8 import int8_matmul, int8_matmul_fused
 from .paged_attention import (
     paged_attn_int8,
     paged_decode_attention_int8,
@@ -22,7 +29,7 @@ from .paged_attention import (
 
 # the wrappers that launch a kernel, each with its `launches` counter
 KERNELS = (w4a8_gemv, mm4_fused, prefill_attn_int8, paged_attn_int8,
-           dequantize_transposed, dequant_int8, w4a8_grouped)
+           dequantize_transposed, dequant_int8, w4a8_grouped, decode_attn_int8, int8_matmul)
 
 __all__ = [
     "QLinearWeight",
@@ -35,6 +42,9 @@ __all__ = [
     "dequantize_transposed",
     "dequantize_to_int8",
     "prefill_attention_int8_stacked",
+    "decode_attention_int8",
+    "decode_attention_int8_stacked",
+    "int8_matmul_fused",
     "paged_decode_attention_int8",
     "paged_decode_attention_int8_stacked",
     "w4a8_gemv",
@@ -43,5 +53,7 @@ __all__ = [
     "paged_attn_int8",
     "dequant_int8",
     "w4a8_grouped",
+    "decode_attn_int8",
+    "int8_matmul",
     "KERNELS",
 ]

@@ -1,15 +1,20 @@
-"""Causal flash prefill over the int8 KV cache (kernel C, ``prefill_attn_int8``).
+"""Attention over the contiguous int8 KV cache: causal flash prefill
+(kernel C, ``prefill_attn_int8``) and single-token decode (kernel H,
+``decode_attn_int8``).
 
 The cache is the JAX package's layer-stacked layout: K transposed
 (L, B, Hkv, D, S) int8, V (L, B, Hkv, S, D) int8, per-token absmax scales
 (L, B, Hkv, S) f32. Scores are ``(q . k_i8) * k_scale * sm / 127``, then
 the ALiBi bias ``slope * (k_pos - q_pos)``, then softcapping, then the mask
 ``k_pos <= q_pos`` (and ``q_pos - k_pos < window``); V is weighted by
-``v_scale / 127``. Query row t of batch b sits at absolute position
-``starts[b] + t``; GQA maps q head h to kv head ``h // (Hq // Hkv)``.
+``v_scale / 127``. GQA maps q head h to kv head ``h // (Hq // Hkv)``.
 
-The contiguous-cache decode wrappers (``decode_attention_int8[_stacked]``)
-come with the contiguous engine in a later slice.
+Prefill: query row t of batch b sits at absolute position ``starts[b] + t``.
+Decode: positions ``< lengths[b]`` are valid; the query sits at ``len`` when
+``new_kv`` (this step's token, folded in last as an exact online-softmax
+step) is given, else at ``len - 1``; a row with ``len == 0`` and no
+``new_kv`` yields zeros. The kernels take the layer index and never copy a
+layer out of the stacked cache.
 """
 
 from __future__ import annotations
@@ -22,7 +27,10 @@ import torch
 from . import _build
 from .common import check_cuda_tensors
 
-__all__ = ["prefill_attention_int8_stacked", "prefill_attn_int8"]
+__all__ = [
+    "prefill_attention_int8_stacked", "prefill_attn_int8",
+    "decode_attention_int8", "decode_attention_int8_stacked", "decode_attn_int8",
+]
 
 
 def _prefill_plain(q, kq, ks, vq, vs, li, starts, scale, window, softcap, alibi):
@@ -130,3 +138,141 @@ def prefill_attention_int8_stacked(
     return prefill_attn_int8(q, kq, ks, vq, vs, int(li), starts, sm / 127.0,
                              window=window, softcap=softcap, alibi=alibi_slopes)
 
+
+# ---------------------------------------------------------------------------
+# decode (kernel H)
+# ---------------------------------------------------------------------------
+
+
+def _decode_plain(q4, kq, ks, vq, vs, li, lengths, new_kv, scale, window, softcap, alibi):
+    """Plain PyTorch version of kernel H, in the JAX kernel's order
+    (one-shot softmax over the whole row)."""
+    B, Hkv, rep, D = q4.shape
+    S = vq.shape[3]
+    qf = q4.float()
+    sc = (qf @ kq[li].float()) * (ks[li].float()[:, :, None, :] * scale)  # (B, Hkv, rep, S)
+    lens = lengths.long().reshape(B, 1, 1, 1)
+    pos = torch.arange(S, device=q4.device).reshape(1, 1, 1, S)
+    qpos = lens if new_kv is not None else lens - 1
+    if alibi is not None:
+        sc = sc + alibi.float().reshape(1, Hkv, rep, 1) * (pos - qpos).float()
+    if softcap is not None:
+        sc = softcap * torch.tanh(sc * np.float32(1.0 / softcap))
+    valid = pos < lens
+    if window is not None:
+        valid = valid & (pos >= qpos + 1 - window)
+    sc = torch.where(valid, sc, torch.full_like(sc, -1e30))
+    v = vq[li].float()  # (B, Hkv, S, D)
+    vsc = vs[li].float()[:, :, None, :] * np.float32(1.0 / 127.0)
+    if new_kv is None:
+        m = sc.amax(dim=-1, keepdim=True)
+        w = torch.exp(sc - m)
+        l = w.sum(dim=-1, keepdim=True)
+        inv = torch.where(lens > 0, 1.0 / l, torch.zeros_like(l))
+        return ((w * vsc * inv) @ v).to(q4.dtype)
+    kn, ksn, vn, vsn = new_kv
+    sc_new = (qf * kn.float()[:, :, None, :]).sum(dim=-1, keepdim=True)
+    sc_new = sc_new * (ksn.float()[:, :, None, None] * scale)
+    if softcap is not None:
+        sc_new = softcap * torch.tanh(sc_new * np.float32(1.0 / softcap))
+    m = torch.maximum(sc.amax(dim=-1, keepdim=True), sc_new)
+    w = torch.exp(sc - m)
+    w_new = torch.exp(sc_new - m)
+    inv = 1.0 / (w.sum(dim=-1, keepdim=True) + w_new)
+    o = (w * vsc * inv) @ v
+    vsn_c = vsn.float()[:, :, None, None] * np.float32(1.0 / 127.0)
+    return (o + (w_new * inv * vsn_c) * vn.float()[:, :, None, :]).to(q4.dtype)
+
+
+def decode_attn_int8(q4, kq, ks, vq, vs, li: int, lengths, scale: float, new_kv=None,
+                     window: Optional[int] = None, softcap: Optional[float] = None,
+                     alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel H on CUDA tensors; the plain version on CPU tensors.
+    q4 (B, Hkv, rep, D) f32/bf16 -> (B, Hkv, rep, D) in q's dtype."""
+    extra = () if new_kv is None else tuple(new_kv)
+    if not check_cuda_tensors("decode_attn_int8", q4, kq, ks, vq, vs, lengths, alibi, *extra):
+        return _decode_plain(q4, kq, ks, vq, vs, li, lengths, new_kv, scale, window, softcap,
+                             alibi)
+    B, Hkv, rep, D = q4.shape
+    L, S = kq.shape[0], kq.shape[4]
+    if q4.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"decode_attn_int8: q must be f32/bf16, got {q4.dtype}")
+    if kq.dtype != torch.int8 or vq.dtype != torch.int8 or ks.dtype != torch.float32 \
+            or vs.dtype != torch.float32:
+        raise ValueError("decode_attn_int8: int8 K/V with f32 scales only")
+    if D not in (128, 256) or rep not in (1, 2, 4, 8) or S % 4 \
+            or kq.shape != (L, B, Hkv, D, S) or vq.shape != (L, B, Hkv, S, D) \
+            or ks.shape != (L, B, Hkv, S) or vs.shape != ks.shape:
+        raise ValueError(f"decode_attn_int8: unsupported shapes q={tuple(q4.shape)} "
+                         f"k={tuple(kq.shape)} v={tuple(vq.shape)}")
+    if not 0 <= li < L:
+        raise ValueError(f"decode_attn_int8: layer {li} out of range [0, {L})")
+    qc = q4.contiguous()
+    ts = [t.contiguous() for t in (kq, ks, vq, vs)]
+    ln = lengths.to(torch.int32).contiguous()
+    al = None if alibi is None else alibi.float().contiguous()
+    if new_kv is not None:
+        kn, ksn, vn, vsn = new_kv
+        nk = [kn.to(torch.int8).contiguous(), ksn.float().contiguous(),
+              vn.to(torch.int8).contiguous(), vsn.float().contiguous()]
+        nk_ptrs = [t.data_ptr() for t in nk]
+    else:
+        nk_ptrs = [None] * 4
+    out = torch.empty_like(qc)
+    fn = _build.kernel_fn("decode_attn_int8", "decode_attn_int8", 25,
+                          int_args=range(12, 22), float_args=(22, 23))
+    err = fn(
+        qc.data_ptr(), *(t.data_ptr() for t in ts), ln.data_ptr(),
+        None if al is None else al.data_ptr(), *nk_ptrs, out.data_ptr(),
+        int(li), L, B, Hkv, rep, D, S, int(window or 0), int(new_kv is not None),
+        int(q4.dtype == torch.bfloat16), float(scale), float(softcap or 0.0),
+        torch.cuda.current_stream(q4.device).cuda_stream,
+    )
+    _build.check("decode_attn_int8", err)
+    decode_attn_int8.launches += 1
+    return out
+
+
+decode_attn_int8.launches = 0
+
+
+def decode_attention_int8_stacked(
+    q: torch.Tensor,  # (B, 1, Hq, D)
+    kq: torch.Tensor,  # (L, B, Hkv, D, S) int8
+    ks: torch.Tensor,  # (L, B, Hkv, S) f32
+    vq: torch.Tensor,  # (L, B, Hkv, S, D) int8
+    vs: torch.Tensor,  # (L, B, Hkv, S) f32
+    li: int,
+    lengths: torch.Tensor,  # (B,) tokens in the cache per row
+    new_kv=None,  # optional (kq (B,Hkv,D) i8, ks (B,Hkv) f32, vq, vs)
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    sm_scale: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,  # (Hq,)
+) -> torch.Tensor:
+    """Single-step attention over layer ``li`` of the stacked cache, (B, 1,
+    Hq, D) in q's dtype. Raises ValueError on the shapes the JAX kernel
+    declines (T != 1, D or S not a multiple of 128, Hq not a multiple of
+    Hkv, K and V of one row over 8 MiB); the JAX package attends those
+    without the kernel, and the port has no such path."""
+    B, T, Hq, D = q.shape
+    Hkv, S = vq.shape[2], vq.shape[3]
+    if T != 1 or D % 128 != 0 or Hq % Hkv != 0 or S % 128 != 0 or 2 * S * D > 8 * 1024 * 1024:
+        raise ValueError(f"decode_attention_int8_stacked: the kernel does not take "
+                         f"T={T}, S={S}, D={D}, Hq={Hq}, Hkv={Hkv}")
+    if window is not None and window >= S:
+        window = None  # can never bind
+    sm = sm_scale if sm_scale is not None else 1.0 / float(np.sqrt(D))
+    q4 = q.reshape(B, Hkv, Hq // Hkv, D)
+    out = decode_attn_int8(q4, kq, ks, vq, vs, int(li), lengths, sm / 127.0, new_kv=new_kv,
+                           window=window, softcap=softcap, alibi=alibi_slopes)
+    return out.reshape(B, 1, Hq, D)
+
+
+def decode_attention_int8(q, kq, ks, vq, vs, lengths, window=None, softcap=None,
+                          sm_scale=None, alibi_slopes=None):
+    """Single-layer cache (K (B, Hkv, D, S), V (B, Hkv, S, D), scales (B,
+    Hkv, S)) form of the stacked wrapper."""
+    return decode_attention_int8_stacked(
+        q, kq[None], ks[None], vq[None], vs[None], 0, lengths, window=window,
+        softcap=softcap, sm_scale=sm_scale, alibi_slopes=alibi_slopes)

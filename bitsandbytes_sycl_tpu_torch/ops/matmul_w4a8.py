@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..functional import _div127
 from .common import QLinearWeight, check_cuda_tensors, pick_tile, safe_inv
 
 __all__ = [
@@ -51,12 +52,6 @@ def grouped_min_m(blocksize: int) -> int:
 
 def _int8_code_table(code) -> tuple:
     return tuple(int(round(float(v) * 127.0)) for v in code)
-
-
-def _div127(t: torch.Tensor) -> torch.Tensor:
-    """t / 127, correctly rounded on every device: PyTorch's CUDA division
-    by a Python scalar multiplies by its rounded reciprocal instead."""
-    return t / torch.tensor(127.0, dtype=t.dtype, device=t.device)
 
 
 def _quant_rows(x2: torch.Tensor):

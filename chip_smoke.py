@@ -29,7 +29,20 @@ Phases, each of which exits non-zero on failure:
   5. a 2-layer model at full 7B width from one seed, on the card and on
      the CPU (plain versions): prefill logits within tolerance at T=32 and
      at Kb=2, T=512 (kernel G), greedy tokens equal wherever the CPU's
-     top-2 logit gap exceeds it.
+     top-2 logit gap exceeds it;
+  6. LLM.int8 Llama-7B (quant="int8", threshold 6, static outlier columns)
+     through the default contiguous engine: kernels I (225 per decode step)
+     and H (32); then, 2 layers at 7B width, card against CPU: prefill
+     logits at T=32 and 4 decode steps, and greedy tokens.
+Between them: 3c serves phase 3's prompts through the engine's default,
+the contiguous int8 cache (kernel H, 32 launches per step), and its greedy
+tokens must equal the paged engine's under the gap rule; 4b prefills on
+the transient int8 repack (EngineConfig(w8a8_prefill=True)) a batch of 128
+rows (kernel I) and one of 2048 (torch._int_mm) in both engine modes,
+first tokens equal to the default engine's under the gap rule. Phase 2
+also holds kernels H and I at the 7B shapes (H within 1% with four
+deliberate faults, I within 1 bf16 ulp with the next row's SCB as fault)
+and the LLM.int8 route at 256 and 1024 rows.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 It imports nothing of JAX.
@@ -38,6 +51,7 @@ It imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -507,11 +521,194 @@ def check_paged(torch, report):
     report["paged_attn_int8"] = dict(rows[0], shapes=rows)
 
 
+def check_decode(torch, report):
+    """Kernel H (contiguous-cache decode) against its plain version at the 7B
+    shapes: B = 4 and 8, Hq = Hkv = 32, D = 128, S = 2048, lengths 0, 1, 127,
+    128, 2047 and ragged rows, with and without new_kv; window, softcap and
+    ALiBi at one shape, GQA (Hq 32 / Hkv 8) at one shape. O(1) scores; each
+    case must hold within 1% of the output's largest magnitude, and the
+    plain version fed each deliberate fault (the wrong layer, the wrong kv
+    head, k_scale dropped, lengths off by one) must land outside it."""
+    import torch.nn.functional as Fnn
+    from bitsandbytes_sycl_tpu_torch.ops import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    L, D, S, li = 2, 128, 2048, 1
+    scale = (1.0 / D ** 0.5) / 127.0
+    cases = [  # label, B, Hq, Hkv, lengths, options, timed
+        ("B=4 full", 4, 32, 32, [2047] * 4, {}, True),
+        ("B=4 edges", 4, 32, 32, [0, 1, 127, 128], {}, False),
+        ("B=8 ragged", 8, 32, 32, [1, 127, 128, 2047, 900, 1500, 33, 2000], {}, True),
+        ("B=4 window+softcap+alibi", 4, 32, 32, [2047, 1000, 128, 5],
+         dict(window=512, softcap=30.0, alibi=True), False),
+        ("B=4 GQA 32/8", 4, 32, 8, [2047, 1, 700, 128], {}, False),
+    ]
+    rows = []
+    for label, B, Hq, Hkv, lens_l, opt, timed in cases:
+        rep = Hq // Hkv
+        kq = torch.randint(-127, 128, (L, B, Hkv, D, S), generator=gen, device="cuda", dtype=torch.int8)
+        vq = torch.randint(-127, 128, (L, B, Hkv, S, D), generator=gen, device="cuda", dtype=torch.int8)
+        ks = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") * 2 + 1  # O(1) scores
+        vs = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") + 0.5
+        q = torch.randn((B, Hkv, rep, D), generator=gen, device="cuda").to(torch.bfloat16)
+        new_kv = (torch.randint(-127, 128, (B, Hkv, D), generator=gen, device="cuda", dtype=torch.int8),
+                  torch.rand((B, Hkv), generator=gen, device="cuda") * 2 + 1,
+                  torch.randint(-127, 128, (B, Hkv, D), generator=gen, device="cuda", dtype=torch.int8),
+                  torch.rand((B, Hkv), generator=gen, device="cuda") + 0.5)
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        window, softcap = opt.get("window"), opt.get("softcap")
+        alibi = (torch.rand((Hq,), generator=gen, device="cuda") * 0.01) if opt.get("alibi") else None
+        k_other = kq.clone()
+        k_other[li] = kq[li - 1]
+        for nk in (new_kv, None):
+            kern = lambda: attention.decode_attn_int8(  # noqa: E731
+                q, kq, ks, vq, vs, li, lens, scale, new_kv=nk, window=window, softcap=softcap,
+                alibi=alibi)
+
+            def plain(kq_=kq, ks_=ks, lens_=lens, nk=nk):
+                return attention._decode_plain(q, kq_, ks_, vq, vs, li, lens_, nk, scale, window,
+                                               softcap, alibi)
+
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err, mag = max_err(torch, got, ref)
+            tol = 1e-2 * mag
+            name = f"decode_attn_int8 ({label}, new_kv={nk is not None})"
+            need(err <= tol, f"{name}: max err {err} > {tol}")
+            margin = faults_exceed(torch, name, ref, [
+                ("K of another layer", lambda: plain(kq_=k_other)),
+                ("K of the next kv head", lambda: plain(kq_=kq.roll(1, dims=2))),
+                ("k_scale dropped", lambda: plain(ks_=torch.full_like(ks, 2.0))),
+                ("the lengths one too long", lambda: plain(lens_=lens + 1)),
+            ], tol)
+            row = dict(label=label, B=B, Hq=Hq, Hkv=Hkv, lens=lens_l, options=sorted(opt),
+                       new_kv=nk is not None, max_abs_err=err, tol=tol, fault_margin=margin)
+            if timed and nk is not None:
+                Smax = max(lens_l) + 1
+                kd = (kq[li, :, :, :, :Smax].float() * (ks[li, :, :, None, :Smax] / 127)
+                      ).transpose(-1, -2).to(torch.bfloat16)
+                vd = (vq[li, :, :, :Smax].float() * (vs[li, :, :, :Smax, None] / 127)).to(torch.bfloat16)
+                mask = (torch.arange(Smax, device="cuda")[None, :] <= lens[:, None])[:, None, None, :]
+                lib = lambda: Fnn.scaled_dot_product_attention(q, kd, vd, attn_mask=mask)  # noqa: E731
+                # the K/V rows and scales the lengths need, q and out, the new token, lengths
+                nbytes = (sum(lens_l) * Hkv * (2 * D + 8) + 2 * B * Hq * D * 2 + B * Hkv * (2 * D + 8)
+                          + 4 * B)
+                flops = 4 * (sum(lens_l) + B) * Hq * D
+                row.update(ms=time_cold(torch, kern), plain_ms=time_cold(torch, plain, iters=5),
+                           library_ms=time_cold(torch, lib), bytes=nbytes,
+                           bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
+                           bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
+                           else "operations")
+                del kd, vd
+            rows.append(row)
+            print(f"  decode_attn_int8 {label:26s} new_kv={int(nk is not None)} err={err:.3g}"
+                  f" rel={err / mag:.2g} (tol {tol:.3g}; faults >= {margin:.3g}x tol)"
+                  + (f" kernel {row['ms']*1e3:.1f} us plain {row['plain_ms']*1e3:.1f} us sdpa"
+                     f" {row['library_ms']*1e3:.1f} us bound {row['bound_ms']*1e3:.2f} us"
+                     f" ({row['bound_ms'] / row['ms']:.0%})" if "ms" in row else ""), flush=True)
+        del kq, vq, ks, vs, k_other
+    head = next(r for r in rows if "ms" in r)
+    report["decode_attn_int8"] = dict(head, max_abs_err=max(r["max_abs_err"] for r in rows), shapes=rows)
+
+
+def check_int8(torch, report):
+    """Kernel I (LLM.int8, <= 128 rows) against its plain version at the four
+    7B linear shapes, M = 1, 4, 8, 32 and 128, with and without bias, bf16
+    out: within 1 bf16 ulp of the output (or of the bias where larger),
+    with the next row's SCB as the fault that must land outside; then the
+    route whole at 256 and 1024 rows (quantize, torch._int_mm, dequant),
+    within 1 bf16 ulp of its plain version (float64 product), which must
+    launch no kernel I."""
+    from bitsandbytes_sycl_tpu_torch import functional as F
+    from bitsandbytes_sycl_tpu_torch.ops import KERNELS
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_int8 as mi
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows, routes = [], []
+    for N, K in [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]:
+        W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+        CB, SCB = F.int8_vectorwise_quant(W)
+        Wd = W.to(torch.bfloat16)
+        del W
+        bias = torch.randn((N,), generator=gen, device="cuda")
+        for M in (1, 4, 8, 32, 128):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            ra = x.float().abs().amax(dim=1)
+            inv = torch.where(ra > 0, 127.0 * F._safe_inv(ra), torch.full_like(ra, 127.0))
+            for b in (None, bias):
+                got = mi.int8_matmul(x, inv, CB, SCB, b, torch.bfloat16)
+                ref = mi._mm8_plain(x, inv, CB, SCB, b, torch.bfloat16)
+                torch.cuda.synchronize()
+                ratio = ulp_ratio(torch, got, ref, torch.bfloat16, b)
+                need(ratio <= 1, f"int8_matmul N={N} K={K} M={M} bias={b is not None}: {ratio} ulps > 1")
+                fault = ulp_ratio(torch, mi._mm8_plain(x, inv, CB, SCB.roll(-1), b, torch.bfloat16),
+                                  ref, torch.bfloat16, b)
+                need(fault > 1, "int8_matmul: the plain version with the next row's SCB lands within 1 ulp")
+                row = dict(N=N, K=K, M=M, bias=b is not None, ulps=ratio, fault_ulps=fault,
+                           equal=bool(torch.equal(got, ref)), max_abs_err=max_err(torch, got, ref)[0])
+                if b is None and M in (4, 32):
+                    kern = lambda: mi.int8_matmul(x, inv, CB, SCB, None, torch.bfloat16)  # noqa: E731
+                    nbytes = M * K * 2 + N * K + N * 4 + M * 4 + M * N * 2
+                    ops_ = 2 * M * N * K
+                    row.update(
+                        ms=time_cold(torch, kern),
+                        plain_ms=time_cold(torch, lambda: mi._mm8_plain(x, inv, CB, SCB, None,
+                                                                        torch.bfloat16), iters=5),
+                        library_ms=time_cold(torch, lambda: torch.matmul(x, Wd.T)),
+                        bytes=nbytes, bound_ms=max(nbytes / HBM_BYTES_PER_S, ops_ / INT8_OPS_PER_S) * 1e3,
+                        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops_ / INT8_OPS_PER_S
+                        else "operations")
+                    if M == 32:
+                        xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                                           dtype=torch.int8)
+                        row["int_mm_ms"] = time_cold(torch, lambda: torch._int_mm(xq, CB.t()))
+                    print(f"  int8_matmul N={N:5d} K={K:5d} M={M:3d} {ratio:.3g} ulps (fault {fault:.3g})"
+                          f" kernel {row['ms']*1e3:.1f} us plain {row['plain_ms']*1e3:.1f} us bf16 matmul"
+                          f" {row['library_ms']*1e3:.1f} us"
+                          + (f" _int_mm {row['int_mm_ms']*1e3:.1f} us" if "int_mm_ms" in row else "")
+                          + f" bound {row['bound_ms']*1e3:.2f} us ({row['bound_ms'] / row['ms']:.0%})",
+                          flush=True)
+                rows.append(row)
+        for M in (256, 1024):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            reset_counts(KERNELS)
+            got = F.llm_int8_matmul(x, CB, SCB, threshold=0.0, bias=bias)
+            counts = {k: v for k, v in read_counts(KERNELS).items() if v}
+            need(not counts, f"int8 route M={M}: launched {counts}, no kernel expected")
+
+            def route_plain(scb=SCB):
+                CA, SCA = F.int8_vectorwise_quant(x)
+                out32 = CA.double() @ CB.double().T
+                return F.int8_mm_dequant(out32, SCA, scb, bias, torch.bfloat16)
+
+            ref = route_plain()
+            torch.cuda.synchronize()
+            ratio = ulp_ratio(torch, got, ref, torch.bfloat16, bias)
+            fault = ulp_ratio(torch, route_plain(SCB.roll(-1)), ref, torch.bfloat16, bias)
+            need(ratio <= 1, f"int8 route N={N} K={K} M={M}: {ratio} ulps > 1")
+            need(fault > 1, f"int8 route M={M}: the next row's SCB lands within 1 ulp")
+            ms = time_cold(torch, lambda: F.llm_int8_matmul(x, CB, SCB, threshold=0.0, bias=bias), iters=10)
+            routes.append(dict(N=N, K=K, M=M, ulps=ratio, fault_ulps=fault, ms=ms))
+            print(f"  int8 route (_int_mm) N={N:5d} K={K:5d} M={M:4d} {ratio:.3g} ulps (fault {fault:.3g})"
+                  f" route {ms*1e3:.1f} us", flush=True)
+        del CB, SCB, Wd, bias
+    print(f"  checked: int8_matmul {len(rows)} cases within {max(r['ulps'] for r in rows):.3g} ulps"
+          f" ({sum(r['equal'] for r in rows)} bit-identical; faults >= "
+          f"{min(r['fault_ulps'] for r in rows):.3g} ulps), route {len(routes)} cases")
+    timed = [r for r in rows if "ms" in r and r["M"] == 4]
+    report["int8_matmul"] = dict(
+        shapes=rows, routes=routes, ms=sum(r["ms"] for r in timed),
+        plain_ms=sum(r["plain_ms"] for r in timed), library_ms=sum(r["library_ms"] for r in timed),
+        bound_ms=sum(r["bound_ms"] for r in timed), bound_by=timed[0]["bound_by"],
+        max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
 def check_edges(torch):
     """The kernels against their plain versions on small shapes that the
     7B path does not reach: odd row counts, f32 outputs and bias, every
     decode mode of kernel B, kernel G's ragged planes, the W8A8 route at
-    few rows, and every option of kernels C and D."""
+    few rows, every option of kernels C, D and H (H at every group size and
+    head_dim 256), and kernel I at odd row counts in f32."""
     from bitsandbytes_sycl_tpu_torch.ops import attention, matmul_4bit, matmul_w4a8
     from bitsandbytes_sycl_tpu_torch.ops import paged_attention
     from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native
@@ -602,6 +799,49 @@ def check_edges(torch):
                                                        opt.get("alibi"))
                     close(f"paged rep={rep} lens={lens_l} new={nk is not None} {list(opt)}",
                           got, ref, rel=1e-4)
+    # kernel H at every group size and both head widths it takes, f32 q
+    S = 384
+    for D in (128, 256):
+        kq = torch.randint(-127, 128, (L, B, Hkv, D, S), generator=gen, device="cuda", dtype=torch.int8)
+        vq = torch.randint(-127, 128, (L, B, Hkv, S, D), generator=gen, device="cuda", dtype=torch.int8)
+        ks = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") * 0.2 + 0.05
+        vs = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") + 0.5
+        new_kv = (torch.randint(-127, 128, (B, Hkv, D), generator=gen, device="cuda", dtype=torch.int8),
+                  torch.rand((B, Hkv), generator=gen, device="cuda") * 0.2 + 0.05,
+                  torch.randint(-127, 128, (B, Hkv, D), generator=gen, device="cuda", dtype=torch.int8),
+                  torch.rand((B, Hkv), generator=gen, device="cuda") + 0.5)
+        for rep in (1, 2, 4, 8):
+            q = torch.randn((B, Hkv, rep, D), generator=gen, device="cuda")
+            for lens_l in ([0, 384], [383, 5]):
+                lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+                for nk in (None, new_kv):
+                    for opt in (dict(), dict(window=100), dict(softcap=5.0),
+                                dict(alibi=torch.rand((Hkv * rep,), generator=gen, device="cuda"))):
+                        got = attention.decode_attn_int8(q, kq, ks, vq, vs, 1, lens, 0.01, new_kv=nk, **opt)
+                        ref = attention._decode_plain(q, kq, ks, vq, vs, 1, lens, nk, 0.01,
+                                                      opt.get("window"), opt.get("softcap"),
+                                                      opt.get("alibi"))
+                        close(f"decode D={D} rep={rep} lens={lens_l} new={nk is not None} {list(opt)}",
+                              got, ref, rel=1e-4)
+    # kernel I at odd row counts, f32 in and out, with bias
+    from bitsandbytes_sycl_tpu_torch import functional as F
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_int8
+
+    W = torch.randn((192, 384), generator=gen, device="cuda") * 0.05
+    CB, SCB = F.int8_vectorwise_quant(W)
+    bias = torch.randn((192,), generator=gen, device="cuda")
+    for M in (1, 17, 67, 100, 128):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn((M, 384), generator=gen, device="cuda").to(dt)
+            x[0] = 0.0  # an all-zero row: inv = 127
+            inv = torch.where(x.float().abs().amax(1) > 0, 127.0 * F._safe_inv(x.float().abs().amax(1)),
+                              torch.full((M,), 127.0, device="cuda"))
+            for b in (None, bias):
+                got = matmul_int8.int8_matmul(x, inv, CB, SCB, b, dt)
+                ratio = ulp_ratio(torch, got, matmul_int8._mm8_plain(x, inv, CB, SCB, b, dt), dt, b)
+                need(ratio <= (2 if dt == torch.float32 else 1),
+                     f"int8_matmul M={M} {dt} bias={b is not None}: {ratio} ulps")
+                n += 1
     return n
 
 
@@ -622,34 +862,71 @@ def prompts_from_seed(seed, n, vocab):
     return [rng.integers(1, vocab, size=int(rng.integers(5, 33))).tolist() for _ in range(n)]
 
 
-def serve(torch, cfg, params, prompts, max_new, device="cuda", record=None):
+def serve(torch, cfg, params, prompts, max_new, device="cuda", paged=True, per_request=None,
+          max_batch=4, **engine_kw):
+    """generate() through an engine of ``max_batch`` slots (paged, or the
+    default contiguous cache). ``per_request`` maps each request to the
+    logits rows its tokens were sampled from."""
+    import numpy as np
+
     from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
 
-    ecfg = EngineConfig(max_batch=4, paged=True, page_size=128, max_new_tokens=max_new)
+    ecfg = EngineConfig(max_batch=max_batch, paged=paged, page_size=128, max_new_tokens=max_new,
+                        **engine_kw)
     eng = InferenceEngine(cfg, params, ecfg, device=device)
     steps = []
     step = eng.step
+    state = {"step": False}
 
     def timed_step():
         t0 = time.perf_counter()
+        state["step"] = True
         out = step()
+        state["step"] = False
         steps.append(time.perf_counter() - t0)  # step ends in a host copy of the ids
         return out
 
     eng.step = timed_step
-    if record is not None:
-        sample = eng._sample
+    sample = eng._sample
 
-        def recording_sample(logits):
-            record.append(logits.float().cpu())
-            return sample(logits)
+    def recording_sample(logits):
+        # generate() reports a prefill's tokens in request order and a
+        # step's in ascending order of the active slots
+        rows = np.flatnonzero(eng.active) if state["step"] else range(logits.shape[0])
+        state["rows"], state["logits"] = iter(rows), logits.float().cpu()
+        return sample(logits)
 
+    def on_token(rid, tok):
+        per_request.setdefault(rid, []).append(state["logits"][next(state["rows"])])
+
+    if per_request is not None:
         eng._sample = recording_sample
+    if device == "cuda":
+        torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = eng.generate(prompts)
+    outs = eng.generate(prompts, on_token=None if per_request is None else on_token)
     if device == "cuda":
         torch.cuda.synchronize()
     return outs, time.perf_counter() - t0, steps
+
+
+def greedy_agree(ref_outs, ref_logits, outs, label, rel=5e-2):
+    """Greedy tokens of two runs of the same requests must be equal up to a
+    step where the reference's top-2 logit gap is within ``rel`` of its
+    largest |logit| (there the two may part). Returns the tokens compared
+    equal; fails on none."""
+    checked = 0
+    for rid, (a, b) in enumerate(zip(ref_outs, outs)):
+        for i, (ta, tb) in enumerate(zip(a, b)):
+            if ta != tb:
+                lg = ref_logits[rid][i]
+                top2 = lg.topk(2).values
+                need(float(top2[0] - top2[1]) <= rel * float(lg.abs().max()),
+                     f"{label}: token {i} of request {rid} differs with a clear top-2 gap")
+                break
+            checked += 1
+    need(checked > 0, f"{label}: no greedy token was compared")
+    return checked
 
 
 def host_yardsticks(torch):
@@ -725,35 +1002,40 @@ def step_vs_host_speed(torch, eng, n=16):
     return dict(pairs=pairs, corr=float(np.corrcoef(a[:, 0], a[:, 1])[0, 1]))
 
 
-def profile_steps(torch, cfg, params, prompts, n=4):
+def profile_steps(torch, cfg, params, prompts, n=4, paged=True, host=True):
     """Device busy time of n steady decode steps (B=4) against their wall
-    time, from torch.profiler's per-kernel device times; then where the
-    host's time goes, from cProfile, and whether the step follows the
-    host's speed."""
+    time, from torch.profiler's per-kernel device times, and each ported
+    kernel's launches per step; with ``host``, also where the host's time
+    goes, from cProfile, and whether the step follows the host's speed."""
     from torch.profiler import ProfilerActivity, profile
 
     from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
+    from bitsandbytes_sycl_tpu_torch.ops import KERNELS
 
-    eng = InferenceEngine(cfg, params, EngineConfig(max_batch=4, paged=True, max_new_tokens=64),
+    eng = InferenceEngine(cfg, params, EngineConfig(max_batch=4, paged=paged, max_new_tokens=64),
                           device="cuda")
     eng.add_requests(prompts[:4])
     eng.step()
     torch.cuda.synchronize()
+    reset_counts(KERNELS)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             eng.step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n
+    per_step = {k: v / n for k, v in read_counts(KERNELS).items() if v}
     # device-side entries only: a CPU op's entry repeats its kernels' time
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    return dict(wall_ms=wall * 1e3, device_busy_ms=busy if busy > 0 else None,
-                kernels_per_step=sum(e.count for e in kernels) / n,
-                top=[(e.key, e.self_device_time_total / 1e3 / n, e.count // n) for e in top],
-                host_top=host_profile(torch, eng), step_vs_host=step_vs_host_speed(torch, eng))
+    out = dict(wall_ms=wall * 1e3, device_busy_ms=busy if busy > 0 else None,
+               kernels_per_step=sum(e.count for e in kernels) / n, launches_per_step=per_step,
+               top=[(e.key, e.self_device_time_total / 1e3 / n, e.count // n) for e in top])
+    if host:
+        out.update(host_top=host_profile(torch, eng), step_vs_host=step_vs_host_speed(torch, eng))
+    return out
 
 
 def long_prompts(seed, n, lo, hi, vocab):
@@ -858,42 +1140,24 @@ def chunked_vs_whole(torch, cfg, params):
     card-vs-CPU limits (4% relative L2, 5% of the largest), and the tokens
     wherever the whole-prompt engine's top-2 logit gap exceeds the latter;
     at least one token must be compared."""
-    from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
-
     prompts = long_prompts(13, 2, 700, 1000, cfg.vocab_size)
     runs = {}
     for chunk in (0, 256):
-        eng = InferenceEngine(cfg, params, EngineConfig(max_batch=2, paged=True, max_new_tokens=8,
-                                                        prefill_chunk=chunk), device="cuda")
-        rec = []
-        sample = eng._sample
-        eng._sample = lambda logits, rec=rec, sample=sample: (rec.append(logits.float().cpu()),
-                                                              sample(logits))[1]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = eng.generate(prompts)
-        torch.cuda.synchronize()
-        runs[chunk] = (outs, rec, time.perf_counter() - t0)
-        del eng
+        rec = {}
+        outs, t, _ = serve(torch, cfg, params, prompts, 8, per_request=rec, max_batch=2,
+                           prefill_chunk=chunk)
+        runs[chunk] = (outs, rec, t)
         torch.cuda.empty_cache()
     (whole, rec_w, t_w), (chunked, rec_c, t_c) = runs[0], runs[256]
     # the prefill's sampled logits: the chunks' attention over the cache
     # against the whole prompt's, within the card-vs-CPU limits
-    err, mag = max_err(torch, rec_c[0], rec_w[0])
-    rel = float((rec_c[0] - rec_w[0]).norm() / rec_w[0].norm())
+    first_w = torch.stack([rec_w[r][0] for r in range(2)])
+    first_c = torch.stack([rec_c[r][0] for r in range(2)])
+    err, mag = max_err(torch, first_c, first_w)
+    rel = float((first_c - first_w).norm() / first_w.norm())
     need(rel <= 4e-2, f"chunked prefill logits: relative L2 {rel} > 0.04 of the whole prompt's")
     need(err <= 5e-2 * mag, f"chunked prefill logits: max err {err} > {5e-2 * mag}")
-    checked = 0
-    for row in range(2):
-        for i in range(8):
-            lg = rec_w[i][row]
-            top2 = lg.topk(2).values
-            if whole[row][i] != chunked[row][i]:
-                need(float(top2[0] - top2[1]) <= 5e-2 * float(lg.abs().max()),
-                     f"chunked prefill: token {i} of row {row} differs with a clear top-2 gap")
-                break
-            checked += 1
-    need(checked > 0, "chunked prefill: no greedy token was compared")
+    checked = greedy_agree(whole, rec_w, chunked, "chunked prefill")
     print(f"[3b] chunked prefill (256-token chunks, prompts of {[len(p) for p in prompts]} tokens):"
           f" prefill logits relative L2 {rel:.3g} (tol 0.04), max err {err:.4g}"
           f" (tol {5e-2 * mag:.4g}) against whole-prompt prefill; {checked} of 16 greedy tokens"
@@ -901,6 +1165,168 @@ def chunked_vs_whole(torch, cfg, params):
     return dict(prompt_tokens=[len(p) for p in prompts], logits_rel_l2=rel, logits_max_err=err,
                 logits_max_abs=mag, tokens_compared_equal=checked,
                 generate_s_chunked=t_c, generate_s_whole=t_w)
+
+
+def serve_path(torch, label, cfg, params, prompts, kernels, launched, ref=None):
+    """A serving path whole through the default (contiguous) engine, 4
+    slots, 32 new tokens per prompt: the counts set to 0 just before and
+    read just after, each kernel in ``launched`` launched, kernel D not;
+    with ``ref`` (outputs and per-request logits of another run of the same
+    weights), greedy tokens equal under the gap rule. Then a profile of
+    four steady decode steps."""
+    reset_counts(kernels)
+    outs, wall, steps = serve(torch, cfg, params, prompts, 32, paged=False)
+    counts = read_counts(kernels)
+    need(all(len(o) == 32 for o in outs), f"{label}: wrong output lengths {[len(o) for o in outs]}")
+    need(all(0 <= t < cfg.vocab_size for o in outs for t in o), f"{label}: token id out of range")
+    for k in launched:
+        need(counts[k] > 0, f"{label}: the serving path never launched {k}")
+    need(counts["paged_attn_int8"] == 0, f"{label}: the contiguous engine launched kernel D")
+    compared = None if ref is None else greedy_agree(*ref, outs, label)
+    steps = sorted(steps)
+    n_tok = sum(len(o) for o in outs)
+    median = steps[len(steps) // 2] * 1e3
+    prof = profile_steps(torch, cfg, params, prompts, paged=False, host=False)
+    busy = prof["device_busy_ms"]
+    stats = dict(tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall, decode_steps=len(steps),
+                 decode_ms_per_step_median=median,
+                 decode_ms_per_step_quartiles=[steps[len(steps) // 4] * 1e3,
+                                               steps[3 * len(steps) // 4] * 1e3],
+                 launches=counts, tokens_compared_equal=compared, profile=prof,
+                 device_idle_share=None if not busy else 1 - busy / median)
+    print(f"{label}: {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s; {len(steps)} decode"
+          f" steps, median {median:.2f} ms/step (quartiles {stats['decode_ms_per_step_quartiles'][0]:.2f}"
+          f"-{stats['decode_ms_per_step_quartiles'][1]:.2f}); launches {counts}"
+          + ("" if compared is None else f"; {compared} greedy tokens equal to the reference"),
+          flush=True)
+    print(f"{label}: profiled decode step (B=4): wall {prof['wall_ms']:.2f} ms, "
+          + (f"device busy {busy:.2f} ms of the {median:.2f} ms median step (idle "
+             f"{stats['device_idle_share']:.0%})" if busy else "device busy not measured")
+          + f"; {prof['kernels_per_step']:.0f} kernels per step; ported kernels per step "
+          f"{prof['launches_per_step']}")
+    for key, ms, cnt in prof["top"]:
+        print(f"      {ms:8.3f} ms/step  {cnt:5d}x  {key[:90]}")
+    return stats
+
+
+def w8a8_prefill_batches(torch, cfg, params, kernels):
+    """EngineConfig(w8a8_prefill=True) on the NF4 weights: a batch of 128
+    prefill rows (kernel I) and one of 2048 rows (torch._int_mm), each in
+    both engine modes. The prefill logits must equal, bit for bit, those of
+    the default engine serving the fully repacked weights (the same int8
+    weights; first tokens equal), and stay within 15% relative L2 of the
+    default engine's on the NF4 weights: the repack moves this random-weight
+    model's logits by ~10% (the phase prints it), far inside what a wrong
+    weight or route gives (~100%), so the gap rule at 5% cannot hold there
+    and the first tokens equal to the NF4 engine's are counted, not held."""
+    from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
+    from bitsandbytes_sycl_tpu_torch.models.llama import repack_params_int8
+
+    def prefill(cfg_, params_, prompts, **kw):
+        gc.collect()  # earlier engines' caches: the peak is this prefill's
+        eng = InferenceEngine(cfg_, params_, EngineConfig(max_batch=4, max_new_tokens=2, **kw),
+                              device="cuda")
+        rec = []
+        sample = eng._sample
+        eng._sample = lambda logits: (rec.append(logits.float().cpu()), sample(logits))[1]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        slots = eng.add_requests(prompts)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        first = [eng.slot_tokens[s_][-1] for s_ in slots]
+        return rec[0][: len(prompts)], first, t, read_counts(kernels)
+
+    n_lin = 7 * cfg.num_layers + 1
+    batches = [("rows 128", prompts_from_seed(20, 4, cfg.vocab_size), n_lin),
+               ("rows 2048", long_prompts(21, 4, 257, 512, cfg.vocab_size), 0)]
+    runs = []  # the w8a8_prefill engines first: the peak then holds no repacked copy of ours
+    for label, prompts, n_i in batches:
+        for paged in (False, True):
+            lg, first, t, counts = prefill(cfg, params, prompts, paged=paged, w8a8_prefill=True)
+            runs.append((label, prompts, n_i, paged, lg, first, t, counts,
+                         torch.cuda.max_memory_allocated() / 1e9))
+            torch.cuda.empty_cache()
+    params8, cfg8 = repack_params_int8(params, cfg)
+    refs = {label: (prefill(cfg, params, prompts)[:2], prefill(cfg8, params8, prompts)[:2])
+            for label, prompts, _ in batches}
+    del params8
+    torch.cuda.empty_cache()
+    out = []
+    for label, prompts, n_i, paged, lg, first, t, counts, peak in runs:
+        (lg_nf4, first_nf4), (lg_int8, first_int8) = refs[label]
+        name = f"w8a8_prefill {label} paged={paged}"
+        need(counts["int8_matmul"] == n_i, f"{name}: kernel I launched {counts['int8_matmul']} "
+                                           f"times, not {n_i}")
+        need(counts["w4a8_gemv"] == counts["w4a8_grouped"] == 0,
+             f"{name}: a 4-bit linear kernel ran in the prefill")
+        need(torch.equal(lg, lg_int8) and first == first_int8,
+             f"{name}: prefill logits differ from the repacked model's")
+        rel = float((lg - lg_nf4).norm() / lg_nf4.norm())
+        need(rel <= 0.15, f"{name}: logits {rel} (relative L2) from the NF4 engine's")
+        same = sum(a == b for a, b in zip(first, first_nf4))
+        n_tok = sum(len(p) for p in prompts)
+        out.append(dict(label=label, paged=paged, prompt_tokens=n_tok, prefill_s=t,
+                        prefill_tokens_per_s=n_tok / t, peak_gb=peak, launches=counts,
+                        rel_l2_vs_nf4=rel, first_tokens_equal_nf4=same))
+        print(f"[4b] {name}: {n_tok} tokens prefilled in {t:.3f} s = {n_tok / t:.0f} tok/s"
+              f" (int8 repack included); peak {peak:.1f} GB; logits equal to the repacked"
+              f" model's; {rel:.3g} relative L2 from the NF4 engine's, {same} of {len(prompts)}"
+              f" first tokens equal; launches {counts}", flush=True)
+    return out
+
+
+def int8_card_vs_cpu(torch, cfg8, prompts_seed):
+    """LLM.int8, 2 layers at 7B width from one seed, on the card and on the
+    CPU (plain versions): prefill logits at T = 32 and 4 teacher-forced
+    decode steps over the contiguous cache within 4% relative L2 and 5% of
+    the largest logit, then greedy tokens equal under the gap rule."""
+    from bitsandbytes_sycl_tpu_torch.models.llama import init_kv_cache, init_params, llama_forward
+
+    cfg2 = dataclasses.replace(cfg8, num_layers=2)
+    p_cpu = init_params(cfg2, seed=1, device="cpu")
+    p_gpu = to_cuda(torch, p_cpu)
+    toks = torch.tensor([p + [0] * (32 - len(p)) for p in prompts_from_seed(prompts_seed, 2, cfg2.vocab_size)])
+    c_cpu, c_gpu = init_kv_cache(cfg2, 2, "cpu"), init_kv_cache(cfg2, 2, "cuda")
+    lg_cpu, _ = llama_forward(p_cpu, cfg2, toks, c_cpu)
+    lg_gpu, _ = llama_forward(p_gpu, cfg2, toks.cuda(), c_gpu)
+    errs = []
+    for i in range(5):
+        err, mag = max_err(torch, lg_gpu.cpu(), lg_cpu)
+        rel = float((lg_gpu.cpu() - lg_cpu).norm() / lg_cpu.norm())
+        what = "prefill" if i == 0 else f"decode step {i}"
+        need(torch.isfinite(lg_gpu).all().item(), f"LLM.int8 {what}: non-finite logits on the card")
+        need(rel <= 4e-2, f"LLM.int8 {what} logits card vs CPU: relative L2 error {rel} > 0.04")
+        need(err <= 5e-2 * mag, f"LLM.int8 {what} logits card vs CPU: max err {err} > {5e-2 * mag}")
+        errs.append(dict(step=what, rel_l2=rel, max_err=err, max_abs=mag))
+        if i == 4:
+            break
+        tok = lg_cpu[:, -1].argmax(dim=-1)[:, None]  # teacher-forced: both take the CPU's token
+        pos = torch.full((2, 1), 32 + i, dtype=torch.long)
+        lg_cpu, _ = llama_forward(p_cpu, cfg2, tok, c_cpu, pos)
+        lg_gpu, _ = llama_forward(p_gpu, cfg2, tok.cuda(), c_gpu, pos.cuda())
+    rec_cpu, rec_gpu = {}, {}
+    pr = prompts_from_seed(prompts_seed + 1, 2, cfg2.vocab_size)
+    out_cpu, _, _ = serve(torch, cfg2, p_cpu, pr, 5, device="cpu", paged=False, per_request=rec_cpu)
+    out_gpu, _, _ = serve(torch, cfg2, p_gpu, pr, 5, paged=False, per_request=rec_gpu)
+    checked = greedy_agree(out_cpu, rec_cpu, out_gpu, "LLM.int8 card vs CPU")
+    print(f"[6] LLM.int8 2-layer 7B-width card vs CPU: " + "; ".join(
+        f"{e['step']} rel L2 {e['rel_l2']:.3g} max err {e['max_err']:.4g} (tol {5e-2 * e['max_abs']:.4g})"
+        for e in errs) + f"; {checked} of 10 greedy tokens compared equal", flush=True)
+    return dict(logits=errs, tokens_compared_equal=checked)
+
+
+def to_cuda(torch, o):
+    """A params tree (tensors, QLinearWeights, dicts, lists) on the card."""
+    from bitsandbytes_sycl_tpu_torch.ops.common import QLinearWeight
+
+    if isinstance(o, (torch.Tensor, QLinearWeight)):
+        return o.to("cuda")
+    if isinstance(o, dict):
+        return {k: to_cuda(torch, v) for k, v in o.items()}
+    return [to_cuda(torch, v) for v in o]
 
 
 def main() -> int:
@@ -918,7 +1344,6 @@ def main() -> int:
         from bitsandbytes_sycl_tpu_torch.models.llama import LlamaConfig, init_params, llama_forward
         from bitsandbytes_sycl_tpu_torch.models.llama import init_kv_cache
         from bitsandbytes_sycl_tpu_torch.ops import KERNELS, _build
-        from bitsandbytes_sycl_tpu_torch.ops.common import QLinearWeight
     except ImportError as e:
         print(f"chip_smoke: the port package is missing beside this script ({e})", file=sys.stderr)
         return 2
@@ -944,9 +1369,11 @@ def main() -> int:
         check_routes(torch, report)
         check_prefill(torch, report)
         check_paged(torch, report)
+        check_decode(torch, report)
+        check_int8(torch, report)
         n_edges = check_edges(torch)
         print(f"[2] {n_edges} edge-case comparisons (odd rows, f32/bias, all B modes, ragged G"
-              f" planes, W8A8 at few rows, C/D options) ok")
+              f" planes, W8A8 at few rows, C/D/H options, I at odd rows) ok")
         phases["kernels_s"] = time.perf_counter() - t0
 
         # 3. serve Llama-7B through the paged engine
@@ -960,7 +1387,8 @@ def main() -> int:
               dict(params, layers=params["layers"][:1]), prompts[:1], 2)
         host = host_yardsticks(torch)
         reset_counts(KERNELS)
-        outs, wall, steps = serve(torch, cfg, params, prompts, 32)
+        rec_paged = {}
+        outs, wall, steps = serve(torch, cfg, params, prompts, 32, per_request=rec_paged)
         counts = read_counts(KERNELS)
         phases["serve_7b_s"] = wall
         n_tok = sum(len(o) for o in outs)
@@ -1003,6 +1431,16 @@ def main() -> int:
               f"correlation {svh['corr']:.2f}; step / (kernels x enqueue) "
               f"{ratios[0]:.2f}-{ratios[-1]:.2f}")
 
+        # 3c. the engine's default: the contiguous int8 cache (kernel H)
+        t0 = time.perf_counter()
+        contig_stats = serve_path(torch, "[3c] llama7b NF4 contiguous serve", cfg, params, prompts,
+                                  KERNELS, ("w4a8_gemv", "prefill_attn_int8", "decode_attn_int8"),
+                                  ref=(outs, rec_paged))
+        per_step = contig_stats["profile"]["launches_per_step"]
+        need(per_step.get("decode_attn_int8") == cfg.num_layers,
+             f"contiguous decode: kernel H launched {per_step.get('decode_attn_int8')} times per step")
+        phases["contiguous_s"] = time.perf_counter() - t0
+
         # 3b. long prompts at full 7B width and depth, then chunked prefill
         t0 = time.perf_counter()
         long_stats = serve_long(torch, cfg, params, KERNELS)
@@ -1037,18 +1475,20 @@ def main() -> int:
         phases["exact_path_s"] = time.perf_counter() - t0
         print(f"[4] a8_decode=False, 4 layers, 4 prompts of {[len(p) for p in long4]} tokens: "
               f"{wall_xl:.2f} s; launches {counts_xl}", flush=True)
-        del params, params_x
+        del params_x
+
+        # 4b. w8a8_prefill: prefill on the transient int8 repack, both modes
+        t0 = time.perf_counter()
+        w8a8_stats = w8a8_prefill_batches(torch, cfg, params, KERNELS)
+        phases["w8a8_prefill_s"] = time.perf_counter() - t0
+        del params
         torch.cuda.empty_cache()
 
         # 5. card against CPU, 2 layers at 7B width
         t0 = time.perf_counter()
         cfg2 = dataclasses.replace(cfg, num_layers=2)
         p_cpu = init_params(cfg2, seed=1, device="cpu")
-        to_cuda = lambda o: (  # noqa: E731
-            o.to("cuda") if isinstance(o, (torch.Tensor, QLinearWeight)) else
-            {k: to_cuda(v) for k, v in o.items()} if isinstance(o, dict) else
-            [to_cuda(v) for v in o])
-        p_gpu = to_cuda(p_cpu)
+        p_gpu = to_cuda(torch, p_cpu)
         toks = torch.tensor([p + [0] * (32 - len(p)) for p in prompts_from_seed(1, 2, cfg.vocab_size)])
         lg_cpu, _ = llama_forward(p_cpu, cfg2, toks, init_kv_cache(cfg2, 2, "cpu"))
         lg_gpu, _ = llama_forward(p_gpu, cfg2, toks.cuda(), init_kv_cache(cfg2, 2, "cuda"))
@@ -1064,19 +1504,11 @@ def main() -> int:
         need(torch.isfinite(lg_gpu).all().item(), "non-finite logits on the card")
         need(rel <= 4e-2, f"prefill logits card vs CPU: relative L2 error {rel} > 0.04")
         need(err <= tol, f"prefill logits card vs CPU: max err {err} > {tol}")
-        rec_cpu, rec_gpu = [], []
+        rec_cpu, rec_gpu = {}, {}
         pr2 = prompts_from_seed(2, 2, cfg.vocab_size)
-        out_cpu, _, _ = serve(torch, cfg2, p_cpu, pr2, 5, device="cpu", record=rec_cpu)
-        out_gpu, _, _ = serve(torch, cfg2, p_gpu, pr2, 5, record=rec_gpu)
-        checked = 0
-        for row in range(2):
-            for i in range(5):
-                top2 = rec_cpu[i][row].topk(2).values
-                if out_cpu[row][i] != out_gpu[row][i]:
-                    need(float(top2[0] - top2[1]) <= tol,
-                         f"greedy token {i} of row {row} differs with a top-2 gap above {tol}")
-                    break  # the two trajectories part here
-                checked += 1
+        out_cpu, _, _ = serve(torch, cfg2, p_cpu, pr2, 5, device="cpu", per_request=rec_cpu)
+        out_gpu, _, _ = serve(torch, cfg2, p_gpu, pr2, 5, per_request=rec_gpu)
+        checked = greedy_agree(out_cpu, rec_cpu, out_gpu, "card vs CPU")
         print(f"[5] 2-layer 7B-width card vs CPU: prefill logits relative L2 {rel:.3g} (tol 0.04),"
               f" max err {err:.4g} (tol {tol:.4g});"
               f" {checked} of 10 greedy tokens compared equal", flush=True)
@@ -1094,6 +1526,33 @@ def main() -> int:
         phases["cpu_vs_card_s"] = time.perf_counter() - t0
         print(f"[5] 2-layer 7B-width card vs CPU at Kb=2, T=512 (1024 rows, kernel G): relative L2"
               f" {rel_l:.3g} (tol 0.04), max err {err_l:.4g} (tol {5e-2 * mag_l:.4g})", flush=True)
+        del p_gpu, p_cpu
+        torch.cuda.empty_cache()
+
+        # 6. LLM.int8 Llama-7B (threshold 6, static outlier columns) through
+        # the default engine, then card against CPU at 2 layers
+        t0 = time.perf_counter()
+        cfg8 = LlamaConfig.llama7b(quant="int8")
+        params8 = init_params(cfg8, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        int8_gb = sum(w["CB"].numel() for layer in params8["layers"] for w in layer.values()
+                      if isinstance(w, dict)) / 1e9 + params8["lm_head"]["CB"].numel() / 1e9
+        phases["init_int8_s"] = time.perf_counter() - t0
+        print(f"[6] LLM.int8 Llama-7B: {int8_gb:.2f} GB of int8 weights, initialised in"
+              f" {phases['init_int8_s']:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        int8_stats = serve_path(torch, "[6] llama7b LLM.int8 contiguous serve", cfg8, params8, prompts,
+                                KERNELS, ("int8_matmul", "prefill_attn_int8", "decode_attn_int8"))
+        int8_stats["int8_weight_gb"] = int8_gb
+        per_step = int8_stats["profile"]["launches_per_step"]
+        need(per_step.get("int8_matmul") == 7 * cfg8.num_layers + 1,
+             f"LLM.int8 decode: kernel I launched {per_step.get('int8_matmul')} times per step")
+        need(per_step.get("decode_attn_int8") == cfg8.num_layers,
+             f"LLM.int8 decode: kernel H launched {per_step.get('decode_attn_int8')} times per step")
+        del params8
+        torch.cuda.empty_cache()
+        int8_stats["card_vs_cpu"] = int8_card_vs_cpu(torch, cfg8, 3)
+        phases["int8_s"] = time.perf_counter() - t0
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1116,7 +1575,16 @@ def main() -> int:
         "w4a8_grouped": ("bitsandbytes_sycl_tpu/ops/matmul_w4a8.py:343",
                          "7B prefill, 2048 rows (phase 3b)",
                          long_counts["rows 2048"]["w4a8_grouped"]),
+        "decode_attn_int8": ("bitsandbytes_sycl_tpu/ops/attention.py:50",
+                             "7B contiguous decode (phase 3c)",
+                             contig_stats["launches"]["decode_attn_int8"]),
+        "int8_matmul": ("bitsandbytes_sycl_tpu/ops/matmul_int8.py:42", "LLM.int8 7B serve (phase 6)",
+                        int8_stats["launches"]["int8_matmul"]),
     }
+    # launches per decode step, from the profiled steps of the path that launched each
+    per_step = {**serve_stats["profile"]["launches_per_step"],
+                "decode_attn_int8": contig_stats["profile"]["launches_per_step"]["decode_attn_int8"],
+                "int8_matmul": int8_stats["profile"]["launches_per_step"]["int8_matmul"]}
     kernels = []
     for name, (replaces, path, launches) in sources.items():
         r = report[name]
@@ -1124,12 +1592,13 @@ def main() -> int:
             name=name, route="cuda", source=f"bitsandbytes_sycl_tpu_torch/csrc/{name}.cu",
             replaces=replaces, path=path, launches=launches, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"], launches_per_decode_step=per_step.get(name, 0)))
     phases["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=report, serve=serve_stats, long_prompts=long_stats,
-                       chunked=chunk_stats, phases=phases), f, indent=1)
+                       chunked=chunk_stats, contiguous=contig_stats, w8a8_prefill=w8a8_stats,
+                       int8=int8_stats, phases=phases), f, indent=1, default=str)
     print(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -45,8 +45,9 @@ def test_kernel_sources_are_in_the_package():
     from bitsandbytes_sycl_tpu_torch.ops import KERNELS
 
     names = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
-    assert names == ["dequant_int8", "dequantize_transposed", "mm4_fused", "paged_attn_int8",
-                     "prefill_attn_int8", "w4a8_gemv", "w4a8_grouped"]
+    assert names == ["decode_attn_int8", "dequant_int8", "dequantize_transposed", "int8_matmul",
+                     "mm4_fused", "paged_attn_int8", "prefill_attn_int8", "w4a8_gemv",
+                     "w4a8_grouped"]
     # one wrapper with a launch counter for each source
     assert sorted(k.__name__ for k in KERNELS) == names
     assert all(k.launches == 0 for k in KERNELS)  # the CPU runs no kernel
@@ -69,8 +70,11 @@ def test_entry_points_need_cuda_unless_given_cpu(monkeypatch):
     assert params["embed"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceEngine(cfg, params, EngineConfig(paged=True))
-    eng = InferenceEngine(cfg, params, EngineConfig(paged=True, max_new_tokens=2), device="cpu")
-    assert len(eng.generate([[1, 2, 3]])[0]) == 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngine(cfg, params)  # the default: contiguous cache
+    for ecfg in (EngineConfig(paged=True, max_new_tokens=2), EngineConfig(max_new_tokens=2)):
+        eng = InferenceEngine(cfg, params, ecfg, device="cpu")
+        assert len(eng.generate([[1, 2, 3]])[0]) == 2
 
 
 def test_wrappers_dispatch_on_the_tensor_device():

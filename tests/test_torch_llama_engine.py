@@ -229,9 +229,13 @@ def test_engine_generate_and_unported_options(models):
     t_eng = InferenceEngine(tc, tp, EngineConfig(max_batch=2, paged=True, temperature=0.8, top_k=5),
                             device="cpu")
     assert all(0 <= t < 256 for o in t_eng.generate(prompts[:2], max_new_tokens=3) for t in o)
-    for bad in (dict(paged=False), dict(paged=True, w8a8_prefill=True)):
-        with pytest.raises(NotImplementedError):
-            InferenceEngine(tc, tp, EngineConfig(**bad), device="cpu")
+    # the bf16 cache has no kernel yet, in either mode (the paged pool
+    # never takes it)
+    with pytest.raises(NotImplementedError):
+        InferenceEngine(dataclasses.replace(tc, kv_quant=False), tp, EngineConfig(), device="cpu")
+    with pytest.raises(ValueError, match="kv_quant"):
+        InferenceEngine(dataclasses.replace(tc, kv_quant=False), tp, EngineConfig(paged=True),
+                        device="cpu")
     # chunked prefill (chunks of 8 tokens at absolute offsets) gives the
     # JAX engine's chunked prefill logits for each prompt's next token
     jlog, tlog = [], []
