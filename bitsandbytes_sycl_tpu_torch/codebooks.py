@@ -1,15 +1,18 @@
-"""4-bit quantization codebooks (numpy, host side).
+"""Quantization codebooks (numpy, host side).
 
 The port's own copy of the 16-entry tables of the JAX package's
 ``codebooks.py``. Tables are in code order (index = 4-bit code),
 normalized to [-1, 1]; FP4 is non-monotone, NF4/int4/af4 are monotone.
+It also carries the 8-bit dynamic map of the optimizer states.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
-__all__ = ["NF4_CODE", "FP4_CODE", "get_4bit_type", "code_midpoints"]
+__all__ = ["NF4_CODE", "FP4_CODE", "get_4bit_type", "code_midpoints", "create_dynamic_map"]
 
 # NF4 of the QLoRA paper (arxiv 2305.14314): equal-area bins under N(0, 1)
 NF4_CODE = np.array(
@@ -89,3 +92,32 @@ def code_midpoints(code_sorted: np.ndarray) -> np.ndarray:
     ``searchsorted(mids, x, side='left')``, so ties go to the lower code."""
     code_sorted = np.asarray(code_sorted, dtype=np.float32)
     return ((code_sorted[1:] + code_sorted[:-1]) / 2.0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def create_dynamic_map(signed: bool = True, max_exponent_bits: int = 7,
+                       total_bits: int = 8) -> np.ndarray:
+    """Dynamic-exponent 8-bit data type (arxiv 1511.04561), sorted ascending,
+    256 entries: a sign bit (if signed), a unary decade prefix and linear
+    fraction bits, built in float64 and stored as float32."""
+    non_sign_bits = total_bits - 1
+    additional_items = 2 ** (non_sign_bits - max_exponent_bits) - 1
+    data: list = []
+    for i in range(max_exponent_bits):
+        n_frac = 2 ** (i + non_sign_bits - max_exponent_bits + (0 if signed else 1))
+        boundaries = np.linspace(0.1, 1.0, n_frac + 1)
+        means = (boundaries[:-1] + boundaries[1:]) / 2.0
+        scale = 10.0 ** (-(max_exponent_bits - 1) + i)
+        data.extend((scale * means).tolist())
+        if signed:
+            data.extend((-scale * means).tolist())
+    if additional_items > 0:
+        boundaries = np.linspace(0.1, 1.0, additional_items + 1)
+        means = (boundaries[:-1] + boundaries[1:]) / 2.0
+        data.extend(means.tolist())
+        if signed:
+            data.extend((-means).tolist())
+    data.extend([0.0, 1.0])
+    assert len(data) == 2 ** total_bits
+    data.extend([0.0] * (256 - len(data)))
+    return np.sort(np.asarray(data, dtype=np.float32))

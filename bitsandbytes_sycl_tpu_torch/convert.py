@@ -1,4 +1,5 @@
-"""Turn the JAX package's Llama parameters into the port's.
+"""Turn the JAX package's Llama parameters, LoRA adapters and optimizer
+states into the port's.
 
 The input is the JAX parameter tree with its arrays converted to numpy
 (``jax.tree.map(np.asarray, params)``): 4-bit linears stay objects (or
@@ -19,7 +20,7 @@ import torch
 
 from .ops.common import QLinearWeight, resolve_device
 
-__all__ = ["params_from_jax", "tensor_from_numpy"]
+__all__ = ["params_from_jax", "tensor_from_numpy", "lora_from_jax", "optim_state_from_jax"]
 
 _QFIELDS = ("packed", "absmax", "shape", "blocksize", "quant_type", "dtype")
 
@@ -71,3 +72,38 @@ def params_from_jax(tree: Dict, cfg, device=None) -> Dict:
         raise NotImplementedError("MoE is not ported yet (ROADMAP Queue A #10)")
     dev = resolve_device(device)
     return _convert(tree, dev)
+
+
+def lora_from_jax(tree, device=None):
+    """The JAX package's adapter tree (numpy leaves: per layer {proj: {"A",
+    "B", "scale"}}) as the port's, every leaf an f32 tensor that requires
+    grad, on ``device`` (CUDA unless given another)."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        return tensor_from_numpy(np.asarray(a, np.float32), dev).requires_grad_()
+
+    return [{name: {k: leaf(v) for k, v in ab.items()} for name, ab in layer.items()}
+            for layer in tree]
+
+
+def optim_state_from_jax(state, params, opt) -> None:
+    """Load a JAX ``BnbOptimizerState`` (numpy leaves) into ``opt``, an
+    ``optim.BnbOptimizer`` over the tensors of ``params``, a tree (lists and
+    dicts) of the JAX state's ``inner`` structure: each tensor's state dict
+    (``state1``, ``absmax1``, ...) and the step count."""
+    inner = state.inner if hasattr(state, "inner") else state["inner"]
+    count = state.count if hasattr(state, "count") else state["count"]
+
+    def walk(p, s):
+        if isinstance(p, torch.Tensor):
+            opt.state[p] = {k: tensor_from_numpy(v, p.device) for k, v in s.items()}
+        elif isinstance(p, dict):
+            for k in p:
+                walk(p[k], s[k])
+        else:
+            for a, b in zip(p, s):
+                walk(a, b)
+
+    walk(params, inner)
+    opt.count = int(np.asarray(count))

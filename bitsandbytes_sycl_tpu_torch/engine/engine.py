@@ -86,7 +86,7 @@ class InferenceEngine:
         seed: int = 0,
     ):
         if lora is not None:
-            raise NotImplementedError("multi-LoRA serving is not ported yet (ROADMAP Queue A #10)")
+            raise NotImplementedError("multi-LoRA serving is not ported yet (ROADMAP Queue A #6)")
         if mesh is not None:
             raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP Queue A #13)")
         if forward_fn is not None or init_cache_fn is not None:
@@ -163,7 +163,7 @@ class InferenceEngine:
         if prefix is not None:
             raise NotImplementedError("the prefix cache is not ported yet (ROADMAP Queue A #6)")
         if adapter_ids is not None and any(a != 0 for a in adapter_ids):
-            raise NotImplementedError("multi-LoRA serving is not ported yet (ROADMAP Queue A #10)")
+            raise NotImplementedError("multi-LoRA serving is not ported yet (ROADMAP Queue A #6)")
         slots = self.free_slots()
         if len(prompts) > len(slots):
             raise RuntimeError("not enough free slots; call step() until they free")

@@ -1,6 +1,7 @@
 """The subset of the JAX package's ``functional.py`` that the port serves:
-codebook encode and 4-bit packing (for the quantizer of ``ops/common.py``)
-and the LLM.int8 functions.
+codebook encode and 4-bit packing (for the quantizer of ``ops/common.py``),
+the LLM.int8 functions and the optimizer updates (32-bit and blockwise
+8-bit with the dynamic codec, and percentile clipping).
 
 Codebook encode rounds to nearest with strict-``>`` midpoint thresholds: an
 input exactly on a midpoint goes to the lower code, NaN encodes as 0.0.
@@ -25,6 +26,8 @@ from . import codebooks
 __all__ = [
     "pack_4bit", "unpack_4bit", "get_colrow_absmax", "int8_vectorwise_quant",
     "int8_linear_matmul", "int8_mm_dequant", "llm_int8_prepare_outliers", "llm_int8_matmul",
+    "blocks_for", "OPTIMIZER_FUNCS_2STATE", "OPTIMIZER_FUNCS_1STATE", "optimizer_update_32bit",
+    "optimizer_update_8bit_blockwise", "percentile_clipping",
 ]
 
 
@@ -217,3 +220,283 @@ def llm_int8_matmul(
     subB = CB[:, idx].float() * _div127(SCB.float())[:, None]  # (N, budget)
     out = out + (subA @ subB.T).to(out_dtype)
     return out.reshape(*lead, N)
+
+
+# ---------------------------------------------------------------------------
+# optimizer updates: take states, return new states. Python-float
+# hyperparameters round to f32 where they meet an f32 tensor, as the JAX
+# package's weakly typed scalars do; scalars it computes in f32 (the bias
+# corrections) are computed here in numpy f32.
+# ---------------------------------------------------------------------------
+
+
+def blocks_for(n: int, blocksize: int) -> int:
+    return (n + blocksize - 1) // blocksize
+
+
+def _bias_corrections(beta1: float, beta2: float, step: int):
+    """(c1 as a Python float, c2 = sqrt(1 - beta2^step) in f32)."""
+    return 1.0 - beta1 ** step, np.sqrt(np.float32(1.0 - beta2 ** step))
+
+
+def _adam2(g, p, s1, s2, beta1, beta2, eps, step, lr, weight_decay):
+    c1, c2 = _bias_corrections(beta1, beta2, step)
+    step_size = float(np.float32(-lr) * c2 / np.float32(c1))
+    s1 = s1 * beta1 + (1.0 - beta1) * g
+    s2 = s2 * beta2 + (1.0 - beta2) * g * g
+    p = p + step_size * (s1 / (torch.sqrt(s2) + float(np.float32(eps) * c2)))
+    if weight_decay > 0.0:
+        p = p * (1.0 - lr * weight_decay)
+    return p, s1, s2
+
+
+def _momentum1(g, p, s1, beta1, eps, step, lr, weight_decay):
+    if weight_decay > 0.0:
+        g = g + p * weight_decay
+    s1 = g if step == 1 else s1 * beta1 + g
+    return p - lr * s1, s1
+
+
+def _lion1(g, p, s1, beta1, beta2, eps, step, lr, weight_decay):
+    if weight_decay > 0.0:
+        g = g + p * weight_decay
+    p = p - lr * torch.sign(s1 * beta1 + (1.0 - beta1) * g)
+    return p, s1 * beta2 + (1.0 - beta2) * g
+
+
+def _rmsprop1(g, p, s1, beta1, eps, step, lr, weight_decay):
+    if weight_decay > 0.0:
+        g = g + p * weight_decay
+    s1 = s1 * beta1 + (1.0 - beta1) * g * g
+    return p - lr * g / (torch.sqrt(s1) + eps), s1
+
+
+def _adagrad1(g, p, s1, beta1, eps, step, lr, weight_decay):
+    if weight_decay > 0.0:
+        g = g + p * weight_decay
+    s1 = s1 + g * g
+    return p - lr * g / (torch.sqrt(s1) + eps), s1
+
+
+OPTIMIZER_FUNCS_2STATE = {"adam": _adam2, "lamb": _adam2}
+OPTIMIZER_FUNCS_1STATE = {
+    "momentum": _momentum1,
+    "lion": _lion1,
+    "rmsprop": _rmsprop1,
+    "adagrad": _adagrad1,
+}
+
+
+def optimizer_update_32bit(
+    optimizer_name: str,
+    g: torch.Tensor,
+    p: torch.Tensor,
+    state1: torch.Tensor,
+    state2: Optional[torch.Tensor],
+    beta1: float,
+    beta2: float = 0.0,
+    eps: float = 1e-8,
+    step: int = 1,
+    lr: float = 1e-3,
+    weight_decay: float = 0.0,
+    gnorm_scale=1.0,
+    max_unorm: float = 0.0,
+    skip_zeros: bool = False,
+):
+    """32-bit optimizer step: returns (p, state1, state2). ``max_unorm > 0``
+    clips the raw (lr-less) update's norm to max_unorm * ||p|| + eps before
+    the learning rate applies (LAMB, LARS)."""
+    gf = g.float() * gnorm_scale
+    pf = p.float()
+    nonzero = gf != 0.0 if skip_zeros else None
+
+    def _clip(u):
+        if max_unorm <= 0.0:
+            return 1.0
+        unorm = torch.linalg.vector_norm(u)
+        limit = max_unorm * torch.linalg.vector_norm(pf) + eps
+        return torch.where(unorm > limit, limit / unorm.clamp_min(1e-12), torch.ones_like(unorm))
+
+    if optimizer_name in OPTIMIZER_FUNCS_2STATE:
+        s1, s2 = state1.float(), state2.float()
+        c1, c2 = _bias_corrections(beta1, beta2, step)
+        new_s1 = s1 * beta1 + (1.0 - beta1) * gf
+        new_s2 = s2 * beta2 + (1.0 - beta2) * gf * gf
+        u = new_s1 / (torch.sqrt(new_s2) + float(np.float32(eps) * c2))
+        new_p = pf - float(np.float32(lr) * c2 / np.float32(c1)) * _clip(u) * u
+        if weight_decay > 0.0:
+            new_p = new_p * (1.0 - lr * weight_decay)
+        if skip_zeros:
+            new_p = torch.where(nonzero, new_p, pf)
+            new_s1 = torch.where(nonzero, new_s1, state1)
+            new_s2 = torch.where(nonzero, new_s2, state2)
+        return new_p.to(p.dtype), new_s1, new_s2
+
+    s1 = state1.float()
+    gw = gf + pf * weight_decay if weight_decay > 0.0 else gf
+    if optimizer_name == "momentum":
+        new_s1 = gw if step == 1 else s1 * beta1 + gw
+        u = new_s1
+    elif optimizer_name == "lion":
+        u = torch.sign(s1 * beta1 + (1.0 - beta1) * gw)
+        new_s1 = s1 * beta2 + (1.0 - beta2) * gw
+    elif optimizer_name == "rmsprop":
+        new_s1 = s1 * beta1 + (1.0 - beta1) * gw * gw
+        u = gw / (torch.sqrt(new_s1) + eps)
+    elif optimizer_name == "adagrad":
+        new_s1 = s1 + gw * gw
+        u = gw / (torch.sqrt(new_s1) + eps)
+    else:
+        raise NotImplementedError(optimizer_name)
+    new_p = pf - lr * _clip(u) * u
+    if skip_zeros:
+        new_p = torch.where(nonzero, new_p, pf)
+        new_s1 = torch.where(nonzero, new_s1, state1)
+    return new_p.to(p.dtype), new_s1, None
+
+
+def _optim8_scalars(optimizer_name, beta1, beta2, eps, step, lr, weight_decay, gnorm_scale,
+                    device) -> torch.Tensor:
+    """The eight f32 scalars of kernels J and K (ops/optim8.py), computed
+    on the host as the JAX package's dispatch computes them, once per step:
+    every leaf of a step shares one device copy (a copy per leaf would
+    wait for the device each time). A tensor ``gnorm_scale`` (percentile
+    clipping) joins on its device."""
+    if not isinstance(gnorm_scale, torch.Tensor):
+        return _optim8_scalars_shared(optimizer_name, beta1, beta2, eps, int(step), lr,
+                                      weight_decay, float(gnorm_scale), str(torch.device(device)))
+    return _scalars_tensor(optimizer_name, beta1, beta2, eps, step, lr, weight_decay, gnorm_scale,
+                           device)
+
+
+def _scalars_tensor(optimizer_name, beta1, beta2, eps, step, lr, weight_decay, gnorm_scale,
+                    device) -> torch.Tensor:
+    if optimizer_name in OPTIMIZER_FUNCS_2STATE:
+        c1, c2 = _bias_corrections(beta1, beta2, step)
+        step_size = np.float32(-lr) * c2 / np.float32(c1)
+        decay = 1.0 - lr * weight_decay if weight_decay > 0.0 else 1.0
+        vals = [beta1, beta2, np.float32(eps) * c2, step_size, decay]
+    else:
+        vals = [beta1, beta2, eps, lr, weight_decay]
+    tail = [1.0 if step == 1 else 0.0, 0.0] if optimizer_name not in OPTIMIZER_FUNCS_2STATE \
+        else [0.0, 0.0]
+    if isinstance(gnorm_scale, torch.Tensor):
+        head = torch.tensor(np.float32(vals), device=device)
+        rest = torch.tensor(np.float32(tail), device=device)
+        return torch.cat([head, gnorm_scale.float().reshape(1).to(device), rest])
+    return torch.tensor(np.float32(vals + [gnorm_scale] + tail), device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _optim8_scalars_shared(*key) -> torch.Tensor:
+    return _scalars_tensor(*key)
+
+
+def _optim8_fused_dispatch(
+    optimizer_name, state1, absmax1, state2, absmax2,
+    beta1, beta2, eps, step, lr, weight_decay, gnorm_scale,
+    blocksize, nb, n, p_orig, g_orig, noise=None,
+):
+    """The 8-bit blockwise update through kernel J or K (ops/optim8.py) on
+    CUDA tensors, their plain versions on CPU tensors. A ragged last block
+    is padded as the JAX package pads it: g and p with 0, state1's codes
+    with 127 and state2's with 0 (both decode to 0.0)."""
+    from .ops.optim8 import optim8_blockwise_fused
+
+    dev = p_orig.device
+
+    def _rows(x, fill=0):
+        flat = x.reshape(-1)
+        need = nb * blocksize - n
+        if need:
+            flat = torch.cat([flat, flat.new_full((need,), fill)])
+        return flat.reshape(nb, blocksize).contiguous()
+
+    def _amax(a):
+        return a.float().reshape(-1).contiguous()
+
+    two = optimizer_name in OPTIMIZER_FUNCS_2STATE
+    scalars = _optim8_scalars(optimizer_name, beta1, beta2, eps, step, lr, weight_decay,
+                              gnorm_scale, dev)
+    out = optim8_blockwise_fused(
+        optimizer_name, _rows(g_orig.float()), _rows(p_orig.float()),
+        _rows(state1, 127), _amax(absmax1),
+        _rows(state2, 0) if two else None, _amax(absmax2) if two else None, scalars,
+        u=None if noise is None else noise.reshape(nb, blocksize),
+    )
+    po, c1, a1 = out[:3]
+    res = [po.reshape(-1)[:n].reshape(p_orig.shape).to(p_orig.dtype),
+           c1.reshape(-1)[:n].reshape(state1.shape), a1]
+    if two:
+        res += [out[3].reshape(-1)[:n].reshape(state2.shape), out[4]]
+    else:
+        res += [None, None]
+    return tuple(res)
+
+
+_NOISE_SEED = 0xB17B
+
+
+def optimizer_update_8bit_blockwise(
+    optimizer_name: str,
+    g: torch.Tensor,
+    p: torch.Tensor,
+    state1: torch.Tensor,  # uint8
+    absmax1: torch.Tensor,
+    state2: Optional[torch.Tensor],  # uint8
+    absmax2: Optional[torch.Tensor],
+    qmap1=None,
+    qmap2=None,
+    beta1: float = 0.9,
+    beta2: float = 0.999,
+    eps: float = 1e-8,
+    step: int = 1,
+    lr: float = 1e-3,
+    weight_decay: float = 0.0,
+    gnorm_scale=1.0,
+    skip_zeros: bool = False,
+    blocksize: int = 2048,
+    codec: Optional[str] = None,
+    stochastic_rounding: bool = False,
+):
+    """Blockwise 8-bit optimizer step with the dynamic codec: decode the
+    uint8 states, update, requantize per ``blocksize`` block with a fresh
+    absmax (kernel J or K on the card). Non-finite gradient entries leave p
+    and the states unchanged. Returns (p, state1, absmax1, state2,
+    absmax2). ``stochastic_rounding`` requantizes with uniforms from a
+    ``torch.Generator`` seeded from ``step``, so a step is deterministic
+    given (state, step); the JAX package's PRNG bits are not reproduced.
+    ``skip_zeros`` is accepted and unused, as in the JAX package."""
+    del skip_zeros
+    if codec is None and qmap1 is None:
+        codec = "dynamic"
+    if codec != "dynamic":
+        raise NotImplementedError(
+            "custom-qmap (LUT codec) optimizer states are not ported yet (ROADMAP Queue B #10)")
+    n = g.numel()
+    nb = blocks_for(n, blocksize)
+    noise = None
+    if stochastic_rounding:
+        gen = torch.Generator(device=p.device).manual_seed((_NOISE_SEED << 32) + int(step))
+        noise = torch.rand((nb * blocksize,), generator=gen, device=p.device, dtype=torch.float32)
+    return _optim8_fused_dispatch(
+        optimizer_name, state1, absmax1, state2, absmax2,
+        beta1, beta2, eps, step, lr, weight_decay, gnorm_scale,
+        blocksize, nb, n, p, g, noise=noise,
+    )
+
+
+def percentile_clipping(grad_norm: torch.Tensor, gnorm_vec: torch.Tensor, step: int,
+                        percentile: int = 5):
+    """Running 100-step gradient-norm history clipping. Returns (new
+    gnorm_vec of squared norms, gnorm_scale)."""
+    g2 = grad_norm.float() ** 2
+    new_vec = gnorm_vec.clone()
+    new_vec[(step - 1) % 100] = g2
+    filled = min(step, 100)
+    inf = torch.full_like(new_vec, float("inf"))
+    clip2 = torch.sort(torch.where(new_vec > 0, new_vec, inf)).values[
+        min(max(percentile * filled // 100, 0), 99)]
+    clip2 = torch.where(torch.isfinite(clip2), clip2, g2)
+    gnorm, clip = torch.sqrt(g2), torch.sqrt(clip2)
+    return new_vec, torch.where(gnorm > clip, clip / gnorm, torch.ones_like(gnorm))

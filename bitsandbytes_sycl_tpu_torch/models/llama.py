@@ -5,6 +5,12 @@ Parameters are plain dicts of tensors with the JAX package's structure:
 "post_attn_norm"}], "final_norm", "lm_head"}``, where a weight is a 4-bit
 ``QLinearWeight`` or an LLM.int8 dict ``{"CB", "SCB"[, "outliers"]}``. The
 KV cache is a dict in the JAX package's int8 layout, contiguous or paged.
+LoRA adapters (``models/lora.py``) are a per-layer list of ``{proj_name:
+{"A", "B", "scale"}}`` threaded through ``llama_forward(lora=...)``; the
+4-bit linears' backwards (``ops.matmul_4bit.ExactDequantGrad``) carry
+gradients through the frozen base, so ``llama_forward`` records a graph
+whenever an adapter leaf requires grad (the engine serves under
+``torch.no_grad()``).
 Decode steps write each layer's quantized token in place before attending
 with ``lengths = position`` and the token folded in as ``new_kv``; the
 attention masks positions ``>= len``, so the early write leaves the result
@@ -23,7 +29,7 @@ import torch.nn.functional as Fnn
 
 from .. import functional as F
 from ..ops.common import QLinearWeight, quantize_4bit_native, resolve_device
-from ..ops.matmul_4bit import matmul_4bit_fused
+from ..ops.matmul_4bit import differentiable, matmul_4bit_fused
 from ..ops.matmul_w4a8 import (
     W8A8_PREFILL_MIN_M,
     grouped_min_m,
@@ -177,22 +183,65 @@ def linear_route(rows: int, w: QLinearWeight, cfg: LlamaConfig) -> str:
     return "exact"
 
 
+def _lora_for(lora, li: int, name: str):
+    if lora is None:
+        return None
+    return lora[li].get(name)
+
+
+def _apply_lora(x: torch.Tensor, out: torch.Tensor, lora: Dict, lora_ids) -> torch.Tensor:
+    """Add the adapter delta (x @ A^T) @ B^T * scale in f32, cast to out's
+    dtype. Single adapter: A (r, K), B (N, r). Batched: A (n, r, K), B (n,
+    N, r), scale (n,), with per-row ``lora_ids`` ((B, T) constant along T,
+    or one id per row of a 2-D x), gathered per sequence."""
+    xf = x.float()
+    if lora["A"].dim() == 2:
+        xa = torch.matmul(xf, lora["A"].float().T)
+        delta = torch.matmul(xa, lora["B"].float().T) * lora["scale"]
+        return out + delta.to(out.dtype)
+    ids = lora_ids if lora_ids is not None else torch.zeros(
+        x.shape[:-1], dtype=torch.long, device=x.device)
+    if x.dim() == 3:
+        idb = ids[:, 0].long()
+        A_sel = lora["A"].float()[idb]  # (B, r, K)
+        B_sel = lora["B"].float()[idb]  # (B, N, r)
+        s_sel = lora["scale"].float().reshape(-1)[idb]
+        xa = torch.einsum("btk,brk->btr", xf, A_sel)
+        delta = torch.einsum("btr,bnr->btn", xa, B_sel) * s_sel[:, None, None]
+        return out + delta.to(out.dtype)
+    lead = x.shape[:-1]
+    idr = ids.reshape(-1).long()
+    A_sel = lora["A"].float()[idr]  # (rows, r, K)
+    B_sel = lora["B"].float()[idr]  # (rows, N, r)
+    s_sel = lora["scale"].float().reshape(-1)[idr]
+    xa = torch.einsum("bk,brk->br", xf.reshape(-1, x.shape[-1]), A_sel)
+    delta = torch.einsum("br,bnr->bn", xa, B_sel) * s_sel[:, None]
+    return out + delta.reshape(*lead, -1).to(out.dtype)
+
+
 def apply_linear(x: torch.Tensor, w, cfg: LlamaConfig, lora=None, lora_ids=None) -> torch.Tensor:
-    if lora is not None:
-        raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP Queue A #10)")
     if isinstance(w, QLinearWeight):
         route = linear_route(int(np.prod(x.shape[:-1])), w, cfg)
         if route == "w4a8":
-            return matmul_4bit_w4a8(x, w, out_dtype=cfg.dtype)
-        if route == "grouped":
-            return matmul_4bit_w4a8_grouped(x, w, out_dtype=cfg.dtype)
-        if route == "w8a8":
-            return matmul_4bit_w8a8_prefill(x, w, out_dtype=cfg.dtype)
-        return matmul_4bit_fused(x, w, compute_dtype=cfg.dtype)
-    if isinstance(w, dict):
-        return F.llm_int8_matmul(x, w["CB"], w["SCB"], threshold=cfg.llm_int8_threshold,
-                                 outliers=w.get("outliers"))
-    return (x.float() @ w.float().T).to(cfg.dtype)
+            out = matmul_4bit_w4a8(x, w, out_dtype=cfg.dtype)
+        elif route == "grouped":
+            out = matmul_4bit_w4a8_grouped(x, w, out_dtype=cfg.dtype)
+        elif route == "w8a8":
+            out = matmul_4bit_w8a8_prefill(x, w, out_dtype=cfg.dtype)
+        else:
+            out = matmul_4bit_fused(x, w, compute_dtype=cfg.dtype)
+    elif isinstance(w, dict):
+        if differentiable(x, None):
+            raise NotImplementedError("the LLM.int8 linear's backward (autograd.matmul_8bit_lt) "
+                                      "is not ported yet (ROADMAP Queue A #8)")
+        out = F.llm_int8_matmul(x, w["CB"], w["SCB"], threshold=cfg.llm_int8_threshold,
+                                outliers=w.get("outliers"))
+    else:
+        out = (x.float() @ w.float().T).to(cfg.dtype)
+    if lora is not None:
+        # frozen quantized base + trainable low-rank delta
+        out = _apply_lora(x, out, lora, lora_ids)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -432,7 +481,6 @@ def write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg):
     return attn, cache
 
 
-@torch.no_grad()
 def llama_forward(
     params: Dict,
     cfg: LlamaConfig,
@@ -445,13 +493,14 @@ def llama_forward(
     lora_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (logits (B, T, vocab) f32, cache). With a cache, the cache
-    dict is updated in place and returned."""
+    dict is updated in place and returned. ``lora``: per-layer adapters
+    (``models/lora.init_lora``), or batched ones (``stack_lora``) with
+    per-sequence ``lora_ids`` (B,)."""
     if psum_axis is not None:
         raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP Queue A #13)")
-    if lora is not None:
-        raise NotImplementedError("LoRA adapters are not ported yet (ROADMAP Queue A #10)")
     B, T = tokens.shape
     dev = tokens.device
+    ids_bt = None if lora_ids is None else lora_ids.reshape(B, 1).expand(B, T)
     if positions is None:
         positions = torch.arange(T, device=dev).expand(B, T)
     x = params["embed"][tokens.long()].to(cfg.dtype)
@@ -478,9 +527,9 @@ def llama_forward(
         if alternating and li % 2 == 1:
             lcfg, lmask = cfg_global, mask_global
         h = _rms_norm(x, layer["input_norm"], cfg.rms_eps, norm_off)
-        q = apply_linear(h, layer["q_proj"], cfg)
-        k = apply_linear(h, layer["k_proj"], cfg)
-        v = apply_linear(h, layer["v_proj"], cfg)
+        q = apply_linear(h, layer["q_proj"], cfg, _lora_for(lora, li, "q_proj"), ids_bt)
+        k = apply_linear(h, layer["k_proj"], cfg, _lora_for(lora, li, "k_proj"), ids_bt)
+        v = apply_linear(h, layer["v_proj"], cfg, _lora_for(lora, li, "v_proj"), ids_bt)
         if "q_bias" in layer:
             q = q + layer["q_bias"].to(q.dtype)
             k = k + layer["k_bias"].to(k.dtype)
@@ -494,14 +543,15 @@ def llama_forward(
             attn = _attention(q, k, v, lmask, cfg.dtype, sm_scale=_sm_scale(cfg),
                               softcap=cfg.attn_logit_softcap)
         attn = attn.to(cfg.dtype).reshape(B, T, cfg.num_heads * cfg.hd)
-        o = apply_linear(attn, layer["o_proj"], cfg)
+        o = apply_linear(attn, layer["o_proj"], cfg, _lora_for(lora, li, "o_proj"), ids_bt)
         if cfg.sandwich_norms:
             o = _rms_norm(o, layer["attn_out_norm"], cfg.rms_eps, norm_off)
         x = x + o
         h = _rms_norm(x, layer["post_attn_norm"], cfg.rms_eps, norm_off)
-        gate = apply_linear(h, layer["gate_proj"], cfg)
-        up = apply_linear(h, layer["up_proj"], cfg)
-        d = apply_linear(_mlp_act(cfg, gate.float()).to(cfg.dtype) * up, layer["down_proj"], cfg)
+        gate = apply_linear(h, layer["gate_proj"], cfg, _lora_for(lora, li, "gate_proj"), ids_bt)
+        up = apply_linear(h, layer["up_proj"], cfg, _lora_for(lora, li, "up_proj"), ids_bt)
+        d = apply_linear(_mlp_act(cfg, gate.float()).to(cfg.dtype) * up, layer["down_proj"], cfg,
+                         _lora_for(lora, li, "down_proj"), ids_bt)
         if cfg.sandwich_norms:
             d = _rms_norm(d, layer["ffn_out_norm"], cfg.rms_eps, norm_off)
         x = x + d

@@ -21,6 +21,7 @@ from .matmul_w4a8 import (
     w4a8_grouped,
 )
 from .matmul_int8 import int8_matmul, int8_matmul_fused
+from .optim8 import optim8_1state, optim8_2state, optim8_blockwise_fused
 from .paged_attention import (
     paged_attn_int8,
     paged_decode_attention_int8,
@@ -29,7 +30,8 @@ from .paged_attention import (
 
 # the wrappers that launch a kernel, each with its `launches` counter
 KERNELS = (w4a8_gemv, mm4_fused, prefill_attn_int8, paged_attn_int8,
-           dequantize_transposed, dequant_int8, w4a8_grouped, decode_attn_int8, int8_matmul)
+           dequantize_transposed, dequant_int8, w4a8_grouped, decode_attn_int8, int8_matmul,
+           optim8_2state, optim8_1state)
 
 __all__ = [
     "QLinearWeight",
@@ -55,5 +57,8 @@ __all__ = [
     "w4a8_grouped",
     "decode_attn_int8",
     "int8_matmul",
+    "optim8_blockwise_fused",
+    "optim8_2state",
+    "optim8_1state",
     "KERNELS",
 ]

@@ -16,6 +16,13 @@ from ``PREFILL_MIN_M`` rows (``PREFILL_MIN_M_UNALIGNED`` for weights whose
 half-K is not a multiple of 8 quantization blocks) ``matmul_4bit_fused``
 decodes the weight once with it and runs one dense matmul, as the JAX
 package does.
+
+The 4-bit routes are differentiable in x and the bias (``ExactDequantGrad``,
+the JAX package's custom_vjp): the backward is the exact-dequant product
+``grad_x = (g.float() @ W.float()).to(x.dtype)``, with W from kernel E in
+f32 (equal to the JAX package's ``w.dequantize()``) and the product in f32
+(TF32 stays off, PyTorch's default), and ``grad_bias = g.float()`` summed
+over the rows. The packed weight gets no gradient.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from . import _build
 from .common import QLinearWeight, check_cuda_tensors, pick_tile
 
 __all__ = [
-    "matmul_4bit_fused", "mm4_fused", "dequantize_transposed",
+    "matmul_4bit_fused", "mm4_fused", "dequantize_transposed", "ExactDequantGrad",
     "PREFILL_MIN_M", "PREFILL_MIN_M_UNALIGNED",
 ]
 
@@ -222,6 +229,41 @@ def mm4_fused(x2: torch.Tensor, w: QLinearWeight, bias: Optional[torch.Tensor],
 mm4_fused.launches = 0
 
 
+class ExactDequantGrad(torch.autograd.Function):
+    """A 4-bit route with the JAX package's exact-dequant backward:
+    ``apply(impl, x, w, bias, *args)`` runs ``impl(x, w, bias, *args)``
+    forward. The forward keeps its route's numerics (the W4A8 routes'
+    activation rounding included); the backward passes straight through
+    it, as the JAX package's custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, impl, x, w, bias, *args):
+        ctx.w, ctx.x_shape, ctx.x_dtype = w, x.shape, x.dtype
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        ctx.n_args = len(args)
+        return impl(x, w, bias, *args)
+
+    @staticmethod
+    def backward(ctx, g):
+        gf = g.float().reshape(-1, g.shape[-1])
+        grad_x = grad_b = None
+        if ctx.needs_input_grad[1]:
+            w = ctx.w
+            wt = dequantize_transposed(w, torch.float32)  # (K, N), kernel E on the card
+            if w.dtype != "float32":
+                wt = wt.to(getattr(torch, w.dtype)).float()
+            grad_x = torch.matmul(gf, wt.t()).to(ctx.x_dtype).reshape(ctx.x_shape)
+        if ctx.needs_input_grad[3]:
+            grad_b = gf.sum(0).to(ctx.bias_dtype)
+        return (None, grad_x, None, grad_b) + (None,) * ctx.n_args
+
+
+def differentiable(x: torch.Tensor, bias: Optional[torch.Tensor]) -> bool:
+    """Whether a route call must record its backward."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or (bias is not None and bias.requires_grad))
+
+
 def matmul_4bit_fused(
     x: torch.Tensor,
     w: QLinearWeight,
@@ -231,7 +273,15 @@ def matmul_4bit_fused(
 ) -> torch.Tensor:
     """out = x @ dequant(W)^T (+ bias) in compute_dtype; the weight stays
     4-bit. Shapes the kernel cannot tile take a plain dequantize and
-    matmul, as the JAX package does."""
+    matmul, as the JAX package does. Differentiable in x and bias
+    (``ExactDequantGrad``)."""
+    if differentiable(x, bias):
+        return ExactDequantGrad.apply(_matmul_4bit_fused_impl, x, w, bias, compute_dtype,
+                                      decode_dtype)
+    return _matmul_4bit_fused_impl(x, w, bias, compute_dtype, decode_dtype)
+
+
+def _matmul_4bit_fused_impl(x, w: QLinearWeight, bias, compute_dtype, decode_dtype):
     N, K = w.shape
     lead = x.shape[:-1]
     M = int(np.prod(lead)) if lead else 1

@@ -20,6 +20,10 @@ column's largest block scale, so one int32 sum runs over all of K:
 
 Both scale the sum by ``colmax / 127`` and the row scale, in the JAX
 package's order.
+
+The three routes are differentiable in x and the bias with the exact-
+dequant backward (``matmul_4bit.ExactDequantGrad``): the activation
+quantization is a forward-only trade, straight through in the backward.
 """
 
 from __future__ import annotations
@@ -151,6 +155,14 @@ def matmul_4bit_w4a8(
     """out ~= x @ dequant(W)^T with int8 activations and int8 weight codes.
     Compressed scales and untileable shapes take the exact path
     (matmul_4bit_fused), as in the JAX package."""
+    from .matmul_4bit import ExactDequantGrad, differentiable
+
+    if differentiable(x, bias):
+        return ExactDequantGrad.apply(_w4a8_impl, x, w, bias, out_dtype)
+    return _w4a8_impl(x, w, bias, out_dtype)
+
+
+def _w4a8_impl(x, w: QLinearWeight, bias, out_dtype):
     from .matmul_4bit import _nk_tiles, matmul_4bit_fused
 
     N, K = w.shape
@@ -351,6 +363,14 @@ def matmul_4bit_w4a8_grouped(
     take matmul_4bit_fused, as there. ``tm`` (the JAX kernel's row tile)
     is accepted and unused: rows are independent, and kernel G masks a
     ragged M."""
+    from .matmul_4bit import ExactDequantGrad, differentiable
+
+    if differentiable(x, bias):
+        return ExactDequantGrad.apply(_grouped_impl, x, w, bias, out_dtype)
+    return _grouped_impl(x, w, bias, out_dtype)
+
+
+def _grouped_impl(x, w: QLinearWeight, bias, out_dtype):
     from .matmul_4bit import _nk_tiles, matmul_4bit_fused
 
     N, K = w.shape
@@ -395,6 +415,14 @@ def matmul_4bit_w8a8_prefill(
     one exact int8 product, which the JAX package leaves to XLA and the
     card runs as torch._int_mm (cuBLAS). Shapes dequantize_to_int8
     declines take matmul_4bit_fused, as in the JAX package."""
+    from .matmul_4bit import ExactDequantGrad, differentiable
+
+    if differentiable(x, bias):
+        return ExactDequantGrad.apply(_w8a8_impl, x, w, bias, out_dtype)
+    return _w8a8_impl(x, w, bias, out_dtype)
+
+
+def _w8a8_impl(x, w: QLinearWeight, bias, out_dtype):
     from .matmul_4bit import matmul_4bit_fused
 
     N, K = w.shape

@@ -1,0 +1,158 @@
+"""bnb-family 8-bit / 32-bit optimizers as ``torch.optim.Optimizer``s, the
+port of the JAX package's ``optim/base.py`` (there optax transforms).
+
+Per-parameter state: ``state1``, ``absmax1``[, ``state2``, ``absmax2``] for
+an 8-bit leaf (uint8 codes of the dynamic maps, one f32 absmax per 2048
+block), ``state1``[, ``state2``] in f32 otherwise, and ``gnorm_vec`` under
+percentile clipping. A leaf is 8-bit when ``optim_bits == 8`` and its
+``numel >= min_8bit_size``. One step count per optimizer (``count``), as
+the JAX package's ``BnbOptimizerState.count``.
+
+A step computes each leaf's new value and applies it as ``p + (new_p - p)``
+in p's dtype, as ``optax.apply_updates`` adds the update the JAX
+transform returns (it rounds otherwise than storing new_p). ``is_paged`` is
+accepted and ignored, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple, Union
+
+import torch
+
+from .. import functional as F
+
+__all__ = ["BnbOptimizer", "make_optimizer"]
+
+_2STATE = ("adam", "lamb")
+
+
+def _leaf_is_8bit(p: torch.Tensor, optim_bits: int, min_8bit_size: int) -> bool:
+    return optim_bits == 8 and p.numel() >= min_8bit_size
+
+
+class BnbOptimizer(torch.optim.Optimizer):
+    """One bnb-family optimizer over ``params``; ``name`` in {"adam",
+    "lamb", "momentum", "lion", "rmsprop", "adagrad"}. ``lr`` may be a
+    callable of the step count."""
+
+    def __init__(
+        self,
+        params,
+        name: str,
+        lr: Union[float, Callable] = 1e-3,
+        betas: Tuple[float, float] = (0.9, 0.999),
+        eps: float = 1e-8,
+        weight_decay: float = 0.0,
+        optim_bits: int = 32,
+        min_8bit_size: int = 4096,
+        percentile_clipping: int = 100,
+        block_wise: bool = True,
+        max_unorm: float = 0.0,
+        is_paged: bool = False,
+        mesh=None,
+        shard_axis: str = "data",
+        stochastic_rounding: bool = False,
+    ):
+        if name not in _2STATE and name not in F.OPTIMIZER_FUNCS_1STATE:
+            raise NotImplementedError(f"optimizer {name!r} not implemented")
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded optimizer states (mesh=) are not ported yet (ROADMAP Queue A #13)")
+        if not block_wise and optim_bits == 8:
+            raise NotImplementedError(
+                "non-blockwise 8-bit states (block_wise=False) are not ported yet "
+                "(ROADMAP Queue A #9)")
+        del is_paged, shard_axis
+        defaults = dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay)
+        super().__init__(params, defaults)
+        self.name = name
+        self.optim_bits = optim_bits
+        self.min_8bit_size = min_8bit_size
+        self.percentile_clipping = percentile_clipping
+        self.max_unorm = max_unorm
+        self.stochastic_rounding = stochastic_rounding
+        self.blocksize = 2048
+        self.count = 0
+
+    def init_state(self, p: torch.Tensor) -> dict:
+        """The leaf's zero state on p's device, as the JAX package's
+        ``_init_leaf``."""
+        dev = p.device
+        two = self.name in _2STATE
+        s: dict = {}
+        if _leaf_is_8bit(p, self.optim_bits, self.min_8bit_size):
+            nb = F.blocks_for(p.numel(), self.blocksize)
+            s["state1"] = torch.zeros(p.shape, dtype=torch.uint8, device=dev)
+            s["absmax1"] = torch.zeros((nb,), dtype=torch.float32, device=dev)
+            if two:
+                s["state2"] = torch.zeros(p.shape, dtype=torch.uint8, device=dev)
+                s["absmax2"] = torch.zeros((nb,), dtype=torch.float32, device=dev)
+        else:
+            s["state1"] = torch.zeros(p.shape, dtype=torch.float32, device=dev)
+            if two:
+                s["state2"] = torch.zeros(p.shape, dtype=torch.float32, device=dev)
+        if self.percentile_clipping < 100:
+            s["gnorm_vec"] = torch.zeros((100,), dtype=torch.float32, device=dev)
+        return s
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        self.count += 1
+        count = self.count
+        for group in self.param_groups:
+            lr = group["lr"](count) if callable(group["lr"]) else group["lr"]
+            beta1, beta2 = group["betas"]
+            eps, wd = group["eps"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                s = self.state[p]
+                if not s:
+                    s.update(self.init_state(p))
+                self._step_leaf(p, p.grad, s, count, lr, beta1, beta2, eps, wd)
+        return loss
+
+    def _step_leaf(self, p, g, s, count, lr, beta1, beta2, eps, wd):
+        gnorm_scale = 1.0
+        if self.percentile_clipping < 100:
+            gnorm = torch.linalg.vector_norm(g.float())
+            s["gnorm_vec"], gnorm_scale = F.percentile_clipping(
+                gnorm, s["gnorm_vec"], count, self.percentile_clipping)
+        eight = s["state1"].dtype == torch.uint8
+        if eight:
+            new_p, s["state1"], s["absmax1"], st2, am2 = F.optimizer_update_8bit_blockwise(
+                self.name, g, p, s["state1"], s["absmax1"], s.get("state2"), s.get("absmax2"),
+                None, None, beta1, beta2, eps, count, lr, weight_decay=wd,
+                gnorm_scale=gnorm_scale, blocksize=self.blocksize, codec="dynamic",
+                stochastic_rounding=self.stochastic_rounding,
+            )
+            if self.name in _2STATE:
+                s["state2"], s["absmax2"] = st2, am2
+        else:
+            new_p, s["state1"], s2 = F.optimizer_update_32bit(
+                self.name, g, p, s["state1"], s.get("state2"), beta1, beta2, eps, count, lr,
+                weight_decay=wd, gnorm_scale=gnorm_scale, max_unorm=self.max_unorm,
+            )
+            if self.name in _2STATE:
+                s["state2"] = s2
+        delta = new_p.float() - p.float()
+        if self.max_unorm > 0.0 and eight:
+            # the blockwise 8-bit update has no unorm machinery: clip the
+            # realized update post hoc (+eps so zero-norm params move)
+            unorm = torch.linalg.vector_norm(delta)
+            limit = (self.max_unorm * torch.linalg.vector_norm(p.float()) + eps) * lr
+            delta = delta * torch.where(unorm > limit, limit / unorm.clamp_min(1e-12),
+                                        torch.ones_like(unorm))
+        p.add_(delta.to(p.dtype))
+
+
+def make_optimizer(params, name: str, learning_rate: Union[float, Callable] = 1e-3,
+                   **kw) -> BnbOptimizer:
+    """The JAX package's ``make_optimizer`` with the parameters first, as a
+    ``torch.optim.Optimizer``."""
+    return BnbOptimizer(params, name, lr=learning_rate, **kw)

@@ -33,7 +33,14 @@ Phases, each of which exits non-zero on failure:
   6. LLM.int8 Llama-7B (quant="int8", threshold 6, static outlier columns)
      through the default contiguous engine: kernels I (225 per decode step)
      and H (32); then, 2 layers at 7B width, card against CPU: prefill
-     logits at T=32 and 4 decode steps, and greedy tokens.
+     logits at T=32 and 4 decode steps, and greedy tokens;
+  7. QLoRA: (a, in phase 2) the 8-bit optimizer kernels J and K bit for bit
+     against their plain versions, with four deliberate faults; (b) QLoRA
+     fine-tuning of Llama-7B on phase 3's NF4 base, rank 64 on all seven
+     projections, 4 adamw8bit and 2 lion8bit steps on a (4, 513) batch
+     (225 G, 222 E and 448 J launches per Adam step, 448 K per Lion step),
+     profiled; (c) 2 layers at 7B width, card against CPU: loss, adapter
+     gradients and 3 Adam steps.
 Between them: 3c serves phase 3's prompts through the engine's default,
 the contiguous int8 cache (kernel H, 32 launches per step), and its greedy
 tokens must equal the paged engine's under the gap rule; 4b prefills on
@@ -1318,6 +1325,315 @@ def int8_card_vs_cpu(torch, cfg8, prompts_seed):
     return dict(logits=errs, tokens_compared_equal=checked)
 
 
+# --------------------------------------------------------------- phase 7
+# the 7B QLoRA leaves (262,144 and 704,512 parameters), a ragged leaf, 16.8M
+OPTIM8_SIZES = (262144, 704512, 262144 + 1000, 16777216)
+OPTIM8_TIMED = (262144, 704512, 16777216)
+
+
+def bits_equal(torch, a, b):
+    """Equal bit for bit (NaN patterns included)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def optim8_rows(torch, gen, name, n, step, stochastic, two):
+    """One leaf of n parameters as (nb, 2048) rows, padded as the dispatcher
+    pads them (g, p 0; state1 code 127, state2 0 past n), with NaN/Inf
+    gradients, an all-zero block, a block of values tiny against its absmax
+    (the sign fix's case) and, if asked, uniforms; the step's scalars as
+    functional._optim8_scalars makes them."""
+    from bitsandbytes_sycl_tpu_torch import functional as F
+
+    bs, dev = 2048, "cuda"
+    nb = -(-n // bs)
+    valid = (torch.arange(nb * bs, device=dev) < n).reshape(nb, bs)
+    g = torch.randn((nb, bs), generator=gen, device=dev) * 0.01
+    g[0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")], device=dev)
+    g[1] = 0.0
+    g[3] = g[3] * 1e-7
+    g[3, 0] = 1.0
+    p = torch.randn((nb, bs), generator=gen, device=dev) * 0.02
+    lo = 127 if name in ("rmsprop", "adagrad") else 0  # a nonnegative second moment
+    s1 = torch.randint(lo, 256, (nb, bs), generator=gen, device=dev).to(torch.uint8)
+    am1 = torch.rand((nb,), generator=gen, device=dev) * 1e-3
+    s1[2:4], am1[2:4] = 127, 0.0  # zero states: block 2 stays zero where g is
+    g[2] = 0.0
+    zero = torch.zeros((), device=dev)
+    g, p = torch.where(valid, g, zero), torch.where(valid, p, zero)
+    s1 = torch.where(valid, s1, torch.full_like(s1, 127))
+    s2 = am2 = None
+    if two:
+        s2 = torch.randint(0, 256, (nb, bs), generator=gen, device=dev).to(torch.uint8)
+        s2 = torch.where(valid, s2, torch.zeros_like(s2))
+        s2[2:4] = 0
+        am2 = torch.rand((nb,), generator=gen, device=dev) * 1e-5
+    u = torch.rand((nb, bs), generator=gen, device=dev) if stochastic else None
+    sc = F._optim8_scalars(name, 0.9, 0.999 if two else 0.99, 1e-8, step, 2e-4, 0.01, 1.0, dev)
+    return [g, p, s1, am1, s2, am2, sc, u]
+
+
+def optim8_plain(O, name, g, p, s1, am1, s2, am2, sc, u):
+    if s2 is not None:
+        return O._kernel2_plain(name, sc, g, p, s1, am1, s2, am2, u)
+    return O._kernel1_plain(name, sc, g, p, s1, am1, u)
+
+
+def check_optim8(torch, report):
+    """Kernels J (optim8_2state) and K (optim8_1state) against their plain
+    versions on the card, bit for bit in p, codes and absmax: every
+    optimizer name at the 7B leaf sizes, a ragged leaf and 16.8M
+    parameters, with and without stochastic rounding. Four deliberate
+    faults in the plain version must each change the result: state2
+    decoded through the signed map, the next block's absmax, the sign fix
+    dropped, the bias correction of the next step. Times at the three leaf
+    sizes against the byte bound (16 B a parameter for J, 14 for K)."""
+    from bitsandbytes_sycl_tpu_torch import functional as F
+    from bitsandbytes_sycl_tpu_torch.ops import optim8 as O
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = {"optim8_2state": [], "optim8_1state": []}
+    cases = 0
+    for n in OPTIM8_SIZES:
+        for name in O.TWO_STATE + O.ONE_STATE:
+            two = name in O.TWO_STATE
+            kname = "optim8_2state" if two else "optim8_1state"
+            for stochastic in (False, True):
+                args = optim8_rows(torch, gen, name, n, 3, stochastic, two)
+                got = O.optim8_blockwise_fused(name, *args)
+                ref = optim8_plain(O, name, *args)
+                torch.cuda.synchronize()
+                diff = [int((a.reshape(-1) != b.reshape(-1)).sum()) for a, b in zip(got, ref)]
+                need(all(bits_equal(torch, a, b) for a, b in zip(got, ref)),
+                     f"{kname} {name} n={n} stochastic={stochastic}: kernel differs from its "
+                     f"plain version (differing entries per output {diff})")
+                cases += 1
+                timed = (name == "adam" if two else name == "lion")
+                if timed and not stochastic and n in OPTIM8_TIMED:
+                    nb = args[0].shape[0]
+                    nbytes = n * (16 if two else 14) + nb * (16 if two else 8)
+                    r = dict(n=n, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                             ms=time_cold(torch, lambda: O.optim8_blockwise_fused(name, *args)),
+                             plain_ms=time_cold(torch, lambda: optim8_plain(O, name, *args),
+                                                iters=5))
+                    rows[kname].append(r)
+                    print(f"  {kname:13s} {name:8s} n={n:9d} kernel {r['ms'] * 1e3:8.1f} us"
+                          f" plain {r['plain_ms'] * 1e3:9.1f} us bound {r['bound_ms'] * 1e3:6.2f} us"
+                          f" ({r['bound_ms'] / r['ms']:.0%})", flush=True)
+    # deliberate faults, each must change p, a code or an absmax
+    codec, sign_fix = O._DynamicCodec, O._apply_sign_fix
+
+    class SignedState2(codec):
+        def __init__(self, signed, sign_fix=False):
+            super().__init__(True, sign_fix)
+
+    for name in ("adam", "momentum"):
+        two = name == "adam"
+        args = optim8_rows(torch, gen, name, 262144, 1, False, two)
+        got = O.optim8_blockwise_fused(name, *args)
+        faults = []
+        if two:
+            O._DynamicCodec = SignedState2
+            try:
+                faults.append(("state2 decoded through the signed map", optim8_plain(O, name, *args)))
+            finally:
+                O._DynamicCodec = codec
+        bad = list(args)
+        bad[3] = args[3].roll(-1)
+        faults.append(("the next block's absmax", optim8_plain(O, name, *bad)))
+        O._apply_sign_fix = lambda rank, normed, n_neg, top: rank.to(torch.int32)
+        try:
+            faults.append(("the sign fix dropped", optim8_plain(O, name, *args)))
+        finally:
+            O._apply_sign_fix = sign_fix
+        bad = list(args)
+        bad[6] = F._optim8_scalars(name, 0.9, 0.999 if two else 0.99, 1e-8, 2, 2e-4, 0.01, 1.0,
+                                   "cuda")
+        faults.append(("the bias correction of step + 1", optim8_plain(O, name, *bad)))
+        for label, out in faults:
+            need(not all(bits_equal(torch, a, b) for a, b in zip(got, out)),
+                 f"{name}: a plain version with {label} equals the kernel, so the check "
+                 f"cannot see that fault")
+        print(f"  {name}: {len(faults)} deliberate faults each change the result", flush=True)
+    for kname, rs in rows.items():
+        report[kname] = dict(shapes=rs, ms=sum(r["ms"] for r in rs),
+                             plain_ms=sum(r["plain_ms"] for r in rs),
+                             bound_ms=sum(r["bound_ms"] for r in rs), bound_by="bytes",
+                             library_ms=None, max_abs_err=0.0)
+    return cases
+
+
+def qlora_step(torch, kernels, loss_fn, lora, tokens, opt, lora_b=None):
+    """One fine-tuning step: forward, backward and optimizer, each timed to
+    a synchronize; returns (loss, {forward_ms, backward_ms, optimizer_ms},
+    the kernel launches of the step)."""
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = loss_fn(lora, tokens)
+    lv = loss.item()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    opt.step()
+    opt.zero_grad()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return lv, dict(forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
+                    optimizer_ms=(t3 - t2) * 1e3), read_counts(kernels)
+
+
+def qlora_7b(torch, cfg, params, kernels):
+    """Phase 7b: QLoRA fine-tuning of Llama-7B (32 layers, NF4 base): rank
+    64, alpha 16 on all seven projections, 4 adamw8bit steps (lr 2e-4, no
+    weight decay) then 2 lion8bit steps on one seeded (4, 513) batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bitsandbytes_sycl_tpu_torch import optim
+    from bitsandbytes_sycl_tpu_torch.models.lora import ALL_TARGETS, init_lora, lora_leaves, qlora_loss_fn
+
+    lora = init_lora(cfg, seed=1, rank=64, alpha=16.0, targets=ALL_TARGETS)
+    leaves = lora_leaves(lora)
+    n8 = sum(t.numel() >= 4096 for t in leaves)
+    n_train = sum(t.numel() for t in leaves)
+    need(n8 == 448 and n_train == 159_907_840 + 224,
+         f"7B QLoRA: {n8} 8-bit leaves, {n_train} trainable parameters")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(1, cfg.vocab_size, (4, 513), generator=gen, device="cuda")
+    loss_fn = qlora_loss_fn(params, cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    totals = {}
+    for phase, opt, n in (("adamw8bit", optim.adamw8bit(leaves, 2e-4, weight_decay=0.0), 4),
+                          ("lion8bit", optim.lion8bit(leaves, 2e-5), 2)):
+        for i in range(n):
+            prof = None
+            if phase == "adamw8bit" and i == n - 1:
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+            lv, ms, counts = qlora_step(torch, kernels, loss_fn, lora, tokens, opt)
+            row = dict(optimizer=phase, step=i + 1, loss=lv, **ms,
+                       wall_ms=sum(ms.values()), launches={k: v for k, v in counts.items() if v})
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                # kernels only: the optimizer's step annotation also shows
+                # on the device, as a range over its kernels
+                dev = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)
+                       and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
+                busy = sum(e.self_device_time_total for e in dev) / 1e3
+                top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+                row.update(profiled=True, device_busy_ms=busy if busy > 0 else None,
+                           optim8_device_ms=sum(e.self_device_time_total for e in dev
+                                                if "optim8" in e.key) / 1e3,
+                           top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
+            steps.append(row)
+            for k, v in counts.items():
+                totals.setdefault(phase, {})[k] = totals.get(phase, {}).get(k, 0) + v
+            need(lv == lv and abs(lv) != float("inf"), f"7B QLoRA {phase} step {i + 1}: loss {lv}")
+            if phase == "adamw8bit" and i == 0:
+                bmax = torch.stack([lora[li][t]["B"].detach().abs().amax()
+                                    for li in range(cfg.num_layers) for t in ALL_TARGETS])
+                need(bool((bmax > 0).all()), "7B QLoRA: an adapter B is still zero after step 1")
+            print(f"[7b] {phase} step {i + 1}: loss {lv:.5f}; forward {ms['forward_ms']:.1f} ms,"
+                  f" backward {ms['backward_ms']:.1f} ms, optimizer {ms['optimizer_ms']:.1f} ms"
+                  + (" (profiled)" if prof is not None else "")
+                  + f"; launches {row['launches']}", flush=True)
+    adam = [r for r in steps if r["optimizer"] == "adamw8bit"]
+    for r in adam:
+        lc = r["launches"]
+        need(lc.get("w4a8_grouped") == 225 and lc.get("dequantize_transposed") == 222
+             and lc.get("optim8_2state") == 448,
+             f"7B QLoRA adam step {r['step']}: launches {lc}, expected 225 G, 222 E, 448 J")
+    for r in steps[4:]:
+        need(r["launches"].get("optim8_1state") == 448,
+             f"7B QLoRA lion step {r['step']}: launches {r['launches']}, expected 448 K")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof_row = adam[-1]
+    unprof = sorted(r["wall_ms"] for r in adam[1:-1])
+    median = unprof[len(unprof) // 2]
+    busy = prof_row["device_busy_ms"]
+    # the whole update moves 2.56 GB: 4 B g + 4 B p read, 4 B p written and
+    # 1 B of each state read and written per 8-bit parameter
+    opt_bound_ms = n_train * 16 / HBM_BYTES_PER_S * 1e3
+    out = dict(steps=steps, launches=totals, peak_gb=peak, trainable=n_train,
+               step_ms_median=median, device_busy_ms=busy,
+               device_idle_share=None if not busy else max(0.0, 1 - busy / median),
+               optimizer_bound_ms=opt_bound_ms, optim8_device_ms=prof_row["optim8_device_ms"])
+    print(f"[7b] 7B QLoRA: {n_train} trainable parameters; adam step median {median:.1f} ms"
+          f" (steps 2-3), device busy {busy if busy else 'not measured'} ms of the profiled step"
+          + (f" (idle {out['device_idle_share']:.0%} of the median)" if busy else "")
+          + f"; kernel J {prof_row['optim8_device_ms']:.2f} ms of device time in the profiled"
+          f" optimizer step ({prof_row['optimizer_ms']:.1f} ms of wall) against the update's"
+          f" {opt_bound_ms:.3f} ms bound; peak {peak:.1f} GB", flush=True)
+    for key, ms, cnt in prof_row.get("top", []):
+        print(f"      {ms:9.3f} ms  {cnt:6d}x  {key[:90]}")
+    return out
+
+
+def qlora_card_vs_cpu(torch, cfg, kernels):
+    """Phase 7c: 2 layers at 7B width, B = 1, T = 128 (the W4A8 route,
+    kernel A), adapters with a seeded nonzero B, on the card and on the
+    CPU: the loss within 1% relative, the adapter gradients within 4%
+    relative L2 (the CPU tests' limit for W4A8 against the JAX package),
+    and after 3 adamw8bit steps a cosine >= 0.9 between the two runs'
+    p - p0."""
+    from bitsandbytes_sycl_tpu_torch import optim
+    from bitsandbytes_sycl_tpu_torch.models.llama import init_params
+    from bitsandbytes_sycl_tpu_torch.models.lora import ALL_TARGETS, init_lora, lora_leaves, qlora_loss_fn
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    p_cpu = init_params(cfg2, seed=1, device="cpu")
+    p_gpu = to_cuda(torch, p_cpu)
+    lo_cpu = init_lora(cfg2, seed=2, rank=64, alpha=16.0, targets=ALL_TARGETS, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for layer in lo_cpu:
+            for ab in layer.values():
+                ab["B"].copy_(torch.randn(ab["B"].shape, generator=gen) * 0.01)
+    lo_gpu = [{t: {k: v.detach().cuda().requires_grad_() for k, v in ab.items()}
+               for t, ab in layer.items()} for layer in lo_cpu]
+    toks = torch.randint(1, cfg.vocab_size, (1, 129), generator=gen)
+    runs = {}
+    reset_counts(kernels)
+    for dev, params, lora in (("cpu", p_cpu, lo_cpu), ("cuda", p_gpu, lo_gpu)):
+        leaves = lora_leaves(lora)
+        p0 = [t.detach().clone() for t in leaves]
+        opt = optim.adamw8bit(leaves, 2e-4, weight_decay=0.0)
+        loss_fn = qlora_loss_fn(params, cfg2)
+        losses, grads = [], None
+        for step in range(3):
+            loss = loss_fn(lora, toks.to(dev))
+            loss.backward()
+            losses.append(loss.item())
+            if step == 0:
+                grads = torch.cat([t.grad.reshape(-1).float().cpu() for t in leaves])
+            opt.step()
+            opt.zero_grad()
+        delta = torch.cat([(t.detach() - q).reshape(-1).float().cpu() for t, q in zip(leaves, p0)])
+        runs[dev] = dict(losses=losses, grads=grads, delta=delta)
+    counts = read_counts(kernels)
+    c, g = runs["cpu"], runs["cuda"]
+    loss_rel = abs(g["losses"][0] - c["losses"][0]) / abs(c["losses"][0])
+    grad_rel = float((g["grads"] - c["grads"]).norm() / c["grads"].norm())
+    cos = float(torch.nn.functional.cosine_similarity(g["delta"], c["delta"], dim=0))
+    need(counts["w4a8_gemv"] > 0 and counts["optim8_2state"] > 0,
+         f"7B-width QLoRA on the card: launches {counts}")
+    need(loss_rel <= 1e-2, f"QLoRA card vs CPU: loss {g['losses'][0]} vs {c['losses'][0]}")
+    need(grad_rel <= 4e-2, f"QLoRA card vs CPU: adapter gradients {grad_rel:.4f} relative L2 > 0.04")
+    need(cos >= 0.9, f"QLoRA card vs CPU: cosine of p - p0 after 3 steps {cos:.4f} < 0.9")
+    print(f"[7c] 2-layer 7B-width QLoRA card vs CPU (B=1, T=128, kernel A): loss {g['losses'][0]:.5f}"
+          f" vs {c['losses'][0]:.5f} ({loss_rel:.2e} rel, tol 1e-2); adapter gradients"
+          f" {grad_rel:.4f} relative L2 (tol 0.04); cosine of p - p0 after 3 adamw8bit steps"
+          f" {cos:.4f} (tol 0.9); losses card {g['losses']} CPU {c['losses']}", flush=True)
+    return dict(loss_rel=loss_rel, grad_rel_l2=grad_rel, delta_cosine=cos,
+                losses_card=g["losses"], losses_cpu=c["losses"])
+
+
 def to_cuda(torch, o):
     """A params tree (tensors, QLinearWeights, dicts, lists) on the card."""
     from bitsandbytes_sycl_tpu_torch.ops.common import QLinearWeight
@@ -1374,6 +1690,10 @@ def main() -> int:
         n_edges = check_edges(torch)
         print(f"[2] {n_edges} edge-case comparisons (odd rows, f32/bias, all B modes, ragged G"
               f" planes, W8A8 at few rows, C/D/H options, I at odd rows) ok")
+        n_opt = check_optim8(torch, report)
+        print(f"[7a] kernels J and K equal their plain versions bit for bit in {n_opt} cases"
+              f" (every optimizer, n = {', '.join(map(str, OPTIM8_SIZES))}, NaN/Inf, zero"
+              f" block, stochastic rounding)", flush=True)
         phases["kernels_s"] = time.perf_counter() - t0
 
         # 3. serve Llama-7B through the paged engine
@@ -1481,6 +1801,12 @@ def main() -> int:
         t0 = time.perf_counter()
         w8a8_stats = w8a8_prefill_batches(torch, cfg, params, KERNELS)
         phases["w8a8_prefill_s"] = time.perf_counter() - t0
+
+        # 7b. QLoRA fine-tuning of Llama-7B on the same frozen NF4 base
+        gc.collect()
+        t0 = time.perf_counter()
+        train_stats = qlora_7b(torch, cfg, params, KERNELS)
+        phases["qlora_7b_s"] = time.perf_counter() - t0
         del params
         torch.cuda.empty_cache()
 
@@ -1553,6 +1879,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         int8_stats["card_vs_cpu"] = int8_card_vs_cpu(torch, cfg8, 3)
         phases["int8_s"] = time.perf_counter() - t0
+
+        # 7c. QLoRA card against CPU, 2 layers at 7B width
+        t0 = time.perf_counter()
+        train_stats["card_vs_cpu"] = qlora_card_vs_cpu(torch, cfg, KERNELS)
+        phases["qlora_card_vs_cpu_s"] = time.perf_counter() - t0
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1580,6 +1911,12 @@ def main() -> int:
                              contig_stats["launches"]["decode_attn_int8"]),
         "int8_matmul": ("bitsandbytes_sycl_tpu/ops/matmul_int8.py:42", "LLM.int8 7B serve (phase 6)",
                         int8_stats["launches"]["int8_matmul"]),
+        "optim8_2state": ("bitsandbytes_sycl_tpu/ops/optim8.py:166",
+                          "7B QLoRA, 4 adamw8bit steps (phase 7b)",
+                          train_stats["launches"]["adamw8bit"]["optim8_2state"]),
+        "optim8_1state": ("bitsandbytes_sycl_tpu/ops/optim8.py:206",
+                          "7B QLoRA, 2 lion8bit steps (phase 7b)",
+                          train_stats["launches"]["lion8bit"]["optim8_1state"]),
     }
     # launches per decode step, from the profiled steps of the path that launched each
     per_step = {**serve_stats["profile"]["launches_per_step"],
@@ -1598,7 +1935,8 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=report, serve=serve_stats, long_prompts=long_stats,
                        chunked=chunk_stats, contiguous=contig_stats, w8a8_prefill=w8a8_stats,
-                       int8=int8_stats, phases=phases), f, indent=1, default=str)
+                       int8=int8_stats, qlora=train_stats, phases=phases), f, indent=1,
+                  default=str)
     print(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
     print(card)
     print(json.dumps({"kernels": kernels}))

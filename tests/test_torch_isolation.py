@@ -14,6 +14,7 @@ import bitsandbytes_sycl_tpu_torch as port
 from bitsandbytes_sycl_tpu_torch import convert
 from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine, init_page_pool
 from bitsandbytes_sycl_tpu_torch.models import llama as TL
+from bitsandbytes_sycl_tpu_torch.models.lora import init_lora, lora_leaves
 from bitsandbytes_sycl_tpu_torch.ops.common import check_cuda_tensors, resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -46,8 +47,8 @@ def test_kernel_sources_are_in_the_package():
 
     names = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
     assert names == ["decode_attn_int8", "dequant_int8", "dequantize_transposed", "int8_matmul",
-                     "mm4_fused", "paged_attn_int8", "prefill_attn_int8", "w4a8_gemv",
-                     "w4a8_grouped"]
+                     "mm4_fused", "optim8_1state", "optim8_2state", "paged_attn_int8",
+                     "prefill_attn_int8", "w4a8_gemv", "w4a8_grouped"]
     # one wrapper with a launch counter for each source
     assert sorted(k.__name__ for k in KERNELS) == names
     assert all(k.launches == 0 for k in KERNELS)  # the CPU runs no kernel
@@ -66,8 +67,14 @@ def test_entry_points_need_cuda_unless_given_cpu(monkeypatch):
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_lora(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.lora_from_jax([], None)
     params = TL.init_params(cfg, device="cpu")
     assert params["embed"].device.type == "cpu"
+    lora = init_lora(cfg, device="cpu")
+    assert all(t.device.type == "cpu" and t.requires_grad for t in lora_leaves(lora))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceEngine(cfg, params, EngineConfig(paged=True))
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -82,3 +89,30 @@ def test_wrappers_dispatch_on_the_tensor_device():
     with pytest.raises(ValueError):
         check_cuda_tensors("t", torch.zeros(1), torch.zeros(1, device="meta"))
     assert port.QLinearWeight is TL.QLinearWeight
+
+
+def test_engine_step_records_no_graph(monkeypatch):
+    """llama_forward records a graph when an input requires grad (QLoRA
+    training); the engine serves under torch.no_grad(), so neither its
+    prefill nor its decode steps build one, even with a leaf that requires
+    grad in the params."""
+    import bitsandbytes_sycl_tpu_torch.engine.engine as E
+
+    cfg = TL.LlamaConfig.tiny(num_layers=1, head_dim=128, num_heads=2, num_kv_heads=1,
+                              max_seq_len=128)
+    params = TL.init_params(cfg, device="cpu")
+    params["final_norm"].requires_grad_()
+    seen = []
+
+    def spy(*a, **kw):
+        logits, cache = TL.llama_forward(*a, **kw)
+        seen.append(logits.requires_grad)
+        return logits, cache
+
+    monkeypatch.setattr(E, "llama_forward", spy)
+    for ecfg in (EngineConfig(max_new_tokens=3), EngineConfig(paged=True, max_new_tokens=3)):
+        eng = InferenceEngine(cfg, params, ecfg, device="cpu")
+        assert len(eng.generate([[1, 2, 3], [4, 5]])[0]) == 3
+    assert len(seen) >= 4 and not any(seen)
+    logits, _ = TL.llama_forward(params, cfg, torch.tensor([[1, 2, 3]]))
+    assert logits.requires_grad  # outside the engine the graph is recorded
