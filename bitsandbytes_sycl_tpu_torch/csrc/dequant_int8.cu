@@ -3,12 +3,14 @@
 // Replaces bitsandbytes_sycl_tpu/ops/matmul_w4a8.py `_dequant8_kernel`
 // (called through `_dequant8_call` and `dequantize_to_int8`). It backs the
 // per-call W8A8 prefill route: decode once, then one int8 x int8 product.
-// The route's per-row activation quantization (`quant_rows`) is here too.
+// The route's per-row activation quantization (`quant_rows`) and the
+// per-column grid (`col_grid`: colmax and f, which kernel G also takes) are
+// here too.
 //
 // Computes wq[k, n] = clip(rint(dec(nibble(k, n)) * f[plane, blk, n]), +-127)
 // with dec the bf16 table value (int4: its f32 arithmetic value; both come
-// in the table) and f = absmax * 127 * safe_inv(colmax), computed by the
-// caller in f32. k < K/2 reads the hi nibble of packed[k, n], k >= K/2 the
+// in the table) and f = absmax * 127 * safe_inv(colmax), computed in f32
+// by `col_grid`. k < K/2 reads the hi nibble of packed[k, n], k >= K/2 the
 // lo nibble of packed[k - K/2, n]. rint rounds half to even, as jnp.round.
 //
 // The codes are stored as (N, K) rows, i.e. wq in column-major order: that
@@ -32,6 +34,22 @@ namespace {
 __device__ __forceinline__ uint32_t q8(float dec, float f) {
   const float q = fminf(fmaxf(rintf(dec * f), -127.0f), 127.0f);
   return (uint32_t)(uint8_t)(int8_t)q;
+}
+
+// colmax[n] = the column's largest block scale over both planes, and
+// f = absmax * (127 * safe_inv(colmax)), each operation rounded as the
+// plain version's (`ops/matmul_w4a8._col_grid`)
+__global__ void col_grid_kernel(const void* __restrict__ absmax, int s_bf16, int nb2, int N,
+                                float* __restrict__ colmax, float* __restrict__ f) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  float cm = ld_f(absmax, n, s_bf16);
+  for (int b = 1; b < nb2; ++b) cm = fmaxf(cm, ld_f(absmax, (size_t)b * N + n, s_bf16));
+  colmax[n] = cm;
+  const float sc = __fmul_rn(127.0f, cm > 0.0f ? __frcp_rn(cm) : 0.0f);
+  for (int b = 0; b < nb2; ++b) {
+    f[(size_t)b * N + n] = __fmul_rn(ld_f(absmax, (size_t)b * N + n, s_bf16), sc);
+  }
 }
 
 __global__ void dequant_int8_kernel(const uint32_t* __restrict__ packed,
@@ -97,5 +115,15 @@ extern "C" int quant_rows(const void* x, void* xq, void* row_absmax, int M, int 
   if (M <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   quant_rows_kernel<<<M, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       x, x_bf16, K, reinterpret_cast<int8_t*>(xq), reinterpret_cast<float*>(row_absmax));
+  return (int)cudaGetLastError();
+}
+
+// The per-column int8 grid of kernels F and G: absmax (2, K/(2 bs), N)
+// f32/bf16 -> colmax (N) f32 and f (2, K/(2 bs), N) f32; nb2 = K / bs.
+extern "C" int col_grid(const void* absmax, void* colmax, void* f, int nb2, int N, int s_bf16,
+                        void* stream) {
+  if (nb2 <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  col_grid_kernel<<<(N + 255) / 256, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      absmax, s_bf16, nb2, N, reinterpret_cast<float*>(colmax), reinterpret_cast<float*>(f));
   return (int)cudaGetLastError();
 }

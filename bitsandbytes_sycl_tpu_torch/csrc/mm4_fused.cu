@@ -10,21 +10,46 @@
 //   mode 0 (f32 table decode) and mode 1 (int4, (7 - (i & 7)) / 7 or
 //          -(i & 7) / 7): the f32 product, rounded to bf16 when x is bf16.
 //
-// Bound on the H100: memory at the rows this route serves (M < 2048; the
-// engine sends it M <= 128): the weight bytes plus scales over 3.35 TB/s.
-// The per-element decode and 2*M f32 multiply-adds per weight byte make it
-// bound by instruction throughput before that at small M; a first,
-// simple version.
+// Two bodies; the wrapper picks one from the call's dtype and shape
+// (`ops/matmul_4bit.mm4_plan`).
 //
-// Design: the work split of kernel A (w4a8_gemv.cu). A thread owns 4
-// neighbouring columns; each warp takes whole quantization blocks (so one
-// scale per column and plane per block); warps meet in shared memory in a
-// fixed order and the grid's K splits are summed in order by a second small
-// kernel. The 16-entry table sits in shared memory, where distinct entries
-// fall in distinct banks.
+// Tensor-core body (`mm4_tc_kernel`, bf16 x). Bound on the H100: the weight
+// bytes at decode rows, bf16 tensor-core operations (2 M N K / 989 TFLOP/s)
+// from a few hundred rows. With bf16 x every decoded weight is a bf16
+// value, so the products on the tensor cores are exact and only the f32
+// summation order differs from the plain version. A CTA owns a 64 x 128,
+// 128 x 128, 128 x 256 or 256 x 128 output tile and walks its share of K
+// in steps of 32 packed rows: one load of packed bytes feeds both planes
+// (hi nibbles pair with x[:, j], lo nibbles with x[:, K/2 + j]), so a step
+// is 64 of K. One thread's TMA copies bring each step's two x planes
+// (64-byte swizzle, read by wgmma as they land), the packed bytes and the
+// scales into a 4-slot ring two steps ahead, completing on an mbarrier.
+// Every thread then decodes the step's weight once per CTA into a bf16
+// K-major tile (mode 2 multiplies two table entries by the scale in one
+// bf16x2 operation; the column order rotates by lane so that every 8-lane
+// phase of a store covers all banks), and each warpgroup issues wgmma
+// m64n128k16 on its 64 or 128 rows while the next step is decoded. A
+// warpgroup's wgmma_wait proves only its own products done, so the decoded
+// tiles rotate through two buffers with one warpgroup (step i overwrites
+// step i - 2's tile, which the warpgroup waited for at the end of step
+// i - 1) and three with two (step i overwrites step i - 3's tile, which
+// every warpgroup waited for before the barrier of step i - 1). The K
+// splits write f32 partials that a second kernel sums in a fixed order (no
+// atomics). What bounds it now is the decode (PERF.md): the taller the
+// tile, the fewer decodes per product.
+//
+// SIMT body (`mm4_kernel`: f32 x and shapes the tensor-core body does not
+// tile). Bound by instruction throughput: the work split of kernel A
+// (w4a8_gemv.cu). A thread owns 4 neighbouring columns; each warp takes
+// whole quantization blocks (one scale per column and plane per block);
+// warps meet in shared memory in a fixed order and the grid's K splits are
+// summed in order by a second small kernel. The 16-entry table sits in
+// shared memory, where distinct entries fall in distinct banks. It decodes
+// the weight again for every 4-row tile.
 #include <string.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -123,6 +148,235 @@ mm4_kernel(const void* __restrict__ x, int x_bf16, const uint32_t* __restrict__ 
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// tensor-core body
+// ---------------------------------------------------------------------------
+constexpr int kTcJ = 32;      // packed rows per step (64 of K: 32 hi + 32 lo)
+constexpr int kTcStages = 4;  // ring slots of raw operands
+constexpr int kTcAhead = kTcStages - 2;  // steps loaded ahead of the one decoded
+
+__host__ __device__ constexpr int tc_slot_bytes(int bm, int bn) {
+  return bm * 2 * kTcJ * 2 + kTcJ * bn + 2 * 4 * bn * 4;  // x, packed, scales (<= 4 blocks, f32)
+}
+
+// decoded-tile buffers: see the note at the top
+__host__ __device__ constexpr int tc_dec_bufs(int wgs) { return wgs > 1 ? 3 : 2; }
+
+__host__ __device__ constexpr int tc_smem_bytes(int wgs, int bm, int bn) {
+  return 1024 + kTcStages * tc_slot_bytes(bm, bn) + tc_dec_bufs(wgs) * bn * 2 * kTcJ * 2;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(a));
+  const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(b));
+  return lo | (hi << 16);
+}
+
+// two bf16 products, each rounded once: RN(a * b + (-0)) = RN(a * b), the
+// value round_bf16(f32(a) * f32(b)) takes (the f32 product of two bf16 is
+// exact) wherever that product is not an f32 subnormal
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(0x80008000u));
+  return d;
+}
+
+// x (M, K) bf16 in boxes of 32 x bm (64-byte swizzle), packed (K/2, N) in
+// boxes of bn x 32, scales (2 nbh, N) in boxes of bn x srows
+struct TcMaps {
+  CUtensorMap x, packed, scales;
+};
+
+// kWG warpgroups, each on kMS 64-row sub-tiles of the CTA's rows
+template <int kMode, int kWG, int kMS, int kBN>
+__global__ void __launch_bounds__(128 * kWG)
+mm4_tc_kernel(const __grid_constant__ TcMaps maps, int s_bf16, const float* __restrict__ bias,
+              __nv_bfloat16* __restrict__ out, float* __restrict__ part, int M, int N, int K,
+              int bs, int per, TableF16 table) {
+  constexpr int kBM = 64 * kWG * kMS, kThreads = 128 * kWG, kNH = kBN / 128, kAcc = kMS * kNH;
+  constexpr int kXp = kBM * kTcJ * 2, kPk = kTcJ * kBN;  // one plane's x tile, packed bytes
+  constexpr int kSlot = tc_slot_bytes(kBM, kBN), kDec = kBN * 2 * kTcJ * 2;
+  constexpr int kDecBufs = tc_dec_bufs(kWG);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* dec = smem + kTcStages * kSlot;
+  __shared__ float tbl[16];      // decoded table values (modes 0, 1)
+  __shared__ uint32_t tb16[16];  // bf16 bits of the table (mode 2)
+  __shared__ __align__(8) uint64_t full[kTcStages];
+
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  if (tid < 16) {
+    const float v = table.v[tid];
+    tbl[tid] = v;
+    tb16[tid] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+  if (tid == 0) {
+    for (int i = 0; i < kTcStages; ++i) mbar_init(&full[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  const int half = K / 2, nbh = half / bs;
+  const int total = half / kTcJ, s0 = blockIdx.z * per;
+  const int nsteps = min(per, total - s0);
+  const int esz = s_bf16 ? 2 : 4;
+  const int srows = bs >= kTcJ ? 1 : kTcJ / bs;  // scale rows per plane and step
+
+  // one thread: step i's x planes, packed rows and scales into its slot
+  auto load = [&](int i) {
+    const int slot = i % kTcStages, j0 = (s0 + i) * kTcJ, blk0 = j0 / bs;
+    uint8_t* base = smem + slot * kSlot;
+    mbar_expect_tx(&full[slot], 2 * kXp + kPk + 2 * srows * kBN * esz);
+    tma_load_2d(base, &maps.x, &full[slot], j0, m0);
+    tma_load_2d(base + kXp, &maps.x, &full[slot], half + j0, m0);
+    tma_load_2d(base + 2 * kXp, &maps.packed, &full[slot], n0, j0);
+    for (int p = 0; p < 2; ++p) {
+      tma_load_2d(base + 2 * kXp + kPk + p * (4 * kBN * 4), &maps.scales, &full[slot], n0,
+                  p * nbh + blk0);
+    }
+  };
+
+  // decode step i into dec[i % kDecBufs]. Item (8-row group g, 4 columns col4,
+  // column pair cp): 2 columns x 8 rows x both planes, 16 bytes per column
+  // and plane. A warp covers 16 col4 x 2 pairs; the column order rotates
+  // with col4 so that each 8-lane phase of a store covers all banks.
+  auto decode_step = [&](int i) {
+    const uint8_t* ps = smem + (i % kTcStages) * kSlot + 2 * kXp;
+    const uint8_t* ss = ps + kPk;
+    uint8_t* dd = dec + (i % kDecBufs) * kDec;
+    for (int idx = tid; idx < 2 * kBN; idx += kThreads) {
+      const int wb = idx >> 5, cp = idx & 1;
+      const int col4 = (wb % (kBN / 64)) * 16 + ((idx & 31) >> 1), g = wb / (kBN / 64);
+      uint32_t w[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) w[r] = *reinterpret_cast<const uint32_t*>(ps + (8 * g + r) * kBN + 4 * col4);
+      const int sr = bs >= kTcJ ? 0 : (8 * g) / bs;
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int c = 2 * cp + ((cc + (col4 >> 1)) & 1), n = 4 * col4 + c;
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          float s = ld_f(ss + p * (4 * kBN * 4), sr * kBN + n, s_bf16);
+          const int sh = 8 * c + (p ? 0 : 4);
+          uint4 q;
+          if (kMode == 2) {
+            const uint32_t sb = __bfloat16_as_ushort(__float2bfloat16_rn(s));
+            const uint32_t s2 = sb | (sb << 16);
+            uint32_t o[4];
+#pragma unroll
+            for (int h = 0; h < 4; ++h) {
+              const uint32_t a = tb16[(w[2 * h] >> sh) & 15], b = tb16[(w[2 * h + 1] >> sh) & 15];
+              o[h] = bf16x2_mul(__byte_perm(a, b, 0x5410), s2);
+            }
+            q = make_uint4(o[0], o[1], o[2], o[3]);
+          } else {
+            float v[8];
+#pragma unroll
+            for (int r = 0; r < 8; ++r) v[r] = decode<kMode>((w[r] >> sh) & 15, tbl, s, 1);
+            q = make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                           pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+          }
+          *reinterpret_cast<uint4*>(dd + core_offset(n, 4 * p + g, kBN)) = q;
+        }
+      }
+    }
+  };
+
+  float acc[kAcc][64];  // sub-tile u, 128-column half h at u * kNH + h
+#pragma unroll
+  for (int a = 0; a < kAcc; ++a)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[a][e] = 0.0f;
+
+  if (tid == 0) {
+    for (int i = 0; i < kTcAhead && i < nsteps; ++i) load(i);
+  }
+  for (int i = 0; i < nsteps; ++i) {
+    mbar_wait(&full[i % kTcStages], (i / kTcStages) & 1);
+#ifndef BNB_PROBE_NO_DECODE  // chip_smoke.py --probe: the decode switched off
+    decode_step(i);
+#endif
+    fence_proxy_async();
+    __syncthreads();  // step i decoded; every warpgroup's wgmma i - 2 is done
+    if (tid == 0 && i + kTcAhead < nsteps) load(i + kTcAhead);  // into step i - 2's slot
+    const uint8_t* a = smem + (i % kTcStages) * kSlot;
+    const uint8_t* b = dec + (i % kDecBufs) * kDec;
+#pragma unroll
+    for (int c = 0; c < kAcc; ++c) acc_fence(acc[c]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int u = 0; u < kMS; ++u) {
+        // plane kk / 2, 32 bytes further along K for the odd k16
+        const uint64_t da = gmma_desc(a + (kk >> 1) * kXp + (wg * kMS + u) * 64 * 64 + (kk & 1) * 32,
+                                      16, 512, 2);
+#pragma unroll
+        for (int h = 0; h < kNH; ++h) {
+#ifndef BNB_PROBE_NO_MMA
+          wgmma_bf16_n128(acc[u * kNH + h], da,
+                          gmma_desc(b + core_offset(128 * h, 2 * kk, kBN), kBN * 16, 128));
+#endif
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+#pragma unroll
+    for (int c = 0; c < kAcc; ++c) acc_fence(acc[c]);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < kAcc; ++c) acc_fence(acc[c]);
+
+  const bool direct = gridDim.z == 1;
+#pragma unroll
+  for (int c = 0; c < kAcc; ++c) {
+#pragma unroll
+    for (int e = 0; e < 64; e += 2) {
+      const int m = m0 + (wg * kMS + c / kNH) * 64 + acc_row(t, e);
+      const int n = n0 + 128 * (c % kNH) + acc_col(t, e);
+      if (m >= M) continue;
+      if (direct) {
+        float v0 = acc[c][e], v1 = acc[c][e + 1];
+        if (bias != nullptr) {
+          v0 = v0 + bias[n];
+          v1 = v1 + bias[n + 1];
+        }
+        *reinterpret_cast<uint32_t*>(out + (size_t)m * N + n) = pack_bf16x2(v0, v1);
+      } else {
+        *reinterpret_cast<float2*>(part + ((size_t)blockIdx.z * M + m) * N + n) =
+            make_float2(acc[c][e], acc[c][e + 1]);
+      }
+    }
+  }
+}
+
+template <int kMode, int kWG, int kMS, int kBN>
+int launch_tc(dim3 grid, cudaStream_t st, const TcMaps& maps, int s_bf16, const void* bias,
+              void* out, void* part, int M, int N, int K, int bs, int per, const TableF16& tbl) {
+  auto kernel = mm4_tc_kernel<kMode, kWG, kMS, kBN>;
+  const int bytes = tc_smem_bytes(kWG, 64 * kWG * kMS, kBN);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, 128 * kWG, bytes, st>>>(maps, s_bf16, reinterpret_cast<const float*>(bias),
+                                         reinterpret_cast<__nv_bfloat16*>(out),
+                                         reinterpret_cast<float*>(part), M, N, K, bs, per, tbl);
+  return (int)cudaGetLastError();
+}
+
+// the tile shapes (64 x 128, 128 x 128, 128 x 256, 256 x 128) in each decode mode
+template <int kMode>
+int launch_tc_tile(int bm, int bn, dim3 grid, cudaStream_t st, const TcMaps& maps, int s_bf16,
+                   const void* bias, void* out, void* part, int M, int N, int K, int bs, int per,
+                   const TableF16& tbl) {
+  if (bm == 64) return launch_tc<kMode, 1, 1, 128>(grid, st, maps, s_bf16, bias, out, part, M, N, K, bs, per, tbl);
+  if (bm == 256) return launch_tc<kMode, 2, 2, 128>(grid, st, maps, s_bf16, bias, out, part, M, N, K, bs, per, tbl);
+  if (bn == 128) return launch_tc<kMode, 2, 1, 128>(grid, st, maps, s_bf16, bias, out, part, M, N, K, bs, per, tbl);
+  return launch_tc<kMode, 2, 1, 256>(grid, st, maps, s_bf16, bias, out, part, M, N, K, bs, per, tbl);
+}
+
 }  // namespace
 
 // x (M, K) in the compute dtype (f32/bf16); packed (K/2, N) uint8; scales
@@ -150,5 +404,50 @@ extern "C" int mm4_fused(const void* x, const void* packed, const void* scales, 
   const size_t MN = (size_t)M * N;
   reduce_partials_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(
       pt, ksplit, M, N, nullptr, reinterpret_cast<const float*>(bias), out, x_bf16);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core body. x (M, K) bf16; packed (K/2, N) uint8; scales
+// (2, K/(2 bs), N) f32/bf16; bias (N) f32 or null; out (M, N) bf16.
+// Tiles of bm x bn (64 x 128, 128 x 128, 128 x 256 or 256 x 128); K split into ksplit
+// ranges of `per` steps of 32 packed rows. Scratch: part (ksplit, M, N) f32
+// when ksplit > 1.
+extern "C" int mm4_fused_tc(const void* x, const void* packed, const void* scales, const void* bias,
+                            void* out, void* part, const void* table, int M, int N, int K, int bs,
+                            int bm, int bn, int per, int ksplit, int s_bf16, int mode, void* stream) {
+  const int half = K / 2;
+  const bool tile_ok = ((bm == 64 || bm == 256) && bn == 128) || (bm == 128 && (bn == 128 || bn == 256));
+  if (M <= 0 || !tile_ok || N % bn || K % (2 * bs) || bs % 8 || (bs % kTcJ && kTcJ % bs) ||
+      half % kTcJ || per < 1 || ksplit < 1 || mode < 0 || mode > 2 ||
+      (size_t)ksplit * per < (size_t)(half / kTcJ) || (ksplit - 1) * per >= half / kTcJ) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  TableF16 tbl;
+  memcpy(tbl.v, table, sizeof(tbl.v));
+  const int srows = bs >= kTcJ ? 1 : kTcJ / bs;
+  TcMaps maps;
+  int err = make_tmap_2d(&maps.x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, K, bm, kTcJ, true);
+  if (err == 0) {
+    err = make_tmap_2d(&maps.packed, packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, half, N, N, kTcJ, bn,
+                       false);
+  }
+  if (err == 0) {
+    err = make_tmap_2d(&maps.scales, scales,
+                       s_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                       s_bf16 ? 2 : 4, K / bs, N, N, srows, bn, false);
+  }
+  if (err != 0) return err;
+  dim3 grid(N / bn, (M + bm - 1) / bm, ksplit);
+  err = mode == 0 ? launch_tc_tile<0>(bm, bn, grid, st, maps, s_bf16, bias, out, part, M, N, K, bs, per, tbl)
+        : mode == 1 ? launch_tc_tile<1>(bm, bn, grid, st, maps, s_bf16, bias, out, part, M, N, K, bs, per, tbl)
+                    : launch_tc_tile<2>(bm, bn, grid, st, maps, s_bf16, bias, out, part, M, N, K, bs, per, tbl);
+  if (err != 0) return err;
+  if (ksplit > 1) {
+    const size_t MN = (size_t)M * N;
+    reduce_partials_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(
+        reinterpret_cast<const float*>(part), ksplit, M, N, nullptr,
+        reinterpret_cast<const float*>(bias), out, 1);
+  }
   return (int)cudaGetLastError();
 }

@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["build_all", "kernel_fn", "check"]
+__all__ = ["build_all", "build_variants", "use_library", "kernel_fn", "check"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "bnb_torch_kernels"
@@ -51,25 +51,18 @@ def _build_dir() -> Path:
     return _BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build_all(verbose: bool = False) -> float:
-    """Compile every source not yet built (one nvcc each, all started
-    together) and load the libraries. Returns the seconds it took."""
-    t0 = time.perf_counter()
-    if len(_libs) == len(list(_CSRC.glob("*.cu"))) and _libs:
-        return 0.0
-    out = _build_dir()
-    out.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for src in sorted(_CSRC.glob("*.cu")):
-        so = out / f"lib{src.stem}.so"
-        if so.exists():
-            continue
-        tmp = out / f"lib{src.stem}.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(src)]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        jobs.append((src, so, tmp, proc))
+def _start(src: Path, so: Path, extra=(), verbose: bool = False):
+    """Start one nvcc of ``src`` into ``so`` (through a temporary file)."""
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-I", str(_CSRC), "-o", str(tmp), str(src)]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return src, so, tmp, proc
+
+
+def _finish(jobs, verbose: bool = False) -> None:
+    """Wait for started nvcc jobs; raise with every failure's errors."""
     errors = []
     for src, so, tmp, proc in jobs:
         stdout, stderr = proc.communicate()
@@ -81,9 +74,47 @@ def build_all(verbose: bool = False) -> float:
         os.replace(tmp, so)
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def build_all(verbose: bool = False) -> float:
+    """Compile every source not yet built (one nvcc each, all started
+    together) and load the libraries. Returns the seconds it took."""
+    t0 = time.perf_counter()
+    if len(_libs) == len(list(_CSRC.glob("*.cu"))) and _libs:
+        return 0.0
+    out = _build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    _finish([_start(src, out / f"lib{src.stem}.so", verbose=verbose)
+             for src in sorted(_CSRC.glob("*.cu")) if not (out / f"lib{src.stem}.so").exists()],
+            verbose)
     for src in sorted(_CSRC.glob("*.cu")):
         _libs[src.stem] = ctypes.CDLL(str(out / f"lib{src.stem}.so"))
     return time.perf_counter() - t0
+
+
+def build_variants(variants: Dict[str, tuple]) -> Dict[str, ctypes.CDLL]:
+    """Single sources built with extra ``-D`` macros, all at once, beside
+    the package's own build: {key: (stem, macros)} -> {key: library}. The
+    macros are the BNB_PROBE_* switches that ``chip_smoke.py --probe``
+    uses to time a kernel with one part switched off."""
+    out = _build_dir() / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    sos = {key: out / f"lib{stem}.{'.'.join(macros)}.so" for key, (stem, macros) in variants.items()}
+    _finish([_start(_CSRC / f"{stem}.cu", sos[key], [f"-D{m}" for m in macros])
+             for key, (stem, macros) in variants.items() if not sos[key].exists()])
+    return {key: ctypes.CDLL(str(so)) for key, so in sos.items()}
+
+
+def use_library(stem: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Make the wrappers call ``lib`` for ``csrc/<stem>.cu`` (a build of
+    ``build_variants``, or the library this returned to put it back);
+    returns the library used before."""
+    build_all()
+    old = _libs[stem]
+    _libs[stem] = lib
+    for key in [k for k in _fns if k.startswith(f"{stem}.")]:
+        del _fns[key]
+    return old
 
 
 def kernel_fn(lib: str, name: str, nargs: int, int_args=(), float_args=()):

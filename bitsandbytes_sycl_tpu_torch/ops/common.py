@@ -15,7 +15,8 @@ kept as the interchange format so both packages hold identical bytes):
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +30,9 @@ __all__ = [
     "QLinearWeight",
     "quantize_4bit_native",
     "pick_tile",
+    "LaunchPlan",
+    "split_k",
+    "sm_count",
     "safe_inv",
     "decode_4bit",
     "compress_absmax",
@@ -71,6 +75,66 @@ def pick_tile(dim: int, candidates) -> Optional[int]:
 
 
 safe_inv = F._safe_inv
+
+H100_SMS = 132  # streaming multiprocessors of the H100 SXM
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (asked once)."""
+    return _sm_count(torch.cuda.current_device() if dev.index is None else dev.index)
+
+
+def _ksplit(nbh: int, n_col_blocks: int, m_tiles: int, warps: int = 8):
+    """(quant blocks per warp, K splits) so that the grid holds a few
+    blocks per SM."""
+    want = max(1, -(-264 // (n_col_blocks * m_tiles)))
+    g = max(1, nbh // (warps * want))
+    return g, -(-nbh // (warps * g))
+
+
+class LaunchPlan(NamedTuple):
+    """How a wrapper launches a kernel with more than one body: the body,
+    rows and columns per CTA, K steps per split and the number of K
+    splits. Split s covers steps [s * per, min((s + 1) * per, steps)) of
+    each plane's packed rows; the grid is (N / bn, ceil(M / bm), ksplit)."""
+
+    body: str
+    bm: int
+    per: int
+    ksplit: int
+    bn: int = 128
+
+
+def split_k(tiles: int, steps: int, unit: int, sms: int, ctas_per_sm: int, step_us: float,
+            split_us: float, part_us: float, min_per: int = 4):
+    """(per, ksplit, est_us): K steps per split and the number of splits for
+    ``tiles`` output tiles of ``steps`` K steps on ``sms`` SMs, each split a
+    whole number of ``unit`` steps (one quantization block) and at least
+    ``min_per`` steps. A launch is modelled as waves x per x ``step_us`` (a
+    CTA's time per step) plus, with a split, ``split_us`` and ``part_us``
+    for each split's partial tile; the constants are fitted to timed plans
+    (``chip_smoke.py --probe``). The cheapest launch wins, the fewest
+    splits among equals. The estimate ranks launches; it is no
+    measurement."""
+    best = None
+    for ks in range(1, 17):
+        per = -(-steps // ks)
+        per = -(-per // unit) * unit
+        if ks > 1 and per < min_per:
+            break
+        kse = -(-steps // per)
+        waves = -(-(tiles * kse) // (sms * ctas_per_sm))
+        est = waves * per * step_us
+        if kse > 1:
+            est += split_us + kse * tiles * part_us
+        if best is None or (est, kse) < (best[2], best[1]):
+            best = (per, kse, est)
+    return best
 
 
 def decode_4bit(codes: torch.Tensor, table, dtype=torch.float32) -> torch.Tensor:

@@ -36,11 +36,12 @@ import torch
 
 from .. import codebooks
 from . import _build
-from .common import QLinearWeight, check_cuda_tensors, pick_tile
+from .common import (LaunchPlan, QLinearWeight, _ksplit, check_cuda_tensors, pick_tile,
+                     sm_count, split_k)
 
 __all__ = [
     "matmul_4bit_fused", "mm4_fused", "dequantize_transposed", "ExactDequantGrad",
-    "PREFILL_MIN_M", "PREFILL_MIN_M_UNALIGNED",
+    "PREFILL_MIN_M", "PREFILL_MIN_M_UNALIGNED", "mm4_plan",
 ]
 
 # rows from which matmul_4bit_fused decodes the weight once to a dense
@@ -184,10 +185,44 @@ def _mm4_plain(x2, w: QLinearWeight, bias, compute_dtype, mode: int) -> torch.Te
     return out.to(compute_dtype)
 
 
+# kernel B's tensor-core tiles (rows, columns): CTAs per SM (by shared
+# memory) and a CTA's time per 32-row step in us; a K split's fixed cost in
+# us and its cost per partial output element. The times are fitted to the
+# plans `chip_smoke.py --probe` times on the H100 (PERF.md section 6).
+_MM4_TILES = {(64, 128): (2, 1.37), (128, 128): (1, 0.934), (128, 256): (1, 1.71),
+              (256, 128): (1, 1.33)}
+_MM4_SPLIT = (6.67, 2.38e-6)
+
+
+def mm4_plan(M: int, N: int, K: int, bs: int, x_dtype, sms: int) -> LaunchPlan:
+    """Kernel B's launch on ``sms`` SMs. The tensor-core body takes bf16 x
+    where half-K is a whole number of its 32-row steps and a step's 8-row
+    decode groups each lie in one quantization block, with the tile and K
+    split that ``split_k`` ranks cheapest (it beats the SIMT body from one
+    row on). The SIMT body takes the rest (f32 x, other shapes): 4-row
+    tiles, ``per`` quantization blocks per warp."""
+    half = K // 2
+    if x_dtype == torch.bfloat16 and half % 32 == 0 and bs % 8 == 0 and (
+            bs % 32 == 0 or 32 % bs == 0):
+        best = None
+        split_us, elem_us = _MM4_SPLIT
+        for (bm, bn), (ctas_per_sm, step_us) in _MM4_TILES.items():
+            if N % bn:
+                continue
+            per, ks, est = split_k(-(-M // bm) * (N // bn), half // 32, max(1, bs // 32), sms,
+                                   ctas_per_sm, step_us, split_us, bm * bn * elem_us)
+            if best is None or est < best[0]:
+                best = (est, LaunchPlan("tc", bm, per, ks, bn))
+        return best[1]
+    g, ks = _ksplit(half // bs, N // 128, -(-M // 4))
+    return LaunchPlan("simt", 4, g, ks)
+
+
 def mm4_fused(x2: torch.Tensor, w: QLinearWeight, bias: Optional[torch.Tensor],
               compute_dtype, decode_dtype=None) -> torch.Tensor:
     """Kernel B on CUDA tensors; the plain version on CPU tensors.
-    x2 (M, K) already in compute_dtype -> (M, N) in compute_dtype."""
+    x2 (M, K) already in compute_dtype -> (M, N) in compute_dtype. The
+    body follows ``mm4_plan``."""
     mode = _decode_mode(w, compute_dtype, decode_dtype)
     if not check_cuda_tensors("mm4_fused", x2, w.packed, w.absmax, bias):
         return _mm4_plain(x2, w, bias, compute_dtype, mode)
@@ -203,30 +238,45 @@ def mm4_fused(x2: torch.Tensor, w: QLinearWeight, bias: Optional[torch.Tensor],
             "mm4_fused: compressed statistics are not ported yet (ROADMAP Queue A #1)")
     if N % 128 or K % (2 * bs) or bs % 4 or w.shape[1] != K or M == 0:
         raise ValueError(f"mm4_fused: untileable shape M={M} N={N} K={K} bs={bs}")
-    from .matmul_w4a8 import _ksplit
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()  # a view at an odd offset; TMA reads 16-byte aligned rows
+    return _mm4_launch(x2, w, bias, mode, mm4_plan(M, N, K, bs, x2.dtype, sm_count(x2.device)))
 
-    nbh = K // (2 * bs)
-    g, ksplit = _ksplit(nbh, N // 128, -(-M // 4))
+
+def _mm4_launch(x2, w: QLinearWeight, bias, mode: int, plan: LaunchPlan) -> torch.Tensor:
+    """Launch kernel B's body ``plan.body`` on checked CUDA tensors."""
+    M, K = x2.shape
+    N = w.shape[0]
     dev = x2.device
-    out = torch.empty((M, N), dtype=compute_dtype, device=dev)
-    part = torch.empty((ksplit, M, N), dtype=torch.float32, device=dev)
+    out = torch.empty((M, N), dtype=x2.dtype, device=dev)
+    part = torch.empty((plan.ksplit, M, N), dtype=torch.float32, device=dev) \
+        if plan.body == "simt" or plan.ksplit > 1 else None
     b = None if bias is None else bias.float().contiguous()
-    fn = _build.kernel_fn("mm4_fused", "mm4_fused", 17, int_args=range(7, 16))
-    err = fn(
-        x2.data_ptr(), w.packed.data_ptr(), w.absmax.data_ptr(),
-        None if b is None else b.data_ptr(), out.data_ptr(), part.data_ptr(),
-        ctypes.addressof(_decode_table(w.quant_type, bs, mode)),
-        M, N, K, bs, g, ksplit,
-        int(compute_dtype == torch.bfloat16), int(w.absmax.dtype == torch.bfloat16),
-        mode,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check("mm4_fused", err)
+    table = ctypes.addressof(_decode_table(w.quant_type, w.blocksize, mode))
+    ptrs = (x2.data_ptr(), w.packed.data_ptr(), w.absmax.data_ptr(),
+            None if b is None else b.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), table)
+    s_bf16 = int(w.absmax.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if plan.body == "tc":
+        # TMA reads x, the packed bytes and the scales from 16-byte aligned addresses
+        assert all(t.data_ptr() % 16 == 0 for t in (x2, w.packed, w.absmax)), "unaligned tensor"
+        fn = _build.kernel_fn("mm4_fused", "mm4_fused_tc", 18, int_args=range(7, 17))
+        err = fn(*ptrs, M, N, K, w.blocksize, plan.bm, plan.bn, plan.per, plan.ksplit, s_bf16,
+                 mode, stream)
+        mm4_fused.launches_tc += 1
+    else:
+        fn = _build.kernel_fn("mm4_fused", "mm4_fused", 17, int_args=range(7, 16))
+        err = fn(*ptrs, M, N, K, w.blocksize, plan.per, plan.ksplit,
+                 int(x2.dtype == torch.bfloat16), s_bf16, mode, stream)
+    _build.check(f"mm4_fused ({plan.body})", err)
     mm4_fused.launches += 1
     return out
 
 
+# launches of either body, and of the tensor-core body alone
 mm4_fused.launches = 0
+mm4_fused.launches_tc = 0
 
 
 class ExactDequantGrad(torch.autograd.Function):

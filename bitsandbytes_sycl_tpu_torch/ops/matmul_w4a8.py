@@ -36,12 +36,13 @@ import torch
 
 from . import _build
 from ..functional import _div127
-from .common import QLinearWeight, check_cuda_tensors, pick_tile, safe_inv
+from .common import (LaunchPlan, QLinearWeight, _ksplit, check_cuda_tensors, pick_tile,
+                     safe_inv, sm_count, split_k)
 
 __all__ = [
     "matmul_4bit_w4a8", "matmul_4bit_w4a8_grouped", "matmul_4bit_w8a8_prefill",
     "dequantize_to_int8", "w4a8_gemv", "w4a8_grouped", "dequant_int8",
-    "grouped_min_m", "W8A8_PREFILL_MIN_M",
+    "grouped_min_m", "W8A8_PREFILL_MIN_M", "grouped_plan", "col_grid",
 ]
 
 # routing thresholds of the JAX package (models/llama.apply_linear reads them)
@@ -89,14 +90,6 @@ def _w4a8_plain(x2: torch.Tensor, w: QLinearWeight, bias, out_dtype) -> torch.Te
     if bias is not None:
         out = out + bias.float()
     return out.to(out_dtype)
-
-
-def _ksplit(nbh: int, n_col_blocks: int, m_tiles: int, warps: int = 8):
-    """(quant blocks per warp, K splits) so that the grid holds a few
-    blocks per SM."""
-    want = max(1, -(-264 // (n_col_blocks * m_tiles)))
-    g = max(1, nbh // (warps * want))
-    return g, -(-nbh // (warps * g))
 
 
 def w4a8_gemv(x2: torch.Tensor, w: QLinearWeight, bias: Optional[torch.Tensor],
@@ -192,6 +185,28 @@ def _col_grid(w: QLinearWeight):
     return colmax, (amax * (127.0 * safe_inv(colmax))[None, None, :]).contiguous()
 
 
+def col_grid(w: QLinearWeight):
+    """``_col_grid``'s (colmax, f) by the column-grid kernel on CUDA
+    tensors (the same numbers bit for bit), by the plain version on CPU
+    tensors. Kernel F's route and kernel G take them."""
+    if not check_cuda_tensors("col_grid", w.absmax):
+        return _col_grid(w)
+    if w.compressed:
+        raise NotImplementedError(
+            "col_grid: compressed statistics are not ported yet (ROADMAP Queue A #1)")
+    if w.absmax.dtype not in (torch.float32, torch.bfloat16) or not w.absmax.is_contiguous():
+        raise ValueError("col_grid: the scales must be contiguous f32/bf16")
+    _, nbh, N = w.absmax.shape
+    dev = w.absmax.device
+    colmax = torch.empty((N,), dtype=torch.float32, device=dev)
+    f = torch.empty((2, nbh, N), dtype=torch.float32, device=dev)
+    fn = _build.kernel_fn("dequant_int8", "col_grid", 7, int_args=range(3, 6))
+    err = fn(w.absmax.data_ptr(), colmax.data_ptr(), f.data_ptr(), 2 * nbh, N,
+             int(w.absmax.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("col_grid", err)
+    return colmax, f
+
+
 def _dequant8_mode(w: QLinearWeight) -> int:
     from .matmul_4bit import _MODE_BF16_TABLE, _MODE_F32_INT4
 
@@ -267,7 +282,7 @@ def dequantize_to_int8(w: QLinearWeight):
     kernel declines, which callers route elsewhere."""
     if _int8_declined(w):
         return None, None
-    colmax, f = _col_grid(w)
+    colmax, f = col_grid(w)
     return dequant_int8(w, f), colmax
 
 
@@ -307,14 +322,34 @@ def _grouped_plain(x2: torch.Tensor, w: QLinearWeight, bias, out_dtype) -> torch
     return out.to(out_dtype)
 
 
+# kernel G's wgmma body: a CTA's time in us per step of both planes (2 x 64
+# rows of K), a K split's fixed cost in us and its cost per partial output
+# element, fitted to the plans `chip_smoke.py --probe` times on the H100
+# (PERF.md section 6)
+_GROUPED_STEP_US = 4.13
+_GROUPED_SPLIT = (34.4, 2.79e-6)
+
+
+def grouped_plan(M: int, N: int, K: int, bs: int, sms: int) -> LaunchPlan:
+    """Kernel G's launch on ``sms`` SMs: the wgmma body (256-row tiles,
+    64-row K steps, K split to fill the SMs) where half-K is a whole number
+    of steps and a 16-row regrid group lies in one quantization block; the
+    mma.sync body (128-row tiles, no split) otherwise."""
+    half = K // 2
+    if half % 64 == 0 and bs % 16 == 0 and (bs % 64 == 0 or 64 % bs == 0):
+        split_us, elem_us = _GROUPED_SPLIT
+        per, ks, _ = split_k(-(-M // 256) * (N // 128), half // 64, max(1, bs // 64), sms, 1,
+                             _GROUPED_STEP_US, split_us, 256 * 128 * elem_us)
+        return LaunchPlan("wgmma", 256, per, ks)
+    return LaunchPlan("mma_sync", 128, -(-half // 64), 1)
+
+
 def w4a8_grouped(x2: torch.Tensor, w: QLinearWeight, bias: Optional[torch.Tensor],
                  out_dtype) -> torch.Tensor:
     """Kernel G on CUDA tensors; the plain version on CPU tensors.
     x2 (M, K) f32/bf16 -> (M, N) in out_dtype (f32 or bf16)."""
     if not check_cuda_tensors("w4a8_grouped", x2, w.packed, w.absmax, bias):
         return _grouped_plain(x2, w, bias, out_dtype)
-    from .matmul_4bit import _INT8_CODES, _decode_table
-
     M, K = x2.shape
     N = w.shape[0]
     bs = w.blocksize
@@ -326,28 +361,47 @@ def w4a8_grouped(x2: torch.Tensor, w: QLinearWeight, bias: Optional[torch.Tensor
         raise ValueError("w4a8_grouped: raw f32/bf16 scales only")
     if N % 128 or K % (2 * bs) or bs % 4 or w.shape[1] != K or M == 0:
         raise ValueError(f"w4a8_grouped: untileable shape M={M} N={N} K={K} bs={bs}")
-    if not w.packed.is_contiguous():
+    if not (w.packed.is_contiguous() and w.absmax.is_contiguous()):
         raise ValueError("w4a8_grouped: weight tensors must be contiguous")
-    colmax, f = _col_grid(w)
+    return _grouped_launch(x2, w, bias, out_dtype,
+                           grouped_plan(M, N, K, bs, sm_count(x2.device)))
+
+
+def _grouped_launch(x2, w: QLinearWeight, bias, out_dtype, plan: LaunchPlan) -> torch.Tensor:
+    """Launch kernel G's body ``plan.body`` on checked CUDA tensors."""
+    from .matmul_4bit import _INT8_CODES, _decode_table
+
+    M, K = x2.shape
+    N = w.shape[0]
+    bs = w.blocksize
     dev = x2.device
+    colmax, f = col_grid(w)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     xq = torch.empty((M, K), dtype=torch.int8, device=dev)
     ra = torch.empty((M,), dtype=torch.float32, device=dev)
+    part = (torch.empty((plan.ksplit, M, N), dtype=torch.int32, device=dev)
+            if plan.ksplit > 1 else None)
     b = None if bias is None else bias.float().contiguous()
-    fn = _build.kernel_fn("w4a8_grouped", "w4a8_grouped", 16, int_args=range(9, 15))
+    fn = _build.kernel_fn("w4a8_grouped", "w4a8_grouped", 20, int_args=range(10, 19))
     err = fn(
-        x2.data_ptr(), w.packed.data_ptr(), f.data_ptr(), colmax.contiguous().data_ptr(),
+        x2.data_ptr(), w.packed.data_ptr(), f.data_ptr(), colmax.data_ptr(),
         None if b is None else b.data_ptr(), out.data_ptr(), xq.data_ptr(), ra.data_ptr(),
+        None if part is None else part.data_ptr(),
         ctypes.addressof(_decode_table(w.quant_type, bs, _INT8_CODES)),
-        M, N, K, bs, int(x2.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        M, N, K, bs, int(x2.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), int(plan.body == "wgmma"), plan.per, plan.ksplit,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("w4a8_grouped", err)
     w4a8_grouped.launches += 1
+    if plan.body == "wgmma":
+        w4a8_grouped.launches_wgmma += 1
     return out
 
 
+# launches of either body, and of the wgmma body alone
 w4a8_grouped.launches = 0
+w4a8_grouped.launches_wgmma = 0
 
 
 def matmul_4bit_w4a8_grouped(

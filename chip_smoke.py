@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of bitsandbytes_sycl_tpu_torch on one CUDA card (H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the smoke run below
+    python3 chip_smoke.py --probe    # where B's and G's time goes (see probe_main)
 
 Phases, each of which exits non-zero on failure:
   1. build the hand-written kernels (nvcc, csrc/*.cu) and print the card;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the 7B serving path gives it (attention inputs with O(1)
      scores, and the plain version fed deliberate faults must land outside
-     the tolerance), and time kernel, plain version and one PyTorch
+     the tolerance; kernel B's tensor-core body at 256 and 1024 rows, G's
+     wgmma body at 512 and 2048, each checked to have run, and every plan
+     of those bodies launched 100 times on one input must repeat its
+     output bit for bit), and time
+     kernel, plain version and one PyTorch
      library call that computes the same function; then hold the W8A8
      route at 4096 rows and the dequantize-once route at 2048 (and 256)
      rows, glue included, against plain versions at the 7B shapes;
@@ -21,8 +26,11 @@ Phases, each of which exits non-zero on failure:
   3b. long prompts through the paged engine at full 7B width and depth
      (max_batch 8): one prompt of 129-256 tokens (256 prefill rows: kernels
      B and E), four of 257-512 (2048 rows: G), eight of 257-512 (4096 rows:
-     F), each batch decoded to its end; then chunked prefill (256-token
-     chunks) of two 700-1000-token prompts against the whole-prompt engine;
+     F), each batch decoded to its end, the 256-row batch on B's
+     tensor-core body and the 2048-row one on G's wgmma body; then chunked
+     prefill (256-token chunks) of two 700-1000-token prompts against the
+     whole-prompt engine, with W4A8 linears (chunks on G) and with
+     a8_decode=False (chunks on B);
   4. the same weights, 4 layers, on the exact path (a8_decode=False): the
      exact 4-bit kernel must have been launched, and a batch of four
      257-512-token prompts must decode every linear's weight once (E);
@@ -38,7 +46,8 @@ Phases, each of which exits non-zero on failure:
      against their plain versions, with four deliberate faults; (b) QLoRA
      fine-tuning of Llama-7B on phase 3's NF4 base, rank 64 on all seven
      projections, 4 adamw8bit and 2 lion8bit steps on a (4, 513) batch
-     (225 G, 222 E and 448 J launches per Adam step, 448 K per Lion step),
+     (225 G on its wgmma body, 222 E and 448 J launches per Adam step, 448
+     K per Lion step),
      profiled; (c) 2 layers at 7B width, card against CPU: loss, adapter
      gradients and 3 Adam steps.
 Between them: 3c serves phase 3's prompts through the engine's default,
@@ -132,54 +141,88 @@ def faults_exceed(torch, name, ref, faults, tol):
 
 # --------------------------------------------------------------- phase 2
 def check_linears(torch, report):
+    """Kernels A and B against their plain versions at the 7B shapes, within
+    1% of the largest output (bf16 output: a few ulps after a reordered f32
+    sum). A at 4 and 128 rows; B at 4 and 128 rows and at the 256 and 1024
+    rows of the exact prefill path (its tensor-core body), where the plain
+    version fed the lo plane's scales on the hi plane must land outside the
+    tolerance. Timed: A and B at 4 rows, B at 256 and 1024 rows beside its
+    SIMT body (the earlier design) at 256."""
+    import dataclasses as dc
+
     from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit, matmul_w4a8
-    from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native
+    from bitsandbytes_sycl_tpu_torch.ops.common import (LaunchPlan, _ksplit, quantize_4bit_native,
+                                                        sm_count)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     shapes = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
     rows = {"w4a8_gemv": [], "mm4_fused": []}
+    mode = matmul_4bit._MODE_BF16_TABLE
     for N, K in shapes:
         W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
         w = quantize_4bit_native(W, 64, "nf4", absmax_dtype=torch.bfloat16)
         Wd = W.to(torch.bfloat16)
         del W
-        for M in (4, 128, 256):
+        w_bad = dc.replace(w, absmax=w.absmax[1:].expand(2, -1, -1).contiguous())  # lo scales on hi
+        for M in (4, 128, 256, 1024):
             x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
             for name, kern, plain in (
                 ("w4a8_gemv", lambda: matmul_w4a8.w4a8_gemv(x, w, None, torch.bfloat16),
                  lambda: matmul_w4a8._w4a8_plain(x, w, None, torch.bfloat16)),
                 ("mm4_fused", lambda: matmul_4bit.mm4_fused(x, w, None, torch.bfloat16),
-                 lambda: matmul_4bit._mm4_plain(x, w, None, torch.bfloat16,
-                                                matmul_4bit._MODE_BF16_TABLE)),
+                 lambda: matmul_4bit._mm4_plain(x, w, None, torch.bfloat16, mode)),
             ):
                 if name == "w4a8_gemv" and M > 128:
                     continue  # A serves up to 128 rows; B also the 256-row prefill
+                tc0 = matmul_4bit.mm4_fused.launches_tc
                 got, ref = kern(), plain()
                 torch.cuda.synchronize()
                 err, scale = max_err(torch, got, ref)
                 tol = 1e-2 * scale  # bf16 output: a few ulps after a reordered f32 sum
                 need(err <= tol, f"{name} N={N} K={K} M={M}: max err {err} > {tol}")
                 row = dict(N=N, K=K, M=M, max_abs_err=err, tol=tol)
-                if M == 4:
+                if name == "mm4_fused":
+                    need(matmul_4bit.mm4_fused.launches_tc == tc0 + 1,
+                         f"mm4_fused N={N} K={K} M={M}: bf16 x did not take the tensor-core body")
+                    if M >= 256:
+                        row["fault_over_tol"] = faults_exceed(torch, f"mm4_fused N={N} K={K} M={M}", ref, [
+                            ("the lo plane's scales on the hi plane",
+                             lambda: matmul_4bit._mm4_plain(x, w_bad, None, torch.bfloat16, mode))], tol)
+                if M in (4, 256, 1024):
                     nbytes = M * K * 2 + N * K // 2 + N * K // 64 * 2 + M * N * 2
                     ops_ = 2 * M * N * K
-                    peak = INT8_OPS_PER_S if name == "w4a8_gemv" else F32_FLOPS_PER_S
+                    # the M = 4 rows keep the f32 peak (bytes bound them either way)
+                    peak = (INT8_OPS_PER_S if name == "w4a8_gemv" else
+                            F32_FLOPS_PER_S if M == 4 else BF16_FLOPS_PER_S)
                     row.update(
-                        ms=time_cold(torch, kern), plain_ms=time_cold(torch, plain, iters=5),
+                        ms=time_cold(torch, kern),
+                        plain_ms=time_cold(torch, plain, iters=5 if M < 1024 else 3),
                         library_ms=time_cold(torch, lambda: torch.matmul(x, Wd.T)),
                         bytes=nbytes, bound_ms=max(nbytes / HBM_BYTES_PER_S, ops_ / peak) * 1e3,
                         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops_ / peak else "operations",
                     )
+                    if name == "mm4_fused":
+                        row["plan"] = tuple(matmul_4bit.mm4_plan(M, N, K, 64, x.dtype,
+                                                                 sm_count(x.device)))
+                    if name == "mm4_fused" and M == 256:
+                        g, ks = _ksplit(K // 128, N // 128, -(-M // 4))
+                        row["simt_ms"] = time_cold(torch, lambda: matmul_4bit._mm4_launch(
+                            x, w, None, mode, LaunchPlan("simt", 4, g, ks)), iters=3)
                 rows[name].append(row)
-                print(f"  {name:10s} N={N:5d} K={K:5d} M={M:3d} err={err:.3g} rel={err / scale:.2g}"
+                print(f"  {name:10s} N={N:5d} K={K:5d} M={M:4d} err={err:.3g} rel={err / scale:.2g}"
                       f" (tol {tol:.3g})"
+                      + (f"; fault {row['fault_over_tol']:.3g}x tol" if "fault_over_tol" in row else "")
                       + (f" kernel {row['ms']*1e3:.1f} us plain {row['plain_ms']*1e3:.1f} us"
                          f" bf16 matmul {row['library_ms']*1e3:.1f} us bound"
                          f" {row['bound_ms']*1e3:.2f} us ({row['bound_ms']/row['ms']:.0%})"
-                         if M == 4 else ""), flush=True)
-        del w, Wd
+                         if "ms" in row else "")
+                      + (f" plan {row['plan']}" if "plan" in row else "")
+                      + (f" SIMT body {row['simt_ms']*1e3:.1f} us" if "simt_ms" in row else ""),
+                      flush=True)
+        del w, w_bad, Wd
+    # the JSON line: A at 4 rows (decode), B at 256 rows (the exact prefill)
     for name, rs in rows.items():
-        timed = [r for r in rs if "ms" in r]
+        timed = [r for r in rs if "ms" in r and r["M"] == (4 if name == "w4a8_gemv" else 256)]
         report[name] = dict(
             shapes=rs, ms=sum(r["ms"] for r in timed), plain_ms=sum(r["plain_ms"] for r in timed),
             library_ms=sum(r["library_ms"] for r in timed),
@@ -205,7 +248,9 @@ def check_prefill_linears(torch, report):
     their plain versions at the four 7B linear shapes. E and F must be bit
     for bit equal; G within 2 f32 ulps (1 bf16 ulp for bf16 output) of the
     output, or of the bias where it is larger, since its int32 sum is exact
-    and its epilogue keeps the plain version's order. Each check
+    and its epilogue keeps the plain version's order; the column-grid
+    kernel that F's route and G run must give the plain version's colmax
+    and f bit for bit. Each check
     also feeds the plain version a deliberate fault (E: the planes
     swapped; F: the lo plane scaled by the hi plane's factors; G: the colmax
     of the next column), which must land outside the tolerance."""
@@ -239,6 +284,10 @@ def check_prefill_linears(torch, report):
                 rows["dequantize_transposed"].append(row)
                 del got, ref, lo, hi
             colmax, f = mw._col_grid(w)
+            cm_k, f_k = mw.col_grid(w)  # the column-grid kernel of F's route and G
+            need(torch.equal(cm_k, colmax) and torch.equal(f_k, f),
+                 f"col_grid {qt} N={N} K={K}: colmax or f differ from the plain version's")
+            del cm_k, f_k
             got, ref = mw.dequant_int8(w, f), mw._dequant8_plain(w, f)
             wq, cm = mw.dequantize_to_int8(w)
             torch.cuda.synchronize()
@@ -265,9 +314,12 @@ def check_prefill_linears(torch, report):
             for M in (512, 2048):
                 x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
                 for od in (torch.bfloat16, torch.float32):
+                    wg0 = mw.w4a8_grouped.launches_wgmma
                     got = mw.w4a8_grouped(x, w, bias, od)
                     ref = mw._grouped_plain(x, w, bias, od)
                     torch.cuda.synchronize()
+                    need(mw.w4a8_grouped.launches_wgmma == wg0 + 1,
+                         f"w4a8_grouped N={N} K={K} M={M}: did not take the wgmma body")
                     ratio = ulp_ratio(torch, got, ref, od, bias)
                     n_ulp = 2 if od == torch.float32 else 1
                     need(ratio <= n_ulp, f"w4a8_grouped N={N} K={K} M={M} bs={bs} {od}: "
@@ -318,6 +370,44 @@ def check_prefill_linears(torch, report):
             library_ms=None if name != "w4a8_grouped" else sum(r["library_ms"] for r in timed),
             bound_ms=sum(r["bound_ms"] for r in timed), bound_by=timed[0]["bound_by"],
             max_abs_err=max(r["max_abs_err"] for r in rs))
+
+
+def check_repeatable(torch, report, n=100):
+    """A race check of the tensor-core bodies: B's tensor-core body in each
+    of its tiles (the plans mm4_plan picks at 256 and 1024 rows, and every
+    tile forced at 256 rows) and G's wgmma body at 512 and 2048 rows, each
+    launched n times on one input at 4096 x 4096. Their sums run in a
+    fixed order, so every output must equal the first bit for bit; a
+    difference is a race between warps or warpgroups."""
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit as m4
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_w4a8 as mw
+    from bitsandbytes_sycl_tpu_torch.ops.common import LaunchPlan, quantize_4bit_native, sm_count
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    N = K = 4096
+    W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+    w = quantize_4bit_native(W, 64, "nf4", absmax_dtype=torch.bfloat16)
+    del W
+    sms = sm_count(w.packed.device)
+    cases = ([("mm4_fused", M, m4.mm4_plan(M, N, K, 64, torch.bfloat16, sms)) for M in (256, 1024)]
+             + [("mm4_fused", 256, LaunchPlan("tc", bm, 32, 2, bn))
+                for bm, bn in ((64, 128), (128, 128), (128, 256), (256, 128))]
+             + [("w4a8_grouped", M, mw.grouped_plan(M, N, K, 64, sms)) for M in (512, 2048)])
+    rows = []
+    for name, M, plan in cases:
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        if name == "mm4_fused":
+            run = lambda: m4._mm4_launch(x, w, None, m4._MODE_BF16_TABLE, plan)  # noqa: E731
+        else:
+            run = lambda: mw._grouped_launch(x, w, None, torch.bfloat16, plan)  # noqa: E731
+        first = run()
+        differ = sum(int(not torch.equal(run(), first)) for _ in range(n - 1))
+        need(differ == 0, f"{name} M={M} plan {tuple(plan)}: {differ} of {n - 1} repeated launches "
+                          f"differ from the first (a race)")
+        rows.append(dict(kernel=name, M=M, plan=tuple(plan), launches=n))
+    print(f"  {len(cases)} plans of B's tensor-core and G's wgmma bodies, {n} launches each on one"
+          f" input: every output equal to the first bit for bit", flush=True)
+    report["repeatable"] = rows
 
 
 def check_routes(torch, report):
@@ -713,9 +803,12 @@ def check_int8(torch, report):
 def check_edges(torch):
     """The kernels against their plain versions on small shapes that the
     7B path does not reach: odd row counts, f32 outputs and bias, every
-    decode mode of kernel B, kernel G's ragged planes, the W8A8 route at
-    few rows, every option of kernels C, D and H (H at every group size and
-    head_dim 256), and kernel I at odd row counts in f32."""
+    decode mode of kernel B in both bodies (its tensor-core body also at
+    ragged rows, N = 384, a whole-half K and blocksizes 32-256), kernel G's
+    wgmma body at ragged rows and small blocksizes and its mma.sync body on
+    ragged planes, the W8A8 route at few rows, every option of kernels C, D
+    and H (H at every group size and head_dim 256), and kernel I at odd row
+    counts in f32."""
     from bitsandbytes_sycl_tpu_torch.ops import attention, matmul_4bit, matmul_w4a8
     from bitsandbytes_sycl_tpu_torch.ops import paged_attention
     from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native
@@ -745,6 +838,46 @@ def check_edges(torch):
                     mode = matmul_4bit._decode_mode(w, dt, None)
                     close(f"mm4 {qt} M={M} {dt} mode {mode}", matmul_4bit.mm4_fused(x, w, b, dt),
                           matmul_4bit._mm4_plain(x, w, b, dt, mode))
+    # kernel B's tensor-core body (bf16 x): ragged row counts, N = 384 (128-
+    # column tiles), a whole-half K (1152), every decode mode (2: table
+    # codebooks; 1: int4; 0: an f32 decode asked for) and blocksizes 32-256
+    for qt, bs, N, K, absmax in (("nf4", 64, 384, 1152, torch.float32),
+                                 ("nf4", 32, 512, 1024, torch.bfloat16),
+                                 ("fp4", 128, 512, 1024, torch.float32),
+                                 ("nf4", 256, 512, 2048, torch.bfloat16),
+                                 ("af4", 64, 256, 1024, torch.bfloat16),
+                                 ("int4", 64, 512, 1024, torch.bfloat16)):
+        W = torch.randn((N, K), generator=gen, device="cuda") * 0.02
+        w = quantize_4bit_native(W, bs, qt, absmax_dtype=absmax)
+        bias = torch.randn((N,), generator=gen, device="cuda")
+        for M in (65, 129, 200, 1000):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            for dd in ((None, torch.float32) if qt == "nf4" and bs == 64 else (None,)):
+                mode = matmul_4bit._decode_mode(w, torch.bfloat16, dd)
+                for b in (None, bias):
+                    tc0 = matmul_4bit.mm4_fused.launches_tc
+                    close(f"mm4 tensor-core {qt} bs={bs} N={N} K={K} M={M} mode {mode}",
+                          matmul_4bit.mm4_fused(x, w, b, torch.bfloat16, dd),
+                          matmul_4bit._mm4_plain(x, w, b, torch.bfloat16, mode))
+                    need(matmul_4bit.mm4_fused.launches_tc == tc0 + 1,
+                         f"mm4 {qt} bs={bs} M={M}: bf16 x did not take the tensor-core body")
+    # kernel G's wgmma body at ragged row counts, N = 384 and blocksizes 16
+    # and 32 (several quantization blocks in one 64-row K step)
+    for N, K, bs in ((384, 1152, 64), (256, 1024, 16), (256, 1024, 32), (256, 2048, 128)):
+        W = torch.randn((N, K), generator=gen, device="cuda") * 0.02
+        w = quantize_4bit_native(W, bs, "nf4", absmax_dtype=torch.bfloat16)
+        bias = torch.randn((N,), generator=gen, device="cuda")
+        for M in (1, 67, 300, 600):
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+                wg0 = matmul_w4a8.w4a8_grouped.launches_wgmma
+                got = matmul_w4a8.w4a8_grouped(x, w, bias, dt)
+                ratio = ulp_ratio(torch, got, matmul_w4a8._grouped_plain(x, w, bias, dt), dt, bias)
+                need(ratio <= (2 if dt == torch.float32 else 1),
+                     f"w4a8_grouped wgmma N={N} K={K} bs={bs} M={M} {dt}: {ratio} ulps")
+                need(matmul_w4a8.w4a8_grouped.launches_wgmma == wg0 + 1,
+                     f"w4a8_grouped N={N} K={K} bs={bs}: did not take the wgmma body")
+                n += 1
     # kernel G where half-K is not a multiple of its 64-row step (blocksize
     # 32, a whole-half K step in the JAX kernel), also with planes not 16-byte
     # aligned (K % 32 != 0); the W8A8 route at few rows (torch._int_mm's
@@ -854,12 +987,22 @@ def check_edges(torch):
 
 # --------------------------------------------------------------- phases 3-5
 def reset_counts(kernels):
+    """Every launch counter of each wrapper to 0 (``launches`` and the
+    per-body ones, ``launches_tc`` of B and ``launches_wgmma`` of G)."""
     for k in kernels:
-        k.launches = 0
+        for a in [a for a in vars(k) if a.startswith("launches")]:
+            setattr(k, a, 0)
 
 
 def read_counts(kernels):
-    return {k.__name__: k.launches for k in kernels}
+    """{wrapper: launches} plus {wrapper.body: launches} for the per-body
+    counters (``mm4_fused.tc``, ``w4a8_grouped.wgmma``)."""
+    out = {}
+    for k in kernels:
+        for a, v in vars(k).items():
+            if a.startswith("launches"):
+                out[k.__name__ + a[len("launches"):].replace("_", ".")] = v
+    return out
 
 
 def prompts_from_seed(seed, n, vocab):
@@ -1089,8 +1232,10 @@ def serve_long(torch, cfg, params, kernels):
     eng = InferenceEngine(cfg, params, EngineConfig(max_batch=8, paged=True, max_new_tokens=max_new),
                           device="cuda")
     batches = [
-        ("rows 256", long_prompts(10, 1, 129, 256, cfg.vocab_size), ("mm4_fused", "dequantize_transposed")),
-        ("rows 2048", long_prompts(11, 4, 257, 512, cfg.vocab_size), ("w4a8_grouped",)),
+        ("rows 256", long_prompts(10, 1, 129, 256, cfg.vocab_size),
+         ("mm4_fused", "mm4_fused.tc", "dequantize_transposed")),
+        ("rows 2048", long_prompts(11, 4, 257, 512, cfg.vocab_size),
+         ("w4a8_grouped", "w4a8_grouped.wgmma")),
         ("rows 4096", long_prompts(12, 8, 257, 512, cfg.vocab_size), ("dequant_int8",)),
     ]
     out = []
@@ -1140,38 +1285,48 @@ def serve_long(torch, cfg, params, kernels):
     return out
 
 
-def chunked_vs_whole(torch, cfg, params):
-    """Phase 3b, chunked prefill: two prompts of 700-1000 tokens prefilled in
-    chunks of 256 (512 rows a chunk) and whole (2048 rows), then 8 greedy
-    tokens each. The prefill's sampled logits must agree within the
-    card-vs-CPU limits (4% relative L2, 5% of the largest), and the tokens
-    wherever the whole-prompt engine's top-2 logit gap exceeds the latter;
-    at least one token must be compared."""
+def chunked_vs_whole(torch, cfg, params, kernels):
+    """Phase 3b, chunked prefill: two prompts of 700-1000 tokens prefilled
+    whole (2048 rows) and in chunks of 256 (512 rows a chunk), then 8
+    greedy tokens each, with the default W4A8 linears (the chunks on G's
+    wgmma body) and with a8_decode=False (the exact path: the chunks on B's
+    tensor-core body, the whole prompt dequantized once). Each chunked
+    prefill's sampled logits must agree with the same model's whole-prompt
+    prefill within the card-vs-CPU limits (4% relative L2, 5% of the
+    largest), and the tokens wherever the whole-prompt engine's top-2 logit
+    gap exceeds the latter; at least one token must be compared."""
     prompts = long_prompts(13, 2, 700, 1000, cfg.vocab_size)
-    runs = {}
-    for chunk in (0, 256):
-        rec = {}
-        outs, t, _ = serve(torch, cfg, params, prompts, 8, per_request=rec, max_batch=2,
-                           prefill_chunk=chunk)
-        runs[chunk] = (outs, rec, t)
-        torch.cuda.empty_cache()
-    (whole, rec_w, t_w), (chunked, rec_c, t_c) = runs[0], runs[256]
-    # the prefill's sampled logits: the chunks' attention over the cache
-    # against the whole prompt's, within the card-vs-CPU limits
-    first_w = torch.stack([rec_w[r][0] for r in range(2)])
-    first_c = torch.stack([rec_c[r][0] for r in range(2)])
-    err, mag = max_err(torch, first_c, first_w)
-    rel = float((first_c - first_w).norm() / first_w.norm())
-    need(rel <= 4e-2, f"chunked prefill logits: relative L2 {rel} > 0.04 of the whole prompt's")
-    need(err <= 5e-2 * mag, f"chunked prefill logits: max err {err} > {5e-2 * mag}")
-    checked = greedy_agree(whole, rec_w, chunked, "chunked prefill")
-    print(f"[3b] chunked prefill (256-token chunks, prompts of {[len(p) for p in prompts]} tokens):"
-          f" prefill logits relative L2 {rel:.3g} (tol 0.04), max err {err:.4g}"
-          f" (tol {5e-2 * mag:.4g}) against whole-prompt prefill; {checked} of 16 greedy tokens"
-          f" equal; generate {t_c:.2f} s chunked, {t_w:.2f} s whole", flush=True)
-    return dict(prompt_tokens=[len(p) for p in prompts], logits_rel_l2=rel, logits_max_err=err,
-                logits_max_abs=mag, tokens_compared_equal=checked,
-                generate_s_chunked=t_c, generate_s_whole=t_w)
+    out = dict(prompt_tokens=[len(p) for p in prompts])
+    for label, cfg_, want in (("w4a8", cfg, "w4a8_grouped.wgmma"),
+                              ("exact", dataclasses.replace(cfg, a8_decode=False), "mm4_fused.tc")):
+        runs = {}
+        for chunk in (0, 256):
+            rec = {}
+            reset_counts(kernels)
+            outs, t, _ = serve(torch, cfg_, params, prompts, 8, per_request=rec, max_batch=2,
+                               prefill_chunk=chunk)
+            runs[chunk] = (outs, rec, t, read_counts(kernels))
+            torch.cuda.empty_cache()
+        (whole, rec_w, t_w, _), (chunked, rec_c, t_c, counts) = runs[0], runs[256]
+        need(counts[want] > 0, f"chunked prefill ({label} linears) never launched {want}")
+        # the prefill's sampled logits: the chunks' attention over the cache
+        # against the whole prompt's, within the card-vs-CPU limits
+        first_w = torch.stack([rec_w[r][0] for r in range(2)])
+        first_c = torch.stack([rec_c[r][0] for r in range(2)])
+        err, mag = max_err(torch, first_c, first_w)
+        rel = float((first_c - first_w).norm() / first_w.norm())
+        need(rel <= 4e-2, f"chunked prefill ({label}) logits: relative L2 {rel} > 0.04 of the whole prompt's")
+        need(err <= 5e-2 * mag, f"chunked prefill ({label}) logits: max err {err} > {5e-2 * mag}")
+        checked = greedy_agree(whole, rec_w, chunked, f"chunked prefill ({label})")
+        print(f"[3b] chunked prefill ({label} linears, 256-token chunks, prompts of"
+              f" {[len(p) for p in prompts]} tokens): prefill logits relative L2 {rel:.3g} (tol"
+              f" 0.04), max err {err:.4g} (tol {5e-2 * mag:.4g}) against whole-prompt prefill;"
+              f" {checked} of 16 greedy tokens equal; generate {t_c:.2f} s chunked, {t_w:.2f} s"
+              f" whole; launches {({k: v for k, v in counts.items() if v})}", flush=True)
+        out[label] = dict(logits_rel_l2=rel, logits_max_err=err, logits_max_abs=mag,
+                          tokens_compared_equal=checked, generate_s_chunked=t_c,
+                          generate_s_whole=t_w, launches=counts)
+    return out
 
 
 def serve_path(torch, label, cfg, params, prompts, kernels, launched, ref=None):
@@ -1546,9 +1701,10 @@ def qlora_7b(torch, cfg, params, kernels):
     adam = [r for r in steps if r["optimizer"] == "adamw8bit"]
     for r in adam:
         lc = r["launches"]
-        need(lc.get("w4a8_grouped") == 225 and lc.get("dequantize_transposed") == 222
-             and lc.get("optim8_2state") == 448,
-             f"7B QLoRA adam step {r['step']}: launches {lc}, expected 225 G, 222 E, 448 J")
+        need(lc.get("w4a8_grouped") == 225 and lc.get("w4a8_grouped.wgmma") == 225
+             and lc.get("dequantize_transposed") == 222 and lc.get("optim8_2state") == 448,
+             f"7B QLoRA adam step {r['step']}: launches {lc}, expected 225 G (wgmma body),"
+             f" 222 E, 448 J")
     for r in steps[4:]:
         need(r["launches"].get("optim8_1state") == 448,
              f"7B QLoRA lion step {r['step']}: launches {r['launches']}, expected 448 K")
@@ -1682,6 +1838,7 @@ def main() -> int:
         print("[2] kernels vs plain versions (cold L2, median of per-call CUDA-event times)")
         check_linears(torch, report)
         check_prefill_linears(torch, report)
+        check_repeatable(torch, report)
         check_routes(torch, report)
         check_prefill(torch, report)
         check_paged(torch, report)
@@ -1765,7 +1922,7 @@ def main() -> int:
         t0 = time.perf_counter()
         long_stats = serve_long(torch, cfg, params, KERNELS)
         long_counts = {r["label"]: r["launches"] for r in long_stats}
-        chunk_stats = chunked_vs_whole(torch, cfg, params)
+        chunk_stats = chunked_vs_whole(torch, cfg, params, KERNELS)
         phases["long_prompts_s"] = time.perf_counter() - t0
 
         # 4. the exact path (kernel B), 4 layers of the same weights
@@ -1892,8 +2049,8 @@ def main() -> int:
     sources = {
         "w4a8_gemv": ("bitsandbytes_sycl_tpu/ops/matmul_w4a8.py:65", "7B decode (phase 3)",
                       main_counts["w4a8_gemv"]),
-        "mm4_fused": ("bitsandbytes_sycl_tpu/ops/matmul_4bit.py:66", "exact path (phase 4)",
-                      counts_x["mm4_fused"]),
+        "mm4_fused": ("bitsandbytes_sycl_tpu/ops/matmul_4bit.py:66",
+                      "7B prefill, 256 rows (phase 3b)", long_counts["rows 256"]["mm4_fused"]),
         "prefill_attn_int8": ("bitsandbytes_sycl_tpu/ops/attention.py:356", "7B serve (phase 3)",
                               main_counts["prefill_attn_int8"]),
         "paged_attn_int8": ("bitsandbytes_sycl_tpu/ops/paged_attention.py:139",
@@ -1923,13 +2080,17 @@ def main() -> int:
                 "decode_attn_int8": contig_stats["profile"]["launches_per_step"]["decode_attn_int8"],
                 "int8_matmul": int8_stats["profile"]["launches_per_step"]["int8_matmul"]}
     kernels = []
+    # the launches of each body of B and G on those paths
+    bodies = {"mm4_fused": {"tc": long_counts["rows 256"]["mm4_fused.tc"]},
+              "w4a8_grouped": {"wgmma": long_counts["rows 2048"]["w4a8_grouped.wgmma"]}}
     for name, (replaces, path, launches) in sources.items():
         r = report[name]
         kernels.append(dict(
             name=name, route="cuda", source=f"bitsandbytes_sycl_tpu_torch/csrc/{name}.cu",
             replaces=replaces, path=path, launches=launches, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], launches_per_decode_step=per_step.get(name, 0)))
+            library_ms=r["library_ms"], launches_per_decode_step=per_step.get(name, 0),
+            **({"launches_by_body": bodies[name]} if name in bodies else {})))
     phases["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1946,5 +2107,164 @@ def main() -> int:
     return 0
 
 
+# ------------------------------------------------------------------ probe
+PROBE_PARTS = {  # the BNB_PROBE_* switches of the kernel sources and wgmma.cuh
+    "mm4_fused": {"no TMA copies": ("BNB_PROBE_NO_COPY",), "no decode": ("BNB_PROBE_NO_DECODE",),
+                  "no wgmma": ("BNB_PROBE_NO_MMA",)},
+    "w4a8_grouped": {"no TMA copies": ("BNB_PROBE_NO_COPY",),
+                     "no regrid": ("BNB_PROBE_NO_REGRID",), "no wgmma": ("BNB_PROBE_NO_MMA",)},
+}
+
+
+def probe_candidates(kernel, M, N, K, bs=64):
+    """The launch plans near the ones mm4_plan / grouped_plan can pick:
+    every tile (B) and 1-6 K splits on whole quantization blocks."""
+    from bitsandbytes_sycl_tpu_torch.ops.common import LaunchPlan
+
+    rows, tiles = (32, ((64, 128), (128, 128), (128, 256), (256, 128))) if kernel == "B" \
+        else (64, ((256, 128),))
+    steps, unit = K // 2 // rows, max(1, bs // rows)
+    plans = []
+    for bm, bn in tiles:
+        if N % bn:
+            continue
+        for ks in range(1, 7):
+            per = -(-(-(-steps // ks)) // unit) * unit
+            p = LaunchPlan("tc" if kernel == "B" else "wgmma", bm, per, -(-steps // per), bn)
+            if p not in plans:
+                plans.append(p)
+    return plans
+
+
+def probe_fit(rows, tiles, sms):
+    """The plan model's constants fitted to timed plans: for each tile its
+    CTA time per K step, and the fixed and per-partial-element costs of a
+    K split, so that waves * per * step_us + [split] * (split_us + ksplit
+    * tiles * bm * bn * elem_us) matches each plan's time with the least
+    squared relative error (non-negative least squares)."""
+    import numpy as np
+    from scipy.optimize import nnls
+
+    keys = list(tiles)
+    A, y = [], []
+    for r in rows:
+        bm, bn, per, ks = r["plan"][1], r["plan"][4], r["plan"][2], r["plan"][3]
+        n_tiles = -(-r["M"] // bm) * (r["N"] // bn)
+        waves = -(-(n_tiles * ks) // (sms * tiles[(bm, bn)]))
+        a = [0.0] * (len(keys) + 2)
+        a[keys.index((bm, bn))] = waves * per
+        if ks > 1:
+            a[-2], a[-1] = 1.0, ks * n_tiles * bm * bn
+        A.append([v / r["us"] for v in a])
+        y.append(1.0)
+    scale = np.array([1.0] * (len(keys) + 1) + [1e-6])  # elem_us in units of 1e-6 us
+    coef, _ = nnls(np.array(A) * scale, np.array(y))
+    coef = coef * scale
+    return {str(k): float(c) for k, c in zip(keys, coef)}, float(coef[-2]), float(coef[-1])
+
+
+def probe_main() -> int:
+    """Where the time of kernels B (its tensor-core body) and G (its wgmma
+    body) goes, on one card. (1) Times every plan of probe_candidates at
+    the four 7B shapes, B at 256 and 1024 rows and G at 512 and 2048,
+    beside torch.matmul in bf16; fits the plan model's constants to those
+    times (probe_fit) and, for each case, compares the plan the fitted
+    model picks, and the plan the package picks now, with the fastest one
+    timed. (2) Times B and G at 4096 x 4096 built with one part switched
+    off (PROBE_PARTS): a part whose removal saves little is not what
+    bounds the kernel; those builds compute wrong results. Lines go to
+    stdout and chiprun_out/probe.json."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --probe: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from bitsandbytes_sycl_tpu_torch.ops import _build
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit as m4
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_w4a8 as mw
+    from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native, sm_count
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    variants = _build.build_variants({(stem, part): (stem, macros)
+                                      for stem, parts in PROBE_PARTS.items()
+                                      for part, macros in parts.items()})
+    card = gpu_line()
+    print(f"{card}; built in {time.perf_counter() - t0:.1f} s", flush=True)
+    sms = sm_count(torch.device("cuda"))
+    out = dict(card=card, sms=sms, plans=[], parts=[], fit={}, picks=[])
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = []
+    for N, K in [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]:
+        W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+        w = quantize_4bit_native(W, 64, "nf4", absmax_dtype=torch.bfloat16)
+        Wd = W.to(torch.bfloat16)
+        del W
+        for kern, Ms in (("B", (256, 1024)), ("G", (512, 2048))):
+            for M in Ms:
+                x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+                lib_us = time_cold(torch, lambda: torch.matmul(x, Wd.T)) * 1e3
+                if kern == "B":
+                    chosen = m4.mm4_plan(M, N, K, 64, torch.bfloat16, sms)
+                    run = lambda p: m4._mm4_launch(x, w, None, m4._MODE_BF16_TABLE, p)  # noqa: E731
+                else:
+                    chosen = mw.grouped_plan(M, N, K, 64, sms)
+                    run = lambda p: mw._grouped_launch(x, w, None, torch.bfloat16, p)  # noqa: E731
+                case = dict(kernel=kern, N=N, K=K, M=M, chosen=tuple(chosen), library_us=lib_us,
+                            plans=[])
+                for p in probe_candidates(kern, M, N, K):
+                    us = time_cold(torch, lambda: run(p), iters=10) * 1e3
+                    row = dict(kernel=kern, N=N, K=K, M=M, plan=tuple(p), us=us)
+                    case["plans"].append(row)
+                    out["plans"].append(row)
+                    print(f"{kern} N={N:5d} K={K:5d} M={M:4d} {tuple(p)}"
+                          f"{' (picked)' if p == chosen else ''}: {us:.1f} us"
+                          f" (bf16 matmul {lib_us:.1f} us)", flush=True)
+                cases.append(case)
+                if (N, K) == (4096, 4096):
+                    stem = "mm4_fused" if kern == "B" else "w4a8_grouped"
+                    for part in ["real"] + list(PROBE_PARTS[stem]):
+                        old = _build.use_library(stem, variants[(stem, part)]) if part != "real" \
+                            else None
+                        us = time_cold(torch, lambda: run(chosen), iters=10) * 1e3
+                        if old is not None:
+                            _build.use_library(stem, old)
+                        out["parts"].append(dict(kernel=kern, M=M, part=part, us=us))
+                        print(f"{kern} 4096 x 4096 M={M} {tuple(chosen)}: {part:14s} {us:.1f} us",
+                              flush=True)
+        del w, Wd
+    for kern, tiles in (("B", {k: v[0] for k, v in m4._MM4_TILES.items()}), ("G", {(256, 128): 1})):
+        rows = [r for r in out["plans"] if r["kernel"] == kern]
+        step_us, split_us, elem_us = probe_fit(rows, tiles, sms)
+        out["fit"][kern] = dict(step_us=step_us, split_us=split_us, elem_us=elem_us)
+        print(f"{kern} fit: step_us {json.dumps({k: round(v, 3) for k, v in step_us.items()})},"
+              f" split_us {split_us:.3f}, elem_us {elem_us:.3e}", flush=True)
+        for case in [c for c in cases if c["kernel"] == kern]:
+            def est(p):
+                n_tiles = -(-case["M"] // p[1]) * (case["N"] // p[4])
+                waves = -(-(n_tiles * p[3]) // (sms * tiles[(p[1], p[4])]))
+                return waves * p[2] * step_us[str((p[1], p[4]))] + (
+                    split_us + p[3] * n_tiles * p[1] * p[4] * elem_us if p[3] > 1 else 0.0)
+            us = {r["plan"]: r["us"] for r in case["plans"]}
+            best = min(us, key=us.get)
+            model = min(us, key=lambda p: (est(p), p[3]))
+            pick = dict(kernel=kern, N=case["N"], K=case["K"], M=case["M"], best=best,
+                        best_us=us[best], fitted_pick=model, fitted_us=us[model],
+                        fitted_est_us=est(model), package_pick=case["chosen"],
+                        package_us=us.get(case["chosen"]), library_us=case["library_us"])
+            out["picks"].append(pick)
+            print(f"{kern} N={case['N']:5d} K={case['K']:5d} M={case['M']:4d}: fastest {best}"
+                  f" {us[best]:.1f} us; fitted model picks {model} {us[model]:.1f} us"
+                  f" (est {est(model):.1f}); package picks {case['chosen']} "
+                  + (f"{us[case['chosen']]:.1f} us" if case["chosen"] in us else "(not timed)"),
+                  flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "probe.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    print(card)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(probe_main() if sys.argv[1:] == ["--probe"] else main())
