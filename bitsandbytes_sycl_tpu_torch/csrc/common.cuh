@@ -34,6 +34,25 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// The four signed bytes of w as exact floats, without the quarter-rate
+// integer conversion: each byte, offset to unsigned, becomes the low
+// mantissa bits of 2^23 (one byte permute), and one add removes 2^23 + 128.
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[k] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7650u | k)) - 8388736.0f;
+  }
+}
+
+// 16 signed bytes (one 16-byte load) as exact floats
+__device__ __forceinline__ void i8x16_to_f32(uint4 w, float* f) {
+  i8x4_to_f32(w.x, f);
+  i8x4_to_f32(w.y, f + 4);
+  i8x4_to_f32(w.z, f + 8);
+  i8x4_to_f32(w.w, f + 12);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(BNB_FULL_MASK, v, o));
   return v;

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the tensor-core bodies of kernels B
-// (mm4_fused.cu) and G (w4a8_grouped.cu): TMA tensor copies, mbarriers,
-// shared-memory matrix descriptors and the two warpgroup products they use,
-// written as inline PTX for sm_90a.
+// (mm4_fused.cu), G (w4a8_grouped.cu) and C (prefill_attn_int8.cu) and the
+// split body of kernel D (paged_attn_int8.cu): TMA tensor and bulk copies,
+// mbarriers, shared-memory matrix descriptors and the warpgroup products
+// they use, written as inline PTX for sm_90a.
 //
 // Operand layouts in shared memory, both K-major:
 // - activations arrive by TMA as rows of 64 bytes with the 64-byte swizzle
@@ -93,6 +94,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
 #endif
 }
 
+// ---- bulk copy: `bytes` contiguous bytes (a multiple of 16, both
+// addresses 16-byte aligned) from global into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+#ifndef BNB_PROBE_NO_COPY
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+#endif
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -128,7 +141,9 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 }
 
 // ---- wgmma
-// layout 0: no swizzle (lbo between K chunks, sbo between 8-row groups);
+// layout 0: no swizzle; K-major: lbo between K chunks, sbo between 8-row
+// groups; MN-major (C's B operands): lbo between 8-deep K groups, sbo
+// between 8-wide MN groups (the other assignment faults on the card);
 // layout 2: the 64-byte swizzle (sbo between 8-row groups, lbo unused)
 __device__ __forceinline__ uint64_t gmma_desc(const void* p, int lbo_bytes, int sbo_bytes,
                                               int layout = 0) {
@@ -177,6 +192,43 @@ __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da, uin
       : "memory");
 }
 
+#define BNB_ACC32(c)                                                                       \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]), c(d[8]), c(d[9]), \
+      c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15]), c(d[16]), c(d[17]),       \
+      c(d[18]), c(d[19]), c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]), c(d[25]),       \
+      c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31])
+
+#define BNB_REGS32                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                 \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x 64 f32, this thread's 32) += A (64 x 16 bf16, K-major) * B (16 x
+// 64 bf16, MN-major: 8 consecutive N values per 16-byte row of a core
+// matrix, its 8 rows the 8 K values), both from shared memory
+__device__ __forceinline__ void wgmma_bf16_n64_bmn(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " BNB_REGS32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : BNB_ACC32("+f")
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+// d (64 x 128 f32) += A (64 x 16 bf16, from registers: a[0..3] hold this
+// thread's pairs in the layout of an m64nN accumulator's columns 0-15, see
+// acc_row / acc_col) * B (16 x 128 bf16, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_bf16_n128_ra_bmn(float (&d)[64], const uint32_t (&a)[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " BNB_REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : BNB_ACC64("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
 // d (64 x 128 s32) += A (64 x 32 s8) * B (32 x 128 s8), both K-major
 __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
@@ -192,6 +244,11 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_
 __device__ __forceinline__ void acc_fence(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void acc_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void acc_fence(int (&d)[64]) {

@@ -15,6 +15,10 @@ Decode: positions ``< lengths[b]`` are valid; the query sits at ``len`` when
 step) is given, else at ``len - 1``; a row with ``len == 0`` and no
 ``new_kv`` yields zeros. The kernels take the layer index and never copy a
 layer out of the stacked cache.
+
+Kernel C has two bodies (``prefill_plan``): a tensor-core body for bf16 q
+at head_dim 128 (the model's dtype, so every prefill of a served Llama),
+and a SIMT body for f32 q and head_dim 256.
 """
 
 from __future__ import annotations
@@ -28,9 +32,20 @@ from . import _build
 from .common import check_cuda_tensors
 
 __all__ = [
-    "prefill_attention_int8_stacked", "prefill_attn_int8",
+    "prefill_attention_int8_stacked", "prefill_attn_int8", "prefill_plan",
     "decode_attention_int8", "decode_attention_int8_stacked", "decode_attn_int8",
 ]
+
+
+def prefill_plan(D: int, S: int, q_dtype) -> str:
+    """Kernel C's body: "tc", the tensor-core body (64 query rows and 64-key
+    tiles per CTA, one warpgroup), takes bf16 q at D = 128 over a cache of a
+    whole number of key tiles, at every prompt length: at B = 4, T = 32 its
+    CTAs fill half their rows and it still beat the SIMT body on the H100
+    (PERF.md). "simt", one warp per query row, takes f32 q and D = 256."""
+    if q_dtype == torch.bfloat16 and D == 128 and S % 64 == 0:
+        return "tc"
+    return "simt"
 
 
 def _prefill_plain(q, kq, ks, vq, vs, li, starts, scale, window, softcap, alibi):
@@ -80,25 +95,46 @@ def prefill_attn_int8(q, kq, ks, vq, vs, li: int, starts, scale: float,
                          f"k={tuple(kq.shape)} v={tuple(vq.shape)}")
     if not 0 <= li < L:
         raise ValueError(f"prefill_attn_int8: layer {li} out of range [0, {L})")
+    return _prefill_launch(q, kq, ks, vq, vs, li, starts, scale, window, softcap, alibi,
+                           prefill_plan(D, S, q.dtype))
+
+
+def _prefill_launch(q, kq, ks, vq, vs, li, starts, scale, window, softcap, alibi,
+                    body: str) -> torch.Tensor:
+    """Launch kernel C's body ``body`` ("tc" or "simt") on checked CUDA tensors."""
+    B, T, Hq, D = q.shape
+    L, _, Hkv, S = vq.shape[:4]
     ts = [t.contiguous() for t in (q, kq, ks, vq, vs)]
     st = starts.to(torch.int32).contiguous()
     al = None if alibi is None else alibi.float().contiguous()
     out = torch.empty_like(ts[0])
-    fn = _build.kernel_fn("prefill_attn_int8", "prefill_attn_int8", 21,
-                          int_args=range(8, 18), float_args=(18, 19))
-    err = fn(
-        *(t.data_ptr() for t in ts), st.data_ptr(), None if al is None else al.data_ptr(),
-        out.data_ptr(),
-        int(li), L, B, T, Hq, Hkv, D, S, int(window or 0), int(q.dtype == torch.bfloat16),
-        float(scale), float(softcap or 0.0),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check("prefill_attn_int8", err)
+    ptrs = (*(t.data_ptr() for t in ts), st.data_ptr(), None if al is None else al.data_ptr(),
+            out.data_ptr())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if body == "tc":
+        if ts[0].data_ptr() % 16:
+            ts[0] = ts[0].clone()  # a view at an odd offset; q rows are read 16 bytes at a time
+            ptrs = (ts[0].data_ptr(),) + ptrs[1:]
+        # TMA and the bulk copies read the cache at 16-byte aligned addresses
+        assert all(t.data_ptr() % 16 == 0 for t in ts[1:]), "unaligned cache"
+        fn = _build.kernel_fn("prefill_attn_int8", "prefill_attn_int8_tc", 20,
+                              int_args=range(8, 17), float_args=(17, 18))
+        err = fn(*ptrs, int(li), L, B, T, Hq, Hkv, D, S, int(window or 0),
+                 float(scale), float(softcap or 0.0), stream)
+        prefill_attn_int8.launches_tc += 1
+    else:
+        fn = _build.kernel_fn("prefill_attn_int8", "prefill_attn_int8", 21,
+                              int_args=range(8, 18), float_args=(18, 19))
+        err = fn(*ptrs, int(li), L, B, T, Hq, Hkv, D, S, int(window or 0),
+                 int(q.dtype == torch.bfloat16), float(scale), float(softcap or 0.0), stream)
+    _build.check(f"prefill_attn_int8 ({body})", err)
     prefill_attn_int8.launches += 1
     return out
 
 
+# launches of either body, and of the tensor-core body alone
 prefill_attn_int8.launches = 0
+prefill_attn_int8.launches_tc = 0
 
 
 def prefill_attention_int8_stacked(

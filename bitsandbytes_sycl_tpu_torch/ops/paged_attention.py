@@ -8,22 +8,77 @@ query sits at ``len`` when ``new_kv`` (this step's token, folded in last as
 an exact online-softmax step) is given, else at ``len - 1``. A row with
 ``len == 0`` and no ``new_kv`` yields zeros.
 
-The kernel walks each row's used pages, ``max(ceil(len / P), 1)``, so
-``pages_hint`` (which bounds the grid of the JAX kernel) is accepted and
-has nothing left to truncate. int4 (kv4) pages come in a later slice.
+The kernel walks each row's used pages, ``max(ceil(len / P), 1)`` (at most
+the table width). ``pages_hint``, a host-known bound on every row's used
+pages (the engine's page horizon), only caps how many CTAs share a row: it
+never changes the result. int4 (kv4) pages come in a later slice.
+
+Two bodies (``paged_plan``): the split body spreads a row's pages over
+``nsplit`` CTAs and merges their partial softmax states in split order; the
+SIMT body walks a row's pages in one CTA, for the shapes the split body
+does not take.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from . import _build
-from .common import check_cuda_tensors
+from .common import check_cuda_tensors, sm_count
 
-__all__ = ["paged_decode_attention_int8", "paged_decode_attention_int8_stacked", "paged_attn_int8"]
+__all__ = ["paged_decode_attention_int8", "paged_decode_attention_int8_stacked", "paged_attn_int8",
+           "paged_plan", "PagedPlan"]
+
+
+class PagedPlan(NamedTuple):
+    """Kernel D's launch: the body, and for the split body the number of
+    CTAs that share each row's used pages."""
+
+    body: str  # "split" or "simt"
+    nsplit: int
+
+
+# Split CTAs per SM the plan aims at. One: a CTA's page loop is bound by
+# its own instruction stream, and more CTAs on an SM share its issue slots
+# without adding bandwidth. On the H100, whole rows ran fastest at B = 4,
+# Hkv = 32, 16 pages, and splitting won at B = 1 and 2, where whole rows
+# leave SMs idle (PERF.md, chip_smoke.py check_paged). So rows are split
+# only to fill idle SMs (B * Hkv < SMs).
+_PAGED_CTAS_PER_SM = 1
+
+
+def paged_plan(B: int, Hkv: int, MAXP: int, P: int, D: int, rep: int, sms: int,
+               pages_hint: Optional[int] = None) -> PagedPlan:
+    """Kernel D's launch on ``sms`` SMs, from the page-table width MAXP, or
+    the host-known ``pages_hint`` where given, and never from the lengths
+    (reading them would stop the host in every layer of a decode step).
+    The split body takes D = 128 or 256, rep 1, 2 or 4 with rep * D <= 512
+    and P a multiple of 128 with a page-head's K and V (2 * P * D bytes)
+    within one 64 KB slot of its 2-slot ring; it splits each row's used
+    pages into ``nsplit`` equal shares, with B * Hkv * nsplit CTAs about
+    _PAGED_CTAS_PER_SM per SM, and no more splits than pages. The SIMT body
+    takes the rest, one CTA per row and kv head."""
+    pages = MAXP if pages_hint is None else max(1, min(int(pages_hint), MAXP))
+    if D in (128, 256) and rep in (1, 2, 4) and rep * D <= 512 and P % 128 == 0 \
+            and P * D <= 32768:
+        return PagedPlan("split", max(1, min(pages, _PAGED_CTAS_PER_SM * sms // (B * Hkv))))
+    return PagedPlan("simt", 1)
+
+
+_tickets = {}
+
+
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """The split body's per-(row, kv head) counters: zeroed once per device
+    and size; every launch leaves them at 0."""
+    key = (device.index, n)
+    buf = _tickets.get(key)
+    if buf is None:
+        buf = _tickets[key] = torch.zeros((n,), dtype=torch.int32, device=device)
+    return buf
 
 
 def _paged_plain(q4, kp, ks, vp, vs, li, page_table, lengths, new_kv, scale,
@@ -76,9 +131,11 @@ def _paged_plain(q4, kp, ks, vp, vs, li, page_table, lengths, new_kv, scale,
 def paged_attn_int8(q4, kp, ks, vp, vs, li: int, page_table, lengths, scale: float,
                     new_kv=None, window: Optional[int] = None,
                     softcap: Optional[float] = None,
-                    alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    alibi: Optional[torch.Tensor] = None,
+                    pages_hint: Optional[int] = None) -> torch.Tensor:
     """Kernel D on CUDA tensors; the plain version on CPU tensors.
-    q4 (B, Hkv, rep, D) f32/bf16 -> (B, Hkv, rep, D) in q's dtype."""
+    q4 (B, Hkv, rep, D) f32/bf16 -> (B, Hkv, rep, D) in q's dtype.
+    ``pages_hint``: see the module note."""
     extra = () if new_kv is None else tuple(new_kv)
     if not check_cuda_tensors("paged_attn_int8", q4, kp, ks, vp, vs, page_table, lengths,
                               alibi, *extra):
@@ -98,6 +155,17 @@ def paged_attn_int8(q4, kp, ks, vp, vs, li: int, page_table, lengths, scale: flo
                          f"pool={tuple(kp.shape)}")
     if not 0 <= li < L:
         raise ValueError(f"paged_attn_int8: layer {li} out of range [0, {L})")
+    return _paged_launch(q4, kp, ks, vp, vs, li, page_table, lengths, scale, new_kv, window,
+                         softcap, alibi,
+                         paged_plan(B, Hkv, MAXP, P, D, rep, sm_count(q4.device), pages_hint))
+
+
+def _paged_launch(q4, kp, ks, vp, vs, li, page_table, lengths, scale, new_kv, window, softcap,
+                  alibi, plan: PagedPlan) -> torch.Tensor:
+    """Launch kernel D's body ``plan.body`` on checked CUDA tensors."""
+    B, Hkv, rep, D = q4.shape
+    L, NP, _, P, _ = kp.shape
+    MAXP = page_table.shape[1]
     qc = q4.contiguous()
     ts = [t.contiguous() for t in (kp, ks, vp, vs)]
     pt = page_table.to(torch.int32).contiguous()
@@ -107,26 +175,45 @@ def paged_attn_int8(q4, kp, ks, vp, vs, li: int, page_table, lengths, scale: flo
         kn, ksn, vn, vsn = new_kv
         nk = [kn.to(torch.int8).contiguous(), ksn.float().contiguous(),
               vn.to(torch.int8).contiguous(), vsn.float().contiguous()]
+        if nk[0].data_ptr() % 16:
+            nk[0] = nk[0].clone()  # the split body reads new K rows 16 bytes at a time
         nk_ptrs = [t.data_ptr() for t in nk]
     else:
         nk_ptrs = [None] * 4
     out = torch.empty_like(qc)
-    fn = _build.kernel_fn("paged_attn_int8", "paged_attn_int8", 28,
-                          int_args=range(13, 25), float_args=(25, 26))
-    err = fn(
-        qc.data_ptr(), *(t.data_ptr() for t in ts), pt.data_ptr(), ln.data_ptr(),
-        None if al is None else al.data_ptr(), *nk_ptrs, out.data_ptr(),
-        int(li), L, NP, B, Hkv, rep, D, P, MAXP, int(window or 0),
-        int(new_kv is not None), int(q4.dtype == torch.bfloat16),
-        float(scale), float(softcap or 0.0),
-        torch.cuda.current_stream(q4.device).cuda_stream,
-    )
-    _build.check("paged_attn_int8", err)
+    stream = torch.cuda.current_stream(q4.device).cuda_stream
+    ptrs = (qc.data_ptr(), *(t.data_ptr() for t in ts), pt.data_ptr(), ln.data_ptr(),
+            None if al is None else al.data_ptr(), *nk_ptrs, out.data_ptr())
+    if plan.body == "split":
+        # the bulk copies read pages and scale rows at 16-byte aligned addresses
+        assert all(t.data_ptr() % 16 == 0 for t in ts), "unaligned page pool"
+        part = tickets = None
+        if plan.nsplit > 1:
+            part = torch.empty((B * Hkv * plan.nsplit * rep * (D + 2),), dtype=torch.float32,
+                               device=q4.device)
+            tickets = _ticket_buffer(q4.device, B * Hkv)
+        fn = _build.kernel_fn("paged_attn_int8", "paged_attn_int8_split", 31,
+                              int_args=range(15, 28), float_args=(28, 29))
+        err = fn(*ptrs, None if part is None else part.data_ptr(),
+                 None if tickets is None else tickets.data_ptr(),
+                 int(li), L, NP, B, Hkv, rep, D, P, MAXP, plan.nsplit, int(window or 0),
+                 int(new_kv is not None), int(q4.dtype == torch.bfloat16),
+                 float(scale), float(softcap or 0.0), stream)
+        paged_attn_int8.launches_split += 1
+    else:
+        fn = _build.kernel_fn("paged_attn_int8", "paged_attn_int8", 28,
+                              int_args=range(13, 25), float_args=(25, 26))
+        err = fn(*ptrs, int(li), L, NP, B, Hkv, rep, D, P, MAXP, int(window or 0),
+                 int(new_kv is not None), int(q4.dtype == torch.bfloat16),
+                 float(scale), float(softcap or 0.0), stream)
+    _build.check(f"paged_attn_int8 ({plan.body})", err)
     paged_attn_int8.launches += 1
     return out
 
 
+# launches of either body, and of the split body alone
 paged_attn_int8.launches = 0
+paged_attn_int8.launches_split = 0
 
 
 def paged_decode_attention_int8_stacked(
@@ -162,7 +249,8 @@ def paged_decode_attention_int8_stacked(
     sm = sm_scale if sm_scale is not None else 1.0 / float(np.sqrt(D))
     q4 = q.reshape(B, Hkv, Hq // Hkv, D)
     out = paged_attn_int8(q4, kp, ks, vp, vs, int(li), page_table, lengths, sm / 127.0,
-                          new_kv=new_kv, window=window, softcap=softcap, alibi=alibi_slopes)
+                          new_kv=new_kv, window=window, softcap=softcap, alibi=alibi_slopes,
+                          pages_hint=pages_hint)
     return out.reshape(B, 1, Hq, D)
 
 

@@ -2,7 +2,8 @@
 """Smoke run of bitsandbytes_sycl_tpu_torch on one CUDA card (H100).
 
     python3 chip_smoke.py            # the smoke run below
-    python3 chip_smoke.py --probe    # where B's and G's time goes (see probe_main)
+    python3 chip_smoke.py --probe    # where B's, G's, C's and D's time goes (see probe_main)
+    python3 chip_smoke.py --probe attention   # C's and D's only
 
 Phases, each of which exits non-zero on failure:
   1. build the hand-written kernels (nvcc, csrc/*.cu) and print the card;
@@ -10,11 +11,13 @@ Phases, each of which exits non-zero on failure:
      shapes the 7B serving path gives it (attention inputs with O(1)
      scores, and the plain version fed deliberate faults must land outside
      the tolerance; kernel B's tensor-core body at 256 and 1024 rows, G's
-     wgmma body at 512 and 2048, each checked to have run, and every plan
-     of those bodies launched 100 times on one input must repeat its
-     output bit for bit), and time
+     wgmma body at 512 and 2048, C's tensor-core body at T = 32 and 512,
+     D's split body at 1 and 16 pages, each checked to have run, and every
+     plan of B's and G's fast bodies and C's and D's new ones launched 100
+     times on one input must repeat its output bit for bit), and time
      kernel, plain version and one PyTorch
-     library call that computes the same function; then hold the W8A8
+     library call that computes the same function (for attention, SDPA's
+     fused backends only, each alone, the fastest kept); then hold the W8A8
      route at 4096 rows and the dequantize-once route at 2048 (and 256)
      rows, glue included, against plain versions at the 7B shapes;
   3. serve Llama-7B (NF4, bs 64, bf16 scales, W4A8 decode, int8 paged KV,
@@ -50,6 +53,8 @@ Phases, each of which exits non-zero on failure:
      K per Lion step),
      profiled; (c) 2 layers at 7B width, card against CPU: loss, adapter
      gradients and 3 Adam steps.
+Every prefill of phases 3, 3b, 3c, 4b and 6 must run C's tensor-core body
+(the model's q is bf16), and every paged decode launch D's split body.
 Between them: 3c serves phase 3's prompts through the engine's default,
 the contiguous int8 cache (kernel H, 32 launches per step), and its greedy
 tokens must equal the paged engine's under the gap rule; 4b prefills on
@@ -97,17 +102,24 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_cold(torch, fn, iters=30, warmup=3):
+def time_cold(torch, fn, iters=30, warmup=3, flush_by_read=False):
     """Median milliseconds of one call on the card, L2 flushed before each
     call (the serving path meets its weights cold: a decode step reads
     ~3.5 GB). A spin kernel queued after the flush lets the host enqueue
-    the call before the start event fires, so host overhead is not timed."""
+    the call before the start event fires, so host overhead is not timed.
+    The flush writes 96 MB, so the call also meets up to 50 MB of dirty
+    lines that the card writes back as the call's reads evict them; with
+    ``flush_by_read`` the flush reads instead and leaves L2 clean (as a
+    decode step, whose weight reads dominate, leaves it)."""
     flush = torch.empty(96 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
-        flush.zero_()
+        if flush_by_read:
+            flush.view(torch.int64).sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(1_000_000)  # ~0.5 ms of device time
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -118,6 +130,45 @@ def time_cold(torch, fn, iters=30, warmup=3):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+SDPA_FUSED = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
+def time_sdpa(torch, q, k, v, flush_by_read=False, **kw):
+    """The yardstick of an attention kernel: scaled_dot_product_attention
+    restricted to each fused backend in turn (never the math fallback), on
+    inputs laid out as those backends need (last dimension contiguous).
+    Returns (ms of the fastest backend that takes the inputs or None, its
+    name or None, {backend: ms, or why it declined})."""
+    import torch.nn.functional as Fnn
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for name in SDPA_FUSED:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            times[name] = "not in this PyTorch"
+            continue
+
+        def run(backend=backend):
+            with sdpa_kernel([backend]):
+                return Fnn.scaled_dot_product_attention(q, k, v, **kw)
+
+        try:
+            run()
+            torch.cuda.synchronize()
+        except RuntimeError as e:  # the backend declines these inputs
+            times[name] = "declined: " + " ".join(str(e).split())[:120]
+            continue
+        times[name] = time_cold(torch, run, flush_by_read=flush_by_read)
+    ok = {n: t for n, t in times.items() if isinstance(t, float)}
+    best = min(ok, key=ok.get) if ok else None
+    return (ok[best] if best else None), best, times
+
+
+def fmt_us(ms):
+    return "n/a" if ms is None else f"{ms * 1e3:.1f} us"
 
 
 def max_err(torch, got, ref):
@@ -376,7 +427,9 @@ def check_repeatable(torch, report, n=100):
     """A race check of the tensor-core bodies: B's tensor-core body in each
     of its tiles (the plans mm4_plan picks at 256 and 1024 rows, and every
     tile forced at 256 rows) and G's wgmma body at 512 and 2048 rows, each
-    launched n times on one input at 4096 x 4096. Their sums run in a
+    launched n times on one input at 4096 x 4096; C's tensor-core body and
+    D's split body (whose last CTA merges the splits in order) at their 7B
+    shapes. Their sums run in a
     fixed order, so every output must equal the first bit for bit; a
     difference is a race between warps or warpgroups."""
     from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit as m4
@@ -405,8 +458,43 @@ def check_repeatable(torch, report, n=100):
         need(differ == 0, f"{name} M={M} plan {tuple(plan)}: {differ} of {n - 1} repeated launches "
                           f"differ from the first (a race)")
         rows.append(dict(kernel=name, M=M, plan=tuple(plan), launches=n))
-    print(f"  {len(cases)} plans of B's tensor-core and G's wgmma bodies, {n} launches each on one"
-          f" input: every output equal to the first bit for bit", flush=True)
+    # kernel C's tensor-core body at B = 2, T = 512 and D's split body at 16
+    # pages (the 7B shapes of check_prefill and check_paged)
+    from bitsandbytes_sycl_tpu_torch.ops import attention, paged_attention
+
+    L, H, D, S = 2, 32, 128, 2048
+    q = torch.randn((2, 512, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    kq = torch.randint(-127, 128, (L, 2, H, D, S), generator=gen, device="cuda", dtype=torch.int8)
+    vq = torch.randint(-127, 128, (L, 2, H, S, D), generator=gen, device="cuda", dtype=torch.int8)
+    ks = torch.rand((L, 2, H, S), generator=gen, device="cuda") * 2 + 1
+    vs = torch.rand((L, 2, H, S), generator=gen, device="cuda") + 0.5
+    starts = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    kp, kps, vp, vps, table, qd, new_kv = paged_inputs(torch, gen, L, 4, H, D, 128, 16)
+    lens = torch.tensor([2047, 1500, 900, 2000], dtype=torch.int32, device="cuda")
+    attn_cases = [
+        ("prefill_attn_int8", "tc", lambda: attention.prefill_attn_int8(
+            q, kq, ks, vq, vs, 1, starts, 0.01 / 127), lambda: attention.prefill_attn_int8.launches_tc),
+        ("paged_attn_int8", "split", lambda: paged_attention.paged_attn_int8(
+            qd, kp, kps, vp, vps, 1, table, lens, 0.01 / 127, new_kv=new_kv),
+         lambda: paged_attention.paged_attn_int8.launches_split),
+        # three splits a row: the last CTA merges the others' partials
+        ("paged_attn_int8", "split, 3 splits", lambda: paged_attention._paged_launch(
+            qd, kp, kps, vp, vps, 1, table, lens, 0.01 / 127, new_kv, None, None, None,
+            paged_attention.PagedPlan("split", 3)),
+         lambda: paged_attention.paged_attn_int8.launches_split),
+    ]
+    for name, body, run, count in attn_cases:
+        c0 = count()
+        first = run()
+        differ = sum(int(not torch.equal(run(), first)) for _ in range(n - 1))
+        need(count() == c0 + n, f"{name}: the {body} body did not take every launch")
+        need(differ == 0, f"{name} ({body} body): {differ} of {n - 1} repeated launches differ from"
+                          f" the first (a race)")
+        rows.append(dict(kernel=name, body=body, launches=n))
+    del q, kq, vq, ks, vs, kp, kps, vp, vps
+    print(f"  {len(cases)} plans of B's tensor-core and G's wgmma bodies, C's tensor-core and D's split"
+          f" bodies at 7B shapes, {n} launches each on one input: every output equal to the first"
+          f" bit for bit", flush=True)
     report["repeatable"] = rows
 
 
@@ -482,11 +570,42 @@ def check_routes(torch, report):
     report["routes"] = rows
 
 
+# Kernel C's precision limit: relative L2 error over every output of the
+# 7B check. On the H100 the tensor-core body reads about a third of it, its
+# plain version with P rounded to f16 about three times it and to bf16
+# about nine times (PERF.md).
+PREFILL_L2_TOL = 3e-4
+
+
+def rel_l2(torch, got, ref):
+    g, r = got.float(), ref.float()
+    return float((g - r).norm() / r.norm())
+
+
+def prefill_plain_p_rounded(torch, q, kq, ks, vq, vs, li, scale, dtype):
+    """A deliberate precision fault of kernel C: its plain version (causal,
+    starts 0, no options, Hq = Hkv) with P, the softmax weights times
+    v_scale / 127, rounded to ``dtype`` before P.V."""
+    T, S = q.shape[1], vq.shape[3]
+    sc = (q.float().permute(0, 2, 1, 3) @ kq[li].float()) * (ks[li][:, :, None, :] * scale)
+    causal = torch.arange(S, device=q.device)[None, :] <= torch.arange(T, device=q.device)[:, None]
+    sc = torch.where(causal, sc, torch.full_like(sc, -1e30))
+    w = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    p = (w * (vs[li][:, :, None, :] / 127.0)).to(dtype).float()
+    return ((p @ vq[li].float()) / w.sum(dim=-1, keepdim=True)).permute(0, 2, 1, 3).to(q.dtype)
+
+
 def check_prefill(torch, report):
     """Kernel C at the prefill batch of short prompts (B=4, T=32) and of one
-    long-prompt batch (B=2, T=512), over a 2048-position cache."""
-    import torch.nn.functional as Fnn
+    long-prompt batch (B=2, T=512), over a 2048-position cache, bf16 q: the
+    body prefill_plan picks (the tensor-core one) within 1% of the largest
+    output, deliberate faults outside it; its precision within a relative
+    L2 error of PREFILL_L2_TOL, which the plain version with P rounded to
+    bf16 or to f16 exceeds; both bodies timed (the SIMT one is what bf16 q
+    ran on before), beside the plain version and SDPA's fused backends over
+    the same bf16 K/V prefix."""
     from bitsandbytes_sycl_tpu_torch.ops import attention
+    from bitsandbytes_sycl_tpu_torch.ops.attention import prefill_plan
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
@@ -502,13 +621,33 @@ def check_prefill(torch, report):
         vs = torch.rand((L, B, H, S), generator=gen, device="cuda") + 0.5
         starts = torch.zeros((B,), dtype=torch.int32, device="cuda")
         scale = (1.0 / D ** 0.5) / 127.0
+        body = prefill_plan(D, S, q.dtype)
+        need(body == "tc", f"prefill_plan gave bf16 q at D=128 the {body} body")
+        tc0 = attention.prefill_attn_int8.launches_tc
         kern = lambda: attention.prefill_attn_int8(q, kq, ks, vq, vs, li, starts, scale)  # noqa: E731
+        simt = lambda: attention._prefill_launch(  # noqa: E731
+            q, kq, ks, vq, vs, li, starts, scale, None, None, None, "simt")
         plain = lambda: attention._prefill_plain(q, kq, ks, vq, vs, li, starts, scale, None, None, None)  # noqa: E731
         got, ref = kern(), plain()
         torch.cuda.synchronize()
+        need(attention.prefill_attn_int8.launches_tc == tc0 + 1,
+             f"prefill_attn_int8 T={T}: bf16 q did not take the tensor-core body")
         err, mag = max_err(torch, got, ref)
         tol = 1e-2 * mag
         need(err <= tol, f"prefill_attn_int8 T={T}: max err {err} > {tol}")
+        err_simt, _ = max_err(torch, simt(), ref)
+        need(err_simt <= tol, f"prefill_attn_int8 SIMT body T={T}: max err {err_simt} > {tol}")
+        # the 1% limit is one or two ulps of the bf16 output, so it cannot
+        # see P rounded to bf16 (which moved phase 5's logits over 4%); the
+        # relative L2 error over every output can
+        l2 = rel_l2(torch, got, ref)
+        need(l2 <= PREFILL_L2_TOL, f"prefill_attn_int8 T={T}: relative L2 err {l2} > {PREFILL_L2_TOL}")
+        l2_faults = {}
+        for dt in (torch.bfloat16, torch.float16):
+            l2_faults[str(dt)[6:]] = e = rel_l2(torch, prefill_plain_p_rounded(
+                torch, q, kq, ks, vq, vs, li, scale, dt), ref)
+            need(e > PREFILL_L2_TOL, f"prefill_attn_int8 T={T}: the plain version with P rounded to"
+                                     f" {dt} lands within the L2 limit ({e} <= {PREFILL_L2_TOL})")
         k_other = kq.clone()
         k_other[li] = kq[li - 1]
         margin = faults_exceed(torch, f"prefill_attn_int8 T={T}", ref, [
@@ -520,33 +659,45 @@ def check_prefill(torch, report):
                 q, kq, torch.full_like(ks, 2.0), vq, vs, li, starts, scale, None, None, None)),
         ], tol)
         del k_other
-        kd = (kq[li, :, :, :, :T].float() * (ks[li, :, :, None, :T] / 127)).permute(0, 1, 3, 2).to(torch.bfloat16)
+        # SDPA over the same causal prefix, bf16 K/V dequantized, every
+        # operand with a contiguous last dimension (the fused backends need it)
+        kd = (kq[li, :, :, :, :T].float() * (ks[li, :, :, None, :T] / 127)).permute(0, 1, 3, 2) \
+            .contiguous().to(torch.bfloat16)
         vd = (vq[li, :, :, :T].float() * (vs[li, :, :, :T, None] / 127)).to(torch.bfloat16)
         qh = q.permute(0, 2, 1, 3).contiguous()
-        lib = lambda: Fnn.scaled_dot_product_attention(qh, kd, vd, is_causal=True)  # noqa: E731
+        lib_ms, lib_name, lib_all = time_sdpa(torch, qh, kd, vd, is_causal=True)
+        # bytes: q and out (bf16), the int8 K/V prefix and its scales
         nbytes = 2 * B * T * H * D * 2 + 2 * B * H * T * D + 2 * B * H * T * 4
         flops = 4 * B * H * T * (T + 1) // 2 * D
-        row = dict(B=B, T=T, H=H, D=D, S=S, max_abs_err=err, tol=tol, fault_margin=margin,
-                   ms=time_cold(torch, kern),
-                   plain_ms=time_cold(torch, plain, iters=5), library_ms=time_cold(torch, lib),
-                   bytes=nbytes, bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
-                   bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations")
+        bound_tc = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+        bound_f32 = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+        row = dict(B=B, T=T, H=H, D=D, S=S, body=body, max_abs_err=err, tol=tol,
+                   simt_max_abs_err=err_simt, fault_margin=margin, rel_l2=l2,
+                   rel_l2_tol=PREFILL_L2_TOL, rel_l2_p_rounded=l2_faults,
+                   ms=time_cold(torch, kern), simt_ms=time_cold(torch, simt),
+                   plain_ms=time_cold(torch, plain, iters=5), library_ms=lib_ms,
+                   library_backend=lib_name, library_all=lib_all, bytes=nbytes, flops=flops,
+                   bound_ms=bound_tc, bound_f32_ms=bound_f32,
+                   bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
+                   else "operations")
         rows.append(row)
         print(f"  prefill_attn_int8 B={B} T={T} S={S} err={err:.3g} rel={err / mag:.2g} (tol {tol:.3g};"
-              f" faults >= {margin:.3g}x tol)"
-              f" kernel {row['ms']*1e3:.1f} us plain {row['plain_ms']*1e3:.1f} us sdpa"
-              f" {row['library_ms']*1e3:.1f} us bound {row['bound_ms']*1e3:.2f} us"
-              f" ({row['bound_ms'] / row['ms']:.0%})", flush=True)
+              f" faults >= {margin:.3g}x tol; rel L2 {l2:.3g}, P rounded to bf16 / f16"
+              f" {l2_faults['bfloat16']:.3g} / {l2_faults['float16']:.3g}, limit {PREFILL_L2_TOL})"
+              f" tensor-core {row['ms']*1e3:.1f} us, SIMT"
+              f" {row['simt_ms']*1e3:.1f} us, plain {row['plain_ms']*1e3:.1f} us, sdpa"
+              f" {fmt_us(lib_ms)} ({lib_name}); bound {bound_tc*1e3:.2f} us bf16"
+              f" ({bound_tc / row['ms']:.0%}), {bound_f32*1e3:.2f} us f32"
+              f" ({bound_f32 / row['simt_ms']:.0%} of SIMT)", flush=True)
+        print(f"    sdpa backends: {json.dumps({k: (round(v * 1e3, 1) if isinstance(v, float) else v) for k, v in lib_all.items()})}",
+              flush=True)
         del q, kq, vq, ks, vs, kd, vd, qh
     report["prefill_attn_int8"] = dict(rows[0], shapes=rows)
 
 
-def check_paged(torch, report):
-    import torch.nn.functional as Fnn
-    from bitsandbytes_sycl_tpu_torch.ops import paged_attention
-
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    L, B, H, D, P, MAXP, li = 2, 4, 32, 128, 128, 16, 1
+def paged_inputs(torch, gen, L, B, H, D, P, MAXP):
+    """A page pool with O(1) scores, a random page table over pages 1.., a
+    bf16 query and a new_kv token."""
     NP = B * MAXP + 1
     kp = torch.randint(-127, 128, (L, NP, H, P, D), generator=gen, device="cuda", dtype=torch.int8)
     vp = torch.randint(-127, 128, (L, NP, H, P, D), generator=gen, device="cuda", dtype=torch.int8)
@@ -559,18 +710,47 @@ def check_paged(torch, report):
               torch.rand((B, H), generator=gen, device="cuda") * 2 + 1,
               torch.randint(-127, 128, (B, H, D), generator=gen, device="cuda", dtype=torch.int8),
               torch.rand((B, H), generator=gen, device="cuda") + 0.5)
+    return kp, ks, vp, vs, table, q, new_kv
+
+
+def check_paged(torch, report):
+    """Kernel D at Hkv = 32, D = P = 128 over a 16-page table: B = 4 at one
+    used page and at 16, B = 1 at 15 and B = 2 at 16 (where paged_plan
+    splits the rows to fill the SMs; a page of B = 1's table stays unused,
+    so the table read one entry off shows). The body paged_plan picks (the split one) within
+    1% of the largest output, deliberate faults outside it; timed beside
+    the SIMT body, every split count (one CTA per row among them), the
+    plain version and SDPA's fused backends over the gathered bf16 K/V."""
+    from bitsandbytes_sycl_tpu_torch.ops import paged_attention
+    from bitsandbytes_sycl_tpu_torch.ops.common import sm_count
+    from bitsandbytes_sycl_tpu_torch.ops.paged_attention import PagedPlan, paged_plan
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    L, H, D, P, MAXP, li = 2, 32, 128, 128, 16, 1
     scale = (1.0 / D ** 0.5) / 127.0
-    k_other = kp.clone()
-    k_other[li] = kp[li - 1]
     rows = []
-    for label, lens_l in (("1 page", [40, 64, 17, 33]), ("16 pages", [2047, 1500, 900, 2000])):
+    B = None
+    for label, lens_l in (("1 page", [40, 64, 17, 33]), ("16 pages", [2047, 1500, 900, 2000]),
+                          ("15 pages", [1900]), ("16 pages", [2047, 1500])):
+        if len(lens_l) != B:
+            B = len(lens_l)
+            kp, ks, vp, vs, table, q, new_kv = paged_inputs(torch, gen, L, B, H, D, P, MAXP)
+            k_other = kp.clone()
+            k_other[li] = kp[li - 1]
         lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        # with the page horizon the engine passes (the used pages, bucketed)
+        hint = max(-(-n // P) for n in lens_l)
+        plan = paged_plan(B, H, MAXP, P, D, 1, sm_count(q.device), hint)
+        need(plan.body == "split", f"paged_plan gave the 7B shape the {plan.body} body")
+        sp0 = paged_attention.paged_attn_int8.launches_split
         kern = lambda: paged_attention.paged_attn_int8(  # noqa: E731
-            q, kp, ks, vp, vs, li, table, lens, scale, new_kv=new_kv)
+            q, kp, ks, vp, vs, li, table, lens, scale, new_kv=new_kv, pages_hint=hint)
         plain = lambda: paged_attention._paged_plain(  # noqa: E731
             q, kp, ks, vp, vs, li, table, lens, new_kv, scale, None, None, None)
         got, ref = kern(), plain()
         torch.cuda.synchronize()
+        need(paged_attention.paged_attn_int8.launches_split == sp0 + 1,
+             f"paged_attn_int8 ({label}): the 7B shape did not take the split body")
         err, mag = max_err(torch, got, ref)
         tol = 1e-2 * mag
         need(err <= tol, f"paged_attn_int8 ({label}): max err {err} > {tol}")
@@ -585,6 +765,15 @@ def check_paged(torch, report):
             ("k_scale dropped", lambda: plain_with(ks_=torch.full_like(ks, 2.0))),
             ("the page table read one entry off", lambda: plain_with(table_=table.roll(1, dims=1))),
         ], tol)
+        # every split count, and the SIMT body (what ran before)
+        alts = {}
+        for body, nsplit in [("simt", 1)] + [("split", n) for n in (1, 2, 3, 4, 6, 8, 16)]:
+            alt = PagedPlan(body, nsplit)
+            run = lambda alt=alt: paged_attention._paged_launch(  # noqa: E731
+                q, kp, ks, vp, vs, li, table, lens, scale, new_kv, None, None, None, alt)
+            e_alt, _ = max_err(torch, run(), ref)
+            need(e_alt <= tol, f"paged_attn_int8 ({label}) {tuple(alt)}: max err {e_alt} > {tol}")
+            alts[f"{body} nsplit={alt.nsplit}"] = time_cold(torch, run)
         Smax = max(lens_l) + 1
         used = [-(-n // P) for n in lens_l]
         pt = table.long()
@@ -592,29 +781,34 @@ def check_paged(torch, report):
         def gathered(pages, scales):
             return (pages[li][pt].permute(0, 2, 1, 3, 4).reshape(B, H, MAXP * P, D)[:, :, :Smax]
                     .float() * (scales[li][pt].permute(0, 2, 1, 3).reshape(B, H, MAXP * P)
-                                [:, :, :Smax, None] / 127)).to(torch.bfloat16)
+                                [:, :, :Smax, None] / 127)).contiguous().to(torch.bfloat16)
 
         kd, vd = gathered(kp, ks), gathered(vp, vs)
         mask = (torch.arange(Smax, device="cuda")[None, :] <= lens[:, None])[:, None, None, :]
-        lib = lambda: Fnn.scaled_dot_product_attention(q, kd, vd, attn_mask=mask)  # noqa: E731
+        lib_ms, lib_name, lib_all = time_sdpa(torch, q, kd, vd, attn_mask=mask)
         # the K/V rows the lengths need (token-major rows: a kernel can stop
         # at len), q and out, the new token, the used table entries, lengths
         nbytes = (sum(lens_l) * H * (2 * D + 8) + 2 * B * H * D * 2 + B * H * (2 * D + 8)
                   + 4 * sum(used) + 4 * B)
         flops = 4 * (sum(lens_l) + B) * H * D
-        row = dict(label=label, lens=lens_l, max_abs_err=err, tol=tol, fault_margin=margin,
-                   ms=time_cold(torch, kern),
-                   plain_ms=time_cold(torch, plain, iters=5), library_ms=time_cold(torch, lib),
-                   bytes=nbytes,
+        row = dict(label=label, B=B, lens=lens_l, plan=tuple(plan), max_abs_err=err, tol=tol,
+                   fault_margin=margin, ms=time_cold(torch, kern), plans_ms=alts,
+                   one_cta_per_row_ms=alts["split nsplit=1"],
+                   plain_ms=time_cold(torch, plain, iters=5), library_ms=lib_ms,
+                   library_backend=lib_name, library_all=lib_all, bytes=nbytes,
                    bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
                    bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations")
         rows.append(row)
-        print(f"  paged_attn_int8 B={B} {label} err={err:.3g} rel={err / mag:.2g} (tol {tol:.3g};"
-              f" faults >= {margin:.3g}x tol)"
-              f" kernel {row['ms']*1e3:.1f} us plain {row['plain_ms']*1e3:.1f} us sdpa"
-              f" {row['library_ms']*1e3:.1f} us bound {row['bound_ms']*1e3:.2f} us"
-              f" ({row['bound_ms'] / row['ms']:.0%})", flush=True)
-    del k_other
+        print(f"  paged_attn_int8 B={B} {label} {tuple(plan)} err={err:.3g} rel={err / mag:.2g} (tol"
+              f" {tol:.3g}; faults >= {margin:.3g}x tol) kernel {row['ms']*1e3:.1f} us (one CTA"
+              f" per row {row['one_cta_per_row_ms']*1e3:.1f} us) plain"
+              f" {row['plain_ms']*1e3:.1f} us sdpa {fmt_us(lib_ms)} ({lib_name}) bound"
+              f" {row['bound_ms']*1e3:.2f} us ({row['bound_ms'] / row['ms']:.0%})", flush=True)
+        print(f"    plans (us): {json.dumps({k: round(v * 1e3, 1) for k, v in alts.items()})};"
+              f" sdpa backends: {json.dumps({k: (round(v * 1e3, 1) if isinstance(v, float) else v) for k, v in lib_all.items()})}",
+              flush=True)
+        del kd, vd
+    del k_other, kp, vp
     report["paged_attn_int8"] = dict(rows[0], shapes=rows)
 
 
@@ -626,7 +820,6 @@ def check_decode(torch, report):
     case must hold within 1% of the output's largest magnitude, and the
     plain version fed each deliberate fault (the wrong layer, the wrong kv
     head, k_scale dropped, lengths off by one) must land outside it."""
-    import torch.nn.functional as Fnn
     from bitsandbytes_sycl_tpu_torch.ops import attention
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -682,17 +875,19 @@ def check_decode(torch, report):
                        new_kv=nk is not None, max_abs_err=err, tol=tol, fault_margin=margin)
             if timed and nk is not None:
                 Smax = max(lens_l) + 1
+                # K with a contiguous last dimension, as SDPA's fused backends need
                 kd = (kq[li, :, :, :, :Smax].float() * (ks[li, :, :, None, :Smax] / 127)
-                      ).transpose(-1, -2).to(torch.bfloat16)
+                      ).transpose(-1, -2).contiguous().to(torch.bfloat16)
                 vd = (vq[li, :, :, :Smax].float() * (vs[li, :, :, :Smax, None] / 127)).to(torch.bfloat16)
                 mask = (torch.arange(Smax, device="cuda")[None, :] <= lens[:, None])[:, None, None, :]
-                lib = lambda: Fnn.scaled_dot_product_attention(q, kd, vd, attn_mask=mask)  # noqa: E731
+                lib_ms, lib_name, lib_all = time_sdpa(torch, q, kd, vd, attn_mask=mask)
                 # the K/V rows and scales the lengths need, q and out, the new token, lengths
                 nbytes = (sum(lens_l) * Hkv * (2 * D + 8) + 2 * B * Hq * D * 2 + B * Hkv * (2 * D + 8)
                           + 4 * B)
                 flops = 4 * (sum(lens_l) + B) * Hq * D
                 row.update(ms=time_cold(torch, kern), plain_ms=time_cold(torch, plain, iters=5),
-                           library_ms=time_cold(torch, lib), bytes=nbytes,
+                           library_ms=lib_ms, library_backend=lib_name, library_all=lib_all,
+                           bytes=nbytes,
                            bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
                            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
                            else "operations")
@@ -701,7 +896,8 @@ def check_decode(torch, report):
             print(f"  decode_attn_int8 {label:26s} new_kv={int(nk is not None)} err={err:.3g}"
                   f" rel={err / mag:.2g} (tol {tol:.3g}; faults >= {margin:.3g}x tol)"
                   + (f" kernel {row['ms']*1e3:.1f} us plain {row['plain_ms']*1e3:.1f} us sdpa"
-                     f" {row['library_ms']*1e3:.1f} us bound {row['bound_ms']*1e3:.2f} us"
+                     f" {fmt_us(row['library_ms'])} ({row['library_backend']}) bound"
+                     f" {row['bound_ms']*1e3:.2f} us"
                      f" ({row['bound_ms'] / row['ms']:.0%})" if "ms" in row else ""), flush=True)
         del kq, vq, ks, vs, k_other
     head = next(r for r in rows if "ms" in r)
@@ -914,6 +1110,21 @@ def check_edges(torch):
             close(f"prefill rep={rep} {list(opt)}", attention.prefill_attn_int8(*args, **opt),
                   attention._prefill_plain(*args, opt.get("window"), opt.get("softcap"),
                                            opt.get("alibi")), rel=1e-4)
+    # kernel C's tensor-core body (bf16 q): GQA 1 and 2, every option, starts
+    # [0, 100], query counts below, at and across its 64-row tiles, within
+    # 1% of the largest output (P goes to the tensor cores in two bf16 parts)
+    for rep in (1, 2):
+        for T2 in (24, 64, 100, 130):
+            q = torch.randn((B, T2, Hkv * rep, D), generator=gen, device="cuda").to(torch.bfloat16)
+            for opt in (dict(), dict(window=40), dict(softcap=5.0), dict(alibi=slopes[: Hkv * rep])):
+                args = (q, kq, ks, vq, vs, 1, starts, 0.01)
+                tc0 = attention.prefill_attn_int8.launches_tc
+                close(f"prefill tensor-core rep={rep} T={T2} {list(opt)}",
+                      attention.prefill_attn_int8(*args, **opt),
+                      attention._prefill_plain(*args, opt.get("window"), opt.get("softcap"),
+                                               opt.get("alibi")))
+                need(attention.prefill_attn_int8.launches_tc == tc0 + 1,
+                     f"prefill rep={rep} T={T2}: bf16 q did not take the tensor-core body")
     NP, P, MAXP = 9, 128, 4
     kp = torch.randint(-127, 128, (L, NP, Hkv, P, D), generator=gen, device="cuda", dtype=torch.int8)
     vp = torch.randint(-127, 128, (L, NP, Hkv, P, D), generator=gen, device="cuda", dtype=torch.int8)
@@ -925,7 +1136,7 @@ def check_edges(torch):
               torch.rand((2, Hkv), generator=gen, device="cuda") * 0.2 + 0.05,
               torch.randint(-127, 128, (2, Hkv, D), generator=gen, device="cuda", dtype=torch.int8),
               torch.rand((2, Hkv), generator=gen, device="cuda") + 0.5)
-    for rep in (1, 2, 4):
+    for rep in (1, 2, 4, 8):  # rep 8 on the SIMT body, the rest on the split body
         q = torch.randn((2, Hkv, rep, D), generator=gen, device="cuda")
         for lens_l in ([0, 300], [511, 1]):
             lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
@@ -939,6 +1150,36 @@ def check_edges(torch):
                                                        opt.get("alibi"))
                     close(f"paged rep={rep} lens={lens_l} new={nk is not None} {list(opt)}",
                           got, ref, rel=1e-4)
+    # kernel D's split body at every split count of the 4-page table:
+    # lengths whose shares cross pages, a row with fewer used pages than
+    # splits (empty partials), a window that crosses a split
+    q = torch.randn((2, Hkv, 2, D), generator=gen, device="cuda")
+    for nsplit in (1, 2, 3, 4):
+        plan = paged_attention.PagedPlan("split", nsplit)
+        for lens_l in ([129, 257], [100, 500], [256, 385]):
+            lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+            for nk in (None, new_kv):
+                for opt in (dict(), dict(window=200)):
+                    sp0 = paged_attention.paged_attn_int8.launches_split
+                    got = paged_attention._paged_launch(q, kp, kps, vp, vps, 1, table, lens, 0.01, nk,
+                                                        opt.get("window"), None, None, plan)
+                    need(paged_attention.paged_attn_int8.launches_split == sp0 + 1,
+                         f"paged split {tuple(plan)}: the split body did not run")
+                    ref = paged_attention._paged_plain(q, kp, kps, vp, vps, 1, table, lens, nk, 0.01,
+                                                       opt.get("window"), None, None)
+                    close(f"paged split {tuple(plan)} lens={lens_l} new={nk is not None} {list(opt)}",
+                          got, ref, rel=1e-4)
+    # a page hint below a row's used pages caps the splits and drops no page,
+    # in either body (rep 2 on the split body, rep 8 on the SIMT one)
+    lens = torch.tensor([385, 500], dtype=torch.int32, device="cuda")
+    for rep in (2, 8):
+        q = torch.randn((2, Hkv, rep, D), generator=gen, device="cuda")
+        ref = paged_attention._paged_plain(q, kp, kps, vp, vps, 1, table, lens, new_kv, 0.01,
+                                           None, None, None)
+        for hint in (1, 2, None):
+            got = paged_attention.paged_attn_int8(q, kp, kps, vp, vps, 1, table, lens, 0.01,
+                                                  new_kv=new_kv, pages_hint=hint)
+            close(f"paged rep={rep} lens=[385, 500] pages_hint={hint}", got, ref, rel=1e-4)
     # kernel H at every group size and both head widths it takes, f32 q
     S = 384
     for D in (128, 256):
@@ -1003,6 +1244,19 @@ def read_counts(kernels):
             if a.startswith("launches"):
                 out[k.__name__ + a[len("launches"):].replace("_", ".")] = v
     return out
+
+
+def need_new_bodies(counts, label, decode=True):
+    """Every prefill launch of kernel C in ``counts`` went through its
+    tensor-core body (the model's q is bf16) and, with ``decode``, every
+    launch of kernel D through its split body."""
+    need(counts["prefill_attn_int8.tc"] == counts["prefill_attn_int8"],
+         f"{label}: {counts['prefill_attn_int8'] - counts['prefill_attn_int8.tc']} of"
+         f" {counts['prefill_attn_int8']} prefill attention launches missed C's tensor-core body")
+    if decode:
+        need(counts["paged_attn_int8.split"] == counts["paged_attn_int8"],
+             f"{label}: {counts['paged_attn_int8'] - counts['paged_attn_int8.split']} of"
+             f" {counts['paged_attn_int8']} paged decode launches missed D's split body")
 
 
 def prompts_from_seed(seed, n, vocab):
@@ -1182,6 +1436,7 @@ def profile_steps(torch, cfg, params, prompts, n=4, paged=True, host=True):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     out = dict(wall_ms=wall * 1e3, device_busy_ms=busy if busy > 0 else None,
                kernels_per_step=sum(e.count for e in kernels) / n, launches_per_step=per_step,
+               attention=attention_time(kernels, n),
                top=[(e.key, e.self_device_time_total / 1e3 / n, e.count // n) for e in top])
     if host:
         out.update(host_top=host_profile(torch, eng), step_vs_host=step_vs_host_speed(torch, eng))
@@ -1216,8 +1471,26 @@ def profile_prefill(torch, cfg, params, Kb, T):
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+    return dict(wall_ms=wall * 1e3, device_busy_ms=busy, attention=attention_time(kernels),
                 top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
+
+
+ATTENTION_KERNELS = {  # kernel symbol -> the ported kernel and body it belongs to
+    "prefill_tc_kernel": "C tensor-core", "prefill_kernel": "C SIMT",
+    "paged_split_kernel": "D split", "paged_kernel": "D SIMT", "decode_kernel": "H",
+}
+
+
+def attention_time(kernels, n=1):
+    """Device ms (per step, over n) and launches of the attention kernels
+    among a profile's device-side entries, by body."""
+    out = {}
+    for e in kernels:
+        for sym, body in ATTENTION_KERNELS.items():
+            if f"::{sym}" in e.key or e.key.startswith(sym):
+                ms, cnt = out.get(body, (0.0, 0))
+                out[body] = (ms + e.self_device_time_total / 1e3 / n, cnt + e.count // n)
+    return out
 
 
 def serve_long(torch, cfg, params, kernels):
@@ -1258,6 +1531,7 @@ def serve_long(torch, cfg, params, kernels):
         outs = [eng.slot_tokens[s][len(p):] for s, p in zip(slots, prompts)]
         for k in want:
             need(counts[k] > 0, f"long prompts ({label}): the prefill never launched {k}")
+        need_new_bodies(counts, f"long prompts ({label}) prefill", decode=False)
         need(all(len(o) == max_new for o in outs), f"long prompts ({label}): wrong output lengths "
                                                    f"{[len(o) for o in outs]}")
         need(all(0 <= t < cfg.vocab_size for o in outs for t in o),
@@ -1277,7 +1551,8 @@ def serve_long(torch, cfg, params, kernels):
               f" {row['decode_ms_per_step_median']:.2f} ms; peak {row['peak_gb']:.1f} GB;"
               f" prefill launches {counts}", flush=True)
         print(f"[3b] {label}: profiled prefill forward {prof['wall_ms']:.1f} ms, device busy"
-              f" {prof['device_busy_ms']:.1f} ms (idle {1 - prof['device_busy_ms'] / prof['wall_ms']:.0%})")
+              f" {prof['device_busy_ms']:.1f} ms (idle {1 - prof['device_busy_ms'] / prof['wall_ms']:.0%});"
+              f" attention (ms, launches) {prof['attention']}")
         for key, ms, cnt in prof["top"]:
             print(f"      {ms:8.3f} ms  {cnt:5d}x  {key[:90]}")
     del eng
@@ -1309,6 +1584,7 @@ def chunked_vs_whole(torch, cfg, params, kernels):
             torch.cuda.empty_cache()
         (whole, rec_w, t_w, _), (chunked, rec_c, t_c, counts) = runs[0], runs[256]
         need(counts[want] > 0, f"chunked prefill ({label} linears) never launched {want}")
+        need_new_bodies(counts, f"chunked prefill ({label} linears)")
         # the prefill's sampled logits: the chunks' attention over the cache
         # against the whole prompt's, within the card-vs-CPU limits
         first_w = torch.stack([rec_w[r][0] for r in range(2)])
@@ -1344,6 +1620,7 @@ def serve_path(torch, label, cfg, params, prompts, kernels, launched, ref=None):
     for k in launched:
         need(counts[k] > 0, f"{label}: the serving path never launched {k}")
     need(counts["paged_attn_int8"] == 0, f"{label}: the contiguous engine launched kernel D")
+    need_new_bodies(counts, label, decode=False)
     compared = None if ref is None else greedy_agree(*ref, outs, label)
     steps = sorted(steps)
     n_tok = sum(len(o) for o in outs)
@@ -1365,7 +1642,7 @@ def serve_path(torch, label, cfg, params, prompts, kernels, launched, ref=None):
           + (f"device busy {busy:.2f} ms of the {median:.2f} ms median step (idle "
              f"{stats['device_idle_share']:.0%})" if busy else "device busy not measured")
           + f"; {prof['kernels_per_step']:.0f} kernels per step; ported kernels per step "
-          f"{prof['launches_per_step']}")
+          f"{prof['launches_per_step']}; attention per step (ms, launches) {prof['attention']}")
     for key, ms, cnt in prof["top"]:
         print(f"      {ms:8.3f} ms/step  {cnt:5d}x  {key[:90]}")
     return stats
@@ -1424,6 +1701,8 @@ def w8a8_prefill_batches(torch, cfg, params, kernels):
                                            f"times, not {n_i}")
         need(counts["w4a8_gemv"] == counts["w4a8_grouped"] == 0,
              f"{name}: a 4-bit linear kernel ran in the prefill")
+        need(counts["prefill_attn_int8"] > 0, f"{name}: the prefill never launched kernel C")
+        need_new_bodies(counts, name, decode=False)
         need(torch.equal(lg, lg_int8) and first == first_int8,
              f"{name}: prefill logits differ from the repacked model's")
         rel = float((lg - lg_nf4).norm() / lg_nf4.norm())
@@ -1882,6 +2161,7 @@ def main() -> int:
               f"{steady * 1e3:.2f} ms/step (B<=4); launches {counts}", flush=True)
         for k in ("w4a8_gemv", "prefill_attn_int8", "paged_attn_int8"):
             need(counts[k] > 0, f"the serving path never launched {k}")
+        need_new_bodies(counts, "7B paged serve")
         main_counts = counts
         prof = profile_steps(torch, cfg, params, prompts)
         serve_stats["profile"] = prof
@@ -1891,7 +2171,8 @@ def main() -> int:
         print(f"[3] profiled decode step (B=4): wall {prof['wall_ms']:.2f} ms under the profiler,"
               " device busy " + (f"{busy:.2f} ms of the {steady * 1e3:.2f} ms unprofiled step"
                                  f" (idle {serve_stats['device_idle_share']:.0%})"
-                                 if busy else "not measured"))
+                                 if busy else "not measured")
+              + f"; attention per step (ms, launches) {prof['attention']}")
         for key, ms, cnt in prof["top"]:
             print(f"      {ms:8.3f} ms/step  {cnt:5d}x  {key[:90]}")
         print(f"[3] host: {prof['kernels_per_step']:.0f} kernels per step, "
@@ -2082,7 +2363,9 @@ def main() -> int:
     kernels = []
     # the launches of each body of B and G on those paths
     bodies = {"mm4_fused": {"tc": long_counts["rows 256"]["mm4_fused.tc"]},
-              "w4a8_grouped": {"wgmma": long_counts["rows 2048"]["w4a8_grouped.wgmma"]}}
+              "w4a8_grouped": {"wgmma": long_counts["rows 2048"]["w4a8_grouped.wgmma"]},
+              "prefill_attn_int8": {"tc": main_counts["prefill_attn_int8.tc"]},
+              "paged_attn_int8": {"split": main_counts["paged_attn_int8.split"]}}
     for name, (replaces, path, launches) in sources.items():
         r = report[name]
         kernels.append(dict(
@@ -2114,6 +2397,73 @@ PROBE_PARTS = {  # the BNB_PROBE_* switches of the kernel sources and wgmma.cuh
     "w4a8_grouped": {"no TMA copies": ("BNB_PROBE_NO_COPY",),
                      "no regrid": ("BNB_PROBE_NO_REGRID",), "no wgmma": ("BNB_PROBE_NO_MMA",)},
 }
+ATTN_PROBE_PARTS = {
+    "prefill_attn_int8": {"no copies": ("BNB_PROBE_NO_COPY",),
+                          "no conversion": ("BNB_PROBE_NO_DECODE",),
+                          "no wgmma": ("BNB_PROBE_NO_MMA",), "no softmax": ("BNB_PROBE_NO_SOFTMAX",)},
+    "paged_attn_int8": {"no copies": ("BNB_PROBE_NO_COPY",), "no math": ("BNB_PROBE_NO_MATH",)},
+}
+
+
+def probe_attention(torch, out):
+    """Where the time of C's tensor-core body and D's split body goes: each
+    timed at the shapes of check_prefill and check_paged as built, and
+    built with one part switched off (ATTN_PROBE_PARTS; those builds
+    compute wrong results)."""
+    from bitsandbytes_sycl_tpu_torch.ops import _build, attention, paged_attention
+
+    built = _build.build_variants({(stem, part): (stem, macros)
+                                   for stem, parts in ATTN_PROBE_PARTS.items()
+                                   for part, macros in parts.items()})
+    variants = {stem: {part: built[(stem, part)] for part in parts}
+                for stem, parts in ATTN_PROBE_PARTS.items()}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    L, H, D, S = 2, 32, 128, 2048
+    runs = []
+    for B, T in ((4, 32), (2, 512)):
+        q = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+        kq = torch.randint(-127, 128, (L, B, H, D, S), generator=gen, device="cuda", dtype=torch.int8)
+        vq = torch.randint(-127, 128, (L, B, H, S, D), generator=gen, device="cuda", dtype=torch.int8)
+        ks = torch.rand((L, B, H, S), generator=gen, device="cuda") + 1
+        vs = torch.rand((L, B, H, S), generator=gen, device="cuda") + 0.5
+        st = torch.zeros((B,), dtype=torch.int32, device="cuda")
+        runs.append(("prefill_attn_int8", f"B={B} T={T}",
+                     lambda q=q, kq=kq, ks=ks, vq=vq, vs=vs, st=st: attention.prefill_attn_int8(
+                         q, kq, ks, vq, vs, 1, st, 0.01 / 127)))
+        kd = (kq[1, :, :, :, :T].float() * (ks[1, :, :, None, :T] / 127)).permute(0, 1, 3, 2) \
+            .contiguous().to(torch.bfloat16)
+        vd = (vq[1, :, :, :T].float() * (vs[1, :, :, :T, None] / 127)).to(torch.bfloat16)
+        qh = q.permute(0, 2, 1, 3).contiguous()
+        for clean in (False, True):
+            ms, name, _ = time_sdpa(torch, qh, kd, vd, flush_by_read=clean, is_causal=True)
+            out["attention_parts"].append(dict(kernel="sdpa", shape=f"B={B} T={T}", part=name,
+                                               clean_l2=clean, us=ms * 1e3))
+            print(f"sdpa B={B} T={T}: {name}{', clean L2' if clean else ''} {ms * 1e3:.1f} us",
+                  flush=True)
+    kp, kps, vp, vps, table, qd, new_kv = paged_inputs(torch, gen, L, 4, H, D, 128, 16)
+    for label, lens_l in (("1 page", [40, 64, 17, 33]), ("16 pages", [2047, 1500, 900, 2000])):
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        runs.append(("paged_attn_int8", label, lambda lens=lens: paged_attention.paged_attn_int8(
+            qd, kp, kps, vp, vps, 1, table, lens, 0.01 / 127, new_kv=new_kv)))
+    # D's split counts at 16 pages with L2 clean
+    from bitsandbytes_sycl_tpu_torch.ops.paged_attention import PagedPlan
+
+    lens = torch.tensor([2047, 1500, 900, 2000], dtype=torch.int32, device="cuda")
+    for nsplit in (1, 2, 3, 4, 8):
+        us = time_cold(torch, lambda: paged_attention._paged_launch(
+            qd, kp, kps, vp, vps, 1, table, lens, 0.01 / 127, new_kv, None, None, None,
+            PagedPlan("split", nsplit)), iters=20, flush_by_read=True) * 1e3
+        out["attention_parts"].append(dict(kernel="paged_attn_int8", shape="16 pages",
+                                           part=f"nsplit={nsplit}, clean L2", us=us))
+        print(f"paged_attn_int8 16 pages: nsplit={nsplit}, clean L2 {us:.1f} us", flush=True)
+    for stem, label, run in runs:
+        for part in ["real", "real, clean L2"] + list(ATTN_PROBE_PARTS[stem]):
+            old = _build.use_library(stem, variants[stem][part]) if part in variants[stem] else None
+            us = time_cold(torch, run, iters=20, flush_by_read=part == "real, clean L2") * 1e3
+            if old is not None:
+                _build.use_library(stem, old)
+            out["attention_parts"].append(dict(kernel=stem, shape=label, part=part, us=us))
+            print(f"{stem} {label}: {part:14s} {us:.1f} us", flush=True)
 
 
 def probe_candidates(kernel, M, N, K, bs=64):
@@ -2163,7 +2513,7 @@ def probe_fit(rows, tiles, sms):
     return {str(k): float(c) for k, c in zip(keys, coef)}, float(coef[-2]), float(coef[-1])
 
 
-def probe_main() -> int:
+def probe_main(attention_only=False) -> int:
     """Where the time of kernels B (its tensor-core body) and G (its wgmma
     body) goes, on one card. (1) Times every plan of probe_candidates at
     the four 7B shapes, B at 256 and 1024 rows and G at 512 and 2048,
@@ -2172,8 +2522,10 @@ def probe_main() -> int:
     model picks, and the plan the package picks now, with the fastest one
     timed. (2) Times B and G at 4096 x 4096 built with one part switched
     off (PROBE_PARTS): a part whose removal saves little is not what
-    bounds the kernel; those builds compute wrong results. Lines go to
-    stdout and chiprun_out/probe.json."""
+    bounds the kernel; those builds compute wrong results. (0) First, the
+    same for C's tensor-core and D's split bodies (probe_attention); with
+    ``attention_only`` nothing else. Lines go to stdout and
+    chiprun_out/probe.json."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2187,16 +2539,17 @@ def probe_main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all()
-    variants = _build.build_variants({(stem, part): (stem, macros)
-                                      for stem, parts in PROBE_PARTS.items()
-                                      for part, macros in parts.items()})
+    variants = {} if attention_only else _build.build_variants(
+        {(stem, part): (stem, macros) for stem, parts in PROBE_PARTS.items()
+         for part, macros in parts.items()})
     card = gpu_line()
     print(f"{card}; built in {time.perf_counter() - t0:.1f} s", flush=True)
     sms = sm_count(torch.device("cuda"))
-    out = dict(card=card, sms=sms, plans=[], parts=[], fit={}, picks=[])
+    out = dict(card=card, sms=sms, plans=[], parts=[], fit={}, picks=[], attention_parts=[])
+    probe_attention(torch, out)
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = []
-    for N, K in [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]:
+    for N, K in ([] if attention_only else [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]):
         W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
         w = quantize_4bit_native(W, 64, "nf4", absmax_dtype=torch.bfloat16)
         Wd = W.to(torch.bfloat16)
@@ -2234,7 +2587,8 @@ def probe_main() -> int:
                         print(f"{kern} 4096 x 4096 M={M} {tuple(chosen)}: {part:14s} {us:.1f} us",
                               flush=True)
         del w, Wd
-    for kern, tiles in (("B", {k: v[0] for k, v in m4._MM4_TILES.items()}), ("G", {(256, 128): 1})):
+    for kern, tiles in (() if attention_only else
+                        (("B", {k: v[0] for k, v in m4._MM4_TILES.items()}), ("G", {(256, 128): 1}))):
         rows = [r for r in out["plans"] if r["kernel"] == kern]
         step_us, split_us, elem_us = probe_fit(rows, tiles, sms)
         out["fit"][kern] = dict(step_us=step_us, split_us=split_us, elem_us=elem_us)
@@ -2267,4 +2621,6 @@ def probe_main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(probe_main() if sys.argv[1:] == ["--probe"] else main())
+    if sys.argv[1:2] == ["--probe"]:
+        sys.exit(probe_main(attention_only=sys.argv[2:] == ["attention"]))
+    sys.exit(main())

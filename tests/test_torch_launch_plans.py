@@ -1,15 +1,19 @@
-"""Launch plans of kernels B (``mm4_plan``) and G (``grouped_plan``): plain
-Python that picks a body, a tile and a split of K from the call's dtype and
-shape. Each case checks that the grid covers every output tile once, that
-the K splits partition the quantization blocks in order within a plane, and
-that the body is the one the shape and dtype call for."""
+"""Launch plans of kernels B (``mm4_plan``), G (``grouped_plan``), C
+(``prefill_plan``) and D (``paged_plan``): plain Python that picks a body,
+a tile and a split from the call's dtype and shape. For B and G each case
+checks that the grid covers every output tile once, that the K splits
+partition the quantization blocks in order within a plane, and that the
+body is the one the shape and dtype call for; for C the body; for D the
+body and that the splits partition a row's used pages."""
 
 import pytest
 import torch
 
+from bitsandbytes_sycl_tpu_torch.ops.attention import prefill_plan
 from bitsandbytes_sycl_tpu_torch.ops.common import H100_SMS
 from bitsandbytes_sycl_tpu_torch.ops.matmul_4bit import mm4_plan
 from bitsandbytes_sycl_tpu_torch.ops.matmul_w4a8 import grouped_plan
+from bitsandbytes_sycl_tpu_torch.ops.paged_attention import paged_plan
 
 SHAPES_7B = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
 
@@ -82,3 +86,66 @@ def test_launch_plan(case):
     if (kernel, M, N) in (("B", 256, 4096), ("G", 512, 4096)) and fast:
         ctas = (N // plan.bn) * m_tiles * plan.ksplit
         assert ctas >= 128 and ctas <= 2 * H100_SMS
+
+
+# kernel C: (D, S, q dtype) -> body. The tensor-core body takes bf16 q at
+# D = 128 over a whole number of 64-key tiles, whatever the batch and the
+# prompt length; f32 q, D = 256 and other S keep the SIMT body.
+PREFILL_CASES = [
+    ((128, 2048, torch.bfloat16), "tc"),
+    ((128, 4096, torch.bfloat16), "tc"),
+    ((128, 256, torch.bfloat16), "tc"),
+    ((128, 64, torch.bfloat16), "tc"),
+    ((128, 2048, torch.float32), "simt"),
+    ((256, 256, torch.bfloat16), "simt"),
+    ((256, 2048, torch.float32), "simt"),
+    ((128, 2000, torch.bfloat16), "simt"),
+]
+
+
+@pytest.mark.parametrize("case,body", PREFILL_CASES, ids=lambda c: str(c))
+def test_prefill_plan(case, body):
+    D, S, dt = case
+    assert prefill_plan(D, S, dt) == body
+
+
+# kernel D: (B, Hkv, MAXP, P, D, rep) -> body. The split body takes D = 128
+# or 256, rep 1, 2, 4 with rep * D <= 512 and whole 128-token pages whose K
+# and V fit one 64 KB ring slot (P * D <= 32768).
+PAGED_CASES = (
+    [((B, 32, 16, 128, 128, 1), "split") for B in (1, 2, 4, 8, 16, 32, 64)]  # 7B, 2048 tokens
+    + [((4, 32, 32, 128, 128, 1), "split"), ((4, 8, 16, 128, 128, 4), "split"),
+       ((2, 2, 4, 128, 128, 2), "split"), ((2, 2, 4, 128, 256, 2), "split"),
+       ((4, 32, 1, 128, 128, 1), "split"), ((4, 32, 16, 256, 128, 1), "split")]
+    + [((4, 8, 16, 128, 128, 8), "simt"), ((2, 2, 4, 128, 256, 4), "simt"),
+       ((2, 2, 4, 64, 128, 1), "simt"), ((2, 2, 4, 128, 512, 1), "simt"),
+       ((2, 2, 4, 256, 256, 1), "simt")]
+)
+
+
+@pytest.mark.parametrize("hint", [None, 1, 3, 8, 40], ids=lambda h: f"hint{h}")
+@pytest.mark.parametrize("case,body", PAGED_CASES, ids=lambda c: str(c))
+def test_paged_plan(case, body, hint):
+    B, Hkv, MAXP, P, D, rep = case
+    plan = paged_plan(B, Hkv, MAXP, P, D, rep, H100_SMS, pages_hint=hint)
+    assert plan.body == body
+    if body == "simt":
+        assert plan.nsplit == 1
+        return
+    # no more splits than the host-known page bound: the table width, or
+    # the engine's page horizon where it is given (clamped to [1, MAXP])
+    pages = MAXP if hint is None else min(hint, MAXP)
+    assert 1 <= plan.nsplit <= pages
+    # rows split only to fill the SMs: about one CTA per SM, never fewer
+    # than one per row and kv head
+    ctas = B * Hkv * plan.nsplit
+    assert ctas <= max(H100_SMS, B * Hkv)
+    assert ctas > H100_SMS - B * Hkv or plan.nsplit == pages
+    if (Hkv, MAXP, hint) == (32, 16, None):  # 7B: B = 1 and 2 split S, B >= 4 fills the SMs
+        assert (plan.nsplit > 1) == (B < 4)
+    # the kernel's shares of a row's used pages u (at most MAXP, whatever
+    # the hint): contiguous, in order, together every used page once
+    for u in range(1, MAXP + 1):
+        bounds = [z * u // plan.nsplit for z in range(plan.nsplit + 1)]
+        assert bounds[0] == 0 and bounds[-1] == u
+        assert all(a <= b for a, b in zip(bounds, bounds[1:]))
