@@ -9,6 +9,22 @@
 
 #define BNB_FULL_MASK 0xffffffffu
 
+// Raise a kernel's dynamic shared memory limit to `bytes`, once per device
+// (setting it on every launch costs host time in a decode step).
+template <auto kernel>
+inline cudaError_t allow_smem_once(int bytes) {
+  static cudaError_t done[64];
+  static bool set[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || dev < 0 || dev >= 64) return e != cudaSuccess ? e : cudaErrorInvalidDevice;
+  if (!set[dev]) {
+    done[dev] = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    set[dev] = true;
+  }
+  return done[dev];
+}
+
 // A grid-stride loop's grid: at most 16 blocks per SM of the H100's 132.
 constexpr size_t kMaxBlocks = 132 * 16;
 

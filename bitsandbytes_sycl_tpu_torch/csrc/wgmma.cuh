@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the tensor-core bodies of kernels B
-// (mm4_fused.cu), G (w4a8_grouped.cu) and C (prefill_attn_int8.cu) and the
-// split body of kernel D (paged_attn_int8.cu): TMA tensor and bulk copies,
+// (mm4_fused.cu), G (w4a8_grouped.cu) and C (prefill_attn_int8.cu), the
+// split bodies of kernels D (paged_attn_int8.cu) and H (decode_attn_int8.cu)
+// and the fused body of kernel A (w4a8_gemv.cu): TMA tensor and bulk copies,
 // mbarriers, shared-memory matrix descriptors and the warpgroup products
 // they use, written as inline PTX for sm_90a.
 //
@@ -25,6 +26,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -111,11 +114,12 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// Host: a map of the row-major (rows, cols) tensor at `ptr` (row stride
-// `ld` elements) read in boxes of (box_rows, box_cols); 0 or a CUDA error.
-static inline int make_tmap_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int esz,
-                               uint64_t rows, uint64_t cols, uint64_t ld, int box_rows,
-                               int box_cols, bool swizzle64) {
+// Host: encode a map of the row-major (rows, cols) tensor at `ptr` (row
+// stride `ld` elements) read in boxes of (box_rows, box_cols) with the
+// given swizzle; 0 or a CUDA error.
+static inline int encode_tmap_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                                 int esz, uint64_t rows, uint64_t cols, uint64_t ld, int box_rows,
+                                 int box_cols, CUtensorMapSwizzle swizzle) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -128,10 +132,53 @@ static inline int make_tmap_2d(CUtensorMap* map, const void* ptr, CUtensorMapDat
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
   const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            swizzle64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The same map, from a table of the last maps made, keyed by every
+// argument (a map depends on nothing else): a call on the same weight or
+// cache as an earlier one costs a lookup, not an encode.
+struct TmapKey {
+  const void* ptr;
+  uint64_t rows, cols, ld;
+  int type, esz, box_rows, box_cols, swizzle;
+  bool operator==(const TmapKey& o) const {
+    return ptr == o.ptr && rows == o.rows && cols == o.cols && ld == o.ld && type == o.type &&
+           esz == o.esz && box_rows == o.box_rows && box_cols == o.box_cols && swizzle == o.swizzle;
+  }
+};
+
+static inline int make_tmap_2d_swizzled(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                                        int esz, uint64_t rows, uint64_t cols, uint64_t ld,
+                                        int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  constexpr int kSlots = 1024;
+  static TmapKey keys[kSlots];
+  static CUtensorMap maps[kSlots];
+  static std::mutex lock;
+  const TmapKey key{ptr, rows, cols, ld, (int)type, esz, box_rows, box_cols, (int)swizzle};
+  const size_t slot = ((reinterpret_cast<uintptr_t>(ptr) >> 8) ^ rows ^ (cols << 7) ^
+                       ((uint64_t)box_rows << 17) ^ ((uint64_t)swizzle << 29)) % kSlots;
+  std::lock_guard<std::mutex> guard(lock);
+  if (ptr != nullptr && keys[slot] == key) {
+    *map = maps[slot];
+    return 0;
+  }
+  const int err = encode_tmap_2d(map, ptr, type, esz, rows, cols, ld, box_rows, box_cols, swizzle);
+  if (err == 0) {
+    keys[slot] = key;
+    maps[slot] = *map;
+  }
+  return err;
+}
+
+// the same, without swizzle or with the 64-byte one
+static inline int make_tmap_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int esz,
+                               uint64_t rows, uint64_t cols, uint64_t ld, int box_rows,
+                               int box_cols, bool swizzle64) {
+  return make_tmap_2d_swizzled(map, ptr, type, esz, rows, cols, ld, box_rows, box_cols,
+                               swizzle64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // the first 1024-byte boundary at or after p in shared memory (TMA's

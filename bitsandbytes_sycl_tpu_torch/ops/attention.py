@@ -18,22 +18,26 @@ layer out of the stacked cache.
 
 Kernel C has two bodies (``prefill_plan``): a tensor-core body for bf16 q
 at head_dim 128 (the model's dtype, so every prefill of a served Llama),
-and a SIMT body for f32 q and head_dim 256.
+and a SIMT body for f32 q and head_dim 256. Kernel H has two too
+(``decode_plan``): a split body (flash-decoding, head_dim 128, group sizes
+1, 2 and 4) and a SIMT body for the other shapes.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from . import _build
-from .common import check_cuda_tensors
+from .common import check_cuda_tensors, scratch_buffer, sm_count, ticket_buffer
 
 __all__ = [
     "prefill_attention_int8_stacked", "prefill_attn_int8", "prefill_plan",
     "decode_attention_int8", "decode_attention_int8_stacked", "decode_attn_int8",
+    "decode_plan", "DecodePlan",
 ]
 
 
@@ -220,6 +224,38 @@ def _decode_plain(q4, kq, ks, vq, vs, li, lengths, new_kv, scale, window, softca
     return (o + (w_new * inv * vsn_c) * vn.float()[:, :, None, :]).to(q4.dtype)
 
 
+class DecodePlan(NamedTuple):
+    """Kernel H's launch: the body, and for the split body the number of
+    CTAs that share each row's used span."""
+
+    body: str  # "split" or "simt"
+    nsplit: int
+
+
+DECODE_TILE = 128  # positions per tile of the split body
+# Split CTAs per SM the plan aims at (fitted on the H100: PERF.md,
+# chip_smoke.py check_decode): rows are split only to fill SMs that one CTA
+# per row and kv head leaves idle.
+_DECODE_CTAS_PER_SM = 1
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(B: int, Hkv: int, S: int, D: int, rep: int, q_dtype, sms: int) -> DecodePlan:
+    """Kernel H's launch on ``sms`` SMs from host-known sizes only (reading
+    the lengths would stop the host in every layer of a decode step). The
+    split body takes f32 or bf16 q at D = 128, rep 1, 2 or 4 and S % 16 ==
+    0 (the row stride of its TMA copies of K); it splits each row's used
+    span into ``nsplit`` equal shares of 128-position tiles, B * Hkv *
+    nsplit CTAs about _DECODE_CTAS_PER_SM per SM, never more splits than
+    the cache has tiles. The SIMT body takes the rest (rep 8, D = 256,
+    other S), one CTA per row and kv head."""
+    if q_dtype in (torch.float32, torch.bfloat16) and D == 128 and rep in (1, 2, 4) \
+            and S % 16 == 0:
+        tiles = -(-S // DECODE_TILE)
+        return DecodePlan("split", max(1, min(tiles, _DECODE_CTAS_PER_SM * sms // (B * Hkv))))
+    return DecodePlan("simt", 1)
+
+
 def decode_attn_int8(q4, kq, ks, vq, vs, li: int, lengths, scale: float, new_kv=None,
                      window: Optional[int] = None, softcap: Optional[float] = None,
                      alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -243,6 +279,15 @@ def decode_attn_int8(q4, kq, ks, vq, vs, li: int, lengths, scale: float, new_kv=
                          f"k={tuple(kq.shape)} v={tuple(vq.shape)}")
     if not 0 <= li < L:
         raise ValueError(f"decode_attn_int8: layer {li} out of range [0, {L})")
+    return _decode_launch(q4, kq, ks, vq, vs, li, lengths, scale, new_kv, window, softcap, alibi,
+                          decode_plan(B, Hkv, S, D, rep, q4.dtype, sm_count(q4.device)))
+
+
+def _decode_launch(q4, kq, ks, vq, vs, li, lengths, scale, new_kv, window, softcap, alibi,
+                   plan: DecodePlan) -> torch.Tensor:
+    """Launch kernel H's body ``plan.body`` on checked CUDA tensors."""
+    B, Hkv, rep, D = q4.shape
+    L, S = kq.shape[0], kq.shape[4]
     qc = q4.contiguous()
     ts = [t.contiguous() for t in (kq, ks, vq, vs)]
     ln = lengths.to(torch.int32).contiguous()
@@ -255,21 +300,37 @@ def decode_attn_int8(q4, kq, ks, vq, vs, li: int, lengths, scale: float, new_kv=
     else:
         nk_ptrs = [None] * 4
     out = torch.empty_like(qc)
-    fn = _build.kernel_fn("decode_attn_int8", "decode_attn_int8", 25,
-                          int_args=range(12, 22), float_args=(22, 23))
-    err = fn(
-        qc.data_ptr(), *(t.data_ptr() for t in ts), ln.data_ptr(),
-        None if al is None else al.data_ptr(), *nk_ptrs, out.data_ptr(),
-        int(li), L, B, Hkv, rep, D, S, int(window or 0), int(new_kv is not None),
-        int(q4.dtype == torch.bfloat16), float(scale), float(softcap or 0.0),
-        torch.cuda.current_stream(q4.device).cuda_stream,
-    )
-    _build.check("decode_attn_int8", err)
+    ptrs = (qc.data_ptr(), *(t.data_ptr() for t in ts), ln.data_ptr(),
+            None if al is None else al.data_ptr(), *nk_ptrs, out.data_ptr())
+    stream = torch.cuda.current_stream(q4.device).cuda_stream
+    q_bf16 = int(q4.dtype == torch.bfloat16)
+    if plan.body == "split":
+        # TMA and the bulk copies read the cache at 16-byte aligned addresses
+        assert all(t.data_ptr() % 16 == 0 for t in ts), "unaligned cache"
+        part = tickets = None
+        if plan.nsplit > 1:
+            part = scratch_buffer(q4.device, B * Hkv * plan.nsplit * rep * (D + 2))
+            tickets = ticket_buffer(q4.device, B * Hkv)
+        fn = _build.kernel_fn("decode_attn_int8", "decode_attn_int8_split", 28,
+                              int_args=range(14, 25), float_args=(25, 26))
+        err = fn(*ptrs, None if part is None else part.data_ptr(),
+                 None if tickets is None else tickets.data_ptr(),
+                 int(li), L, B, Hkv, rep, D, S, plan.nsplit, int(window or 0),
+                 int(new_kv is not None), q_bf16, float(scale), float(softcap or 0.0), stream)
+        decode_attn_int8.launches_split += 1
+    else:
+        fn = _build.kernel_fn("decode_attn_int8", "decode_attn_int8", 25,
+                              int_args=range(12, 22), float_args=(22, 23))
+        err = fn(*ptrs, int(li), L, B, Hkv, rep, D, S, int(window or 0),
+                 int(new_kv is not None), q_bf16, float(scale), float(softcap or 0.0), stream)
+    _build.check(f"decode_attn_int8 ({plan.body})", err)
     decode_attn_int8.launches += 1
     return out
 
 
+# launches of either body, and of the split body alone
 decode_attn_int8.launches = 0
+decode_attn_int8.launches_split = 0
 
 
 def decode_attention_int8_stacked(

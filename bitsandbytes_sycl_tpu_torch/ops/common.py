@@ -34,6 +34,8 @@ __all__ = [
     "split_k",
     "sm_count",
     "safe_inv",
+    "ticket_buffer",
+    "scratch_buffer",
     "decode_4bit",
     "compress_absmax",
     "decode_absmax",
@@ -87,6 +89,33 @@ def _sm_count(index: int) -> int:
 def sm_count(dev: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device (asked once)."""
     return _sm_count(torch.cuda.current_device() if dev.index is None else dev.index)
+
+
+_tickets = {}
+_scratch = {}
+
+
+def ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """The per-tile counters of a kernel whose last CTA merges the others'
+    partials (the split bodies of D, H and A): zeroed once per device and
+    size; every launch leaves them at 0, so launches on one stream may
+    share them."""
+    key = (device.index, n)
+    buf = _tickets.get(key)
+    if buf is None:
+        buf = _tickets[key] = torch.zeros((n,), dtype=torch.int32, device=device)
+    return buf
+
+
+def scratch_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """An f32 scratch of at least n floats for a kernel's split partials:
+    one buffer per device, grown to the largest request. A launch writes
+    its scratch before it reads it, and launches on one stream run one
+    after another, so they may share it."""
+    buf = _scratch.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = _scratch[device.index] = torch.empty((n,), dtype=torch.float32, device=device)
+    return buf
 
 
 def _ksplit(nbh: int, n_col_blocks: int, m_tiles: int, warps: int = 8):

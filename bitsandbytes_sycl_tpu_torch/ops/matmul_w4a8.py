@@ -21,6 +21,12 @@ column's largest block scale, so one int32 sum runs over all of K:
 Both scale the sum by ``colmax / 127`` and the row scale, in the JAX
 package's order.
 
+Kernel A has two bodies (``gemv_plan``): a fused body for decode rows
+(M <= 8, blocksize 32 or 64), one launch that quantizes the activations,
+streams the weights and merges its K splits itself; and a SIMT body for
+up to 128 rows, three launches (row quantization, the GEMV, the ordered
+sum of its K splits).
+
 The three routes are differentiable in x and the bias with the exact-
 dequant backward (``matmul_4bit.ExactDequantGrad``): the activation
 quantization is a forward-only trade, straight through in the backward.
@@ -29,6 +35,7 @@ quantization is a forward-only trade, straight through in the backward.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -37,12 +44,12 @@ import torch
 from . import _build
 from ..functional import _div127
 from .common import (LaunchPlan, QLinearWeight, _ksplit, check_cuda_tensors, pick_tile,
-                     safe_inv, sm_count, split_k)
+                     safe_inv, scratch_buffer, sm_count, split_k, ticket_buffer)
 
 __all__ = [
     "matmul_4bit_w4a8", "matmul_4bit_w4a8_grouped", "matmul_4bit_w8a8_prefill",
     "dequantize_to_int8", "w4a8_gemv", "w4a8_grouped", "dequant_int8",
-    "grouped_min_m", "W8A8_PREFILL_MIN_M", "grouped_plan", "col_grid",
+    "grouped_min_m", "W8A8_PREFILL_MIN_M", "grouped_plan", "col_grid", "gemv_plan",
 ]
 
 # routing thresholds of the JAX package (models/llama.apply_linear reads them)
@@ -57,6 +64,19 @@ def grouped_min_m(blocksize: int) -> int:
 
 def _int8_code_table(code) -> tuple:
     return tuple(int(round(float(v) * 127.0)) for v in code)
+
+
+_c_tables = {}
+
+
+def _c_code_table(w: QLinearWeight):
+    """The 16 int8 codes of w's codebook as a ctypes array, made once per
+    codebook."""
+    key = (w.quant_type, w.blocksize)
+    table = _c_tables.get(key)
+    if table is None:
+        table = _c_tables[key] = (ctypes.c_int8 * 16)(*_int8_code_table(w.code))
+    return table
 
 
 def _quant_rows(x2: torch.Tensor):
@@ -92,6 +112,37 @@ def _w4a8_plain(x2: torch.Tensor, w: QLinearWeight, bias, out_dtype) -> torch.Te
     return out.to(out_dtype)
 
 
+GEMV_FUSED_MAX_M = 8   # rows of the fused body
+_GEMV_STAGE_ROWS = 64  # packed rows per stage of the fused body
+_GEMV_X_BYTES = 32768  # quantized activations a fused CTA keeps in shared memory
+# Fused CTAs per SM the plan aims at (fitted on the H100: PERF.md,
+# chip_smoke.py --probe decode): more splits add merge and row-absmax work
+# that the 8 warps of one CTA per SM no longer need to hide latency
+_GEMV_CTAS_PER_SM = 1
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_plan(M: int, N: int, K: int, bs: int, sms: int) -> LaunchPlan:
+    """Kernel A's launch. The fused body ("fused") takes M <= 8 rows (bm,
+    its row tile: 1, 2, 4 or 8), blocksize 32 or 64, N % 128 == 0 and
+    K % 128 == 0: the grid is (N / 128, ksplit), split s taking the stages
+    [s * per, (s + 1) * per) of 64 packed rows, with about
+    _GEMV_CTAS_PER_SM CTAs per SM, no more splits than stages, and at most
+    _GEMV_X_BYTES of quantized activations per CTA. The SIMT body ("simt")
+    takes the rest: rows in tiles of 4, ``per`` quantization blocks per
+    warp, ``ksplit`` K splits."""
+    half = K // 2
+    if 0 < M <= GEMV_FUSED_MAX_M and bs in (32, 64) and N % 128 == 0 \
+            and half % _GEMV_STAGE_ROWS == 0:
+        bm = 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8
+        steps, tiles = half // _GEMV_STAGE_ROWS, N // 128
+        ks = max(1, min(steps, int(_GEMV_CTAS_PER_SM * sms / tiles + 0.5)))
+        per = min(-(-steps // ks), _GEMV_X_BYTES // (bm * 2 * _GEMV_STAGE_ROWS))
+        return LaunchPlan("fused", bm, per, -(-steps // per))
+    g, ks = _ksplit(K // (2 * bs), N // 128, -(-M // 4))
+    return LaunchPlan("simt", 4, g, ks)
+
+
 def w4a8_gemv(x2: torch.Tensor, w: QLinearWeight, bias: Optional[torch.Tensor],
               out_dtype) -> torch.Tensor:
     """Kernel A on CUDA tensors; the plain version on CPU tensors.
@@ -111,32 +162,49 @@ def w4a8_gemv(x2: torch.Tensor, w: QLinearWeight, bias: Optional[torch.Tensor],
         raise ValueError(f"w4a8_gemv: untileable shape M={M} N={N} K={K} bs={bs}")
     if not (w.packed.is_contiguous() and w.absmax.is_contiguous()):
         raise ValueError("w4a8_gemv: weight tensors must be contiguous")
-    nbh = K // (2 * bs)
-    m_tiles = -(-M // 4)
-    g, ksplit = _ksplit(nbh, N // 128, m_tiles)
+    return _gemv_launch(x2, w, bias, out_dtype, gemv_plan(M, N, K, bs, sm_count(x2.device)))
+
+
+def _gemv_launch(x2, w: QLinearWeight, bias, out_dtype, plan: LaunchPlan) -> torch.Tensor:
+    """Launch kernel A's body ``plan.body`` on checked CUDA tensors. The
+    fused body allocates only ``out``: split partials and tickets are kept
+    per device."""
+    M, K = x2.shape
+    N = w.shape[0]
     dev = x2.device
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    xq = torch.empty((M, K), dtype=torch.int8, device=dev)
-    ra = torch.empty((M,), dtype=torch.float32, device=dev)
-    part = torch.empty((ksplit, M, N), dtype=torch.float32, device=dev)
     b = None if bias is None else bias.float().contiguous()
-    table = (ctypes.c_int8 * 16)(*_int8_code_table(w.code))
-    fn = _build.kernel_fn("w4a8_gemv", "w4a8_gemv", 19, int_args=range(9, 18))
-    err = fn(
-        x2.data_ptr(), w.packed.data_ptr(), w.absmax.data_ptr(),
-        None if b is None else b.data_ptr(), out.data_ptr(), xq.data_ptr(),
-        ra.data_ptr(), part.data_ptr(), ctypes.addressof(table),
-        M, N, K, bs, g, ksplit,
-        int(x2.dtype == torch.bfloat16), int(w.absmax.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check("w4a8_gemv", err)
+    flags = (int(x2.dtype == torch.bfloat16), int(w.absmax.dtype == torch.bfloat16),
+             int(out_dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = (x2.data_ptr(), w.packed.data_ptr(), w.absmax.data_ptr(),
+            None if b is None else b.data_ptr(), out.data_ptr())
+    table = ctypes.addressof(_c_code_table(w))
+    if plan.body == "fused":
+        if ptrs[0] % 16:
+            x2 = x2.clone()  # a view at an odd offset; x rows are read 16 bytes at a time
+            ptrs = (x2.data_ptr(),) + ptrs[1:]
+        part = tickets = None
+        if plan.ksplit > 1:
+            part = scratch_buffer(dev, plan.ksplit * M * N).data_ptr()
+            tickets = ticket_buffer(dev, N // 128).data_ptr()
+        fn = _build.kernel_fn("w4a8_gemv", "w4a8_gemv_fused", 18, int_args=range(8, 17))
+        err = fn(*ptrs, part, tickets, table, M, N, K, w.blocksize, plan.per, plan.ksplit, *flags)
+        w4a8_gemv.launches_fused += 1
+    else:
+        xq = torch.empty((M, K), dtype=torch.int8, device=dev)
+        ra = torch.empty((M,), dtype=torch.float32, device=dev)
+        part = scratch_buffer(dev, plan.ksplit * M * N)
+        fn = _build.kernel_fn("w4a8_gemv", "w4a8_gemv", 19, int_args=range(9, 18))
+        err = fn(*ptrs, xq.data_ptr(), ra.data_ptr(), part.data_ptr(), table,
+                 M, N, K, w.blocksize, plan.per, plan.ksplit, *flags)
+    _build.check(f"w4a8_gemv ({plan.body})", err)
     w4a8_gemv.launches += 1
     return out
 
 
+# launches of either body, and of the fused body alone
 w4a8_gemv.launches = 0
+w4a8_gemv.launches_fused = 0
 
 
 def matmul_4bit_w4a8(

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .common import check_cuda_tensors, sm_count
+from .common import check_cuda_tensors, scratch_buffer, sm_count, ticket_buffer
 
 __all__ = ["paged_decode_attention_int8", "paged_decode_attention_int8_stacked", "paged_attn_int8",
            "paged_plan", "PagedPlan"]
@@ -66,19 +66,6 @@ def paged_plan(B: int, Hkv: int, MAXP: int, P: int, D: int, rep: int, sms: int,
             and P * D <= 32768:
         return PagedPlan("split", max(1, min(pages, _PAGED_CTAS_PER_SM * sms // (B * Hkv))))
     return PagedPlan("simt", 1)
-
-
-_tickets = {}
-
-
-def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
-    """The split body's per-(row, kv head) counters: zeroed once per device
-    and size; every launch leaves them at 0."""
-    key = (device.index, n)
-    buf = _tickets.get(key)
-    if buf is None:
-        buf = _tickets[key] = torch.zeros((n,), dtype=torch.int32, device=device)
-    return buf
 
 
 def _paged_plain(q4, kp, ks, vp, vs, li, page_table, lengths, new_kv, scale,
@@ -189,9 +176,8 @@ def _paged_launch(q4, kp, ks, vp, vs, li, page_table, lengths, scale, new_kv, wi
         assert all(t.data_ptr() % 16 == 0 for t in ts), "unaligned page pool"
         part = tickets = None
         if plan.nsplit > 1:
-            part = torch.empty((B * Hkv * plan.nsplit * rep * (D + 2),), dtype=torch.float32,
-                               device=q4.device)
-            tickets = _ticket_buffer(q4.device, B * Hkv)
+            part = scratch_buffer(q4.device, B * Hkv * plan.nsplit * rep * (D + 2))
+            tickets = ticket_buffer(q4.device, B * Hkv)
         fn = _build.kernel_fn("paged_attn_int8", "paged_attn_int8_split", 31,
                               int_args=range(15, 28), float_args=(28, 29))
         err = fn(*ptrs, None if part is None else part.data_ptr(),

@@ -2,18 +2,20 @@
 """Smoke run of bitsandbytes_sycl_tpu_torch on one CUDA card (H100).
 
     python3 chip_smoke.py            # the smoke run below
-    python3 chip_smoke.py --probe    # where B's, G's, C's and D's time goes (see probe_main)
+    python3 chip_smoke.py --probe    # where A's, B's, C's, D's, G's and H's time goes (probe_main)
     python3 chip_smoke.py --probe attention   # C's and D's only
+    python3 chip_smoke.py --probe decode      # A's fused and H's split bodies only
 
 Phases, each of which exits non-zero on failure:
   1. build the hand-written kernels (nvcc, csrc/*.cu) and print the card;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the 7B serving path gives it (attention inputs with O(1)
      scores, and the plain version fed deliberate faults must land outside
-     the tolerance; kernel B's tensor-core body at 256 and 1024 rows, G's
-     wgmma body at 512 and 2048, C's tensor-core body at T = 32 and 512,
-     D's split body at 1 and 16 pages, each checked to have run, and every
-     plan of B's and G's fast bodies and C's and D's new ones launched 100
+     the tolerance; kernel A's fused body at 1, 4 and 8 rows, B's
+     tensor-core body at 256 and 1024 rows, G's wgmma body at 512 and 2048,
+     C's tensor-core body at T = 32 and 512, D's split body at 1 and 16
+     pages, H's split body at B = 1, 2, 4 and 8, each checked to have run,
+     and every plan of the fast bodies of A, B, C, D, G and H launched 100
      times on one input must repeat its output bit for bit), and time
      kernel, plain version and one PyTorch
      library call that computes the same function (for attention, SDPA's
@@ -54,7 +56,9 @@ Phases, each of which exits non-zero on failure:
      profiled; (c) 2 layers at 7B width, card against CPU: loss, adapter
      gradients and 3 Adam steps.
 Every prefill of phases 3, 3b, 3c, 4b and 6 must run C's tensor-core body
-(the model's q is bf16), and every paged decode launch D's split body.
+(the model's q is bf16), every paged decode launch D's split body, every
+contiguous decode launch H's split body, and every decode step's W4A8
+linears A's fused body (one launch each; phases 3 and 3c).
 Between them: 3c serves phase 3's prompts through the engine's default,
 the contiguous int8 cache (kernel H, 32 launches per step), and its greedy
 tokens must equal the paged engine's under the gap rule; 4b prefills on
@@ -194,11 +198,13 @@ def faults_exceed(torch, name, ref, faults, tol):
 def check_linears(torch, report):
     """Kernels A and B against their plain versions at the 7B shapes, within
     1% of the largest output (bf16 output: a few ulps after a reordered f32
-    sum). A at 4 and 128 rows; B at 4 and 128 rows and at the 256 and 1024
-    rows of the exact prefill path (its tensor-core body), where the plain
+    sum). A at 1, 4 and 8 rows (its fused body; 8 is the edge of gemv_plan)
+    and at 128 (its SIMT body); B at 4 and 128 rows and at the 256 and 1024
+    rows of the exact prefill path (its tensor-core body). The plain
     version fed the lo plane's scales on the hi plane must land outside the
-    tolerance. Timed: A and B at 4 rows, B at 256 and 1024 rows beside its
-    SIMT body (the earlier design) at 256."""
+    tolerance (A at 1, 4 and 8 rows, B from 256). Timed: A at 1 and 4 rows
+    beside its SIMT body (the earlier design, three launches), B at 4 rows
+    and at 256 and 1024 rows beside its SIMT body at 256."""
     import dataclasses as dc
 
     from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit, matmul_w4a8
@@ -209,13 +215,14 @@ def check_linears(torch, report):
     shapes = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
     rows = {"w4a8_gemv": [], "mm4_fused": []}
     mode = matmul_4bit._MODE_BF16_TABLE
+    edge = matmul_w4a8.GEMV_FUSED_MAX_M
     for N, K in shapes:
         W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
         w = quantize_4bit_native(W, 64, "nf4", absmax_dtype=torch.bfloat16)
         Wd = W.to(torch.bfloat16)
         del W
         w_bad = dc.replace(w, absmax=w.absmax[1:].expand(2, -1, -1).contiguous())  # lo scales on hi
-        for M in (4, 128, 256, 1024):
+        for M in sorted({1, 4, edge, 128, 256, 1024}):
             x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
             for name, kern, plain in (
                 ("w4a8_gemv", lambda: matmul_w4a8.w4a8_gemv(x, w, None, torch.bfloat16),
@@ -225,7 +232,10 @@ def check_linears(torch, report):
             ):
                 if name == "w4a8_gemv" and M > 128:
                     continue  # A serves up to 128 rows; B also the 256-row prefill
+                if name == "mm4_fused" and M in (1, edge) and M != 4:
+                    continue
                 tc0 = matmul_4bit.mm4_fused.launches_tc
+                fu0 = matmul_w4a8.w4a8_gemv.launches_fused
                 got, ref = kern(), plain()
                 torch.cuda.synchronize()
                 err, scale = max_err(torch, got, ref)
@@ -235,11 +245,19 @@ def check_linears(torch, report):
                 if name == "mm4_fused":
                     need(matmul_4bit.mm4_fused.launches_tc == tc0 + 1,
                          f"mm4_fused N={N} K={K} M={M}: bf16 x did not take the tensor-core body")
-                    if M >= 256:
-                        row["fault_over_tol"] = faults_exceed(torch, f"mm4_fused N={N} K={K} M={M}", ref, [
-                            ("the lo plane's scales on the hi plane",
-                             lambda: matmul_4bit._mm4_plain(x, w_bad, None, torch.bfloat16, mode))], tol)
-                if M in (4, 256, 1024):
+                else:
+                    fused = matmul_w4a8.w4a8_gemv.launches_fused - fu0
+                    need(fused == int(M <= edge), f"w4a8_gemv N={N} K={K} M={M}: "
+                         f"{'the SIMT' if M <= edge else 'the fused'} body ran")
+                    row["plan"] = tuple(matmul_w4a8.gemv_plan(M, N, K, 64, sm_count(x.device)))
+                if (name == "mm4_fused" and M >= 256) or (name == "w4a8_gemv" and M <= edge):
+                    row["fault_over_tol"] = faults_exceed(torch, f"{name} N={N} K={K} M={M}", ref, [
+                        ("the lo plane's scales on the hi plane",
+                         (lambda: matmul_4bit._mm4_plain(x, w_bad, None, torch.bfloat16, mode))
+                         if name == "mm4_fused" else
+                         (lambda: matmul_w4a8._w4a8_plain(x, w_bad, None, torch.bfloat16)))], tol)
+                timed_rows = (1, 4) if name == "w4a8_gemv" else (4, 256, 1024)
+                if M in timed_rows:
                     nbytes = M * K * 2 + N * K // 2 + N * K // 64 * 2 + M * N * 2
                     ops_ = 2 * M * N * K
                     # the M = 4 rows keep the f32 peak (bytes bound them either way)
@@ -255,10 +273,13 @@ def check_linears(torch, report):
                     if name == "mm4_fused":
                         row["plan"] = tuple(matmul_4bit.mm4_plan(M, N, K, 64, x.dtype,
                                                                  sm_count(x.device)))
+                    g, ks = _ksplit(K // 128, N // 128, -(-M // 4))
                     if name == "mm4_fused" and M == 256:
-                        g, ks = _ksplit(K // 128, N // 128, -(-M // 4))
                         row["simt_ms"] = time_cold(torch, lambda: matmul_4bit._mm4_launch(
                             x, w, None, mode, LaunchPlan("simt", 4, g, ks)), iters=3)
+                    if name == "w4a8_gemv":  # the earlier design: quant_rows, the GEMV, the split sum
+                        row["simt_ms"] = time_cold(torch, lambda: matmul_w4a8._gemv_launch(
+                            x, w, None, torch.bfloat16, LaunchPlan("simt", 4, g, ks)))
                 rows[name].append(row)
                 print(f"  {name:10s} N={N:5d} K={K:5d} M={M:4d} err={err:.3g} rel={err / scale:.2g}"
                       f" (tol {tol:.3g})"
@@ -428,10 +449,11 @@ def check_repeatable(torch, report, n=100):
     of its tiles (the plans mm4_plan picks at 256 and 1024 rows, and every
     tile forced at 256 rows) and G's wgmma body at 512 and 2048 rows, each
     launched n times on one input at 4096 x 4096; C's tensor-core body and
-    D's split body (whose last CTA merges the splits in order) at their 7B
-    shapes. Their sums run in a
-    fixed order, so every output must equal the first bit for bit; a
-    difference is a race between warps or warpgroups."""
+    the split bodies of D and H and the fused body of A (whose last CTA
+    merges the splits in order) at their 7B shapes, every plan that
+    decode_plan and gemv_plan pick there and other split counts. Their
+    sums run in a fixed order, so every output must equal the first bit
+    for bit; a difference is a race between warps or warpgroups."""
     from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit as m4
     from bitsandbytes_sycl_tpu_torch.ops import matmul_w4a8 as mw
     from bitsandbytes_sycl_tpu_torch.ops.common import LaunchPlan, quantize_4bit_native, sm_count
@@ -483,6 +505,24 @@ def check_repeatable(torch, report, n=100):
             paged_attention.PagedPlan("split", 3)),
          lambda: paged_attention.paged_attn_int8.launches_split),
     ]
+    # kernel H's split body: the plan's pick at B = 1, 2, 4 (4 rows of
+    # check_decode's full cache) and every split count at B = 4
+    lens4 = torch.tensor([2047, 1500, 900, 2000], dtype=torch.int32, device="cuda")
+    qh = torch.randn((4, H, 1, D), generator=gen, device="cuda").to(torch.bfloat16)
+    new4 = tuple(t[:4] for t in new_kv)
+    kq4 = torch.randint(-127, 128, (L, 4, H, D, S), generator=gen, device="cuda", dtype=torch.int8)
+    vq4 = torch.randint(-127, 128, (L, 4, H, S, D), generator=gen, device="cuda", dtype=torch.int8)
+    ks4 = torch.rand((L, 4, H, S), generator=gen, device="cuda") * 2 + 1
+    vs4 = torch.rand((L, 4, H, S), generator=gen, device="cuda") + 0.5
+    h_plans = [(b, attention.decode_plan(b, H, S, D, 1, torch.bfloat16, sms)) for b in (1, 2, 4)]
+    h_plans += [(4, attention.DecodePlan("split", ns)) for ns in (2, 3, 4, 8)]
+    for b, plan in h_plans:
+        attn_cases.append((
+            "decode_attn_int8", f"split, B={b}, {plan.nsplit} splits",
+            lambda b=b, plan=plan: attention._decode_launch(
+                qh[:b], kq4[:, :b], ks4[:, :b], vq4[:, :b], vs4[:, :b], 1, lens4[:b], 0.01 / 127,
+                tuple(t[:b] for t in new4), None, None, None, plan),
+            lambda: attention.decode_attn_int8.launches_split))
     for name, body, run, count in attn_cases:
         c0 = count()
         first = run()
@@ -491,10 +531,37 @@ def check_repeatable(torch, report, n=100):
         need(differ == 0, f"{name} ({body} body): {differ} of {n - 1} repeated launches differ from"
                           f" the first (a race)")
         rows.append(dict(kernel=name, body=body, launches=n))
-    del q, kq, vq, ks, vs, kp, kps, vp, vps
-    print(f"  {len(cases)} plans of B's tensor-core and G's wgmma bodies, C's tensor-core and D's split"
-          f" bodies at 7B shapes, {n} launches each on one input: every output equal to the first"
-          f" bit for bit", flush=True)
+    del q, kq, vq, ks, vs, kp, kps, vp, vps, kq4, vq4
+    # kernel A's fused body: the plan's pick at the four 7B shapes and 1, 4
+    # and 8 rows, and every split count at 4096 x 4096 and 4 rows
+    n_a = 0
+    for N2, K2 in ((4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)):
+        W2 = torch.randn((N2, K2), generator=gen, device="cuda") / K2 ** 0.5
+        w2 = quantize_4bit_native(W2, 64, "nf4", absmax_dtype=torch.bfloat16)
+        del W2
+        for M in (1, 4, mw.GEMV_FUSED_MAX_M):
+            x = torch.randn((M, K2), generator=gen, device="cuda").to(torch.bfloat16)
+            plans = [mw.gemv_plan(M, N2, K2, 64, sms)]
+            if (N2, K2, M) == (4096, 4096, 4):
+                steps = K2 // 128
+                plans += [LaunchPlan("fused", 4, -(-steps // ks), -(-steps // -(-steps // ks)))
+                          for ks in (1, 2, 3, 4, 6)]
+            for plan in plans:
+                need(plan.body == "fused", f"gemv_plan gave M={M} the {plan.body} body")
+                c0 = mw.w4a8_gemv.launches_fused
+                run = lambda: mw._gemv_launch(x, w2, None, torch.bfloat16, plan)  # noqa: E731
+                first = run()
+                differ = sum(int(not torch.equal(run(), first)) for _ in range(n - 1))
+                need(mw.w4a8_gemv.launches_fused == c0 + n, "w4a8_gemv: the fused body did not run")
+                need(differ == 0, f"w4a8_gemv N={N2} K={K2} M={M} plan {tuple(plan)}: {differ} of"
+                                  f" {n - 1} repeated launches differ from the first (a race)")
+                rows.append(dict(kernel="w4a8_gemv", N=N2, K=K2, M=M, plan=tuple(plan), launches=n))
+                n_a += 1
+        del w2
+    print(f"  {len(cases)} plans of B's tensor-core and G's wgmma bodies, C's tensor-core, D's and"
+          f" H's split bodies ({len(h_plans)} plans of H) and {n_a} plans of A's fused body at 7B"
+          f" shapes, {n} launches each on one input: every output equal to the first bit for bit",
+          flush=True)
     report["repeatable"] = rows
 
 
@@ -814,21 +881,29 @@ def check_paged(torch, report):
 
 def check_decode(torch, report):
     """Kernel H (contiguous-cache decode) against its plain version at the 7B
-    shapes: B = 4 and 8, Hq = Hkv = 32, D = 128, S = 2048, lengths 0, 1, 127,
-    128, 2047 and ragged rows, with and without new_kv; window, softcap and
-    ALiBi at one shape, GQA (Hq 32 / Hkv 8) at one shape. O(1) scores; each
-    case must hold within 1% of the output's largest magnitude, and the
-    plain version fed each deliberate fault (the wrong layer, the wrong kv
-    head, k_scale dropped, lengths off by one) must land outside it."""
+    shapes: B = 1, 2, 4 and 8, Hq = Hkv = 32, D = 128, S = 2048, lengths 0,
+    1, 127, 128, 2047, short (<= 64, the lengths of phase 3c's steps) and
+    ragged rows, with and without new_kv; window, softcap and ALiBi at one
+    shape, GQA (Hq 32 / Hkv 8) at one shape. O(1) scores; each case must
+    take the split body and hold within 1% of the output's largest
+    magnitude, and the plain version fed each deliberate fault (the wrong
+    layer, the wrong kv head, k_scale dropped, lengths off by one) must land
+    outside it. Timed (with new_kv): the body decode_plan picks, every split
+    count beside it, the SIMT body (the earlier design), the plain version
+    and SDPA's fused backends."""
     from bitsandbytes_sycl_tpu_torch.ops import attention
+    from bitsandbytes_sycl_tpu_torch.ops.common import sm_count
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     L, D, S, li = 2, 128, 2048, 1
     scale = (1.0 / D ** 0.5) / 127.0
     cases = [  # label, B, Hq, Hkv, lengths, options, timed
         ("B=4 full", 4, 32, 32, [2047] * 4, {}, True),
+        ("B=4 short", 4, 32, 32, [40, 64, 17, 33], {}, True),
         ("B=4 edges", 4, 32, 32, [0, 1, 127, 128], {}, False),
         ("B=8 ragged", 8, 32, 32, [1, 127, 128, 2047, 900, 1500, 33, 2000], {}, True),
+        ("B=1 full", 1, 32, 32, [1900], {}, True),
+        ("B=2 full", 2, 32, 32, [2047, 1500], {}, True),
         ("B=4 window+softcap+alibi", 4, 32, 32, [2047, 1000, 128, 5],
          dict(window=512, softcap=30.0, alibi=True), False),
         ("B=4 GQA 32/8", 4, 32, 8, [2047, 1, 700, 128], {}, False),
@@ -850,6 +925,8 @@ def check_decode(torch, report):
         alibi = (torch.rand((Hq,), generator=gen, device="cuda") * 0.01) if opt.get("alibi") else None
         k_other = kq.clone()
         k_other[li] = kq[li - 1]
+        plan = attention.decode_plan(B, Hkv, S, D, rep, q.dtype, sm_count(q.device))
+        need(plan.body == "split", f"decode_plan gave the 7B shape {label} the {plan.body} body")
         for nk in (new_kv, None):
             kern = lambda: attention.decode_attn_int8(  # noqa: E731
                 q, kq, ks, vq, vs, li, lens, scale, new_kv=nk, window=window, softcap=softcap,
@@ -859,8 +936,11 @@ def check_decode(torch, report):
                 return attention._decode_plain(q, kq_, ks_, vq, vs, li, lens_, nk, scale, window,
                                                softcap, alibi)
 
+            sp0 = attention.decode_attn_int8.launches_split
             got, ref = kern(), plain()
             torch.cuda.synchronize()
+            need(attention.decode_attn_int8.launches_split == sp0 + 1,
+                 f"decode_attn_int8 ({label}): the 7B shape did not take the split body")
             err, mag = max_err(torch, got, ref)
             tol = 1e-2 * mag
             name = f"decode_attn_int8 ({label}, new_kv={nk is not None})"
@@ -872,8 +952,18 @@ def check_decode(torch, report):
                 ("the lengths one too long", lambda: plain(lens_=lens + 1)),
             ], tol)
             row = dict(label=label, B=B, Hq=Hq, Hkv=Hkv, lens=lens_l, options=sorted(opt),
-                       new_kv=nk is not None, max_abs_err=err, tol=tol, fault_margin=margin)
+                       new_kv=nk is not None, plan=tuple(plan), max_abs_err=err, tol=tol,
+                       fault_margin=margin)
             if timed and nk is not None:
+                # every split count, and the SIMT body (the earlier design)
+                alts = {}
+                for body, nsplit in [("simt", 1)] + [("split", n) for n in (1, 2, 3, 4, 6, 8)]:
+                    alt = attention.DecodePlan(body, nsplit)
+                    run = lambda alt=alt: attention._decode_launch(  # noqa: E731
+                        q, kq, ks, vq, vs, li, lens, scale, nk, window, softcap, alibi, alt)
+                    e_alt, _ = max_err(torch, run(), ref)
+                    need(e_alt <= tol, f"{name} {tuple(alt)}: max err {e_alt} > {tol}")
+                    alts[f"{body} nsplit={nsplit}"] = time_cold(torch, run)
                 Smax = max(lens_l) + 1
                 # K with a contiguous last dimension, as SDPA's fused backends need
                 kd = (kq[li, :, :, :, :Smax].float() * (ks[li, :, :, None, :Smax] / 127)
@@ -885,7 +975,8 @@ def check_decode(torch, report):
                 nbytes = (sum(lens_l) * Hkv * (2 * D + 8) + 2 * B * Hq * D * 2 + B * Hkv * (2 * D + 8)
                           + 4 * B)
                 flops = 4 * (sum(lens_l) + B) * Hq * D
-                row.update(ms=time_cold(torch, kern), plain_ms=time_cold(torch, plain, iters=5),
+                row.update(ms=time_cold(torch, kern), plans_ms=alts, simt_ms=alts["simt nsplit=1"],
+                           plain_ms=time_cold(torch, plain, iters=5),
                            library_ms=lib_ms, library_backend=lib_name, library_all=lib_all,
                            bytes=nbytes,
                            bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
@@ -893,12 +984,16 @@ def check_decode(torch, report):
                            else "operations")
                 del kd, vd
             rows.append(row)
-            print(f"  decode_attn_int8 {label:26s} new_kv={int(nk is not None)} err={err:.3g}"
-                  f" rel={err / mag:.2g} (tol {tol:.3g}; faults >= {margin:.3g}x tol)"
-                  + (f" kernel {row['ms']*1e3:.1f} us plain {row['plain_ms']*1e3:.1f} us sdpa"
+            print(f"  decode_attn_int8 {label:26s} new_kv={int(nk is not None)} {tuple(plan)}"
+                  f" err={err:.3g} rel={err / mag:.2g} (tol {tol:.3g}; faults >= {margin:.3g}x tol)"
+                  + (f" kernel {row['ms']*1e3:.1f} us (SIMT body {row['simt_ms']*1e3:.1f} us) plain"
+                     f" {row['plain_ms']*1e3:.1f} us sdpa"
                      f" {fmt_us(row['library_ms'])} ({row['library_backend']}) bound"
                      f" {row['bound_ms']*1e3:.2f} us"
                      f" ({row['bound_ms'] / row['ms']:.0%})" if "ms" in row else ""), flush=True)
+            if "plans_ms" in row:
+                print(f"    plans (us): {json.dumps({k: round(v * 1e3, 1) for k, v in row['plans_ms'].items()})}",
+                      flush=True)
         del kq, vq, ks, vs, k_other
     head = next(r for r in rows if "ms" in r)
     report["decode_attn_int8"] = dict(head, max_abs_err=max(r["max_abs_err"] for r in rows), shapes=rows)
@@ -1003,8 +1098,9 @@ def check_edges(torch):
     ragged rows, N = 384, a whole-half K and blocksizes 32-256), kernel G's
     wgmma body at ragged rows and small blocksizes and its mma.sync body on
     ragged planes, the W8A8 route at few rows, every option of kernels C, D
-    and H (H at every group size and head_dim 256), and kernel I at odd row
-    counts in f32."""
+    and H (H at every group size and head_dim 256, its split body at every
+    split count and past a whole tile), kernel A's fused body at every row
+    tile, and kernel I at odd row counts in f32."""
     from bitsandbytes_sycl_tpu_torch.ops import attention, matmul_4bit, matmul_w4a8
     from bitsandbytes_sycl_tpu_torch.ops import paged_attention
     from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native
@@ -1034,6 +1130,29 @@ def check_edges(torch):
                     mode = matmul_4bit._decode_mode(w, dt, None)
                     close(f"mm4 {qt} M={M} {dt} mode {mode}", matmul_4bit.mm4_fused(x, w, b, dt),
                           matmul_4bit._mm4_plain(x, w, b, dt, mode))
+    # kernel A's fused body at every row tile (1, 2, 3 -> 4, 5 -> 8, 8), blocksizes 32 and
+    # 64, f32 and bf16 x and scales, with bias, one K split and 8, a half-K
+    # of 9 stages (1152)
+    for qt, bs, K, absmax in (("nf4", 32, 1152, torch.bfloat16), ("fp4", 64, 2048, torch.float32),
+                              ("nf4", 64, 1024, torch.bfloat16)):
+        W = torch.randn((256, K), generator=gen, device="cuda") * 0.02
+        w = quantize_4bit_native(W, bs, qt, absmax_dtype=absmax)
+        bias = torch.randn((256,), generator=gen, device="cuda")
+        steps = K // 128
+        for M in (1, 2, 3, 5, 8):
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+                bm = matmul_w4a8.gemv_plan(M, 256, K, bs, 132).bm
+                for b in (None, bias):
+                    for ks in (1, 8):
+                        per = -(-steps // ks)
+                        plan = matmul_w4a8.LaunchPlan("fused", bm, per, -(-steps // per))
+                        fu0 = matmul_w4a8.w4a8_gemv.launches_fused
+                        close(f"w4a8 fused {qt} bs={bs} K={K} M={M} {dt} ksplit={ks}",
+                              matmul_w4a8._gemv_launch(x, w, b, dt, plan),
+                              matmul_w4a8._w4a8_plain(x, w, b, dt))
+                        need(matmul_w4a8.w4a8_gemv.launches_fused == fu0 + 1,
+                             "w4a8 fused edge: the fused body did not run")
     # kernel B's tensor-core body (bf16 x): ragged row counts, N = 384 (128-
     # column tiles), a whole-half K (1152), every decode mode (2: table
     # codebooks; 1: int4; 0: an f32 decode asked for) and blocksizes 32-256
@@ -1204,6 +1323,35 @@ def check_edges(torch):
                                                       opt.get("alibi"))
                         close(f"decode D={D} rep={rep} lens={lens_l} new={nk is not None} {list(opt)}",
                               got, ref, rel=1e-4)
+    # kernel H's split body at every split count, a cache of 400 positions
+    # (its last tile runs past S), f32 q, every group size it takes, a
+    # window that crosses a split, rows with fewer tiles than splits
+    S = 400
+    kq = torch.randint(-127, 128, (L, B, Hkv, 128, S), generator=gen, device="cuda", dtype=torch.int8)
+    vq = torch.randint(-127, 128, (L, B, Hkv, S, 128), generator=gen, device="cuda", dtype=torch.int8)
+    ks = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") * 0.2 + 0.05
+    vs = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") + 0.5
+    new_kv = (torch.randint(-127, 128, (B, Hkv, 128), generator=gen, device="cuda", dtype=torch.int8),
+              torch.rand((B, Hkv), generator=gen, device="cuda") * 0.2 + 0.05,
+              torch.randint(-127, 128, (B, Hkv, 128), generator=gen, device="cuda", dtype=torch.int8),
+              torch.rand((B, Hkv), generator=gen, device="cuda") + 0.5)
+    for rep in (1, 2, 4):
+        q = torch.randn((B, Hkv, rep, 128), generator=gen, device="cuda")
+        for nsplit in (1, 2, 3, 4):
+            plan = attention.DecodePlan("split", nsplit)
+            for lens_l in ([400, 129], [100, 399], [0, 257]):
+                lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+                for nk in (None, new_kv):
+                    for opt in (dict(), dict(window=200)):
+                        sp0 = attention.decode_attn_int8.launches_split
+                        got = attention._decode_launch(q, kq, ks, vq, vs, 1, lens, 0.01, nk,
+                                                       opt.get("window"), None, None, plan)
+                        need(attention.decode_attn_int8.launches_split == sp0 + 1,
+                             f"decode split {tuple(plan)}: the split body did not run")
+                        ref = attention._decode_plain(q, kq, ks, vq, vs, 1, lens, nk, 0.01,
+                                                      opt.get("window"), None, None)
+                        close(f"decode split rep={rep} {tuple(plan)} S={S} lens={lens_l}"
+                              f" new={nk is not None} {list(opt)}", got, ref, rel=1e-4)
     # kernel I at odd row counts, f32 in and out, with bias
     from bitsandbytes_sycl_tpu_torch import functional as F
     from bitsandbytes_sycl_tpu_torch.ops import matmul_int8
@@ -1246,10 +1394,13 @@ def read_counts(kernels):
     return out
 
 
-def need_new_bodies(counts, label, decode=True):
+def need_new_bodies(counts, label, decode=True, per_step=None):
     """Every prefill launch of kernel C in ``counts`` went through its
-    tensor-core body (the model's q is bf16) and, with ``decode``, every
-    launch of kernel D through its split body."""
+    tensor-core body (the model's q is bf16), with ``decode`` every launch
+    of kernel D through its split body, and every launch of kernel H
+    (decode only) through its split body. With ``per_step`` (launches per
+    profiled decode step), every decode step's launches of A went through
+    its fused body and those of H through its split body."""
     need(counts["prefill_attn_int8.tc"] == counts["prefill_attn_int8"],
          f"{label}: {counts['prefill_attn_int8'] - counts['prefill_attn_int8.tc']} of"
          f" {counts['prefill_attn_int8']} prefill attention launches missed C's tensor-core body")
@@ -1257,6 +1408,14 @@ def need_new_bodies(counts, label, decode=True):
         need(counts["paged_attn_int8.split"] == counts["paged_attn_int8"],
              f"{label}: {counts['paged_attn_int8'] - counts['paged_attn_int8.split']} of"
              f" {counts['paged_attn_int8']} paged decode launches missed D's split body")
+    need(counts["decode_attn_int8.split"] == counts["decode_attn_int8"],
+         f"{label}: {counts['decode_attn_int8'] - counts['decode_attn_int8.split']} of"
+         f" {counts['decode_attn_int8']} contiguous decode launches missed H's split body")
+    if per_step is not None:
+        for name, body in (("w4a8_gemv", "fused"), ("decode_attn_int8", "split")):
+            need(per_step.get(f"{name}.{body}", 0) == per_step.get(name, 0),
+                 f"{label}: {per_step.get(name, 0)} launches of {name} per decode step, "
+                 f"{per_step.get(f'{name}.{body}', 0)} of them on its {body} body")
 
 
 def prompts_from_seed(seed, n, vocab):
@@ -1359,9 +1518,13 @@ def host_yardsticks(torch):
                 loadavg_1min=os.getloadavg()[0], torch_threads=torch.get_num_threads())
 
 
-def host_profile(torch, eng, n=3):
+HOST_WRAPPERS = ("w4a8_gemv", "_gemv_launch", "decode_attn_int8", "_decode_launch",
+                 "paged_attn_int8", "_paged_launch", "int8_matmul")
+
+
+def host_profile(torch, eng, n=3, name="host_profile.txt"):
     """cProfile of n decode steps: where the host's time goes (the step is
-    host-bound). The full table goes to chiprun_out/host_profile.txt."""
+    host-bound). The full table goes to chiprun_out/<name>."""
     import cProfile
     import io
     import pstats
@@ -1376,11 +1539,16 @@ def host_profile(torch, eng, n=3):
     stats = pstats.Stats(prof, stream=buf).sort_stats("tottime")
     stats.print_stats(40)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "host_profile.txt"), "w") as f:
+    with open(os.path.join(ROOT, "chiprun_out", name), "w") as f:
         f.write(buf.getvalue())
     rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:10]
-    return [(f"{os.path.basename(fn)}:{line}({name})", tt / n * 1e3, nc // n)
-            for (fn, line, name), (_, nc, tt, _, _) in rows]
+    top = [(f"{os.path.basename(fn)}:{line}({name})", tt / n * 1e3, nc // n)
+           for (fn, line, name), (_, nc, tt, _, _) in rows]
+    # the kernel wrappers' cumulative host time per step
+    for (fn, line, name), (_, nc, _, ct, _) in stats.stats.items():
+        if name in HOST_WRAPPERS and "bitsandbytes_sycl_tpu_torch" in fn:
+            top.append((f"cumulative {os.path.basename(fn)}:{line}({name})", ct / n * 1e3, nc // n))
+    return top
 
 
 def step_vs_host_speed(torch, eng, n=16):
@@ -1439,7 +1607,9 @@ def profile_steps(torch, cfg, params, prompts, n=4, paged=True, host=True):
                attention=attention_time(kernels, n),
                top=[(e.key, e.self_device_time_total / 1e3 / n, e.count // n) for e in top])
     if host:
-        out.update(host_top=host_profile(torch, eng), step_vs_host=step_vs_host_speed(torch, eng))
+        out.update(host_top=host_profile(torch, eng, name="host_profile.txt" if paged
+                                         else "host_profile_contiguous.txt"),
+                   step_vs_host=step_vs_host_speed(torch, eng))
     return out
 
 
@@ -1477,7 +1647,8 @@ def profile_prefill(torch, cfg, params, Kb, T):
 
 ATTENTION_KERNELS = {  # kernel symbol -> the ported kernel and body it belongs to
     "prefill_tc_kernel": "C tensor-core", "prefill_kernel": "C SIMT",
-    "paged_split_kernel": "D split", "paged_kernel": "D SIMT", "decode_kernel": "H",
+    "paged_split_kernel": "D split", "paged_kernel": "D SIMT", "decode_split_kernel": "H split",
+    "decode_kernel": "H SIMT",
 }
 
 
@@ -1605,13 +1776,14 @@ def chunked_vs_whole(torch, cfg, params, kernels):
     return out
 
 
-def serve_path(torch, label, cfg, params, prompts, kernels, launched, ref=None):
+def serve_path(torch, label, cfg, params, prompts, kernels, launched, ref=None, host=False):
     """A serving path whole through the default (contiguous) engine, 4
     slots, 32 new tokens per prompt: the counts set to 0 just before and
     read just after, each kernel in ``launched`` launched, kernel D not;
     with ``ref`` (outputs and per-request logits of another run of the same
     weights), greedy tokens equal under the gap rule. Then a profile of
-    four steady decode steps."""
+    four steady decode steps (with ``host``, also the host's cProfile), in
+    which A's fused and H's split bodies must take every decode launch."""
     reset_counts(kernels)
     outs, wall, steps = serve(torch, cfg, params, prompts, 32, paged=False)
     counts = read_counts(kernels)
@@ -1625,7 +1797,8 @@ def serve_path(torch, label, cfg, params, prompts, kernels, launched, ref=None):
     steps = sorted(steps)
     n_tok = sum(len(o) for o in outs)
     median = steps[len(steps) // 2] * 1e3
-    prof = profile_steps(torch, cfg, params, prompts, paged=False, host=False)
+    prof = profile_steps(torch, cfg, params, prompts, paged=False, host=host)
+    need_new_bodies(counts, label, decode=False, per_step=prof["launches_per_step"])
     busy = prof["device_busy_ms"]
     stats = dict(tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall, decode_steps=len(steps),
                  decode_ms_per_step_median=median,
@@ -1645,6 +1818,10 @@ def serve_path(torch, label, cfg, params, prompts, kernels, launched, ref=None):
           f"{prof['launches_per_step']}; attention per step (ms, launches) {prof['attention']}")
     for key, ms, cnt in prof["top"]:
         print(f"      {ms:8.3f} ms/step  {cnt:5d}x  {key[:90]}")
+    if host:
+        print(f"{label}: host time per decode step under cProfile (tottime):")
+        for key, ms, cnt in prof["host_top"]:
+            print(f"      {ms:8.3f} ms/step  {cnt:6d}x  {key[:90]}")
     return stats
 
 
@@ -2164,6 +2341,7 @@ def main() -> int:
         need_new_bodies(counts, "7B paged serve")
         main_counts = counts
         prof = profile_steps(torch, cfg, params, prompts)
+        need_new_bodies(counts, "7B paged serve", per_step=prof["launches_per_step"])
         serve_stats["profile"] = prof
         busy = prof["device_busy_ms"]
         # the idle share is taken against the unprofiled median step
@@ -2193,7 +2371,7 @@ def main() -> int:
         t0 = time.perf_counter()
         contig_stats = serve_path(torch, "[3c] llama7b NF4 contiguous serve", cfg, params, prompts,
                                   KERNELS, ("w4a8_gemv", "prefill_attn_int8", "decode_attn_int8"),
-                                  ref=(outs, rec_paged))
+                                  ref=(outs, rec_paged), host=True)
         per_step = contig_stats["profile"]["launches_per_step"]
         need(per_step.get("decode_attn_int8") == cfg.num_layers,
              f"contiguous decode: kernel H launched {per_step.get('decode_attn_int8')} times per step")
@@ -2365,7 +2543,9 @@ def main() -> int:
     bodies = {"mm4_fused": {"tc": long_counts["rows 256"]["mm4_fused.tc"]},
               "w4a8_grouped": {"wgmma": long_counts["rows 2048"]["w4a8_grouped.wgmma"]},
               "prefill_attn_int8": {"tc": main_counts["prefill_attn_int8.tc"]},
-              "paged_attn_int8": {"split": main_counts["paged_attn_int8.split"]}}
+              "paged_attn_int8": {"split": main_counts["paged_attn_int8.split"]},
+              "w4a8_gemv": {"fused": main_counts["w4a8_gemv.fused"]},
+              "decode_attn_int8": {"split": contig_stats["launches"]["decode_attn_int8.split"]}}
     for name, (replaces, path, launches) in sources.items():
         r = report[name]
         kernels.append(dict(
@@ -2466,6 +2646,102 @@ def probe_attention(torch, out):
             print(f"{stem} {label}: {part:14s} {us:.1f} us", flush=True)
 
 
+DECODE_PROBE_PARTS = {  # A's fused and H's split bodies: copies alone against math alone
+    "w4a8_gemv": {"math alone (no copies)": ("BNB_PROBE_NO_COPY",),
+                  "copies alone (no math)": ("BNB_PROBE_NO_MATH",),
+                  "no row absmax or quantization": ("BNB_PROBE_NO_PROLOGUE",),
+                  "no split merge": ("BNB_PROBE_NO_MERGE",),
+                  "launch alone (all off)": ("BNB_PROBE_NO_COPY", "BNB_PROBE_NO_MATH",
+                                             "BNB_PROBE_NO_PROLOGUE", "BNB_PROBE_NO_MERGE")},
+    "decode_attn_int8": {"math alone (no copies)": ("BNB_PROBE_NO_COPY",),
+                         "copies alone (no math)": ("BNB_PROBE_NO_MATH",),
+                         "launch alone (copies and math off)": ("BNB_PROBE_NO_COPY",
+                                                                "BNB_PROBE_NO_MATH")},
+}
+
+
+def probe_decode(torch, out):
+    """Where the time of A's fused body and H's split body goes: each timed
+    as built (cold L2 by write, and clean), and built with the copies or
+    the math switched off (DECODE_PROBE_PARTS; those builds compute wrong
+    results); then every split count of each at the shapes that fit its
+    plan (A at 1, 4 and 8 rows of the four 7B shapes, H at B = 1, 2, 4, 8)."""
+    from bitsandbytes_sycl_tpu_torch.ops import _build, attention
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_w4a8 as mw
+    from bitsandbytes_sycl_tpu_torch.ops.common import LaunchPlan, quantize_4bit_native, sm_count
+
+    built = _build.build_variants({(stem, part): (stem, macros)
+                                   for stem, parts in DECODE_PROBE_PARTS.items()
+                                   for part, macros in parts.items()})
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    sms = sm_count(torch.device("cuda"))
+
+    one = torch.zeros(1, device="cuda")
+    floor = time_cold(torch, lambda: one.add_(1), iters=20) * 1e3
+    out["decode_parts"].append(dict(kernel="one-element add_", part="floor", us=floor))
+    print(f"time_cold of a one-element add_ (the timing floor): {floor:.1f} us", flush=True)
+
+    def parts(stem, label, run):
+        for part in ["real", "real, clean L2"] + list(DECODE_PROBE_PARTS[stem]):
+            old = _build.use_library(stem, built[(stem, part)]) if part in DECODE_PROBE_PARTS[stem] \
+                else None
+            us = time_cold(torch, run, iters=20, flush_by_read=part == "real, clean L2") * 1e3
+            if old is not None:
+                _build.use_library(stem, old)
+            out["decode_parts"].append(dict(kernel=stem, shape=label, part=part, us=us))
+            print(f"{stem} {label}: {part:24s} {us:.1f} us", flush=True)
+
+    for N, K in ((4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)):
+        W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+        w = quantize_4bit_native(W, 64, "nf4", absmax_dtype=torch.bfloat16)
+        del W
+        steps = K // 128
+        for M in (1, 4, mw.GEMV_FUSED_MAX_M):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            plan = mw.gemv_plan(M, N, K, 64, sms)
+            if M == 4:
+                parts("w4a8_gemv", f"N={N} K={K} M={M}",
+                      lambda: mw._gemv_launch(x, w, None, torch.bfloat16, plan))
+            for ks in sorted({1, 2, 3, 4, 6, 8, plan.ksplit}):
+                per = min(-(-steps // ks), mw._GEMV_X_BYTES // (plan.bm * 2 * 64))
+                p2 = LaunchPlan("fused", plan.bm, per, -(-steps // per))
+                us = time_cold(torch, lambda: mw._gemv_launch(x, w, None, torch.bfloat16, p2),
+                               iters=20) * 1e3
+                out["gemv_splits"].append(dict(N=N, K=K, M=M, plan=tuple(p2), picked=p2 == plan,
+                                               ctas=N // 128 * p2.ksplit, us=us))
+                print(f"w4a8_gemv N={N:5d} K={K:5d} M={M} {tuple(p2)}"
+                      f"{' (picked)' if p2 == plan else ''}: {us:.1f} us", flush=True)
+        del w
+    L, H, D, S = 2, 32, 128, 2048
+    for label, lens_l in (("B=4 full", [2047] * 4), ("B=4 short", [40, 64, 17, 33]),
+                          ("B=1 full", [1900]), ("B=2 full", [2047, 1500]),
+                          ("B=8 ragged", [1, 127, 128, 2047, 900, 1500, 33, 2000])):
+        B = len(lens_l)
+        kq = torch.randint(-127, 128, (L, B, H, D, S), generator=gen, device="cuda", dtype=torch.int8)
+        vq = torch.randint(-127, 128, (L, B, H, S, D), generator=gen, device="cuda", dtype=torch.int8)
+        ks = torch.rand((L, B, H, S), generator=gen, device="cuda") + 1
+        vs = torch.rand((L, B, H, S), generator=gen, device="cuda") + 0.5
+        q = torch.randn((B, H, 1, D), generator=gen, device="cuda").to(torch.bfloat16)
+        nk = (torch.randint(-127, 128, (B, H, D), generator=gen, device="cuda", dtype=torch.int8),
+              torch.rand((B, H), generator=gen, device="cuda") + 1,
+              torch.randint(-127, 128, (B, H, D), generator=gen, device="cuda", dtype=torch.int8),
+              torch.rand((B, H), generator=gen, device="cuda") + 0.5)
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        plan = attention.decode_plan(B, H, S, D, 1, q.dtype, sms)
+        if B == 4:
+            parts("decode_attn_int8", label, lambda: attention.decode_attn_int8(
+                q, kq, ks, vq, vs, 1, lens, 0.01 / 127, new_kv=nk))
+        for ns in sorted({1, 2, 3, 4, 6, 8, plan.nsplit}):
+            p2 = attention.DecodePlan("split", ns)
+            us = time_cold(torch, lambda: attention._decode_launch(
+                q, kq, ks, vq, vs, 1, lens, 0.01 / 127, nk, None, None, None, p2), iters=20) * 1e3
+            out["decode_splits"].append(dict(label=label, B=B, nsplit=ns, picked=p2 == plan,
+                                             ctas=B * H * ns, us=us))
+            print(f"decode_attn_int8 {label} nsplit={ns}{' (picked)' if p2 == plan else ''}:"
+                  f" {us:.1f} us", flush=True)
+        del kq, vq
+
+
 def probe_candidates(kernel, M, N, K, bs=64):
     """The launch plans near the ones mm4_plan / grouped_plan can pick:
     every tile (B) and 1-6 K splits on whole quantization blocks."""
@@ -2513,7 +2789,7 @@ def probe_fit(rows, tiles, sms):
     return {str(k): float(c) for k, c in zip(keys, coef)}, float(coef[-2]), float(coef[-1])
 
 
-def probe_main(attention_only=False) -> int:
+def probe_main(only=None) -> int:
     """Where the time of kernels B (its tensor-core body) and G (its wgmma
     body) goes, on one card. (1) Times every plan of probe_candidates at
     the four 7B shapes, B at 256 and 1024 rows and G at 512 and 2048,
@@ -2523,8 +2799,9 @@ def probe_main(attention_only=False) -> int:
     timed. (2) Times B and G at 4096 x 4096 built with one part switched
     off (PROBE_PARTS): a part whose removal saves little is not what
     bounds the kernel; those builds compute wrong results. (0) First, the
-    same for C's tensor-core and D's split bodies (probe_attention); with
-    ``attention_only`` nothing else. Lines go to stdout and
+    same for C's tensor-core and D's split bodies (probe_attention) and for
+    A's fused and H's split bodies (probe_decode); with ``only``
+    ("attention" or "decode") that one alone. Lines go to stdout and
     chiprun_out/probe.json."""
     import torch
 
@@ -2539,14 +2816,19 @@ def probe_main(attention_only=False) -> int:
 
     t0 = time.perf_counter()
     _build.build_all()
+    attention_only = only is not None
     variants = {} if attention_only else _build.build_variants(
         {(stem, part): (stem, macros) for stem, parts in PROBE_PARTS.items()
          for part, macros in parts.items()})
     card = gpu_line()
     print(f"{card}; built in {time.perf_counter() - t0:.1f} s", flush=True)
     sms = sm_count(torch.device("cuda"))
-    out = dict(card=card, sms=sms, plans=[], parts=[], fit={}, picks=[], attention_parts=[])
-    probe_attention(torch, out)
+    out = dict(card=card, sms=sms, plans=[], parts=[], fit={}, picks=[], attention_parts=[],
+               decode_parts=[], gemv_splits=[], decode_splits=[])
+    if only in (None, "attention"):
+        probe_attention(torch, out)
+    if only in (None, "decode"):
+        probe_decode(torch, out)
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = []
     for N, K in ([] if attention_only else [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]):
@@ -2622,5 +2904,5 @@ def probe_main(attention_only=False) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--probe"]:
-        sys.exit(probe_main(attention_only=sys.argv[2:] == ["attention"]))
+        sys.exit(probe_main(only=sys.argv[2] if sys.argv[2:3] in (["attention"], ["decode"]) else None))
     sys.exit(main())

@@ -1,18 +1,20 @@
 """Launch plans of kernels B (``mm4_plan``), G (``grouped_plan``), C
-(``prefill_plan``) and D (``paged_plan``): plain Python that picks a body,
-a tile and a split from the call's dtype and shape. For B and G each case
-checks that the grid covers every output tile once, that the K splits
-partition the quantization blocks in order within a plane, and that the
-body is the one the shape and dtype call for; for C the body; for D the
-body and that the splits partition a row's used pages."""
+(``prefill_plan``), D (``paged_plan``), H (``decode_plan``) and A
+(``gemv_plan``): plain Python that picks a body, a tile and a split from
+the call's dtype and shape. For B and G each case checks that the grid
+covers every output tile once, that the K splits partition the
+quantization blocks in order within a plane, and that the body is the one
+the shape and dtype call for; for C the body; for D and H the body and
+that the splits partition a row's used pages or tiles; for A the body, its
+row tile and that the splits partition the 64-row stages."""
 
 import pytest
 import torch
 
-from bitsandbytes_sycl_tpu_torch.ops.attention import prefill_plan
+from bitsandbytes_sycl_tpu_torch.ops.attention import DECODE_TILE, decode_plan, prefill_plan
 from bitsandbytes_sycl_tpu_torch.ops.common import H100_SMS
 from bitsandbytes_sycl_tpu_torch.ops.matmul_4bit import mm4_plan
-from bitsandbytes_sycl_tpu_torch.ops.matmul_w4a8 import grouped_plan
+from bitsandbytes_sycl_tpu_torch.ops.matmul_w4a8 import GEMV_FUSED_MAX_M, gemv_plan, grouped_plan
 from bitsandbytes_sycl_tpu_torch.ops.paged_attention import paged_plan
 
 SHAPES_7B = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
@@ -149,3 +151,92 @@ def test_paged_plan(case, body, hint):
         bounds = [z * u // plan.nsplit for z in range(plan.nsplit + 1)]
         assert bounds[0] == 0 and bounds[-1] == u
         assert all(a <= b for a, b in zip(bounds, bounds[1:]))
+
+
+# kernel H: (B, Hkv, S, D, rep, q dtype) -> body. The split body takes f32
+# or bf16 q at D = 128, rep 1, 2 or 4 and S % 16 == 0 (its TMA row stride);
+# rep 8, D = 256 and other S keep the SIMT body.
+DECODE_CASES = (
+    [((B, 32, 2048, 128, 1, torch.bfloat16), "split") for B in (1, 2, 4, 8, 16, 32)]  # 7B
+    + [((4, 8, 2048, 128, 4, torch.bfloat16), "split"), ((4, 16, 2048, 128, 2, torch.bfloat16), "split"),
+       ((2, 2, 384, 128, 1, torch.float32), "split"), ((2, 2, 400, 128, 4, torch.float32), "split"),
+       ((1, 1, 16, 128, 1, torch.bfloat16), "split"), ((3, 4, 4096, 128, 2, torch.bfloat16), "split")]
+    + [((4, 8, 2048, 128, 8, torch.bfloat16), "simt"), ((2, 2, 384, 256, 1, torch.float32), "simt"),
+       ((2, 2, 384, 256, 2, torch.bfloat16), "simt"), ((2, 2, 388, 128, 1, torch.bfloat16), "simt"),
+       ((2, 2, 392, 128, 2, torch.float32), "simt"), ((4, 32, 2048, 128, 1, torch.float16), "simt")]
+)
+
+
+@pytest.mark.parametrize("case,body", DECODE_CASES, ids=lambda c: str(c))
+def test_decode_plan(case, body):
+    B, Hkv, S, D, rep, dt = case
+    plan = decode_plan(B, Hkv, S, D, rep, dt, H100_SMS)
+    assert plan.body == body
+    if body == "simt":
+        assert plan.nsplit == 1
+        return
+    # never more splits than the cache has tiles; rows split only to fill
+    # the SMs: about one CTA per SM, never fewer than one per row and kv head
+    tiles = -(-S // DECODE_TILE)
+    assert 1 <= plan.nsplit <= tiles
+    ctas = B * Hkv * plan.nsplit
+    assert ctas <= max(H100_SMS, B * Hkv)
+    assert ctas > H100_SMS - B * Hkv or plan.nsplit == tiles
+    if (Hkv, S, rep) == (32, 2048, 1):  # 7B: B = 1 and 2 split, B >= 4 fills the SMs
+        assert (plan.nsplit > 1) == (B < 4)
+    # the plan reads no lengths: the kernel's shares of any row's tiles
+    # [t, t + n) (n at most the cache's tiles) are contiguous, in order and
+    # cover every tile once, empty shares allowed
+    for n in range(0, tiles + 1):
+        bounds = [z * n // plan.nsplit for z in range(plan.nsplit + 1)]
+        assert bounds[0] == 0 and bounds[-1] == n
+        assert all(a <= b for a, b in zip(bounds, bounds[1:]))
+
+
+def test_decode_plan_takes_no_lengths():
+    """decode_plan's inputs are host-known sizes: the same call gives the
+    same plan whatever the rows' lengths are, so a decode step never waits
+    for the card to read them."""
+    import inspect
+
+    assert list(inspect.signature(decode_plan).parameters) == [
+        "B", "Hkv", "S", "D", "rep", "q_dtype", "sms"]
+
+
+# kernel A: (M, N, K, bs) -> body. The fused body takes M <= 8 rows at
+# blocksize 32 or 64 with N and K multiples of 128; other rows (up to 128)
+# and blocksizes keep the SIMT body.
+GEMV_CASES = (
+    [((M, N, K, 64), "fused") for N, K in SHAPES_7B for M in (1, 2, 3, 4, 5, 8)]
+    + [((M, N, K, 64), "simt") for N, K in SHAPES_7B for M in (9, 16, 64, 128)]
+    + [((1, 384, 1152, 64), "fused"), ((8, 256, 1152, 32), "fused"), ((4, 256, 2048, 32), "fused"),
+       ((4, 256, 1024, 128), "simt"), ((4, 256, 1024, 16), "simt"), ((3, 384, 512, 256), "simt")]
+)
+
+
+@pytest.mark.parametrize("case,body", GEMV_CASES, ids=lambda c: str(c))
+def test_gemv_plan(case, body):
+    M, N, K, bs = case
+    plan = gemv_plan(M, N, K, bs, H100_SMS)
+    assert plan.body == body
+    assert plan.ksplit >= 1 and plan.per >= 1
+    if body == "simt":
+        assert plan.bm == 4
+        # 8 warps x per quantization blocks a split, in order, covering a plane
+        nbh = K // (2 * bs)
+        bounds = [min(s * 8 * plan.per, nbh) for s in range(plan.ksplit + 1)]
+        assert bounds[-1] == nbh and all(a < b for a, b in zip(bounds, bounds[1:]))
+        return
+    assert M <= GEMV_FUSED_MAX_M and plan.bm in (1, 2, 4, 8) and plan.bm >= M > plan.bm // 2
+    # the K splits: whole 64-row stages, in order, none empty, covering the
+    # half-plane once; no more splits than stages; quantized x within 32 KB
+    steps = K // 2 // 64
+    bounds = [min(s * plan.per, steps) for s in range(plan.ksplit + 1)]
+    assert bounds[0] == 0 and bounds[-1] == steps
+    assert all(a < b for a, b in zip(bounds, bounds[1:]))
+    assert plan.ksplit <= steps
+    assert plan.bm * 2 * plan.per * 64 <= 32768
+    # at the 7B shapes the grid holds about one CTA per SM
+    if (N, K) in SHAPES_7B:
+        ctas = N // 128 * plan.ksplit
+        assert H100_SMS // 2 <= ctas <= 2 * H100_SMS
