@@ -1,11 +1,12 @@
 // Kernel K: the fused blockwise 8-bit 1-state optimizer step (momentum,
-// rmsprop, adagrad, lion).
+// rmsprop, adagrad, lion), one launch over every 8-bit leaf of an optimizer
+// step, in place.
 //
 // Replaces bitsandbytes_sycl_tpu/ops/optim8.py `_kernel1` (called through
 // `optim8_blockwise_fused`, pl.pallas_call at :312) with the dynamic codec.
 //
-// Per element of an (nb, bs) row, with the step's scalars sc = (b1, b2,
-// eps, lr, weight_decay, gnorm_scale, is_step1):
+// Per element, with the leaf's row of scalars sc = (b1, b2, eps, lr,
+// weight_decay, gnorm_scale, is_step1):
 //   g = g * gnorm_scale, 0 where not finite; s = dec_signed(code) * absmax
 //   g = g + p * weight_decay                       (coupled decay)
 //   momentum: s' = is_step1 ? g : s * b1 + g;       p' = p - lr * s'
@@ -13,101 +14,138 @@
 //   adagrad:  s' = s + g * g;                       p' = p - (lr * g) / (sqrt(s') + eps)
 //   lion:     p' = p - lr * sign(s * b1 + (1 - b1) * g);  s' = s * b2 + (1 - b2) * g
 // where g was not finite p and s stay; then the state requantizes with its
-// block's fresh absmax (sign fix, or stochastic rounding on u). Every
-// operation rounds where ops/optim8._kernel1_plain's does, so the results
-// equal it bit for bit.
+// block's fresh absmax (sign fix, or stochastic rounding on u). p is stored
+// as p' or as p + (p' - p), and a ragged last block reads as the JAX
+// package pads it, as in kernel J (optim8_2state.cu). Every operation
+// rounds where ops/optim8._grouped_plain's does, so the results equal it
+// bit for bit.
 //
 // Bound on the H100: memory, 14 bytes a parameter (g and p read, p written,
 // one code read and written) over 3.35 TB/s.
 //
-// Design: kernel J's, with one state: a block of 256 threads per
-// quantization block, the signed decode table in shared memory, the update
-// in registers, one block max-reduction, then the arithmetic encode.
+// Design: kernel J's with one state: the persistent grid of contiguous
+// block runs walking the leaf table with an L2 prefetch of the next block,
+// 8 consecutive elements a thread (16-byte accesses of g and p, an 8-byte
+// access of the codes), one block max-reduction a block, the encode by
+// exponent bits with the codec table in shared memory (dynamic8.cuh).
 #include "dynamic8.cuh"
 
 namespace {
 
+using namespace dyn8;
+
 enum Op { kMomentum = 0, kRmsprop = 1, kAdagrad = 2, kLion = 3 };
 
-template <int kOp>
-__global__ void __launch_bounds__(dyn8::kThreads)
-optim8_1state_kernel(const float* __restrict__ sc, const float* __restrict__ g,
-                     const float* __restrict__ p, const uint8_t* __restrict__ s1,
-                     const float* __restrict__ am1, const float* __restrict__ u,
-                     float* __restrict__ po, uint8_t* __restrict__ s1o, float* __restrict__ am1o,
-                     const float* __restrict__ tables, int bs, dyn8::Consts consts) {
-  using namespace dyn8;
-  __shared__ float tbl[256];
-  __shared__ float red[32];
-  for (int i = threadIdx.x; i < 256; i += kThreads) tbl[i] = tables[i];
-  __syncthreads();
-  const float b1 = sc[0], b2 = sc[1], eps = sc[2], lr = sc[3], wd = sc[4], gscale = sc[5],
-              is_step1 = sc[6];
-  const float omb1 = __fsub_rn(1.0f, b1), omb2 = __fsub_rn(1.0f, b2);
-  const size_t row0 = (size_t)blockIdx.x * bs;
-  const float a1 = am1[blockIdx.x];
-  const int per = (bs + kThreads - 1) / kThreads;
-  float n1[kMaxPer];
+template <int kOp, bool kStoch>
+__global__ void __launch_bounds__(kThreads, kMinCtas)
+optim8_1state_kernel(const Leaf* __restrict__ leaves, int nleaves, const float* __restrict__ scalars,
+                     const float* __restrict__ table, long long total, int bs, int delta) {
+  __shared__ __align__(16) float tab[kTableWords];
+  __shared__ int red[2][kWarps];
+  stage_table(table, tab);
+  Walk w{leaves, nleaves};
+  float b1 = 0, b2 = 0, eps = 0, lr = 0, wd = 0, gscale = 0, is_step1 = 0, omb1 = 0, omb2 = 0;
+  int parity = 0;
+  long long lo, hi;
+  block_range(total, lo, hi);
+  for (long long b = lo; b < hi; ++b, parity ^= 1) {
+    if (w.advance(b, bs)) {
+      const float* sc = scalars + w.cur.row * 8;
+      b1 = sc[0], b2 = sc[1], eps = sc[2], lr = sc[3], wd = sc[4], gscale = sc[5], is_step1 = sc[6];
+      omb1 = __fsub_rn(1.0f, b1), omb2 = __fsub_rn(1.0f, b2);
+    }
+    const long long lb = b - w.cur.first;
+    if (b + 1 < hi) w.prefetch_next(lb, bs);
+    const Span s = span(lb, bs, w);
+    const float a1 = BNB_OPT_LOADF(w.cur.am1, lb);
+    float gv[kPer], pv[kPer], uv[kPer];
+    int c1[kPer];
+    BNB_OPT_LOAD8(w.cur.g, s, 0.0f, gv);
+    BNB_OPT_LOAD8(w.cur.p, s, 0.0f, pv);
+    BNB_OPT_LOADC(w.cur.s1, s, 127, c1);
+    if (kStoch) BNB_OPT_LOAD8(w.cur.u, s, 0.0f, uv);
+#if defined(BNB_PROBE_NO_MATH)
 #pragma unroll
-  for (int k = 0; k < kMaxPer; ++k) {
-    const int e = threadIdx.x + k * kThreads;
-    if (k >= per || e >= bs) continue;
-    const size_t i = row0 + e;
-    float gv = __fmul_rn(g[i], gscale);
-    const bool fin = isfinite(gv);
-    gv = fin ? gv : 0.0f;
-    const float pv = p[i];
-    const float v1 = __fmul_rn(tbl[s1[i]], a1);
-    gv = __fadd_rn(gv, __fmul_rn(pv, wd));
-    float m, np;
-    if (kOp == kMomentum) {
-      m = is_step1 > 0.0f ? gv : __fadd_rn(__fmul_rn(v1, b1), gv);
-      np = __fsub_rn(pv, __fmul_rn(lr, m));
-    } else if (kOp == kRmsprop) {
-      m = __fadd_rn(__fmul_rn(v1, b1), __fmul_rn(__fmul_rn(omb1, gv), gv));
-      np = __fsub_rn(pv, __fdiv_rn(__fmul_rn(lr, gv), __fadd_rn(__fsqrt_rn(m), eps)));
-    } else if (kOp == kAdagrad) {
-      m = __fadd_rn(v1, __fmul_rn(gv, gv));
-      np = __fsub_rn(pv, __fdiv_rn(__fmul_rn(lr, gv), __fadd_rn(__fsqrt_rn(m), eps)));
-    } else {
-      const float d = __fadd_rn(__fmul_rn(v1, b1), __fmul_rn(omb1, gv));
-      const float sgn = d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
-      np = __fsub_rn(pv, __fmul_rn(lr, sgn));
-      m = __fadd_rn(__fmul_rn(v1, b2), __fmul_rn(omb2, gv));
+    for (int k = 0; k < kPer; ++k) pv[k] = pv[k] + gv[k];
+    BNB_OPT_STORE8(w.cur.p, s, pv);
+    BNB_OPT_STOREC(w.cur.s1, s, c1);
+    if (threadIdx.x == 0) BNB_OPT_STOREF(w.cur.am1, lb, a1);
+#else
+    float n[1][kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const float v1 = __fmul_rn(tab[kDecS + c1[k]], a1);
+#if defined(BNB_PROBE_NO_UPDATE)
+      float np = pv[k], m = v1;
+#else
+      float g = __fmul_rn(gv[k], gscale);
+      const bool fin = isfinite(g);
+      g = fin ? g : 0.0f;
+      const float p = pv[k];
+      g = __fadd_rn(g, __fmul_rn(p, wd));
+      float m, np;
+      if (kOp == kMomentum) {
+        m = is_step1 > 0.0f ? g : __fadd_rn(__fmul_rn(v1, b1), g);
+        np = __fsub_rn(p, __fmul_rn(lr, m));
+      } else if (kOp == kRmsprop) {
+        m = __fadd_rn(__fmul_rn(v1, b1), __fmul_rn(__fmul_rn(omb1, g), g));
+        np = __fsub_rn(p, __fdiv_rn(__fmul_rn(lr, g), __fadd_rn(__fsqrt_rn(m), eps)));
+      } else if (kOp == kAdagrad) {
+        m = __fadd_rn(v1, __fmul_rn(g, g));
+        np = __fsub_rn(p, __fdiv_rn(__fmul_rn(lr, g), __fadd_rn(__fsqrt_rn(m), eps)));
+      } else {
+        const float d = __fadd_rn(__fmul_rn(v1, b1), __fmul_rn(omb1, g));
+        const float sgn = d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
+        np = __fsub_rn(p, __fmul_rn(lr, sgn));
+        m = __fadd_rn(__fmul_rn(v1, b2), __fmul_rn(omb2, g));
+      }
+      if (!fin) {
+        np = p;
+        m = v1;
+      }
+#endif
+      pv[k] = delta ? __fadd_rn(pv[k], __fsub_rn(np, pv[k])) : np;
+      n[0][k] = m;
     }
-    if (!fin) {
-      np = pv;
-      m = v1;
-    }
-    po[i] = np;
-    n1[k] = m;
+    BNB_OPT_STORE8(w.cur.p, s, pv);
+    float m[1];
+    block_absmax<1>(n, s.inb, red[parity], m);
+    if (threadIdx.x == 0) BNB_OPT_STOREF(w.cur.am1, lb, m[0]);
+    requant8<true, true, kStoch>(n[0], m[0], uv, tab, c1);
+    BNB_OPT_STOREC(w.cur.s1, s, c1);
+#endif
   }
-  requant<true, true>(n1, per, bs, row0, u, false, consts.v, tbl, red, s1o, am1o);
+}
+
+template <int kOp>
+void launch(bool stochastic, int grid, cudaStream_t st, const Leaf* lv, int nleaves,
+            const float* scalars, const float* table, long long total, int bs, int delta) {
+  if (stochastic) {
+    optim8_1state_kernel<kOp, true><<<grid, kThreads, 0, st>>>(lv, nleaves, scalars, table, total,
+                                                               bs, delta);
+  } else {
+    optim8_1state_kernel<kOp, false><<<grid, kThreads, 0, st>>>(lv, nleaves, scalars, table, total,
+                                                                bs, delta);
+  }
 }
 
 }  // namespace
 
-// op: 0 momentum, 1 rmsprop, 2 adagrad, 3 lion. Rows (nb, bs), bs <= 2048:
-// g, p f32; s1 uint8; am1 (nb,) f32; sc (8,) f32 on the device; u (nb, bs)
-// f32 or null. Outputs po, s1o, am1o. tables: (512,) f32 on the device (the
-// signed map first); consts: 23 floats on the host.
-extern "C" int optim8_1state(int op, const float* sc, const float* g, const float* p,
-                             const uint8_t* s1, const float* am1, const float* u, float* po,
-                             uint8_t* s1o, float* am1o, const float* tables, const float* consts,
-                             int nb, int bs, void* stream) {
-  if (nb <= 0 || bs <= 0 || bs > dyn8::kThreads * dyn8::kMaxPer || op < 0 || op > 3)
+// op: 0 momentum, 1 rmsprop, 2 adagrad, 3 lion; the other arguments as for
+// optim8_2state (optim8_2state.cu), each leaf's s2 and am2 null.
+extern "C" int optim8_1state(int op, const void* leaves, int nleaves, const float* scalars,
+                             const float* table, long long total, int bs, int grid, int delta,
+                             int stochastic, void* stream) {
+  if (nleaves <= 0 || total <= 0 || grid <= 0 || bs <= 0 || bs > dyn8::kMaxBlock || op < 0 ||
+      op > 3)
     return (int)cudaErrorInvalidValue;
-  dyn8::Consts c;
-  memcpy(c.v, consts, sizeof(c.v));
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define BNB_K(OP) \
-  optim8_1state_kernel<OP><<<nb, dyn8::kThreads, 0, st>>>(sc, g, p, s1, am1, u, po, s1o, am1o, tables, bs, c)
+  const dyn8::Leaf* lv = reinterpret_cast<const dyn8::Leaf*>(leaves);
   switch (op) {
-    case kMomentum: BNB_K(kMomentum); break;
-    case kRmsprop: BNB_K(kRmsprop); break;
-    case kAdagrad: BNB_K(kAdagrad); break;
-    default: BNB_K(kLion); break;
+    case kMomentum: launch<kMomentum>(stochastic, grid, st, lv, nleaves, scalars, table, total, bs, delta); break;
+    case kRmsprop: launch<kRmsprop>(stochastic, grid, st, lv, nleaves, scalars, table, total, bs, delta); break;
+    case kAdagrad: launch<kAdagrad>(stochastic, grid, st, lv, nleaves, scalars, table, total, bs, delta); break;
+    default: launch<kLion>(stochastic, grid, st, lv, nleaves, scalars, table, total, bs, delta); break;
   }
-#undef BNB_K
   return (int)cudaGetLastError();
 }

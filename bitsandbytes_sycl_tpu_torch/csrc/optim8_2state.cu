@@ -1,95 +1,184 @@
-// Kernel J: the fused blockwise 8-bit 2-state optimizer step (adam, lamb).
+// Kernel J: the fused blockwise 8-bit 2-state optimizer step (adam, lamb),
+// one launch over every 8-bit leaf of an optimizer step, in place.
 //
 // Replaces bitsandbytes_sycl_tpu/ops/optim8.py `_kernel2` (called through
 // `optim8_blockwise_fused`, pl.pallas_call at :312) with the dynamic codec.
 //
-// Per element of an (nb, bs) row, with the step's scalars sc = (b1, b2,
-// eps * c2, step_size, decay, gnorm_scale):
+// Per element, with the leaf's row of scalars sc = (b1, b2, eps * c2,
+// step_size, decay, gnorm_scale):
 //   g  = g * gnorm_scale, 0 where not finite
 //   s1 = dec_signed(code1) * absmax1,  s2 = dec_unsigned(code2) * absmax2
 //   n1 = s1 * b1 + (1 - b1) * g,       n2 = s2 * b2 + ((1 - b2) * g) * g
 //   p' = (p + step_size * (n1 / (sqrt(n2) + eps * c2))) * decay
 // and where g was not finite p, s1 and s2 stay; then each state requantizes
 // with its block's fresh absmax (state1 with the sign fix, or both with
-// stochastic rounding on the uniforms u). Every operation rounds where the
-// plain version's does (no FMA contraction), so p, the codes and the absmax
-// equal ops/optim8._kernel2_plain bit for bit.
+// stochastic rounding on the leaf's uniforms u). p is stored as p' (the
+// functional API's new p) or as p + (p' - p) (the optimizer's update, as
+// optax.apply_updates adds it). Every operation rounds where the plain
+// version's does (no FMA contraction), so p, the codes and the absmax equal
+// ops/optim8._grouped_plain bit for bit. Past a leaf's n, the ragged last
+// block reads g = p = 0, code1 127 and code2 0, as the JAX package pads it:
+// those entries enter the block's absmax (0, or NaN where the old absmax
+// is not finite) and are never stored.
 //
 // Bound on the H100: memory. It reads g and p (4 bytes each) and two codes
 // and writes p and two codes: 16 bytes a parameter (the absmax, 8 bytes a
-// block, is noise); the floor is those bytes over 3.35 TB/s.
-//
-// Design: one block of 256 threads per 2048-element quantization block
-// (the Pallas kernel takes 32 rows a grid step for its VMEM); element t + k
-// * 256 of the row is thread t's k-th value, so every load and store of a
-// warp is contiguous. Both decode tables sit in shared memory, the update
-// stays in registers, and the two block max-reductions feed the encode.
+// block, is noise); the floor is those bytes over 3.35 TB/s. At about 150
+// instructions a parameter it is close to instruction-bound as well, so
+// the design spends few: a persistent grid (kMinCtas CTAs of 256 threads a
+// SM) splits the global block index into one contiguous run per CTA, so the
+// codec table and the leaf row load once per CTA and leaf, not per
+// 2048-element block, and one thread has L2 prefetch the next block's rows
+// (cp.async.bulk) while the block computes; a thread owns 8
+// consecutive elements (two 16-byte loads of g and of p, one 8-byte load
+// of each state's codes, the same stores); both block maxima share one
+// barrier; the encode finds its decade by the exponent bits and multiplies
+// by n / 0.9 rounded once (dynamic8.cuh). A block's reads all happen before
+// its barrier and its absmax writes after it, so the update runs in place.
 #include "dynamic8.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(dyn8::kThreads)
-optim8_2state_kernel(const float* __restrict__ sc, const float* __restrict__ g,
-                     const float* __restrict__ p, const uint8_t* __restrict__ s1,
-                     const float* __restrict__ am1, const uint8_t* __restrict__ s2,
-                     const float* __restrict__ am2, const float* __restrict__ u,
-                     float* __restrict__ po, uint8_t* __restrict__ s1o, float* __restrict__ am1o,
-                     uint8_t* __restrict__ s2o, float* __restrict__ am2o,
-                     const float* __restrict__ tables, int bs, dyn8::Consts consts) {
-  using namespace dyn8;
-  __shared__ float tbl[512];  // signed map, then unsigned
-  __shared__ float red[32];
-  for (int i = threadIdx.x; i < 512; i += kThreads) tbl[i] = tables[i];
-  __syncthreads();
-  const float b1 = sc[0], b2 = sc[1], eps_c2 = sc[2], step_size = sc[3], decay = sc[4],
-              gscale = sc[5];
-  const float omb1 = __fsub_rn(1.0f, b1), omb2 = __fsub_rn(1.0f, b2);
-  const size_t row0 = (size_t)blockIdx.x * bs;
-  const float a1 = am1[blockIdx.x], a2 = am2[blockIdx.x];
-  const int per = (bs + kThreads - 1) / kThreads;
-  float n1[kMaxPer], n2[kMaxPer];
-#pragma unroll
-  for (int k = 0; k < kMaxPer; ++k) {
-    const int e = threadIdx.x + k * kThreads;
-    if (k >= per || e >= bs) continue;
-    const size_t i = row0 + e;
-    float gv = __fmul_rn(g[i], gscale);
-    const bool fin = isfinite(gv);
-    gv = fin ? gv : 0.0f;
-    const float pv = p[i];
-    const float v1 = __fmul_rn(tbl[s1[i]], a1);
-    const float v2 = __fmul_rn(tbl[256 + s2[i]], a2);
-    float m1 = __fadd_rn(__fmul_rn(v1, b1), __fmul_rn(omb1, gv));
-    float m2 = __fadd_rn(__fmul_rn(v2, b2), __fmul_rn(__fmul_rn(omb2, gv), gv));
-    float np = __fadd_rn(pv, __fmul_rn(step_size, __fdiv_rn(m1, __fadd_rn(__fsqrt_rn(m2), eps_c2))));
-    np = __fmul_rn(np, decay);
-    if (!fin) {
-      np = pv;
-      m1 = v1;
-      m2 = v2;
+using namespace dyn8;
+
+template <bool kStoch>
+__global__ void __launch_bounds__(kThreads, kMinCtas)
+optim8_2state_kernel(const Leaf* __restrict__ leaves, int nleaves, const float* __restrict__ scalars,
+                     const float* __restrict__ table, long long total, int bs, int delta) {
+  __shared__ __align__(16) float tab[kTableWords];
+  __shared__ int red[2][2 * kWarps];
+  stage_table(table, tab);
+  Walk w{leaves, nleaves};
+  float b1 = 0, b2 = 0, eps_c2 = 0, step_size = 0, decay = 0, gscale = 0, omb1 = 0, omb2 = 0;
+  int parity = 0;
+  long long lo, hi;
+  block_range(total, lo, hi);
+  for (long long b = lo; b < hi; ++b, parity ^= 1) {
+    if (w.advance(b, bs)) {
+      const float* sc = scalars + w.cur.row * 8;
+      b1 = sc[0], b2 = sc[1], eps_c2 = sc[2], step_size = sc[3], decay = sc[4], gscale = sc[5];
+      omb1 = __fsub_rn(1.0f, b1), omb2 = __fsub_rn(1.0f, b2);
     }
-    po[i] = np;
-    n1[k] = m1;
-    n2[k] = m2;
+    const long long lb = b - w.cur.first;
+    if (b + 1 < hi) w.prefetch_next(lb, bs);
+    const Span s = span(lb, bs, w);
+    const float a1 = BNB_OPT_LOADF(w.cur.am1, lb), a2 = BNB_OPT_LOADF(w.cur.am2, lb);
+    float gv[kPer], pv[kPer], uv[kPer];
+    int c1[kPer], c2[kPer];
+    BNB_OPT_LOAD8(w.cur.g, s, 0.0f, gv);
+    BNB_OPT_LOAD8(w.cur.p, s, 0.0f, pv);
+    BNB_OPT_LOADC(w.cur.s1, s, 127, c1);
+    BNB_OPT_LOADC(w.cur.s2, s, 0, c2);
+    if (kStoch) BNB_OPT_LOAD8(w.cur.u, s, 0.0f, uv);
+#if defined(BNB_PROBE_NO_MATH)
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) pv[k] = pv[k] + gv[k];
+    BNB_OPT_STORE8(w.cur.p, s, pv);
+    BNB_OPT_STOREC(w.cur.s1, s, c1);
+    BNB_OPT_STOREC(w.cur.s2, s, c2);
+    if (threadIdx.x == 0) {
+      BNB_OPT_STOREF(w.cur.am1, lb, a1);
+      BNB_OPT_STOREF(w.cur.am2, lb, a2);
+    }
+#else
+    float n[2][kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const float v1 = __fmul_rn(tab[kDecS + c1[k]], a1);
+      const float v2 = __fmul_rn(tab[kDecU + c2[k]], a2);
+#if defined(BNB_PROBE_NO_UPDATE)
+      float np = pv[k], m1 = v1, m2 = v2;
+#else
+      float g = __fmul_rn(gv[k], gscale);
+      const bool fin = isfinite(g);
+      g = fin ? g : 0.0f;
+      float m1 = __fadd_rn(__fmul_rn(v1, b1), __fmul_rn(omb1, g));
+      float m2 = __fadd_rn(__fmul_rn(v2, b2), __fmul_rn(__fmul_rn(omb2, g), g));
+      float np = __fadd_rn(pv[k], __fmul_rn(step_size,
+                                            __fdiv_rn(m1, __fadd_rn(__fsqrt_rn(m2), eps_c2))));
+      np = __fmul_rn(np, decay);
+      if (!fin) {
+        np = pv[k];
+        m1 = v1;
+        m2 = v2;
+      }
+#endif
+      pv[k] = delta ? __fadd_rn(pv[k], __fsub_rn(np, pv[k])) : np;
+      n[0][k] = m1;
+      n[1][k] = m2;
+    }
+    BNB_OPT_STORE8(w.cur.p, s, pv);
+    float m[2];
+    block_absmax<2>(n, s.inb, red[parity], m);
+    if (threadIdx.x == 0) {
+      BNB_OPT_STOREF(w.cur.am1, lb, m[0]);
+      BNB_OPT_STOREF(w.cur.am2, lb, m[1]);
+    }
+    if (kStoch) {
+      requant8<true, true, true>(n[0], m[0], uv, tab, c1);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) uv[k] = scramble(uv[k]);
+      requant8<false, false, true>(n[1], m[1], uv, tab, c2);
+    } else {
+      requant8<true, true, false>(n[0], m[0], uv, tab, c1);
+      requant8<false, false, false>(n[1], m[1], uv, tab, c2);
+    }
+    BNB_OPT_STOREC(w.cur.s1, s, c1);
+    BNB_OPT_STOREC(w.cur.s2, s, c2);
+#endif
   }
-  requant<true, true>(n1, per, bs, row0, u, false, consts.v, tbl, red, s1o, am1o);
-  requant<false, false>(n2, per, bs, row0, u, true, consts.v, tbl + 256, red, s2o, am2o);
+}
+
+// The edge-by-edge encode against the kernels' one on every f32 bit
+// pattern, both maps: counts the patterns whose codes differ.
+__global__ void encode_sweep_kernel(const float* __restrict__ table, const float* __restrict__ consts,
+                                    unsigned long long* __restrict__ mismatches) {
+  __shared__ __align__(16) float tab[kTableWords];
+  __shared__ float c[32];
+  stage_table(table, tab);
+  if (threadIdx.x < 23) c[threadIdx.x] = consts[threadIdx.x];
+  __syncthreads();
+  unsigned long long bad_s = 0, bad_u = 0;
+  const unsigned long long stride = (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long i = (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < (1ULL << 32); i += stride) {
+    const float x = __uint_as_float((uint32_t)i);
+    bad_s += encode<true>(x, tab) != encode_cascade<true>(x, c);
+    bad_u += encode<false>(x, tab) != encode_cascade<false>(x, c);
+  }
+  if (bad_s) atomicAdd(mismatches, bad_s);
+  if (bad_u) atomicAdd(mismatches + 1, bad_u);
 }
 
 }  // namespace
 
-// Rows (nb, bs), bs <= 2048: g, p f32; s1, s2 uint8; am1, am2 (nb,) f32;
-// sc (8,) f32 on the device; u (nb, bs) f32 or null. Outputs po, s1o, am1o,
-// s2o, am2o. tables: (512,) f32 on the device; consts: 23 floats on the host.
-extern "C" int optim8_2state(const float* sc, const float* g, const float* p, const uint8_t* s1,
-                             const float* am1, const uint8_t* s2, const float* am2, const float* u,
-                             float* po, uint8_t* s1o, float* am1o, uint8_t* s2o, float* am2o,
-                             const float* tables, const float* consts, int nb, int bs,
-                             void* stream) {
-  if (nb <= 0 || bs <= 0 || bs > dyn8::kThreads * dyn8::kMaxPer) return (int)cudaErrorInvalidValue;
-  dyn8::Consts c;
-  memcpy(c.v, consts, sizeof(c.v));
-  optim8_2state_kernel<<<nb, dyn8::kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      sc, g, p, s1, am1, s2, am2, u, po, s1o, am1o, s2o, am2o, tables, bs, c);
+// One launch over a leaf table: leaves (nleaves rows of dyn8::Leaf) and
+// scalars ((R, 8) f32) on the device, total = the leaves' blocks, bs <= 2048
+// the blocksize, grid the persistent CTAs (ops/optim8.leaf_plan). delta: 1
+// stores p as p + (new_p - p), 0 as new_p; stochastic: every leaf has u.
+// table: ops/dynamic8.kernel_table on the device.
+extern "C" int optim8_2state(const void* leaves, int nleaves, const float* scalars,
+                             const float* table, long long total, int bs, int grid, int delta,
+                             int stochastic, void* stream) {
+  if (nleaves <= 0 || total <= 0 || grid <= 0 || bs <= 0 || bs > dyn8::kMaxBlock)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const dyn8::Leaf* lv = reinterpret_cast<const dyn8::Leaf*>(leaves);
+  if (stochastic) {
+    optim8_2state_kernel<true><<<grid, dyn8::kThreads, 0, st>>>(lv, nleaves, scalars, table, total,
+                                                                bs, delta);
+  } else {
+    optim8_2state_kernel<false><<<grid, dyn8::kThreads, 0, st>>>(lv, nleaves, scalars, table, total,
+                                                                 bs, delta);
+  }
+  return (int)cudaGetLastError();
+}
+
+// mismatches: 2 zeroed u64 on the device (signed map, unsigned map);
+// consts: ops/dynamic8.encode_consts on the device.
+extern "C" int dyn8_encode_sweep(const float* table, const float* consts,
+                                 unsigned long long* mismatches, void* stream) {
+  encode_sweep_kernel<<<132 * 8, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(table, consts,
+                                                                                 mismatches);
   return (int)cudaGetLastError();
 }

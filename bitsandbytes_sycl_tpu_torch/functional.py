@@ -395,46 +395,41 @@ def _optim8_scalars_shared(*key) -> torch.Tensor:
 def _optim8_fused_dispatch(
     optimizer_name, state1, absmax1, state2, absmax2,
     beta1, beta2, eps, step, lr, weight_decay, gnorm_scale,
-    blocksize, nb, n, p_orig, g_orig, noise=None,
+    blocksize, p_orig, g_orig, noise=None,
 ):
-    """The 8-bit blockwise update through kernel J or K (ops/optim8.py) on
-    CUDA tensors, their plain versions on CPU tensors. A ragged last block
-    is padded as the JAX package pads it: g and p with 0, state1's codes
-    with 127 and state2's with 0 (both decode to 0.0)."""
-    from .ops.optim8 import optim8_blockwise_fused
-
-    dev = p_orig.device
-
-    def _rows(x, fill=0):
-        flat = x.reshape(-1)
-        need = nb * blocksize - n
-        if need:
-            flat = torch.cat([flat, flat.new_full((need,), fill)])
-        return flat.reshape(nb, blocksize).contiguous()
-
-    def _amax(a):
-        return a.float().reshape(-1).contiguous()
+    """The 8-bit blockwise update of one leaf through kernel J or K
+    (ops/optim8.py) on CUDA tensors, their plain versions on CPU tensors: a
+    one-leaf table over copies of p and the states, which the body updates
+    in place. A ragged last block reads as the JAX package pads it: g and p
+    0, state1's codes 127 and state2's 0 (both decode to 0.0)."""
+    from .ops.optim8 import Optim8Leaf, optim8_update
 
     two = optimizer_name in OPTIMIZER_FUNCS_2STATE
     scalars = _optim8_scalars(optimizer_name, beta1, beta2, eps, step, lr, weight_decay,
-                              gnorm_scale, dev)
-    out = optim8_blockwise_fused(
-        optimizer_name, _rows(g_orig.float()), _rows(p_orig.float()),
-        _rows(state1, 127), _amax(absmax1),
-        _rows(state2, 0) if two else None, _amax(absmax2) if two else None, scalars,
-        u=None if noise is None else noise.reshape(nb, blocksize),
-    )
-    po, c1, a1 = out[:3]
-    res = [po.reshape(-1)[:n].reshape(p_orig.shape).to(p_orig.dtype),
-           c1.reshape(-1)[:n].reshape(state1.shape), a1]
+                              gnorm_scale, p_orig.device).reshape(1, 8)
+    out = [p_orig.float().reshape(-1).clone(), state1.reshape(-1).clone(),
+           absmax1.float().reshape(-1).clone()]
     if two:
-        res += [out[3].reshape(-1)[:n].reshape(state2.shape), out[4]]
+        out += [state2.reshape(-1).clone(), absmax2.float().reshape(-1).clone()]
+    optim8_update(optimizer_name, [Optim8Leaf(g_orig.float().reshape(-1).contiguous(), *out,
+                                              u=noise)],
+                  scalars, blocksize=blocksize)
+    res = [out[0].reshape(p_orig.shape).to(p_orig.dtype), out[1].reshape(state1.shape), out[2]]
+    if two:
+        res += [out[3].reshape(state2.shape), out[4]]
     else:
         res += [None, None]
     return tuple(res)
 
 
 _NOISE_SEED = 0xB17B
+
+
+def _optim8_noise(size: int, step: int, device) -> torch.Tensor:
+    """The uniforms of stochastic rounding: ``size`` from a generator seeded
+    from the step, the same for every leaf of that size."""
+    gen = torch.Generator(device=device).manual_seed((_NOISE_SEED << 32) + int(step))
+    return torch.rand((size,), generator=gen, device=device, dtype=torch.float32)
 
 
 def optimizer_update_8bit_blockwise(
@@ -473,17 +468,65 @@ def optimizer_update_8bit_blockwise(
     if codec != "dynamic":
         raise NotImplementedError(
             "custom-qmap (LUT codec) optimizer states are not ported yet (ROADMAP Queue B #10)")
-    n = g.numel()
-    nb = blocks_for(n, blocksize)
-    noise = None
-    if stochastic_rounding:
-        gen = torch.Generator(device=p.device).manual_seed((_NOISE_SEED << 32) + int(step))
-        noise = torch.rand((nb * blocksize,), generator=gen, device=p.device, dtype=torch.float32)
+    noise = _optim8_noise(blocks_for(g.numel(), blocksize) * blocksize, step, p.device) \
+        if stochastic_rounding else None
     return _optim8_fused_dispatch(
         optimizer_name, state1, absmax1, state2, absmax2,
         beta1, beta2, eps, step, lr, weight_decay, gnorm_scale,
-        blocksize, nb, n, p, g, noise=noise,
+        blocksize, p, g, noise=noise,
     )
+
+
+def optimizer_update_8bit_grouped(
+    optimizer_name: str,
+    leaves,
+    hypers,
+    step: int,
+    gnorm_scales=None,
+    blocksize: int = 2048,
+    stochastic_rounding: bool = False,
+) -> None:
+    """The blockwise 8-bit update of many leaves at once, in place: one
+    launch of kernel J or K (ops/optim8.optim8_update) on CUDA tensors,
+    the plain version on CPU tensors. ``leaves`` are (g, p, state) with
+    contiguous f32 g and p and the state's ``state1``, ``absmax1``[,
+    ``state2``, ``absmax2``]; ``hypers`` one (lr, beta1, beta2, eps,
+    weight_decay) per leaf; ``gnorm_scales`` None or one scale tensor per
+    leaf (percentile clipping). p becomes p + (new_p - p), so each leaf
+    ends bit for bit where ``optimizer_update_8bit_blockwise`` followed by
+    ``p.add_(new_p - p)`` puts it; the uniforms of stochastic rounding are
+    that function's."""
+    from .ops.optim8 import Optim8Leaf, optim8_update
+
+    dev = leaves[0][1].device
+    rows, uniq = [], {}
+    for lr, beta1, beta2, eps, wd in hypers:
+        key = (lr, beta1, beta2, eps, wd)
+        if key not in uniq:
+            uniq[key] = _optim8_scalars(optimizer_name, beta1, beta2, eps, step, lr, wd, 1.0, dev)
+        rows.append(key)
+    keys = list(uniq)
+    if gnorm_scales is None:
+        scalars = uniq[keys[0]].reshape(1, 8) if len(keys) == 1 else \
+            torch.stack([uniq[k] for k in keys])
+        rows = [keys.index(k) for k in rows]
+    else:  # one row per leaf, its own gnorm_scale
+        scalars = torch.stack([uniq[k] for k in rows])
+        scalars[:, 5] = torch.stack([s.float().reshape(()) for s in gnorm_scales])
+        rows = list(range(len(leaves)))
+    noise = {}
+    table = []
+    for g, p, s in leaves:
+        u = None
+        if stochastic_rounding:
+            size = blocks_for(p.numel(), blocksize) * blocksize
+            if size not in noise:
+                noise[size] = _optim8_noise(size, step, dev)
+            u = noise[size]
+        two = "state2" in s
+        table.append(Optim8Leaf(g, p, s["state1"], s["absmax1"], s["state2"] if two else None,
+                                s["absmax2"] if two else None, u))
+    optim8_update(optimizer_name, table, scalars, rows, blocksize=blocksize, apply_delta=True)
 
 
 def percentile_clipping(grad_norm: torch.Tensor, gnorm_vec: torch.Tensor, step: int,

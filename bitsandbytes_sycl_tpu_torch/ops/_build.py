@@ -117,10 +117,11 @@ def use_library(stem: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     return old
 
 
-def kernel_fn(lib: str, name: str, nargs: int, int_args=(), float_args=()):
+def kernel_fn(lib: str, name: str, nargs: int, int_args=(), float_args=(), long_args=()):
     """The C entry ``name`` of ``lib{lib}.so`` with its argtypes set:
     ``c_int`` at the positions in ``int_args``, ``c_float`` at those in
-    ``float_args``, ``c_void_p`` (pointers and the stream) elsewhere."""
+    ``float_args``, ``c_longlong`` at those in ``long_args``, ``c_void_p``
+    (pointers and the stream) elsewhere."""
     key = f"{lib}.{name}"
     fn = _fns.get(key)
     if fn is None:
@@ -128,7 +129,7 @@ def kernel_fn(lib: str, name: str, nargs: int, int_args=(), float_args=()):
         fn = getattr(_libs[lib], name)
         fn.argtypes = [
             ctypes.c_int if i in int_args else ctypes.c_float if i in float_args
-            else ctypes.c_void_p
+            else ctypes.c_longlong if i in long_args else ctypes.c_void_p
             for i in range(nargs)
         ]
         fn.restype = ctypes.c_int

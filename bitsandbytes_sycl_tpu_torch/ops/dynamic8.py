@@ -31,7 +31,8 @@ import torch
 
 from .. import codebooks
 
-__all__ = ["dynamic_decode", "dynamic_encode", "stochastic_adjust", "decode_table", "encode_consts"]
+__all__ = ["dynamic_decode", "dynamic_encode", "stochastic_adjust", "decode_table", "encode_consts",
+           "binade_table", "decade_table", "edge_count", "kernel_table"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,7 +153,7 @@ _TABLES: dict = {}
 
 def decode_table(device) -> torch.Tensor:
     """(512,) f32 on ``device``: dynamic_decode of codes 0..255 signed, then
-    unsigned, computed on that device (the table kernels J and K read)."""
+    unsigned, computed on that device (the first words of ``kernel_table``)."""
     dev = torch.device(device)
     key = str(dev)
     t = _TABLES.get(key)
@@ -165,11 +166,84 @@ def decode_table(device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def encode_consts() -> tuple:
-    """The encoder's constants as kernels J and K take them, 23 floats:
-    the signed map's 7 decade edges and top edge, the unsigned map's, and
-    10^(6-i) for decades i = 0..6."""
+    """The constants of the edge-by-edge encode, 23 floats: the signed
+    map's 7 decade edges and top edge, the unsigned map's, and 10^(6-i)
+    for decades i = 0..6 (the card's exhaustive check of ``binade_table``
+    runs that encode beside the kernels' one)."""
     out = []
     for signed in (True, False):
         edges, top_edge, _ = _consts(signed)
         out += [float(e) for e in edges] + [float(top_edge)]
     return tuple(out + list(_POW10_INV[:7]))
+
+
+NAN_BINADE = 128  # the binade_table row every NaN reads
+
+
+@functools.lru_cache(maxsize=None)
+def binade_table(signed: bool) -> np.ndarray:
+    """(129, 2) f32: the decade search by exponent bits. Row e (the f32
+    exponent field of a magnitude in [0, 1]) holds the number of decade
+    edges below the binade [2^(e-127), 2^(e-126)) (row 0: [0, 2^-126)) and
+    the one edge inside it, or +inf; row 128 (0, +inf) serves NaN. The
+    edges lie more than a factor 2 apart, so a binade holds at most one,
+    and count_lo + (a > edge) equals the number of edges below a."""
+    edges, _, _ = _consts(signed)
+    out = np.zeros((NAN_BINADE + 1, 2), np.float32)
+    out[:, 1] = np.inf
+    for e in range(NAN_BINADE):
+        lo = np.float32(0.0) if e == 0 else np.uint32(e << 23).view(np.float32)
+        hi = np.uint32((e + 1) << 23).view(np.float32)
+        inside = [x for x in edges if lo <= x < hi]
+        assert len(inside) <= 1, (e, inside)
+        out[e, 0] = np.sum(edges < lo)
+        if inside:
+            out[e, 1] = inside[0]
+    return out
+
+
+def edge_count(a: np.ndarray, signed: bool) -> np.ndarray:
+    """The number of decade edges below each magnitude a (f32 in [0, 1] or
+    NaN) by ``binade_table``, as the kernels compute it."""
+    a = np.asarray(a, np.float32)
+    tab = binade_table(signed)
+    e = np.minimum((a.view(np.uint32) >> 23) & 0xFF, NAN_BINADE)
+    return tab[e, 0].astype(np.int32) + (a > tab[e, 1])
+
+
+@functools.lru_cache(maxsize=None)
+def decade_table(signed: bool) -> np.ndarray:
+    """(7, 2) f32: per decade i, 10^(6-i) and n / 0.9 rounded once in f32
+    (n = 2^i signed, 2^(i+1) unsigned), the factors of the in-decade grid
+    y = (a * 10^(6-i) - 0.1) * (n / 0.9)."""
+    n = np.float32([2.0 ** (i if signed else i + 1) for i in range(7)])
+    return np.stack([np.float32(_POW10_INV[:7]), n / np.float32(0.9)], axis=1).astype(np.float32)
+
+
+# word offsets of kernel_table's parts (csrc/dynamic8.cuh mirrors them)
+KERNEL_TABLE_PARTS = dict(dec_s=0, dec_u=256, bin_s=512, bin_u=770, decade_s=1028, decade_u=1042,
+                          top_s=1056, top_u=1057, words=1058)
+
+
+def kernel_table(device) -> torch.Tensor:
+    """(1058,) f32 on ``device``, what kernels J and K copy into shared
+    memory once per CTA: ``decode_table``, then ``binade_table`` (its
+    counts stored as int32 bits) and ``decade_table`` of the signed and the
+    unsigned map, then their top edges (KERNEL_TABLE_PARTS)."""
+    dev = torch.device(device)
+    key = ("kernel", str(dev))
+    t = _TABLES.get(key)
+    if t is None:
+        def bins(signed):  # the counts as int32 bits, which the kernels read as ints
+            t = binade_table(signed).copy()
+            t[:, 0] = t[:, 0].astype(np.int32).view(np.float32)
+            return t.reshape(-1)
+
+        host = np.concatenate(
+            [bins(True), bins(False),
+             decade_table(True).reshape(-1), decade_table(False).reshape(-1),
+             np.float32([_consts(True)[1], _consts(False)[1]])]).astype(np.float32)
+        t = torch.cat([decode_table(dev), torch.from_numpy(host).to(dev)]).contiguous()
+        assert t.numel() == KERNEL_TABLE_PARTS["words"]
+        _TABLES[key] = t
+    return t

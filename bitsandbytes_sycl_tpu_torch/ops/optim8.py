@@ -2,11 +2,17 @@
 lamb) and kernel K (``optim8_1state``: momentum, rmsprop, adagrad, lion),
 the port of the JAX package's ``ops/optim8.py`` with the dynamic codec.
 
-One pass per step over (nb, bs) rows of one quantization block each: read
-g, p, the uint8 states and their per-block absmax, decode the states
-(``dynamic8``), run the update, requantize each state with a fresh
-per-block absmax, write p, the codes and the absmax. The step's eight f32
-scalars (``functional._optim8_scalars``) come as a tensor:
+Per quantization block of a leaf: read g, p, the uint8 states and their
+per-block absmax, decode the states (``dynamic8``), run the update,
+requantize each state with a fresh per-block absmax, write p, the codes and
+the absmax. Each kernel has one body, which runs over a leaf table: one
+launch takes every 8-bit leaf of an optimizer step (``optim8_update``,
+``leaf_plan``) and updates the leaves in place, with no padding copy; the
+ragged last block of a leaf reads as the JAX package pads it (g, p 0,
+state1 code 127, state2 code 0). The JAX entry on (nb, bs) rows
+(``optim8_blockwise_fused``) runs the same body over a one-leaf table of
+copies. The step's eight f32 scalars (``functional._optim8_scalars``) come
+as rows of an (R, 8) tensor, one row index per leaf:
 
 - 2-state: b1, b2, eps * c2, step_size, decay, gnorm_scale, 0, 0 (the bias
   correction folded in, c1 = 1 - b1^step, c2 = sqrt(1 - b2^step),
@@ -15,31 +21,35 @@ scalars (``functional._optim8_scalars``) come as a tensor:
 
 Semantics of the JAX kernel: non-finite gradient entries keep p and the
 old decoded states (which still enter the block's new absmax); the absmax
-is the block's fresh max |state|, ``safe_inv(0) = 0``; state1's code gets
-the sign fix unless rounding is stochastic; stochastic rounding takes the
-uniforms ``u`` as an input, and state2 uses them after a golden-ratio
-scramble.
+is the block's fresh max |state| (NaN if any is NaN), ``safe_inv(0) = 0``;
+state1's code gets the sign fix unless rounding is stochastic; stochastic
+rounding takes the uniforms ``u`` as an input, and state2 uses them after a
+golden-ratio scramble.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
-from typing import Optional
+import itertools
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import _build
 from .common import check_cuda_tensors, safe_inv
-from .dynamic8 import decode_table, dynamic_decode, dynamic_encode, encode_consts, stochastic_adjust
+from .common import sm_count as _sm_count
+from .dynamic8 import dynamic_decode, dynamic_encode, encode_consts, kernel_table, stochastic_adjust
 
-__all__ = ["optim8_blockwise_fused", "optim8_2state", "optim8_1state", "ONE_STATE", "TWO_STATE",
+__all__ = ["optim8_blockwise_fused", "optim8_update", "optim8_2state",
+           "optim8_1state", "Optim8Leaf", "LeafPlan", "leaf_plan", "ONE_STATE", "TWO_STATE",
            "MAX_BLOCKSIZE"]
 
 TWO_STATE = ("adam", "lamb")
 ONE_STATE = ("momentum", "rmsprop", "adagrad", "lion")
-MAX_BLOCKSIZE = 2048  # the kernels hold a block in the registers of 256 threads
+MAX_BLOCKSIZE = 2048  # a CTA of 256 threads holds one block, 8 elements a thread
+CTAS_PER_SM = 3  # the persistent grid (csrc/dynamic8.cuh kMinCtas)
+LEAF_WORDS = 10  # int64 words of a leaf table row (csrc/dynamic8.cuh Leaf)
 
 
 def _apply_sign_fix(rank: torch.Tensor, normed: torch.Tensor, n_neg: int, top: int) -> torch.Tensor:
@@ -78,10 +88,16 @@ def _requant_rows(s: torch.Tensor, codec: _DynamicCodec, u=None):
 
 
 def _scalars(sc: torch.Tensor) -> list:
+    """The step's scalars as Python floats from an (8,) row, or as (nb, 1)
+    f32 columns from one row per block; each rounds alike in the update."""
+    if sc.dim() == 2:
+        return [sc[:, k:k + 1].float() for k in range(8)]
     return [float(v) for v in sc.float().cpu().reshape(-1)[:8]]
 
 
-def _one_minus(b: float) -> float:
+def _one_minus(b):
+    if isinstance(b, torch.Tensor):
+        return 1.0 - b  # rounds once in f32, as below
     return float(np.float32(1.0) - np.float32(b))
 
 
@@ -119,7 +135,10 @@ def _kernel1_plain(name, sc, g, p, s1, am1, u=None):
     s1 = codec1.decode(s1) * am1.float()[:, None]
     g = g + p * wd  # coupled weight decay
     if name == "momentum":
-        n1 = g if is_step1 > 0 else s1 * b1 + g
+        if isinstance(is_step1, torch.Tensor):
+            n1 = torch.where(is_step1 > 0, g, s1 * b1 + g)
+        else:
+            n1 = g if is_step1 > 0 else s1 * b1 + g
         np_ = p - lr * n1
     elif name == "rmsprop":
         n1 = s1 * b1 + _one_minus(b1) * g * g
@@ -156,68 +175,229 @@ def _check_rows(name, g, p, states, scalars, u):
         raise ValueError(f"{name}: u must be contiguous ({nb}, {bs}) f32")
 
 
-@functools.lru_cache(maxsize=None)
-def _consts_arg():
-    """The encoder's constants as a host array the C entries copy."""
-    return (ctypes.c_float * 23)(*encode_consts())
+# ------------------------------------------------------------ leaf table
+
+
+class Optim8Leaf(NamedTuple):
+    """One 8-bit leaf of a step: g and p (f32, n elements), state1 (uint8,
+    n), absmax1 (f32, one per block), state2 and absmax2 for a 2-state
+    optimizer, u (f32 uniforms, at least n) under stochastic rounding. All
+    contiguous; p, the states and the absmax are written in place."""
+    g: torch.Tensor
+    p: torch.Tensor
+    state1: torch.Tensor
+    absmax1: torch.Tensor
+    state2: Optional[torch.Tensor] = None
+    absmax2: Optional[torch.Tensor] = None
+    u: Optional[torch.Tensor] = None
+
+
+class LeafPlan(NamedTuple):
+    blocks: tuple   # quantization blocks of each leaf
+    first: tuple    # each leaf's first global block (the prefix sum of blocks)
+    total: int      # blocks of the step
+    grid: int       # persistent CTAs of the launch
+
+
+@functools.lru_cache(maxsize=64)
+def leaf_plan(numels: tuple, blocksize: int, sm_count: int) -> LeafPlan:
+    """The launch plan of one step's leaf table: block counts and offsets
+    per leaf, and a persistent grid of CTAS_PER_SM CTAs per SM (fewer when
+    the step has fewer blocks). The whole table goes in one launch: it
+    reaches the kernel as one device buffer, whatever its length."""
+    if not 1 <= blocksize <= MAX_BLOCKSIZE:
+        raise ValueError(f"leaf_plan: blocksize {blocksize} outside 1..{MAX_BLOCKSIZE}")
+    if any(n < 0 for n in numels):
+        raise ValueError(f"leaf_plan: negative leaf size in {numels}")
+    blocks = tuple(-(-int(n) // blocksize) for n in numels)
+    first = tuple(itertools.accumulate(blocks[:-1], initial=0)) if blocks else ()
+    total = sum(blocks)
+    return LeafPlan(blocks, first, total, min(total, sm_count * CTAS_PER_SM))
+
+
+def _check_leaves(name, leaves: Sequence[Optim8Leaf], scalars, rows, blocksize):
+    """Validate a leaf table; returns (rows as a tuple, stochastic, the
+    table's rows for the kernel: the seven pointers and n of each leaf,
+    and whether the tensors lie on CUDA (True) or on the CPU (False); a
+    mix raises)."""
+    two = name in TWO_STATE
+    if name not in TWO_STATE + ONE_STATE:
+        raise ValueError(f"optim8: unknown optimizer {name!r}")
+    if not leaves:
+        raise ValueError("optim8: empty leaf table")
+    stochastic = leaves[0].u is not None
+    f32, u8 = torch.float32, torch.uint8
+    kinds = (f32, f32, u8, f32, u8, f32)
+    nfields = 6 if two else 4
+    out, spans, on_cuda = [], [], 0
+    for i, lf in enumerate(leaves):
+        n = lf.p.numel()
+        nb = -(-n // blocksize)
+        sizes = (n, n, n, nb, n, nb)
+        ptrs = [0] * 8
+        for k in range(nfields):
+            t = lf[k]
+            if t is None or t.dtype != kinds[k] or t.numel() != sizes[k] or not t.is_contiguous():
+                raise ValueError(
+                    f"optim8 {name}: leaf {i} needs contiguous {kinds[k]} of {sizes[k]} elements, "
+                    "got " + ("None" if t is None else f"{t.dtype} {tuple(t.shape)}"))
+            ptrs[k] = t.data_ptr()
+            on_cuda += t.is_cuda
+            if k and sizes[k]:  # written in place
+                spans.append((ptrs[k], ptrs[k] + sizes[k] * (1 if kinds[k] is u8 else 4)))
+        if not two and (lf.state2 is not None or lf.absmax2 is not None):
+            raise ValueError(f"optim8 {name}: a 1-state optimizer's leaf {i} has a state2")
+        if (lf.u is not None) != stochastic:
+            raise ValueError("optim8: uniforms u for every leaf or for none")
+        if stochastic:
+            if lf.u.dtype != f32 or lf.u.numel() < n or not lf.u.is_contiguous():
+                raise ValueError(f"optim8 {name}: leaf {i} needs contiguous f32 u of >= {n} elements")
+            ptrs[6] = lf.u.data_ptr()
+            on_cuda += lf.u.is_cuda
+        ptrs[7] = n
+        out.append(ptrs)
+    if scalars.dtype != f32 or scalars.dim() != 2 or scalars.shape[1] != 8 \
+            or not scalars.is_contiguous():
+        raise ValueError("optim8: scalars must be a contiguous (R, 8) f32 tensor")
+    rows = (0,) * len(leaves) if rows is None else tuple(int(r) for r in rows)
+    if len(rows) != len(leaves) or not all(0 <= r < scalars.shape[0] for r in rows):
+        raise ValueError(f"optim8: one scalars row per leaf in 0..{scalars.shape[0] - 1}")
+    # the leaves are written in place: no two may share memory
+    spans = np.array(spans, dtype=np.int64).reshape(-1, 2)
+    spans = spans[np.argsort(spans[:, 0], kind="stable")]
+    if np.any(spans[1:, 0] < spans[:-1, 1]):
+        raise ValueError("optim8: leaves share memory (p, a state or an absmax of one leaf "
+                         "overlaps another's); step such leaves one at a time")
+    on_cuda += scalars.is_cuda
+    n_tensors = len(leaves) * (nfields + stochastic) + 1
+    if on_cuda not in (0, n_tensors):
+        raise ValueError("optim8: tensors must all lie on the CPU or all on CUDA")
+    return rows, stochastic, out, on_cuda > 0
+
+
+def _grouped_plain(name, leaves, scalars, rows, plan, blocksize, apply_delta):
+    """Plain PyTorch version of the leaf-table body, in place: every leaf's
+    blocks at its offset of one (total, blocksize) array, read up to n and
+    padded past it as the JAX package pads (g, p 0, state1 code 127, state2
+    code 0); each block's row of scalars; _kernel2_plain or _kernel1_plain
+    over all blocks at once; p written as new_p, or as p + (new_p - p)
+    with ``apply_delta``; codes and absmax written back."""
+    two = name in TWO_STATE
+    bs, total = blocksize, plan.total
+    dev = leaves[0].p.device
+
+    def gather(attr, fill, dtype):
+        out = torch.full((total * bs,), fill, dtype=dtype, device=dev)
+        for lf, f0 in zip(leaves, plan.first):
+            n = lf.p.numel()
+            out[f0 * bs:f0 * bs + n] = getattr(lf, attr).reshape(-1)[:n]
+        return out.reshape(total, bs)
+
+    per_block = torch.repeat_interleave(torch.tensor(rows, dtype=torch.long),
+                                        torch.tensor(plan.blocks, dtype=torch.long))
+    sc = scalars[per_block.to(dev)]
+    g, p = gather("g", 0.0, torch.float32), gather("p", 0.0, torch.float32)
+    s1 = gather("state1", 127, torch.uint8)
+    am1 = torch.cat([lf.absmax1.reshape(-1) for lf in leaves])
+    u = gather("u", 0.0, torch.float32) if leaves[0].u is not None else None
+    if two:
+        s2 = gather("state2", 0, torch.uint8)
+        am2 = torch.cat([lf.absmax2.reshape(-1) for lf in leaves])
+        out = _kernel2_plain(name, sc, g, p, s1, am1, s2, am2, u)
+    else:
+        out = _kernel1_plain(name, sc, g, p, s1, am1, u)
+    po = out[0].reshape(-1)
+    flat = [o.reshape(-1) for o in out[1:]]  # codes, absmax[, codes, absmax]
+    for lf, f0, nb in zip(leaves, plan.first, plan.blocks):
+        o, n = f0 * bs, lf.p.numel()
+        pf, new = lf.p.view(-1), po[o:o + n]
+        pf.copy_(pf + (new - pf) if apply_delta else new)
+        dst = (lf.state1, lf.absmax1) + ((lf.state2, lf.absmax2) if two else ())
+        for k, t in enumerate(dst):
+            src = flat[k][o:o + n] if k % 2 == 0 else flat[k][f0:f0 + nb]
+            t.view(-1).copy_(src)
+
+
+def _launch(kname, name, table, scalars, rows, plan, blocksize, apply_delta, stochastic, dev):
+    """One launch over the leaf table (rows of _check_leaves)."""
+    tab = np.zeros((len(table), LEAF_WORDS), np.int64)
+    tab[:, :8] = table
+    tab[:, 8] = plan.first
+    tab[:, 9] = rows
+    # one pinned copy per step: the caching host allocator keeps the block
+    # until the asynchronous copy has read it
+    leaves_dev = torch.from_numpy(tab).pin_memory().to(dev, non_blocking=True)
+    args = (leaves_dev.data_ptr(), len(table), scalars.data_ptr(), kernel_table(dev).data_ptr(),
+            plan.total, blocksize, plan.grid, int(apply_delta), int(stochastic),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if kname == "optim8_2state":
+        fn = _build.kernel_fn(kname, kname, 10, int_args=(1, 5, 6, 7, 8), long_args=(4,))
+        err = fn(*args)
+    else:
+        fn = _build.kernel_fn(kname, kname, 11, int_args=(0, 2, 6, 7, 8, 9), long_args=(5,))
+        err = fn(ONE_STATE.index(name), *args)
+    _build.check(kname, err)
+
+
+def optim8_update(name: str, leaves: Sequence[Optim8Leaf], scalars: torch.Tensor, rows=None,
+                  blocksize: int = 2048, apply_delta: bool = False) -> None:
+    """Kernel J (2-state) or K (1-state) over a leaf table, in place: one
+    launch on CUDA tensors, the plain version on CPU tensors; a table of no
+    block launches nothing. ``scalars`` is an (R, 8) f32 tensor, ``rows`` a
+    row index per leaf (default 0). p becomes new_p, or p + (new_p - p)
+    with ``apply_delta`` (the optimizer's route)."""
+    rows, stochastic, table, on_cuda = _check_leaves(name, leaves, scalars, rows, blocksize)
+    dev = leaves[0].p.device
+    plan = leaf_plan(tuple(row[7] for row in table), blocksize,
+                     _sm_count(dev) if on_cuda else 1)
+    if plan.total == 0:
+        return
+    if not on_cuda:
+        _grouped_plain(name, leaves, scalars, rows, plan, blocksize, apply_delta)
+        return
+    kname = "optim8_2state" if name in TWO_STATE else "optim8_1state"
+    _launch(kname, name, table, scalars, rows, plan, blocksize, apply_delta, stochastic, dev)
+    _KERNEL_OF[kname].launches += 1
+
+
+def _rows_launch(kname, name, g, p, states, scalars, u):
+    """The JAX entry's (nb, bs) rows through the leaf-table body: a
+    one-leaf table over copies of p and the states."""
+    _check_rows(kname, g, p, states, scalars, u)
+    out = [p.clone()] + [s.clone() for s in states]
+    leaf = Optim8Leaf(g, *out, *((None, None) if len(states) == 2 else ()), u=u)
+    optim8_update(name, [leaf], scalars.reshape(-1)[:8].reshape(1, 8), None, g.shape[1])
+    return tuple(out)
 
 
 def optim8_2state(name, g, p, s1, am1, s2, am2, scalars, u=None):
-    """Kernel J on CUDA tensors; the plain version on CPU tensors.
-    Rows (nb, bs): g, p f32, s1, s2 uint8; am1, am2 (nb,) f32; scalars (8,)
-    f32; u (nb, bs) f32 uniforms or None. Returns new (p, state1, absmax1,
-    state2, absmax2)."""
+    """Kernel J on (nb, bs) rows: CUDA tensors through the leaf-table body,
+    CPU tensors through the plain version. g, p f32, s1, s2 uint8; am1, am2
+    (nb,) f32; scalars (8,) f32; u (nb, bs) f32 uniforms or None. Returns
+    new (p, state1, absmax1, state2, absmax2). ``launches`` counts every
+    launch of kernel J."""
     if name not in TWO_STATE:
         raise ValueError(f"optim8_2state: {name!r} is not a 2-state optimizer")
     if not check_cuda_tensors("optim8_2state", g, p, s1, am1, s2, am2, scalars, u):
         return _kernel2_plain(name, scalars, g, p, s1, am1, s2, am2, u)
-    _check_rows("optim8_2state", g, p, (s1, am1, s2, am2), scalars, u)
-    nb, bs = g.shape
-    dev = g.device
-    po, c1, c2 = torch.empty_like(p), torch.empty_like(s1), torch.empty_like(s2)
-    a1 = torch.empty((nb,), dtype=torch.float32, device=dev)
-    a2 = torch.empty((nb,), dtype=torch.float32, device=dev)
-    fn = _build.kernel_fn("optim8_2state", "optim8_2state", 18, int_args=(15, 16))
-    err = fn(
-        scalars.data_ptr(), g.data_ptr(), p.data_ptr(), s1.data_ptr(), am1.data_ptr(),
-        s2.data_ptr(), am2.data_ptr(), None if u is None else u.data_ptr(),
-        po.data_ptr(), c1.data_ptr(), a1.data_ptr(), c2.data_ptr(), a2.data_ptr(),
-        decode_table(dev).data_ptr(), ctypes.addressof(_consts_arg()), nb, bs,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check("optim8_2state", err)
-    optim8_2state.launches += 1
-    return po, c1, a1, c2, a2
+    return _rows_launch("optim8_2state", name, g, p, (s1, am1, s2, am2), scalars, u)
 
 
 optim8_2state.launches = 0
 
 
 def optim8_1state(name, g, p, s1, am1, scalars, u=None):
-    """Kernel K on CUDA tensors; the plain version on CPU tensors. Rows as
-    for optim8_2state; returns new (p, state1, absmax1)."""
+    """Kernel K on (nb, bs) rows, as optim8_2state; returns new (p, state1,
+    absmax1)."""
     if name not in ONE_STATE:
         raise ValueError(f"optim8_1state: {name!r} is not a 1-state optimizer")
     if not check_cuda_tensors("optim8_1state", g, p, s1, am1, scalars, u):
         return _kernel1_plain(name, scalars, g, p, s1, am1, u)
-    _check_rows("optim8_1state", g, p, (s1, am1), scalars, u)
-    nb, bs = g.shape
-    dev = g.device
-    po, c1 = torch.empty_like(p), torch.empty_like(s1)
-    a1 = torch.empty((nb,), dtype=torch.float32, device=dev)
-    fn = _build.kernel_fn("optim8_1state", "optim8_1state", 15, int_args=(0, 12, 13))
-    err = fn(
-        ONE_STATE.index(name), scalars.data_ptr(), g.data_ptr(), p.data_ptr(), s1.data_ptr(),
-        am1.data_ptr(), None if u is None else u.data_ptr(), po.data_ptr(), c1.data_ptr(),
-        a1.data_ptr(), decode_table(dev).data_ptr(), ctypes.addressof(_consts_arg()), nb, bs,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check("optim8_1state", err)
-    optim8_1state.launches += 1
-    return po, c1, a1
+    return _rows_launch("optim8_1state", name, g, p, (s1, am1), scalars, u)
 
 
 optim8_1state.launches = 0
+_KERNEL_OF = {"optim8_2state": optim8_2state, "optim8_1state": optim8_1state}
 
 
 def optim8_blockwise_fused(optimizer_name: str, g, p, state1, absmax1, state2, absmax2,
@@ -232,3 +412,17 @@ def optim8_blockwise_fused(optimizer_name: str, g, p, state1, absmax1, state2, a
     if state2 is not None:
         return optim8_2state(optimizer_name, g, p, state1, absmax1, state2, absmax2, scalars, u)
     return optim8_1state(optimizer_name, g, p, state1, absmax1, scalars, u)
+
+
+def encode_sweep(device) -> tuple:
+    """On the card: the codes of the kernels' encode (exponent-bit decade
+    search, n / 0.9 rounded once) against the edge-by-edge encode with a
+    division per value (the earlier body's), over all 2^32 f32 bit
+    patterns of each map. Returns the mismatch counts (signed, unsigned)."""
+    dev = torch.device(device)
+    consts = torch.tensor(encode_consts(), dtype=torch.float32, device=dev)
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    fn = _build.kernel_fn("optim8_2state", "dyn8_encode_sweep", 4)
+    _build.check("dyn8_encode_sweep", fn(kernel_table(dev).data_ptr(), consts.data_ptr(),
+                                         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+    return tuple(int(v) for v in out.cpu())

@@ -12,6 +12,22 @@ A step computes each leaf's new value and applies it as ``p + (new_p - p)``
 in p's dtype, as ``optax.apply_updates`` adds the update the JAX
 transform returns (it rounds otherwise than storing new_p). ``is_paged`` is
 accepted and ignored, as in the JAX package.
+
+A step takes three routes (``_route``), each leaf ending bit for bit where
+its own update would put it:
+- "grouped": every 8-bit leaf with contiguous f32 p and grad (not a view)
+  goes through one launch of kernel J or K per device, in place
+  (``functional.optimizer_update_8bit_grouped``; param groups and
+  percentile clipping as rows of the launch's scalars, stochastic
+  rounding's uniforms in its leaf table);
+- "batched": the 32-bit leaves of the same kind, without percentile
+  clipping, go through one ``optimizer_update_32bit`` per device and param
+  group over their concatenation, scattered back (every operation there is
+  elementwise);
+- "per_leaf": the rest (``max_unorm > 0``, whose norm is per leaf;
+  percentile clipping of a 32-bit leaf; other dtypes, non-contiguous
+  tensors and views), one update each.
+``route_leaves`` counts the leaves each route has stepped.
 """
 
 from __future__ import annotations
@@ -74,6 +90,7 @@ class BnbOptimizer(torch.optim.Optimizer):
         self.stochastic_rounding = stochastic_rounding
         self.blocksize = 2048
         self.count = 0
+        self.route_leaves = {"grouped": 0, "batched": 0, "per_leaf": 0}
 
     def init_state(self, p: torch.Tensor) -> dict:
         """The leaf's zero state on p's device, as the JAX package's
@@ -104,18 +121,82 @@ class BnbOptimizer(torch.optim.Optimizer):
                 loss = closure()
         self.count += 1
         count = self.count
-        for group in self.param_groups:
+        grouped, batched, single = {}, {}, []
+        for gi, group in enumerate(self.param_groups):
             lr = group["lr"](count) if callable(group["lr"]) else group["lr"]
             beta1, beta2 = group["betas"]
-            eps, wd = group["eps"], group["weight_decay"]
+            hyper = (lr, beta1, beta2, group["eps"], group["weight_decay"])
             for p in group["params"]:
                 if p.grad is None:
                     continue
                 s = self.state[p]
                 if not s:
                     s.update(self.init_state(p))
-                self._step_leaf(p, p.grad, s, count, lr, beta1, beta2, eps, wd)
+                route = self._route(p, s)
+                self.route_leaves[route] += 1
+                if route == "grouped":
+                    grouped.setdefault(p.device, []).append((p, s, hyper))
+                elif route == "batched":
+                    batched.setdefault((p.device, gi), []).append((p, s, hyper))
+                else:
+                    single.append((p, s, hyper))
+        for items in grouped.values():
+            self._step_grouped(items, count)
+        for items in batched.values():
+            self._step_batched(items, count)
+        for p, s, hyper in single:
+            self._step_leaf(p, p.grad, s, count, *hyper)
         return loss
+
+    def _route(self, p: torch.Tensor, s: dict) -> str:
+        """The route of leaf p with state s this step: "grouped" (8-bit),
+        "batched" (32-bit) or "per_leaf" (see the module's docstring)."""
+        g, s1, s2 = p.grad, s["state1"], s.get("state2")
+        plain = (self.max_unorm == 0.0 and p.dtype == torch.float32 and g.dtype == torch.float32
+                 and p.is_contiguous() and g.is_contiguous() and not p._is_view()
+                 and s1.is_contiguous() and (s2 is None or s2.is_contiguous()))
+        if not plain:
+            return "per_leaf"
+        if s1.dtype == torch.uint8:
+            return "grouped"
+        return "batched" if self.percentile_clipping >= 100 else "per_leaf"
+
+    def _step_grouped(self, items, count):
+        """The 8-bit leaves of one device: one launch of kernel J or K."""
+        scales = None
+        if self.percentile_clipping < 100:
+            scales = []
+            for p, s, _ in items:
+                gnorm = torch.linalg.vector_norm(p.grad.float())
+                s["gnorm_vec"], scale = F.percentile_clipping(
+                    gnorm, s["gnorm_vec"], count, self.percentile_clipping)
+                scales.append(scale)
+        F.optimizer_update_8bit_grouped(
+            self.name, [(p.grad, p, s) for p, s, _ in items], [h for _, _, h in items], count,
+            gnorm_scales=scales, blocksize=self.blocksize,
+            stochastic_rounding=self.stochastic_rounding)
+
+    def _step_batched(self, items, count):
+        """The 32-bit leaves of one device and param group: one update over
+        their concatenation, p + (new_p - p) and the states scattered back."""
+        lr, beta1, beta2, eps, wd = items[0][2]
+        ps = [p for p, _, _ in items]
+        sizes = [p.numel() for p in ps]
+
+        def cat(ts):
+            return torch.cat([t.reshape(-1) for t in ts])
+
+        two = self.name in _2STATE
+        pc = cat(ps)
+        new_p, s1, s2 = F.optimizer_update_32bit(
+            self.name, cat([p.grad for p in ps]), pc, cat([s["state1"] for _, s, _ in items]),
+            cat([s["state2"] for _, s, _ in items]) if two else None, beta1, beta2, eps, count,
+            lr, weight_decay=wd)
+        torch._foreach_add_([p.view(-1) for p in ps], list((new_p - pc).split(sizes)))
+        for name, new in (("state1", s1), ("state2", s2)):
+            if new is not None:
+                for (p, s, _), part in zip(items, new.split(sizes)):
+                    s[name] = part.view(p.shape)
 
     def _step_leaf(self, p, g, s, count, lr, beta1, beta2, eps, wd):
         gnorm_scale = 1.0

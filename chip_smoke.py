@@ -2,9 +2,10 @@
 """Smoke run of bitsandbytes_sycl_tpu_torch on one CUDA card (H100).
 
     python3 chip_smoke.py            # the smoke run below
-    python3 chip_smoke.py --probe    # where A's, B's, C's, D's, G's and H's time goes (probe_main)
+    python3 chip_smoke.py --probe    # where A's, B's, C's, D's, G's, H's, J's and K's time goes
     python3 chip_smoke.py --probe attention   # C's and D's only
     python3 chip_smoke.py --probe decode      # A's fused and H's split bodies only
+    python3 chip_smoke.py --probe optim       # J's and K's leaf-table bodies only
 
 Phases, each of which exits non-zero on failure:
   1. build the hand-written kernels (nvcc, csrc/*.cu) and print the card;
@@ -47,14 +48,17 @@ Phases, each of which exits non-zero on failure:
      through the default contiguous engine: kernels I (225 per decode step)
      and H (32); then, 2 layers at 7B width, card against CPU: prefill
      logits at T=32 and 4 decode steps, and greedy tokens;
-  7. QLoRA: (a, in phase 2) the 8-bit optimizer kernels J and K bit for bit
-     against their plain versions, with four deliberate faults; (b) QLoRA
+  7. QLoRA: (a, in phase 2) the 8-bit optimizer kernels J and K, one launch
+     over a leaf table, bit for bit against their plain version over the
+     448-leaf QLoRA table, a mixed table with ragged leaves and 16.8M
+     parameters, with eight deliberate faults, 100 repeated launches and
+     the encode's exponent-bit search checked on every f32; (b) QLoRA
      fine-tuning of Llama-7B on phase 3's NF4 base, rank 64 on all seven
      projections, 4 adamw8bit and 2 lion8bit steps on a (4, 513) batch
-     (225 G on its wgmma body, 222 E and 448 J launches per Adam step, 448
-     K per Lion step),
-     profiled; (c) 2 layers at 7B width, card against CPU: loss, adapter
-     gradients and 3 Adam steps.
+     (225 G on its wgmma body, 222 E and one J launch per Adam step, one
+     K launch per Lion step, for the 448 8-bit leaves), the last step of each
+     profiled with its optimizer apart; (c) 2 layers at 7B width, card
+     against CPU: loss, adapter gradients and 3 Adam steps.
 Every prefill of phases 3, 3b, 3c, 4b and 6 must run C's tensor-core body
 (the model's q is bf16), every paged decode launch D's split body, every
 contiguous decode launch H's split body, and every decode step's W4A8
@@ -106,7 +110,7 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_cold(torch, fn, iters=30, warmup=3, flush_by_read=False):
+def time_cold(torch, fn, iters=30, warmup=3, flush_by_read=False, spin_cycles=1_000_000):
     """Median milliseconds of one call on the card, L2 flushed before each
     call (the serving path meets its weights cold: a decode step reads
     ~3.5 GB). A spin kernel queued after the flush lets the host enqueue
@@ -124,7 +128,7 @@ def time_cold(torch, fn, iters=30, warmup=3, flush_by_read=False):
             flush.view(torch.int64).sum()
         else:
             flush.zero_()
-        torch.cuda._sleep(1_000_000)  # ~0.5 ms of device time
+        torch.cuda._sleep(spin_cycles)  # 1M cycles: ~0.5 ms of device time
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1937,8 +1941,11 @@ def int8_card_vs_cpu(torch, cfg8, prompts_seed):
 
 
 # --------------------------------------------------------------- phase 7
-# the 7B QLoRA leaves (262,144 and 704,512 parameters), a ragged leaf, 16.8M
-OPTIM8_SIZES = (262144, 704512, 262144 + 1000, 16777216)
+# the 7B QLoRA step's 8-bit leaves: per layer the A and B of q, k, v, o, the A of
+# gate and up and the B of down hold 262,144 parameters, the rest 704,512
+QLORA_LEAVES = (262144,) * 352 + (704512,) * 96
+# a mixed table: 2048-multiples, the 47 x 97 ragged leaf, one element, one block, ragged tails
+MIXED_LEAVES = (262144, 4559, 4096, 262144 + 1000, 2048, 1, 704512, 5000)
 OPTIM8_TIMED = (262144, 704512, 16777216)
 
 
@@ -1949,138 +1956,353 @@ def bits_equal(torch, a, b):
     return a.shape == b.shape and torch.equal(a, b)
 
 
-def optim8_rows(torch, gen, name, n, step, stochastic, two):
-    """One leaf of n parameters as (nb, 2048) rows, padded as the dispatcher
-    pads them (g, p 0; state1 code 127, state2 0 past n), with NaN/Inf
-    gradients, an all-zero block, a block of values tiny against its absmax
-    (the sign fix's case) and, if asked, uniforms; the step's scalars as
-    functional._optim8_scalars makes them."""
-    from bitsandbytes_sycl_tpu_torch import functional as F
-
-    bs, dev = 2048, "cuda"
-    nb = -(-n // bs)
-    valid = (torch.arange(nb * bs, device=dev) < n).reshape(nb, bs)
-    g = torch.randn((nb, bs), generator=gen, device=dev) * 0.01
-    g[0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")], device=dev)
-    g[1] = 0.0
-    g[3] = g[3] * 1e-7
-    g[3, 0] = 1.0
-    p = torch.randn((nb, bs), generator=gen, device=dev) * 0.02
-    lo = 127 if name in ("rmsprop", "adagrad") else 0  # a nonnegative second moment
-    s1 = torch.randint(lo, 256, (nb, bs), generator=gen, device=dev).to(torch.uint8)
-    am1 = torch.rand((nb,), generator=gen, device=dev) * 1e-3
-    s1[2:4], am1[2:4] = 127, 0.0  # zero states: block 2 stays zero where g is
-    g[2] = 0.0
-    zero = torch.zeros((), device=dev)
-    g, p = torch.where(valid, g, zero), torch.where(valid, p, zero)
-    s1 = torch.where(valid, s1, torch.full_like(s1, 127))
-    s2 = am2 = None
-    if two:
-        s2 = torch.randint(0, 256, (nb, bs), generator=gen, device=dev).to(torch.uint8)
-        s2 = torch.where(valid, s2, torch.zeros_like(s2))
-        s2[2:4] = 0
-        am2 = torch.rand((nb,), generator=gen, device=dev) * 1e-5
-    u = torch.rand((nb, bs), generator=gen, device=dev) if stochastic else None
-    sc = F._optim8_scalars(name, 0.9, 0.999 if two else 0.99, 1e-8, step, 2e-4, 0.01, 1.0, dev)
-    return [g, p, s1, am1, s2, am2, sc, u]
-
-
-def optim8_plain(O, name, g, p, s1, am1, s2, am2, sc, u):
-    if s2 is not None:
-        return O._kernel2_plain(name, sc, g, p, s1, am1, s2, am2, u)
-    return O._kernel1_plain(name, sc, g, p, s1, am1, u)
-
-
-def check_optim8(torch, report):
-    """Kernels J (optim8_2state) and K (optim8_1state) against their plain
-    versions on the card, bit for bit in p, codes and absmax: every
-    optimizer name at the 7B leaf sizes, a ragged leaf and 16.8M
-    parameters, with and without stochastic rounding. Four deliberate
-    faults in the plain version must each change the result: state2
-    decoded through the signed map, the next block's absmax, the sign fix
-    dropped, the bias correction of the next step. Times at the three leaf
-    sizes against the byte bound (16 B a parameter for J, 14 for K)."""
+def optim8_table(torch, gen, name, sizes, step, stochastic, packed=False, nrows=1):
+    """An 8-bit leaf table on the card, as ops/optim8.Optim8Leaf rows, with
+    the step's scalars (nrows rows, lr 2e-4 and half that, weight decay
+    0.01) and a row per leaf. Leaf 0 carries NaN/Inf gradients, an all-zero
+    block, a block of values tiny against its absmax (the sign fix's case)
+    and infinite and signed-zero p (where p + (new_p - p) differs from
+    new_p);
+    ragged leaves of a mixed table get a NaN and an Inf absmax in their
+    last block (the padding then decodes to NaN). ``packed`` makes every
+    leaf a view of one buffer per kind, so leaves after a ragged one start
+    unaligned; returns (leaves, scalars, rows, buffers or None)."""
     from bitsandbytes_sycl_tpu_torch import functional as F
     from bitsandbytes_sycl_tpu_torch.ops import optim8 as O
 
+    dev, bs = "cuda", 2048
+    two = name in O.TWO_STATE
+    blocks = [-(-n // bs) for n in sizes]
+    N, NB = sum(sizes), sum(blocks)
+    lo = 127 if name in ("rmsprop", "adagrad") else 0  # a nonnegative second moment
+    flat = dict(g=torch.randn(N, generator=gen, device=dev) * 0.01,
+                p=torch.randn(N, generator=gen, device=dev) * 0.02,
+                state1=torch.randint(lo, 256, (N,), generator=gen, device=dev).to(torch.uint8),
+                absmax1=torch.rand(NB, generator=gen, device=dev) * 1e-3)
+    if two:
+        flat["state2"] = torch.randint(0, 256, (N,), generator=gen, device=dev).to(torch.uint8)
+        flat["absmax2"] = torch.rand(NB, generator=gen, device=dev) * 1e-5
+    if stochastic:
+        flat["u"] = torch.rand(N, generator=gen, device=dev)
+    if sizes[0] >= 5 * bs:
+        g0, p0 = flat["g"][:5 * bs].view(5, bs), flat["p"][:5 * bs].view(5, bs)
+        g0[0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")], device=dev)
+        g0[1] = 0.0
+        g0[3] *= 1e-7
+        g0[3, 0] = 1.0
+        # p + (new_p - p) equals new_p for every finite p: it differs at
+        # infinite p (inf - inf) and signed zeros
+        p0[4, :4] = torch.tensor([float("inf"), -float("inf"), -0.0, 0.0], device=dev)
+        g0[4, 2:4] = 0.0
+        flat["state1"][2 * bs:4 * bs] = 127  # zero states: block 2 stays zero where g is
+        flat["absmax1"][2:4] = 0.0
+        g0[2] = 0.0
+        if two:
+            flat["state2"][2 * bs:4 * bs] = 0
+    ragged = [i for i, n in enumerate(sizes) if n % bs]
+    ends = [sum(blocks[:i + 1]) - 1 for i in range(len(sizes))]
+    for k, i in enumerate(ragged[:2] if len(sizes) < 20 else []):
+        flat["absmax1"][ends[i]] = float("nan") if k == 0 else float("inf")
+    fields = ("g", "p", "state1", "absmax1", "state2", "absmax2", "u")
+    leaves, e0, b0 = [], 0, 0
+    for n, nb in zip(sizes, blocks):
+        parts = {}
+        for f in fields:
+            if f in flat:
+                lo_, hi_ = (b0, b0 + nb) if f.startswith("absmax") else (e0, e0 + n)
+                parts[f] = flat[f][lo_:hi_] if packed else flat[f][lo_:hi_].clone()
+        leaves.append(O.Optim8Leaf(**parts))
+        e0, b0 = e0 + n, b0 + nb
+    rows = [i % nrows for i in range(len(sizes))]
+    scalars = torch.stack([F._optim8_scalars(name, 0.9, 0.999 if two else 0.99, 1e-8, step,
+                                             2e-4 / (1 + r), 0.01, 1.0, dev) for r in range(nrows)])
+    return leaves, scalars, rows, (flat if packed else None)
+
+
+def clone_table(torch, leaves, flat=None, with_buffers=False):
+    """An equal copy of a leaf table (packed tables stay packed; with
+    ``with_buffers`` also the copy's buffers)."""
+    from bitsandbytes_sycl_tpu_torch.ops import optim8 as O
+
+    if flat is None:
+        return [O.Optim8Leaf(*[None if t is None else t.clone() for t in lf]) for lf in leaves]
+    copy = {k: v.clone() for k, v in flat.items()}
+    base = {k: v.data_ptr() for k, v in flat.items()}
+    out = []
+    for lf in leaves:
+        parts = {}
+        for f, t in lf._asdict().items():
+            if t is not None:
+                off = (t.data_ptr() - base[f]) // t.element_size()
+                parts[f] = copy[f][off:off + t.numel()]
+        out.append(O.Optim8Leaf(**parts))
+    return (out, copy) if with_buffers else out
+
+
+def tables_equal(torch, a, b):
+    """(equal, differing entries per field) of two leaf tables."""
+    diff = {}
+    for la, lb in zip(a, b):
+        for f, x in la._asdict().items():
+            y = getattr(lb, f)
+            if x is not None and not bits_equal(torch, x, y):
+                diff[f] = diff.get(f, 0) + int((x.reshape(-1) != y.reshape(-1)).sum())
+    return not diff, diff
+
+
+def optim8_bytes(two, sizes, bs=2048):
+    """The bytes one step must move: g and p read and p written (4 B each),
+    each state's code read and written, each block's absmax read and
+    written."""
+    nb = sum(-(-n // bs) for n in sizes)
+    n = sum(sizes)
+    return n * (16 if two else 14) + nb * (16 if two else 8)
+
+
+def check_optim8(torch, report):
+    """Kernels J (optim8_2state) and K (optim8_1state), one launch over a
+    leaf table, against their plain version (ops/optim8._grouped_plain) on
+    the card, bit for bit in p, codes and absmax: every optimizer name over
+    the 448-leaf 7B QLoRA table, a mixed table with ragged leaves (NaN/Inf
+    absmax in their last blocks, also packed so leaves start unaligned,
+    two scalars rows) and 16.8M parameters, with and without stochastic
+    rounding, p written as p + (new_p - p) (the optimizer's route) and as
+    new_p (the JAX entry's). The encode's exponent-bit decade search
+    against the edge-by-edge encode on all 2^32 f32 patterns. Eight
+    deliberate faults in the plain version must each change the result.
+    100 launches repeat their bits. Times of J (adam) and K (lion) at the
+    three leaf sizes and over the whole table against the byte bound."""
+    from bitsandbytes_sycl_tpu_torch import functional as F
+    from bitsandbytes_sycl_tpu_torch.ops import optim8 as O
+
+    bad = O.encode_sweep("cuda")
+    need(bad == (0, 0), f"the exponent-bit encode differs from the edge-by-edge one on {bad}"
+                        " f32 patterns (signed, unsigned)")
+    print("  encode: exponent-bit decade search equals the edge-by-edge encode on all 2^32 f32"
+          " patterns of both maps", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = {"optim8_2state": [], "optim8_1state": []}
     cases = 0
-    for n in OPTIM8_SIZES:
-        for name in O.TWO_STATE + O.ONE_STATE:
-            two = name in O.TWO_STATE
-            kname = "optim8_2state" if two else "optim8_1state"
-            for stochastic in (False, True):
-                args = optim8_rows(torch, gen, name, n, 3, stochastic, two)
-                got = O.optim8_blockwise_fused(name, *args)
-                ref = optim8_plain(O, name, *args)
-                torch.cuda.synchronize()
-                diff = [int((a.reshape(-1) != b.reshape(-1)).sum()) for a, b in zip(got, ref)]
-                need(all(bits_equal(torch, a, b) for a, b in zip(got, ref)),
-                     f"{kname} {name} n={n} stochastic={stochastic}: kernel differs from its "
-                     f"plain version (differing entries per output {diff})")
-                cases += 1
-                timed = (name == "adam" if two else name == "lion")
-                if timed and not stochastic and n in OPTIM8_TIMED:
-                    nb = args[0].shape[0]
-                    nbytes = n * (16 if two else 14) + nb * (16 if two else 8)
-                    r = dict(n=n, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                             ms=time_cold(torch, lambda: O.optim8_blockwise_fused(name, *args)),
-                             plain_ms=time_cold(torch, lambda: optim8_plain(O, name, *args),
-                                                iters=5))
-                    rows[kname].append(r)
-                    print(f"  {kname:13s} {name:8s} n={n:9d} kernel {r['ms'] * 1e3:8.1f} us"
-                          f" plain {r['plain_ms'] * 1e3:9.1f} us bound {r['bound_ms'] * 1e3:6.2f} us"
-                          f" ({r['bound_ms'] / r['ms']:.0%})", flush=True)
-    # deliberate faults, each must change p, a code or an absmax
-    codec, sign_fix = O._DynamicCodec, O._apply_sign_fix
+
+    def compare(label, name, table, delta):
+        leaves, scalars, rws, flat = table
+        got, ref = clone_table(torch, leaves, flat), clone_table(torch, leaves, flat)
+        O.optim8_update(name, got, scalars, rws, apply_delta=delta)
+        cpu_like = [O.Optim8Leaf(*[None if t is None else t for t in lf]) for lf in ref]
+        plan = O.leaf_plan(tuple(lf.p.numel() for lf in ref), 2048, 1)
+        O._grouped_plain(name, cpu_like, scalars, tuple(rws), plan, 2048, delta)
+        torch.cuda.synchronize()
+        ok, diff = tables_equal(torch, got, ref)
+        need(ok, f"{label} {name}: kernel differs from its plain version ({diff})")
+        return got
+
+    for name in O.TWO_STATE + O.ONE_STATE:
+        for stochastic in (False, True):
+            for label, sizes, packed, nrows in (("QLoRA table", QLORA_LEAVES, True, 1),
+                                                ("mixed table", MIXED_LEAVES, False, 2),
+                                                ("mixed table, packed", MIXED_LEAVES, True, 2),
+                                                ("16.8M", (16777216,), False, 1)):
+                table = optim8_table(torch, gen, name, sizes, 3, stochastic, packed, nrows)
+                for delta in ((True, False) if label == "mixed table" else (True,)):
+                    compare(label, name, table, delta)
+                    cases += 1
+                del table
+    # per-leaf gnorm scales (percentile clipping): one scalars row per leaf
+    for name in ("adam", "lion"):
+        leaves, scalars, _, flat = optim8_table(torch, gen, name, MIXED_LEAVES, 2, False)
+        scalars = scalars.repeat(len(leaves), 1)
+        scalars[:, 5] = torch.rand(len(leaves), generator=gen, device="cuda")
+        compare("per-leaf rows", name, (leaves, scalars, list(range(len(leaves))), flat), True)
+        cases += 1
+    # the JAX entry on (nb, bs) rows: the same body over a one-leaf table of copies
+    for name in ("adam", "momentum"):
+        leaves, scalars, _, _ = optim8_table(torch, gen, name, (262144,), 1, False)
+        lf = leaves[0]
+        args = [t.reshape(128, 2048) if t is not None and t.numel() == 262144 else t
+                for t in (lf.g, lf.p, lf.state1, lf.absmax1, lf.state2, lf.absmax2)]
+        got = O.optim8_blockwise_fused(name, *args, scalars[0])
+        ref = (O._kernel2_plain if name in O.TWO_STATE else O._kernel1_plain)(
+            name, scalars[0], *[a for a in args if a is not None])
+        torch.cuda.synchronize()
+        need(all(bits_equal(torch, a, b) for a, b in zip(got, ref)),
+             f"optim8_blockwise_fused {name}: kernel differs from the rows plain version")
+        cases += 1
+    print(f"  J and K equal their plain version bit for bit in {cases} tables", flush=True)
+    # a table of no block (every leaf empty) launches nothing and counts nothing
+    f32, u8 = torch.float32, torch.uint8
+    before = (O.optim8_2state.launches, O.optim8_1state.launches)
+    for name, kinds in (("adam", (f32, f32, u8, f32, u8, f32)), ("lion", (f32, f32, u8, f32))):
+        empty = [O.Optim8Leaf(*[torch.zeros(0, dtype=k, device="cuda") for k in kinds])
+                 for _ in range(2)]
+        O.optim8_update(name, empty, torch.zeros((1, 8), device="cuda"), apply_delta=True)
+    need((O.optim8_2state.launches, O.optim8_1state.launches) == before,
+         "optim8: a table of empty leaves counted a launch")
+
+    # deliberate faults in the plain version, each must change the result
+    codec, sign_fix, plan_fn = O._DynamicCodec, O._apply_sign_fix, O.leaf_plan
 
     class SignedState2(codec):
         def __init__(self, signed, sign_fix=False):
             super().__init__(True, sign_fix)
 
+    def plain(name, leaves, scalars, rws, delta=True):
+        plan = O.leaf_plan(tuple(lf.p.numel() for lf in leaves), 2048, 1)
+        O._grouped_plain(name, leaves, scalars, tuple(rws), plan, 2048, delta)
+        return leaves
+
+    n_faults = {}
     for name in ("adam", "momentum"):
         two = name == "adam"
-        args = optim8_rows(torch, gen, name, 262144, 1, False, two)
-        got = O.optim8_blockwise_fused(name, *args)
+        leaves, scalars, rws, flat = optim8_table(torch, gen, name, MIXED_LEAVES, 1, False, False, 2)
+        got = clone_table(torch, leaves)
+        O.optim8_update(name, got, scalars, rws, apply_delta=True)
         faults = []
         if two:
             O._DynamicCodec = SignedState2
             try:
-                faults.append(("state2 decoded through the signed map", optim8_plain(O, name, *args)))
+                faults.append(("state2 decoded through the signed map",
+                               plain(name, clone_table(torch, leaves), scalars, rws)))
             finally:
                 O._DynamicCodec = codec
-        bad = list(args)
-        bad[3] = args[3].roll(-1)
-        faults.append(("the next block's absmax", optim8_plain(O, name, *bad)))
+        t = clone_table(torch, leaves)
+        t[0] = t[0]._replace(absmax1=t[0].absmax1.roll(-1))
+        faults.append(("the next block's absmax", plain(name, t, scalars, rws)))
         O._apply_sign_fix = lambda rank, normed, n_neg, top: rank.to(torch.int32)
         try:
-            faults.append(("the sign fix dropped", optim8_plain(O, name, *args)))
+            faults.append(("the sign fix dropped", plain(name, clone_table(torch, leaves),
+                                                         scalars, rws)))
         finally:
             O._apply_sign_fix = sign_fix
-        bad = list(args)
-        bad[6] = F._optim8_scalars(name, 0.9, 0.999 if two else 0.99, 1e-8, 2, 2e-4, 0.01, 1.0,
-                                   "cuda")
-        faults.append(("the bias correction of step + 1", optim8_plain(O, name, *bad)))
+        sc2 = torch.stack([F._optim8_scalars(name, 0.9, 0.999 if two else 0.99, 1e-8, 2,
+                                             2e-4 / (1 + r), 0.01, 1.0, "cuda") for r in range(2)])
+        faults.append(("the bias correction of step + 1",
+                       plain(name, clone_table(torch, leaves), sc2, rws)))
+
+        def shifted(numels, bs, sms):
+            p = plan_fn(numels, bs, sms)
+            return p._replace(first=(p.first[0], p.first[1] - 1) + p.first[2:])
+
+        O.leaf_plan = shifted
+        try:
+            faults.append(("leaf 1's first block off by one",
+                           plain(name, clone_table(torch, leaves), scalars, rws)))
+        finally:
+            O.leaf_plan = plan_fn
+        # the ragged leaf 7 (5,000 elements, finite absmax) read past n: its
+        # last block's padding holds data instead of the JAX package's fill
+        t = clone_table(torch, leaves)
+        rag = 7
+        n1, pad = t[rag].p.numel(), 3 * 2048 - t[rag].p.numel()
+        t[rag] = O.Optim8Leaf(*[x if x is None or x.numel() != n1 else torch.cat(
+            [x, torch.randn(pad, device="cuda") if x.is_floating_point()
+             else torch.randint(0, 256, (pad,), device="cuda").to(x.dtype)]) for x in t[rag]])
+        plain(name, t, scalars, rws)
+        t[rag] = O.Optim8Leaf(*[x if x is None or x.numel() != 3 * 2048 else x[:n1]
+                                for x in t[rag]])
+        faults.append(("the ragged tail read past n", t))
+        faults.append(("another leaf's scalars row",
+                       plain(name, clone_table(torch, leaves), scalars, [1 - r for r in rws])))
+        faults.append(("p written as new_p", plain(name, clone_table(torch, leaves), scalars, rws,
+                                                   delta=False)))
         for label, out in faults:
-            need(not all(bits_equal(torch, a, b) for a, b in zip(got, out)),
+            need(not tables_equal(torch, got, out)[0],
                  f"{name}: a plain version with {label} equals the kernel, so the check "
                  f"cannot see that fault")
+        n_faults[name] = len(faults)
         print(f"  {name}: {len(faults)} deliberate faults each change the result", flush=True)
+
+    # repeat: 100 launches over the same inputs give the same bits
+    for name, sizes, stochastic in (("adam", QLORA_LEAVES, False), ("lion", MIXED_LEAVES, True)):
+        leaves, scalars, rws, flat = optim8_table(torch, gen, name, sizes, 3, stochastic, True, 2)
+        work, wflat = clone_table(torch, leaves, flat, with_buffers=True)
+        first = None
+        for _ in range(100):
+            for f, v in flat.items():
+                wflat[f].copy_(v)
+            O.optim8_update(name, work, scalars, rws, apply_delta=True)
+            snap = {f: v.clone() for f, v in wflat.items()}
+            if first is None:
+                first = snap
+            else:
+                need(all(bits_equal(torch, snap[f], first[f]) for f in flat),
+                     f"{name} over {len(sizes)} leaves: 100 launches differ in their bits")
+        print(f"  {name} over {len(sizes)} leaves: 100 launches repeat their bits", flush=True)
+
+    # times: J (adam) and K (lion) at the leaf sizes and over the whole table
+    tables = {}
+    for name in ("adam", "lion"):
+        two = name == "adam"
+        kname = "optim8_2state" if two else "optim8_1state"
+        for sizes in [(n,) for n in OPTIM8_TIMED] + [QLORA_LEAVES]:
+            leaves, scalars, rws, flat = optim8_table(torch, gen, name, sizes, 3, False,
+                                                      len(sizes) > 1, 1)
+            nbytes = optim8_bytes(two, sizes)
+            # the table's host work (checks, the leaf table) takes ~1 ms: a
+            # longer spin keeps it out of the device time
+            ms = time_cold(torch, lambda: O.optim8_update(name, leaves, scalars, rws,
+                                                          apply_delta=True),
+                           spin_cycles=20_000_000)
+            plain_ms = time_cold(torch, lambda: plain(name, leaves, scalars, rws), iters=3,
+                                 warmup=1)
+            r = dict(n=sum(sizes), leaves=len(sizes), bytes=nbytes,
+                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, ms=ms, plain_ms=plain_ms)
+            print(f"  {kname:13s} {name:5s} {len(sizes):3d} leaves, n={sum(sizes):9d}: kernel"
+                  f" {ms * 1e3:8.1f} us plain {plain_ms * 1e3:9.1f} us bound"
+                  f" {r['bound_ms'] * 1e3:7.2f} us ({r['bound_ms'] / ms:.0%})", flush=True)
+            if len(sizes) > 1:
+                tables[kname] = r
+            else:
+                rows[kname].append(r)
+            del leaves, flat
     for kname, rs in rows.items():
-        report[kname] = dict(shapes=rs, ms=sum(r["ms"] for r in rs),
+        report[kname] = dict(shapes=rs, table=tables[kname], ms=sum(r["ms"] for r in rs),
                              plain_ms=sum(r["plain_ms"] for r in rs),
                              bound_ms=sum(r["bound_ms"] for r in rs), bound_by="bytes",
-                             library_ms=None, max_abs_err=0.0)
+                             library_ms=None, max_abs_err=0.0, faults=n_faults)
     return cases
 
 
-def qlora_step(torch, kernels, loss_fn, lora, tokens, opt, lora_b=None):
+def split_profile(torch, prof, marker="spin_kernel"):
+    """The device events (kernels and copies) of a profiled step, split at
+    a marker kernel queued after a synchronize: (events before, events
+    after), each [(name, us)], or None where the trace holds no marker.
+    One trace over the whole step: a second profiler started right after
+    another stopped missed the first launches of its window on the H100."""
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and not e.name.startswith(("Optimizer.", "ProfilerStep"))]
+    marks = [e for e in dev if marker in e.name]
+    if len(marks) != 1:
+        return None
+    t = marks[0].time_range.start
+    before = [(e.name, e.time_range.elapsed_us()) for e in dev if e.time_range.start < t]
+    after = [(e.name, e.time_range.elapsed_us()) for e in dev
+             if e.time_range.start > t and e is not marks[0]]
+    return before, after
+
+
+def summarize(events, top=8):
+    """[(name, ms, count)] of events [(name, us)], by total time."""
+    agg = {}
+    for name, us in events:
+        ms, n = agg.get(name, (0.0, 0))
+        agg[name] = (ms + us / 1e3, n + 1)
+    return sorted(((k, ms, n) for k, (ms, n) in agg.items()), key=lambda r: -r[1])[:top]
+
+
+def qlora_step(torch, kernels, loss_fn, lora, tokens, opt, profile=False):
     """One fine-tuning step: forward, backward and optimizer, each timed to
     a synchronize; returns (loss, {forward_ms, backward_ms, optimizer_ms},
-    the kernel launches of the step)."""
+    the kernel launches of the step, and with ``profile`` the step's
+    device events split into forward and backward and optimizer by a
+    marker kernel, or None)."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    prof = profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profile else None
     reset_counts(kernels)
     torch.cuda.synchronize()
+    if prof is not None:
+        prof.__enter__()
     t0 = time.perf_counter()
     loss = loss_fn(lora, tokens)
     lv = loss.item()
@@ -2088,20 +2310,29 @@ def qlora_step(torch, kernels, loss_fn, lora, tokens, opt, lora_b=None):
     loss.backward()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    if prof is not None:
+        torch.cuda._sleep(10)  # the marker: every later device event is the optimizer's
+    t2b = time.perf_counter()
     opt.step()
     opt.zero_grad()
     torch.cuda.synchronize()
     t3 = time.perf_counter()
+    parts = None
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        parts = split_profile(torch, prof)
     return lv, dict(forward_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
-                    optimizer_ms=(t3 - t2) * 1e3), read_counts(kernels)
+                    optimizer_ms=(t3 - t2b) * 1e3), read_counts(kernels), parts
 
 
 def qlora_7b(torch, cfg, params, kernels):
     """Phase 7b: QLoRA fine-tuning of Llama-7B (32 layers, NF4 base): rank
     64, alpha 16 on all seven projections, 4 adamw8bit steps (lr 2e-4, no
-    weight decay) then 2 lion8bit steps on one seeded (4, 513) batch."""
-    from torch.profiler import ProfilerActivity, profile
-
+    weight decay) then 2 lion8bit steps on one seeded (4, 513) batch. Every
+    step's 448 8-bit leaves go through one launch of J (Adam) or K (Lion),
+    the 224 scalar leaves through one batched 32-bit update; the last step
+    of each optimizer is profiled, its forward and backward apart from its
+    optimizer (kernels per optimizer step, J's or K's device time)."""
     from bitsandbytes_sycl_tpu_torch import optim
     from bitsandbytes_sycl_tpu_torch.models.lora import ALL_TARGETS, init_lora, lora_leaves, qlora_loss_fn
 
@@ -2120,50 +2351,51 @@ def qlora_7b(torch, cfg, params, kernels):
     totals = {}
     for phase, opt, n in (("adamw8bit", optim.adamw8bit(leaves, 2e-4, weight_decay=0.0), 4),
                           ("lion8bit", optim.lion8bit(leaves, 2e-5), 2)):
+        kname = "optim8_2state" if phase == "adamw8bit" else "optim8_1state"
         for i in range(n):
-            prof = None
-            if phase == "adamw8bit" and i == n - 1:
-                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-                prof.__enter__()
-            lv, ms, counts = qlora_step(torch, kernels, loss_fn, lora, tokens, opt)
-            row = dict(optimizer=phase, step=i + 1, loss=lv, **ms,
+            profiled = i == n - 1
+            routes = dict(opt.route_leaves)
+            lv, ms, counts, parts = qlora_step(torch, kernels, loss_fn, lora, tokens, opt,
+                                               profile=profiled)
+            routes = {k: v - routes[k] for k, v in opt.route_leaves.items()}
+            row = dict(optimizer=phase, step=i + 1, loss=lv, **ms, leaves_by_route=routes,
                        wall_ms=sum(ms.values()), launches={k: v for k, v in counts.items() if v})
-            if prof is not None:
-                prof.__exit__(None, None, None)
-                # kernels only: the optimizer's step annotation also shows
-                # on the device, as a range over its kernels
-                dev = [e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and not getattr(e, "is_user_annotation", False)
-                       and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
-                busy = sum(e.self_device_time_total for e in dev) / 1e3
-                top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+            if profiled:
+                need(parts is not None, f"7B QLoRA {phase}: the profile holds no marker kernel")
+                fb, ev = parts
+                busy = sum(us for _, us in fb + ev) / 1e3
                 row.update(profiled=True, device_busy_ms=busy if busy > 0 else None,
-                           optim8_device_ms=sum(e.self_device_time_total for e in dev
-                                                if "optim8" in e.key) / 1e3,
-                           top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
+                           optimizer_device_ms=sum(us for _, us in ev) / 1e3,
+                           optimizer_kernels=len(ev),
+                           optim8_device_ms=sum(us for name, us in ev if "optim8" in name) / 1e3,
+                           optimizer_top=summarize(ev, top=16), top=summarize(fb + ev))
+                need(any("optim8" in name for name, _ in ev),
+                     f"7B QLoRA {phase}: the profiled optimizer step shows no {kname} kernel")
             steps.append(row)
             for k, v in counts.items():
                 totals.setdefault(phase, {})[k] = totals.get(phase, {}).get(k, 0) + v
             need(lv == lv and abs(lv) != float("inf"), f"7B QLoRA {phase} step {i + 1}: loss {lv}")
+            need(counts.get(kname) == 1 and routes == {"grouped": 448, "batched": 224, "per_leaf": 0},
+                 f"7B QLoRA {phase} step {i + 1}: {counts.get(kname)} launches of {kname}, leaves"
+                 f" by route {routes}; expected one launch for the 448 8-bit leaves (grouped)"
+                 " and the 224 scalars batched")
             if phase == "adamw8bit" and i == 0:
                 bmax = torch.stack([lora[li][t]["B"].detach().abs().amax()
                                     for li in range(cfg.num_layers) for t in ALL_TARGETS])
                 need(bool((bmax > 0).all()), "7B QLoRA: an adapter B is still zero after step 1")
             print(f"[7b] {phase} step {i + 1}: loss {lv:.5f}; forward {ms['forward_ms']:.1f} ms,"
                   f" backward {ms['backward_ms']:.1f} ms, optimizer {ms['optimizer_ms']:.1f} ms"
-                  + (" (profiled)" if prof is not None else "")
+                  + (f" (profiled: {row['optimizer_kernels']} device events in the optimizer,"
+                     f" {kname} {row['optim8_device_ms']:.3f} ms of"
+                     f" {row['optimizer_device_ms']:.3f} ms)" if profiled else "")
                   + f"; launches {row['launches']}", flush=True)
     adam = [r for r in steps if r["optimizer"] == "adamw8bit"]
+    lion = [r for r in steps if r["optimizer"] == "lion8bit"]
     for r in adam:
         lc = r["launches"]
         need(lc.get("w4a8_grouped") == 225 and lc.get("w4a8_grouped.wgmma") == 225
-             and lc.get("dequantize_transposed") == 222 and lc.get("optim8_2state") == 448,
-             f"7B QLoRA adam step {r['step']}: launches {lc}, expected 225 G (wgmma body),"
-             f" 222 E, 448 J")
-    for r in steps[4:]:
-        need(r["launches"].get("optim8_1state") == 448,
-             f"7B QLoRA lion step {r['step']}: launches {r['launches']}, expected 448 K")
+             and lc.get("dequantize_transposed") == 222,
+             f"7B QLoRA adam step {r['step']}: launches {lc}, expected 225 G (wgmma body), 222 E")
     peak = torch.cuda.max_memory_allocated() / 1e9
     prof_row = adam[-1]
     unprof = sorted(r["wall_ms"] for r in adam[1:-1])
@@ -2172,18 +2404,30 @@ def qlora_7b(torch, cfg, params, kernels):
     # the whole update moves 2.56 GB: 4 B g + 4 B p read, 4 B p written and
     # 1 B of each state read and written per 8-bit parameter
     opt_bound_ms = n_train * 16 / HBM_BYTES_PER_S * 1e3
+    opt_ms = {ph: [r["optimizer_ms"] for r in rs] for ph, rs in (("adamw8bit", adam),
+                                                                   ("lion8bit", lion))}
     out = dict(steps=steps, launches=totals, peak_gb=peak, trainable=n_train,
                step_ms_median=median, device_busy_ms=busy,
                device_idle_share=None if not busy else max(0.0, 1 - busy / median),
-               optimizer_bound_ms=opt_bound_ms, optim8_device_ms=prof_row["optim8_device_ms"])
+               optimizer_bound_ms=opt_bound_ms, optim8_device_ms=prof_row["optim8_device_ms"],
+               optimizer_ms=opt_ms, optimizer_kernels=prof_row["optimizer_kernels"],
+               lion_optim8_device_ms=lion[-1]["optim8_device_ms"],
+               lion_optimizer_kernels=lion[-1]["optimizer_kernels"],
+               losses=[r["loss"] for r in steps])
     print(f"[7b] 7B QLoRA: {n_train} trainable parameters; adam step median {median:.1f} ms"
           f" (steps 2-3), device busy {busy if busy else 'not measured'} ms of the profiled step"
           + (f" (idle {out['device_idle_share']:.0%} of the median)" if busy else "")
-          + f"; kernel J {prof_row['optim8_device_ms']:.2f} ms of device time in the profiled"
-          f" optimizer step ({prof_row['optimizer_ms']:.1f} ms of wall) against the update's"
-          f" {opt_bound_ms:.3f} ms bound; peak {peak:.1f} GB", flush=True)
-    for key, ms, cnt in prof_row.get("top", []):
-        print(f"      {ms:9.3f} ms  {cnt:6d}x  {key[:90]}")
+          + f"; optimizer wall per step adam {[round(v, 1) for v in opt_ms['adamw8bit']]} ms, lion"
+          f" {[round(v, 1) for v in opt_ms['lion8bit']]} ms; kernel J {prof_row['optim8_device_ms']:.3f}"
+          f" ms of device time in the profiled optimizer step ({prof_row['optimizer_kernels']} device"
+          f" events) against the update's {opt_bound_ms:.3f} ms bound, kernel K"
+          f" {lion[-1]['optim8_device_ms']:.3f} ms ({lion[-1]['optimizer_kernels']} events); peak"
+          f" {peak:.1f} GB; losses {' '.join(f'{v:.5f}' for v in out['losses'])}", flush=True)
+    for key, ms_, cnt in prof_row.get("top", []):
+        print(f"      {ms_:9.3f} ms  {cnt:6d}x  {key[:90]}")
+    print("[7b] the profiled Adam optimizer step's device events:")
+    for key, ms_, cnt in prof_row["optimizer_top"]:
+        print(f"      {ms_:9.3f} ms  {cnt:6d}x  {key[:90]}")
     return out
 
 
@@ -2304,9 +2548,9 @@ def main() -> int:
         print(f"[2] {n_edges} edge-case comparisons (odd rows, f32/bias, all B modes, ragged G"
               f" planes, W8A8 at few rows, C/D/H options, I at odd rows) ok")
         n_opt = check_optim8(torch, report)
-        print(f"[7a] kernels J and K equal their plain versions bit for bit in {n_opt} cases"
-              f" (every optimizer, n = {', '.join(map(str, OPTIM8_SIZES))}, NaN/Inf, zero"
-              f" block, stochastic rounding)", flush=True)
+        print(f"[7a] kernels J and K equal their plain version bit for bit in {n_opt} leaf"
+              f" tables (every optimizer: the 448-leaf QLoRA table, a mixed table with ragged"
+              f" leaves, 16.8M; NaN/Inf, zero block, stochastic rounding)", flush=True)
         phases["kernels_s"] = time.perf_counter() - t0
 
         # 3. serve Llama-7B through the paged engine
@@ -2742,6 +2986,68 @@ def probe_decode(torch, out):
         del kq, vq
 
 
+OPTIM_PROBE_PARTS = {  # J's and K's bodies: copies, math, encode, skeleton
+    "copies alone (no math)": ("BNB_PROBE_NO_MATH",),
+    "math alone (no copies)": ("BNB_PROBE_NO_COPY",),
+    "encode alone (no copies, no update)": ("BNB_PROBE_NO_COPY", "BNB_PROBE_NO_UPDATE"),
+    "launch skeleton (no copies, no math)": ("BNB_PROBE_NO_COPY", "BNB_PROBE_NO_MATH"),
+}
+
+
+def probe_optim(torch, out):
+    """Where the time of J's and K's leaf-table bodies goes: adam (J) and
+    lion (K) at 16.8M parameters and over the 448-leaf QLoRA table, each
+    launch timed as built (cold L2 by write, and clean) and built with
+    parts switched off (OPTIM_PROBE_PARTS; those builds compute wrong
+    results), then the real body at 1-8 persistent CTAs per SM. Launches
+    go through ops/optim8._launch with the table checked once, so the
+    times hold the leaf table's copy but not the host's checks."""
+    from bitsandbytes_sycl_tpu_torch.ops import _build
+    from bitsandbytes_sycl_tpu_torch.ops import optim8 as O
+    from bitsandbytes_sycl_tpu_torch.ops.common import sm_count
+
+    stems = ("optim8_2state", "optim8_1state")
+    built = _build.build_variants({(stem, part): (stem, macros) for stem in stems
+                                   for part, macros in OPTIM_PROBE_PARTS.items()})
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    sms = sm_count(torch.device("cuda"))
+    one = torch.zeros(1, device="cuda")
+    floor = time_cold(torch, lambda: one.add_(1), iters=20) * 1e3
+    out["optim_parts"].append(dict(kernel="one-element add_", part="floor", us=floor))
+    print(f"time_cold of a one-element add_ (the timing floor): {floor:.1f} us", flush=True)
+    for name, stem in (("adam", "optim8_2state"), ("lion", "optim8_1state")):
+        for label, sizes in (("16.8M", (16777216,)), ("QLoRA table", QLORA_LEAVES)):
+            leaves, scalars, rws, _ = optim8_table(torch, gen, name, sizes, 3, False,
+                                                   len(sizes) > 1, 1)
+            rws, _, table, _ = O._check_leaves(name, leaves, scalars, rws, 2048)
+            plan = O.leaf_plan(tuple(lf.p.numel() for lf in leaves), 2048, sms)
+            nbytes = optim8_bytes(name == "adam", sizes)
+
+            def run(plan=plan):
+                O._launch(stem, name, table, scalars, rws, plan, 2048, True, False,
+                          torch.device("cuda"))
+
+            for part in ["real", "real, clean L2"] + list(OPTIM_PROBE_PARTS):
+                old = _build.use_library(stem, built[(stem, part)]) if part in OPTIM_PROBE_PARTS \
+                    else None
+                us = time_cold(torch, run, iters=20, flush_by_read=part == "real, clean L2",
+                               spin_cycles=4_000_000) * 1e3
+                if old is not None:
+                    _build.use_library(stem, old)
+                out["optim_parts"].append(dict(kernel=stem, shape=label, part=part, us=us,
+                                               bound_us=nbytes / HBM_BYTES_PER_S * 1e6))
+                print(f"{stem} {name} {label}: {part:38s} {us:8.1f} us"
+                      f" ({nbytes / us / 1e6:.2f} TB/s of the update's bytes)", flush=True)
+            for cps in (1, 2, 3, 4, 6, 8):
+                p2 = plan._replace(grid=min(plan.total, sms * cps))
+                us = time_cold(torch, lambda: run(p2), iters=20, spin_cycles=4_000_000) * 1e3
+                out["optim_grids"].append(dict(kernel=stem, shape=label, ctas_per_sm=cps,
+                                               picked=p2 == plan, us=us))
+                print(f"{stem} {name} {label}: {cps} CTAs per SM"
+                      f"{' (picked)' if p2 == plan else ''}: {us:.1f} us", flush=True)
+            del leaves
+
+
 def probe_candidates(kernel, M, N, K, bs=64):
     """The launch plans near the ones mm4_plan / grouped_plan can pick:
     every tile (B) and 1-6 K splits on whole quantization blocks."""
@@ -2799,9 +3105,10 @@ def probe_main(only=None) -> int:
     timed. (2) Times B and G at 4096 x 4096 built with one part switched
     off (PROBE_PARTS): a part whose removal saves little is not what
     bounds the kernel; those builds compute wrong results. (0) First, the
-    same for C's tensor-core and D's split bodies (probe_attention) and for
-    A's fused and H's split bodies (probe_decode); with ``only``
-    ("attention" or "decode") that one alone. Lines go to stdout and
+    same for C's tensor-core and D's split bodies (probe_attention), for
+    A's fused and H's split bodies (probe_decode) and for J's and K's
+    leaf-table bodies (probe_optim); with ``only`` ("attention", "decode"
+    or "optim") that one alone. Lines go to stdout and
     chiprun_out/probe.json."""
     import torch
 
@@ -2824,11 +3131,13 @@ def probe_main(only=None) -> int:
     print(f"{card}; built in {time.perf_counter() - t0:.1f} s", flush=True)
     sms = sm_count(torch.device("cuda"))
     out = dict(card=card, sms=sms, plans=[], parts=[], fit={}, picks=[], attention_parts=[],
-               decode_parts=[], gemv_splits=[], decode_splits=[])
+               decode_parts=[], gemv_splits=[], decode_splits=[], optim_parts=[], optim_grids=[])
     if only in (None, "attention"):
         probe_attention(torch, out)
     if only in (None, "decode"):
         probe_decode(torch, out)
+    if only in (None, "optim"):
+        probe_optim(torch, out)
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = []
     for N, K in ([] if attention_only else [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]):
@@ -2904,5 +3213,6 @@ def probe_main(only=None) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--probe"]:
-        sys.exit(probe_main(only=sys.argv[2] if sys.argv[2:3] in (["attention"], ["decode"]) else None))
+        sys.exit(probe_main(only=sys.argv[2] if sys.argv[2:3] in (["attention"], ["decode"], ["optim"])
+                            else None))
     sys.exit(main())
