@@ -15,19 +15,39 @@
 //
 // The codes are stored as (N, K) rows, i.e. wq in column-major order: that
 // is the "TN" layout cuBLAS's int8 GEMM takes, so torch._int_mm consumes the
-// transposed view without a copy.
+// transposed view without a copy. The job is a transpose.
 //
 // Bound on the H100: memory. It reads K/2 * N packed bytes and the f32
 // factors and writes K * N int8 codes, with no reuse.
 //
-// Design: a plain elementwise pass. A thread decodes 4 consecutive rows of
-// 4 neighbouring columns (one quantization block: bs % 4 == 0) and writes,
-// per column, one 4-byte word of 4 consecutive k to the hi half and one to
-// the lo half of that column's row. Neighbouring threads take neighbouring
-// k, so a warp's writes to one column are one contiguous run.
+// Tiled body (`dequant_tiled_kernel`: blocksize % 16 == 0, N % 16 == 0):
+// a persistent grid (`ops/matmul_w4a8.dequant8_plan`) walks tiles of kR =
+// 128 packed rows x 128 columns. One thread's TMA copies
+// bring a tile's packed bytes and its factors of both planes into a
+// 3-slot mbarrier ring, so the next tiles stream in while one is decoded.
+// Per tile the CTA first builds, for each (plane, block, column) of the
+// tile, the 16 int8 codes q8(table[i], f) (the codebook on that column's
+// grid, rounded as the plain version rounds each element) as 16 bytes in
+// shared memory; a warp then owns 16 packed rows, a lane 4 columns, and
+// each code is one byte permute of its column's 16 codes by its nibble
+// (3 permutes per 4 codes). The codes go transposed into two shared-memory
+// out tiles (one per plane, 128 rows of 128 bytes, TMA's 128-byte swizzle,
+// double-buffered) and leave by TMA tensor stores, whole rows of 128 bytes
+// at (n0, k0) and (n0, K/2 + k0). A lane writes its 4 columns in an order
+// rotated by its lane, so a warp's 16-byte stores into the swizzled tile
+// are free of bank conflicts. A slot is reloaded once every thread has
+// decoded it; an out tile is rewritten once the store of two tiles back
+// has read it (`cp.async.bulk.wait_group.read`).
+//
+// Stride body (`dequant_int8_kernel`, the other shapes): a plain
+// elementwise pass. A thread decodes 4 consecutive rows of 4 neighbouring
+// columns (one quantization block: bs % 4 == 0) and writes, per column, one
+// 4-byte word of 4 consecutive k to the hi half and one to the lo half of
+// that column's row.
 #include <string.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -86,18 +106,199 @@ __global__ void dequant_int8_kernel(const uint32_t* __restrict__ packed,
   }
 }
 
+// ---------------------------------------------------------------------------
+// tiled body
+// ---------------------------------------------------------------------------
+constexpr int kTC = 128;    // columns per tile
+constexpr int kR = 128;     // packed rows per tile (64 timed equal or slower on the H100)
+constexpr int kTSlots = 3;  // ring slots
+constexpr int kTSmemMax = 227 * 1024 - 1024;  // dynamic shared memory the tiled body may take
+
+// packed (K/2, N) in boxes of kR x 128; f (2 nbh, N) in boxes of nf x 128;
+// the out rows' hi half (N, K/2 at out_t) and lo half (at out_t + K/2),
+// row stride K, in boxes of 128 x kR with the 128-byte swizzle
+struct DequantMaps {
+  CUtensorMap packed, f, out_hi, out_lo;
+};
+
+// shared memory of the tiled body: two out buffers of two planes, the
+// ring, the code tables, and 1 KB to align to
+__host__ __device__ constexpr size_t tiled_smem_bytes(int nf) {
+  return 1024 + 4 * (size_t)kTC * kR + kTSlots * ((size_t)kTC * kR + 2 * nf * kTC * 4) +
+         2 * (size_t)nf * kTC * 16;
+}
+
+// the byte rint(clip(dec * f, +-127)) as q8 gives it, in the low byte: a
+// clamped value plus 1.5 * 2^23 rounds half to even to an integer whose
+// two's complement is the sum's low mantissa byte
+__device__ __forceinline__ uint32_t q8_bits(float dec, float f) {
+  const float v = fminf(fmaxf(__fmul_rn(dec, f), -127.0f), 127.0f);
+  return __float_as_uint(__fadd_rn(v, 12582912.0f));
+}
+
+__device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// byte k of the result = byte nibble_k of t (the 16 codes of a column) for
+// the four nibbles in the low 16 bits of sel: codes 0-7 from t.x:t.y and
+// 8-15 from t.z:t.w, then bit 3 of each nibble picks between the two
+__device__ __forceinline__ uint32_t decode4(uint32_t sel, uint4 t) {
+  const uint32_t idx = sel & 0x7777u;
+  const uint32_t pick = ((sel >> 1) & 0x4444u) | 0x3210u;
+  return __byte_perm(__byte_perm(t.x, t.y, idx), __byte_perm(t.z, t.w, idx), pick);
+}
+
+__global__ void __launch_bounds__(2 * kR)
+dequant_tiled_kernel(const __grid_constant__ DequantMaps maps, int N, int half, int bs, int nf,
+                     TableF16 table) {
+  constexpr int kThreads = 2 * kR, kTile = kTC * kR;  // kR / 16 warps; tile bytes per plane
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* outb = smem;  // [2 buffers][2 planes][128 rows][kR bytes], swizzled
+  uint8_t* ring = smem + 4 * kTile;
+  const int fbytes = 2 * nf * kTC * 4, slot_bytes = kTile + fbytes;
+  uint4* tables = reinterpret_cast<uint4*>(ring + kTSlots * slot_bytes);  // [2][nf][128]
+  __shared__ __align__(8) uint64_t full[kTSlots];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nbh = half / bs, ntn = (N + kTC - 1) / kTC;
+  const int ntiles = (half + kR - 1) / kR * ntn;
+  const int my = (int)blockIdx.x < ntiles ? (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+
+  // one thread: this CTA's tile number it into slot it % kTSlots
+  auto load = [&](int it) {
+    const int t = blockIdx.x + it * gridDim.x, j0 = t / ntn * kR, n0 = t % ntn * kTC;
+    uint8_t* s = ring + (it % kTSlots) * slot_bytes;
+    uint64_t* bar = &full[it % kTSlots];
+    mbar_expect_tx(bar, (uint32_t)(kTile + fbytes));
+    tma_load_2d(s, &maps.packed, bar, n0, j0);
+    tma_load_2d(s + kTile, &maps.f, bar, n0, j0 / bs);
+    tma_load_2d(s + kTile + fbytes / 2, &maps.f, bar, n0, nbh + j0 / bs);
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kTSlots; ++i) mbar_init(&full[i], 1);
+    mbar_init_fence();
+    for (int i = 0; i < kTSlots && i < my; ++i) load(i);
+  }
+  __syncthreads();
+
+  for (int it = 0; it < my; ++it) {
+    const int t = blockIdx.x + it * gridDim.x, j0 = t / ntn * kR, n0 = t % ntn * kTC;
+    const uint8_t* s = ring + (it % kTSlots) * slot_bytes;
+    mbar_wait(&full[it % kTSlots], (it / kTSlots) & 1);
+#ifndef BNB_PROBE_NO_DECODE  // chip_smoke.py --probe int8: tables and decode switched off
+    // the codebook on each (plane, block, column) grid of the tile: entry
+    // (p * nf + b) * 128 + n, as the f boxes lie
+    const float* fs = reinterpret_cast<const float*>(s + kTile);
+    for (int idx = tid; idx < 2 * nf * kTC; idx += kThreads) {
+      const float f = fs[idx];
+      uint32_t q[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) q[i] = q8_bits(table.v[i], f);
+      tables[idx] = make_uint4(low_bytes(q[0], q[1], q[2], q[3]), low_bytes(q[4], q[5], q[6], q[7]),
+                               low_bytes(q[8], q[9], q[10], q[11]),
+                               low_bytes(q[12], q[13], q[14], q[15]));
+    }
+#endif
+    __syncthreads();  // tables built; this out buffer's last store has read it (thread 0 waited)
+
+#ifndef BNB_PROBE_NO_DECODE
+    // warp: packed rows 16 w .. 16 w + 15 of the tile; lane: columns 4 l .. 4 l + 3.
+    // Byte c of xh[i] holds column c's codes of rows 2i (low nibble) and
+    // 2i + 1 (high nibble) in the hi plane, of xl[i] in the lo plane.
+    const uint32_t* pw = reinterpret_cast<const uint32_t*>(s) + 16 * warp * (kTC / 4) + lane;
+    uint32_t xh[8], xl[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t a = pw[2 * i * (kTC / 4)], b = pw[(2 * i + 1) * (kTC / 4)];
+      xh[i] = ((a >> 4) & 0x0F0F0F0Fu) | (b & 0xF0F0F0F0u);
+      xl[i] = (a & 0x0F0F0F0Fu) | ((b << 4) & 0xF0F0F0F0u);
+    }
+    // the 16 rows lie in one quantization block (bs % 16 == 0)
+    const int blk = (j0 + 16 * warp) / bs - j0 / bs;
+    uint8_t* ob = outb + (it & 1) * 2 * kTile;
+#pragma unroll
+    for (int step = 0; step < 4; ++step) {
+      // the lanes of each 8-lane store phase take all four columns and
+      // both lane parities, so their rows cover every bank of the swizzle
+      const int c = (step + (lane >> 1)) & 3, n = 4 * lane + c;
+      const uint32_t pick_c = (uint32_t)(c | ((c + 4) << 4));
+      const int chunk = warp ^ (n & 7);  // the 128-byte swizzle
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const uint4 tb = tables[(p * nf + blk) * kTC + n];
+        const uint32_t* x = p ? xl : xh;
+        uint4 o;
+        o.x = decode4(__byte_perm(x[0], x[1], pick_c), tb);
+        o.y = decode4(__byte_perm(x[2], x[3], pick_c), tb);
+        o.z = decode4(__byte_perm(x[4], x[5], pick_c), tb);
+        o.w = decode4(__byte_perm(x[6], x[7], pick_c), tb);
+        *reinterpret_cast<uint4*>(ob + p * kTile + n * kR + chunk * 16) = o;
+      }
+    }
+    fence_proxy_async();
+#endif
+    __syncthreads();  // the slot is read and the out tile written
+    if (tid == 0) {
+      const uint8_t* ob = outb + (it & 1) * 2 * kTile;
+      tma_store_2d(&maps.out_hi, ob, j0, n0);
+      tma_store_2d(&maps.out_lo, ob + kTile, j0, n0);
+      bulk_commit();
+      if (it + kTSlots < my) load(it + kTSlots);
+      bulk_wait_read<1>();  // the other out buffer, written next, has been read
+    }
+  }
+  if (tid == 0) bulk_wait<0>();
+}
+
+int launch_tiled(const void* packed, const void* f, void* out_t, int K, int N, int bs, int grid,
+                 const TableF16& tbl, cudaStream_t st) {
+  const int half = K / 2;
+  // blocks a tile's rows can touch: R / bs aligned, else one more
+  const int nf = bs >= kR ? (bs % kR ? 2 : 1) : (kR % bs ? (kR - 1) / bs + 2 : kR / bs);
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  DequantMaps maps;
+  int err = make_tmap_2d(&maps.packed, packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, half, N, N, kR,
+                         kTC, false);
+  if (err == 0) {
+    err = make_tmap_2d(&maps.f, f, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, K / bs, N, N, nf, kTC, false);
+  }
+  if (err == 0) {
+    err = make_tmap_2d_swizzled(&maps.out_hi, out_t, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, half, K,
+                                kTC, kR, sw);
+  }
+  if (err == 0) {
+    err = make_tmap_2d_swizzled(&maps.out_lo, reinterpret_cast<int8_t*>(out_t) + half,
+                                CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, half, K, kTC, kR, sw);
+  }
+  if (err != 0) return err;
+  const size_t shmem = tiled_smem_bytes(nf);
+  if (shmem > kTSmemMax) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem_once<dequant_tiled_kernel>(kTSmemMax);
+  if (e != cudaSuccess) return (int)e;
+  dequant_tiled_kernel<<<grid, 2 * kR, shmem, st>>>(maps, N, half, bs, nf, tbl);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // packed (K/2, N) uint8; f (2, K/(2 bs), N) f32; out_t (N, K) int8.
-// table: the 16 decoded values (f32) on the host.
+// table: the 16 decoded values (f32) on the host. grid > 0 runs the tiled
+// body on `grid` CTAs (bs % 16 == 0, N % 16 == 0); grid 0 the stride body.
 extern "C" int dequant_int8(const void* packed, const void* f, void* out_t, const void* table,
-                            int K, int N, int bs, void* stream) {
+                            int K, int N, int bs, int grid, void* stream) {
   if (K <= 0 || N <= 0 || N % 4 || bs <= 0 || bs % 4 || K % (2 * bs)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   TableF16 tbl;
   memcpy(tbl.v, table, sizeof(tbl.v));
+  if (grid != 0) {
+    if (bs % 16 || N % 16 || grid < 0) return (int)cudaErrorInvalidValue;
+    return launch_tiled(packed, f, out_t, K, N, bs, grid, tbl, st);
+  }
   const size_t items = (size_t)(K / 8) * (N / 4);
   const int threads = 256;
   const size_t want = (items + threads - 1) / threads;

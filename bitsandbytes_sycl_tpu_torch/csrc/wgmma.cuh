@@ -1,14 +1,17 @@
 // Hopper building blocks shared by the tensor-core bodies of kernels B
-// (mm4_fused.cu), G (w4a8_grouped.cu) and C (prefill_attn_int8.cu), the
-// split bodies of kernels D (paged_attn_int8.cu) and H (decode_attn_int8.cu)
-// and the fused body of kernel A (w4a8_gemv.cu): TMA tensor and bulk copies,
-// mbarriers, shared-memory matrix descriptors and the warpgroup products
-// they use, written as inline PTX for sm_90a.
+// (mm4_fused.cu), G (w4a8_grouped.cu), C (prefill_attn_int8.cu) and I
+// (int8_matmul.cu), the split bodies of kernels D (paged_attn_int8.cu) and
+// H (decode_attn_int8.cu), the fused body of kernel A (w4a8_gemv.cu) and
+// the tiled body of kernel F (dequant_int8.cu): TMA tensor and bulk copies
+// and TMA tensor stores, mbarriers, shared-memory matrix descriptors and
+// the warpgroup products they use, written as inline PTX for sm_90a.
 //
 // Operand layouts in shared memory, both K-major:
 // - activations arrive by TMA as rows of 64 bytes with the 64-byte swizzle
 //   (descriptor layout 2, 8-row groups 512 bytes apart); a wgmma 32 bytes
-//   further along K starts 32 bytes further in;
+//   further along K starts 32 bytes further in; with the 128-byte swizzle
+//   (kernel I's weights) rows are 128 bytes, layout 1, 8-row groups 1024
+//   bytes apart, and the same 32-byte step holds;
 // - decoded weights are written by threads without swizzle: a tile of R
 //   rows by KB bytes of K is stored as 8-row x 16-byte core matrices of 128
 //   contiguous bytes, row groups fastest,
@@ -107,6 +110,33 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 #endif
+}
+
+// ---- TMA store: a box of shared memory to a 2-D tensor at (c0, c1), in
+// the calling thread's bulk group; the box's part past the tensor is not
+// written. The threads that wrote the box run fence_proxy_async() and a
+// barrier before one thread issues it.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+#ifndef BNB_PROBE_NO_COPY
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1)
+               : "memory");
+#endif
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// wait until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -21,6 +21,11 @@ column's largest block scale, so one int32 sum runs over all of K:
 Both scale the sum by ``colmax / 127`` and the row scale, in the JAX
 package's order.
 
+Kernel F has two bodies (``dequant8_plan``): a tiled body (blocksize a
+multiple of 16, N of 16) that streams tiles of the packed weight by TMA,
+decodes through per-column code tables in shared memory and stores the
+transposed codes by TMA; and a grid-stride body for the other shapes.
+
 Kernel A has two bodies (``gemv_plan``): a fused body for decode rows
 (M <= 8, blocksize 32 or 64), one launch that quantizes the activations,
 streams the weights and merges its K splits itself; and a SIMT body for
@@ -36,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,6 +55,7 @@ __all__ = [
     "matmul_4bit_w4a8", "matmul_4bit_w4a8_grouped", "matmul_4bit_w8a8_prefill",
     "dequantize_to_int8", "w4a8_gemv", "w4a8_grouped", "dequant_int8",
     "grouped_min_m", "W8A8_PREFILL_MIN_M", "grouped_plan", "col_grid", "gemv_plan",
+    "dequant8_plan", "Dequant8Plan",
 ]
 
 # routing thresholds of the JAX package (models/llama.apply_linear reads them)
@@ -297,6 +303,52 @@ def _dequant8_plain(w: QLinearWeight, f: torch.Tensor) -> torch.Tensor:
     return torch.cat(planes, dim=0).to(torch.int8)
 
 
+class Dequant8Plan(NamedTuple):
+    """Kernel F's launch: the tiled body ("tiled": tiles of DEQ8_ROWS
+    packed rows by DEQ8_COLS columns walked by ``grid`` persistent CTAs,
+    CTA b taking tiles b, b + grid, ...; tile t covers packed rows from
+    (t // ceil(N / DEQ8_COLS)) * DEQ8_ROWS and columns from
+    (t % ceil(N / DEQ8_COLS)) * DEQ8_COLS) or the stride body ("stride":
+    grid 0)."""
+
+    body: str
+    grid: int
+
+
+DEQ8_ROWS, DEQ8_COLS = 128, 128  # packed rows and columns per tile of the tiled body
+_DEQ8_SLOTS = 3  # its ring slots
+_SMEM_PER_SM = 233472  # shared memory of an H100 SM; a CTA also reserves 1 KB
+
+
+def _deq8_blocks(bs: int) -> int:
+    """Quantization blocks a tile's packed rows can touch (the f rows it
+    loads), as the kernel counts them."""
+    if bs >= DEQ8_ROWS:
+        return 2 if bs % DEQ8_ROWS else 1
+    return (DEQ8_ROWS - 1) // bs + 2 if DEQ8_ROWS % bs else DEQ8_ROWS // bs
+
+
+def deq8_smem(bs: int) -> int:
+    """Dynamic shared memory of the tiled body: two out buffers of both
+    planes, the ring of packed bytes and factors, the code tables, and 1
+    KB to align to (``tiled_smem_bytes`` in csrc/dequant_int8.cu)."""
+    nf, tile = _deq8_blocks(bs), DEQ8_COLS * DEQ8_ROWS
+    return 1024 + 4 * tile + _DEQ8_SLOTS * (tile + 2 * nf * DEQ8_COLS * 4) + 2 * nf * DEQ8_COLS * 16
+
+
+@functools.lru_cache(maxsize=None)
+def dequant8_plan(N: int, K: int, bs: int, sms: int) -> Dequant8Plan:
+    """The tiled body where the blocksize is a multiple of 16 (a warp's 16
+    rows lie in one block) and N of 16 (TMA's row stride); as many CTAs as
+    fit an SM's shared memory on every SM, no more than tiles. The stride
+    body takes the rest."""
+    if bs % 16 or N % 16:
+        return Dequant8Plan("stride", 0)
+    tiles = -(-(K // 2) // DEQ8_ROWS) * -(-N // DEQ8_COLS)
+    per_sm = max(1, _SMEM_PER_SM // (deq8_smem(bs) + 1024))
+    return Dequant8Plan("tiled", min(tiles, per_sm * sms))
+
+
 def dequant_int8(w: QLinearWeight, f: torch.Tensor) -> torch.Tensor:
     """Kernel F on CUDA tensors; the plain version on CPU tensors.
     Returns the int8 codes (K, N) on the per-column grid. On the card they
@@ -304,8 +356,6 @@ def dequant_int8(w: QLinearWeight, f: torch.Tensor) -> torch.Tensor:
     layout torch._int_mm takes without a copy."""
     if not check_cuda_tensors("dequant_int8", w.packed, f):
         return _dequant8_plain(w, f)
-    from .matmul_4bit import _decode_table
-
     N, K = w.shape
     bs = w.blocksize
     if N % 4 or K % (2 * bs) or bs % 4 or tuple(w.packed.shape) != (K // 2, N):
@@ -313,19 +363,36 @@ def dequant_int8(w: QLinearWeight, f: torch.Tensor) -> torch.Tensor:
     if f.dtype != torch.float32 or tuple(f.shape) != (2, K // (2 * bs), N) \
             or not f.is_contiguous() or not w.packed.is_contiguous():
         raise ValueError("dequant_int8: f must be contiguous f32 (2, K/(2 bs), N)")
-    out_t = torch.empty((N, K), dtype=torch.int8, device=w.packed.device)
-    fn = _build.kernel_fn("dequant_int8", "dequant_int8", 8, int_args=range(4, 7))
+    return _dequant8_launch(w, f, dequant8_plan(N, K, bs, sm_count(w.packed.device)))
+
+
+def _dequant8_launch(w: QLinearWeight, f: torch.Tensor, plan: Dequant8Plan) -> torch.Tensor:
+    """Launch kernel F's body ``plan.body`` on checked CUDA tensors."""
+    from .matmul_4bit import _decode_table
+
+    N, K = w.shape
+    bs = w.blocksize
+    packed = w.packed
+    if plan.body == "tiled":  # TMA reads from 16-byte aligned addresses
+        packed = packed if packed.data_ptr() % 16 == 0 else packed.clone()
+        f = f if f.data_ptr() % 16 == 0 else f.clone()
+    out_t = torch.empty((N, K), dtype=torch.int8, device=packed.device)
+    fn = _build.kernel_fn("dequant_int8", "dequant_int8", 9, int_args=range(4, 8))
     err = fn(
-        w.packed.data_ptr(), f.data_ptr(), out_t.data_ptr(),
+        packed.data_ptr(), f.data_ptr(), out_t.data_ptr(),
         ctypes.addressof(_decode_table(w.quant_type, bs, _dequant8_mode(w))),
-        K, N, bs, torch.cuda.current_stream(w.packed.device).cuda_stream,
+        K, N, bs, plan.grid, torch.cuda.current_stream(packed.device).cuda_stream,
     )
-    _build.check("dequant_int8", err)
+    _build.check(f"dequant_int8 ({plan.body})", err)
     dequant_int8.launches += 1
+    if plan.body == "tiled":
+        dequant_int8.launches_tiled += 1
     return out_t.t()
 
 
+# launches of either body, and of the tiled body alone
 dequant_int8.launches = 0
+dequant_int8.launches_tiled = 0
 
 
 def _int8_declined(w: QLinearWeight) -> bool:

@@ -6,6 +6,8 @@
     python3 chip_smoke.py --probe attention   # C's and D's only
     python3 chip_smoke.py --probe decode      # A's fused and H's split bodies only
     python3 chip_smoke.py --probe optim       # J's and K's leaf-table bodies only
+    python3 chip_smoke.py --probe int8        # F's tiled and I's wgmma bodies only
+    python3 chip_smoke.py --time-i [DIR]      # I's times, from the package under DIR
 
 Phases, each of which exits non-zero on failure:
   1. build the hand-written kernels (nvcc, csrc/*.cu) and print the card;
@@ -16,8 +18,9 @@ Phases, each of which exits non-zero on failure:
      tensor-core body at 256 and 1024 rows, G's wgmma body at 512 and 2048,
      C's tensor-core body at T = 32 and 512, D's split body at 1 and 16
      pages, H's split body at B = 1, 2, 4 and 8, each checked to have run,
-     and every plan of the fast bodies of A, B, C, D, G and H launched 100
-     times on one input must repeat its output bit for bit), and time
+     and every plan of the fast bodies of A, B, C, D, G, H and I and F's
+     tiled body launched 100 times on one input must repeat its output bit
+     for bit), and time
      kernel, plain version and one PyTorch
      library call that computes the same function (for attention, SDPA's
      fused backends only, each alone, the fastest kept); then hold the W8A8
@@ -32,8 +35,9 @@ Phases, each of which exits non-zero on failure:
   3b. long prompts through the paged engine at full 7B width and depth
      (max_batch 8): one prompt of 129-256 tokens (256 prefill rows: kernels
      B and E), four of 257-512 (2048 rows: G), eight of 257-512 (4096 rows:
-     F), each batch decoded to its end, the 256-row batch on B's
-     tensor-core body and the 2048-row one on G's wgmma body; then chunked
+     F, once per linear on its tiled body), each batch decoded to its end,
+     the 256-row batch on B's tensor-core body and the 2048-row one on G's
+     wgmma body; then chunked
      prefill (256-token chunks) of two 700-1000-token prompts against the
      whole-prompt engine, with W4A8 linears (chunks on G) and with
      a8_decode=False (chunks on B);
@@ -70,8 +74,12 @@ the transient int8 repack (EngineConfig(w8a8_prefill=True)) a batch of 128
 rows (kernel I) and one of 2048 (torch._int_mm) in both engine modes,
 first tokens equal to the default engine's under the gap rule. Phase 2
 also holds kernels H and I at the 7B shapes (H within 1% with four
-deliberate faults, I within 1 bf16 ulp with the next row's SCB as fault)
-and the LLM.int8 route at 256 and 1024 rows.
+deliberate faults; I bit for bit at M = 1-128, and within 1 bf16 ulp with
+the next row's SCB as fault) and the LLM.int8 route at 256 and 1024 rows;
+kernel F's tiled body bit for bit at the 7B shapes (blocksizes 64 and 128)
+and three small ones (one with a ragged column tile), its stride body at
+blocksize 8, and 100 repeated launches of F and of every plan of I (each
+wgmma width at 4096 x 4096).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 It imports nothing of JAX.
@@ -326,7 +334,11 @@ def check_prefill_linears(torch, report):
     output, or of the bias where it is larger, since its int32 sum is exact
     and its epilogue keeps the plain version's order; the column-grid
     kernel that F's route and G run must give the plain version's colmax
-    and f bit for bit. Each check
+    and f bit for bit. F runs its tiled body at every 7B shape (nf4 and
+    int4 at blocksize 64, nf4 at 128), at two small shapes that
+    dequantize_to_int8 accepts (blocksizes 64 and 48) and, called directly,
+    at N = 400 (a ragged last column tile); its stride body at a
+    blocksize of 8 that dequantize_to_int8 accepts. Each check
     also feeds the plain version a deliberate fault (E: the planes
     swapped; F: the lo plane scaled by the hi plane's factors; G: the colmax
     of the next column), which must land outside the tolerance."""
@@ -359,24 +371,44 @@ def check_prefill_linears(torch, report):
                                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
                 rows["dequantize_transposed"].append(row)
                 del got, ref, lo, hi
+            del w
+        # (weight, blocksize, type, through dequantize_to_int8, body)
+        f_cases = [(W, 64, "nf4", True, "tiled"), (W, 64, "int4", True, "tiled"),
+                   (W, 128, "nf4", True, "tiled")]
+        if N == 4096 and K == 4096:  # small shapes
+            f_cases += [(W[:384, :1152].contiguous(), 64, "nf4", True, "tiled"),
+                        (W[:512, :1536].contiguous(), 48, "nf4", True, "tiled"),
+                        (W[:400, :1152].contiguous(), 64, "nf4", False, "tiled"),
+                        (W[:384, :1152].contiguous(), 8, "nf4", True, "stride")]
+        for Wc, bs, qt, route, body in f_cases:
+            w = quantize_4bit_native(Wc, bs, qt, absmax_dtype=torch.bfloat16)
+            Nc, Kc = Wc.shape
             colmax, f = mw._col_grid(w)
             cm_k, f_k = mw.col_grid(w)  # the column-grid kernel of F's route and G
             need(torch.equal(cm_k, colmax) and torch.equal(f_k, f),
-                 f"col_grid {qt} N={N} K={K}: colmax or f differ from the plain version's")
+                 f"col_grid {qt} N={Nc} K={Kc}: colmax or f differ from the plain version's")
             del cm_k, f_k
+            t0, s0 = mw.dequant_int8.launches_tiled, mw.dequant_int8.launches
             got, ref = mw.dequant_int8(w, f), mw._dequant8_plain(w, f)
-            wq, cm = mw.dequantize_to_int8(w)
+            wq, cm = mw.dequantize_to_int8(w) if route else (got, colmax)
             torch.cuda.synchronize()
+            need(wq is not None, f"dequantize_to_int8 declined N={Nc} K={Kc} bs={bs}")
+            calls = 2 if route else 1
+            tiled = mw.dequant_int8.launches_tiled - t0
+            need(mw.dequant_int8.launches == s0 + calls
+                 and tiled == (calls if body == "tiled" else 0),
+                 f"dequant_int8 {qt} N={Nc} K={Kc} bs={bs}: {tiled} of "
+                 f"{mw.dequant_int8.launches - s0} launches on the tiled body, the {body} body expected")
             need(torch.equal(got, ref) and torch.equal(wq, ref),
-                 f"dequant_int8 {qt} N={N} K={K}: codes differ from the plain version")
+                 f"dequant_int8 {qt} N={Nc} K={Kc} bs={bs}: codes differ from the plain version")
             need(torch.equal(cm.cpu(), w.absmax.float().cpu().amax(dim=(0, 1))),
                  f"dequant_int8 {qt}: colmax differs")
             f_bad = f.clone()
             f_bad[1] = f[0]
             need(not torch.equal(mw._dequant8_plain(w, f_bad), ref),
                  "dequant_int8: the plain version with the lo plane on the hi plane's factors matches")
-            row = dict(N=N, K=K, quant=qt, max_abs_err=0.0)
-            if qt == "nf4":
+            row = dict(N=Nc, K=Kc, quant=qt, bs=bs, body=body, max_abs_err=0.0)
+            if qt == "nf4" and bs == 64 and (Nc, Kc) == (N, K):
                 nbytes = K // 2 * N + 2 * nbh * N * 4 + K * N
                 row.update(ms=time_cold(torch, lambda: mw.dequant_int8(w, f)),
                            plain_ms=time_cold(torch, lambda: mw._dequant8_plain(w, f), iters=5),
@@ -455,7 +487,10 @@ def check_repeatable(torch, report, n=100):
     launched n times on one input at 4096 x 4096; C's tensor-core body and
     the split bodies of D and H and the fused body of A (whose last CTA
     merges the splits in order) at their 7B shapes, every plan that
-    decode_plan and gemv_plan pick there and other split counts. Their
+    decode_plan and gemv_plan pick there and other split counts; F's tiled
+    body at 4096 x 4096 and I's body (whose last CTA adds the splits) at
+    every plan int8_plan picks at the 7B shapes for 4 and 128 rows, at
+    three splits, and at 4096 x 4096 in each of its ten wgmma widths. Their
     sums run in a fixed order, so every output must equal the first bit
     for bit; a difference is a race between warps or warpgroups."""
     from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit as m4
@@ -562,10 +597,47 @@ def check_repeatable(torch, report, n=100):
                 rows.append(dict(kernel="w4a8_gemv", N=N2, K=K2, M=M, plan=tuple(plan), launches=n))
                 n_a += 1
         del w2
+    # kernel F's tiled body at 4096 x 4096, and kernel I (whose last CTA
+    # adds the splits' sums) at every plan int8_plan picks at the 7B shapes
+    # for 4 and 128 rows, one other split count, and 4096 x 4096 at the
+    # other wgmma widths (rows 2 short of each)
+    from bitsandbytes_sycl_tpu_torch import functional as F
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_int8 as mi
+
+    _, f = mw.col_grid(w)
+    plan = mw.dequant8_plan(N, K, 64, sms)
+    t0 = mw.dequant_int8.launches_tiled
+    first = mw._dequant8_launch(w, f, plan)
+    differ = sum(int(not torch.equal(mw._dequant8_launch(w, f, plan), first)) for _ in range(n - 1))
+    need(mw.dequant_int8.launches_tiled == t0 + n, "dequant_int8: the tiled body did not run")
+    need(differ == 0, f"dequant_int8 plan {tuple(plan)}: {differ} of {n - 1} repeated launches"
+                      f" differ from the first")
+    rows.append(dict(kernel="dequant_int8", N=N, K=K, plan=tuple(plan), launches=n))
+    n_i = 0
+    for N2, K2 in ((4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)):
+        W2 = torch.randn((N2, K2), generator=gen, device="cuda") / K2 ** 0.5
+        CB, SCB = F.int8_vectorwise_quant(W2)
+        del W2
+        widths = mi.INT8_WIDTHS[1:-1] if (N2, K2) == (4096, 4096) else ()
+        for M in (4, 128) + tuple(wd - 2 for wd in widths):
+            x = torch.randn((M, K2), generator=gen, device="cuda").to(torch.bfloat16)
+            inv = 127.0 * F._safe_inv(x.float().abs().amax(dim=1))
+            plans = [mi.int8_plan(M, N2, K2, sms)]
+            if (N2, K2, M) == (4096, 4096, 4):
+                plans.append(mi.int8_split_plan(M, N2, K2, 3, sms))  # three splits
+            for plan in plans:
+                run = lambda: mi._int8_launch(x, inv, CB, SCB, None, torch.bfloat16, plan)  # noqa: E731
+                first = run()
+                differ = sum(int(not torch.equal(run(), first)) for _ in range(n - 1))
+                need(differ == 0, f"int8_matmul N={N2} K={K2} M={M} plan {tuple(plan)}: {differ} of"
+                                  f" {n - 1} repeated launches differ from the first (a race)")
+                rows.append(dict(kernel="int8_matmul", N=N2, K=K2, M=M, plan=tuple(plan), launches=n))
+                n_i += 1
+        del CB, SCB
     print(f"  {len(cases)} plans of B's tensor-core and G's wgmma bodies, C's tensor-core, D's and"
-          f" H's split bodies ({len(h_plans)} plans of H) and {n_a} plans of A's fused body at 7B"
-          f" shapes, {n} launches each on one input: every output equal to the first bit for bit",
-          flush=True)
+          f" H's split bodies ({len(h_plans)} plans of H), {n_a} plans of A's fused body, F's tiled"
+          f" body and {n_i} plans of I at 7B shapes, {n} launches each on one input: every output"
+          f" equal to the first bit for bit", flush=True)
     report["repeatable"] = rows
 
 
@@ -601,7 +673,7 @@ def check_routes(torch, report):
             reset_counts(KERNELS)
             if route == "w8a8":
                 got = mw.matmul_4bit_w8a8_prefill(x, w, bias, torch.bfloat16)
-                want = {"dequant_int8": 1}
+                want = {"dequant_int8": 1, "dequant_int8.tiled": 1}
                 ref = mw._w8a8_plain(x, w, bias, torch.bfloat16)
                 col_grid = mw._col_grid
                 mw._col_grid = lambda w_: (lambda cm_, f_: (cm_.roll(-1), f_))(*col_grid(w_))
@@ -1005,12 +1077,15 @@ def check_decode(torch, report):
 
 def check_int8(torch, report):
     """Kernel I (LLM.int8, <= 128 rows) against its plain version at the four
-    7B linear shapes, M = 1, 4, 8, 32 and 128, with and without bias, bf16
-    out: within 1 bf16 ulp of the output (or of the bias where larger),
-    with the next row's SCB as the fault that must land outside; then the
-    route whole at 256 and 1024 rows (quantize, torch._int_mm, dequant),
-    within 1 bf16 ulp of its plain version (float64 product), which must
-    launch no kernel I."""
+    7B linear shapes, M = 1, 2, 4, 8, 16, 32, 40, 64, 90, 100 and 128 (the
+    wgmma widths 8, 16, 32, 48, 64, 96, 112 and 128, every split plan the
+    path meets; check_edges runs widths 24 and 80), with and without bias,
+    bf16 out: equal bit for bit in every case (its int32 sums are exact and its
+    epilogue rounds as the plain version does), and within 1 bf16 ulp of
+    the output (or of the bias where larger), with the next row's SCB as
+    the fault that must land outside; then the route whole at 256 and 1024
+    rows (quantize, torch._int_mm, dequant), within 1 bf16 ulp of its plain
+    version (float64 product), which must launch no kernel I."""
     from bitsandbytes_sycl_tpu_torch import functional as F
     from bitsandbytes_sycl_tpu_torch.ops import KERNELS
     from bitsandbytes_sycl_tpu_torch.ops import matmul_int8 as mi
@@ -1023,7 +1098,7 @@ def check_int8(torch, report):
         Wd = W.to(torch.bfloat16)
         del W
         bias = torch.randn((N,), generator=gen, device="cuda")
-        for M in (1, 4, 8, 32, 128):
+        for M in (1, 2, 4, 8, 16, 32, 40, 64, 90, 100, 128):
             x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
             ra = x.float().abs().amax(dim=1)
             inv = torch.where(ra > 0, 127.0 * F._safe_inv(ra), torch.full_like(ra, 127.0))
@@ -1033,12 +1108,14 @@ def check_int8(torch, report):
                 torch.cuda.synchronize()
                 ratio = ulp_ratio(torch, got, ref, torch.bfloat16, b)
                 need(ratio <= 1, f"int8_matmul N={N} K={K} M={M} bias={b is not None}: {ratio} ulps > 1")
+                need(torch.equal(got, ref), f"int8_matmul N={N} K={K} M={M} bias={b is not None}:"
+                                            f" {ratio} ulps from the plain version (must be 0)")
                 fault = ulp_ratio(torch, mi._mm8_plain(x, inv, CB, SCB.roll(-1), b, torch.bfloat16),
                                   ref, torch.bfloat16, b)
                 need(fault > 1, "int8_matmul: the plain version with the next row's SCB lands within 1 ulp")
                 row = dict(N=N, K=K, M=M, bias=b is not None, ulps=ratio, fault_ulps=fault,
                            equal=bool(torch.equal(got, ref)), max_abs_err=max_err(torch, got, ref)[0])
-                if b is None and M in (4, 32):
+                if b is None and M in (4, 32, 128):
                     kern = lambda: mi.int8_matmul(x, inv, CB, SCB, None, torch.bfloat16)  # noqa: E731
                     nbytes = M * K * 2 + N * K + N * 4 + M * 4 + M * N * 2
                     ops_ = 2 * M * N * K
@@ -1085,7 +1162,7 @@ def check_int8(torch, report):
                   f" route {ms*1e3:.1f} us", flush=True)
         del CB, SCB, Wd, bias
     print(f"  checked: int8_matmul {len(rows)} cases within {max(r['ulps'] for r in rows):.3g} ulps"
-          f" ({sum(r['equal'] for r in rows)} bit-identical; faults >= "
+          f" ({sum(r['equal'] for r in rows)} of {len(rows)} bit-identical; faults >= "
           f"{min(r['fault_ulps'] for r in rows):.3g} ulps), route {len(routes)} cases")
     timed = [r for r in rows if "ms" in r and r["M"] == 4]
     report["int8_matmul"] = dict(
@@ -1401,8 +1478,9 @@ def read_counts(kernels):
 def need_new_bodies(counts, label, decode=True, per_step=None):
     """Every prefill launch of kernel C in ``counts`` went through its
     tensor-core body (the model's q is bf16), with ``decode`` every launch
-    of kernel D through its split body, and every launch of kernel H
-    (decode only) through its split body. With ``per_step`` (launches per
+    of kernel D through its split body, every launch of kernel H
+    (decode only) through its split body, and every launch of kernel F
+    through its tiled body. With ``per_step`` (launches per
     profiled decode step), every decode step's launches of A went through
     its fused body and those of H through its split body."""
     need(counts["prefill_attn_int8.tc"] == counts["prefill_attn_int8"],
@@ -1415,6 +1493,9 @@ def need_new_bodies(counts, label, decode=True, per_step=None):
     need(counts["decode_attn_int8.split"] == counts["decode_attn_int8"],
          f"{label}: {counts['decode_attn_int8'] - counts['decode_attn_int8.split']} of"
          f" {counts['decode_attn_int8']} contiguous decode launches missed H's split body")
+    need(counts["dequant_int8.tiled"] == counts["dequant_int8"],
+         f"{label}: {counts['dequant_int8'] - counts['dequant_int8.tiled']} of"
+         f" {counts['dequant_int8']} W8A8 decodes missed F's tiled body")
     if per_step is not None:
         for name, body in (("w4a8_gemv", "fused"), ("decode_attn_int8", "split")):
             need(per_step.get(f"{name}.{body}", 0) == per_step.get(name, 0),
@@ -1645,8 +1726,19 @@ def profile_prefill(torch, cfg, params, Kb, T):
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    f_route = {}  # kernel F and the glue kernels of its W8A8 route: (ms, launches)
+    for e in kernels:
+        name = next((v for k, v in F_ROUTE_KERNELS.items() if k in e.key), None)
+        if name is not None:
+            ms, n = f_route.get(name, (0.0, 0))
+            f_route[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy, attention=attention_time(kernels),
-                top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
+                f_route=f_route, top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
+
+
+F_ROUTE_KERNELS = {"dequant_tiled_kernel": "F tiled", "dequant_int8_kernel": "F stride",
+                   "col_grid_kernel": "col_grid", "quant_rows_kernel": "quant_rows",
+                   "i16832gemm_s8": "_int_mm"}
 
 
 ATTENTION_KERNELS = {  # kernel symbol -> the ported kernel and body it belongs to
@@ -1684,7 +1776,8 @@ def serve_long(torch, cfg, params, kernels):
          ("mm4_fused", "mm4_fused.tc", "dequantize_transposed")),
         ("rows 2048", long_prompts(11, 4, 257, 512, cfg.vocab_size),
          ("w4a8_grouped", "w4a8_grouped.wgmma")),
-        ("rows 4096", long_prompts(12, 8, 257, 512, cfg.vocab_size), ("dequant_int8",)),
+        ("rows 4096", long_prompts(12, 8, 257, 512, cfg.vocab_size),
+         ("dequant_int8", "dequant_int8.tiled")),
     ]
     out = []
     for label, prompts, want in batches:
@@ -1706,6 +1799,10 @@ def serve_long(torch, cfg, params, kernels):
         outs = [eng.slot_tokens[s][len(p):] for s, p in zip(slots, prompts)]
         for k in want:
             need(counts[k] > 0, f"long prompts ({label}): the prefill never launched {k}")
+        if label == "rows 4096":
+            need(counts["dequant_int8"] == 7 * cfg.num_layers + 1,
+                 f"long prompts ({label}): kernel F launched {counts['dequant_int8']} times, not"
+                 f" once per linear ({7 * cfg.num_layers + 1})")
         need_new_bodies(counts, f"long prompts ({label}) prefill", decode=False)
         need(all(len(o) == max_new for o in outs), f"long prompts ({label}): wrong output lengths "
                                                    f"{[len(o) for o in outs]}")
@@ -1727,7 +1824,8 @@ def serve_long(torch, cfg, params, kernels):
               f" prefill launches {counts}", flush=True)
         print(f"[3b] {label}: profiled prefill forward {prof['wall_ms']:.1f} ms, device busy"
               f" {prof['device_busy_ms']:.1f} ms (idle {1 - prof['device_busy_ms'] / prof['wall_ms']:.0%});"
-              f" attention (ms, launches) {prof['attention']}")
+              f" attention (ms, launches) {prof['attention']}; W8A8 route (ms, launches)"
+              f" {prof['f_route']}")
         for key, ms, cnt in prof["top"]:
             print(f"      {ms:8.3f} ms  {cnt:5d}x  {key[:90]}")
     del eng
@@ -2789,7 +2887,8 @@ def main() -> int:
               "prefill_attn_int8": {"tc": main_counts["prefill_attn_int8.tc"]},
               "paged_attn_int8": {"split": main_counts["paged_attn_int8.split"]},
               "w4a8_gemv": {"fused": main_counts["w4a8_gemv.fused"]},
-              "decode_attn_int8": {"split": contig_stats["launches"]["decode_attn_int8.split"]}}
+              "decode_attn_int8": {"split": contig_stats["launches"]["decode_attn_int8.split"]},
+              "dequant_int8": {"tiled": long_counts["rows 4096"]["dequant_int8.tiled"]}}
     for name, (replaces, path, launches) in sources.items():
         r = report[name]
         kernels.append(dict(
@@ -3048,6 +3147,130 @@ def probe_optim(torch, out):
             del leaves
 
 
+INT8_PROBE_PARTS = {  # F's tiled and I's wgmma bodies: copies, decode or products, skeleton
+    "dequant_int8": {"copies alone (no decode)": ("BNB_PROBE_NO_DECODE",),
+                     "decode alone (no copies)": ("BNB_PROBE_NO_COPY",),
+                     "launch skeleton (no copies, no decode)": ("BNB_PROBE_NO_COPY",
+                                                                "BNB_PROBE_NO_DECODE")},
+    "int8_matmul": {"copies alone (no products, no quantization)": ("BNB_PROBE_NO_MMA",
+                                                                    "BNB_PROBE_NO_QUANT"),
+                    "products alone (no copies)": ("BNB_PROBE_NO_COPY",),
+                    "no x quantization": ("BNB_PROBE_NO_QUANT",),
+                    "no split merge": ("BNB_PROBE_NO_MERGE",),
+                    "launch skeleton (all off)": ("BNB_PROBE_NO_COPY", "BNB_PROBE_NO_MMA",
+                                                  "BNB_PROBE_NO_QUANT", "BNB_PROBE_NO_MERGE")},
+}
+
+
+def probe_int8(torch, out):
+    """Where the time of F's tiled body and I's wgmma body goes, at the four
+    7B shapes (F: nf4, bs 64; I: bf16 x at M = 4 and 128): each timed as
+    built (cold L2 by write, and clean) and built with parts switched off
+    (INT8_PROBE_PARTS; those builds compute wrong results); then I's K
+    split counts around the plan's pick."""
+    from bitsandbytes_sycl_tpu_torch import functional as F
+    from bitsandbytes_sycl_tpu_torch.ops import _build
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_int8 as mi
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_w4a8 as mw
+    from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native, sm_count
+
+    built = _build.build_variants({(stem, part): (stem, macros)
+                                   for stem, parts in INT8_PROBE_PARTS.items()
+                                   for part, macros in parts.items()})
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    sms = sm_count(torch.device("cuda"))
+    one = torch.zeros(1, device="cuda")
+    floor = time_cold(torch, lambda: one.add_(1), iters=20) * 1e3
+    out["int8_parts"].append(dict(kernel="one-element add_", part="floor", us=floor))
+    print(f"time_cold of a one-element add_ (the timing floor): {floor:.1f} us", flush=True)
+
+    def parts(stem, label, run, bound_us):
+        for part in ["real", "real, clean L2"] + list(INT8_PROBE_PARTS[stem]):
+            old = _build.use_library(stem, built[(stem, part)]) if part in INT8_PROBE_PARTS[stem] \
+                else None
+            us = time_cold(torch, run, iters=20, flush_by_read=part == "real, clean L2") * 1e3
+            if old is not None:
+                _build.use_library(stem, old)
+            out["int8_parts"].append(dict(kernel=stem, shape=label, part=part, us=us,
+                                          bound_us=bound_us))
+            print(f"{stem} {label}: {part:44s} {us:7.1f} us (bound {bound_us:.2f})", flush=True)
+
+    for N, K in ((4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)):
+        W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+        w = quantize_4bit_native(W, 64, "nf4", absmax_dtype=torch.bfloat16)
+        _, f = mw.col_grid(w)
+        plan = mw.dequant8_plan(N, K, 64, sms)
+        bound = (K // 2 * N + 2 * (K // 128) * N * 4 + K * N) / HBM_BYTES_PER_S * 1e6
+        parts("dequant_int8", f"N={N} K={K}", lambda: mw._dequant8_launch(w, f, plan), bound)
+        del w, f
+        CB, SCB = F.int8_vectorwise_quant(W)
+        del W
+        for M in (4, 128):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            ra = x.float().abs().amax(dim=1)
+            inv = 127.0 * F._safe_inv(ra)
+            plan = mi.int8_plan(M, N, K, sms)
+            bound = max((M * K * 2 + N * K + N * 4 + M * 4 + M * N * 2) / HBM_BYTES_PER_S,
+                        2 * M * N * K / INT8_OPS_PER_S) * 1e6
+            parts("int8_matmul", f"N={N} K={K} M={M}",
+                  lambda: mi._int8_launch(x, inv, CB, SCB, None, torch.bfloat16, plan), bound)
+            for ks in sorted({1, 2, 3, 4, 6, 8, 12, 16, plan.ksplit}):
+                p2 = mi.int8_split_plan(M, N, K, ks, sms)
+                us = time_cold(torch, lambda: mi._int8_launch(x, inv, CB, SCB, None, torch.bfloat16,
+                                                              p2), iters=20) * 1e3
+                out["int8_plans"].append(dict(kernel="int8_matmul", N=N, K=K, M=M, plan=tuple(p2),
+                                              picked=p2 == plan, ctas=-(-N // 128) * p2.ksplit,
+                                              us=us))
+                print(f"int8_matmul N={N:5d} K={K:5d} M={M:3d} {tuple(p2)}"
+                      f"{' (picked)' if p2 == plan else ''}: {us:.1f} us", flush=True)
+        del CB, SCB
+
+
+def time_i_main(root=None) -> int:
+    """Kernel I's cold times through ``ops.matmul_int8.int8_matmul`` of the
+    package under ``root`` (default: beside this script), bf16 x and
+    output, no bias, at M = 4, 32 and 128 of the four 7B shapes, timed as
+    check_int8 times them. To compare the kernel of two commits on one
+    card, unpack the other one (``git archive``) into a directory that
+    .gitignore lists and run, in one call, ``--time-i DIR``, ``--time-i``,
+    ``--time-i``, ``--time-i DIR``. Lines go to stdout and are appended to
+    chiprun_out/time_i.jsonl."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --time-i: no CUDA device", file=sys.stderr)
+        return 2
+    pkg_root = os.path.abspath(root or ROOT)
+    sys.path.insert(0, pkg_root)
+    from bitsandbytes_sycl_tpu_torch import functional as F
+    from bitsandbytes_sycl_tpu_torch.ops import _build
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_int8 as mi
+
+    need(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(mi.__file__)))) == pkg_root,
+         f"--time-i: imported {mi.__file__}, not the package under {pkg_root}")
+    _build.build_all()
+    card = gpu_line()
+    label = os.path.relpath(pkg_root, ROOT)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for N, K in ((4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)):
+        W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+        CB, SCB = F.int8_vectorwise_quant(W)
+        del W
+        for M in (4, 32, 128):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            inv = 127.0 * F._safe_inv(x.float().abs().amax(dim=1))
+            us = time_cold(torch, lambda: mi.int8_matmul(x, inv, CB, SCB, None, torch.bfloat16)) * 1e3
+            rows.append(dict(N=N, K=K, M=M, us=us))
+            print(f"int8_matmul ({label}) N={N:5d} K={K:5d} M={M:3d}: {us:.1f} us", flush=True)
+        del CB, SCB
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "time_i.jsonl"), "a") as f:
+        f.write(json.dumps(dict(package=label, card=card, rows=rows)) + "\n")
+    print(card)
+    return 0
+
+
 def probe_candidates(kernel, M, N, K, bs=64):
     """The launch plans near the ones mm4_plan / grouped_plan can pick:
     every tile (B) and 1-6 K splits on whole quantization blocks."""
@@ -3106,9 +3329,10 @@ def probe_main(only=None) -> int:
     off (PROBE_PARTS): a part whose removal saves little is not what
     bounds the kernel; those builds compute wrong results. (0) First, the
     same for C's tensor-core and D's split bodies (probe_attention), for
-    A's fused and H's split bodies (probe_decode) and for J's and K's
-    leaf-table bodies (probe_optim); with ``only`` ("attention", "decode"
-    or "optim") that one alone. Lines go to stdout and
+    A's fused and H's split bodies (probe_decode), for J's and K's
+    leaf-table bodies (probe_optim) and for F's tiled and I's wgmma bodies
+    (probe_int8); with ``only`` ("attention", "decode", "optim" or "int8")
+    that one alone. Lines go to stdout and
     chiprun_out/probe.json."""
     import torch
 
@@ -3131,13 +3355,16 @@ def probe_main(only=None) -> int:
     print(f"{card}; built in {time.perf_counter() - t0:.1f} s", flush=True)
     sms = sm_count(torch.device("cuda"))
     out = dict(card=card, sms=sms, plans=[], parts=[], fit={}, picks=[], attention_parts=[],
-               decode_parts=[], gemv_splits=[], decode_splits=[], optim_parts=[], optim_grids=[])
+               decode_parts=[], gemv_splits=[], decode_splits=[], optim_parts=[], optim_grids=[],
+               int8_parts=[], int8_plans=[])
     if only in (None, "attention"):
         probe_attention(torch, out)
     if only in (None, "decode"):
         probe_decode(torch, out)
     if only in (None, "optim"):
         probe_optim(torch, out)
+    if only in (None, "int8"):
+        probe_int8(torch, out)
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = []
     for N, K in ([] if attention_only else [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]):
@@ -3212,7 +3439,10 @@ def probe_main(only=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--time-i"]:
+        sys.exit(time_i_main(sys.argv[2] if len(sys.argv) > 2 else None))
     if sys.argv[1:2] == ["--probe"]:
-        sys.exit(probe_main(only=sys.argv[2] if sys.argv[2:3] in (["attention"], ["decode"], ["optim"])
+        sys.exit(probe_main(only=sys.argv[2] if sys.argv[2:3] in (["attention"], ["decode"], ["optim"],
+                                                                ["int8"])
                             else None))
     sys.exit(main())

@@ -1,20 +1,29 @@
 """Launch plans of kernels B (``mm4_plan``), G (``grouped_plan``), C
-(``prefill_plan``), D (``paged_plan``), H (``decode_plan``) and A
-(``gemv_plan``): plain Python that picks a body, a tile and a split from
-the call's dtype and shape. For B and G each case checks that the grid
-covers every output tile once, that the K splits partition the
-quantization blocks in order within a plane, and that the body is the one
-the shape and dtype call for; for C the body; for D and H the body and
-that the splits partition a row's used pages or tiles; for A the body, its
-row tile and that the splits partition the 64-row stages."""
+(``prefill_plan``), D (``paged_plan``), H (``decode_plan``), A
+(``gemv_plan``), F (``dequant8_plan``) and I (``int8_plan``): plain Python
+that picks a body, a tile and a split from the call's dtype and shape. For
+B and G each case checks that the grid covers every output tile once, that
+the K splits partition the quantization blocks in order within a plane,
+and that the body is the one the shape and dtype call for; for C the body;
+for D and H the body and that the splits partition a row's used pages or
+tiles; for A the body, its row tile and that the splits partition the
+64-row stages; for F that the persistent CTAs take every tile once and the
+tiles write every output byte once; for I the wgmma width, that the
+splits partition the 128-byte K steps, and the stage bytes and ring the
+kernel takes."""
 
+import numpy as np
 import pytest
 import torch
 
 from bitsandbytes_sycl_tpu_torch.ops.attention import DECODE_TILE, decode_plan, prefill_plan
 from bitsandbytes_sycl_tpu_torch.ops.common import H100_SMS
 from bitsandbytes_sycl_tpu_torch.ops.matmul_4bit import mm4_plan
-from bitsandbytes_sycl_tpu_torch.ops.matmul_w4a8 import GEMV_FUSED_MAX_M, gemv_plan, grouped_plan
+from bitsandbytes_sycl_tpu_torch.ops.matmul_int8 import (INT8_SMEM, INT8_WIDTHS, int8_plan,
+                                                         int8_split_plan)
+from bitsandbytes_sycl_tpu_torch.ops.matmul_w4a8 import (DEQ8_COLS, DEQ8_ROWS, GEMV_FUSED_MAX_M,
+                                                         Dequant8Plan, deq8_smem, dequant8_plan,
+                                                         gemv_plan, grouped_plan)
 from bitsandbytes_sycl_tpu_torch.ops.paged_attention import paged_plan
 
 SHAPES_7B = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
@@ -240,3 +249,118 @@ def test_gemv_plan(case, body):
     if (N, K) in SHAPES_7B:
         ctas = N // 128 * plan.ksplit
         assert H100_SMS // 2 <= ctas <= 2 * H100_SMS
+
+
+# kernel F: (N, K, bs) -> the tiled body where bs % 16 == 0 and N % 16 ==
+# 0, else the stride body. The tiled body's persistent CTAs walk the tiles
+# (CTA b: tiles b, b + grid, ...; tile t at packed rows from
+# (t // ceil(N / 128)) * DEQ8_ROWS, columns from (t % ceil(N / 128)) * 128).
+DEQ8_CASES = (
+    [(N, K, bs) for N, K in SHAPES_7B for bs in (64, 128)]
+    + [(384, 1152, 64), (256, 1024, 16), (512, 1536, 48), (4096, 4160, 32), (512, 1024, 96),
+       (256, 1024, 8), (260, 1024, 64), (384, 1040, 4), (384, 1152, 8), (400, 1152, 64),
+       (144, 1024, 64), (272, 2080, 16), (4112, 4096, 128), (128, 256, 128)]
+)
+
+
+@pytest.mark.parametrize("case", DEQ8_CASES, ids=lambda c: "N{}-K{}-bs{}".format(*c))
+def test_dequant8_plan(case):
+    N, K, bs = case
+    half = K // 2
+    plan = dequant8_plan(N, K, bs, H100_SMS)
+    if bs % 16 or N % 16:
+        assert plan == Dequant8Plan("stride", 0)
+        return
+    assert plan.body == "tiled"
+    assert deq8_smem(bs) <= 227 * 1024 - 1024
+    ntn, ntj = -(-N // DEQ8_COLS), -(-half // DEQ8_ROWS)
+    tiles = ntn * ntj
+    assert 1 <= plan.grid <= tiles
+    if (N, K) in SHAPES_7B:  # every SM holds as many CTAs as fit its shared memory
+        assert plan.grid >= H100_SMS
+    # each tile once, over all CTAs
+    seen = np.zeros(tiles, np.int64)
+    for b in range(plan.grid):
+        seen[b::plan.grid] += 1
+    assert (seen == 1).all()
+    # the tiles' packed boxes, clipped to the weight, partition (K/2, N):
+    # distinct lattice origins and clipped areas that sum to the whole
+    t = np.arange(tiles)
+    j0, n0 = t // ntn * DEQ8_ROWS, t % ntn * DEQ8_COLS
+    assert len(set(zip(j0.tolist(), n0.tolist()))) == tiles
+    area = (np.minimum(j0 + DEQ8_ROWS, half) - j0) * (np.minimum(n0 + DEQ8_COLS, N) - n0)
+    assert (area > 0).all() and int(area.sum()) == half * N
+    # every output byte (n, k) once across both planes: a tile writes rows
+    # n0.. of the hi half at k = j0.. and of the lo half at K/2 + j0..
+    out = np.zeros((N, K), np.int8) if N * K <= 1 << 24 else None
+    if out is not None:
+        for jj, nn in zip(j0.tolist(), n0.tolist()):
+            for base in (0, half):
+                out[nn:nn + DEQ8_COLS, base + jj:base + min(jj + DEQ8_ROWS, half)] += 1
+        assert (out == 1).all()
+
+
+def _check_int8_stages(plan, N, K):
+    """The stage bytes and ring the kernel takes: 256 or 128 bytes a stage
+    at width 8 and 64 above, dividing K and a split's bytes; the whole
+    ring budget exactly where the grid has one CTA per SM; and the 3-12
+    slots of the ring (a slot: 128 weight rows, the raw x rows at 2 or 4
+    bytes an element and their codes, 1 KB aligned) within the kernel's
+    shared memory."""
+    assert plan.kb in ((256, 128) if plan.width == 8 else (64,))
+    assert K % plan.kb == 0 and plan.per * 128 % plan.kb == 0
+    alone = -(-N // 128) * plan.ksplit <= H100_SMS
+    assert (plan.ring == INT8_SMEM - 1024) == alone
+    assert plan.kb != 256 or alone
+    for esz in (2, 4):
+        slot = -(-(128 * plan.kb + plan.width * plan.kb * esz + plan.width * plan.kb) // 1024) * 1024
+        slots = min(12, max(3, plan.ring // slot))
+        assert 1024 + slots * slot <= INT8_SMEM
+
+
+# kernel I: (M, N, K) -> wgmma width, K splits, stage bytes and ring. The
+# width is the least that wgmma takes for s8 at or above M; the splits
+# partition the 128-byte K steps in order, none empty; the 7B shapes fill
+# the SMs.
+INT8_CASES = (
+    [(M, N, K) for N, K in SHAPES_7B for M in (1, 4, 8, 32, 128)]
+    + [(M, 192, 384) for M in (1, 17, 67, 100, 128)]
+    + [(2, 4096, 128), (128, 64, 128), (9, 128, 256), (64, 8192, 28672)]
+)
+
+
+@pytest.mark.parametrize("case", INT8_CASES, ids=lambda c: "M{}-N{}-K{}".format(*c))
+def test_int8_plan(case):
+    M, N, K = case
+    plan = int8_plan(M, N, K, H100_SMS)
+    assert plan.width in INT8_WIDTHS and plan.width >= M
+    assert all(w < M for w in INT8_WIDTHS if w < plan.width)
+    steps = K // 128
+    bounds = [min(s * plan.per, steps) for s in range(plan.ksplit + 1)]
+    assert bounds[0] == 0 and bounds[-1] == steps
+    assert all(a < b for a, b in zip(bounds, bounds[1:]))
+    assert 1 <= plan.ksplit <= steps
+    _check_int8_stages(plan, N, K)
+    if (N, K) in SHAPES_7B:
+        ctas = -(-N // 128) * plan.ksplit
+        assert H100_SMS // 2 <= ctas <= 2 * H100_SMS
+
+
+# kernel I at a forced split count (the probe's and the race check's
+# plans): whole splits of ceil(steps / ks) steps, and stages the kernel takes
+INT8_SPLIT_CASES = (
+    [(M, N, K, ks) for M in (4, 128) for N, K in ((4096, 4096), (32000, 4096))
+     for ks in (1, 3, 4, 16)]
+    + [(40, 4096, 11008, 2), (8, 11008, 4096, 6), (1, 192, 384, 3)]
+)
+
+
+@pytest.mark.parametrize("case", INT8_SPLIT_CASES, ids=lambda c: "M{}-N{}-K{}-ks{}".format(*c))
+def test_int8_split_plan(case):
+    M, N, K, ks = case
+    plan = int8_split_plan(M, N, K, ks, H100_SMS)
+    steps = K // 128
+    assert plan.per == -(-steps // ks) and plan.ksplit == -(-steps // plan.per) <= ks
+    assert (plan.ksplit - 1) * plan.per < steps <= plan.ksplit * plan.per
+    assert plan.width == int8_plan(M, N, K, H100_SMS).width
+    _check_int8_stages(plan, N, K)
