@@ -4,8 +4,10 @@ states into the port's.
 The input is the JAX parameter tree with its arrays converted to numpy
 (``jax.tree.map(np.asarray, params)``): 4-bit linears stay objects (or
 dicts) with ``packed``, ``absmax``, ``shape``, ``blocksize``, ``quant_type``
-and ``dtype``; LLM.int8 linears are dicts ``{"CB", "SCB"[, "outliers":
-{"idx", "keep", "subB"}]}`` whose leaves come across as tensors. The bytes
+and ``dtype`` (compressed statistics: uint8 codes in ``absmax`` beside the
+f32 sidecars ``absmax_scale`` and ``absmax_offset``); LLM.int8 linears are
+dicts ``{"CB", "SCB"[, "outliers": {"idx", "keep", "subB"}]}`` whose leaves
+come across as tensors. The bytes
 are the same in both packages, so the result holds bit-identical weights
 (and the JAX package's outlier columns). bfloat16 arrays arrive as numpy's extension
 type; they are read through a uint16 view, so nothing here needs it.
@@ -45,10 +47,9 @@ def _is_qweight(obj) -> bool:
 
 def _convert(obj, device):
     if _is_qweight(obj):
-        scale = _field(obj, "absmax_scale") if not isinstance(obj, dict) else obj.get("absmax_scale")
-        if scale is not None:
-            raise NotImplementedError(
-                "compressed statistics are not ported yet (ROADMAP Queue A #1)")
+        get = obj.get if isinstance(obj, dict) else lambda k: getattr(obj, k, None)
+        side = {k: None if get(k) is None else tensor_from_numpy(get(k), device)
+                for k in ("absmax_scale", "absmax_offset")}
         return QLinearWeight(
             packed=tensor_from_numpy(_field(obj, "packed"), device),
             absmax=tensor_from_numpy(_field(obj, "absmax"), device),
@@ -56,6 +57,7 @@ def _convert(obj, device):
             blocksize=int(_field(obj, "blocksize")),
             quant_type=str(_field(obj, "quant_type")),
             dtype=str(_field(obj, "dtype")),
+            **side,
         )
     if isinstance(obj, dict):
         return {k: _convert(v, device) for k, v in obj.items()}

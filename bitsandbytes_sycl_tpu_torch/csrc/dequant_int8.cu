@@ -56,19 +56,41 @@ __device__ __forceinline__ uint32_t q8(float dec, float f) {
   return (uint32_t)(uint8_t)(int8_t)q;
 }
 
+// block b's scale of column n: raw f32/bf16, or (kCodes) a compressed code
+// decoded as fma(table[code], range, mean) rounded once
+// (`ops/common.decode_absmax`). A template parameter, not a test in the
+// loop: with the test in the loop the raw scales' grid took 5x as long on
+// the H100 (9.9 ms over a 7B prefill's 225 launches, against 2.0)
+template <bool kCodes>
+__device__ __forceinline__ float col_scale(const void* absmax, int s_bf16, const float* am_s,
+                                           const float* am_o, const float* dtab, int nb2, int N,
+                                           int b, int n) {
+  const size_t i = (size_t)b * N + n;
+  if (!kCodes) return ld_f(absmax, i, s_bf16);
+  const int pn = (b < nb2 / 2 ? 0 : N) + n;
+  return __fmaf_rn(__ldg(dtab + reinterpret_cast<const uint8_t*>(absmax)[i]), am_s[pn], am_o[pn]);
+}
+
 // colmax[n] = the column's largest block scale over both planes, and
 // f = absmax * (127 * safe_inv(colmax)), each operation rounded as the
-// plain version's (`ops/matmul_w4a8._col_grid`)
-__global__ void col_grid_kernel(const void* __restrict__ absmax, int s_bf16, int nb2, int N,
+// plain version's (`ops/matmul_w4a8._col_grid`); compressed scales are
+// decoded here, as the JAX package decodes them before its kernel F
+template <bool kCodes>
+__global__ void col_grid_kernel(const void* __restrict__ absmax, int s_bf16,
+                                const float* __restrict__ am_s, const float* __restrict__ am_o,
+                                const float* __restrict__ dtab, int nb2, int N,
                                 float* __restrict__ colmax, float* __restrict__ f) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  float cm = ld_f(absmax, n, s_bf16);
-  for (int b = 1; b < nb2; ++b) cm = fmaxf(cm, ld_f(absmax, (size_t)b * N + n, s_bf16));
+  float cm = col_scale<kCodes>(absmax, s_bf16, am_s, am_o, dtab, nb2, N, 0, n);
+  for (int b = 1; b < nb2; ++b) {
+    cm = fmaxf(cm, col_scale<kCodes>(absmax, s_bf16, am_s, am_o, dtab, nb2, N, b, n));
+  }
   colmax[n] = cm;
   const float sc = __fmul_rn(127.0f, cm > 0.0f ? __frcp_rn(cm) : 0.0f);
   for (int b = 0; b < nb2; ++b) {
-    f[(size_t)b * N + n] = __fmul_rn(ld_f(absmax, (size_t)b * N + n, s_bf16), sc);
+    f[(size_t)b * N + n] =
+        __fmul_rn(col_scale<kCodes>(absmax, s_bf16, am_s, am_o, dtab, nb2, N, b, n), sc);
   }
 }
 
@@ -321,10 +343,18 @@ extern "C" int quant_rows(const void* x, void* xq, void* row_absmax, int M, int 
 
 // The per-column int8 grid of kernels F and G: absmax (2, K/(2 bs), N)
 // f32/bf16 -> colmax (N) f32 and f (2, K/(2 bs), N) f32; nb2 = K / bs.
+// Compressed scales: absmax holds the uint8 codes, am_s and am_o the
+// (2, 1, N) f32 range and mean, dtab the 256 signed dynamic-map values on
+// the card (all null for raw scales).
 extern "C" int col_grid(const void* absmax, void* colmax, void* f, int nb2, int N, int s_bf16,
-                        void* stream) {
-  if (nb2 <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  col_grid_kernel<<<(N + 255) / 256, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      absmax, s_bf16, nb2, N, reinterpret_cast<float*>(colmax), reinterpret_cast<float*>(f));
+                        const void* am_s, const void* am_o, const void* dtab, void* stream) {
+  if (nb2 <= 0 || nb2 % 2 || N <= 0 || (am_s != nullptr && (am_o == nullptr || dtab == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = am_s != nullptr ? col_grid_kernel<true> : col_grid_kernel<false>;
+  kernel<<<(N + 255) / 256, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      absmax, s_bf16, reinterpret_cast<const float*>(am_s), reinterpret_cast<const float*>(am_o),
+      reinterpret_cast<const float*>(dtab), nb2, N, reinterpret_cast<float*>(colmax),
+      reinterpret_cast<float*>(f));
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,11 @@
 // Kernel B: exact 4-bit dequant-matmul.
 //
 // Replaces bitsandbytes_sycl_tpu/ops/matmul_4bit.py `_mm4_kernel` (called
-// through `_matmul_4bit_call`) for raw f32/bf16 block scales.
+// through `_matmul_4bit_call`), for raw f32/bf16 block scales and for
+// compressed ones: uint8 dynamic-map codes with a per-(plane, column) range
+// and mean, each scale decoded as fma(table[code], range, mean) rounded once
+// (`__fmaf_rn`; the table is the port's dynamic-map decode), which is
+// `ops/common.decode_absmax` bit for bit.
 //
 // Computes out = x[:, :K/2] @ (dec(hi) * s_hi) + x[:, K/2:] @ (dec(lo) * s_lo)
 // (+ bias) with f32 accumulation, decoding as the TPU kernel does:
@@ -45,7 +49,22 @@
 // warps meet in shared memory in a fixed order and the grid's K splits are
 // summed in order by a second small kernel. The 16-entry table sits in
 // shared memory, where distinct entries fall in distinct banks. It decodes
-// the weight again for every 4-row tile.
+// the weight again for every 4-row tile. A warp decodes a compressed block's
+// scales once, where it would load raw ones, from the dynamic-map table in
+// shared memory.
+//
+// Compressed scales in the tensor-core body: the Pallas kernel decodes the
+// n-tile's whole k-invariant strip once into VMEM scratch. Here the f32
+// strip would not fit beside the ring: at K = 11008, bs 64 and 128 columns
+// it is 2 x 86 x 128 x 4 = 88 KB, and the ring and decoded tiles already
+// take 97-225 KB. So a stage's copy brings the step's scale codes (1 byte
+// where a raw scale takes 2 or 4) in place of the raw scales, and the
+// decode of a step turns each (plane, block, column) code into its f32
+// scale where it would load the raw one: one table read and one fma per 8
+// decoded weights. The table (1 KB) and the tile's range and mean (16 bytes
+// a column) sit in shared memory behind the decoded tiles; the 128 x 256
+// tile has no room for them, so the plan does not give it compressed
+// weights.
 #include <string.h>
 
 #include "common.cuh"
@@ -73,14 +92,26 @@ __device__ __forceinline__ float decode(int code, const float* tbl, float s, int
   return x_bf16 ? round_bf16(v) : v;
 }
 
+// a compressed scale: the code's table value times the range plus the mean,
+// rounded once
+__device__ __forceinline__ float dq_scale(const float* dt, uint8_t code, float range, float mean) {
+  return __fmaf_rn(dt[code], range, mean);
+}
+
+// am_s, am_o: the (2, 1, N) range and mean of compressed scales (then
+// `scales` holds the uint8 codes), or null; dtab: the 256 signed
+// dynamic-map values
 template <int kMode>
 __global__ void __launch_bounds__(32 * kWarps)
 mm4_kernel(const void* __restrict__ x, int x_bf16, const uint32_t* __restrict__ packed,
-           const void* __restrict__ scales, int s_bf16, float* __restrict__ part, int M, int N,
-           int K, int bs, int G, TableF16 table) {
+           const void* __restrict__ scales, int s_bf16, const float* __restrict__ am_s,
+           const float* __restrict__ am_o, const float* __restrict__ dtab,
+           float* __restrict__ part, int M, int N, int K, int bs, int G, TableF16 table) {
   __shared__ float tbl[16];
+  __shared__ float dt[256];
   __shared__ float red[kWarps][kMT][kCols];
   if (threadIdx.x < 16) tbl[threadIdx.x] = table.v[threadIdx.x];
+  if (am_s != nullptr) dt[threadIdx.x] = dtab[threadIdx.x];  // 256 threads
   __syncthreads();
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -101,8 +132,14 @@ mm4_kernel(const void* __restrict__ x, int x_bf16, const uint32_t* __restrict__ 
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const size_t n = (size_t)col4 * 4 + c;
-      sh[c] = ld_f(scales, (size_t)qb * N + n, s_bf16);
-      sl[c] = ld_f(scales, ((size_t)nbh + qb) * N + n, s_bf16);
+      if (am_s != nullptr) {
+        const uint8_t* cd = reinterpret_cast<const uint8_t*>(scales);
+        sh[c] = dq_scale(dt, cd[(size_t)qb * N + n], am_s[n], am_o[n]);
+        sl[c] = dq_scale(dt, cd[((size_t)nbh + qb) * N + n], am_s[N + n], am_o[N + n]);
+      } else {
+        sh[c] = ld_f(scales, (size_t)qb * N + n, s_bf16);
+        sl[c] = ld_f(scales, ((size_t)nbh + qb) * N + n, s_bf16);
+      }
       if (kMode == 2) {
         sh[c] = round_bf16(sh[c]);
         sl[c] = round_bf16(sl[c]);
@@ -163,8 +200,14 @@ __host__ __device__ constexpr int tc_slot_bytes(int bm, int bn) {
 // decoded-tile buffers: see the note at the top
 __host__ __device__ constexpr int tc_dec_bufs(int wgs) { return wgs > 1 ? 3 : 2; }
 
-__host__ __device__ constexpr int tc_smem_bytes(int wgs, int bm, int bn) {
-  return 1024 + kTcStages * tc_slot_bytes(bm, bn) + tc_dec_bufs(wgs) * bn * 2 * kTcJ * 2;
+// compressed scales: the dynamic-map table and the tile's range and mean
+__host__ __device__ constexpr int tc_codes_bytes(bool codes, int bn) {
+  return codes ? 256 * 4 + 4 * bn * 4 : 0;
+}
+
+__host__ __device__ constexpr int tc_smem_bytes(int wgs, int bm, int bn, bool codes) {
+  return 1024 + kTcStages * tc_slot_bytes(bm, bn) + tc_dec_bufs(wgs) * bn * 2 * kTcJ * 2 +
+         tc_codes_bytes(codes, bn);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
@@ -183,17 +226,20 @@ __device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
 }
 
 // x (M, K) bf16 in boxes of 32 x bm (64-byte swizzle), packed (K/2, N) in
-// boxes of bn x 32, scales (2 nbh, N) in boxes of bn x srows
+// boxes of bn x 32, scales (2 nbh, N) in boxes of bn x srows (f32, bf16 or
+// uint8 codes)
 struct TcMaps {
   CUtensorMap x, packed, scales;
 };
 
-// kWG warpgroups, each on kMS 64-row sub-tiles of the CTA's rows
-template <int kMode, int kWG, int kMS, int kBN>
+// kWG warpgroups, each on kMS 64-row sub-tiles of the CTA's rows; kCodes:
+// compressed scales (am_s, am_o, dtab as in mm4_kernel)
+template <int kMode, int kWG, int kMS, int kBN, bool kCodes>
 __global__ void __launch_bounds__(128 * kWG)
-mm4_tc_kernel(const __grid_constant__ TcMaps maps, int s_bf16, const float* __restrict__ bias,
-              __nv_bfloat16* __restrict__ out, float* __restrict__ part, int M, int N, int K,
-              int bs, int per, TableF16 table) {
+mm4_tc_kernel(const __grid_constant__ TcMaps maps, int s_bf16, const float* __restrict__ am_s,
+              const float* __restrict__ am_o, const float* __restrict__ dtab,
+              const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+              float* __restrict__ part, int M, int N, int K, int bs, int per, TableF16 table) {
   constexpr int kBM = 64 * kWG * kMS, kThreads = 128 * kWG, kNH = kBN / 128, kAcc = kMS * kNH;
   constexpr int kXp = kBM * kTcJ * 2, kPk = kTcJ * kBN;  // one plane's x tile, packed bytes
   constexpr int kSlot = tc_slot_bytes(kBM, kBN), kDec = kBN * 2 * kTcJ * 2;
@@ -201,6 +247,8 @@ mm4_tc_kernel(const __grid_constant__ TcMaps maps, int s_bf16, const float* __re
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint8_t* dec = smem + kTcStages * kSlot;
+  float* dts = reinterpret_cast<float*>(dec + kDecBufs * kDec);  // kCodes: [256] table
+  float* side = dts + 256;  // kCodes: range of planes 0, 1, then mean of planes 0, 1 [4][kBN]
   __shared__ float tbl[16];      // decoded table values (modes 0, 1)
   __shared__ uint32_t tb16[16];  // bf16 bits of the table (mode 2)
   __shared__ __align__(8) uint64_t full[kTcStages];
@@ -215,12 +263,19 @@ mm4_tc_kernel(const __grid_constant__ TcMaps maps, int s_bf16, const float* __re
     for (int i = 0; i < kTcStages; ++i) mbar_init(&full[i], 1);
     mbar_init_fence();
   }
-  __syncthreads();
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  if (kCodes) {
+    for (int i = tid; i < 256; i += kThreads) dts[i] = dtab[i];
+    for (int i = tid; i < 4 * kBN; i += kThreads) {
+      const int q = i / kBN, n = n0 + i % kBN;
+      side[i] = (q < 2 ? am_s : am_o)[(q & 1) * N + n];
+    }
+  }
+  __syncthreads();
   const int half = K / 2, nbh = half / bs;
   const int total = half / kTcJ, s0 = blockIdx.z * per;
   const int nsteps = min(per, total - s0);
-  const int esz = s_bf16 ? 2 : 4;
+  const int esz = kCodes ? 1 : s_bf16 ? 2 : 4;
   const int srows = bs >= kTcJ ? 1 : kTcJ / bs;  // scale rows per plane and step
 
   // one thread: step i's x planes, packed rows and scales into its slot
@@ -257,7 +312,13 @@ mm4_tc_kernel(const __grid_constant__ TcMaps maps, int s_bf16, const float* __re
         const int c = 2 * cp + ((cc + (col4 >> 1)) & 1), n = 4 * col4 + c;
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
-          float s = ld_f(ss + p * (4 * kBN * 4), sr * kBN + n, s_bf16);
+          float s;
+          if (kCodes) {
+            s = dq_scale(dts, ss[p * (4 * kBN * 4) + sr * kBN + n], side[p * kBN + n],
+                         side[(2 + p) * kBN + n]);
+          } else {
+            s = ld_f(ss + p * (4 * kBN * 4), sr * kBN + n, s_bf16);
+          }
           const int sh = 8 * c + (p ? 0 : 4);
           uint4 q;
           if (kMode == 2) {
@@ -353,41 +414,71 @@ mm4_tc_kernel(const __grid_constant__ TcMaps maps, int s_bf16, const float* __re
   }
 }
 
-template <int kMode, int kWG, int kMS, int kBN>
-int launch_tc(dim3 grid, cudaStream_t st, const TcMaps& maps, int s_bf16, const void* bias,
-              void* out, void* part, int M, int N, int K, int bs, int per, const TableF16& tbl) {
-  auto kernel = mm4_tc_kernel<kMode, kWG, kMS, kBN>;
-  const int bytes = tc_smem_bytes(kWG, 64 * kWG * kMS, kBN);
+// the arguments of a tensor-core launch past the maps and the grid
+struct TcArgs {
+  int s_bf16;
+  const float *am_s, *am_o, *dtab;
+  const void* bias;
+  void *out, *part;
+  int M, N, K, bs, per;
+  TableF16 tbl;
+};
+
+template <int kMode, int kWG, int kMS, int kBN, bool kCodes>
+int launch_tc(dim3 grid, cudaStream_t st, const TcMaps& maps, const TcArgs& a) {
+  auto kernel = mm4_tc_kernel<kMode, kWG, kMS, kBN, kCodes>;
+  const int bytes = tc_smem_bytes(kWG, 64 * kWG * kMS, kBN, kCodes);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, 128 * kWG, bytes, st>>>(maps, s_bf16, reinterpret_cast<const float*>(bias),
-                                         reinterpret_cast<__nv_bfloat16*>(out),
-                                         reinterpret_cast<float*>(part), M, N, K, bs, per, tbl);
+  kernel<<<grid, 128 * kWG, bytes, st>>>(maps, a.s_bf16, a.am_s, a.am_o, a.dtab,
+                                         reinterpret_cast<const float*>(a.bias),
+                                         reinterpret_cast<__nv_bfloat16*>(a.out),
+                                         reinterpret_cast<float*>(a.part), a.M, a.N, a.K, a.bs,
+                                         a.per, a.tbl);
   return (int)cudaGetLastError();
 }
 
-// the tile shapes (64 x 128, 128 x 128, 128 x 256, 256 x 128) in each decode mode
-template <int kMode>
-int launch_tc_tile(int bm, int bn, dim3 grid, cudaStream_t st, const TcMaps& maps, int s_bf16,
-                   const void* bias, void* out, void* part, int M, int N, int K, int bs, int per,
-                   const TableF16& tbl) {
-  if (bm == 64) return launch_tc<kMode, 1, 1, 128>(grid, st, maps, s_bf16, bias, out, part, M, N, K, bs, per, tbl);
-  if (bm == 256) return launch_tc<kMode, 2, 2, 128>(grid, st, maps, s_bf16, bias, out, part, M, N, K, bs, per, tbl);
-  if (bn == 128) return launch_tc<kMode, 2, 1, 128>(grid, st, maps, s_bf16, bias, out, part, M, N, K, bs, per, tbl);
-  return launch_tc<kMode, 2, 1, 256>(grid, st, maps, s_bf16, bias, out, part, M, N, K, bs, per, tbl);
+// the tile shapes (64 x 128, 128 x 128, 128 x 256, 256 x 128) in each decode
+// mode; with compressed scales all but 128 x 256
+template <int kMode, bool kCodes>
+int launch_tc_tile(int bm, int bn, dim3 grid, cudaStream_t st, const TcMaps& maps, const TcArgs& a) {
+  if (bm == 64) return launch_tc<kMode, 1, 1, 128, kCodes>(grid, st, maps, a);
+  if (bm == 256) return launch_tc<kMode, 2, 2, 128, kCodes>(grid, st, maps, a);
+  if (bn == 128) return launch_tc<kMode, 2, 1, 128, kCodes>(grid, st, maps, a);
+  if constexpr (kCodes) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    return launch_tc<kMode, 2, 1, 256, false>(grid, st, maps, a);
+  }
+}
+
+template <bool kCodes>
+int launch_tc_mode(int mode, int bm, int bn, dim3 grid, cudaStream_t st, const TcMaps& maps,
+                   const TcArgs& a) {
+  return mode == 0   ? launch_tc_tile<0, kCodes>(bm, bn, grid, st, maps, a)
+         : mode == 1 ? launch_tc_tile<1, kCodes>(bm, bn, grid, st, maps, a)
+                     : launch_tc_tile<2, kCodes>(bm, bn, grid, st, maps, a);
 }
 
 }  // namespace
 
 // x (M, K) in the compute dtype (f32/bf16); packed (K/2, N) uint8; scales
-// (2, K/(2 bs), N) f32/bf16; bias (N) f32 or null; out (M, N) in the compute
-// dtype. Scratch: part (ksplit, M, N) f32. table: 16 floats on the host.
+// (2, K/(2 bs), N) f32/bf16, or uint8 codes when am_s is given; am_s, am_o
+// (2, 1, N) f32 range and mean of compressed scales, or null; dtab: the 256
+// signed dynamic-map values (f32, on the card; read when am_s is given);
+// bias (N) f32 or null; out (M, N) in the compute dtype. Scratch: part
+// (ksplit, M, N) f32. table: 16 floats on the host.
 extern "C" int mm4_fused(const void* x, const void* packed, const void* scales, const void* bias,
                          void* out, void* part, const void* table, int M, int N, int K, int bs,
-                         int G, int ksplit, int x_bf16, int s_bf16, int mode, void* stream) {
-  if (M <= 0 || N % kCols || K % (2 * bs) || G < 1 || ksplit < 1 || mode < 0 || mode > 2) {
+                         int G, int ksplit, int x_bf16, int s_bf16, int mode, const void* am_s,
+                         const void* am_o, const void* dtab, void* stream) {
+  if (M <= 0 || N % kCols || K % (2 * bs) || G < 1 || ksplit < 1 || mode < 0 || mode > 2 ||
+      (am_s != nullptr && (am_o == nullptr || dtab == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
+  auto* ams = reinterpret_cast<const float*>(am_s);
+  auto* amo = reinterpret_cast<const float*>(am_o);
+  auto* dt = reinterpret_cast<const float*>(dtab);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   TableF16 tbl;
   memcpy(tbl.v, table, sizeof(tbl.v));
@@ -395,11 +486,14 @@ extern "C" int mm4_fused(const void* x, const void* packed, const void* scales, 
   const uint32_t* pk = reinterpret_cast<const uint32_t*>(packed);
   float* pt = reinterpret_cast<float*>(part);
   if (mode == 0) {
-    mm4_kernel<0><<<grid, 32 * kWarps, 0, st>>>(x, x_bf16, pk, scales, s_bf16, pt, M, N, K, bs, G, tbl);
+    mm4_kernel<0><<<grid, 32 * kWarps, 0, st>>>(x, x_bf16, pk, scales, s_bf16, ams, amo, dt, pt, M,
+                                                  N, K, bs, G, tbl);
   } else if (mode == 1) {
-    mm4_kernel<1><<<grid, 32 * kWarps, 0, st>>>(x, x_bf16, pk, scales, s_bf16, pt, M, N, K, bs, G, tbl);
+    mm4_kernel<1><<<grid, 32 * kWarps, 0, st>>>(x, x_bf16, pk, scales, s_bf16, ams, amo, dt, pt, M,
+                                                  N, K, bs, G, tbl);
   } else {
-    mm4_kernel<2><<<grid, 32 * kWarps, 0, st>>>(x, x_bf16, pk, scales, s_bf16, pt, M, N, K, bs, G, tbl);
+    mm4_kernel<2><<<grid, 32 * kWarps, 0, st>>>(x, x_bf16, pk, scales, s_bf16, ams, amo, dt, pt, M,
+                                                  N, K, bs, G, tbl);
   }
   const size_t MN = (size_t)M * N;
   reduce_partials_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(
@@ -408,16 +502,20 @@ extern "C" int mm4_fused(const void* x, const void* packed, const void* scales, 
 }
 
 // The tensor-core body. x (M, K) bf16; packed (K/2, N) uint8; scales
-// (2, K/(2 bs), N) f32/bf16; bias (N) f32 or null; out (M, N) bf16.
-// Tiles of bm x bn (64 x 128, 128 x 128, 128 x 256 or 256 x 128); K split into ksplit
-// ranges of `per` steps of 32 packed rows. Scratch: part (ksplit, M, N) f32
-// when ksplit > 1.
+// (2, K/(2 bs), N) f32/bf16, or uint8 codes with am_s, am_o and dtab as in
+// mm4_fused; bias (N) f32 or null; out (M, N) bf16. Tiles of bm x bn (64 x
+// 128, 128 x 128, 128 x 256 or 256 x 128; compressed scales: not 128 x 256);
+// K split into ksplit ranges of `per` steps of 32 packed rows. Scratch: part
+// (ksplit, M, N) f32 when ksplit > 1.
 extern "C" int mm4_fused_tc(const void* x, const void* packed, const void* scales, const void* bias,
                             void* out, void* part, const void* table, int M, int N, int K, int bs,
-                            int bm, int bn, int per, int ksplit, int s_bf16, int mode, void* stream) {
+                            int bm, int bn, int per, int ksplit, int s_bf16, int mode,
+                            const void* am_s, const void* am_o, const void* dtab, void* stream) {
   const int half = K / 2;
-  const bool tile_ok = ((bm == 64 || bm == 256) && bn == 128) || (bm == 128 && (bn == 128 || bn == 256));
-  if (M <= 0 || !tile_ok || N % bn || K % (2 * bs) || bs % 8 || (bs % kTcJ && kTcJ % bs) ||
+  const bool codes = am_s != nullptr;
+  const bool tile_ok = ((bm == 64 || bm == 256) && bn == 128) ||
+                       (bm == 128 && (bn == 128 || (bn == 256 && !codes)));
+  if (M <= 0 || !tile_ok || N % bn || (codes && (am_o == nullptr || dtab == nullptr)) || K % (2 * bs) || bs % 8 || (bs % kTcJ && kTcJ % bs) ||
       half % kTcJ || per < 1 || ksplit < 1 || mode < 0 || mode > 2 ||
       (size_t)ksplit * per < (size_t)(half / kTcJ) || (ksplit - 1) * per >= half / kTcJ) {
     return (int)cudaErrorInvalidValue;
@@ -434,14 +532,17 @@ extern "C" int mm4_fused_tc(const void* x, const void* packed, const void* scale
   }
   if (err == 0) {
     err = make_tmap_2d(&maps.scales, scales,
-                       s_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                       s_bf16 ? 2 : 4, K / bs, N, N, srows, bn, false);
+                       codes    ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                       : s_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                       codes ? 1 : s_bf16 ? 2 : 4, K / bs, N, N, srows, bn, false);
   }
   if (err != 0) return err;
   dim3 grid(N / bn, (M + bm - 1) / bm, ksplit);
-  err = mode == 0 ? launch_tc_tile<0>(bm, bn, grid, st, maps, s_bf16, bias, out, part, M, N, K, bs, per, tbl)
-        : mode == 1 ? launch_tc_tile<1>(bm, bn, grid, st, maps, s_bf16, bias, out, part, M, N, K, bs, per, tbl)
-                    : launch_tc_tile<2>(bm, bn, grid, st, maps, s_bf16, bias, out, part, M, N, K, bs, per, tbl);
+  const TcArgs args{s_bf16, reinterpret_cast<const float*>(am_s), reinterpret_cast<const float*>(am_o),
+                    reinterpret_cast<const float*>(dtab), bias, out, part, M, N, K, bs, per, tbl};
+  err = codes ? launch_tc_mode<true>(mode, bm, bn, grid, st, maps, args)
+              : launch_tc_mode<false>(mode, bm, bn, grid, st, maps, args);
   if (err != 0) return err;
   if (ksplit > 1) {
     const size_t MN = (size_t)M * N;

@@ -1,7 +1,8 @@
 // Kernel D: single-token decode attention over the paged int8 KV pool.
 //
 // Replaces bitsandbytes_sycl_tpu/ops/paged_attention.py `_paged_attn_kernel`
-// (called through `_paged_attn_call`) for int8 pages.
+// (called through `_paged_attn_call`) for int8 pages and for int4 (kv4)
+// pages.
 //
 // Computes, for batch row b, kv head hk and its `rep` q heads, over pool
 // layer li (pages (L, NP, Hkv, P, D) int8 token-major, scales (L, NP, Hkv, P)
@@ -12,8 +13,20 @@
 //   weighted by v_scale / 127; the new_kv token folded in last as one more
 //   exact online-softmax step. len == 0 without new_kv gives zeros.
 //
+// kv4 pages (kv_bits=4): (L, NP, Hkv, P/2, D) uint8, byte row r holding
+// token 2r in the high nibble and 2r + 1 in the low one, sign-magnitude
+// codes on the +-7 grid (|c| + 8 [c < 0]); the per-token scales are stored
+// in parity-grouped column order (token t at column (t % 2) P/2 + t / 2).
+// Both bodies walk logical tokens as for int8 pages: token t reads byte row
+// t / 2 and its nibble by t's parity, and its scale at its column, so the
+// mask, window, softcap and ALiBi see logical positions (the Pallas kernel
+// instead scores in column order and maps each column back to its token).
+// K's factor is scale = sm / 7 (the wrapper's), V's 1 / 7. The new token
+// comes on the same +-7 grid, as int8 values.
+//
 // Bound on the H100: memory. Each used page's K and V bytes (2 * P * D per
-// kv head) and scales are read once; a page costs ~4 flops per byte. What
+// kv head, P * D with kv4) and scales are read once; a page costs ~4 flops
+// per byte (8 with kv4). What
 // bounds this body now is each CTA's own instruction chain per page (byte
 // permutes, FMAs, shuffles: PERF.md, `chip_smoke.py --probe attention`).
 //
@@ -42,7 +55,10 @@
 // passes, not a test per token. Masked tokens get weight 0, so a fully
 // masked range keeps l = 0 and acc = 0 whatever its m. int8 becomes f32 by
 // a byte permute into 2^23's mantissa and one add, not the quarter-rate
-// conversion. The warps merge in shared memory in a fixed order; each split
+// conversion; a kv4 piece is 16 nibbles of one parity (the lanes of a token
+// group all take the same parity, so the group's shift is uniform), turned
+// into offset bytes by a few word-wide operations and then into floats the
+// same way. The warps merge in shared memory in a fixed order; each split
 // writes its (m, l, acc) to an f32 scratch, then takes a ticket (a fence,
 // then atomicAdd on a per-(b, hk) counter): the last CTA of the row merges
 // the partials in split order (so the output repeats bit for bit), folds in
@@ -58,7 +74,51 @@
 
 namespace {
 
-template <int kRep>
+// the four nibbles at bits [shift, shift + 4) of w's bytes, sign-magnitude
+// codes (|c| + 8 [c < 0]), as exact floats: each byte becomes 128 + c
+// (128 + |c|, less 2 |c| where the sign bit is set; no byte carries into
+// the next), then i8x4_to_f32's mantissa trick
+__device__ __forceinline__ void nib4x4_to_f32(uint32_t w, int shift, float* f) {
+  const uint32_t n = (w >> shift) & 0x0F0F0F0Fu;
+  const uint32_t s8 = n & 0x08080808u;
+  const uint32_t m = n & 0x07070707u;
+  const uint32_t neg = m & (s8 - (s8 >> 3));
+  const uint32_t t = 0x80808080u + m - (neg << 1);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[k] = __int_as_float(__byte_perm(t, 0x4B000000u, 0x7650u | k)) - 8388736.0f;
+  }
+}
+
+// 16 bytes (one 16-byte load) of a K or V row as 16 floats: int8 values, or
+// with kv4 the nibbles of one parity (shift 4: the even token)
+template <bool kKv4>
+__device__ __forceinline__ void row16_to_f32(uint4 w, int shift, float* f) {
+  if (kKv4) {
+    nib4x4_to_f32(w.x, shift, f);
+    nib4x4_to_f32(w.y, shift, f + 4);
+    nib4x4_to_f32(w.z, shift, f + 8);
+    nib4x4_to_f32(w.w, shift, f + 12);
+  } else {
+    i8x16_to_f32(w, f);
+  }
+}
+
+// token t's byte row, and its scale's column, in a page of P tokens
+template <bool kKv4>
+__device__ __forceinline__ int kv_row(int t) { return kKv4 ? t >> 1 : t; }
+template <bool kKv4>
+__device__ __forceinline__ int kv_col(int t, int P) { return kKv4 ? (t & 1) * (P / 2) + (t >> 1) : t; }
+
+// one K or V element: an int8 value, or token t's nibble of a kv4 byte
+template <bool kKv4>
+__device__ __forceinline__ float kv_val(int8_t b, int t) {
+  if (!kKv4) return (float)b;
+  const int c = ((uint8_t)b >> ((t & 1) ? 0 : 4)) & 15;
+  return (float)((c & 8) ? -(c & 7) : (c & 7));
+}
+
+template <int kRep, bool kKv4>
 __global__ void paged_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restrict__ kp,
                              const float* __restrict__ ks, const int8_t* __restrict__ vp,
                              const float* __restrict__ vs, const int* __restrict__ page_table,
@@ -82,7 +142,8 @@ __global__ void paged_kernel(const void* __restrict__ q, int q_bf16, const int8_
   const int qpos = has_new ? len : len - 1;
   const int used = min(max((len + P - 1) / P, 1), MAXP);
   const float inv_cap = softcap > 0.0f ? 1.0f / softcap : 0.0f;
-  const float inv127 = 1.0f / 127.0f;
+  const float vfac = kKv4 ? 1.0f / 7.0f : 1.0f / 127.0f;
+  const int rows = kKv4 ? P / 2 : P;  // byte rows of a page
 
   float m[kRep], l[kRep], acc[kRep];
   for (int r = 0; r < kRep; ++r) {
@@ -95,25 +156,25 @@ __global__ void paged_kernel(const void* __restrict__ q, int q_bf16, const int8_
   for (int j = 0; j < used; ++j) {
     const int pid = page_table[(size_t)b * MAXP + j];
     const size_t page = ((size_t)li * NP + pid) * Hkv + hk;
-    const int8_t* K = kp + page * P * D;
-    const int8_t* V = vp + page * P * D;
+    const int8_t* K = kp + page * rows * D;
+    const int8_t* V = vp + page * rows * D;
     const float* KS = ks + page * P;
     const float* VS = vs + page * P;
     for (int t = tid; t < P; t += nt) {
       float dot[kRep];
       for (int r = 0; r < kRep; ++r) dot[r] = 0.0f;
-      const int4* kr = reinterpret_cast<const int4*>(K + (size_t)t * D);
+      const int4* kr = reinterpret_cast<const int4*>(K + (size_t)kv_row<kKv4>(t) * D);
       for (int d16 = 0; d16 < D / 16; ++d16) {
         const int4 raw = __ldg(kr + d16);
         const int8_t* kb = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
         for (int i = 0; i < 16; ++i) {
-          const float kv = (float)kb[i];
+          const float kv = kv_val<kKv4>(kb[i], t);
           for (int r = 0; r < rep; ++r) dot[r] = fmaf(qs[r * D + d16 * 16 + i], kv, dot[r]);
         }
       }
       const int pos = j * P + t;
-      const float kscale = KS[t] * scale;
+      const float kscale = KS[kv_col<kKv4>(t, P)] * scale;
       const bool valid = pos < len && (window <= 0 || pos >= qpos + 1 - window);
       for (int r = 0; r < rep; ++r) {
         float s = dot[r] * kscale;
@@ -132,7 +193,7 @@ __global__ void paged_kernel(const void* __restrict__ q, int q_bf16, const int8_
       for (int t = tid; t < P; t += nt) {
         const float w = expf(sc[r * P + t] - m_new);
         sum += w;
-        sc[r * P + t] = w * (VS[t] * inv127);
+        sc[r * P + t] = w * (VS[kv_col<kKv4>(t, P)] * vfac);
       }
       l[r] = l[r] * alpha + block_reduce<false>(sum, red);
       m[r] = m_new;
@@ -142,7 +203,7 @@ __global__ void paged_kernel(const void* __restrict__ q, int q_bf16, const int8_
     for (int d = tid; d < D; d += nt) {
 #pragma unroll 8
       for (int t = 0; t < P; ++t) {
-        const float v = (float)V[(size_t)t * D + d];
+        const float v = kv_val<kKv4>(V[(size_t)kv_row<kKv4>(t) * D + d], t);
         for (int r = 0; r < rep; ++r) acc[r] = fmaf(sc[r * P + t], v, acc[r]);
       }
     }
@@ -162,7 +223,7 @@ __global__ void paged_kernel(const void* __restrict__ q, int q_bf16, const int8_
       const float alpha = expf(m[r] - m2);
       const float w_new = expf(sn - m2);
       const float l2 = l[r] * alpha + w_new;
-      const float wv_new = w_new * (vsn[nb] * inv127);
+      const float wv_new = w_new * (vsn[nb] * vfac);
       o = (acc[r] * alpha + wv_new * (float)vn[nb * D + d]) / l2;
     } else {
       o = acc[r] * (len > 0 ? 1.0f / l[r] : 0.0f);
@@ -179,16 +240,16 @@ constexpr int kSplitThreads = 32 * kSplitWarps;
 constexpr int kChunk = 128;                       // tokens per softmax update
 constexpr int kWarpIt = kChunk / (4 * kSplitWarps);  // 4-token steps per warp and chunk
 
-__host__ __device__ constexpr size_t split_stage_bytes(int P, int D) {
-  return 2 * (size_t)P * D + 8 * (size_t)P;  // K, V, k scales, v scales
+__host__ __device__ constexpr size_t split_stage_bytes(int P, int D, bool kv4) {
+  return 2 * (size_t)(kv4 ? P / 2 : P) * D + 8 * (size_t)P;  // K, V, k scales, v scales
 }
 
-__host__ __device__ constexpr size_t split_smem_bytes(int P, int D, int rep) {
+__host__ __device__ constexpr size_t split_smem_bytes(int P, int D, int rep, bool kv4) {
   // alignment slack, 2 ring slots, the warps' (m, l, acc)
-  return 1024 + 2 * split_stage_bytes(P, D) + 4 * (size_t)kSplitWarps * rep * (D + 2);
+  return 1024 + 2 * split_stage_bytes(P, D, kv4) + 4 * (size_t)kSplitWarps * rep * (D + 2);
 }
 
-template <int kRep, int kPc>  // kPc: 16-byte pieces of a row per lane, D / 128
+template <int kRep, int kPc, bool kKv4>  // kPc: 16-byte pieces of a row per lane, D / 128
 __global__ void __launch_bounds__(kSplitThreads)
 paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restrict__ kp,
                    const float* __restrict__ ks, const int8_t* __restrict__ vp,
@@ -201,7 +262,8 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
   constexpr int D = 128 * kPc, kW = kSplitWarps;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  const size_t stage = split_stage_bytes(P, D);
+  const size_t stage = split_stage_bytes(P, D, kKv4);
+  const int rows = kKv4 ? P / 2 : P;  // byte rows of a page
   float* red_m = reinterpret_cast<float*>(smem + 2 * stage);  // [kW][kRep]
   float* red_l = red_m + kW * kRep;                           // [kW][kRep]
   float* red_acc = red_l + kW * kRep;                         // [kW][kRep][D]
@@ -221,7 +283,10 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
   // equal shares whatever its length, so no CTA idles beside a long one
   const int j0 = z * used / nsplit, npages = (z + 1) * used / nsplit - j0;
   const float inv_cap = softcap > 0.0f ? 1.0f / softcap : 0.0f;
-  const float inv127 = 1.0f / 127.0f;
+  const float vfac = kKv4 ? 1.0f / 7.0f : 1.0f / 127.0f;
+  // kv4: the nibble of this lane's token parity (t0 and 4 it are even, so
+  // a token's parity is its group's)
+  const int shift = (g & 1) ? 0 : 4;
 
   float qr[kRep][kPc][16];
 #pragma unroll
@@ -260,7 +325,7 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
       if (softcap > 0.0f) v = softcap * tanhf(v * inv_cap);
       sn[r] = v;
     }
-    vsn_s = vsn[pair] * inv127;
+    vsn_s = vsn[pair] * vfac;
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       const int e = tid + k * kSplitThreads;
@@ -286,10 +351,10 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
     uint8_t* dst = smem + (i & 1) * stage;
     uint64_t* bar = &full[i & 1];
     mbar_expect_tx(bar, (uint32_t)stage);
-    bulk_load(dst, kp + page * P * D, (uint32_t)(P * D), bar);
-    bulk_load(dst + (size_t)P * D, vp + page * P * D, (uint32_t)(P * D), bar);
-    bulk_load(dst + 2 * (size_t)P * D, ks + page * P, (uint32_t)(4 * P), bar);
-    bulk_load(dst + 2 * (size_t)P * D + 4 * P, vs + page * P, (uint32_t)(4 * P), bar);
+    bulk_load(dst, kp + page * rows * D, (uint32_t)(rows * D), bar);
+    bulk_load(dst + (size_t)rows * D, vp + page * rows * D, (uint32_t)(rows * D), bar);
+    bulk_load(dst + 2 * (size_t)rows * D, ks + page * P, (uint32_t)(4 * P), bar);
+    bulk_load(dst + 2 * (size_t)rows * D + 4 * P, vs + page * P, (uint32_t)(4 * P), bar);
   };
 
   if (npages > 0) {
@@ -305,8 +370,8 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
   for (int i = 0; i < npages; ++i) {
     mbar_wait(&full[i & 1], (i >> 1) & 1);
     const uint8_t* K = smem + (i & 1) * stage;
-    const uint8_t* V = K + (size_t)P * D;
-    const float* KS = reinterpret_cast<const float*>(K + 2 * (size_t)P * D);
+    const uint8_t* V = K + (size_t)rows * D;
+    const float* KS = reinterpret_cast<const float*>(K + 2 * (size_t)rows * D);
     const float* VS = KS + P;
     const int pos0 = (j0 + i) * P;
     for (int t0 = warp * (kChunk / kW); t0 < P; t0 += kChunk) {
@@ -322,7 +387,9 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
 #pragma unroll
         for (int p = 0; p < kPc; ++p) {
           float kf[16];
-          i8x16_to_f32(*reinterpret_cast<const uint4*>(K + (size_t)t * D + (c + 8 * p) * 16), kf);
+          row16_to_f32<kKv4>(
+              *reinterpret_cast<const uint4*>(K + (size_t)kv_row<kKv4>(t) * D + (c + 8 * p) * 16),
+              shift, kf);
 #pragma unroll
           for (int r = 0; r < kRep; ++r)
 #pragma unroll
@@ -330,7 +397,7 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
         }
 #endif
         const int pos = pos0 + t;
-        const float kscale = KS[t] * scale;
+        const float kscale = KS[kv_col<kKv4>(t, P)] * scale;
         ok[it] = pos < len && (window <= 0 || pos >= qpos + 1 - window);
 #pragma unroll
         for (int r = 0; r < kRep; ++r) {
@@ -375,7 +442,7 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
         for (int it = 0; it < kWarpIt; ++it) {
           const float w = ok[it] ? expf(sc[it][r] - m_new) : 0.0f;
           sum += w;
-          sc[it][r] = w * (VS[t0 + 4 * it + g] * inv127);
+          sc[it][r] = w * (VS[kv_col<kKv4>(t0 + 4 * it + g, P)] * vfac);
         }
         sum += __shfl_xor_sync(BNB_FULL_MASK, sum, 8);
         sum += __shfl_xor_sync(BNB_FULL_MASK, sum, 16);
@@ -393,7 +460,9 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
 #pragma unroll
         for (int p = 0; p < kPc; ++p) {
           float vf[16];
-          i8x16_to_f32(*reinterpret_cast<const uint4*>(V + (size_t)t * D + (c + 8 * p) * 16), vf);
+          row16_to_f32<kKv4>(
+              *reinterpret_cast<const uint4*>(V + (size_t)kv_row<kKv4>(t) * D + (c + 8 * p) * 16),
+              shift, vf);
 #pragma unroll
           for (int r = 0; r < kRep; ++r)
 #pragma unroll
@@ -515,14 +584,14 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
   }
 }
 
-template <int kRep, int kPc>
+template <int kRep, int kPc, bool kKv4>
 int launch_split(dim3 grid, cudaStream_t st, size_t shmem, const void* q, int q_bf16,
                  const int8_t* kp, const float* ks, const int8_t* vp, const float* vs,
                  const int* pt, const int* ln, const float* al, const int8_t* kn,
                  const float* ksn, const int8_t* vn, const float* vsn, void* out, float* part,
                  int* tickets, int li, int NP, int Hkv, int P, int MAXP, int window,
                  float scale, float softcap) {
-  auto kernel = paged_split_kernel<kRep, kPc>;
+  auto kernel = paged_split_kernel<kRep, kPc, kKv4>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kSplitThreads, shmem, st>>>(q, q_bf16, kp, ks, vp, vs, pt, ln, al, kn, ksn, vn,
@@ -533,18 +602,20 @@ int launch_split(dim3 grid, cudaStream_t st, size_t shmem, const void* q, int q_
 
 }  // namespace
 
-// q and out (B, Hkv, rep, D) f32/bf16; kp, vp (L, NP, Hkv, P, D) int8; ks,
-// vs (L, NP, Hkv, P) f32; page_table (B, MAXP) int32; lens (B) int32; alibi
-// (Hkv * rep) f32 or null; kn, vn (B, Hkv, D) int8 and ksn, vsn (B, Hkv) f32,
-// all four null or all four given. window <= 0: none; softcap <= 0: none.
+// q and out (B, Hkv, rep, D) f32/bf16; kp, vp (L, NP, Hkv, P, D) int8, or
+// with kv4 (L, NP, Hkv, P/2, D) uint8 nibble pairs; ks, vs (L, NP, Hkv, P)
+// f32 (kv4: in parity-grouped column order); page_table (B, MAXP) int32;
+// lens (B) int32; alibi (Hkv * rep) f32 or null; kn, vn (B, Hkv, D) int8
+// and ksn, vsn (B, Hkv) f32, all four null or all four given. window <= 0:
+// none; softcap <= 0: none.
 extern "C" int paged_attn_int8(const void* q, const void* kp, const void* ks, const void* vp,
                                const void* vs, const void* page_table, const void* lens,
                                const void* alibi, const void* kn, const void* ksn, const void* vn,
                                const void* vsn, void* out, int li, int L, int NP, int B, int Hkv,
                                int rep, int D, int P, int MAXP, int window, int has_new,
-                               int q_bf16, float scale, float softcap, void* stream) {
+                               int q_bf16, int kv4, float scale, float softcap, void* stream) {
   if (li < 0 || li >= L || (rep != 1 && rep != 2 && rep != 4 && rep != 8) || D % 32 ||
-      D > 1024 || P <= 0 || MAXP <= 0) {
+      D > 1024 || P <= 0 || MAXP <= 0 || (kv4 && P % 2)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -561,15 +632,24 @@ extern "C" int paged_attn_int8(const void* q, const void* kp, const void* ks, co
   auto* ksnf = reinterpret_cast<const float*>(ksn);
   auto* vn8 = reinterpret_cast<const int8_t*>(vn);
   auto* vsnf = reinterpret_cast<const float*>(vsn);
-#define BNB_PAGED_LAUNCH(R)                                                                  \
-  paged_kernel<R><<<grid, D, shmem, st>>>(q, q_bf16, kp8, ksf, vp8, vsf, pt, ln, al, kn8, ksnf, \
-                                          vn8, vsnf, out, li, NP, Hkv, D, P, MAXP, window,    \
-                                          scale, softcap)
-  switch (rep) {
-    case 1: BNB_PAGED_LAUNCH(1); break;
-    case 2: BNB_PAGED_LAUNCH(2); break;
-    case 4: BNB_PAGED_LAUNCH(4); break;
-    default: BNB_PAGED_LAUNCH(8); break;
+#define BNB_PAGED_LAUNCH(R, KV4)                                                             \
+  paged_kernel<R, KV4><<<grid, D, shmem, st>>>(q, q_bf16, kp8, ksf, vp8, vsf, pt, ln, al, kn8, \
+                                               ksnf, vn8, vsnf, out, li, NP, Hkv, D, P, MAXP, \
+                                               window, scale, softcap)
+  if (kv4) {
+    switch (rep) {
+      case 1: BNB_PAGED_LAUNCH(1, true); break;
+      case 2: BNB_PAGED_LAUNCH(2, true); break;
+      case 4: BNB_PAGED_LAUNCH(4, true); break;
+      default: BNB_PAGED_LAUNCH(8, true); break;
+    }
+  } else {
+    switch (rep) {
+      case 1: BNB_PAGED_LAUNCH(1, false); break;
+      case 2: BNB_PAGED_LAUNCH(2, false); break;
+      case 4: BNB_PAGED_LAUNCH(4, false); break;
+      default: BNB_PAGED_LAUNCH(8, false); break;
+    }
   }
 #undef BNB_PAGED_LAUNCH
   return (int)cudaGetLastError();
@@ -588,9 +668,9 @@ extern "C" int paged_attn_int8_split(const void* q, const void* kp, const void* 
                                      const void* vn, const void* vsn, void* out, void* part,
                                      void* tickets, int li, int L, int NP, int B, int Hkv, int rep,
                                      int D, int P, int MAXP, int nsplit, int window,
-                                     int has_new, int q_bf16, float scale, float softcap,
-                                     void* stream) {
-  const size_t shmem = split_smem_bytes(P, D, rep);
+                                     int has_new, int q_bf16, int kv4, float scale,
+                                     float softcap, void* stream) {
+  const size_t shmem = split_smem_bytes(P, D, rep, kv4 != 0);
   if (li < 0 || li >= L || (D != 128 && D != 256) || (rep != 1 && rep != 2 && rep != 4) ||
       rep * D > 512 || P <= 0 || P % kChunk || MAXP <= 0 || nsplit < 1 || nsplit > MAXP ||
       shmem > 232448 || (nsplit > 1 && (part == nullptr || tickets == nullptr))) {
@@ -611,16 +691,22 @@ extern "C" int paged_attn_int8_split(const void* q, const void* kp, const void* 
   auto* vsnf = reinterpret_cast<const float*>(vsn);
   auto* pf = reinterpret_cast<float*>(part);
   auto* tk = reinterpret_cast<int*>(tickets);
-#define BNB_SPLIT_LAUNCH(R, PC)                                                               \
-  return launch_split<R, PC>(grid, st, shmem, q, q_bf16, kp8, ksf, vp8, vsf, pt, ln, al, kn8, \
-                             ksnf, vn8, vsnf, out, pf, tk, li, NP, Hkv, P, MAXP, window,      \
-                             scale, softcap)
-  if (D == 128) {
-    if (rep == 1) BNB_SPLIT_LAUNCH(1, 1);
-    if (rep == 2) BNB_SPLIT_LAUNCH(2, 1);
-    BNB_SPLIT_LAUNCH(4, 1);
+#define BNB_SPLIT_LAUNCH(R, PC, KV4)                                                         \
+  return launch_split<R, PC, KV4>(grid, st, shmem, q, q_bf16, kp8, ksf, vp8, vsf, pt, ln, al, \
+                                  kn8, ksnf, vn8, vsnf, out, pf, tk, li, NP, Hkv, P, MAXP,    \
+                                  window, scale, softcap)
+#define BNB_SPLIT_SHAPES(KV4)               \
+  if (D == 128) {                           \
+    if (rep == 1) BNB_SPLIT_LAUNCH(1, 1, KV4); \
+    if (rep == 2) BNB_SPLIT_LAUNCH(2, 1, KV4); \
+    BNB_SPLIT_LAUNCH(4, 1, KV4);               \
+  }                                         \
+  if (rep == 1) BNB_SPLIT_LAUNCH(1, 2, KV4);   \
+  BNB_SPLIT_LAUNCH(2, 2, KV4)
+  if (kv4) {
+    BNB_SPLIT_SHAPES(true);
   }
-  if (rep == 1) BNB_SPLIT_LAUNCH(1, 2);
-  BNB_SPLIT_LAUNCH(2, 2);
+  BNB_SPLIT_SHAPES(false);
+#undef BNB_SPLIT_SHAPES
 #undef BNB_SPLIT_LAUNCH
 }

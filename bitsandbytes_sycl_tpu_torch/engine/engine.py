@@ -4,7 +4,9 @@ The scheduler of the JAX package's engine, in PyTorch: each sequence owns
 a batch slot; pending prompts prefill as one padded batch into a
 contiguous scratch cache, whose rows are then copied into their slots of
 the contiguous (B, ...) cache (the default) or into pool pages
-(``EngineConfig(paged=True)``); every decode step advances all slots at
+(``EngineConfig(paged=True)``; a model config with ``kv_bits=4`` gets kv4
+pages, as in the JAX package, whose contiguous cache stays int8 whatever
+``kv_bits`` says); every decode step advances all slots at
 once, inactive ones riding along (contiguous) or writing to the trash page
 (paged); finished slots refill from the pending queue. Prompt lengths are
 bucketed (at least 32) and the prefill batch is padded to a power of two,

@@ -346,12 +346,21 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, device=None) -> Dict:
     }
 
 
+_LEVELS: Dict = {}
+
+
 def _kv_quantize(x: torch.Tensor, levels: float = 127.0):
     """(B, T, H, D) -> int8 codes on the +-levels grid and the per-(token,
-    head) absmax (stored as is; the codes take levels / absmax)."""
+    head) absmax (stored as is; the codes take levels / absmax, divided
+    by a tensor: PyTorch computes a Python scalar over a tensor as the
+    tensor's rounded reciprocal times the scalar, which rounds twice)."""
     xf = x.float()
     absmax = xf.abs().amax(dim=-1)
-    scale = torch.where(absmax > 0, levels / absmax, torch.zeros_like(absmax))
+    key = (str(xf.device), levels)
+    lv = _LEVELS.get(key)
+    if lv is None:
+        lv = _LEVELS[key] = torch.tensor(levels, dtype=torch.float32, device=xf.device)
+    scale = torch.where(absmax > 0, lv / absmax, torch.zeros_like(absmax))
     q = torch.clamp(torch.round(xf * scale[..., None]), -levels, levels)
     return q.to(torch.int8), absmax
 
@@ -407,18 +416,34 @@ def _attention(q, k, v, mask, dtype, sm_scale=None, softcap=None):
 
 
 def _paged_write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg):
-    """Decode step over the paged int8 pool: write this layer's quantized
-    token at (write_page, write_off), then attend with lengths = positions
-    (the pool tokens before this one) and the token folded in as new_kv."""
-    from ..ops.paged_attention import paged_decode_attention_int8_stacked
+    """Decode step over the paged pool: write this layer's quantized token
+    at (write_page, write_off), then attend with lengths = positions (the
+    pool tokens before this one) and the token folded in as new_kv. A kv4
+    pool (uint8 pages) takes the token on the +-7 grid: an even offset
+    writes its nibble high in a fresh byte, an odd one beside the high
+    nibble the byte already holds (the step before's token), and its
+    scales go to column (off % 2) * P/2 + off // 2. The JAX package builds
+    the odd byte from a staged copy of that nibble instead of reading the
+    pool; the bytes agree wherever a slot's tokens are its own (not on the
+    trash page 0, which retired rows share)."""
+    from ..ops.paged_attention import nib_sign_mag, paged_decode_attention_int8_stacked
 
-    if cache["v"].dtype == torch.uint8:
-        raise NotImplementedError("int4 (kv_bits=4) pages are not ported yet (ROADMAP Queue B #3)")
-    kq, ks = _kv_quantize(k)
-    vq, vs = _kv_quantize(v)
+    kv4 = cache["v"].dtype == torch.uint8
+    levels = 7.0 if kv4 else 127.0
+    kq, ks = _kv_quantize(k, levels)
+    vq, vs = _kv_quantize(v, levels)
     pages, offs = cache["write_page"].long(), cache["write_off"].long()
-    cache["k"][li, pages, :, offs] = kq[:, 0]
-    cache["v"][li, pages, :, offs] = vq[:, 0]
+    if kv4:
+        parity, row = offs % 2, offs // 2
+        odd = (parity == 1)[:, None, None]
+        for leaf, codes in (("k", kq), ("v", vq)):
+            nib = nib_sign_mag(codes[:, 0])  # (B, H, D)
+            held = cache[leaf][li, pages, :, row]
+            cache[leaf][li, pages, :, row] = torch.where(odd, (held & 0xF0) | nib, nib << 4)
+        offs = parity * (cache["v_scale"].shape[3] // 2) + row
+    else:
+        cache["k"][li, pages, :, offs] = kq[:, 0]
+        cache["v"][li, pages, :, offs] = vq[:, 0]
     cache["k_scale"][li, pages, :, offs] = ks[:, 0]
     cache["v_scale"][li, pages, :, offs] = vs[:, 0]
     attn = paged_decode_attention_int8_stacked(

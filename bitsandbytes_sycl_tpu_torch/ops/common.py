@@ -9,7 +9,10 @@ kept as the interchange format so both packages hold identical bytes):
   code of element (n, j) in the high nibble and of element (n, j + K//2)
   in the low nibble;
 - ``absmax``: (2, K//(2*blocksize), N) float32 or bfloat16 block scales,
-  plane 0 for elements [0, K/2), plane 1 for [K/2, K).
+  plane 0 for elements [0, K/2), plane 1 for [K/2, K); or, with compressed
+  statistics, uint8 dynamic-map codes of the same shape beside the f32
+  (2, 1, N) sidecars ``absmax_scale`` and ``absmax_offset``
+  (``compress_absmax``, ``decode_absmax``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ __all__ = [
     "decode_4bit",
     "compress_absmax",
     "decode_absmax",
+    "fma_f32",
 ]
 
 
@@ -173,13 +177,53 @@ def decode_4bit(codes: torch.Tensor, table, dtype=torch.float32) -> torch.Tensor
 
 
 def compress_absmax(absmax: torch.Tensor):
-    raise NotImplementedError(
-        "compressed statistics (dynamic-8 absmax codes) are not ported yet (ROADMAP Queue A #1)")
+    """Compressed statistics (the JAX package's ``compress_absmax``): f32
+    per-plane scales (2, nbh, N) -> uint8 signed dynamic-map codes of the
+    scales less their column mean, and f32 (2, 1, N) sidecars: the range
+    (largest centred magnitude) and the mean of each plane and column.
+    The mean is ``torch.mean``'s, whose summation order can differ from
+    JAX's in the last bit, and then a code by one step."""
+    from .dynamic8 import dynamic_encode
+
+    a = absmax.float()
+    offset = a.mean(dim=1, keepdim=True)  # (2, 1, N)
+    centered = a - offset
+    scale = centered.abs().amax(dim=1, keepdim=True)  # (2, 1, N)
+    codes = dynamic_encode(centered * safe_inv(scale), signed=True)
+    return codes, scale, offset
 
 
-def decode_absmax(codes, scale, offset):
-    raise NotImplementedError(
-        "compressed statistics (dynamic-8 absmax codes) are not ported yet (ROADMAP Queue A #1)")
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c of f32 tensors rounded once to f32, as CUDA's
+    ``__fmaf_rn``. The product is exact in float64; the float64 sum's
+    rounding error comes back exactly by TwoSum, and decides the one case
+    where rounding the float64 sum to f32 would round twice: a sum that
+    lands exactly halfway between two f32 values."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    e = (p - (s - bb)) + (cd - bb)
+    r = s.float()
+    d = s - r.double()  # exact
+    other = r.double() + 2.0 * d  # the neighbour across s, when s is a midpoint
+    mid = (d != 0) & (other.float().double() == other)
+    away = mid & (e != 0) & ((e > 0) == (d > 0))
+    return torch.where(away, other.float(), r)
+
+
+def decode_absmax(codes: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``compress_absmax``: ``fma(table[code], scale, offset)``
+    rounded once, with ``table`` the port's dynamic-map decode
+    (``ops.dynamic8.decode_table``, equal to the JAX package's eager
+    decode). Kernels B and E compute the same with ``__fmaf_rn``, bit for
+    bit. The JAX package's jitted decode differs by at most 2 ulps of the
+    table value in 62 of the 256 codes (XLA contracts its decode chain
+    into FMAs), and its eager decode rounds the product and the sum apart."""
+    from .dynamic8 import decode_table
+
+    table = decode_table(codes.device)[:256]
+    return fma_f32(table[codes.long()], scale.float(), offset.float())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,11 +231,13 @@ class QLinearWeight:
     """Kernel-layout 4-bit linear weight (see the module docstring)."""
 
     packed: torch.Tensor  # uint8 (K//2, N), transposed planar
-    absmax: torch.Tensor  # f32/bf16 (2, K//(2*blocksize), N)
+    absmax: torch.Tensor  # f32/bf16 (2, K//(2*blocksize), N) scales, or uint8 codes
     shape: Tuple[int, int]  # (N, K)
     blocksize: int
     quant_type: str
     dtype: str  # original dtype name, e.g. "float32"
+    # compressed statistics only (absmax holds uint8 codes): the f32
+    # (2, 1, N) range and mean of each plane and column
     absmax_scale: Optional[torch.Tensor] = None
     absmax_offset: Optional[torch.Tensor] = None
 
@@ -211,7 +257,7 @@ class QLinearWeight:
         )
 
     def scales_f32(self) -> torch.Tensor:
-        """Per-plane f32 scales (2, nbh, N)."""
+        """Per-plane f32 scales (2, nbh, N), decoding compression if any."""
         if self.compressed:
             return decode_absmax(self.absmax, self.absmax_scale, self.absmax_offset)
         return self.absmax.float()
@@ -235,21 +281,29 @@ def quantize_4bit_native(
 ) -> QLinearWeight:
     """Quantize a (N, K) weight directly into kernel layout, bit-identical
     to the JAX package: it multiplies by safe_inv(absmax) (no division),
-    and with bf16 scales it renormalizes against the rounded scales and
-    clips to [-1, 1] so the codes absorb the scale rounding."""
+    and with bf16 or compressed scales (``compress_statistics``: uint8
+    dynamic-map codes and two f32 sidecars per plane and column, the QLoRA
+    paper's double quantization) it renormalizes against the decoded
+    scales and clips to [-1, 1] so the codes absorb the scale rounding.
+    Compressed, the codes can differ from the JAX package's where the two
+    decoded scales do (``decode_absmax``)."""
     N, K = W.shape
     if K % (2 * blocksize) != 0:
         raise ValueError(f"K={K} must be divisible by 2*blocksize={2*blocksize}")
-    if compress_statistics:
-        compress_absmax(None)
     _table, _s, order, mids = F._code_arrays(quant_type)
     blocks = W.float().reshape(N, K // blocksize, blocksize)
     absmax = blocks.abs().amax(dim=2)  # (N, K//bs)
     normed = blocks * F._safe_inv(absmax)[:, :, None]
     amax = absmax.T.reshape(2, K // (2 * blocksize), N)
-    if absmax_dtype != torch.float32:
-        amax = amax.to(absmax_dtype)
-        absmax_d = amax.float().reshape(K // blocksize, N).T  # (N, K//bs)
+    am_scale = am_offset = None
+    if compress_statistics or absmax_dtype != torch.float32:
+        if compress_statistics:
+            amax, am_scale, am_offset = compress_absmax(amax)
+            dec = decode_absmax(amax, am_scale, am_offset)
+        else:
+            amax = amax.to(absmax_dtype)
+            dec = amax.float()
+        absmax_d = dec.reshape(K // blocksize, N).T  # (N, K//bs)
         normed = (blocks * F._safe_inv(absmax_d)[:, :, None]).clamp(-1.0, 1.0)
     codes = F._encode_nearest(normed.reshape(N, K), mids, order)
     packed = (codes[:, : K // 2].T << 4 | codes[:, K // 2:].T).to(torch.uint8).contiguous()
@@ -260,4 +314,6 @@ def quantize_4bit_native(
         blocksize=blocksize,
         quant_type=quant_type,
         dtype=str(W.dtype).replace("torch.", ""),
+        absmax_scale=am_scale,
+        absmax_offset=am_offset,
     )

@@ -11,6 +11,11 @@ with f32 accumulation, the numerics of the JAX package's
   for ``i >= 8``, and f32 compute decodes in f32; the product is then cast
   to x's dtype.
 
+Compressed statistics (uint8 dynamic-map codes of the block scales and an
+f32 range and mean per plane and column, ``ops.common.compress_absmax``)
+decode each scale once as ``decode_absmax`` does, one fma rounded once,
+in both kernels and their plain versions; the rest is unchanged.
+
 Kernel E decodes with the same rounding points into a dense W^T (K, N);
 from ``PREFILL_MIN_M`` rows (``PREFILL_MIN_M_UNALIGNED`` for weights whose
 half-K is not a multiple of 8 quantization blocks) ``matmul_4bit_fused``
@@ -38,6 +43,7 @@ from .. import codebooks
 from . import _build
 from .common import (LaunchPlan, QLinearWeight, _ksplit, check_cuda_tensors, pick_tile,
                      sm_count, split_k)
+from .dynamic8 import decode_table
 
 __all__ = [
     "matmul_4bit_fused", "mm4_fused", "dequantize_transposed", "ExactDequantGrad",
@@ -121,6 +127,24 @@ def _decode_table(quant_type: str, blocksize: int, mode: int):
     return (ctypes.c_float * 16)(*[float(v) for v in vals])
 
 
+def _scale_args(w: QLinearWeight) -> tuple:
+    """The scale arguments of kernels B and E: (raw scales in bf16 or not,
+    range, mean, dynamic-map table) pointers, the last three None for raw
+    scales. Compressed codes must come with contiguous f32 (2, 1, N)
+    sidecars."""
+    if not w.compressed:
+        if w.absmax.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"scales must be f32/bf16 or compressed codes, got {w.absmax.dtype}")
+        return int(w.absmax.dtype == torch.bfloat16), None, None, None
+    N = w.shape[0]
+    sc, off = w.absmax_scale, w.absmax_offset
+    if w.absmax.dtype != torch.uint8 or any(
+            t.dtype != torch.float32 or tuple(t.shape) != (2, 1, N) or not t.is_contiguous()
+            for t in (sc, off)):
+        raise ValueError("compressed scales: uint8 codes with contiguous f32 (2, 1, N) sidecars")
+    return 0, sc.data_ptr(), off.data_ptr(), decode_table(w.absmax.device).data_ptr()
+
+
 def _dequant4_plain(w: QLinearWeight, out_dtype) -> torch.Tensor:
     """Plain PyTorch version of kernel E: both planes stacked, (K, N)."""
     mode = _decode_mode(w, out_dtype, None)
@@ -134,35 +158,37 @@ def dequantize_transposed(w: QLinearWeight, out_dtype=torch.bfloat16) -> torch.T
     that padding to 8 quantization blocks would double) in XLA instead,
     with one f32 product rounded once; kernel E takes every shape, so
     there the result can differ from the JAX package's by one rounding."""
-    if not check_cuda_tensors("dequantize_transposed", w.packed, w.absmax):
+    if not check_cuda_tensors("dequantize_transposed", w.packed, w.absmax, w.absmax_scale,
+                              w.absmax_offset):
         return _dequant4_plain(w, out_dtype)
     N, K = w.shape
     bs = w.blocksize
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dequantize_transposed: out_dtype must be f32 or bf16, got {out_dtype}")
-    if w.absmax.dtype not in (torch.float32, torch.bfloat16) or w.compressed:
-        raise NotImplementedError(
-            "dequantize_transposed: compressed statistics are not ported yet (ROADMAP Queue A #1)")
+    s_bf16, am_s, am_o, dtab = _scale_args(w)
     if N % 4 or K % (2 * bs) or bs % 4 or tuple(w.packed.shape) != (K // 2, N):
         raise ValueError(f"dequantize_transposed: unsupported shape N={N} K={K} bs={bs}")
     if not (w.packed.is_contiguous() and w.absmax.is_contiguous()):
         raise ValueError("dequantize_transposed: weight tensors must be contiguous")
     mode = _decode_mode(w, out_dtype, None)
     out = torch.empty((K, N), dtype=out_dtype, device=w.packed.device)
-    fn = _build.kernel_fn("dequantize_transposed", "dequantize_transposed", 11, int_args=range(4, 10))
+    fn = _build.kernel_fn("dequantize_transposed", "dequantize_transposed", 14,
+                          int_args=range(4, 10))
     err = fn(
         w.packed.data_ptr(), w.absmax.data_ptr(), out.data_ptr(),
         ctypes.addressof(_decode_table(w.quant_type, bs, mode)),
-        K, N, bs, int(w.absmax.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        int(mode == _MODE_BF16_TABLE),
-        torch.cuda.current_stream(w.packed.device).cuda_stream,
+        K, N, bs, s_bf16, int(out_dtype == torch.bfloat16), int(mode == _MODE_BF16_TABLE),
+        am_s, am_o, dtab, torch.cuda.current_stream(w.packed.device).cuda_stream,
     )
     _build.check("dequantize_transposed", err)
     dequantize_transposed.launches += 1
+    dequantize_transposed.launches_compressed += int(w.compressed)
     return out
 
 
+# launches, and those on compressed scales
 dequantize_transposed.launches = 0
+dequantize_transposed.launches_compressed = 0
 
 
 def _dense_matmul(x2: torch.Tensor, wt: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -194,20 +220,25 @@ _MM4_TILES = {(64, 128): (2, 1.37), (128, 128): (1, 0.934), (128, 256): (1, 1.71
 _MM4_SPLIT = (6.67, 2.38e-6)
 
 
-def mm4_plan(M: int, N: int, K: int, bs: int, x_dtype, sms: int) -> LaunchPlan:
+@functools.lru_cache(maxsize=None)
+def mm4_plan(M: int, N: int, K: int, bs: int, x_dtype, sms: int,
+             compressed: bool = False) -> LaunchPlan:
     """Kernel B's launch on ``sms`` SMs. The tensor-core body takes bf16 x
     where half-K is a whole number of its 32-row steps and a step's 8-row
     decode groups each lie in one quantization block, with the tile and K
     split that ``split_k`` ranks cheapest (it beats the SIMT body from one
-    row on). The SIMT body takes the rest (f32 x, other shapes): 4-row
-    tiles, ``per`` quantization blocks per warp."""
+    row on); with ``compressed`` scales every tile but 128 x 256, which has
+    no shared memory left for the decode table. The SIMT body takes the
+    rest (f32 x, other shapes): 4-row tiles, ``per`` quantization blocks
+    per warp. Cached: a decode step asks for the same plans in every
+    layer."""
     half = K // 2
     if x_dtype == torch.bfloat16 and half % 32 == 0 and bs % 8 == 0 and (
             bs % 32 == 0 or 32 % bs == 0):
         best = None
         split_us, elem_us = _MM4_SPLIT
         for (bm, bn), (ctas_per_sm, step_us) in _MM4_TILES.items():
-            if N % bn:
+            if N % bn or (compressed and (bm, bn) == (128, 256)):
                 continue
             per, ks, est = split_k(-(-M // bm) * (N // bn), half // 32, max(1, bs // 32), sms,
                                    ctas_per_sm, step_us, split_us, bm * bn * elem_us)
@@ -224,7 +255,8 @@ def mm4_fused(x2: torch.Tensor, w: QLinearWeight, bias: Optional[torch.Tensor],
     x2 (M, K) already in compute_dtype -> (M, N) in compute_dtype. The
     body follows ``mm4_plan``."""
     mode = _decode_mode(w, compute_dtype, decode_dtype)
-    if not check_cuda_tensors("mm4_fused", x2, w.packed, w.absmax, bias):
+    if not check_cuda_tensors("mm4_fused", x2, w.packed, w.absmax, w.absmax_scale,
+                              w.absmax_offset, bias):
         return _mm4_plain(x2, w, bias, compute_dtype, mode)
     M, K = x2.shape
     N = w.shape[0]
@@ -233,18 +265,17 @@ def mm4_fused(x2: torch.Tensor, w: QLinearWeight, bias: Optional[torch.Tensor],
         raise ValueError(f"mm4_fused: x ({x2.dtype}) must be in compute_dtype f32/bf16")
     if not x2.is_contiguous() or not w.packed.is_contiguous() or not w.absmax.is_contiguous():
         raise ValueError("mm4_fused: tensors must be contiguous")
-    if w.absmax.dtype not in (torch.float32, torch.bfloat16) or w.compressed:
-        raise NotImplementedError(
-            "mm4_fused: compressed statistics are not ported yet (ROADMAP Queue A #1)")
     if N % 128 or K % (2 * bs) or bs % 4 or w.shape[1] != K or M == 0:
         raise ValueError(f"mm4_fused: untileable shape M={M} N={N} K={K} bs={bs}")
     if x2.data_ptr() % 16:
         x2 = x2.clone()  # a view at an odd offset; TMA reads 16-byte aligned rows
-    return _mm4_launch(x2, w, bias, mode, mm4_plan(M, N, K, bs, x2.dtype, sm_count(x2.device)))
+    return _mm4_launch(x2, w, bias, mode,
+                       mm4_plan(M, N, K, bs, x2.dtype, sm_count(x2.device), w.compressed))
 
 
 def _mm4_launch(x2, w: QLinearWeight, bias, mode: int, plan: LaunchPlan) -> torch.Tensor:
     """Launch kernel B's body ``plan.body`` on checked CUDA tensors."""
+    s_bf16, am_s, am_o, dtab = _scale_args(w)
     M, K = x2.shape
     N = w.shape[0]
     dev = x2.device
@@ -256,27 +287,28 @@ def _mm4_launch(x2, w: QLinearWeight, bias, mode: int, plan: LaunchPlan) -> torc
     ptrs = (x2.data_ptr(), w.packed.data_ptr(), w.absmax.data_ptr(),
             None if b is None else b.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(), table)
-    s_bf16 = int(w.absmax.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if plan.body == "tc":
         # TMA reads x, the packed bytes and the scales from 16-byte aligned addresses
         assert all(t.data_ptr() % 16 == 0 for t in (x2, w.packed, w.absmax)), "unaligned tensor"
-        fn = _build.kernel_fn("mm4_fused", "mm4_fused_tc", 18, int_args=range(7, 17))
+        fn = _build.kernel_fn("mm4_fused", "mm4_fused_tc", 21, int_args=range(7, 17))
         err = fn(*ptrs, M, N, K, w.blocksize, plan.bm, plan.bn, plan.per, plan.ksplit, s_bf16,
-                 mode, stream)
+                 mode, am_s, am_o, dtab, stream)
         mm4_fused.launches_tc += 1
     else:
-        fn = _build.kernel_fn("mm4_fused", "mm4_fused", 17, int_args=range(7, 16))
+        fn = _build.kernel_fn("mm4_fused", "mm4_fused", 20, int_args=range(7, 16))
         err = fn(*ptrs, M, N, K, w.blocksize, plan.per, plan.ksplit,
-                 int(x2.dtype == torch.bfloat16), s_bf16, mode, stream)
+                 int(x2.dtype == torch.bfloat16), s_bf16, mode, am_s, am_o, dtab, stream)
     _build.check(f"mm4_fused ({plan.body})", err)
     mm4_fused.launches += 1
+    mm4_fused.launches_compressed += int(w.compressed)
     return out
 
 
-# launches of either body, and of the tensor-core body alone
+# launches of either body, of the tensor-core body alone, and on compressed scales
 mm4_fused.launches = 0
 mm4_fused.launches_tc = 0
+mm4_fused.launches_compressed = 0
 
 
 class ExactDequantGrad(torch.autograd.Function):

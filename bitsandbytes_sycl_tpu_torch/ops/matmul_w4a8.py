@@ -263,20 +263,22 @@ def col_grid(w: QLinearWeight):
     """``_col_grid``'s (colmax, f) by the column-grid kernel on CUDA
     tensors (the same numbers bit for bit), by the plain version on CPU
     tensors. Kernel F's route and kernel G take them."""
-    if not check_cuda_tensors("col_grid", w.absmax):
+    from .matmul_4bit import _scale_args
+
+    if not check_cuda_tensors("col_grid", w.absmax, w.absmax_scale, w.absmax_offset):
         return _col_grid(w)
-    if w.compressed:
-        raise NotImplementedError(
-            "col_grid: compressed statistics are not ported yet (ROADMAP Queue A #1)")
-    if w.absmax.dtype not in (torch.float32, torch.bfloat16) or not w.absmax.is_contiguous():
-        raise ValueError("col_grid: the scales must be contiguous f32/bf16")
+    # compressed scales are decoded in the kernel first (decode_absmax's
+    # rounding), as the JAX package decodes them before its kernel F
+    s_bf16, am_s, am_o, dtab = _scale_args(w)
+    if not w.absmax.is_contiguous():
+        raise ValueError("col_grid: the scales must be contiguous")
     _, nbh, N = w.absmax.shape
     dev = w.absmax.device
     colmax = torch.empty((N,), dtype=torch.float32, device=dev)
     f = torch.empty((2, nbh, N), dtype=torch.float32, device=dev)
-    fn = _build.kernel_fn("dequant_int8", "col_grid", 7, int_args=range(3, 6))
-    err = fn(w.absmax.data_ptr(), colmax.data_ptr(), f.data_ptr(), 2 * nbh, N,
-             int(w.absmax.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+    fn = _build.kernel_fn("dequant_int8", "col_grid", 10, int_args=range(3, 6))
+    err = fn(w.absmax.data_ptr(), colmax.data_ptr(), f.data_ptr(), 2 * nbh, N, s_bf16,
+             am_s, am_o, dtab, torch.cuda.current_stream(dev).cuda_stream)
     _build.check("col_grid", err)
     return colmax, f
 

@@ -11,7 +11,14 @@ an exact online-softmax step) is given, else at ``len - 1``. A row with
 The kernel walks each row's used pages, ``max(ceil(len / P), 1)`` (at most
 the table width). ``pages_hint``, a host-known bound on every row's used
 pages (the engine's page horizon), only caps how many CTAs share a row: it
-never changes the result. int4 (kv4) pages come in a later slice.
+never changes the result.
+
+int4 (kv4) pages (``kv_bits=4``): K and V (L, NP, Hkv, P/2, D) uint8, byte
+row r holding token 2r in the high nibble and token 2r + 1 in the low one,
+sign-magnitude codes on the +-7 grid (``nib_sign_mag``); the per-token f32
+scales (L, NP, Hkv, P) sit in parity-grouped column order, token t at
+column (t % 2) * P/2 + t // 2 (``engine/paged._scale_cols``). K's factor is
+``sm / 7`` and V's ``1 / 7``; ``new_kv`` then carries +-7 codes as int8.
 
 Two bodies (``paged_plan``): the split body spreads a row's pages over
 ``nsplit`` CTAs and merges their partial softmax states in split order; the
@@ -30,7 +37,40 @@ from . import _build
 from .common import check_cuda_tensors, scratch_buffer, sm_count, ticket_buffer
 
 __all__ = ["paged_decode_attention_int8", "paged_decode_attention_int8_stacked", "paged_attn_int8",
-           "paged_plan", "PagedPlan"]
+           "paged_plan", "PagedPlan", "nib_sign_mag", "requant_nib4", "kv4_unpack",
+           "kv4_scales_logical"]
+
+
+def nib_sign_mag(c4: torch.Tensor) -> torch.Tensor:
+    """+-7-grid codes -> sign-magnitude nibbles ``|c| + 8 * [c < 0]``,
+    uint8: the kv4 nibble encoding of the page pool."""
+    return torch.where(c4 < 0, 8 - c4, c4).to(torch.uint8)
+
+
+def requant_nib4(c8: torch.Tensor) -> torch.Tensor:
+    """+-127-grid int8 codes -> kv4 nibbles: ``round(c * 7 / 127)`` (half to
+    even, in f32) clipped to +-7, then ``nib_sign_mag``; the one-time
+    requantization of the int8 prefill scratch into kv4 pages."""
+    f = torch.tensor(np.float32(7.0 / 127.0), device=c8.device)
+    c4 = torch.clamp(torch.round(c8.to(torch.float32) * f), -7.0, 7.0)
+    return nib_sign_mag(c4)
+
+
+def kv4_unpack(packed: torch.Tensor) -> torch.Tensor:
+    """(..., P/2, D) uint8 nibble pairs -> (..., P, D) int8 codes in [-7, 7]
+    in token order (byte row r: token 2r high, 2r + 1 low)."""
+    def dec(nib):
+        n = nib.to(torch.int32)
+        return torch.where(n >= 8, 8 - n, n).to(torch.int8)
+
+    pair = torch.stack([dec(packed >> 4), dec(packed & 0xF)], dim=-2)  # (..., P/2, 2, D)
+    return pair.reshape(*packed.shape[:-2], -1, packed.shape[-1])
+
+
+def kv4_scales_logical(s: torch.Tensor) -> torch.Tensor:
+    """kv4 scales from parity-grouped column order back to token order."""
+    half = s.shape[-1] // 2
+    return torch.stack([s[..., :half], s[..., half:]], dim=-1).reshape(*s.shape[:-1], -1)
 
 
 class PagedPlan(NamedTuple):
@@ -70,16 +110,23 @@ def paged_plan(B: int, Hkv: int, MAXP: int, P: int, D: int, rep: int, sms: int,
 
 def _paged_plain(q4, kp, ks, vp, vs, li, page_table, lengths, new_kv, scale,
                  window, softcap, alibi):
-    """Plain PyTorch version of kernel D (gathers every table page)."""
+    """Plain PyTorch version of kernel D (gathers every table page; kv4
+    pages and scales are put back into token order first)."""
     B, Hkv, rep, D = q4.shape
     P = vs.shape[3]
     MAXP = page_table.shape[1]
     pt = page_table.long()
     S = MAXP * P
-    k = kp[li][pt].permute(0, 2, 1, 3, 4).reshape(B, Hkv, S, D).float()
-    v = vp[li][pt].permute(0, 2, 1, 3, 4).reshape(B, Hkv, S, D).float()
-    ksg = ks[li][pt].permute(0, 2, 1, 3).reshape(B, Hkv, 1, S).float()
-    vsg = vs[li][pt].permute(0, 2, 1, 3).reshape(B, Hkv, 1, S).float()
+    kg, vg, ksg, vsg = kp[li][pt], vp[li][pt], ks[li][pt], vs[li][pt]
+    kv4 = vp.dtype == torch.uint8
+    if kv4:
+        kg, vg = kv4_unpack(kg), kv4_unpack(vg)
+        ksg, vsg = kv4_scales_logical(ksg), kv4_scales_logical(vsg)
+    vfac = np.float32(1.0 / 7.0) if kv4 else np.float32(1.0 / 127.0)
+    k = kg.permute(0, 2, 1, 3, 4).reshape(B, Hkv, S, D).float()
+    v = vg.permute(0, 2, 1, 3, 4).reshape(B, Hkv, S, D).float()
+    ksg = ksg.permute(0, 2, 1, 3).reshape(B, Hkv, 1, S).float()
+    vsg = vsg.permute(0, 2, 1, 3).reshape(B, Hkv, 1, S).float()
     qf = q4.float()
     sc = torch.einsum("bhrd,bhsd->bhrs", qf, k) * (ksg * scale)
     lens = lengths.long().reshape(B, 1, 1, 1)
@@ -96,7 +143,7 @@ def _paged_plain(q4, kp, ks, vp, vs, li, page_table, lengths, new_kv, scale,
     m = sc.amax(dim=-1, keepdim=True)
     w = torch.exp(sc - m)
     l = w.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bhrs,bhsd->bhrd", w * (vsg * np.float32(1.0 / 127.0)), v)
+    acc = torch.einsum("bhrs,bhsd->bhrd", w * (vsg * vfac), v)
     if new_kv is not None:
         kn, ksn, vn, vsn = new_kv
         sc_new = (qf * kn.float()[:, :, None, :]).sum(dim=-1, keepdim=True)
@@ -107,7 +154,7 @@ def _paged_plain(q4, kp, ks, vp, vs, li, page_table, lengths, new_kv, scale,
         alpha = torch.exp(m - m2)
         w_new = torch.exp(sc_new - m2)
         l2 = l * alpha + w_new
-        wv_new = w_new * (vsn.float()[:, :, None, None] * np.float32(1.0 / 127.0))
+        wv_new = w_new * (vsn.float()[:, :, None, None] * vfac)
         o = (acc * alpha + wv_new * vn.float()[:, :, None, :]) / l2
     else:
         inv = torch.where(lens > 0, 1.0 / l, torch.zeros_like(l))
@@ -121,22 +168,26 @@ def paged_attn_int8(q4, kp, ks, vp, vs, li: int, page_table, lengths, scale: flo
                     alibi: Optional[torch.Tensor] = None,
                     pages_hint: Optional[int] = None) -> torch.Tensor:
     """Kernel D on CUDA tensors; the plain version on CPU tensors.
-    q4 (B, Hkv, rep, D) f32/bf16 -> (B, Hkv, rep, D) in q's dtype.
-    ``pages_hint``: see the module note."""
+    q4 (B, Hkv, rep, D) f32/bf16 -> (B, Hkv, rep, D) in q's dtype; int8
+    pages, or kv4 pages (uint8, P/2 byte rows), whose ``scale`` the caller
+    gives for the +-7 grid. ``pages_hint``: see the module note."""
     extra = () if new_kv is None else tuple(new_kv)
     if not check_cuda_tensors("paged_attn_int8", q4, kp, ks, vp, vs, page_table, lengths,
                               alibi, *extra):
         return _paged_plain(q4, kp, ks, vp, vs, li, page_table, lengths, new_kv, scale,
                             window, softcap, alibi)
     B, Hkv, rep, D = q4.shape
-    L, NP, _, P, _ = kp.shape
+    L, NP, _, P = ks.shape
     MAXP = page_table.shape[1]
+    kv4 = kp.dtype == torch.uint8
+    rows = P // 2 if kv4 else P
     if q4.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"paged_attn_int8: q must be f32/bf16, got {q4.dtype}")
-    if kp.dtype != torch.int8 or vp.dtype != torch.int8 or ks.dtype != torch.float32 \
-            or vs.dtype != torch.float32:
-        raise ValueError("paged_attn_int8: int8 pages with f32 scales only")
-    if D % 128 or D > 1024 or rep not in (1, 2, 4, 8) or kp.shape != (L, NP, Hkv, P, D) or vp.shape != kp.shape \
+    if kp.dtype not in (torch.int8, torch.uint8) or vp.dtype != kp.dtype \
+            or ks.dtype != torch.float32 or vs.dtype != torch.float32:
+        raise ValueError("paged_attn_int8: int8 or kv4 (uint8) pages with f32 scales only")
+    if D % 128 or D > 1024 or rep not in (1, 2, 4, 8) or P % 2 \
+            or kp.shape != (L, NP, Hkv, rows, D) or vp.shape != kp.shape \
             or ks.shape != (L, NP, Hkv, P) or vs.shape != ks.shape:
         raise ValueError(f"paged_attn_int8: unsupported shapes q={tuple(q4.shape)} "
                          f"pool={tuple(kp.shape)}")
@@ -151,8 +202,9 @@ def _paged_launch(q4, kp, ks, vp, vs, li, page_table, lengths, scale, new_kv, wi
                   alibi, plan: PagedPlan) -> torch.Tensor:
     """Launch kernel D's body ``plan.body`` on checked CUDA tensors."""
     B, Hkv, rep, D = q4.shape
-    L, NP, _, P, _ = kp.shape
+    L, NP, _, P = ks.shape
     MAXP = page_table.shape[1]
+    kv4 = int(kp.dtype == torch.uint8)
     qc = q4.contiguous()
     ts = [t.contiguous() for t in (kp, ks, vp, vs)]
     pt = page_table.to(torch.int32).contiguous()
@@ -178,40 +230,42 @@ def _paged_launch(q4, kp, ks, vp, vs, li, page_table, lengths, scale, new_kv, wi
         if plan.nsplit > 1:
             part = scratch_buffer(q4.device, B * Hkv * plan.nsplit * rep * (D + 2))
             tickets = ticket_buffer(q4.device, B * Hkv)
-        fn = _build.kernel_fn("paged_attn_int8", "paged_attn_int8_split", 31,
-                              int_args=range(15, 28), float_args=(28, 29))
+        fn = _build.kernel_fn("paged_attn_int8", "paged_attn_int8_split", 32,
+                              int_args=range(15, 29), float_args=(29, 30))
         err = fn(*ptrs, None if part is None else part.data_ptr(),
                  None if tickets is None else tickets.data_ptr(),
                  int(li), L, NP, B, Hkv, rep, D, P, MAXP, plan.nsplit, int(window or 0),
-                 int(new_kv is not None), int(q4.dtype == torch.bfloat16),
+                 int(new_kv is not None), int(q4.dtype == torch.bfloat16), kv4,
                  float(scale), float(softcap or 0.0), stream)
         paged_attn_int8.launches_split += 1
     else:
-        fn = _build.kernel_fn("paged_attn_int8", "paged_attn_int8", 28,
-                              int_args=range(13, 25), float_args=(25, 26))
+        fn = _build.kernel_fn("paged_attn_int8", "paged_attn_int8", 29,
+                              int_args=range(13, 26), float_args=(26, 27))
         err = fn(*ptrs, int(li), L, NP, B, Hkv, rep, D, P, MAXP, int(window or 0),
-                 int(new_kv is not None), int(q4.dtype == torch.bfloat16),
+                 int(new_kv is not None), int(q4.dtype == torch.bfloat16), kv4,
                  float(scale), float(softcap or 0.0), stream)
     _build.check(f"paged_attn_int8 ({plan.body})", err)
     paged_attn_int8.launches += 1
+    paged_attn_int8.launches_kv4 += kv4
     return out
 
 
-# launches of either body, and of the split body alone
+# launches of either body, of the split body alone, and over kv4 pages
 paged_attn_int8.launches = 0
 paged_attn_int8.launches_split = 0
+paged_attn_int8.launches_kv4 = 0
 
 
 def paged_decode_attention_int8_stacked(
     q: torch.Tensor,  # (B, 1, Hq, D)
-    kp: torch.Tensor,  # (L, NP, Hkv, P, D) int8
+    kp: torch.Tensor,  # (L, NP, Hkv, P, D) int8, or kv4 (L, NP, Hkv, P/2, D) uint8
     ks: torch.Tensor,  # (L, NP, Hkv, P) f32
-    vp: torch.Tensor,  # (L, NP, Hkv, P, D) int8
+    vp: torch.Tensor,  # as kp
     vs: torch.Tensor,  # (L, NP, Hkv, P) f32
     li: int,
     page_table: torch.Tensor,  # (B, MAXP) int32
     lengths: torch.Tensor,  # (B,) tokens in the pool per row
-    new_kv=None,  # optional (kq (B,Hkv,D) i8, ks (B,Hkv) f32, vq, vs)
+    new_kv=None,  # optional (kq (B,Hkv,D) i8, ks (B,Hkv) f32, vq, vs); kv4: +-7 codes
     window: Optional[int] = None,
     softcap: Optional[float] = None,
     sm_scale: Optional[float] = None,
@@ -228,13 +282,12 @@ def paged_decode_attention_int8_stacked(
     if T != 1 or D % 128 != 0 or Hq % Hkv != 0 or P % 128 != 0 or vp.shape[3] not in (P, P // 2):
         raise ValueError(f"paged_decode_attention_int8_stacked: the kernel does not take "
                          f"T={T}, D={D}, P={P}, Hq={Hq}, Hkv={Hkv}, pages {tuple(vp.shape)}")
-    if vp.dtype == torch.uint8:
-        raise NotImplementedError("int4 (kv_bits=4) pages are not ported yet (ROADMAP Queue B #3)")
     if window is not None and window >= page_table.shape[1] * P:
         window = None  # can never bind
     sm = sm_scale if sm_scale is not None else 1.0 / float(np.sqrt(D))
     q4 = q.reshape(B, Hkv, Hq // Hkv, D)
-    out = paged_attn_int8(q4, kp, ks, vp, vs, int(li), page_table, lengths, sm / 127.0,
+    levels = 7.0 if vp.dtype == torch.uint8 else 127.0
+    out = paged_attn_int8(q4, kp, ks, vp, vs, int(li), page_table, lengths, sm / levels,
                           new_kv=new_kv, window=window, softcap=softcap, alibi=alibi_slopes,
                           pages_hint=pages_hint)
     return out.reshape(B, 1, Hq, D)

@@ -52,6 +52,18 @@ Phases, each of which exits non-zero on failure:
      through the default contiguous engine: kernels I (225 per decode step)
      and H (32); then, 2 layers at 7B width, card against CPU: prefill
      logits at T=32 and 4 decode steps, and greedy tokens;
+  3d. the memory-lean NF4 configuration, LlamaConfig.llama7b(
+     compress_stats=True, kv_bits=4) (compressed statistics: uint8
+     dynamic-map codes of the block scales; kv4 pages: nibble pairs),
+     after phase 7b frees phase 3's model: phase 3's prompts through the
+     paged engine (225 launches of B's compressed branch on its tensor-core
+     body and 32 of D's kv4 split body per decode step, none of A), phase
+     3b's 256-, 2048- (E's compressed branch once per linear) and 4096-row
+     (F on the decoded scales) batches, 3 adamw8bit QLoRA steps of phase
+     7b's setting on this base (447 compressed E launches a step: forward
+     and backward), then 2 layers at 7B width card against CPU (prefill
+     logits and greedy tokens under phase 5's rule, one QLoRA step under
+     phase 7c's limits);
   7. QLoRA: (a, in phase 2) the 8-bit optimizer kernels J and K, one launch
      over a leaf table, bit for bit against their plain version over the
      448-leaf QLoRA table, a mixed table with ragged leaves and 16.8M
@@ -79,7 +91,13 @@ the next row's SCB as fault) and the LLM.int8 route at 256 and 1024 rows;
 kernel F's tiled body bit for bit at the 7B shapes (blocksizes 64 and 128)
 and three small ones (one with a ragged column tile), its stride body at
 blocksize 8, and 100 repeated launches of F and of every plan of I (each
-wgmma width at 4096 x 4096).
+wgmma width at 4096 x 4096); the compressed branches of B (both bodies at
+4, 256 and 2048 rows, within 1%, two faults) and E (bf16 and f32 out, bit
+for bit) at the 7B shapes and on small shapes in every decode mode, tile
+and blocksize, and D's kv4 branch (split and SIMT bodies at 1 and 16
+pages, B = 1, 2, 4, with new_kv, within 1%, four faults: swapped nibbles,
+scales in token order, V at 1/127, the next kv head; the options on small
+shapes), each fast plan repeated 100 times.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 It imports nothing of JAX.
@@ -955,6 +973,365 @@ def check_paged(torch, report):
     report["paged_attn_int8"] = dict(rows[0], shapes=rows)
 
 
+# --------------------------------------------------------------- slice 10: compressed scales, kv4 pages
+def check_compressed(torch, report):
+    """Kernels B and E on compressed statistics (compress_stats: uint8
+    dynamic-map codes of the block scales with a range and mean per plane
+    and column) at the 7B shapes, NF4 bs 64. B in both bodies, the
+    tensor-core one (bf16 x) and the SIMT one (f32 x), at 4, 256 and 2048
+    rows (the SIMT body at 2048 rows at 4096 x 4096 only: it decodes the
+    weight again for every 4-row tile), within 1% of the largest output;
+    the plain version fed the lo plane's codes on the hi plane, or the
+    scales decoded without their column mean, must land outside it. E with
+    bf16 and f32 output, bit for bit; the W8A8 route's col_grid (which
+    decodes the codes) and F on its grid, bit for bit. Every tensor-core
+    plan and E repeat their bits over 100 launches. Timed: B at 4 and 256
+    rows beside the same weight with raw bf16 scales, its plain version
+    and bf16 torch.matmul; E (bf16 out) beside its plain version; a
+    small-shape sweep of the decode modes, tiles and blocksizes follows."""
+    import dataclasses as dc
+
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit as m4
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_w4a8 as mw
+    from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native, sm_count
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    shapes = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
+    rows_b, rows_e = [], []
+    n_rep = 0
+    for N, K in shapes:
+        W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+        w = quantize_4bit_native(W, 64, "nf4", compress_statistics=True)
+        w_raw = quantize_4bit_native(W, 64, "nf4", absmax_dtype=torch.bfloat16)
+        Wd = W.to(torch.bfloat16)
+        del W
+        need(w.compressed and w.absmax.dtype == torch.uint8, "compress_statistics gave raw scales")
+        # the W8A8 route's grid: col_grid decodes the codes in its kernel,
+        # then F, both bit for bit
+        colmax, f = mw.col_grid(w)
+        colmax_p, f_p = mw._col_grid(w)
+        need(torch.equal(colmax, colmax_p) and torch.equal(f, f_p),
+             f"col_grid compressed N={N} K={K}: not bit for bit")
+        need(torch.equal(mw.dequant_int8(w, f), mw._dequant8_plain(w, f_p)),
+             f"dequant_int8 on decoded compressed scales N={N} K={K}: not bit for bit")
+        del colmax, f, colmax_p, f_p
+        w_lo = dc.replace(w, absmax=w.absmax[1:].expand(2, -1, -1).contiguous())
+        w_nomean = dc.replace(w, absmax_offset=torch.zeros_like(w.absmax_offset))
+        # E, bit for bit
+        for od in (torch.bfloat16, torch.float32):
+            e0 = m4.dequantize_transposed.launches_compressed
+            got, ref = m4.dequantize_transposed(w, od), m4._dequant4_plain(w, od)
+            torch.cuda.synchronize()
+            need(m4.dequantize_transposed.launches_compressed == e0 + 1,
+                 f"dequantize_transposed N={N} K={K}: the compressed launch was not counted")
+            need(torch.equal(got, ref), f"dequantize_transposed compressed N={N} K={K} {od}: "
+                                        f"{int((got != ref).sum())} elements differ from the plain version")
+            row = dict(N=N, K=K, out=str(od).replace("torch.", ""), max_abs_err=0.0)
+            if od == torch.bfloat16:
+                first = got
+                differ = sum(int(not torch.equal(m4.dequantize_transposed(w, od), first))
+                             for _ in range(99))
+                need(differ == 0, f"dequantize_transposed compressed N={N} K={K}: {differ} of 99"
+                                  " repeated launches differ from the first")
+                n_rep += 1
+                nbytes = N * K // 2 + N * K // 64 + 16 * N + N * K * 2
+                row.update(ms=time_cold(torch, lambda: m4.dequantize_transposed(w, od)),
+                           raw_ms=time_cold(torch, lambda: m4.dequantize_transposed(w_raw, od)),
+                           plain_ms=time_cold(torch, lambda: m4._dequant4_plain(w, od), iters=5),
+                           bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+            rows_e.append(row)
+            print(f"  dequantize_transposed compressed N={N:5d} K={K:5d} {row['out']}: bit for bit"
+                  + (f"; kernel {row['ms']*1e3:.1f} us (raw bf16 scales {row['raw_ms']*1e3:.1f} us)"
+                     f" plain {row['plain_ms']*1e3:.1f} us bound {row['bound_ms']*1e3:.2f} us"
+                     f" ({row['bound_ms'] / row['ms']:.0%}); 100 launches equal" if "ms" in row else ""),
+                  flush=True)
+            del got, ref
+        # B, both bodies
+        for M in (4, 256, 2048):
+            for body, dt in (("tc", torch.bfloat16), ("simt", torch.float32)):
+                if body == "simt" and M == 2048 and (N, K) != (4096, 4096):
+                    continue
+                x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+                mode = m4._decode_mode(w, dt, None)
+                plan = m4.mm4_plan(M, N, K, 64, dt, sm_count(x.device), True)
+                need(plan.body == body, f"mm4_plan gave {dt} x the {plan.body} body")
+                kern = lambda: m4.mm4_fused(x, w, None, dt)  # noqa: E731
+                plain = lambda: m4._mm4_plain(x, w, None, dt, mode)  # noqa: E731
+                tc0, c0 = m4.mm4_fused.launches_tc, m4.mm4_fused.launches_compressed
+                got, ref = kern(), plain()
+                torch.cuda.synchronize()
+                need(m4.mm4_fused.launches_compressed == c0 + 1
+                     and m4.mm4_fused.launches_tc == tc0 + int(body == "tc"),
+                     f"mm4_fused compressed N={N} K={K} M={M}: not one {body} launch")
+                err, scale = max_err(torch, got, ref)
+                tol = 1e-2 * scale
+                need(err <= tol, f"mm4_fused compressed {body} N={N} K={K} M={M}: max err {err} > {tol}")
+                margin = faults_exceed(torch, f"mm4_fused compressed {body} N={N} K={K} M={M}", ref, [
+                    ("the lo plane's codes on the hi plane",
+                     lambda: m4._mm4_plain(x, w_lo, None, dt, mode)),
+                    ("the scales decoded without their column mean",
+                     lambda: m4._mm4_plain(x, w_nomean, None, dt, mode))], tol)
+                row = dict(N=N, K=K, M=M, body=body, plan=tuple(plan), max_abs_err=err, tol=tol,
+                           fault_over_tol=margin)
+                if body == "tc":
+                    first = m4._mm4_launch(x, w, None, mode, plan)
+                    differ = sum(int(not torch.equal(m4._mm4_launch(x, w, None, mode, plan), first))
+                                 for _ in range(99))
+                    need(differ == 0, f"mm4_fused compressed N={N} K={K} M={M} plan {tuple(plan)}:"
+                                      f" {differ} of 99 repeated launches differ from the first")
+                    n_rep += 1
+                if body == "tc" and M in (4, 256):
+                    nbytes = M * K * 2 + N * K // 2 + N * K // 64 + 16 * N + M * N * 2
+                    ops_ = 2 * M * N * K
+                    peak = F32_FLOPS_PER_S if M == 4 else BF16_FLOPS_PER_S
+                    row.update(ms=time_cold(torch, kern),
+                               raw_ms=time_cold(torch, lambda: m4.mm4_fused(x, w_raw, None, dt)),
+                               plain_ms=time_cold(torch, plain, iters=5),
+                               library_ms=time_cold(torch, lambda: torch.matmul(x, Wd.T)),
+                               bytes=nbytes,
+                               bound_ms=max(nbytes / HBM_BYTES_PER_S, ops_ / peak) * 1e3,
+                               bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops_ / peak
+                               else "operations")
+                rows_b.append(row)
+                print(f"  mm4_fused compressed {body:4s} N={N:5d} K={K:5d} M={M:4d} {tuple(plan)}"
+                      f" err={err:.3g} rel={err / scale:.2g} (tol {tol:.3g}; faults >= {margin:.3g}x"
+                      f" tol)" + (f"; 100 launches equal" if body == "tc" else "")
+                      + (f"; kernel {row['ms']*1e3:.1f} us (raw bf16 scales {row['raw_ms']*1e3:.1f}"
+                         f" us) plain {row['plain_ms']*1e3:.1f} us bf16 matmul"
+                         f" {row['library_ms']*1e3:.1f} us bound {row['bound_ms']*1e3:.2f} us"
+                         f" ({row['bound_ms'] / row['ms']:.0%})" if "ms" in row else ""), flush=True)
+                del got, ref, x
+        del w, w_raw, w_lo, w_nomean, Wd
+    n_edge = compressed_edges(torch, gen)
+    print(f"  compressed scales: {n_edge} small-shape cases (decode modes 0-2 in both bodies, every"
+          f" tile, blocksizes 32-256, int4, E's ragged strips) within tolerance; {n_rep} plans and"
+          f" shapes repeated 100 times", flush=True)
+    for name, rs, m in (("mm4_fused (compressed)", rows_b, 4),
+                        ("dequantize_transposed (compressed)", rows_e, None)):
+        timed = [r for r in rs if "ms" in r and (m is None or (r["M"] == m and r["body"] == "tc"))]
+        report[name] = dict(
+            shapes=rs, ms=sum(r["ms"] for r in timed), plain_ms=sum(r["plain_ms"] for r in timed),
+            raw_ms=sum(r["raw_ms"] for r in timed),
+            library_ms=sum(r["library_ms"] for r in timed) if m else None,
+            bound_ms=sum(r["bound_ms"] for r in timed), bound_by=timed[0]["bound_by"],
+            max_abs_err=max(r["max_abs_err"] for r in rs))
+
+
+def compressed_edges(torch, gen):
+    """Compressed scales on small shapes the 7B path does not reach: kernel
+    B's decode modes 0 (f32 table), 1 (int4) and 2 (bf16 table) in its
+    tensor-core body (every tile it takes with compressed scales) and its
+    SIMT body (bf16 x too), blocksizes 32, 64, 128 and 256, a whole-half K
+    (1152) and 384 columns; kernel E at the same weights, f32 and bf16
+    out, bit for bit, its strips ragged in rows and columns (N = 400).
+    Returns the number of comparisons."""
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit as m4
+    from bitsandbytes_sycl_tpu_torch.ops.common import LaunchPlan, _ksplit, quantize_4bit_native
+
+    n = 0
+    for qt, bs, N, K in (("nf4", 64, 384, 1152), ("int4", 32, 256, 512), ("fp4", 128, 384, 1024),
+                         ("nf4", 256, 256, 1024), ("nf4", 64, 400, 640)):
+        W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+        w = quantize_4bit_native(W, bs, qt, compress_statistics=True)
+        for od in (torch.float32, torch.bfloat16):
+            got, ref = m4.dequantize_transposed(w, od), m4._dequant4_plain(w, od)
+            torch.cuda.synchronize()
+            need(torch.equal(got, ref), f"dequantize_transposed compressed {qt} bs={bs} N={N} K={K}"
+                                        f" {od}: not bit for bit")
+            n += 1
+        if N % 128:
+            continue
+        for M in (3, 70):
+            for dt, decode_dtype in ((torch.bfloat16, None), (torch.bfloat16, torch.float32),
+                                     (torch.float32, None)):
+                x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+                mode = m4._decode_mode(w, dt, decode_dtype)
+                ref = m4._mm4_plain(x, w, None, dt, mode)
+                plans = []
+                if dt == torch.bfloat16 and (K // 2) % 32 == 0 and (bs % 32 == 0 or 32 % bs == 0):
+                    plans += [LaunchPlan("tc", bm, per, 1, bn) for bm, bn, per in
+                              ((64, 128, K // 64), (128, 128, K // 64), (256, 128, K // 64),
+                               (64, 128, max(1, bs // 32)))]
+                g, ks = _ksplit(K // (2 * bs), N // 128, -(-M // 4))
+                plans.append(LaunchPlan("simt", 4, g, ks))
+                for plan in plans:
+                    if plan.body == "tc" and plan.per * 32 < K // 2:
+                        plan = plan._replace(ksplit=-(-(K // 64) // plan.per))
+                    got = m4._mm4_launch(x.contiguous(), w, None, mode, plan)
+                    torch.cuda.synchronize()
+                    err, mag = max_err(torch, got, ref)
+                    need(err <= 1e-2 * mag, f"mm4_fused compressed {qt} bs={bs} M={M} {dt} mode"
+                                            f" {mode} plan {tuple(plan)}: max err {err} > 1% of {mag}")
+                    n += 1
+    return n
+
+
+def kv4_inputs(torch, gen, L, B, H, D, P, MAXP):
+    """A kv4 page pool (sign-magnitude nibble pairs on the +-7 grid, scales
+    in column order) with O(1) scores, a random page table over pages 1..,
+    a bf16 query and a new_kv token on the +-7 grid."""
+    NP = B * MAXP + 1
+
+    def pages():
+        c = torch.randint(-7, 8, (L, NP, H, P, D), generator=gen, device="cuda", dtype=torch.int8)
+        nib = (c.abs() + 8 * (c < 0)).to(torch.uint8)
+        return (nib[..., 0::2, :] << 4) | nib[..., 1::2, :]
+
+    kp, vp = pages(), pages()
+    ks = torch.rand((L, NP, H, P), generator=gen, device="cuda") * 8 + 4  # O(1) scores over +-7
+    vs = torch.rand((L, NP, H, P), generator=gen, device="cuda") + 0.5
+    perm = torch.randperm(NP - 1, generator=gen, device="cuda")[: B * MAXP] + 1
+    table = perm.reshape(B, MAXP).to(torch.int32)
+    q = torch.randn((B, H, 1, D), generator=gen, device="cuda").to(torch.bfloat16)
+    new_kv = (torch.randint(-7, 8, (B, H, D), generator=gen, device="cuda", dtype=torch.int8),
+              torch.rand((B, H), generator=gen, device="cuda") * 8 + 4,
+              torch.randint(-7, 8, (B, H, D), generator=gen, device="cuda", dtype=torch.int8),
+              torch.rand((B, H), generator=gen, device="cuda") + 0.5)
+    return kp, ks, vp, vs, table, q, new_kv
+
+
+def check_kv4(torch, report):
+    """Kernel D over kv4 pages (kv_bits=4: nibble pairs of adjacent tokens,
+    scales in parity-grouped column order) at Hkv = 32, D = P = 128 over a
+    16-page table, with new_kv: B = 4 at one used page and at 16, B = 1 at
+    15 and B = 2 at 16, odd and even lengths. The split body (the plan's)
+    and the SIMT body within 1% of the largest output; the plain version
+    fed swapped nibbles, the scales in token order, V at 1/127 or the next
+    kv head must land outside it. Timed beside every split count, the
+    plain version and SDPA's fused backends over the gathered bf16 K/V;
+    the plan and three splits repeat their bits over 100 launches; then
+    the options on small shapes (window, softcap, ALiBi, rep 2, 4 and 8,
+    length 0)."""
+    from bitsandbytes_sycl_tpu_torch.ops import paged_attention as pa
+    from bitsandbytes_sycl_tpu_torch.ops.common import sm_count
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    L, H, D, P, MAXP, li = 2, 32, 128, 128, 16, 1
+    scale = (1.0 / D ** 0.5) / 7.0
+    rows = []
+    B = None
+    for label, lens_l in (("1 page", [40, 63, 17, 33]), ("16 pages", [2047, 1499, 900, 2000]),
+                          ("15 pages", [1901]), ("16 pages", [2047, 1500])):
+        if len(lens_l) != B:
+            B = len(lens_l)
+            kp, ks, vp, vs, table, q, new_kv = kv4_inputs(torch, gen, L, B, H, D, P, MAXP)
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        hint = max(-(-n // P) for n in lens_l)
+        plan = pa.paged_plan(B, H, MAXP, P, D, 1, sm_count(q.device), hint)
+        need(plan.body == "split", f"paged_plan gave the kv4 7B shape the {plan.body} body")
+        k0, s0 = pa.paged_attn_int8.launches_kv4, pa.paged_attn_int8.launches_split
+        kern = lambda: pa.paged_attn_int8(  # noqa: E731
+            q, kp, ks, vp, vs, li, table, lens, scale, new_kv=new_kv, pages_hint=hint)
+
+        def plain_with(kp_=kp, ks_=ks, vs_=vs):
+            return pa._paged_plain(q, kp_, ks_, vp, vs_, li, table, lens, new_kv, scale, None,
+                                   None, None)
+
+        got, ref = kern(), plain_with()
+        torch.cuda.synchronize()
+        need(pa.paged_attn_int8.launches_kv4 == k0 + 1 and pa.paged_attn_int8.launches_split == s0 + 1,
+             f"paged_attn_int8 kv4 ({label}): not one kv4 launch of the split body")
+        err, mag = max_err(torch, got, ref)
+        tol = 1e-2 * mag
+        need(err <= tol, f"paged_attn_int8 kv4 ({label}): max err {err} > {tol}")
+        margin = faults_exceed(torch, f"paged_attn_int8 kv4 ({label})", ref, [
+            ("each byte's nibbles swapped", lambda: plain_with(kp_=((kp & 0xF) << 4) | (kp >> 4))),
+            ("the k scales in token order", lambda: plain_with(ks_=pa.kv4_scales_logical(ks))),
+            ("V at 1/127", lambda: plain_with(vs_=vs * (7.0 / 127.0))),
+            ("K of the next kv head", lambda: plain_with(kp_=kp.roll(1, dims=2))),
+        ], tol)
+        alts = {}
+        for body, nsplit in [("simt", 1)] + [("split", n) for n in (1, 2, 3, 4, 8, 16)]:
+            alt = pa.PagedPlan(body, nsplit)
+            run = lambda alt=alt: pa._paged_launch(  # noqa: E731
+                q, kp, ks, vp, vs, li, table, lens, scale, new_kv, None, None, None, alt)
+            e_alt, _ = max_err(torch, run(), ref)
+            need(e_alt <= tol, f"paged_attn_int8 kv4 ({label}) {tuple(alt)}: max err {e_alt} > {tol}")
+            alts[f"{body} nsplit={nsplit}"] = time_cold(torch, run)
+        if label == "16 pages" and B == 4:
+            for alt in (plan, pa.PagedPlan("split", 3)):
+                run = lambda alt=alt: pa._paged_launch(  # noqa: E731
+                    q, kp, ks, vp, vs, li, table, lens, scale, new_kv, None, None, None, alt)
+                first = run()
+                differ = sum(int(not torch.equal(run(), first)) for _ in range(99))
+                need(differ == 0, f"paged_attn_int8 kv4 plan {tuple(alt)}: {differ} of 99 repeated"
+                                  " launches differ from the first")
+        Smax = max(lens_l) + 1
+        used = [-(-n // P) for n in lens_l]
+        pt = table.long()
+
+        def gathered(pages, scales):
+            codes = pa.kv4_unpack(pages[li][pt])  # (B, MAXP, H, P, D)
+            sc = pa.kv4_scales_logical(scales[li][pt])
+            return (codes.permute(0, 2, 1, 3, 4).reshape(B, H, MAXP * P, D)[:, :, :Smax].float()
+                    * (sc.permute(0, 2, 1, 3).reshape(B, H, MAXP * P)[:, :, :Smax, None] / 7)
+                    ).contiguous().to(torch.bfloat16)
+
+        kd, vd = gathered(kp, ks), gathered(vp, vs)
+        mask = (torch.arange(Smax, device="cuda")[None, :] <= lens[:, None])[:, None, None, :]
+        lib_ms, lib_name, lib_all = time_sdpa(torch, q, kd, vd, attn_mask=mask)
+        # the K/V nibbles and scales the lengths need, q and out, the new
+        # token, the used table entries and the lengths
+        nbytes = (sum(lens_l) * H * (D + 8) + 2 * B * H * D * 2 + B * H * (2 * D + 8)
+                  + 4 * sum(used) + 4 * B)
+        flops = 4 * (sum(lens_l) + B) * H * D
+        row = dict(label=label, B=B, lens=lens_l, plan=tuple(plan), max_abs_err=err, tol=tol,
+                   fault_margin=margin, ms=time_cold(torch, kern), plans_ms=alts,
+                   simt_ms=alts["simt nsplit=1"], plain_ms=time_cold(torch, plain_with, iters=5),
+                   library_ms=lib_ms, library_backend=lib_name, bytes=nbytes,
+                   bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
+                   bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S
+                   else "operations")
+        rows.append(row)
+        print(f"  paged_attn_int8 kv4 B={B} {label} {tuple(plan)} err={err:.3g} rel={err / mag:.2g}"
+              f" (tol {tol:.3g}; faults >= {margin:.3g}x tol) kernel {row['ms']*1e3:.1f} us (SIMT"
+              f" body {row['simt_ms']*1e3:.1f} us) plain {row['plain_ms']*1e3:.1f} us sdpa"
+              f" {fmt_us(lib_ms)} ({lib_name}) bound {row['bound_ms']*1e3:.2f} us"
+              f" ({row['bound_ms'] / row['ms']:.0%})", flush=True)
+        print(f"    plans (us): {json.dumps({k: round(v * 1e3, 1) for k, v in alts.items()})}",
+              flush=True)
+        del kd, vd
+    del kp, vp
+    n_opt = kv4_edges(torch, gen)
+    print(f"  paged_attn_int8 kv4: {n_opt} option cases (window, softcap, ALiBi, rep 2/4/8, len 0)"
+          f" within tolerance; the plan and 3 splits repeat their bits over 100 launches", flush=True)
+    # the JSON line: B = 4 at 16 pages (the engine's decode step at a full table)
+    report["paged_attn_int8 (kv4)"] = dict(rows[1], shapes=rows)
+
+
+def kv4_edges(torch, gen):
+    """Kernel D over kv4 pages on small shapes: window, softcap and ALiBi
+    on both bodies, GQA rep 2 and 4 (split) and 8 (SIMT), a row of length
+    0 with and without new_kv, within 1% (rel 1e-4 against each other
+    would not hold across bodies). Returns the number of comparisons."""
+    from bitsandbytes_sycl_tpu_torch.ops import paged_attention as pa
+
+    n = 0
+    L, Hkv, D, P, MAXP, li = 2, 2, 128, 128, 4, 1
+    for rep, window, softcap, alibi, new, lens_l in (
+            (1, 100, None, False, True, [300, 51, 0]), (2, None, 30.0, False, True, [511, 2, 129]),
+            (4, None, None, True, False, [257, 0, 64]), (8, 200, 20.0, True, True, [400, 7, 1])):
+        B = len(lens_l)
+        kp, ks, vp, vs, table, _, new_kv = kv4_inputs(torch, gen, L, B, Hkv, D, P, MAXP)
+        q = torch.randn((B, Hkv, rep, D), generator=gen, device="cuda")
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        al = (torch.rand((Hkv * rep,), generator=gen, device="cuda") * 0.1) if alibi else None
+        nk = new_kv if new else None
+        scale = (1.0 / D ** 0.5) / 7.0
+        ref = pa._paged_plain(q, kp, ks, vp, vs, li, table, lens, nk, scale, window, softcap, al)
+        bodies = [pa.PagedPlan("simt", 1)] + ([pa.PagedPlan("split", s) for s in (1, 3)]
+                                              if rep <= 4 else [])
+        for plan in bodies:
+            got = pa._paged_launch(q, kp, ks, vp, vs, li, table, lens, scale, nk, window, softcap,
+                                   al, plan)
+            torch.cuda.synchronize()
+            err, mag = max_err(torch, got, ref)
+            need(err <= 1e-2 * max(mag, 1e-6), f"paged_attn_int8 kv4 rep={rep} window={window}"
+                 f" softcap={softcap} alibi={alibi} {tuple(plan)}: max err {err} > 1% of {mag}")
+            n += 1
+    return n
+
+
 def check_decode(torch, report):
     """Kernel H (contiguous-cache decode) against its plain version at the 7B
     shapes: B = 1, 2, 4 and 8, Hq = Hkv = 32, D = 128, S = 2048, lengths 0,
@@ -1659,7 +2036,7 @@ def step_vs_host_speed(torch, eng, n=16):
     return dict(pairs=pairs, corr=float(np.corrcoef(a[:, 0], a[:, 1])[0, 1]))
 
 
-def profile_steps(torch, cfg, params, prompts, n=4, paged=True, host=True):
+def profile_steps(torch, cfg, params, prompts, n=4, paged=True, host=True, host_name=None):
     """Device busy time of n steady decode steps (B=4) against their wall
     time, from torch.profiler's per-kernel device times, and each ported
     kernel's launches per step; with ``host``, also where the host's time
@@ -1692,8 +2069,8 @@ def profile_steps(torch, cfg, params, prompts, n=4, paged=True, host=True):
                attention=attention_time(kernels, n),
                top=[(e.key, e.self_device_time_total / 1e3 / n, e.count // n) for e in top])
     if host:
-        out.update(host_top=host_profile(torch, eng, name="host_profile.txt" if paged
-                                         else "host_profile_contiguous.txt"),
+        out.update(host_top=host_profile(torch, eng, name=host_name or (
+            "host_profile.txt" if paged else "host_profile_contiguous.txt")),
                    step_vs_host=step_vs_host_speed(torch, eng))
     return out
 
@@ -1760,11 +2137,14 @@ def attention_time(kernels, n=1):
     return out
 
 
-def serve_long(torch, cfg, params, kernels):
+def serve_long(torch, cfg, params, kernels, lean=False):
     """Phase 3b: long prompts through one paged engine (max_batch 8), three
     prefill batches in turn, each decoded to its end: one prompt of 129-256
     tokens (256 rows: kernel B, and E for down_proj), four of 257-512 (2048
-    rows: G), eight of 257-512 (4096 rows: F). Returns one dict per batch."""
+    rows: G), eight of 257-512 (4096 rows: F). With ``lean`` (phase 3d:
+    compressed statistics, kv4 pages) the 2048-row batch decodes every
+    weight once through E's compressed branch instead of G, and F takes the
+    decoded scales. Returns one dict per batch."""
     from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
     from bitsandbytes_sycl_tpu_torch.engine.engine import _bucket, _pow2_bucket
 
@@ -1773,9 +2153,10 @@ def serve_long(torch, cfg, params, kernels):
                           device="cuda")
     batches = [
         ("rows 256", long_prompts(10, 1, 129, 256, cfg.vocab_size),
-         ("mm4_fused", "mm4_fused.tc", "dequantize_transposed")),
+         ("mm4_fused", "mm4_fused.tc", "dequantize_transposed")
+         + (("mm4_fused.compressed", "dequantize_transposed.compressed") if lean else ())),
         ("rows 2048", long_prompts(11, 4, 257, 512, cfg.vocab_size),
-         ("w4a8_grouped", "w4a8_grouped.wgmma")),
+         ("dequantize_transposed.compressed",) if lean else ("w4a8_grouped", "w4a8_grouped.wgmma")),
         ("rows 4096", long_prompts(12, 8, 257, 512, cfg.vocab_size),
          ("dequant_int8", "dequant_int8.tiled")),
     ]
@@ -1803,6 +2184,12 @@ def serve_long(torch, cfg, params, kernels):
             need(counts["dequant_int8"] == 7 * cfg.num_layers + 1,
                  f"long prompts ({label}): kernel F launched {counts['dequant_int8']} times, not"
                  f" once per linear ({7 * cfg.num_layers + 1})")
+        if lean and label == "rows 2048":
+            need(counts["dequantize_transposed.compressed"] == 7 * cfg.num_layers + 1
+                 and counts["w4a8_grouped"] == 0,
+                 f"long prompts ({label}, compressed): E's compressed branch launched"
+                 f" {counts['dequantize_transposed.compressed']} times, G {counts['w4a8_grouped']};"
+                 f" expected once per linear ({7 * cfg.num_layers + 1}) and no G")
         need_new_bodies(counts, f"long prompts ({label}) prefill", decode=False)
         need(all(len(o) == max_new for o in outs), f"long prompts ({label}): wrong output lengths "
                                                    f"{[len(o) for o in outs]}")
@@ -1818,11 +2205,12 @@ def serve_long(torch, cfg, params, kernels):
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts,
                    profile=prof)
         out.append(row)
-        print(f"[3b] {label}: {len(prompts)} prompts, {n_tok} tokens prefilled in {t_prefill:.3f} s"
+        tag = "[3d]" if lean else "[3b]"
+        print(f"{tag} {label}: {len(prompts)} prompts, {n_tok} tokens prefilled in {t_prefill:.3f} s"
               f" = {n_tok / t_prefill:.0f} tok/s; then {len(steps)} decode steps, median"
               f" {row['decode_ms_per_step_median']:.2f} ms; peak {row['peak_gb']:.1f} GB;"
               f" prefill launches {counts}", flush=True)
-        print(f"[3b] {label}: profiled prefill forward {prof['wall_ms']:.1f} ms, device busy"
+        print(f"{tag} {label}: profiled prefill forward {prof['wall_ms']:.1f} ms, device busy"
               f" {prof['device_busy_ms']:.1f} ms (idle {1 - prof['device_busy_ms'] / prof['wall_ms']:.0%});"
               f" attention (ms, launches) {prof['attention']}; W8A8 route (ms, launches)"
               f" {prof['f_route']}")
@@ -2423,14 +2811,25 @@ def qlora_step(torch, kernels, loss_fn, lora, tokens, opt, profile=False):
                     optimizer_ms=(t3 - t2b) * 1e3), read_counts(kernels), parts
 
 
-def qlora_7b(torch, cfg, params, kernels):
+# per Adam step of phase 7b: G forward, E in every backward but layer 0's q/k/v
+QLORA_LAUNCHES = {"w4a8_grouped": 225, "w4a8_grouped.wgmma": 225, "dequantize_transposed": 222}
+# phase 3d's base (compressed statistics): E's compressed branch forward
+# (2052 rows: each weight decoded once) and in the backward, and no G
+QLORA_LEAN_LAUNCHES = {"w4a8_grouped": 0, "dequantize_transposed": 447,
+                       "dequantize_transposed.compressed": 447}
+
+
+def qlora_7b(torch, cfg, params, kernels, plan=(("adamw8bit", 4), ("lion8bit", 2)),
+             expect=QLORA_LAUNCHES, tag="[7b]"):
     """Phase 7b: QLoRA fine-tuning of Llama-7B (32 layers, NF4 base): rank
     64, alpha 16 on all seven projections, 4 adamw8bit steps (lr 2e-4, no
-    weight decay) then 2 lion8bit steps on one seeded (4, 513) batch. Every
-    step's 448 8-bit leaves go through one launch of J (Adam) or K (Lion),
-    the 224 scalar leaves through one batched 32-bit update; the last step
-    of each optimizer is profiled, its forward and backward apart from its
-    optimizer (kernels per optimizer step, J's or K's device time)."""
+    weight decay) then 2 lion8bit steps on one seeded (4, 513) batch
+    (``plan``). Every step's 448 8-bit leaves go through one launch of J
+    (Adam) or K (Lion), the 224 scalar leaves through one batched 32-bit
+    update; each Adam step launches the kernels ``expect`` counts; the last
+    step of each optimizer is profiled, its forward and backward apart
+    from its optimizer (kernels per optimizer step, J's or K's device
+    time)."""
     from bitsandbytes_sycl_tpu_torch import optim
     from bitsandbytes_sycl_tpu_torch.models.lora import ALL_TARGETS, init_lora, lora_leaves, qlora_loss_fn
 
@@ -2447,8 +2846,10 @@ def qlora_7b(torch, cfg, params, kernels):
     torch.cuda.reset_peak_memory_stats()
     steps = []
     totals = {}
-    for phase, opt, n in (("adamw8bit", optim.adamw8bit(leaves, 2e-4, weight_decay=0.0), 4),
-                          ("lion8bit", optim.lion8bit(leaves, 2e-5), 2)):
+    make = {"adamw8bit": lambda: optim.adamw8bit(leaves, 2e-4, weight_decay=0.0),
+            "lion8bit": lambda: optim.lion8bit(leaves, 2e-5)}
+    for phase, n in plan:
+        opt = make[phase]()
         kname = "optim8_2state" if phase == "adamw8bit" else "optim8_1state"
         for i in range(n):
             profiled = i == n - 1
@@ -2481,7 +2882,7 @@ def qlora_7b(torch, cfg, params, kernels):
                 bmax = torch.stack([lora[li][t]["B"].detach().abs().amax()
                                     for li in range(cfg.num_layers) for t in ALL_TARGETS])
                 need(bool((bmax > 0).all()), "7B QLoRA: an adapter B is still zero after step 1")
-            print(f"[7b] {phase} step {i + 1}: loss {lv:.5f}; forward {ms['forward_ms']:.1f} ms,"
+            print(f"{tag} {phase} step {i + 1}: loss {lv:.5f}; forward {ms['forward_ms']:.1f} ms,"
                   f" backward {ms['backward_ms']:.1f} ms, optimizer {ms['optimizer_ms']:.1f} ms"
                   + (f" (profiled: {row['optimizer_kernels']} device events in the optimizer,"
                      f" {kname} {row['optim8_device_ms']:.3f} ms of"
@@ -2491,12 +2892,12 @@ def qlora_7b(torch, cfg, params, kernels):
     lion = [r for r in steps if r["optimizer"] == "lion8bit"]
     for r in adam:
         lc = r["launches"]
-        need(lc.get("w4a8_grouped") == 225 and lc.get("w4a8_grouped.wgmma") == 225
-             and lc.get("dequantize_transposed") == 222,
-             f"7B QLoRA adam step {r['step']}: launches {lc}, expected 225 G (wgmma body), 222 E")
+        need(all(lc.get(k, 0) == v for k, v in expect.items()),
+             f"7B QLoRA adam step {r['step']}: launches {lc}, expected {expect}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     prof_row = adam[-1]
-    unprof = sorted(r["wall_ms"] for r in adam[1:-1])
+    # the steps between the first (warm-up) and the profiled last, or the first
+    unprof = sorted(r["wall_ms"] for r in adam[1:-1]) or [adam[0]["wall_ms"]]
     median = unprof[len(unprof) // 2]
     busy = prof_row["device_busy_ms"]
     # the whole update moves 2.56 GB: 4 B g + 4 B p read, 4 B p written and
@@ -2509,39 +2910,47 @@ def qlora_7b(torch, cfg, params, kernels):
                device_idle_share=None if not busy else max(0.0, 1 - busy / median),
                optimizer_bound_ms=opt_bound_ms, optim8_device_ms=prof_row["optim8_device_ms"],
                optimizer_ms=opt_ms, optimizer_kernels=prof_row["optimizer_kernels"],
-               lion_optim8_device_ms=lion[-1]["optim8_device_ms"],
-               lion_optimizer_kernels=lion[-1]["optimizer_kernels"],
+               lion_optim8_device_ms=lion[-1]["optim8_device_ms"] if lion else None,
+               lion_optimizer_kernels=lion[-1]["optimizer_kernels"] if lion else None,
                losses=[r["loss"] for r in steps])
-    print(f"[7b] 7B QLoRA: {n_train} trainable parameters; adam step median {median:.1f} ms"
-          f" (steps 2-3), device busy {busy if busy else 'not measured'} ms of the profiled step"
+    print(f"{tag} 7B QLoRA: {n_train} trainable parameters; adam step median {median:.1f} ms"
+          f" (of {len(unprof)} unprofiled steps), device busy {busy if busy else 'not measured'} ms"
+          " of the profiled step"
           + (f" (idle {out['device_idle_share']:.0%} of the median)" if busy else "")
-          + f"; optimizer wall per step adam {[round(v, 1) for v in opt_ms['adamw8bit']]} ms, lion"
-          f" {[round(v, 1) for v in opt_ms['lion8bit']]} ms; kernel J {prof_row['optim8_device_ms']:.3f}"
+          + f"; optimizer wall per step adam {[round(v, 1) for v in opt_ms['adamw8bit']]} ms"
+          + (f", lion {[round(v, 1) for v in opt_ms['lion8bit']]} ms" if lion else "")
+          + f"; kernel J {prof_row['optim8_device_ms']:.3f}"
           f" ms of device time in the profiled optimizer step ({prof_row['optimizer_kernels']} device"
-          f" events) against the update's {opt_bound_ms:.3f} ms bound, kernel K"
-          f" {lion[-1]['optim8_device_ms']:.3f} ms ({lion[-1]['optimizer_kernels']} events); peak"
-          f" {peak:.1f} GB; losses {' '.join(f'{v:.5f}' for v in out['losses'])}", flush=True)
+          f" events) against the update's {opt_bound_ms:.3f} ms bound"
+          + (f", kernel K {lion[-1]['optim8_device_ms']:.3f} ms ({lion[-1]['optimizer_kernels']}"
+             " events)" if lion else "")
+          + f"; peak {peak:.1f} GB; losses {' '.join(f'{v:.5f}' for v in out['losses'])}",
+          flush=True)
     for key, ms_, cnt in prof_row.get("top", []):
         print(f"      {ms_:9.3f} ms  {cnt:6d}x  {key[:90]}")
-    print("[7b] the profiled Adam optimizer step's device events:")
+    print(f"{tag} the profiled Adam optimizer step's device events:")
     for key, ms_, cnt in prof_row["optimizer_top"]:
         print(f"      {ms_:9.3f} ms  {cnt:6d}x  {key[:90]}")
     return out
 
 
-def qlora_card_vs_cpu(torch, cfg, kernels):
+def qlora_card_vs_cpu(torch, cfg, kernels, launched=("w4a8_gemv", "optim8_2state"), tag="[7c]",
+                      steps=3, p_cpu=None):
     """Phase 7c: 2 layers at 7B width, B = 1, T = 128 (the W4A8 route,
-    kernel A), adapters with a seeded nonzero B, on the card and on the
-    CPU: the loss within 1% relative, the adapter gradients within 4%
-    relative L2 (the CPU tests' limit for W4A8 against the JAX package),
-    and after 3 adamw8bit steps a cosine >= 0.9 between the two runs'
-    p - p0."""
+    kernel A; with compressed statistics B, and E in the backward),
+    adapters with a seeded nonzero B, on the card and on the CPU: the loss
+    within 1% relative, the adapter gradients within 4% relative L2 (the
+    CPU tests' limit for W4A8 against the JAX package), and after
+    ``steps`` adamw8bit steps a cosine >= 0.9 between the two runs' p - p0;
+    every kernel in ``launched`` launched on the card. ``p_cpu``: the
+    2-layer model on the CPU, if the caller has it (seed 1)."""
     from bitsandbytes_sycl_tpu_torch import optim
     from bitsandbytes_sycl_tpu_torch.models.llama import init_params
     from bitsandbytes_sycl_tpu_torch.models.lora import ALL_TARGETS, init_lora, lora_leaves, qlora_loss_fn
 
     cfg2 = dataclasses.replace(cfg, num_layers=2)
-    p_cpu = init_params(cfg2, seed=1, device="cpu")
+    if p_cpu is None:
+        p_cpu = init_params(cfg2, seed=1, device="cpu")
     p_gpu = to_cuda(torch, p_cpu)
     lo_cpu = init_lora(cfg2, seed=2, rank=64, alpha=16.0, targets=ALL_TARGETS, device="cpu")
     gen = torch.Generator().manual_seed(3)
@@ -2560,7 +2969,7 @@ def qlora_card_vs_cpu(torch, cfg, kernels):
         opt = optim.adamw8bit(leaves, 2e-4, weight_decay=0.0)
         loss_fn = qlora_loss_fn(params, cfg2)
         losses, grads = [], None
-        for step in range(3):
+        for step in range(steps):
             loss = loss_fn(lora, toks.to(dev))
             loss.backward()
             losses.append(loss.item())
@@ -2575,17 +2984,156 @@ def qlora_card_vs_cpu(torch, cfg, kernels):
     loss_rel = abs(g["losses"][0] - c["losses"][0]) / abs(c["losses"][0])
     grad_rel = float((g["grads"] - c["grads"]).norm() / c["grads"].norm())
     cos = float(torch.nn.functional.cosine_similarity(g["delta"], c["delta"], dim=0))
-    need(counts["w4a8_gemv"] > 0 and counts["optim8_2state"] > 0,
-         f"7B-width QLoRA on the card: launches {counts}")
+    need(all(counts[k] > 0 for k in launched), f"7B-width QLoRA on the card: launches {counts}")
     need(loss_rel <= 1e-2, f"QLoRA card vs CPU: loss {g['losses'][0]} vs {c['losses'][0]}")
     need(grad_rel <= 4e-2, f"QLoRA card vs CPU: adapter gradients {grad_rel:.4f} relative L2 > 0.04")
-    need(cos >= 0.9, f"QLoRA card vs CPU: cosine of p - p0 after 3 steps {cos:.4f} < 0.9")
-    print(f"[7c] 2-layer 7B-width QLoRA card vs CPU (B=1, T=128, kernel A): loss {g['losses'][0]:.5f}"
+    need(cos >= 0.9, f"QLoRA card vs CPU: cosine of p - p0 after {steps} steps {cos:.4f} < 0.9")
+    print(f"{tag} 2-layer 7B-width QLoRA card vs CPU (B=1, T=128, {launched[0]}): loss {g['losses'][0]:.5f}"
           f" vs {c['losses'][0]:.5f} ({loss_rel:.2e} rel, tol 1e-2); adapter gradients"
-          f" {grad_rel:.4f} relative L2 (tol 0.04); cosine of p - p0 after 3 adamw8bit steps"
+          f" {grad_rel:.4f} relative L2 (tol 0.04); cosine of p - p0 after {steps} adamw8bit steps"
           f" {cos:.4f} (tol 0.9); losses card {g['losses']} CPU {c['losses']}", flush=True)
     return dict(loss_rel=loss_rel, grad_rel_l2=grad_rel, delta_cosine=cos,
-                losses_card=g["losses"], losses_cpu=c["losses"])
+                losses_card=g["losses"], losses_cpu=c["losses"],
+                launches={k: v for k, v in counts.items() if v})
+
+
+def lean_scale_bytes(params):
+    """Bytes of every 4-bit linear's scales as stored (codes and sidecars
+    when compressed) and as bf16 scales would take them."""
+    from bitsandbytes_sycl_tpu_torch.ops.common import QLinearWeight
+
+    got = bf16 = 0
+    for w in [params["lm_head"]] + [v for layer in params["layers"] for v in layer.values()]:
+        if isinstance(w, QLinearWeight):
+            got += w.absmax.numel() * w.absmax.element_size() + sum(
+                t.numel() * 4 for t in (w.absmax_scale, w.absmax_offset) if t is not None)
+            bf16 += w.absmax.numel() * 2
+    return got, bf16
+
+
+def serve_lean(torch, prompts, kernels):
+    """Phase 3d: the memory-lean NF4 configuration,
+    LlamaConfig.llama7b(compress_stats=True, kv_bits=4), NF4 bs 64 from
+    seed 0, at full width and depth through the paged engine: phase 3's 8
+    prompts, 4 slots, 32 new tokens each (compressed weights take kernel
+    B's compressed branch in every decode linear, 225 per step on its
+    tensor-core body, and the kv4 split body of D, 32 per step); phase
+    3b's 256-, 2048- (E's compressed branch, once per linear) and 4096-row
+    (F on the decoded scales) batches; then 3 adamw8bit QLoRA steps of
+    phase 7b's setting on this base (E's compressed branch forward and in
+    every backward; the first warms up, the last is profiled)."""
+    from bitsandbytes_sycl_tpu_torch.models.llama import LlamaConfig, init_params
+
+    t0 = time.perf_counter()
+    cfg = LlamaConfig.llama7b(compress_stats=True, kv_bits=4)
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    scale_b, scale_bf16 = lean_scale_bytes(params)
+    L, H, D, P = cfg.num_layers, cfg.num_kv_heads, cfg.hd, 128
+    page_b = 2 * L * H * (P // 2) * D + 2 * L * H * P * 4  # kv4 K and V nibbles, f32 scales
+    page_b8 = 2 * L * H * P * D + 2 * L * H * P * 4
+    print(f"[3d] llama7b compress_stats=True kv_bits=4: initialised in {init_s:.1f} s; scales"
+          f" {scale_b / 1e9:.3f} GB stored ({scale_bf16 / 1e9:.3f} GB as bf16); a 128-token page"
+          f" over the 32 layers {page_b / 1e6:.1f} MB ({page_b8 / 1e6:.1f} MB with int8 pages)",
+          flush=True)
+    reset_counts(kernels)
+    outs, wall, steps = serve(torch, cfg, params, prompts, 32)
+    counts = read_counts(kernels)
+    label = "[3d] lean serve"
+    need(all(len(o) == 32 for o in outs), f"{label}: wrong output lengths {[len(o) for o in outs]}")
+    need(all(0 <= t < cfg.vocab_size for o in outs for t in o), f"{label}: token id out of range")
+    for k in ("mm4_fused.compressed", "paged_attn_int8.kv4", "prefill_attn_int8"):
+        need(counts[k] > 0, f"{label}: the serving path never launched {k}")
+    need(counts["w4a8_gemv"] == 0, f"{label}: compressed weights took kernel A")
+    need(counts["paged_attn_int8.kv4"] == counts["paged_attn_int8"],
+         f"{label}: {counts['paged_attn_int8'] - counts['paged_attn_int8.kv4']} paged launches"
+         " over int8 pages")
+    need_new_bodies(counts, label)
+    steps = sorted(steps)
+    median = steps[len(steps) // 2] * 1e3
+    n_tok = sum(len(o) for o in outs)
+    prof = profile_steps(torch, cfg, params, prompts, host_name="host_profile_lean.txt")
+    per = prof["launches_per_step"]
+    n_lin = 7 * cfg.num_layers + 1
+    need(per.get("mm4_fused.compressed") == n_lin and per.get("mm4_fused.tc") == n_lin,
+         f"{label}: per decode step {per}; expected {n_lin} compressed launches of B, all"
+         " tensor-core")
+    need(per.get("paged_attn_int8.kv4") == cfg.num_layers
+         and per.get("paged_attn_int8.split") == cfg.num_layers,
+         f"{label}: per decode step {per}; expected {cfg.num_layers} kv4 launches of D's split body")
+    busy = prof["device_busy_ms"]
+    stats = dict(tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall, decode_steps=len(steps),
+                 decode_ms_per_step_median=median,
+                 decode_ms_per_step_quartiles=[steps[len(steps) // 4] * 1e3,
+                                               steps[3 * len(steps) // 4] * 1e3],
+                 launches=counts, profile=prof, init_s=init_s, scale_bytes=scale_b,
+                 scale_bytes_bf16=scale_bf16, page_bytes=page_b, page_bytes_int8=page_b8,
+                 device_idle_share=None if not busy else 1 - busy / median)
+    print(f"{label}: {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s; {len(steps)} decode"
+          f" steps, median {median:.2f} ms/step (quartiles"
+          f" {stats['decode_ms_per_step_quartiles'][0]:.2f}-{stats['decode_ms_per_step_quartiles'][1]:.2f});"
+          f" launches {({k: v for k, v in counts.items() if v})}", flush=True)
+    print(f"{label}: profiled decode step (B=4): wall {prof['wall_ms']:.2f} ms, "
+          + (f"device busy {busy:.2f} ms of the {median:.2f} ms median step (idle "
+             f"{stats['device_idle_share']:.0%})" if busy else "device busy not measured")
+          + f"; {prof['kernels_per_step']:.0f} kernels per step; ported kernels per step {per};"
+          f" attention per step (ms, launches) {prof['attention']}")
+    for key, ms, cnt in prof["top"]:
+        print(f"      {ms:8.3f} ms/step  {cnt:5d}x  {key[:90]}")
+    print(f"{label}: host time per decode step under cProfile (tottime):")
+    for key, ms, cnt in prof["host_top"]:
+        print(f"      {ms:8.3f} ms/step  {cnt:6d}x  {key[:90]}")
+    stats["long"] = serve_long(torch, cfg, params, kernels, lean=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["qlora"] = qlora_7b(torch, cfg, params, kernels, plan=(("adamw8bit", 3),),
+                              expect=QLORA_LEAN_LAUNCHES, tag="[3d]")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, stats
+
+
+def lean_card_vs_cpu(torch, cfg, kernels):
+    """Phase 3d, card against CPU: 2 layers of the lean configuration at
+    7B width from one seed: prefill logits at T=32 within phase 5's limits
+    (4% relative L2, 5% of the largest), then 5 greedy tokens for 2
+    prompts through the kv4 paged engine, equal wherever the CPU's top-2
+    logit gap exceeds 5% of its largest logit; then phase 7c's QLoRA
+    comparison (loss 1%, adapter gradients 4%) over one adamw8bit step."""
+    from bitsandbytes_sycl_tpu_torch.models.llama import init_kv_cache, init_params, llama_forward
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    p_cpu = init_params(cfg2, seed=1, device="cpu")
+    p_gpu = to_cuda(torch, p_cpu)
+    toks = torch.tensor([p + [0] * (32 - len(p)) for p in prompts_from_seed(1, 2, cfg.vocab_size)])
+    lg_cpu, _ = llama_forward(p_cpu, cfg2, toks, init_kv_cache(cfg2, 2, "cpu"))
+    lg_gpu, _ = llama_forward(p_gpu, cfg2, toks.cuda(), init_kv_cache(cfg2, 2, "cuda"))
+    err, mag = max_err(torch, lg_gpu.cpu(), lg_cpu)
+    rel = float((lg_gpu.cpu() - lg_cpu).norm() / lg_cpu.norm())
+    need(torch.isfinite(lg_gpu).all().item(), "[3d] non-finite logits on the card")
+    need(rel <= 4e-2, f"[3d] prefill logits card vs CPU: relative L2 error {rel} > 0.04")
+    need(err <= 5e-2 * mag, f"[3d] prefill logits card vs CPU: max err {err} > {5e-2 * mag}")
+    rec_cpu, rec_gpu = {}, {}
+    pr2 = prompts_from_seed(2, 2, cfg.vocab_size)
+    reset_counts(kernels)
+    out_cpu, _, _ = serve(torch, cfg2, p_cpu, pr2, 5, device="cpu", per_request=rec_cpu)
+    out_gpu, _, _ = serve(torch, cfg2, p_gpu, pr2, 5, per_request=rec_gpu)
+    counts = read_counts(kernels)
+    need(counts["paged_attn_int8.kv4"] > 0 and counts["mm4_fused.compressed"] > 0,
+         f"[3d] 2-layer card run: launches {counts}")
+    checked = greedy_agree(out_cpu, rec_cpu, out_gpu, "[3d] card vs CPU")
+    print(f"[3d] 2-layer 7B-width lean model card vs CPU: prefill logits relative L2 {rel:.3g}"
+          f" (tol 0.04), max err {err:.4g} (tol {5e-2 * mag:.4g}); {checked} of 10 greedy tokens"
+          f" (kv4 paged engine) compared equal", flush=True)
+    del p_gpu
+    torch.cuda.empty_cache()
+    qlora = qlora_card_vs_cpu(torch, cfg, kernels,
+                              launched=("mm4_fused.compressed", "dequantize_transposed.compressed",
+                                        "optim8_2state"), tag="[3d]", steps=1, p_cpu=p_cpu)
+    return dict(logits_rel_l2=rel, logits_max_err=err, logits_max_abs=mag,
+                tokens_compared_equal=checked, qlora=qlora)
 
 
 def to_cuda(torch, o):
@@ -2640,6 +3188,8 @@ def main() -> int:
         check_routes(torch, report)
         check_prefill(torch, report)
         check_paged(torch, report)
+        check_compressed(torch, report)
+        check_kv4(torch, report)
         check_decode(torch, report)
         check_int8(torch, report)
         n_edges = check_edges(torch)
@@ -2766,7 +3316,17 @@ def main() -> int:
         train_stats = qlora_7b(torch, cfg, params, KERNELS)
         phases["qlora_7b_s"] = time.perf_counter() - t0
         del params
+        gc.collect()
         torch.cuda.empty_cache()
+
+        # 3d. the memory-lean NF4 configuration (compressed statistics, kv4
+        # pages) at full width and depth, then card against CPU at 2 layers
+        t0 = time.perf_counter()
+        cfg_lean, lean_stats = serve_lean(torch, prompts, KERNELS)
+        phases["lean_7b_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lean_stats["card_vs_cpu"] = lean_card_vs_cpu(torch, cfg_lean, KERNELS)
+        phases["lean_card_vs_cpu_s"] = time.perf_counter() - t0
 
         # 5. card against CPU, 2 layers at 7B width
         t0 = time.perf_counter()
@@ -2889,10 +3449,28 @@ def main() -> int:
               "w4a8_gemv": {"fused": main_counts["w4a8_gemv.fused"]},
               "decode_attn_int8": {"split": contig_stats["launches"]["decode_attn_int8.split"]},
               "dequant_int8": {"tiled": long_counts["rows 4096"]["dequant_int8.tiled"]}}
+    # the branches of slice 10, each with its phase 3d path (the kernel's
+    # source file is the base name's)
+    lean_per = lean_stats["profile"]["launches_per_step"]
+    lean_2048 = next(r for r in lean_stats["long"] if r["label"] == "rows 2048")["launches"]
+    sources.update({
+        "mm4_fused (compressed)": ("bitsandbytes_sycl_tpu/ops/matmul_4bit.py:66",
+                                   "7B lean decode (phase 3d)",
+                                   lean_stats["launches"]["mm4_fused.compressed"]),
+        "dequantize_transposed (compressed)": ("bitsandbytes_sycl_tpu/ops/matmul_4bit.py:120",
+                                               "7B lean prefill, 2048 rows (phase 3d)",
+                                               lean_2048["dequantize_transposed.compressed"]),
+        "paged_attn_int8 (kv4)": ("bitsandbytes_sycl_tpu/ops/paged_attention.py:139",
+                                  "7B lean decode (phase 3d)",
+                                  lean_stats["launches"]["paged_attn_int8.kv4"]),
+    })
+    per_step.update({"mm4_fused (compressed)": lean_per.get("mm4_fused.compressed", 0),
+                     "paged_attn_int8 (kv4)": lean_per.get("paged_attn_int8.kv4", 0)})
     for name, (replaces, path, launches) in sources.items():
         r = report[name]
         kernels.append(dict(
-            name=name, route="cuda", source=f"bitsandbytes_sycl_tpu_torch/csrc/{name}.cu",
+            name=name, route="cuda",
+            source=f"bitsandbytes_sycl_tpu_torch/csrc/{name.split(' ')[0]}.cu",
             replaces=replaces, path=path, launches=launches, max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], launches_per_decode_step=per_step.get(name, 0),
@@ -2902,8 +3480,8 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=report, serve=serve_stats, long_prompts=long_stats,
                        chunked=chunk_stats, contiguous=contig_stats, w8a8_prefill=w8a8_stats,
-                       int8=int8_stats, qlora=train_stats, phases=phases), f, indent=1,
-                  default=str)
+                       int8=int8_stats, qlora=train_stats, lean=lean_stats, phases=phases), f,
+                  indent=1, default=str)
     print(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
     print(card)
     print(json.dumps({"kernels": kernels}))

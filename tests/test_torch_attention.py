@@ -150,7 +150,12 @@ def test_paged_declines_and_unported_kv4():
     table, lens = torch.ones((1, 2), dtype=torch.int32), torch.ones((1,), dtype=torch.int32)
     with pytest.raises(ValueError, match="D=64"):
         t_paged(torch.zeros((1, 1, 1, 64)), *args, 0, table, lens)
+    # kv4 pages (P/2 byte rows) are ported (tests/test_torch_kv4.py); a pool
+    # whose byte rows are neither P nor P/2 is declined
     kp4 = torch.zeros((1, 3, 1, 64, 128), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError):
-        t_paged(torch.zeros((1, 1, 1, 128)), kp4, torch.zeros((1, 3, 1, 128)), kp4,
-                torch.zeros((1, 3, 1, 128)), 0, table, lens)
+    out = t_paged(torch.zeros((1, 1, 1, 128)), kp4, torch.zeros((1, 3, 1, 128)), kp4,
+                  torch.zeros((1, 3, 1, 128)), 0, table, lens)
+    assert out.shape == (1, 1, 1, 128) and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="pages"):
+        t_paged(torch.zeros((1, 1, 1, 128)), kp4[:, :, :, :32], torch.zeros((1, 3, 1, 128)),
+                kp4[:, :, :, :32], torch.zeros((1, 3, 1, 128)), 0, table, lens)

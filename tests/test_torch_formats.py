@@ -65,8 +65,11 @@ def test_dequantize_equal(qt, absmax_dtype):
 def test_quantize_rejects_what_jax_rejects():
     with pytest.raises(ValueError):
         t_quantize(torch.zeros((8, 96)), blocksize=64)
-    with pytest.raises(NotImplementedError):
-        t_quantize(torch.zeros((8, 128)), blocksize=64, compress_statistics=True)
+    # compressed statistics are ported (tests/test_torch_compressed.py) and
+    # reject what the JAX package rejects
+    with pytest.raises(ValueError):
+        t_quantize(torch.zeros((8, 96)), blocksize=64, compress_statistics=True)
+    assert t_quantize(torch.zeros((8, 128)), blocksize=64, compress_statistics=True).compressed
 
 
 def test_pack_unpack_4bit_match():

@@ -36,6 +36,10 @@ CASES = (
     + [("B", 129, 512, 1024, bs, torch.bfloat16) for bs in (8, 32, 128, 256)]
     + [("B", 256, 4096, 4096, 64, torch.float32), ("B", 67, 384, 1152, 64, torch.float32),
        ("B", 300, 256, 1040, 8, torch.bfloat16)]
+    # kernel B on compressed scales ("Bc"): the rows of the lean decode and
+    # prefill, and the QLoRA step's 2048
+    + [("Bc", M, N, K, 64, torch.bfloat16) for N, K in SHAPES_7B for M in (4, 256, 1024, 2048)]
+    + [("Bc", 256, 4096, 4096, 64, torch.float32), ("Bc", 129, 512, 1024, 128, torch.bfloat16)]
     # kernel G: the 7B shapes at the grouped route's row counts; edge shapes
     + [("G", M, N, K, bs, torch.bfloat16) for N, K in SHAPES_7B for M in (300, 512, 2048)
        for bs in (64, 128)]
@@ -54,13 +58,15 @@ def _ids(case):
 def test_launch_plan(case):
     kernel, M, N, K, bs, dt = case
     half = K // 2
-    if kernel == "B":
-        plan = mm4_plan(M, N, K, bs, dt, H100_SMS)
+    if kernel in ("B", "Bc"):
+        plan = mm4_plan(M, N, K, bs, dt, H100_SMS, kernel == "Bc")
         fast = dt == torch.bfloat16 and half % 32 == 0 and bs % 8 == 0 and (
             bs % 32 == 0 or 32 % bs == 0)
         assert plan.body == ("tc" if fast else "simt")
         if plan.body == "tc":
-            assert (plan.bm, plan.bn) in ((64, 128), (128, 128), (128, 256), (256, 128))
+            # compressed scales: the 128 x 256 tile has no room for the decode table
+            tiles = ((64, 128), (128, 128), (256, 128)) + (() if kernel == "Bc" else ((128, 256),))
+            assert (plan.bm, plan.bn) in tiles
             rows = 32  # packed rows per K step
         else:
             assert (plan.bm, plan.bn) == (4, 128)
