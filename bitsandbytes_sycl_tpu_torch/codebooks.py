@@ -1,18 +1,21 @@
 """Quantization codebooks (numpy, host side).
 
-The port's own copy of the 16-entry tables of the JAX package's
-``codebooks.py``. Tables are in code order (index = 4-bit code),
-normalized to [-1, 1]; FP4 is non-monotone, NF4/int4/af4 are monotone.
-It also carries the 8-bit dynamic map of the optimizer states.
+The port's own copy of the JAX package's ``codebooks.py``. The 16-entry
+tables are in code order (index = 4-bit code), normalized to [-1, 1]; FP4
+is non-monotone, NF4/int4/af4 are monotone. The 256-entry maps of the
+8-bit optimizer states (dynamic, linear, normal, fp8, quantile) are sorted
+ascending; a sub-256 map is padded with zeros (``_pad_sorted_to_256``).
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 
 import numpy as np
 
-__all__ = ["NF4_CODE", "FP4_CODE", "get_4bit_type", "code_midpoints", "create_dynamic_map"]
+__all__ = ["NF4_CODE", "FP4_CODE", "get_4bit_type", "code_midpoints", "create_dynamic_map",
+           "create_linear_map", "create_normal_map", "create_fp8_map", "create_quantile_map"]
 
 # NF4 of the QLoRA paper (arxiv 2305.14314): equal-area bins under N(0, 1)
 NF4_CODE = np.array(
@@ -94,6 +97,13 @@ def code_midpoints(code_sorted: np.ndarray) -> np.ndarray:
     return ((code_sorted[1:] + code_sorted[:-1]) / 2.0).astype(np.float32)
 
 
+def _pad_sorted_to_256(values) -> np.ndarray:
+    """A sub-256 map padded with zeros and sorted, as f32 (256,)."""
+    values = list(values)
+    values.extend([0.0] * (256 - len(values)))
+    return np.sort(np.asarray(values, dtype=np.float32))
+
+
 @functools.lru_cache(maxsize=None)
 def create_dynamic_map(signed: bool = True, max_exponent_bits: int = 7,
                        total_bits: int = 8) -> np.ndarray:
@@ -119,5 +129,82 @@ def create_dynamic_map(signed: bool = True, max_exponent_bits: int = 7,
             data.extend((-means).tolist())
     data.extend([0.0, 1.0])
     assert len(data) == 2 ** total_bits
-    data.extend([0.0] * (256 - len(data)))
-    return np.sort(np.asarray(data, dtype=np.float32))
+    return _pad_sorted_to_256(data)
+
+
+@functools.lru_cache(maxsize=None)
+def create_linear_map(signed: bool = True, total_bits: int = 8, add_zero: bool = True) -> np.ndarray:
+    """Evenly spaced map over [-1, 1] (or [0, 1] unsigned); fewer than 256
+    values get zeros in the middle."""
+    sign = -1.0 if signed else 0.0
+    total_values = 2 ** total_bits
+    if add_zero or total_bits < 8:
+        total_values = 2 ** total_bits if not signed else 2 ** total_bits - 1
+    values = np.linspace(sign, 1.0, total_values, dtype=np.float64)
+    gap = 256 - values.size
+    if gap == 0:
+        return values.astype(np.float32)
+    half = values.size // 2
+    return np.concatenate([values[:half], np.zeros(gap), values[half:]]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def create_normal_map(offset: float = 0.9677083, use_extra_value: bool = True) -> np.ndarray:
+    """The 256-entry normal-float map NF4 derives from: N(0, 1) quantiles
+    with ``offset`` tail mass, an extra positive value, zeros between."""
+    from scipy.stats import norm
+
+    if use_extra_value:
+        v1 = norm.ppf(np.linspace(offset, 0.5, 9)[:-1]).tolist()
+        v2 = [0.0] * (256 - 15)
+    else:
+        v1 = norm.ppf(np.linspace(offset, 0.5, 8)[:-1]).tolist()
+        v2 = [0.0] * (256 - 14)
+    v3 = (-norm.ppf(np.linspace(offset, 0.5, 8)[:-1])).tolist()
+    values = np.sort(np.asarray(v1 + v2 + v3))
+    values = values / values.max()
+    assert values.size == 256
+    return values.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def create_fp8_map(signed: bool = True, exponent_bits: int = 5, precision_bits: int = 2,
+                   total_bits: int = 8) -> np.ndarray:
+    """An ExMy float map normalized to [-1, 1], zero-padded to 256."""
+    e, p = exponent_bits, precision_bits
+    assert e + p == total_bits - (1 if signed else 0)
+    bias = 2 ** (e - 1)
+    values: list = []
+    for evalue in range(2 ** e):
+        for pattern in itertools.product([0, 1], repeat=p):
+            value = 1.0 if evalue != 0 else 0.0
+            for i, pbit in enumerate(pattern):
+                value += pbit * 2.0 ** (-(i + 1))
+            if evalue == 0:
+                value = value * 2.0 ** (-bias)  # subnormals
+            else:
+                value = value * 2.0 ** (-(evalue - bias - 1))  # normals
+            values.append(value)
+            if signed:
+                values.append(-value)
+    assert len(values) == 2 ** total_bits
+    values.sort()
+    if total_bits < 8:
+        values.extend([0.0] * (256 - len(values)))
+    code = np.sort(np.asarray(values))
+    return (code / code.max()).astype(np.float32)
+
+
+def create_quantile_map(A, total_bits: int = 8) -> np.ndarray:
+    """A map from the empirical quantiles of ``A`` (numpy or a tensor) at
+    the 2^bits - 1 eCDF midpoints, with 0.0, padded, sorted and normalized
+    by the largest magnitude."""
+    if hasattr(A, "detach"):
+        A = A.detach().cpu().numpy()
+    n_q = 2 ** total_bits - 1
+    probs = (np.arange(n_q) + 0.5) / n_q
+    q = np.quantile(np.asarray(A, dtype=np.float32).ravel(), probs).tolist()
+    q.append(0.0)
+    q.extend([0.0] * (256 - len(q)))
+    q = np.sort(np.asarray(q))
+    return (q / np.abs(q).max()).astype(np.float32)

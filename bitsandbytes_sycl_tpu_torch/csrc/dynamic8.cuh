@@ -16,11 +16,25 @@
 // the edge-by-edge encode with a division per element (encode_cascade,
 // kept for the card's exhaustive check over every f32).
 //
+// The LUT codec (ops/optim8.LutCodec, any 256-entry table) takes the
+// place of that table with kLutWords words per state (ops/optim8.lut_words):
+// the decode table, the f32 midpoints between the table's sorted distinct
+// values padded with +inf to 256, the rank -> code bytes, n_neg and top.
+// Encode is an 8-step binary search over the midpoints (rank = #{mids <
+// x}, NaN at rank 0), state1's sign fix in rank space, then the code byte;
+// decode is one shared-memory load.
+//
 // The step's leaves come as a table of Leaf rows (ops/optim8.py builds it
 // on the host each step and copies it with one asynchronous copy). A
 // persistent grid splits the global block index into one contiguous run per
 // CTA; each CTA keeps its current leaf, steps forward through the table as
 // its blocks advance, and has L2 fetch its next block while it computes.
+// A block larger than kMaxBlock is walked as chunks of kMaxBlock elements,
+// a CTA step each, in two launches (the two-pass body of the kernels): the
+// first folds each chunk's state maxima into its block's slots of a scratch
+// (an atomic max of bit patterns) and keeps the block's old absmax there;
+// the second recomputes the update from the unchanged inputs, encodes with
+// the block's maximum and writes p, the codes and the absmax.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,7 +45,7 @@ namespace dyn8 {
 
 constexpr int kThreads = 256;             // one CTA works on one quantization block at a time
 constexpr int kPer = 8;                   // consecutive elements of the block a thread owns
-constexpr int kMaxBlock = kThreads * kPer;  // blocksize <= 2048
+constexpr int kMaxBlock = kThreads * kPer;  // the one-pass body: blocksize <= 2048
 constexpr int kWarps = kThreads / 32;
 constexpr int kMinCtas = 3;               // CTAs per SM the registers must allow
 
@@ -39,6 +53,8 @@ constexpr int kMinCtas = 3;               // CTAs per SM the registers must allo
 constexpr int kDecS = 0, kDecU = 256, kBinS = 512, kBinU = 770, kDecadeS = 1028, kDecadeU = 1042,
               kTopS = 1056, kTopU = 1057, kTableWords = 1058;
 constexpr unsigned kNanBinade = 128;
+// word offsets of one LUT codec (ops/optim8.LUT_WORDS)
+constexpr int kLutWords = 580, kLutMids = 256, kLutCode = 512, kLutNNeg = 576, kLutTop = 577;
 
 // One row of the leaf table (ops/optim8.LEAF_WORDS int64 words). A 1-state
 // leaf has s2 = am2 = null; u is null unless rounding is stochastic.
@@ -115,6 +131,37 @@ __device__ __forceinline__ int sign_fix(int r, float normed) {
   const bool mism = (r < 127) != (bool)signbit(normed);
   const int step = normed > 0.0f ? 1 : -1;
   return mism ? min(max(r + step, 0), 255) : r;
+}
+
+// ops/optim8.LutCodec.rank: #{mids < x} over the midpoints padded with
+// +inf to 256 (a monotone predicate, so 8 halving steps find it; NaN
+// compares false everywhere and stays at rank 0)
+__device__ __forceinline__ int lut_rank(float x, const float* lut) {
+  const float* mids = lut + kLutMids;
+  int r = 0;
+#pragma unroll
+  for (int s = 128; s > 0; s >>= 1) r += x > mids[r + s - 1] ? s : 0;
+  return r;
+}
+
+// Requantize one state of the thread's 8 values through a LUT codec with
+// the block's absmax m (state1: the sign fix in rank space).
+template <bool kSignFix>
+__device__ __forceinline__ void lut_requant8(const float (&v)[kPer], float m, const float* lut,
+                                             int (&c)[kPer]) {
+  const float inv = m > 0.0f ? __fdiv_rn(1.0f, m) : 0.0f;
+  const uint8_t* code = reinterpret_cast<const uint8_t*>(lut + kLutCode);
+  const int n_neg = __float_as_int(lut[kLutNNeg]), top = __float_as_int(lut[kLutTop]);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const float normed = __fmul_rn(v[k], inv);
+    int r = lut_rank(normed, lut);
+    if (kSignFix) {
+      const bool mism = (r < n_neg) != (bool)signbit(normed);
+      r = mism ? min(max(r + (normed > 0.0f ? 1 : -1), 0), top) : r;
+    }
+    c[k] = code[r];
+  }
 }
 
 // ops/dynamic8.stochastic_adjust: step to the bracketing neighbour with
@@ -194,9 +241,11 @@ struct Span {
   bool vec;      // all 8 in the leaf, vector accesses allowed
 };
 
-__device__ __forceinline__ Span span(long long lb, int bs, const Walk& w) {
+// off: the chunk's first element in the block (0 unless the block is
+// larger than kMaxBlock)
+__device__ __forceinline__ Span span(long long lb, int bs, const Walk& w, int off = 0) {
   Span s;
-  const int e0 = threadIdx.x * kPer;
+  const int e0 = off + threadIdx.x * kPer;
   s.i0 = lb * bs + e0;
   s.inb = e0 < bs ? min(kPer, bs - e0) : 0;
   const long long left = w.cur.n - s.i0;
@@ -304,11 +353,17 @@ __device__ __forceinline__ void requant8(const float (&v)[kPer], float m, const 
   }
 }
 
-// Copy the codec table into shared memory (once per CTA).
-__device__ __forceinline__ void stage_table(const float* __restrict__ table, float* tab) {
-  for (int k = threadIdx.x; k < kTableWords; k += kThreads) tab[k] = table[k];
+// Copy the codec table (the dynamic maps' kTableWords, or the LUT codecs'
+// words) into shared memory (once per CTA).
+__device__ __forceinline__ void stage_table(const float* __restrict__ table, float* tab,
+                                            int words = kTableWords) {
+  for (int k = threadIdx.x; k < words; k += kThreads) tab[k] = table[k];
   __syncthreads();
 }
+
+// The two-pass body's scratch: per block the two states' maxima (int bits,
+// zeroed before the first pass) and their old absmax (float bits).
+constexpr int kScratchWords = 4;
 
 }  // namespace dyn8
 

@@ -1,7 +1,9 @@
 """The subset of the JAX package's ``functional.py`` that the port serves:
 codebook encode and 4-bit packing (for the quantizer of ``ops/common.py``),
-the LLM.int8 functions and the optimizer updates (32-bit and blockwise
-8-bit with the dynamic codec, and percentile clipping).
+the LLM.int8 functions, ``estimate_quantiles`` and the optimizer updates
+(32-bit; blockwise 8-bit with the dynamic maps or any 256-entry table; the
+global-max 8-bit update, one block over the whole tensor; percentile
+clipping).
 
 Codebook encode rounds to nearest with strict-``>`` midpoint thresholds: an
 input exactly on a midpoint goes to the lower code, NaN encodes as 0.0.
@@ -16,6 +18,7 @@ on the CPU, ``torch._int_mm`` on the card).
 from __future__ import annotations
 
 import functools
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -26,8 +29,9 @@ from . import codebooks
 __all__ = [
     "pack_4bit", "unpack_4bit", "get_colrow_absmax", "int8_vectorwise_quant",
     "int8_linear_matmul", "int8_mm_dequant", "llm_int8_prepare_outliers", "llm_int8_matmul",
-    "blocks_for", "OPTIMIZER_FUNCS_2STATE", "OPTIMIZER_FUNCS_1STATE", "optimizer_update_32bit",
-    "optimizer_update_8bit_blockwise", "percentile_clipping",
+    "estimate_quantiles", "blocks_for", "OPTIMIZER_FUNCS_2STATE", "OPTIMIZER_FUNCS_1STATE",
+    "optimizer_update_32bit", "optimizer_update_8bit_blockwise", "optimizer_update_8bit",
+    "percentile_clipping",
 ]
 
 
@@ -222,6 +226,37 @@ def llm_int8_matmul(
     return out.reshape(*lead, N)
 
 
+def estimate_quantiles(A: torch.Tensor, offset: Optional[float] = None,
+                       num_quantiles: int = 256) -> torch.Tensor:
+    """Empirical quantiles of A at ``num_quantiles`` evenly spaced eCDF
+    positions from ``offset`` to 1 - offset (numpy's and jnp.quantile's
+    "linear" method), zero-padded to 256, f32 on A's device. One sort and
+    a linear interpolation between the two neighbours of each position,
+    both in float64, so any size works (``torch.quantile`` refuses more
+    than 2^24 elements). jnp.quantile rounds the positions to f32, so at n
+    elements its quantiles sit up to n * 2^-24 sorted places from these
+    (within the gap to a neighbour). A NaN in A makes every quantile NaN,
+    as in jnp.quantile."""
+    if offset is None:
+        offset = 1.0 / (2.0 * num_quantiles)
+    x = A.reshape(-1).float()
+    if x.numel() == 0:
+        raise ValueError("estimate_quantiles: empty input")
+    xs = torch.sort(x).values
+    n = xs.numel()
+    pos = torch.linspace(offset, 1.0 - offset, num_quantiles, dtype=torch.float64,
+                         device=x.device) * (n - 1)
+    lo = pos.floor().clamp(0, n - 1)
+    w = pos - lo
+    lo = lo.long()
+    hi = torch.clamp(lo + 1, max=n - 1)
+    q = (xs[lo].double() * (1.0 - w) + xs[hi].double() * w).float()
+    q = torch.where(torch.isnan(xs[-1]), torch.full_like(q, float("nan")), q)
+    if num_quantiles < 256:
+        q = torch.cat([q, q.new_zeros(256 - num_quantiles)])
+    return q
+
+
 # ---------------------------------------------------------------------------
 # optimizer updates: take states, return new states. Python-float
 # hyperparameters round to f32 where they meet an f32 tensor, as the JAX
@@ -395,13 +430,14 @@ def _optim8_scalars_shared(*key) -> torch.Tensor:
 def _optim8_fused_dispatch(
     optimizer_name, state1, absmax1, state2, absmax2,
     beta1, beta2, eps, step, lr, weight_decay, gnorm_scale,
-    blocksize, p_orig, g_orig, noise=None,
+    blocksize, p_orig, g_orig, noise=None, qmaps=None,
 ):
     """The 8-bit blockwise update of one leaf through kernel J or K
     (ops/optim8.py) on CUDA tensors, their plain versions on CPU tensors: a
     one-leaf table over copies of p and the states, which the body updates
-    in place. A ragged last block reads as the JAX package pads it: g and p
-    0, state1's codes 127 and state2's 0 (both decode to 0.0)."""
+    in place. A ragged last block reads as the JAX package's kernel route
+    pads it: g and p 0, state1's codes 127 and state2's 0 (0.0 under the
+    dynamic maps, the tables' entries under ``qmaps``)."""
     from .ops.optim8 import Optim8Leaf, optim8_update
 
     two = optimizer_name in OPTIMIZER_FUNCS_2STATE
@@ -413,7 +449,7 @@ def _optim8_fused_dispatch(
         out += [state2.reshape(-1).clone(), absmax2.float().reshape(-1).clone()]
     optim8_update(optimizer_name, [Optim8Leaf(g_orig.float().reshape(-1).contiguous(), *out,
                                               u=noise)],
-                  scalars, blocksize=blocksize)
+                  scalars, blocksize=blocksize, qmaps=qmaps)
     res = [out[0].reshape(p_orig.shape).to(p_orig.dtype), out[1].reshape(state1.shape), out[2]]
     if two:
         res += [out[3].reshape(state2.shape), out[4]]
@@ -454,26 +490,72 @@ def optimizer_update_8bit_blockwise(
     codec: Optional[str] = None,
     stochastic_rounding: bool = False,
 ):
-    """Blockwise 8-bit optimizer step with the dynamic codec: decode the
-    uint8 states, update, requantize per ``blocksize`` block with a fresh
-    absmax (kernel J or K on the card). Non-finite gradient entries leave p
-    and the states unchanged. Returns (p, state1, absmax1, state2,
+    """Blockwise 8-bit optimizer step: decode the uint8 states, update,
+    requantize per ``blocksize`` block (any size) with a fresh absmax
+    (kernel J or K on the card). The states' codec: the dynamic maps when
+    ``codec`` is "dynamic" or neither codec nor ``qmap1`` is given (the
+    tables are then ignored), else the LUT codec over ``qmap1`` (and
+    ``qmap2`` for adam and lamb), numpy or tensors of 256 finite entries,
+    sorted or not (``ops.optim8.LutCodec``). Non-finite gradient entries
+    leave p and the states unchanged. Returns (p, state1, absmax1, state2,
     absmax2). ``stochastic_rounding`` requantizes with uniforms from a
     ``torch.Generator`` seeded from ``step``, so a step is deterministic
     given (state, step); the JAX package's PRNG bits are not reproduced.
+    With a table it warns and rounds to nearest, as the JAX package does.
     ``skip_zeros`` is accepted and unused, as in the JAX package."""
     del skip_zeros
     if codec is None and qmap1 is None:
         codec = "dynamic"
+    qmaps = None
     if codec != "dynamic":
-        raise NotImplementedError(
-            "custom-qmap (LUT codec) optimizer states are not ported yet (ROADMAP Queue B #10)")
+        if stochastic_rounding:
+            warnings.warn("stochastic_rounding requires the dynamic codec; custom-qmap optimizer "
+                          "states requantize deterministically (round-to-nearest)", stacklevel=2)
+            stochastic_rounding = False
+        qmaps = (qmap1, qmap2 if optimizer_name in OPTIMIZER_FUNCS_2STATE else None)
     noise = _optim8_noise(blocks_for(g.numel(), blocksize) * blocksize, step, p.device) \
         if stochastic_rounding else None
     return _optim8_fused_dispatch(
         optimizer_name, state1, absmax1, state2, absmax2,
         beta1, beta2, eps, step, lr, weight_decay, gnorm_scale,
-        blocksize, p, g, noise=noise,
+        blocksize, p, g, noise=noise, qmaps=qmaps,
+    )
+
+
+def optimizer_update_8bit(
+    optimizer_name: str,
+    g: torch.Tensor,
+    p: torch.Tensor,
+    state1: torch.Tensor,
+    state2: Optional[torch.Tensor],
+    beta1: float,
+    beta2: float,
+    eps: float,
+    step: int,
+    lr: float,
+    qmap1=None,
+    qmap2=None,
+    max1: Optional[torch.Tensor] = None,
+    max2: Optional[torch.Tensor] = None,
+    weight_decay: float = 0.0,
+    gnorm_scale=1.0,
+    codec: Optional[str] = None,
+):
+    """The global-max ("static") 8-bit step: the blockwise update with one
+    block of ceil(n / 2048) * 2048 elements over the whole tensor (kernel
+    J's or K's two-pass body on the card), either codec. ``max1``/``max2``
+    are the per-tensor scales, shape (1,) (zero when not given). Returns
+    (p, state1, new_max1, state2, new_max2), the maxima of shape (1,), the
+    fresh absmax of the updated states (not a running maximum)."""
+    n = g.numel()
+    bs = blocks_for(n, 2048) * 2048
+    zero = torch.zeros((1,), dtype=torch.float32, device=p.device)
+    m1 = max1.reshape(1) if max1 is not None else zero
+    m2 = max2.reshape(1) if max2 is not None else (zero.clone() if state2 is not None else None)
+    return optimizer_update_8bit_blockwise(
+        optimizer_name, g, p, state1, m1, state2, m2, qmap1, qmap2,
+        beta1, beta2, eps, step, lr,
+        weight_decay=weight_decay, gnorm_scale=gnorm_scale, blocksize=bs, codec=codec,
     )
 
 

@@ -3,7 +3,8 @@ port of the JAX package's ``optim/base.py`` (there optax transforms).
 
 Per-parameter state: ``state1``, ``absmax1``[, ``state2``, ``absmax2``] for
 an 8-bit leaf (uint8 codes of the dynamic maps, one f32 absmax per 2048
-block), ``state1``[, ``state2``] in f32 otherwise, and ``gnorm_vec`` under
+block, or with ``block_wise=False`` one block over the whole leaf),
+``state1``[, ``state2``] in f32 otherwise, and ``gnorm_vec`` under
 percentile clipping. A leaf is 8-bit when ``optim_bits == 8`` and its
 ``numel >= min_8bit_size``. One step count per optimizer (``count``), as
 the JAX package's ``BnbOptimizerState.count``.
@@ -16,7 +17,9 @@ accepted and ignored, as in the JAX package.
 A step takes three routes (``_route``), each leaf ending bit for bit where
 its own update would put it:
 - "grouped": every 8-bit leaf with contiguous f32 p and grad (not a view)
-  goes through one launch of kernel J or K per device, in place
+  goes through one launch of kernel J or K per device and blocksize, in
+  place (a leaf of one block past 2048 elements, ``block_wise=False``,
+  takes the two-pass body: a launch pair per device and leaf size)
   (``functional.optimizer_update_8bit_grouped``; param groups and
   percentile clipping as rows of the launch's scalars, stochastic
   rounding's uniforms in its leaf table);
@@ -75,10 +78,6 @@ class BnbOptimizer(torch.optim.Optimizer):
         if mesh is not None:
             raise NotImplementedError(
                 "sharded optimizer states (mesh=) are not ported yet (ROADMAP Queue A #13)")
-        if not block_wise and optim_bits == 8:
-            raise NotImplementedError(
-                "non-blockwise 8-bit states (block_wise=False) are not ported yet "
-                "(ROADMAP Queue A #9)")
         del is_paged, shard_axis
         defaults = dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay)
         super().__init__(params, defaults)
@@ -88,9 +87,14 @@ class BnbOptimizer(torch.optim.Optimizer):
         self.percentile_clipping = percentile_clipping
         self.max_unorm = max_unorm
         self.stochastic_rounding = stochastic_rounding
-        self.blocksize = 2048
+        self.block_wise = block_wise
         self.count = 0
         self.route_leaves = {"grouped": 0, "batched": 0, "per_leaf": 0}
+
+    def blocksize(self, p: torch.Tensor) -> int:
+        """The quantization block of an 8-bit leaf: 2048, or with
+        ``block_wise=False`` the whole leaf."""
+        return 2048 if self.block_wise else max(p.numel(), 1)
 
     def init_state(self, p: torch.Tensor) -> dict:
         """The leaf's zero state on p's device, as the JAX package's
@@ -99,7 +103,7 @@ class BnbOptimizer(torch.optim.Optimizer):
         two = self.name in _2STATE
         s: dict = {}
         if _leaf_is_8bit(p, self.optim_bits, self.min_8bit_size):
-            nb = F.blocks_for(p.numel(), self.blocksize)
+            nb = F.blocks_for(p.numel(), self.blocksize(p))
             s["state1"] = torch.zeros(p.shape, dtype=torch.uint8, device=dev)
             s["absmax1"] = torch.zeros((nb,), dtype=torch.float32, device=dev)
             if two:
@@ -135,13 +139,13 @@ class BnbOptimizer(torch.optim.Optimizer):
                 route = self._route(p, s)
                 self.route_leaves[route] += 1
                 if route == "grouped":
-                    grouped.setdefault(p.device, []).append((p, s, hyper))
+                    grouped.setdefault((p.device, self.blocksize(p)), []).append((p, s, hyper))
                 elif route == "batched":
                     batched.setdefault((p.device, gi), []).append((p, s, hyper))
                 else:
                     single.append((p, s, hyper))
-        for items in grouped.values():
-            self._step_grouped(items, count)
+        for (_, bs), items in grouped.items():
+            self._step_grouped(items, count, bs)
         for items in batched.values():
             self._step_batched(items, count)
         for p, s, hyper in single:
@@ -161,8 +165,9 @@ class BnbOptimizer(torch.optim.Optimizer):
             return "grouped"
         return "batched" if self.percentile_clipping >= 100 else "per_leaf"
 
-    def _step_grouped(self, items, count):
-        """The 8-bit leaves of one device: one launch of kernel J or K."""
+    def _step_grouped(self, items, count, blocksize):
+        """The 8-bit leaves of one device and blocksize: one launch of
+        kernel J or K (a pair past 2048)."""
         scales = None
         if self.percentile_clipping < 100:
             scales = []
@@ -173,7 +178,7 @@ class BnbOptimizer(torch.optim.Optimizer):
                 scales.append(scale)
         F.optimizer_update_8bit_grouped(
             self.name, [(p.grad, p, s) for p, s, _ in items], [h for _, _, h in items], count,
-            gnorm_scales=scales, blocksize=self.blocksize,
+            gnorm_scales=scales, blocksize=blocksize,
             stochastic_rounding=self.stochastic_rounding)
 
     def _step_batched(self, items, count):
@@ -209,7 +214,7 @@ class BnbOptimizer(torch.optim.Optimizer):
             new_p, s["state1"], s["absmax1"], st2, am2 = F.optimizer_update_8bit_blockwise(
                 self.name, g, p, s["state1"], s["absmax1"], s.get("state2"), s.get("absmax2"),
                 None, None, beta1, beta2, eps, count, lr, weight_decay=wd,
-                gnorm_scale=gnorm_scale, blocksize=self.blocksize, codec="dynamic",
+                gnorm_scale=gnorm_scale, blocksize=self.blocksize(p), codec="dynamic",
                 stochastic_rounding=self.stochastic_rounding,
             )
             if self.name in _2STATE:

@@ -68,13 +68,28 @@ Phases, each of which exits non-zero on failure:
      over a leaf table, bit for bit against their plain version over the
      448-leaf QLoRA table, a mixed table with ragged leaves and 16.8M
      parameters, with eight deliberate faults, 100 repeated launches and
-     the encode's exponent-bit search checked on every f32; (b) QLoRA
+     the encode's exponent-bit search checked on every f32; then their
+     LUT codec (every optimizer over those three tables under seven maps:
+     quantile, linear signed and unsigned, fp8, normal, a padded 7-bit
+     map, a permuted one) and their two-pass body (blocks of 4096, 262144,
+     704512 and 16.8M, one block and several, ragged, under both codecs
+     and stochastic rounding), bit for bit, with six deliberate faults
+     (side='right', no sign fix, the last index of a duplicate run,
+     state2 encoded with state1's table, pad code 0, a per-CTA maximum),
+     100 repeated launches of each new plan, each branch timed, and
+     estimate_quantiles at 32M elements against numpy; (b) QLoRA
      fine-tuning of Llama-7B on phase 3's NF4 base, rank 64 on all seven
      projections, 4 adamw8bit and 2 lion8bit steps on a (4, 513) batch
      (225 G on its wgmma body, 222 E and one J launch per Adam step, one
      K launch per Lion step, for the 448 8-bit leaves), the last step of each
-     profiled with its optimizer apart; (c) 2 layers at 7B width, card
-     against CPU: loss, adapter gradients and 3 Adam steps.
+     profiled with its optimizer apart; (d) the same setting through the
+     new branches: 2 adamw8bit(block_wise=False) steps and a lion8bit one
+     (J's and K's two-pass body, a launch pair per leaf size), then 2 Adam
+     steps and a Lion one with every 8-bit leaf's states through
+     optimizer_update_8bit_blockwise(qmap1=, qmap2=) (quantile maps of a
+     seeded normal sample and of its squares; 448 LUT launches a step);
+     (c) 2 layers at 7B width, card against CPU: loss, adapter gradients
+     and 3 Adam steps, with adamw8bit, block_wise=False and the LUT maps.
 Every prefill of phases 3, 3b, 3c, 4b and 6 must run C's tensor-core body
 (the model's q is bf16), every paged decode launch D's split body, every
 contiguous decode launch H's split body, and every decode step's W4A8
@@ -1848,7 +1863,7 @@ def read_counts(kernels):
     for k in kernels:
         for a, v in vars(k).items():
             if a.startswith("launches"):
-                out[k.__name__ + a[len("launches"):].replace("_", ".")] = v
+                out[k.__name__ + a[len("launches"):].replace("_", ".", 1)] = v
     return out
 
 
@@ -2442,13 +2457,13 @@ def bits_equal(torch, a, b):
     return a.shape == b.shape and torch.equal(a, b)
 
 
-def optim8_table(torch, gen, name, sizes, step, stochastic, packed=False, nrows=1):
-    """An 8-bit leaf table on the card, as ops/optim8.Optim8Leaf rows, with
-    the step's scalars (nrows rows, lr 2e-4 and half that, weight decay
-    0.01) and a row per leaf. Leaf 0 carries NaN/Inf gradients, an all-zero
-    block, a block of values tiny against its absmax (the sign fix's case)
-    and infinite and signed-zero p (where p + (new_p - p) differs from
-    new_p);
+def optim8_table(torch, gen, name, sizes, step, stochastic, packed=False, nrows=1, bs=2048):
+    """An 8-bit leaf table on the card, as ops/optim8.Optim8Leaf rows of
+    blocksize ``bs``, with the step's scalars (nrows rows, lr 2e-4 and half
+    that, weight decay 0.01) and a row per leaf. Leaf 0 carries NaN/Inf
+    gradients and, where it holds 5 blocks, an all-zero block, a block of
+    values tiny against its absmax (the sign fix's case) and infinite and
+    signed-zero p (where p + (new_p - p) differs from new_p); the first two
     ragged leaves of a mixed table get a NaN and an Inf absmax in their
     last block (the padding then decodes to NaN). ``packed`` makes every
     leaf a view of one buffer per kind, so leaves after a ragged one start
@@ -2456,7 +2471,7 @@ def optim8_table(torch, gen, name, sizes, step, stochastic, packed=False, nrows=
     from bitsandbytes_sycl_tpu_torch import functional as F
     from bitsandbytes_sycl_tpu_torch.ops import optim8 as O
 
-    dev, bs = "cuda", 2048
+    dev = "cuda"
     two = name in O.TWO_STATE
     blocks = [-(-n // bs) for n in sizes]
     N, NB = sum(sizes), sum(blocks)
@@ -2485,6 +2500,8 @@ def optim8_table(torch, gen, name, sizes, step, stochastic, packed=False, nrows=
         g0[2] = 0.0
         if two:
             flat["state2"][2 * bs:4 * bs] = 0
+    elif sizes[0] >= 3:
+        flat["g"][:3] = torch.tensor([float("nan"), float("inf"), -float("inf")], device=dev)
     ragged = [i for i, n in enumerate(sizes) if n % bs]
     ends = [sum(blocks[:i + 1]) - 1 for i in range(len(sizes))]
     for k, i in enumerate(ragged[:2] if len(sizes) < 20 else []):
@@ -2748,6 +2765,299 @@ def check_optim8(torch, report):
     return cases
 
 
+# the blocksizes of the two-pass checks, each with a mixed table: a leaf of one
+# block, leaves of several, ragged tails (the third ragged leaf's absmax finite)
+TWO_PASS_LEAVES = {4096: (3 * 4096 + 100, 4096, 4097, 5000, 1),
+                   262144: (2 * 262144 + 777, 262144, 262144 + 9, 1000, 3 * 262144),
+                   704512: (704512, 2 * 704512 + 5, 7, 100003),
+                   16777216: (16777216, 16777216 + 4097, 5, 33)}
+
+
+def lut_tables():
+    """[(label, (256,) f32 table)] of the LUT checks: a quantile map of a
+    seeded normal sample, linear maps signed and unsigned, fp8 (e5m2), the
+    normal map (241 duplicate zeros), a 7-bit map padded with zeros and a
+    permuted (unsorted) linear map."""
+    import numpy as np
+    from bitsandbytes_sycl_tpu_torch import codebooks as C
+
+    rng = np.random.default_rng(23)
+    sub7 = np.sort(np.tanh(np.linspace(-2.0, 2.0, 129))).astype(np.float32)
+    return [("quantile", C.create_quantile_map(rng.normal(size=100000).astype(np.float32))),
+            ("linear signed", C.create_linear_map(True)),
+            ("linear unsigned", C.create_linear_map(False)),
+            ("fp8", C.create_fp8_map(True)),
+            ("normal", C.create_normal_map()),
+            ("7-bit padded", C._pad_sorted_to_256(list(sub7))),
+            ("permuted", rng.permutation(C.create_linear_map(True)).astype(np.float32))]
+
+
+class patched:
+    """Set ``obj.attr`` to ``value`` inside a with block (a deliberate fault)."""
+
+    def __init__(self, obj, attr, value):
+        self.obj, self.attr, self.value = obj, attr, value
+
+    def __enter__(self):
+        self.old = getattr(self.obj, self.attr)
+        setattr(self.obj, self.attr, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.attr, self.old)
+
+
+def check_optim8_branches(torch, report):
+    """The branches of kernels J and K added for any codebook and any block
+    size, bit for bit against their plain version (ops/optim8._grouped_plain)
+    on the card: the LUT codec for every optimizer over the 448-leaf QLoRA
+    table (packed), the mixed ragged table (NaN/Inf absmax and non-finite g)
+    and one 16.8M leaf, under each of lut_tables() (state1 a table, state2
+    the next one); the two-pass body (blocks past 2048) at blocksizes 4096,
+    262144, 704512 and 16.8M, one block and several with ragged tails, for
+    every optimizer under the dynamic maps, the LUT codec and stochastic
+    rounding. Each launch must have taken its branch. Six deliberate faults
+    of the plain version must each change the result; 100 launches of each
+    new plan repeat their bits; each branch is timed at the three leaf
+    sizes and over the QLoRA table against the byte bound of J and K. Then
+    ``functional.estimate_quantiles`` at 32M elements against numpy."""
+    import numpy as np
+    from bitsandbytes_sycl_tpu_torch import functional as F
+    from bitsandbytes_sycl_tpu_torch.ops import optim8 as O
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    tables = lut_tables()
+    q = dict(tables)
+    cases = {"lut": 0, "two_pass": 0}
+
+    def counters(kname):
+        fn = O._KERNEL_OF[kname]
+        return fn.launches, fn.launches_lut, fn.launches_two_pass
+
+    def compare(label, name, table, bs=2048, qmaps=None, delta=True):
+        leaves, scalars, rws, flat = table
+        kname = "optim8_2state" if name in O.TWO_STATE else "optim8_1state"
+        got, ref = clone_table(torch, leaves, flat), clone_table(torch, leaves, flat)
+        before = counters(kname)
+        O.optim8_update(name, got, scalars, rws, blocksize=bs, apply_delta=delta, qmaps=qmaps)
+        n = 2 if bs > O.ONE_PASS_MAX else 1
+        want = (n, n if qmaps is not None else 0, n if bs > O.ONE_PASS_MAX else 0)
+        need(tuple(a - b for a, b in zip(counters(kname), before)) == want,
+             f"{label} {name}: launches (all, lut, two-pass) moved by "
+             f"{tuple(a - b for a, b in zip(counters(kname), before))}, expected {want}")
+        plan = O.leaf_plan(tuple(lf.p.numel() for lf in ref), bs, 1)
+        O._grouped_plain(name, ref, scalars, tuple(rws), plan, bs, delta, qmaps)
+        torch.cuda.synchronize()
+        ok, diff = tables_equal(torch, got, ref)
+        need(ok, f"{label} {name}: kernel differs from its plain version ({diff})")
+
+    # the LUT codec: every name, every table, three tables of leaves
+    for name in O.TWO_STATE + O.ONE_STATE:
+        two = name in O.TWO_STATE
+        for label, sizes, packed, nrows in (("QLoRA table", QLORA_LEAVES, True, 1),
+                                            ("mixed table", MIXED_LEAVES, False, 2),
+                                            ("16.8M", (16777216,), False, 1)):
+            table = optim8_table(torch, gen, name, sizes, 3, False, packed, nrows)
+            for i, (tl, t1) in enumerate(tables):
+                qm = (t1, tables[(i + 1) % len(tables)][1] if two else None)
+                compare(f"LUT {tl}, {label}", name, table, qmaps=qm)
+                cases["lut"] += 1
+            del table
+    # the two-pass body: every name at each blocksize, both codecs, stochastic rounding
+    for bs, sizes in TWO_PASS_LEAVES.items():
+        for name in O.TWO_STATE + O.ONE_STATE:
+            two = name in O.TWO_STATE
+            for mode in ("dynamic", "stochastic", "lut"):
+                table = optim8_table(torch, gen, name, sizes, 3, mode == "stochastic", False, 2,
+                                     bs=bs)
+                qm = (q["quantile"], q["linear unsigned"] if two else None) if mode == "lut" \
+                    else None
+                compare(f"two-pass bs {bs} ({mode})", name, table, bs=bs, qmaps=qm,
+                        delta=mode != "dynamic")
+                cases["two_pass"] += 1
+                del table
+    # the JAX entry's rows with tables, and its refusals
+    for name in ("adam", "lion"):
+        two = name == "adam"
+        leaves, scalars, _, _ = optim8_table(torch, gen, name, (262144,), 1, False)
+        lf = leaves[0]
+        args = [t.reshape(128, 2048) if t is not None and t.numel() == 262144 else t
+                for t in (lf.g, lf.p, lf.state1, lf.absmax1, lf.state2, lf.absmax2)]
+        maps = dict(qmap1=q["quantile"], qmap2=q["linear unsigned"] if two else None)
+        got = O.optim8_blockwise_fused(name, *args, scalars[0], **maps)
+        ref = (O._kernel2_plain if two else O._kernel1_plain)(
+            name, scalars[0], *[a for a in args if a is not None],
+            qmaps=(maps["qmap1"], maps["qmap2"]))
+        torch.cuda.synchronize()
+        need(all(bits_equal(torch, a, b) for a, b in zip(got, ref)),
+             f"optim8_blockwise_fused {name} with tables: kernel differs from the rows plain version")
+        try:
+            O.optim8_blockwise_fused(name, *args, scalars[0], u=torch.rand_like(args[0]), **maps)
+            need(False, "optim8_blockwise_fused took stochastic rounding with a table")
+        except ValueError:
+            pass
+    print(f"  J and K equal their plain version bit for bit: LUT codec in {cases['lut']} tables"
+          f" ({len(tables)} maps), two-pass body in {cases['two_pass']}", flush=True)
+
+    # deliberate faults in the plain version, each must change the result
+    base = dict(adam=(q["quantile"], q["linear unsigned"]), lion=(q["quantile"], None))
+
+    class RightSide(O.LutCodec):
+        def rank(self, x):
+            mids = torch.from_numpy(self.parts.mids).to(x.device)
+            r = torch.searchsorted(mids, x.contiguous(), right=True)
+            return torch.where(torch.isnan(x), torch.zeros_like(r), r)
+
+    def last_of_run(table):
+        parts = O.lut_parts(table)
+        uq, ridx = np.unique(table[::-1], return_index=True)
+        return parts._replace(code=(255 - ridx).astype(np.uint8))
+
+    codecs = O._codecs
+
+    def state2_by_state1(two, qmaps=None):
+        c1, c2 = codecs(two, qmaps)
+        c2.encode = O.LutCodec(qmaps[0]).encode
+        return c1, c2
+
+    def per_cta(s, codec, u=None):
+        nb, bs = s.shape
+        a = s.abs().reshape(nb, bs // 2048, 2048).amax(dim=2, keepdim=True)
+        amax = a.expand(-1, -1, 2048).reshape(nb, bs)
+        return codec.encode(s * O.safe_inv(amax), u=u), a[:, 0]
+
+    no_zero = F.codebooks.create_linear_map(True, 8, False)  # 0.0 is a midpoint
+    n_faults = {}
+    for name in ("adam", "lion"):
+        two = name == "adam"
+        q1, q2 = base[name]
+        faults = [  # label, state tables, blocksize, patch or None
+            ("side='right' (0.0 on a midpoint)", (no_zero, q2), 2048, (O, "LutCodec", RightSide)),
+            ("the sign fix dropped", (q1, q2), 2048,
+             (O, "_apply_sign_fix", lambda rank, normed, n_neg, top: rank.to(torch.int32))),
+            ("the last index of a duplicate run", (q["normal"], q2), 2048, None),
+            ("pad code 0 instead of 127", (q1, q2), 2048, (O, "PAD_CODES", (0, 0))),
+            ("a per-CTA maximum instead of the block's", (q1, q2), 4096,
+             (O, "_requant_rows", per_cta)),
+            ("a per-CTA maximum, dynamic maps", None, 4096, (O, "_requant_rows", per_cta)),
+        ]
+        if two:
+            faults.append(("state2 encoded with state1's table", (q1, q2), 2048,
+                           (O, "_codecs", state2_by_state1)))
+        for label, qm, bs, patch in faults:
+            sizes = MIXED_LEAVES if bs == 2048 else TWO_PASS_LEAVES[bs]
+            leaves, scalars, rws, _ = optim8_table(torch, gen, name, sizes, 1, False, False, 2,
+                                                   bs=bs)
+            if label.startswith("pad code"):  # small gradients: the states set the absmax
+                for lf in leaves:
+                    lf.g.mul_(1e-4)
+            got = clone_table(torch, leaves)
+            O.optim8_update(name, got, scalars, rws, blocksize=bs, apply_delta=True, qmaps=qm)
+            bad = clone_table(torch, leaves)
+            plan = O.leaf_plan(tuple(lf.p.numel() for lf in bad), bs, 1)
+            pq = qm
+            if label.startswith("the last index"):
+                pq = (last_of_run(qm[0]), qm[1])
+            if patch is None:
+                O._grouped_plain(name, bad, scalars, tuple(rws), plan, bs, True, pq)
+            else:
+                with patched(*patch):
+                    O._grouped_plain(name, bad, scalars, tuple(rws), plan, bs, True, pq)
+            ref = clone_table(torch, leaves)
+            O._grouped_plain(name, ref, scalars, tuple(rws), plan, bs, True, qm)
+            torch.cuda.synchronize()
+            need(tables_equal(torch, got, ref)[0], f"{name} {label}: the kernel's own case differs"
+                 " from its plain version")
+            need(not tables_equal(torch, got, bad)[0],
+                 f"{name}: a plain version with {label} equals the kernel, so the check cannot"
+                 " see that fault")
+        n_faults[name] = len(faults)
+        print(f"  {name}: {len(faults)} deliberate faults of the LUT and two-pass plain version"
+              " each change the result", flush=True)
+
+    # repeat: 100 launches of each new plan over the same inputs give the same bits
+    for name, sizes, bs, stochastic, qm in (
+            ("adam", QLORA_LEAVES, 2048, False, base["adam"]),
+            ("lion", MIXED_LEAVES, 2048, False, base["lion"]),
+            ("adam", TWO_PASS_LEAVES[262144], 262144, False, None),
+            ("adam", TWO_PASS_LEAVES[4096], 4096, True, None),
+            ("lion", TWO_PASS_LEAVES[704512], 704512, False, base["lion"]),
+            ("adam", TWO_PASS_LEAVES[16777216], 16777216, False, base["adam"])):
+        leaves, scalars, rws, flat = optim8_table(torch, gen, name, sizes, 3, stochastic, True, 2,
+                                                  bs=bs)
+        work, wflat = clone_table(torch, leaves, flat, with_buffers=True)
+        first = None
+        for _ in range(100):
+            for f, v in flat.items():
+                wflat[f].copy_(v)
+            O.optim8_update(name, work, scalars, rws, blocksize=bs, apply_delta=True, qmaps=qm)
+            snap = {f: v.clone() for f, v in wflat.items()}
+            if first is None:
+                first = snap
+            else:
+                need(all(bits_equal(torch, snap[f], first[f]) for f in flat),
+                     f"{name} bs {bs} ({'LUT' if qm else 'dynamic'}): 100 launches differ")
+        print(f"  {name} over {len(sizes)} leaves, bs {bs}, {'LUT' if qm else 'dynamic'}"
+              f"{', stochastic' if stochastic else ''}: 100 launches repeat their bits", flush=True)
+        del leaves, flat, work, wflat, first
+
+    # times: each branch at the three leaf sizes and over the QLoRA table
+    for name in ("adam", "lion"):
+        two = name == "adam"
+        kname = "optim8_2state" if two else "optim8_1state"
+        for branch in ("lut", "two_pass"):
+            rows, table_row = [], None
+            for sizes in [(n,) for n in OPTIM8_TIMED] + [QLORA_LEAVES]:
+                qm = base[name] if branch == "lut" else None
+                # the two-pass branch: one block a leaf (block_wise=False), one
+                # update per leaf size
+                groups = [(sizes, 2048)] if branch == "lut" else \
+                    [((n,) * sizes.count(n), n) for n in sorted(set(sizes))]
+                tabs = [(optim8_table(torch, gen, name, sz, 3, False, len(sz) > 1, 1, bs=bs), bs)
+                        for sz, bs in groups]
+
+                def run(tabs=tabs, qm=qm):
+                    for (lv, sc, rw, _), bs in tabs:
+                        O.optim8_update(name, lv, sc, rw, blocksize=bs, apply_delta=True,
+                                        qmaps=qm)
+
+                def run_plain(tabs=tabs, qm=qm):
+                    for (lv, sc, rw, _), bs in tabs:
+                        plan = O.leaf_plan(tuple(lf.p.numel() for lf in lv), bs, 1)
+                        O._grouped_plain(name, lv, sc, tuple(rw), plan, bs, True, qm)
+
+                nbytes = sum(optim8_bytes(two, sz, bs) for sz, bs in groups)
+                ms = time_cold(torch, run, spin_cycles=20_000_000)
+                plain_ms = time_cold(torch, run_plain, iters=3, warmup=1)
+                r = dict(n=sum(sizes), leaves=len(sizes), bytes=nbytes,
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, ms=ms, plain_ms=plain_ms)
+                print(f"  {kname:13s} {name:5s} {branch:8s} {len(sizes):3d} leaves, n={sum(sizes):9d}:"
+                      f" kernel {ms * 1e3:8.1f} us plain {plain_ms * 1e3:9.1f} us bound"
+                      f" {r['bound_ms'] * 1e3:7.2f} us ({r['bound_ms'] / ms:.0%})", flush=True)
+                if len(sizes) > 1:
+                    table_row = r
+                else:
+                    rows.append(r)
+                del tabs
+            report[f"{kname} ({branch.replace('_', '-')})"] = dict(
+                shapes=rows, table=table_row, ms=sum(r["ms"] for r in rows),
+                plain_ms=sum(r["plain_ms"] for r in rows), bound_ms=sum(r["bound_ms"] for r in rows),
+                bound_by="bytes", library_ms=None, max_abs_err=0.0, faults=n_faults[name])
+
+    # estimate_quantiles past torch.quantile's 2^24 elements
+    x = torch.randn(32 * 1024 * 1024, generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    got = F.estimate_quantiles(x).cpu().numpy()
+    est_s = time.perf_counter() - t0
+    ref = np.quantile(x.cpu().numpy().astype(np.float64), np.linspace(1 / 512, 1 - 1 / 512, 256))
+    err = float(np.abs(got - ref).max())
+    tol = 2 * float(np.spacing(np.float32(np.abs(ref).max())))
+    need(err <= tol, f"estimate_quantiles at 32M elements: {err} from numpy's > {tol}")
+    print(f"  estimate_quantiles at 32M elements on the card: {est_s * 1e3:.1f} ms, max"
+          f" {err:.3g} from numpy's float64 quantiles (tol 2 f32 ulps = {tol:.3g})", flush=True)
+    report["estimate_quantiles"] = dict(n=x.numel(), seconds=est_s, max_err=err, tol=tol)
+    return cases
+
+
 def split_profile(torch, prof, marker="spin_kernel"):
     """The device events (kernels and copies) of a profiled step, split at
     a marker kernel queued after a synchronize: (events before, events
@@ -2934,16 +3244,122 @@ def qlora_7b(torch, cfg, params, kernels, plan=(("adamw8bit", 4), ("lion8bit", 2
     return out
 
 
+def state_maps(seed=5, n=100_000):
+    """The LUT runs' state maps: ``create_quantile_map`` of a seeded sample
+    of normal values (state1) and of their squares (state2)."""
+    import numpy as np
+    from bitsandbytes_sycl_tpu_torch import codebooks as C
+
+    x = np.random.default_rng(seed).normal(size=n).astype(np.float32)
+    return C.create_quantile_map(x), C.create_quantile_map(x * x)
+
+
+class LutOptimizer:
+    """QLoRA's optimizer with table-coded states: every 8-bit leaf steps
+    through ``functional.optimizer_update_8bit_blockwise(qmap1=, qmap2=)``
+    (one launch of J, or of K for lion, with the LUT codec a leaf), its p
+    moved by new_p - p; the small leaves through the package's 32-bit
+    optimizer of the same name."""
+
+    def __init__(self, torch, leaves, name, lr, maps):
+        from bitsandbytes_sycl_tpu_torch import optim
+
+        self.torch, self.name, self.lr, self.maps = torch, name, lr, maps
+        self.big = [t for t in leaves if t.numel() >= 4096]
+        small = [t for t in leaves if t.numel() < 4096]
+        self.rest = optim.adamw8bit(small, lr, weight_decay=0.0) if name == "adam" else \
+            optim.lion8bit(small, lr)
+        self.state, self.count = {}, 0
+
+    def step(self):
+        from bitsandbytes_sycl_tpu_torch import functional as F
+
+        self.count += 1
+        two = self.name == "adam"
+        with self.torch.no_grad():
+            for p in self.big:
+                s = self.state.get(p)
+                if s is None:
+                    z8 = lambda: p.new_zeros(p.shape, dtype=self.torch.uint8)  # noqa: E731
+                    nb = F.blocks_for(p.numel(), 2048)
+                    s = self.state[p] = dict(s1=z8(), a1=p.new_zeros(nb), s2=z8() if two else None,
+                                             a2=p.new_zeros(nb) if two else None)
+                out = F.optimizer_update_8bit_blockwise(
+                    self.name, p.grad, p.detach(), s["s1"], s["a1"], s["s2"], s["a2"],
+                    self.maps[0], self.maps[1] if two else None, beta1=0.9,
+                    beta2=0.999 if two else 0.99, eps=1e-8, step=self.count, lr=self.lr)
+                s["s1"], s["a1"], s["s2"], s["a2"] = out[1:]
+                p.add_(out[0] - p)
+        self.rest.step()
+
+    def zero_grad(self):
+        for p in self.big:
+            p.grad = None
+        self.rest.zero_grad()
+
+
+def qlora_branches(torch, cfg, params, kernels, maps):
+    """Phase 7d: the 7B QLoRA setting of phase 7b on the same base with the
+    new branches of J and K: 2 adamw8bit(block_wise=False) steps and one
+    lion8bit(block_wise=False) step (a block a leaf: the two-pass body, one
+    launch pair per leaf size, 4 launches a step), then 2 Adam steps and one
+    Lion step with every 8-bit leaf's states through
+    ``optimizer_update_8bit_blockwise(qmap1=, qmap2=)`` (``maps``; 448 LUT
+    launches a step). Each step's branch counters must rise by that count
+    and its loss be finite."""
+    from bitsandbytes_sycl_tpu_torch import optim
+    from bitsandbytes_sycl_tpu_torch.models.lora import ALL_TARGETS, init_lora, lora_leaves, qlora_loss_fn
+
+    lora = init_lora(cfg, seed=1, rank=64, alpha=16.0, targets=ALL_TARGETS)
+    leaves = lora_leaves(lora)
+    sizes = sorted({t.numel() for t in leaves if t.numel() >= 4096})
+    n8 = sum(t.numel() >= 4096 for t in leaves)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(1, cfg.vocab_size, (4, 513), generator=gen, device="cuda")
+    loss_fn = qlora_loss_fn(params, cfg)
+    runs = (("block_wise=False", "adam", 2, "two_pass", 2 * len(sizes),
+             lambda: optim.adamw8bit(leaves, 2e-4, weight_decay=0.0, block_wise=False)),
+            ("block_wise=False", "lion", 1, "two_pass", 2 * len(sizes),
+             lambda: optim.lion8bit(leaves, 2e-5, block_wise=False)),
+            ("LUT codec", "adam", 2, "lut", n8,
+             lambda: LutOptimizer(torch, leaves, "adam", 2e-4, maps)),
+            ("LUT codec", "lion", 1, "lut", n8,
+             lambda: LutOptimizer(torch, leaves, "lion", 2e-5, maps)))
+    out, totals = [], {}
+    for setting, name, n, branch, per_step, make in runs:
+        opt = make()
+        kname = "optim8_2state" if name == "adam" else "optim8_1state"
+        for i in range(n):
+            lv, ms, counts, _ = qlora_step(torch, kernels, loss_fn, lora, tokens, opt)
+            got = counts.get(f"{kname}.{branch}", 0)
+            need(lv == lv and abs(lv) != float("inf"), f"7B QLoRA {setting} {name} step {i + 1}:"
+                 f" loss {lv}")
+            need(got == per_step and counts.get(kname) == per_step,
+                 f"7B QLoRA {setting} {name} step {i + 1}: {got} launches of {kname}'s {branch}"
+                 f" branch ({counts.get(kname)} in all), expected {per_step}")
+            key = f"{kname} ({branch.replace('_', '-')})"
+            totals[key] = totals.get(key, 0) + got
+            out.append(dict(setting=setting, optimizer=name, step=i + 1, loss=lv, **ms,
+                            wall_ms=sum(ms.values()), launches={k: v for k, v in counts.items() if v}))
+            print(f"[7d] {setting} {name} step {i + 1}: loss {lv:.5f}; forward"
+                  f" {ms['forward_ms']:.1f} ms, backward {ms['backward_ms']:.1f} ms, optimizer"
+                  f" {ms['optimizer_ms']:.1f} ms; {got} launches of {kname}'s {branch} branch",
+                  flush=True)
+        del opt
+    return dict(steps=out, launches=totals)
+
+
 def qlora_card_vs_cpu(torch, cfg, kernels, launched=("w4a8_gemv", "optim8_2state"), tag="[7c]",
-                      steps=3, p_cpu=None):
+                      steps=3, p_cpu=None, make_opt=None):
     """Phase 7c: 2 layers at 7B width, B = 1, T = 128 (the W4A8 route,
     kernel A; with compressed statistics B, and E in the backward),
     adapters with a seeded nonzero B, on the card and on the CPU: the loss
     within 1% relative, the adapter gradients within 4% relative L2 (the
     CPU tests' limit for W4A8 against the JAX package), and after
-    ``steps`` adamw8bit steps a cosine >= 0.9 between the two runs' p - p0;
-    every kernel in ``launched`` launched on the card. ``p_cpu``: the
-    2-layer model on the CPU, if the caller has it (seed 1)."""
+    ``steps`` optimizer steps (``make_opt(leaves)``, adamw8bit by default)
+    a cosine >= 0.9 between the two runs' p - p0; every kernel in
+    ``launched`` launched on the card. ``p_cpu``: the 2-layer model on the
+    CPU, if the caller has it (seed 1)."""
     from bitsandbytes_sycl_tpu_torch import optim
     from bitsandbytes_sycl_tpu_torch.models.llama import init_params
     from bitsandbytes_sycl_tpu_torch.models.lora import ALL_TARGETS, init_lora, lora_leaves, qlora_loss_fn
@@ -2966,7 +3382,8 @@ def qlora_card_vs_cpu(torch, cfg, kernels, launched=("w4a8_gemv", "optim8_2state
     for dev, params, lora in (("cpu", p_cpu, lo_cpu), ("cuda", p_gpu, lo_gpu)):
         leaves = lora_leaves(lora)
         p0 = [t.detach().clone() for t in leaves]
-        opt = optim.adamw8bit(leaves, 2e-4, weight_decay=0.0)
+        opt = optim.adamw8bit(leaves, 2e-4, weight_decay=0.0) if make_opt is None else \
+            make_opt(leaves)
         loss_fn = qlora_loss_fn(params, cfg2)
         losses, grads = [], None
         for step in range(steps):
@@ -2990,7 +3407,7 @@ def qlora_card_vs_cpu(torch, cfg, kernels, launched=("w4a8_gemv", "optim8_2state
     need(cos >= 0.9, f"QLoRA card vs CPU: cosine of p - p0 after {steps} steps {cos:.4f} < 0.9")
     print(f"{tag} 2-layer 7B-width QLoRA card vs CPU (B=1, T=128, {launched[0]}): loss {g['losses'][0]:.5f}"
           f" vs {c['losses'][0]:.5f} ({loss_rel:.2e} rel, tol 1e-2); adapter gradients"
-          f" {grad_rel:.4f} relative L2 (tol 0.04); cosine of p - p0 after {steps} adamw8bit steps"
+          f" {grad_rel:.4f} relative L2 (tol 0.04); cosine of p - p0 after {steps} optimizer steps"
           f" {cos:.4f} (tol 0.9); losses card {g['losses']} CPU {c['losses']}", flush=True)
     return dict(loss_rel=loss_rel, grad_rel_l2=grad_rel, delta_cosine=cos,
                 losses_card=g["losses"], losses_cpu=c["losses"],
@@ -3199,6 +3616,9 @@ def main() -> int:
         print(f"[7a] kernels J and K equal their plain version bit for bit in {n_opt} leaf"
               f" tables (every optimizer: the 448-leaf QLoRA table, a mixed table with ragged"
               f" leaves, 16.8M; NaN/Inf, zero block, stochastic rounding)", flush=True)
+        n_br = check_optim8_branches(torch, report)
+        print(f"[7a] J's and K's LUT codec ({n_br['lut']} tables) and two-pass body"
+              f" ({n_br['two_pass']}) equal their plain version bit for bit", flush=True)
         phases["kernels_s"] = time.perf_counter() - t0
 
         # 3. serve Llama-7B through the paged engine
@@ -3315,6 +3735,11 @@ def main() -> int:
         t0 = time.perf_counter()
         train_stats = qlora_7b(torch, cfg, params, KERNELS)
         phases["qlora_7b_s"] = time.perf_counter() - t0
+        # 7d. the same setting through J's and K's new branches
+        t0 = time.perf_counter()
+        maps = state_maps()
+        train_stats["branches"] = qlora_branches(torch, cfg, params, KERNELS, maps)
+        phases["qlora_branches_s"] = time.perf_counter() - t0
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3398,9 +3823,21 @@ def main() -> int:
         int8_stats["card_vs_cpu"] = int8_card_vs_cpu(torch, cfg8, 3)
         phases["int8_s"] = time.perf_counter() - t0
 
-        # 7c. QLoRA card against CPU, 2 layers at 7B width
+        # 7c. QLoRA card against CPU, 2 layers at 7B width: adamw8bit, then
+        # whole-leaf blocks and the LUT codec with the same maps on both sides
         t0 = time.perf_counter()
-        train_stats["card_vs_cpu"] = qlora_card_vs_cpu(torch, cfg, KERNELS)
+        from bitsandbytes_sycl_tpu_torch import optim
+
+        p_cpu = init_params(dataclasses.replace(cfg, num_layers=2), seed=1, device="cpu")
+        train_stats["card_vs_cpu"] = qlora_card_vs_cpu(torch, cfg, KERNELS, p_cpu=p_cpu)
+        train_stats["card_vs_cpu_whole_leaf"] = qlora_card_vs_cpu(
+            torch, cfg, KERNELS, ("w4a8_gemv", "optim8_2state.two_pass"), "[7c block_wise=False]",
+            p_cpu=p_cpu,
+            make_opt=lambda lv: optim.adamw8bit(lv, 2e-4, weight_decay=0.0, block_wise=False))
+        train_stats["card_vs_cpu_lut"] = qlora_card_vs_cpu(
+            torch, cfg, KERNELS, ("w4a8_gemv", "optim8_2state.lut"), "[7c LUT codec]",
+            p_cpu=p_cpu, make_opt=lambda lv: LutOptimizer(torch, lv, "adam", 2e-4, maps))
+        del p_cpu
         phases["qlora_card_vs_cpu_s"] = time.perf_counter() - t0
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -3466,6 +3903,18 @@ def main() -> int:
     })
     per_step.update({"mm4_fused (compressed)": lean_per.get("mm4_fused.compressed", 0),
                      "paged_attn_int8 (kv4)": lean_per.get("paged_attn_int8.kv4", 0)})
+    # J's and K's LUT codec and two-pass body,
+    # each with its phase 7d run
+    br = train_stats["branches"]["launches"]
+    for kname, line, opt_name in (("optim8_2state", 166, "adam"), ("optim8_1state", 206, "lion")):
+        sources.update({
+            f"{kname} (lut)": (f"bitsandbytes_sycl_tpu/ops/optim8.py:{line}",
+                               f"7B QLoRA, {opt_name} with table-coded states (phase 7d)",
+                               br[f"{kname} (lut)"]),
+            f"{kname} (two-pass)": (f"bitsandbytes_sycl_tpu/ops/optim8.py:{line}",
+                                    f"7B QLoRA, {opt_name} with block_wise=False (phase 7d)",
+                                    br[f"{kname} (two-pass)"]),
+        })
     for name, (replaces, path, launches) in sources.items():
         r = report[name]
         kernels.append(dict(

@@ -167,11 +167,23 @@ def test_plain_kernels_match_jax_kernel(name, step, stochastic):
         np.testing.assert_allclose(_np(got[ai]), _np(want[ai]), rtol=1e-6, atol=0)
 
 
-def test_custom_qmap_raises():
-    g, p, s1, am1, s2, am2, sc, u, _ = _rows_case("adam", 1, False)
-    with pytest.raises(NotImplementedError, match="Queue B #10"):
-        t_fused("adam", _t(g), _t(p), _t(s1), _t(am1), _t(s2), _t(am2), _t(sc),
-                qmap1=TC.create_dynamic_map(True))
+@pytest.mark.parametrize("name", ["adam", "momentum"])
+def test_custom_qmap_matches_jax_kernel(name):
+    """The dynamic maps as tables (the LUT codec) through the JAX entry's
+    rows, against the JAX package's LUT kernel (interpret mode), 16 rows
+    of 256: the codes equal, p within P_TOL."""
+    g, p, s1, am1, s2, am2, sc, _, lr = _rows_case(name, 3, False, nb=16, seed=5)
+    q1, q2 = TC.create_dynamic_map(True), TC.create_dynamic_map(False)
+    two = name == "adam"
+    ja = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    maps = dict(qmap1=q1, qmap2=q2 if two else None)
+    want = j_fused(name, ja(g), ja(p), ja(s1), ja(am1), ja(s2), ja(am2), ja(sc), **maps)
+    got = t_fused(name, _t(g), _t(p), _t(s1), _t(am1), _t(s2), _t(am2), _t(sc), **maps)
+    assert len(got) == len(want)
+    _close_p(got[0], want[0], lr)
+    for ci, ai in ((1, 2), (3, 4))[: len(got) // 2]:
+        _codes_close(got[ci], want[ci])
+        np.testing.assert_allclose(_np(got[ai]), _np(want[ai]), rtol=1e-6, atol=0)
 
 
 # ---------------------------------------------------- functional updates
@@ -346,7 +358,5 @@ def test_optimizer_class_runs_free_and_raises(jax_kernel_path):
     assert np.abs(tp.numpy() - np.asarray(jp["w"])).mean() < 1e-5
     with pytest.raises(NotImplementedError, match="Queue A #13"):
         topt.adam8bit([tp], mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A #9"):
-        topt.adam8bit([tp], block_wise=False)
     with pytest.raises(ValueError):
         topt.lars([tp], momentum=0)

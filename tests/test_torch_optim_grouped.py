@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from bitsandbytes_sycl_tpu_torch import codebooks as TC
 from bitsandbytes_sycl_tpu_torch import functional as TF
 from bitsandbytes_sycl_tpu_torch import optim as topt
 from bitsandbytes_sycl_tpu_torch.ops import dynamic8 as TD
@@ -264,22 +265,30 @@ def test_leaf_table_rejects():
 
 
 def test_launch_count_only_where_the_kernel_launches(monkeypatch):
-    """On CUDA tensors the count goes up by one with each launch, and a
-    table of no block (every leaf empty) launches nothing and counts
-    nothing. The CPU stands in for the card: the table's checks report
-    CUDA tensors and the launch is recorded instead of run."""
+    """On CUDA tensors the count goes up by one with each launch (two for
+    a block past 2048: the two-pass body), and a table of no block (every
+    leaf empty) launches nothing and counts nothing; the branch counters
+    count the LUT codec's and the two-pass body's launches. The CPU stands
+    in for the card: the table's checks report CUDA tensors and the launch
+    is recorded instead of run."""
     check, launched = O._check_leaves, []
     monkeypatch.setattr(O, "_check_leaves", lambda *a: check(*a)[:3] + (True,))
     monkeypatch.setattr(O, "_sm_count", lambda dev: 132)
-    monkeypatch.setattr(O, "_launch", lambda kname, *a: launched.append(kname))
-    monkeypatch.setattr(O.optim8_2state, "launches", 0)
-    monkeypatch.setattr(O.optim8_1state, "launches", 0)
+    monkeypatch.setattr(O, "_launch", lambda kname, name, table, scalars, rows, plan, bs, *a:
+                        launched.append(kname) or (2 if bs > O.ONE_PASS_MAX else 1))
+    for fn in (O.optim8_2state, O.optim8_1state):
+        for attr in ("launches", "launches_lut", "launches_two_pass"):
+            monkeypatch.setattr(fn, attr, 0)
     sc = TF._optim8_scalars("adam", 0.9, 0.999, 1e-8, 1, 1e-3, 0.0, 1.0, "cpu").reshape(1, 8)
     empty = _table("adam", [0, 0], seed=2)
     O.optim8_update("adam", empty, sc, apply_delta=True)
     assert launched == [] and O.optim8_2state.launches == 0
     O.optim8_update("adam", _table("adam", [4096, 0, 100], seed=2), sc, apply_delta=True)
     assert launched == ["optim8_2state"] and O.optim8_2state.launches == 1
+    O.optim8_update("adam", _table("adam", [2048, 2048], seed=2), sc, blocksize=4096,
+                    qmaps=(TC.create_linear_map(True), TC.create_linear_map(False)))
+    assert O.optim8_2state.launches == 3 and O.optim8_2state.launches_two_pass == 2
+    assert O.optim8_2state.launches_lut == 2
     assert O.optim8_1state.launches == 0
 
 
@@ -314,8 +323,9 @@ def test_leaf_plan_qlora_table():
     assert small.blocks == (1024,) * 3 and small.first == (0, 1024, 2048) and small.grid == 24
 
 
-@pytest.mark.parametrize("bs", [0, 4096])
+@pytest.mark.parametrize("bs", [0, -4096])
 def test_leaf_plan_rejects_blocksize(bs):
+    """Any blocksize >= 1 is taken (past 2048 by the two-pass body)."""
     with pytest.raises(ValueError, match="blocksize"):
         O.leaf_plan((10,), bs, 132)
 
