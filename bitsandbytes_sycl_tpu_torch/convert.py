@@ -1,5 +1,5 @@
-"""Turn the JAX package's Llama parameters, LoRA adapters and optimizer
-states into the port's.
+"""Turn the JAX package's Llama parameters, LoRA adapters, optimizer
+states, QuantStates and ``nn`` modules' variables into the port's.
 
 The input is the JAX parameter tree with its arrays converted to numpy
 (``jax.tree.map(np.asarray, params)``): 4-bit linears stay objects (or
@@ -21,8 +21,10 @@ import numpy as np
 import torch
 
 from .ops.common import QLinearWeight, resolve_device
+from .types import QuantState
 
-__all__ = ["params_from_jax", "tensor_from_numpy", "lora_from_jax", "optim_state_from_jax"]
+__all__ = ["params_from_jax", "tensor_from_numpy", "lora_from_jax", "optim_state_from_jax",
+           "quant_state_from_jax", "module_from_jax"]
 
 _QFIELDS = ("packed", "absmax", "shape", "blocksize", "quant_type", "dtype")
 
@@ -109,3 +111,73 @@ def optim_state_from_jax(state, params, opt) -> None:
 
     walk(params, inner)
     opt.count = int(np.asarray(count))
+
+
+def quant_state_from_jax(qs, device=None) -> QuantState:
+    """The JAX package's QuantState (numpy leaves, or an object or dict
+    with its fields) as the port's, on ``device`` (CUDA unless given
+    another), the nested level included."""
+    dev = resolve_device(device)
+    get = qs.get if isinstance(qs, dict) else lambda k: getattr(qs, k, None)
+    offset, state2 = get("offset"), get("state2")
+    return QuantState(
+        absmax=tensor_from_numpy(get("absmax"), dev),
+        code=tensor_from_numpy(np.asarray(get("code"), np.float32), dev),
+        shape=tuple(int(s) for s in get("shape")),
+        dtype=str(get("dtype")),
+        blocksize=int(get("blocksize")),
+        quant_type=str(get("quant_type")),
+        offset=None if offset is None else tensor_from_numpy(np.asarray(offset, np.float32), dev),
+        state2=None if state2 is None else quant_state_from_jax(state2, dev),
+    )
+
+
+def module_from_jax(port_cls, variables: Dict, device=None, **cfg):
+    """A port ``nn`` module of class ``port_cls`` holding the bytes of a
+    Flax module's variables (``{"params", "quants"}``, numpy leaves):
+    Linear4bit and its subclasses (either storage mode), Linear8bitLt
+    (float or int8 weights, static outlier columns), Embedding,
+    StableEmbedding, OutlierAwareLinear and SwitchBackLinearBnb. ``cfg``
+    takes the constructor's other options (compute_dtype, threshold, ...),
+    which the variables do not record."""
+    from . import nn
+
+    dev = resolve_device(device)
+    params, quants = variables.get("params", {}), variables.get("quants", {})
+
+    def t(a):
+        return tensor_from_numpy(a, dev)
+
+    bias = t(params["bias"]) if "bias" in params else False
+    if issubclass(port_cls, nn.Linear4bit):
+        qv = quants["weight"]
+        if "qweight" in qv:
+            w = _convert(qv["qweight"], dev)
+            N, K = w.shape
+        else:
+            w = (t(qv["packed"]), quant_state_from_jax(qv["quant_state"], dev))
+            N, K = w[1].shape
+        return port_cls(K, N, bias=bias, device=dev, weight=w, **cfg)
+    if issubclass(port_cls, nn.Linear8bitLt):
+        if "weight" in params:
+            W = t(params["weight"])
+            return port_cls(W.shape[1], W.shape[0], bias=bias, has_fp16_weights=True, device=dev,
+                            weight=W, **cfg)
+        qv = quants["weight"]
+        CB, SCB = t(qv["CB"]), t(qv["SCB"])
+        if "outliers" in qv:
+            cfg["outlier_idx"] = t(qv["outliers"]["idx"])
+        return port_cls(CB.shape[1], CB.shape[0], bias=bias, has_fp16_weights=False, device=dev,
+                        weight=(CB, SCB), **cfg)
+    if issubclass(port_cls, (nn.Embedding, nn.StableEmbedding)):
+        E = t(params["embedding"])
+        m = port_cls(E.shape[0], E.shape[1], device=dev, weight=E, **cfg)
+        if issubclass(port_cls, nn.StableEmbedding):
+            with torch.no_grad():
+                m.norm.weight.copy_(t(params["norm"]["scale"]))
+                m.norm.bias.copy_(t(params["norm"]["bias"]))
+        return m
+    if issubclass(port_cls, (nn.OutlierAwareLinear, nn.SwitchBackLinearBnb)):
+        W = t(params["weight"])
+        return port_cls(W.shape[1], W.shape[0], bias=bias, device=dev, weight=W, **cfg)
+    raise TypeError(f"module_from_jax: no conversion for {port_cls.__name__}")

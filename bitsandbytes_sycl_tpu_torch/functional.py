@@ -1,12 +1,24 @@
-"""The subset of the JAX package's ``functional.py`` that the port serves:
-codebook encode and 4-bit packing (for the quantizer of ``ops/common.py``),
-the LLM.int8 functions, ``estimate_quantiles`` and the optimizer updates
+"""The JAX package's ``functional.py`` in PyTorch: codebook encode and
+4-bit packing, blockwise 8-bit quantization (the dynamic maps, the linear
+and fp8 maps, any user codebook, nested absmax, stochastic rounding), the
+4-bit quantizers in bnb byte order and their dequantizers, whole-tensor
+quantization, the 4-bit matmul routes (``gemv_4bit``: kernels B and E
+through a cached repack to the kernel layout), the LLM.int8 functions,
+``int8_double_quant``, ``estimate_quantiles``, the optimizer updates
 (32-bit; blockwise 8-bit with the dynamic maps or any 256-entry table; the
 global-max 8-bit update, one block over the whole tensor; percentile
-clipping).
+clipping) and ``histogram_scatter_add_2d``.
 
 Codebook encode rounds to nearest with strict-``>`` midpoint thresholds: an
 input exactly on a midpoint goes to the lower code, NaN encodes as 0.0.
+The dynamic maps encode and decode by their arithmetic codec
+(``ops/dynamic8.py``), other codebooks through their table. Stochastic
+rounding draws its uniforms from a ``torch.Generator`` on the input's
+device, not from the JAX PRNG: the same expectation, other bits.
+
+Nested statistics (``nested=True``, ``compress_statistics=True``) subtract
+``torch.mean`` of the absmax, whose summation order can differ from
+``jnp.mean``'s in the last bit; a nested code then moves by one step.
 
 LLM.int8 (vector-wise int8 weights ``CB`` (N, K) with row scales ``SCB``,
 per-row int8 activations, an fp sidecar over outlier columns) keeps the
@@ -19,39 +31,71 @@ from __future__ import annotations
 
 import functools
 import warnings
+import weakref
 from typing import Optional
 
 import numpy as np
 import torch
 
 from . import codebooks
+from .types import FOUR_BIT_TYPES, QuantState, blocks_for
 
 __all__ = [
-    "pack_4bit", "unpack_4bit", "get_colrow_absmax", "int8_vectorwise_quant",
+    "quantize_blockwise", "dequantize_blockwise", "quantize_4bit", "dequantize_4bit",
+    "quantize_fp4", "quantize_nf4", "dequantize_fp4", "dequantize_nf4", "quantize",
+    "dequantize", "quantize_no_absmax", "dequantize_no_absmax", "pack_4bit", "unpack_4bit", "get_colrow_absmax", "int8_vectorwise_quant", "int8_double_quant",
     "int8_linear_matmul", "int8_mm_dequant", "llm_int8_prepare_outliers", "llm_int8_matmul",
-    "estimate_quantiles", "blocks_for", "OPTIMIZER_FUNCS_2STATE", "OPTIMIZER_FUNCS_1STATE",
-    "optimizer_update_32bit", "optimizer_update_8bit_blockwise", "optimizer_update_8bit",
-    "percentile_clipping",
+    "matmul_4bit_ref", "gemv_4bit", "estimate_quantiles", "blocks_for", "OPTIMIZER_FUNCS_2STATE",
+    "OPTIMIZER_FUNCS_1STATE", "optimizer_update_32bit", "optimizer_update_8bit_blockwise",
+    "optimizer_update_8bit", "percentile_clipping", "histogram_scatter_add_2d",
 ]
+
+_DYNAMIC_TYPES = ("dynamic", "dynamic_unsigned")
+
+
+def _default_8bit_code() -> np.ndarray:
+    return codebooks.create_dynamic_map()  # the signed dynamic map, cached
 
 
 @functools.lru_cache(maxsize=None)
 def _sorted_code_and_perm(quant_type: str, blocksize: int = 64):
     """(sorted codebook values, permutation sorted-rank -> code index,
     midpoints between sorted values, code-order table), all numpy."""
-    if quant_type not in ("nf4", "fp4", "int4", "af4"):
+    if quant_type in FOUR_BIT_TYPES:
+        code = codebooks.get_4bit_type(quant_type, blocksize=blocksize)
+    elif quant_type == "dynamic":
+        code = _default_8bit_code()
+    elif quant_type == "dynamic_unsigned":
+        code = codebooks.create_dynamic_map(signed=False)
+    elif quant_type == "linear":
+        code = codebooks.create_linear_map()
+    elif quant_type == "fp8":
+        code = codebooks.create_fp8_map()
+    else:
         raise ValueError(f"unknown quant_type {quant_type!r}")
-    code = codebooks.get_4bit_type(quant_type, blocksize=blocksize)
     order = np.argsort(code, kind="stable").astype(np.int32)
     sorted_code = code[order]
     mids = codebooks.code_midpoints(sorted_code)
     return sorted_code, order, mids, code
 
 
-def _code_arrays(quant_type: str):
-    """(code-order table, sorted values, rank->code perm, midpoints)."""
-    sorted_code, order, mids, table = _sorted_code_and_perm(quant_type)
-    return table, sorted_code, order, mids
+def _code_arrays(code, quant_type: str):
+    """(code-order table, sorted values, rank->code perm, midpoints), all
+    numpy, of the named codebook or of ``code`` (numpy or a tensor)."""
+    if code is None:
+        sorted_code, order, mids, table = _sorted_code_and_perm(quant_type)
+        return table, sorted_code, order, mids
+    if isinstance(code, torch.Tensor):
+        code = code.detach().cpu().numpy()
+    cnp = np.asarray(code, np.float32)
+    order = np.argsort(cnp, kind="stable").astype(np.int32)
+    sorted_code = cnp[order]
+    mids = ((sorted_code[1:] + sorted_code[:-1]) / 2.0).astype(np.float32)
+    return cnp, sorted_code, order, mids
+
+
+def _is_identity(order: np.ndarray) -> bool:
+    return np.array_equal(order, np.arange(order.shape[0]))
 
 
 def _encode_nearest(x: torch.Tensor, mids: np.ndarray, order: np.ndarray) -> torch.Tensor:
@@ -62,7 +106,29 @@ def _encode_nearest(x: torch.Tensor, mids: np.ndarray, order: np.ndarray) -> tor
     x = torch.where(torch.isnan(x), torch.zeros((), dtype=x.dtype, device=x.device), x)
     m = torch.from_numpy(np.ascontiguousarray(mids)).to(x.device)
     rank = torch.searchsorted(m, x.contiguous(), right=False)
-    if not np.array_equal(order, np.arange(order.shape[0])):
+    if not _is_identity(order):
+        rank = torch.from_numpy(order.astype(np.int64)).to(x.device)[rank]
+    return rank.to(torch.uint8)
+
+
+def _encode_stochastic(x: torch.Tensor, sorted_code: np.ndarray, order: np.ndarray,
+                       generator: torch.Generator) -> torch.Tensor:
+    """Stochastic codebook encode: each value goes to one of its two
+    bracketing entries with probability proportional to proximity, so the
+    expectation is the value (within the codebook's range). The uniforms
+    come from ``generator``, on x's device. NaN encodes as 0.0."""
+    x = torch.where(torch.isnan(x), torch.zeros((), dtype=x.dtype, device=x.device), x)
+    s = torch.from_numpy(np.ascontiguousarray(sorted_code)).to(x.device)
+    last = s.shape[0] - 1
+    lo_rank = torch.clamp(torch.searchsorted(s, x.contiguous(), right=True) - 1, 0, last)
+    hi_rank = torch.clamp(lo_rank + 1, max=last)
+    lo, hi = s[lo_rank], s[hi_rank]
+    span = hi - lo
+    p = torch.where(span > 0, (x - lo) / torch.where(span > 0, span, torch.ones_like(span)),
+                    torch.zeros_like(span))
+    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    rank = torch.where(u < p.clamp(0.0, 1.0), hi_rank, lo_rank)
+    if not _is_identity(order):
         rank = torch.from_numpy(order.astype(np.int64)).to(x.device)[rank]
     return rank.to(torch.uint8)
 
@@ -78,6 +144,24 @@ def _div127(t: torch.Tensor) -> torch.Tensor:
     return t / torch.tensor(127.0, dtype=t.dtype, device=t.device)
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _as_torch_dtype(dtype) -> torch.dtype:
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
+def _table_on(code, device) -> torch.Tensor:
+    """A codebook (None: the signed dynamic map; numpy or a tensor) as f32
+    on ``device``."""
+    if code is None:
+        code = _default_8bit_code()
+    if isinstance(code, torch.Tensor):
+        return code.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.array(code, np.float32)).to(device)
+
+
 def pack_4bit(codes: torch.Tensor) -> torch.Tensor:
     """Pack flat 4-bit codes two per byte: element 2i high, 2i+1 low."""
     if codes.shape[0] % 2:
@@ -90,6 +174,190 @@ def unpack_4bit(packed: torch.Tensor, n: int) -> torch.Tensor:
     """Inverse of pack_4bit; returns flat (n,) uint8 codes."""
     codes = torch.stack([packed >> 4, packed & 0x0F], dim=-1).reshape(-1)
     return codes[:n]
+
+
+def _blockwise_stats(A: torch.Tensor, blocksize: int):
+    """Flatten to f32, zero-pad to whole blocks: (blocks (nb, bs), absmax
+    (nb,), n)."""
+    flat = A.reshape(-1).float()
+    n = flat.shape[0]
+    pad = blocks_for(n, blocksize) * blocksize - n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    blocks = flat.reshape(-1, blocksize)
+    return blocks, blocks.abs().amax(dim=1), n
+
+
+def _nest_absmax(absmax: torch.Tensor):
+    """The nested level: (uint8 codes of absmax less its mean, blockwise
+    8-bit at blocksize 256, their QuantState, the mean)."""
+    offset = absmax.mean()
+    qabsmax, state2 = quantize_blockwise(absmax - offset, blocksize=256)
+    return qabsmax, state2, offset
+
+
+# ---------------------------------------------------------------------------
+# blockwise 8-bit quantization
+# ---------------------------------------------------------------------------
+
+
+def quantize_blockwise(
+    A: torch.Tensor,
+    code=None,
+    blocksize: int = 4096,
+    nested: bool = False,
+    quant_type: str = "dynamic",
+    generator: Optional[torch.Generator] = None,
+):
+    """Blockwise 8-bit quantization with a per-block f32 absmax: (uint8
+    codes in A's shape, QuantState). ``quant_type`` names the codebook
+    ("dynamic", "dynamic_unsigned", "linear", "fp8") unless ``code`` (256
+    values) is given, which the state records as "custom". ``nested``
+    requantizes the absmax less its mean blockwise at 256. A ``generator``
+    rounds stochastically between the bracketing entries."""
+    table, sorted_code, order, mids = _code_arrays(code, quant_type)
+    blocks, absmax, n = _blockwise_stats(A, blocksize)
+    normed = blocks * _safe_inv(absmax)[:, None]
+    if generator is not None:
+        codes = _encode_stochastic(normed, sorted_code, order, generator)
+    elif code is None and quant_type in _DYNAMIC_TYPES:
+        from .ops.dynamic8 import dynamic_encode
+
+        codes = dynamic_encode(normed, signed=quant_type == "dynamic")
+    else:
+        codes = _encode_nearest(normed, mids, order)
+    out = codes.reshape(-1)[:n].reshape(A.shape)
+    offset = state2 = None
+    qabsmax = absmax
+    if nested:
+        qabsmax, state2, offset = _nest_absmax(absmax)
+    state = QuantState(
+        absmax=qabsmax, code=_table_on(table, A.device),
+        shape=tuple(A.shape), dtype=_dtype_name(A.dtype), blocksize=blocksize,
+        quant_type=quant_type if code is None else "custom", offset=offset, state2=state2)
+    return out, state
+
+
+def dequantize_blockwise(
+    data: torch.Tensor,
+    quant_state: Optional[QuantState] = None,
+    absmax: Optional[torch.Tensor] = None,
+    code=None,
+    blocksize: int = 4096,
+    dtype=None,
+) -> torch.Tensor:
+    """Inverse of quantize_blockwise: out[i] = code[q[i]] * absmax[i // bs],
+    from a QuantState or from ``absmax`` (and ``code``, the signed dynamic
+    map when not given) in f32 or ``dtype``."""
+    if quant_state is not None:
+        absmax = quant_state.dequant_absmax()
+        code_arr = quant_state.code
+        blocksize = quant_state.blocksize
+        out_dtype = quant_state.torch_dtype
+        shape = quant_state.shape
+        qt = quant_state.quant_type
+    else:
+        if absmax is None:
+            raise ValueError("dequantize_blockwise: give a quant_state or an absmax")
+        code_arr = code
+        out_dtype = _as_torch_dtype(dtype) if dtype is not None else torch.float32
+        shape = data.shape
+        qt = "dynamic" if code is None else None
+    flat = data.reshape(-1)
+    n = flat.shape[0]
+    scale = absmax.float().repeat_interleave(blocksize)[:n]
+    if qt in _DYNAMIC_TYPES:
+        from .ops.dynamic8 import dynamic_decode
+
+        vals = dynamic_decode(flat, signed=qt == "dynamic") * scale
+    else:
+        vals = _table_on(code_arr, flat.device)[flat.long()] * scale
+    return vals.reshape(shape).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# 4-bit quantization, bnb byte order
+# ---------------------------------------------------------------------------
+
+
+def quantize_4bit(A: torch.Tensor, blocksize: int = 64, compress_statistics: bool = False,
+                  quant_type: str = "nf4"):
+    """Blockwise 4-bit quantization (NF4, FP4, int4, AF4): flat uint8
+    (ceil(n/2),) in bnb byte order (element 2i in the high nibble, an odd
+    n's last low nibble the code of 0.0) and the QuantState.
+    ``compress_statistics`` nests the absmax (the QLoRA paper's double
+    quantization)."""
+    if quant_type not in FOUR_BIT_TYPES:
+        raise NotImplementedError(f"4-bit quant_type {quant_type!r} not implemented")
+    table, _sorted, order, mids = _code_arrays(None, quant_type)
+    blocks, absmax, n = _blockwise_stats(A, blocksize)
+    normed = blocks * _safe_inv(absmax)[:, None]
+    codes = _encode_nearest(normed, mids, order).reshape(-1)
+    packed = pack_4bit(codes)[: (n + 1) // 2]
+    offset = state2 = None
+    qabsmax = absmax
+    if compress_statistics:
+        qabsmax, state2, offset = _nest_absmax(absmax)
+    state = QuantState(
+        absmax=qabsmax, code=_table_on(table, A.device),
+        shape=tuple(A.shape), dtype=_dtype_name(A.dtype), blocksize=blocksize,
+        quant_type=quant_type, offset=offset, state2=state2)
+    return packed, state
+
+
+def dequantize_4bit(data: torch.Tensor, quant_state: QuantState) -> torch.Tensor:
+    """Unpack the nibbles, decode through the table, scale by the block's
+    absmax, in the state's dtype and shape."""
+    n = int(np.prod(quant_state.shape))
+    codes = unpack_4bit(data.reshape(-1), n)
+    absmax = quant_state.dequant_absmax()
+    scale = absmax.float().repeat_interleave(quant_state.blocksize)[:n]
+    vals = quant_state.code.float().to(codes.device)[codes.long()] * scale
+    return vals.reshape(quant_state.shape).to(quant_state.torch_dtype)
+
+
+def quantize_fp4(A, blocksize=64, compress_statistics=False):
+    return quantize_4bit(A, blocksize, compress_statistics, "fp4")
+
+
+def quantize_nf4(A, blocksize=64, compress_statistics=False):
+    return quantize_4bit(A, blocksize, compress_statistics, "nf4")
+
+
+def dequantize_fp4(data, quant_state):
+    return dequantize_4bit(data, quant_state)
+
+
+def dequantize_nf4(data, quant_state):
+    return dequantize_4bit(data, quant_state)
+
+
+# ---------------------------------------------------------------------------
+# whole-tensor quantization (one absmax, the dynamic map's table)
+# ---------------------------------------------------------------------------
+
+
+def quantize(A: torch.Tensor, code=None):
+    """(uint8 codes, (absmax, code table)) with one f32 absmax for A."""
+    table, _s, order, mids = _code_arrays(code, "dynamic")
+    absmax = A.float().abs().amax()
+    out = _encode_nearest(A.float() * _safe_inv(absmax), mids, order)
+    return out, (absmax, _table_on(table, A.device))
+
+
+def dequantize(A: torch.Tensor, state=None, absmax=None, code=None) -> torch.Tensor:
+    if state is not None:
+        absmax, code = state
+    return _table_on(code, A.device)[A.long()] * absmax
+
+
+def quantize_no_absmax(A: torch.Tensor, code=None) -> torch.Tensor:
+    _t, _s, order, mids = _code_arrays(code, "dynamic")
+    return _encode_nearest(A.float(), mids, order)
+
+
+def dequantize_no_absmax(A: torch.Tensor, code=None) -> torch.Tensor:
+    return _table_on(code, A.device)[A.long()]
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +393,21 @@ def int8_vectorwise_quant(A: torch.Tensor, axis: int = 1):
     A32 = A.float()
     absmax = A32.abs().amax(dim=axis, keepdim=True)
     return _quant_int8(A32, absmax), absmax.squeeze(axis)
+
+
+def int8_double_quant(A: torch.Tensor, threshold: float = 0.0):
+    """Row- and column-wise int8 quantization of a 2D array: (CA, CAt, row
+    absmax, column absmax, outlier-column mask). With threshold > 0 the
+    outlier columns are zeroed in both code arrays and their entries leave
+    the row statistics. Codes multiply by 127 * safe_inv(absmax), as the
+    JAX package does; nothing divides."""
+    A32 = A.float()
+    row_absmax, col_absmax, outlier_cols = get_colrow_absmax(A, threshold)
+    if threshold > 0.0:
+        A32 = A32 * (~outlier_cols).float()[None, :]
+    CA = _quant_int8(A32, row_absmax[:, None])
+    CAt = _quant_int8(A32, col_absmax[None, :])
+    return CA, CAt, row_absmax, col_absmax, outlier_cols
 
 
 def int8_linear_matmul(CA: torch.Tensor, CB: torch.Tensor) -> torch.Tensor:
@@ -226,6 +509,74 @@ def llm_int8_matmul(
     return out.reshape(*lead, N)
 
 
+# ---------------------------------------------------------------------------
+# 4-bit matmul from a bnb-format weight: kernels B and E through the kernel
+# layout, repacked once per weight
+# ---------------------------------------------------------------------------
+
+
+def matmul_4bit_ref(A: torch.Tensor, data: torch.Tensor, quant_state: QuantState,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain route: W = dequantize_4bit in A's dtype, A @ W^T with f32
+    products and sums, cast to A's dtype, then + bias."""
+    W = dequantize_4bit(data, quant_state).to(A.dtype)
+    out = torch.matmul(A.float(), W.float().T).to(A.dtype)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+_KERNEL_LAYOUT_CACHE: dict = {}
+
+
+def _cached_kernel_layout(data: torch.Tensor, quant_state: QuantState):
+    """The kernel layout (``ops.common.to_kernel_layout``) of a bnb-format
+    weight, repacked once per weight: keyed by the identity and the
+    version counter of ``data`` and ``quant_state.absmax``, so a write into
+    either in place repacks again. Weak references drop an entry when
+    either tensor is freed."""
+    from .ops.common import to_kernel_layout
+
+    absmax = quant_state.absmax
+    key = (id(data), id(absmax))
+    hit = _KERNEL_LAYOUT_CACHE.get(key)
+    if hit is not None:
+        dref, aref, versions, qw = hit
+        if dref() is data and aref() is absmax and versions == (data._version, absmax._version):
+            return qw
+    qw = to_kernel_layout(data, quant_state)
+    drop = lambda _ref, key=key: _KERNEL_LAYOUT_CACHE.pop(key, None)  # noqa: E731
+    _KERNEL_LAYOUT_CACHE[key] = (weakref.ref(data, drop), weakref.ref(absmax, drop),
+                                 (data._version, absmax._version), qw)
+    return qw
+
+
+def _route_fused_4bit(A: torch.Tensor, data: torch.Tensor, quant_state: QuantState):
+    """The cached kernel-layout weight when the kernel route applies (a 2D
+    weight, K a multiple of 2 * blocksize, A's last dimension K), else
+    None."""
+    if quant_state.shape is None or len(quant_state.shape) != 2:
+        return None
+    N, K = quant_state.shape
+    if K % (2 * quant_state.blocksize) != 0 or A.shape[-1] != K:
+        return None
+    return _cached_kernel_layout(data, quant_state)
+
+
+def gemv_4bit(A: torch.Tensor, data: torch.Tensor, quant_state: QuantState,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A @ W^T (+ bias) of a bnb-format 4-bit weight, in A's dtype: kernel
+    B (fewer than 2048 rows) or E and one dense matmul (``ops.
+    matmul_4bit_fused``) where the kernel route applies, else the plain
+    route."""
+    qw = _route_fused_4bit(A, data, quant_state)
+    if qw is not None:
+        from .ops.matmul_4bit import matmul_4bit_fused
+
+        return matmul_4bit_fused(A, qw, bias, compute_dtype=A.dtype)
+    return matmul_4bit_ref(A, data, quant_state, bias)
+
+
 def estimate_quantiles(A: torch.Tensor, offset: Optional[float] = None,
                        num_quantiles: int = 256) -> torch.Tensor:
     """Empirical quantiles of A at ``num_quantiles`` evenly spaced eCDF
@@ -263,10 +614,6 @@ def estimate_quantiles(A: torch.Tensor, offset: Optional[float] = None,
 # package's weakly typed scalars do; scalars it computes in f32 (the bias
 # corrections) are computed here in numpy f32.
 # ---------------------------------------------------------------------------
-
-
-def blocks_for(n: int, blocksize: int) -> int:
-    return (n + blocksize - 1) // blocksize
 
 
 def _bias_corrections(beta1: float, beta2: float, step: int):
@@ -625,3 +972,10 @@ def percentile_clipping(grad_norm: torch.Tensor, gnorm_vec: torch.Tensor, step: 
     clip2 = torch.where(torch.isfinite(clip2), clip2, g2)
     gnorm, clip = torch.sqrt(g2), torch.sqrt(clip2)
     return new_vec, torch.where(gnorm > clip, clip / gnorm, torch.ones_like(gnorm))
+
+
+def histogram_scatter_add_2d(hist: torch.Tensor, index1: torch.Tensor, index2: torch.Tensor,
+                             src: torch.Tensor) -> torch.Tensor:
+    """A copy of hist with hist[i1, i2] += src (repeated indices add, in no
+    defined order)."""
+    return hist.index_put((index1.long(), index2.long()), src.to(hist.dtype), accumulate=True)

@@ -7,8 +7,9 @@ Parameters are plain dicts of tensors with the JAX package's structure:
 KV cache is a dict in the JAX package's int8 layout, contiguous or paged.
 LoRA adapters (``models/lora.py``) are a per-layer list of ``{proj_name:
 {"A", "B", "scale"}}`` threaded through ``llama_forward(lora=...)``; the
-4-bit linears' backwards (``ops.matmul_4bit.ExactDequantGrad``) carry
-gradients through the frozen base, so ``llama_forward`` records a graph
+4-bit linears' backwards (``ops.matmul_4bit.ExactDequantGrad``) and the
+LLM.int8 linears' (``autograd.matmul_8bit_lt``, grad = g @ dequant(CB))
+carry gradients through the frozen base, so ``llama_forward`` records a graph
 whenever an adapter leaf requires grad (the engine serves under
 ``torch.no_grad()``).
 Decode steps write each layer's quantized token in place before attending
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as Fnn
 
 from .. import functional as F
+from ..autograd import matmul_8bit_lt
 from ..ops.common import QLinearWeight, quantize_4bit_native, resolve_device
 from ..ops.matmul_4bit import differentiable, matmul_4bit_fused
 from ..ops.matmul_w4a8 import (
@@ -231,11 +233,9 @@ def apply_linear(x: torch.Tensor, w, cfg: LlamaConfig, lora=None, lora_ids=None)
         else:
             out = matmul_4bit_fused(x, w, compute_dtype=cfg.dtype)
     elif isinstance(w, dict):
-        if differentiable(x, None):
-            raise NotImplementedError("the LLM.int8 linear's backward (autograd.matmul_8bit_lt) "
-                                      "is not ported yet (ROADMAP Queue A #8)")
-        out = F.llm_int8_matmul(x, w["CB"], w["SCB"], threshold=cfg.llm_int8_threshold,
-                                outliers=w.get("outliers"))
+        # the same forward; with a graph, autograd's full-precision backward
+        mm8 = matmul_8bit_lt if differentiable(x, None) else F.llm_int8_matmul
+        out = mm8(x, w["CB"], w["SCB"], cfg.llm_int8_threshold, outliers=w.get("outliers"))
     else:
         out = (x.float() @ w.float().T).to(cfg.dtype)
     if lora is not None:

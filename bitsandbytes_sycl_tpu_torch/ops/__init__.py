@@ -9,7 +9,8 @@ from .attention import (
     prefill_attention_int8_stacked,
     prefill_attn_int8,
 )
-from .common import QLinearWeight, quantize_4bit_native, resolve_device
+from .common import (QLinearWeight, from_kernel_layout, quantize_4bit_native, resolve_device,
+                     to_kernel_layout)
 from .matmul_4bit import dequantize_transposed, matmul_4bit_fused, mm4_fused
 from .matmul_w4a8 import (
     dequant_int8,
@@ -37,6 +38,8 @@ __all__ = [
     "QLinearWeight",
     "quantize_4bit_native",
     "resolve_device",
+    "to_kernel_layout",
+    "from_kernel_layout",
     "matmul_4bit_w4a8",
     "matmul_4bit_fused",
     "matmul_4bit_w4a8_grouped",

@@ -26,6 +26,7 @@ import torch
 
 from .. import codebooks
 from .. import functional as F
+from ..types import QuantState
 
 __all__ = [
     "resolve_device",
@@ -43,6 +44,8 @@ __all__ = [
     "compress_absmax",
     "decode_absmax",
     "fma_f32",
+    "to_kernel_layout",
+    "from_kernel_layout",
 ]
 
 
@@ -290,7 +293,7 @@ def quantize_4bit_native(
     N, K = W.shape
     if K % (2 * blocksize) != 0:
         raise ValueError(f"K={K} must be divisible by 2*blocksize={2*blocksize}")
-    _table, _s, order, mids = F._code_arrays(quant_type)
+    _table, _s, order, mids = F._code_arrays(None, quant_type)
     blocks = W.float().reshape(N, K // blocksize, blocksize)
     absmax = blocks.abs().amax(dim=2)  # (N, K//bs)
     normed = blocks * F._safe_inv(absmax)[:, :, None]
@@ -313,7 +316,43 @@ def quantize_4bit_native(
         shape=(N, K),
         blocksize=blocksize,
         quant_type=quant_type,
-        dtype=str(W.dtype).replace("torch.", ""),
+        dtype=F._dtype_name(W.dtype),
         absmax_scale=am_scale,
         absmax_offset=am_offset,
     )
+
+
+def to_kernel_layout(data: torch.Tensor, quant_state: QuantState,
+                     compress: Optional[bool] = None) -> QLinearWeight:
+    """Lossless repack of a bnb-format 4-bit weight (flat paired nibbles,
+    flat absmax) into the kernel layout. ``compress`` keeps the scales
+    8-bit (default: the state's own nesting): the decoded absmax is
+    recompressed per plane and column by ``compress_absmax``. The nibble
+    codes are kept exactly, and so are raw f32 scales."""
+    if compress is None:
+        compress = quant_state.nested
+    N, K = quant_state.shape
+    bs = quant_state.blocksize
+    codes = F.unpack_4bit(data.reshape(-1), N * K).reshape(N, K)
+    packed = (codes[:, : K // 2].T << 4 | codes[:, K // 2:].T).to(torch.uint8).contiguous()
+    absmax = quant_state.dequant_absmax().float().reshape(N, K // bs)
+    amax = absmax.T.reshape(2, K // (2 * bs), N).contiguous()
+    am_scale = am_offset = None
+    if compress:
+        amax, am_scale, am_offset = compress_absmax(amax)
+        amax = amax.contiguous()
+    return QLinearWeight(packed=packed, absmax=amax, shape=(N, K), blocksize=bs,
+                         quant_type=quant_state.quant_type, dtype=quant_state.dtype,
+                         absmax_scale=am_scale, absmax_offset=am_offset)
+
+
+def from_kernel_layout(w: QLinearWeight):
+    """Inverse of to_kernel_layout: (flat paired nibbles, QuantState with
+    the decoded f32 absmax) in bnb format."""
+    N, K = w.shape
+    codes = torch.cat([(w.packed >> 4).T, (w.packed & 0xF).T], dim=1).reshape(-1)
+    qs = QuantState(
+        absmax=w.scales_f32().reshape(K // w.blocksize, N).T.reshape(-1).contiguous(),
+        code=torch.from_numpy(np.array(w.code, np.float32)).to(w.packed.device),
+        shape=(N, K), dtype=w.dtype, blocksize=w.blocksize, quant_type=w.quant_type)
+    return F.pack_4bit(codes.to(torch.uint8)), qs

@@ -90,6 +90,19 @@ Phases, each of which exits non-zero on failure:
      seeded normal sample and of its squares; 448 LUT launches a step);
      (c) 2 layers at 7B width, card against CPU: loss, adapter gradients
      and 3 Adam steps, with adamw8bit, block_wise=False and the LUT maps.
+  8. the library at Llama-7B width and depth, after phase 7c: (a) the
+     docstring path, bnb.quantize_nf4(w) then bnb.matmul_4bit(x, packed,
+     qs), at the four 7B shapes with raw and compressed statistics at M =
+     1, 4, 256 and 2048 (kernels B and E) against functional.
+     matmul_4bit_ref, the bnb-format -> kernel-layout repack bit for bit
+     against quantize_4bit_native, a flipped nibble as the fault; (b) the
+     225 linears of Llama-7B as bf16 torch.nn.Linear under their Hugging
+     Face names, utils.replace_linear into LinearNF4 (NF4, bs 64), every
+     module forward at 4 rows (225 launches of B) and forward and backward
+     at 2048 rows (450 of E); (c) 225 Linear8bitLt (threshold 6, 32 static
+     outlier columns) at 4 rows (225 launches of I) and one layer's seven
+     trainable ones forward and backward at 128 rows (7 of I), against the
+     plain route;
 Every prefill of phases 3, 3b, 3c, 4b and 6 must run C's tensor-core body
 (the model's q is bf16), every paged decode launch D's split body, every
 contiguous decode launch H's split body, and every decode step's W4A8
@@ -3553,6 +3566,376 @@ def lean_card_vs_cpu(torch, cfg, kernels):
                 tokens_compared_equal=checked, qlora=qlora)
 
 
+# --------------------------------------------------------------- phase 8
+# the seven projections of a Llama decoder layer under their Hugging Face names
+LLAMA_PROJECTIONS = (("self_attn", "q_proj"), ("self_attn", "k_proj"), ("self_attn", "v_proj"),
+                     ("self_attn", "o_proj"), ("mlp", "gate_proj"), ("mlp", "up_proj"),
+                     ("mlp", "down_proj"))
+
+
+def hf_llama_tree(torch, hidden, intermediate, vocab, layers, device="cuda", dtype=None, seed=0):
+    """A module tree under Llama's Hugging Face names, of plain modules
+    with seeded normal weights (std 1/sqrt(in)): ``model.embed_tokens``,
+    per layer ``model.layers.{i}.self_attn.{q,k,v,o}_proj`` and
+    ``model.layers.{i}.mlp.{gate,up,down}_proj`` (``torch.nn.Linear``
+    without bias), and ``lm_head``; bf16 unless ``dtype`` says otherwise."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dtype = dtype or torch.bfloat16
+    shapes = {"q_proj": (hidden, hidden), "k_proj": (hidden, hidden), "v_proj": (hidden, hidden),
+              "o_proj": (hidden, hidden), "gate_proj": (hidden, intermediate),
+              "up_proj": (hidden, intermediate), "down_proj": (intermediate, hidden)}
+
+    def linear(n_in, n_out):
+        lin = torch.nn.Linear(n_in, n_out, bias=False, device=device, dtype=dtype)
+        with torch.no_grad():
+            lin.weight.normal_(0.0, n_in ** -0.5, generator=gen)
+        return lin
+
+    root, model = torch.nn.Module(), torch.nn.Module()
+    root.model = model
+    model.embed_tokens = torch.nn.Embedding(vocab, hidden, device=device, dtype=dtype)
+    with torch.no_grad():
+        model.embed_tokens.weight.normal_(generator=gen)
+    model.layers = torch.nn.ModuleList()
+    for _ in range(layers):
+        layer = torch.nn.Module()
+        for part, name in LLAMA_PROJECTIONS:
+            if not hasattr(layer, part):
+                setattr(layer, part, torch.nn.Module())
+            setattr(getattr(layer, part), name, linear(*shapes[name]))
+        model.layers.append(layer)
+    root.lm_head = linear(hidden, vocab)
+    return root
+
+
+def modules_of(tree, cls):
+    """[(name, module)] of every module of class ``cls`` in ``tree``, in
+    order."""
+    return [(n, m) for n, m in tree.named_modules() if type(m) is cls]
+
+
+def per_layer_counts(tree, cls, layers):
+    """How many modules of class ``cls`` each decoder layer holds."""
+    counts = [0] * layers
+    for name, _ in modules_of(tree, cls):
+        if name.startswith("model.layers."):
+            counts[int(name.split(".")[2])] += 1
+    return counts
+
+
+def to_int8(torch, tree, predicate=None, outliers=32, **kw):
+    """Swap every ``torch.nn.Linear`` of ``tree`` (those ``predicate(name)``
+    accepts) for a ``Linear8bitLt`` over its weight, computing in the
+    weight's dtype, with ``outliers`` static outlier columns
+    (``utils.find_outlier_dims``, phase 6's setting) unless 0."""
+    from bitsandbytes_sycl_tpu_torch.nn import Linear8bitLt
+    from bitsandbytes_sycl_tpu_torch.utils import find_outlier_dims
+
+    names = [n for n, m in tree.named_modules()
+             if isinstance(m, torch.nn.Linear) and (predicate is None or predicate(n))]
+    for name in names:
+        W = tree.get_submodule(name).weight.detach()
+        idx = find_outlier_dims(W, reduction_dim=0, topk=min(outliers, W.shape[1])) \
+            if outliers else None
+        new = Linear8bitLt(W.shape[1], W.shape[0], bias=False, compute_dtype=W.dtype,
+                           outlier_idx=idx, device=W.device, weight=W, **kw)
+        parent, _, child = name.rpartition(".")
+        setattr(tree.get_submodule(parent) if parent else tree, child, new)
+        del W, new
+    return tree
+
+
+def forward_each(torch, mods, rows, seed, check, backward=False):
+    """Each module of ``mods`` ([(name, module)]) on its own seeded (rows,
+    in_features) input in its compute dtype; with ``backward`` the input
+    requires grad and y.backward(g) runs with a seeded g. ``check(name,
+    module, x, y, g)`` sees each result (x.grad after the backward)."""
+    dev = next(iter(mods[0][1].state_dict().values())).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for name, m in mods:
+        x = torch.randn((rows, m.in_features), generator=gen, device=dev).to(m.compute_dtype)
+        g = None
+        if backward:
+            x.requires_grad_()
+            y = m(x)
+            g = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
+            y.backward(g)
+        else:
+            with torch.no_grad():
+                y = m(x)
+        check(name, m, x, y.detach(), g)
+
+
+def library_launches(n_4bit, n_int8, n_train=7):
+    """The kernel launches phase 8's library runs must show: B once per
+    LinearNF4 at 4 rows (its tensor-core body: bf16 x), E twice per
+    LinearNF4 at 2048 rows forward and backward, I once per Linear8bitLt
+    at 4 rows and once per trainable one at 128 rows."""
+    return {"nf4, 4 rows": {"mm4_fused": n_4bit, "mm4_fused.tc": n_4bit,
+                            "dequantize_transposed": 0},
+            "nf4, 2048 rows forward and backward": {"mm4_fused": 0,
+                                                    "dequantize_transposed": 2 * n_4bit},
+            "int8, 4 rows": {"int8_matmul": n_int8},
+            "int8 trainable, 128 rows forward and backward": {"int8_matmul": n_train}}
+
+
+def need_launches(counts, want, label, on_card=True):
+    """The launches ``want`` on the card; none on the CPU (plain versions)."""
+    want = want if on_card else {k: 0 for k in want}
+    got = {k: counts.get(k, 0) for k in want}
+    need(got == want, f"{label}: launches {got}, not {want}")
+
+
+SHAPES_7B = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
+
+
+def sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def docstring_path(torch, kernels, device="cuda", shapes=SHAPES_7B):
+    """Phase 8a: ``bnb.quantize_nf4(w)`` then ``bnb.matmul_4bit(x, packed,
+    qs)`` at the four 7B shapes, raw and compressed statistics, M = 1, 4,
+    256 (kernel B; E for down_proj, whose half-K is not a multiple of 8
+    blocks) and 2048 (kernel E), each call held against
+    ``functional.matmul_4bit_ref`` within 1% of the largest output (phase
+    2's tolerance of B and of E's route); the repack
+    ``to_kernel_layout(quantize_nf4(w))`` equal to ``quantize_4bit_native(w)``
+    bit for bit and ``from_kernel_layout`` giving back the bytes; one
+    nibble flipped in ``packed`` (the weight of largest magnitude in the
+    input column of largest magnitude) must land outside the tolerance."""
+    import bitsandbytes_sycl_tpu_torch as bnb
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit as m4
+    from bitsandbytes_sycl_tpu_torch.ops.common import (from_kernel_layout, quantize_4bit_native,
+                                                        to_kernel_layout)
+
+    on_card = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(8)
+    rows = []
+    for N, K in shapes:
+        w = (torch.randn((N, K), generator=gen, device=device) / K ** 0.5).to(torch.bfloat16)
+        # rows from which the route decodes the weight once (kernel E)
+        half_whole = (K // 2) % (8 * 64) != 0
+        e_rows = m4.PREFILL_MIN_M_UNALIGNED if half_whole else m4.PREFILL_MIN_M
+        for compress in (False, True):
+            packed, qs = bnb.quantize_nf4(w, compress_statistics=compress)
+            if not compress:
+                qw, nat = to_kernel_layout(packed, qs), quantize_4bit_native(w)
+                need(torch.equal(qw.packed, nat.packed) and torch.equal(qw.absmax, nat.absmax),
+                     f"to_kernel_layout(quantize_nf4(w)) != quantize_4bit_native(w) at {N}x{K}")
+                back, qs_back = from_kernel_layout(qw)
+                need(torch.equal(back, packed) and torch.equal(qs_back.absmax, qs.absmax),
+                     f"from_kernel_layout did not give back the bytes at {N}x{K}")
+                del qw, nat, back, qs_back
+            for M in (1, 4, 256, 2048):
+                x = torch.randn((M, K), generator=gen, device=device).to(torch.bfloat16)
+                reset_counts(kernels)
+                y = bnb.matmul_4bit(x, packed, qs)
+                sync(torch, device)
+                counts = read_counts(kernels)
+                kname = "dequantize_transposed" if M >= e_rows else "mm4_fused"
+                need(counts[kname] == int(on_card)
+                     and sum(v for k, v in counts.items() if "." not in k) == int(on_card),
+                     f"matmul_4bit {N}x{K} M={M}: launches {counts}, not one of {kname}")
+                ref = bnb.functional.matmul_4bit_ref(x, packed, qs)
+                err, scale = max_err(torch, y, ref)
+                tol = 1e-2 * scale
+                need(bool(torch.isfinite(y).all()) and err <= tol,
+                     f"matmul_4bit {N}x{K} M={M} compressed={compress}: error {err} > {tol}")
+                row = dict(N=N, K=K, M=M, compressed=compress, kernel=kname, err=err, tol=tol)
+                if M == 4 and not compress:
+                    k = int(x.float().abs().amax(0).argmax())
+                    n = int(w[:, k].float().abs().argmax())
+                    e = n * K + k
+                    bad = packed.clone()
+                    bad[e // 2] ^= 0xF0 if e % 2 == 0 else 0x0F
+                    row["fault"] = max_err(torch, bnb.matmul_4bit(x, bad, qs), ref)[0]
+                    need(row["fault"] > tol, f"matmul_4bit {N}x{K}: a flipped nibble lands within"
+                                             f" the tolerance ({row['fault']} <= {tol})")
+                    del bad
+                rows.append(row)
+                del x, y, ref
+            del packed, qs
+        del w
+    worst = max(r["err"] / r["tol"] for r in rows)
+    faults = min(r["fault"] / r["tol"] for r in rows if "fault" in r)
+    print(f"[8a] bnb.quantize_nf4 + bnb.matmul_4bit at the 7B shapes, raw and compressed, M = 1, 4,"
+          f" 256, 2048: {len(rows)} calls within {worst:.3g} of 1% of the largest output; the"
+          f" repack equals quantize_4bit_native bit for bit; a flipped nibble lands at >= {faults:.3g}"
+          f" x the tolerance", flush=True)
+    return rows
+
+
+def nf4_nn_7b(torch, kernels, cfg, device="cuda"):
+    """Phase 8b: Llama-7B's 225 linears as plain bf16 ``torch.nn.Linear``s
+    under their Hugging Face names, ``utils.replace_linear`` (NF4, bs 64)
+    into ``LinearNF4``s, then every module forward at 4 rows (kernel B)
+    and forward and backward at 2048 rows (kernel E both ways); layer 0's
+    modules and the lm_head held against ``matmul_4bit_ref`` and the plain
+    gradient within 1% of the largest output, every output finite."""
+    import bitsandbytes_sycl_tpu_torch as bnb
+
+    t0 = time.perf_counter()
+    tree = hf_llama_tree(torch, cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                         cfg.num_layers, device=device)
+    gb = sum(p.numel() * p.element_size() for p in tree.parameters()) / 1e9
+    bnb.utils.replace_linear(tree, "nf4", 64)
+    sync(torch, device)
+    build_s = time.perf_counter() - t0
+    mods = modules_of(tree, bnb.nn.LinearNF4)
+    layers = per_layer_counts(tree, bnb.nn.LinearNF4, cfg.num_layers)
+    need(len(mods) == 7 * cfg.num_layers + 1 and layers == [7] * cfg.num_layers,
+         f"replace_linear gave {len(mods)} LinearNF4 ({layers} a layer)")
+    want = library_launches(len(mods), 0)
+    checked = []
+
+    def check(name, m, x, y, g):
+        need(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
+        if not (name.startswith("model.layers.0.") or name == "lm_head"):
+            return
+        ref = bnb.functional.matmul_4bit_ref(x.detach(), m.packed, m.quant_state)
+        err, scale = max_err(torch, y, ref)
+        need(err <= 1e-2 * scale, f"{name} at {x.shape[0]} rows: error {err} > {1e-2 * scale}")
+        row = dict(name=name, rows=x.shape[0], err=err, tol=1e-2 * scale)
+        if g is not None:
+            W = bnb.dequantize_4bit(m.packed, m.quant_state).float()
+            gref = (g.float() @ W).to(x.dtype)
+            gerr, gscale = max_err(torch, x.grad, gref)
+            need(gerr <= 1e-2 * gscale, f"{name}: gradient error {gerr} > {1e-2 * gscale}")
+            row.update(grad_err=gerr, grad_tol=1e-2 * gscale)
+        checked.append(row)
+
+    out = dict(weights_gb=gb, modules=len(mods), build_s=build_s)
+    for label, rows, backward in (("nf4, 4 rows", 4, False),
+                                  ("nf4, 2048 rows forward and backward", 2048, True)):
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        forward_each(torch, mods, rows, 80 + rows, check, backward=backward)
+        sync(torch, device)
+        counts = read_counts(kernels)
+        need_launches(counts, want[label], f"[8b] {label}", device == "cuda")
+        out[label] = dict(launches={k: counts[k] for k in want[label]},
+                          seconds=time.perf_counter() - t0)
+    out["checked"] = checked
+    print(f"[8b] {cfg.num_layers} layers of {gb:.1f} GB bf16 nn.Linear -> {len(mods)} LinearNF4 by"
+          f" replace_linear in {build_s:.1f} s; launches at 4 rows"
+          f" {out['nf4, 4 rows']['launches']}, at 2048 rows forward and backward"
+          f" {out['nf4, 2048 rows forward and backward']['launches']}; {len(checked)} results"
+          f" held against matmul_4bit_ref and the plain gradient", flush=True)
+    del tree, mods
+    return out
+
+
+def int8_nn_7b(torch, kernels, cfg, device="cuda"):
+    """Phase 8c: Linear8bitLt at 7B. The 225 linears of ``hf_llama_tree``
+    as inference modules (threshold 6.0, 32 static outlier columns each,
+    phase 6's setting) forward at 4 rows (kernel I), then one layer's seven
+    as trainable ones (``has_fp16_weights=True``, threshold 0, so kernel I
+    runs) forward and backward at 128 rows. Outputs held against the plain
+    route (``llm_int8_matmul(..., use_fused=False)``: quantize, int8
+    product, dequant) within one bf16 ulp of the largest output, with the
+    next row's SCB as the fault; gradients against the plain f32 ones
+    within 1%."""
+    from bitsandbytes_sycl_tpu_torch import functional as F
+    from bitsandbytes_sycl_tpu_torch.nn import Linear8bitLt
+
+    out = {}
+    worst = [0.0, float("inf")]
+
+    def hold(name, x, y, CB, SCB, threshold, outliers):
+        ref = F.llm_int8_matmul(x, CB, SCB, threshold, use_fused=False, outliers=outliers)
+        bad = F.llm_int8_matmul(x, CB, SCB.roll(-1), threshold, use_fused=False, outliers=outliers)
+        tol = 2.0 ** -7 * float(ref.float().abs().max())
+        err, fault = max_err(torch, y, ref)[0], max_err(torch, bad, ref)[0]
+        need(bool(torch.isfinite(y).all()) and err <= tol, f"{name}: error {err} > {tol}")
+        need(fault > tol, f"{name}: the next row's SCB lands within the tolerance")
+        worst[0], worst[1] = max(worst[0], err / tol), min(worst[1], fault / tol)
+
+    t0 = time.perf_counter()
+    tree = to_int8(torch, hf_llama_tree(torch, cfg.hidden_size, cfg.intermediate_size,
+                                        cfg.vocab_size, cfg.num_layers, device=device, seed=1),
+                   threshold=6.0)
+    sync(torch, device)
+    build_s = time.perf_counter() - t0
+    mods = modules_of(tree, Linear8bitLt)
+    layers = per_layer_counts(tree, Linear8bitLt, cfg.num_layers)
+    need(len(mods) == 7 * cfg.num_layers + 1 and layers == [7] * cfg.num_layers,
+         f"to_int8 gave {len(mods)} Linear8bitLt ({layers} a layer)")
+    gb = sum(b.numel() * b.element_size() for b in tree.buffers()) / 1e9
+    want = library_launches(0, len(mods))
+
+    def check(name, m, x, y, g):
+        hold(name, x, y, m.CB, m.SCB, m.threshold, m.outliers)
+
+    label = "int8, 4 rows"
+    reset_counts(kernels)
+    forward_each(torch, mods, 4, 90, check)
+    counts = read_counts(kernels)
+    need_launches(counts, want[label], f"[8c] {label}", device == "cuda")
+    out[label] = dict(launches={k: counts[k] for k in want[label]})
+    n_int8 = len(mods)
+    del tree, mods
+
+    tree = to_int8(torch, hf_llama_tree(torch, cfg.hidden_size, cfg.intermediate_size,
+                                        cfg.vocab_size, 1, device=device, seed=2),
+                   predicate=lambda n: n.startswith("model.layers."), outliers=0,
+                   has_fp16_weights=True, threshold=0.0)
+    train = modules_of(tree, Linear8bitLt)
+    need(per_layer_counts(tree, Linear8bitLt, 1) == [7], "to_int8: not 7 trainable modules")
+    grads = []
+
+    def check_train(name, m, x, y, g):
+        W = m.weight.detach()
+        hold(name, x.detach(), y, *F.int8_vectorwise_quant(W), 0.0, None)
+        for got, ref in ((x.grad, (g.float() @ W.float()).to(x.dtype)),
+                         (m.weight.grad, (g.float().T @ x.detach().float()).to(W.dtype))):
+            err, scale = max_err(torch, got, ref)
+            need(err <= 1e-2 * scale, f"{name}: gradient error {err} > {1e-2 * scale}")
+            grads.append(err / scale)
+
+    label = "int8 trainable, 128 rows forward and backward"
+    reset_counts(kernels)
+    forward_each(torch, train, 128, 91, check_train, backward=True)
+    counts = read_counts(kernels)
+    need_launches(counts, want[label], f"[8c] {label}", device == "cuda")
+    out[label] = dict(launches={k: counts[k] for k in want[label]})
+    out.update(int8_gb=gb, build_s=build_s, worst_err_over_tol=worst[0],
+               least_fault_over_tol=worst[1], worst_grad_rel=max(grads))
+    print(f"[8c] {n_int8} Linear8bitLt ({gb:.2f} GB int8, threshold 6, 32 outlier columns)"
+          f" built in {build_s:.1f} s: launches at 4 rows {out['int8, 4 rows']['launches']}; 7"
+          f" trainable at 128 rows {out[label]['launches']}; outputs within {worst[0]:.3g} of one"
+          f" bf16 ulp of the largest (the next row's SCB at >= {worst[1]:.3g}), gradients within"
+          f" {max(grads):.3g} of the largest", flush=True)
+    del tree, train
+    return out
+
+
+def library_7b(torch, kernels, cfg, device="cuda", shapes=SHAPES_7B):
+    """Phase 8, the library at the width and depth of ``cfg`` (Llama-7B on
+    the card): 8a at ``shapes``, 8b and 8c. On the CPU (``device="cpu"``,
+    narrow widths) it checks the same wiring with the plain versions, which
+    launch nothing."""
+    def free():
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    stats = dict(docstring=docstring_path(torch, kernels, device, shapes))
+    free()
+    stats["nf4_nn"] = nf4_nn_7b(torch, kernels, cfg, device)
+    free()
+    stats["int8_nn"] = int8_nn_7b(torch, kernels, cfg, device)
+    free()
+    stats["seconds"] = time.perf_counter() - t0
+    launches = {k: v["launches"] for part in ("nf4_nn", "int8_nn")
+                for k, v in stats[part].items() if isinstance(v, dict) and "launches" in v}
+    print(f"[8] library launches {json.dumps(launches)}; phase 8 took {stats['seconds']:.1f} s",
+          flush=True)
+    return stats
+
+
 def to_cuda(torch, o):
     """A params tree (tensors, QLinearWeights, dicts, lists) on the card."""
     from bitsandbytes_sycl_tpu_torch.ops.common import QLinearWeight
@@ -3839,6 +4222,13 @@ def main() -> int:
             p_cpu=p_cpu, make_opt=lambda lv: LutOptimizer(torch, lv, "adam", 2e-4, maps))
         del p_cpu
         phases["qlora_card_vs_cpu_s"] = time.perf_counter() - t0
+
+        # 8. the library at Llama-7B width and depth: the docstring path,
+        # replace_linear into LinearNF4, Linear8bitLt
+        gc.collect()
+        torch.cuda.empty_cache()
+        library_stats = library_7b(torch, KERNELS, cfg)
+        phases["library_7b_s"] = library_stats["seconds"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3929,7 +4319,8 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=report, serve=serve_stats, long_prompts=long_stats,
                        chunked=chunk_stats, contiguous=contig_stats, w8a8_prefill=w8a8_stats,
-                       int8=int8_stats, qlora=train_stats, lean=lean_stats, phases=phases), f,
+                       int8=int8_stats, qlora=train_stats, lean=lean_stats, library=library_stats,
+                       phases=phases), f,
                   indent=1, default=str)
     print(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
     print(card)
