@@ -81,7 +81,9 @@ def params_from_jax(tree: Dict, cfg, device=None) -> Dict:
 def lora_from_jax(tree, device=None):
     """The JAX package's adapter tree (numpy leaves: per layer {proj: {"A",
     "B", "scale"}}) as the port's, every leaf an f32 tensor that requires
-    grad, on ``device`` (CUDA unless given another)."""
+    grad, on ``device`` (CUDA unless given another). A ``stack_lora`` tree
+    (A (n, r, K), B (n, N, r), scale (n,)) carries over as it is, the
+    engine's multi-adapter form."""
     dev = resolve_device(device)
 
     def leaf(a):

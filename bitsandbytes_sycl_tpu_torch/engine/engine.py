@@ -16,6 +16,17 @@ chunk by chunk at absolute offsets into the scratch cache. With
 ``EngineConfig.w8a8_prefill``, each prefill batch runs on a transient int8
 repack of the 4-bit weights (``repack_params_int8``), which decode never
 holds.
+
+As in the JAX package, the engine also serves the bf16 cache
+(``kv_quant=False``, contiguous only), several LoRA adapters at once
+(``lora=stack_lora([...])``, one adapter id per request and slot), shared
+prefixes (``register_prefix``: the prefix's KV is prefilled once and each
+batch that uses it starts from a fresh copy of it, its suffixes at
+positions ``plen + t``), snapshots of the whole serving state
+(``snapshot``/``restore``, and ``durable_snapshot`` for ``torch.save``) and
+speculative generation (``generate_speculative``, engine/speculative.py).
+The cache is written in place, so a snapshot clones it and a restore
+clones it back.
 """
 
 from __future__ import annotations
@@ -71,8 +82,9 @@ def _grid_bucket(n: int, cap: int) -> int:
 
 class InferenceEngine:
     """Continuous-batching decode of a quantized Llama-family model over
-    the contiguous int8 KV cache, or the paged pool with
-    ``EngineConfig(paged=True)``."""
+    the contiguous KV cache (int8, or bf16 with ``kv_quant=False``), or the
+    paged int8 pool with ``EngineConfig(paged=True)``; ``lora`` is a
+    ``stack_lora`` tree whose adapters the requests pick by id."""
 
     def __init__(
         self,
@@ -87,17 +99,22 @@ class InferenceEngine:
         device=None,
         seed: int = 0,
     ):
-        if lora is not None:
-            raise NotImplementedError("multi-LoRA serving is not ported yet (ROADMAP Queue A #6)")
         if mesh is not None:
             raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP Queue A #13)")
         if forward_fn is not None or init_cache_fn is not None:
             raise NotImplementedError("other model families are not ported yet (ROADMAP Queue A #10)")
+        # multi-adapter serving: a stack_lora tree; each request picks its
+        # adapter with add_request(adapter_id=...)
+        self._lora = lora
+        self._n_adapters = 1
+        if lora is not None:
+            first = next(iter(lora[0].values()))
+            if first["A"].dim() != 3:
+                raise ValueError("engine lora must be the stacked form (stack_lora): a 2-D "
+                                 "adapter would ignore adapter_ids")
+            self._n_adapters = int(first["A"].shape[0])
         if engine_cfg.paged and not model_cfg.kv_quant:
             raise ValueError("paged mode requires kv_quant=True (int8 pages)")
-        if not model_cfg.kv_quant:
-            raise NotImplementedError(
-                "the bf16 KV cache (kv_quant=False) is not ported yet (ROADMAP Queue A #4)")
         if engine_cfg.paged and model_cfg.max_seq_len % engine_cfg.page_size:
             raise ValueError("paged mode needs max_seq_len % page_size == 0")
         self.device = resolve_device(device)
@@ -122,7 +139,18 @@ class InferenceEngine:
         self.slot_tokens: List[List[int]] = [[] for _ in range(B)]
         self.slot_budget = np.zeros((B,), np.int32)
         self._last_tokens = np.zeros((B,), np.int32)
+        self.slot_adapter = np.zeros((B,), np.int32)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._prefixes: Dict[int, Dict] = {}  # prefix_id -> {cache, tokens, adapter}
+        self._next_prefix_id = 0
+        self.last_speculative_stats: Optional[Dict] = None
+
+    def _forward(self, params, cfg, tokens, cache, positions, adapter_ids):
+        """llama_forward with the engine's adapters, one id per batch row."""
+        if self._lora is None:
+            return llama_forward(params, cfg, tokens, cache, positions)
+        ids = torch.as_tensor(np.asarray(adapter_ids, np.int64), device=self.device)
+        return llama_forward(params, cfg, tokens, cache, positions, lora=self._lora, lora_ids=ids)
 
     def _sample(self, logits: torch.Tensor) -> List[int]:
         """Greedy (first maximum) or temperature / top-k sampling; the step
@@ -149,23 +177,76 @@ class InferenceEngine:
     def free_slots(self) -> List[int]:
         return [i for i in range(self.ecfg.max_batch) if not self.active[i]]
 
-    def register_prefix(self, prefix_ids, adapter_id: int = 0) -> int:
-        raise NotImplementedError("the prefix cache is not ported yet (ROADMAP Queue A #6)")
+    @torch.no_grad()
+    def register_prefix(self, prefix_ids: Sequence[int], adapter_id: int = 0) -> int:
+        """Prefill a shared prefix (e.g. a system prompt) once and keep its
+        KV; ``add_requests(prefix=pid)`` then pays only the suffix prefill.
+        The stored cache is (L, 1, ...), prefilled with adapter
+        ``adapter_id`` (through the W8A8 repack with ``w8a8_prefill``)."""
+        prompt = [int(t) for t in prefix_ids]
+        if not prompt or len(prompt) > self.mcfg.max_seq_len - 2:
+            raise ValueError("prefix must be non-empty and fit the cache")
+        self._check_adapters([adapter_id])
+        T = min(max(_bucket(len(prompt), self.ecfg.prefill_buckets), len(prompt)),
+                self.mcfg.max_seq_len)
+        toks = np.zeros((1, T), np.int32)
+        toks[0, : len(prompt)] = prompt
+        _, cache1 = self._prefill(toks, np.asarray([len(prompt)]), np.asarray([adapter_id]),
+                                  T, None, 0)
+        pid = self._next_prefix_id
+        self._next_prefix_id += 1
+        self._prefixes[pid] = {"cache": cache1, "tokens": prompt, "adapter": int(adapter_id)}
+        return pid
+
+    def unregister_prefix(self, pid: int) -> None:
+        """Free a registered prefix's KV."""
+        self._prefixes.pop(pid, None)
+
+    def _check_adapters(self, adapter_ids) -> None:
+        for a in adapter_ids:
+            if not 0 <= a < self._n_adapters:
+                raise ValueError(f"adapter_id {a} out of range [0, {self._n_adapters})")
 
     def add_request(self, prompt_ids: Sequence[int], max_new_tokens: Optional[int] = None,
                     adapter_id: int = 0) -> int:
         """Prefill a prompt into a free slot; returns the slot id."""
         return self.add_requests([prompt_ids], max_new_tokens, [adapter_id])[0]
 
+    def _prefill(self, toks: np.ndarray, lens: np.ndarray, aid: np.ndarray, chunk: int,
+                 pre: Optional[Dict], plen: int):
+        """Prefill a padded batch (Kb, Tc) in chunks of ``chunk`` tokens at
+        absolute offsets ``plen + off`` into a scratch cache that starts
+        empty or as a fresh (L, Kb, ...) copy of the prefix's KV (the
+        stored prefix is never written). Returns each row's next-token
+        logits, from the chunk that holds its last token, and the cache."""
+        Kb, Tc = toks.shape
+        dev = self.device
+        if pre is None:
+            cacheK = init_kv_cache(self.mcfg, Kb, dev)
+        else:
+            cacheK = {k: v.expand(v.shape[0], Kb, *v.shape[2:]).clone(
+                memory_format=torch.contiguous_format) for k, v in pre["cache"].items()}
+        rows = torch.arange(Kb, device=dev)
+        last = None
+        pparams = self._prefill_params()
+        for off in range(0, Tc, chunk):
+            pos = (plen + off + torch.arange(chunk, device=dev)).expand(Kb, chunk)
+            logits, cacheK = self._forward(
+                pparams, self._pf_cfg, torch.as_tensor(toks[:, off:off + chunk], device=dev),
+                cacheK, pos, aid)
+            idx = np.clip(lens - 1 - off, 0, chunk - 1)
+            hit = torch.as_tensor((lens - 1 >= off) & (lens - 1 < off + chunk), device=dev)
+            at = logits[rows, torch.as_tensor(idx, device=dev)]
+            last = at if last is None else torch.where(hit[:, None], at, last)
+            del logits
+        return last, cacheK
+
     @torch.no_grad()
     def add_requests(self, prompts: Sequence[Sequence[int]], max_new_tokens: Optional[int] = None,
                      adapter_ids: Optional[Sequence[int]] = None, prefix: Optional[int] = None
                      ) -> List[int]:
-        """Prefill several prompts as one padded batch; returns the slots."""
-        if prefix is not None:
-            raise NotImplementedError("the prefix cache is not ported yet (ROADMAP Queue A #6)")
-        if adapter_ids is not None and any(a != 0 for a in adapter_ids):
-            raise NotImplementedError("multi-LoRA serving is not ported yet (ROADMAP Queue A #6)")
+        """Prefill several prompts as one padded batch, each after the
+        registered prefix ``prefix`` if given; returns the slots."""
         slots = self.free_slots()
         if len(prompts) > len(slots):
             raise RuntimeError("not enough free slots; call step() until they free")
@@ -174,45 +255,37 @@ class InferenceEngine:
         budget = self.ecfg.max_new_tokens if max_new_tokens is None else max_new_tokens
         if budget < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        pre = self._prefixes[prefix] if prefix is not None else None
+        plen = len(pre["tokens"]) if pre is not None else 0
+        # omitted adapter_ids mean adapter 0, checked against the prefix's
+        # adapter too (its KV holds that adapter's deltas)
+        eff_ids = list(adapter_ids) if adapter_ids is not None else [0] * len(prompts)
+        self._check_adapters(eff_ids)
+        if pre is not None and any(a != pre["adapter"] for a in eff_ids):
+            raise ValueError(f"prefix was registered with adapter {pre['adapter']}; "
+                             "requests using it must match")
         for prompt in prompts:
-            if len(prompt) > self.mcfg.max_seq_len - 1:
+            if plen + len(prompt) > self.mcfg.max_seq_len - 1:
                 raise ValueError("prompt longer than max_seq_len")
         max_len = max(len(p) for p in prompts)
-        T = min(max(_bucket(max_len, self.ecfg.prefill_buckets), max_len), self.mcfg.max_seq_len)
+        T = min(max(_bucket(max_len, self.ecfg.prefill_buckets), max_len),
+                self.mcfg.max_seq_len - plen)
         K = len(prompts)
         Kb = _pow2_bucket(K, self.ecfg.max_batch)
-        toks = np.zeros((Kb, T), np.int32)
-        lens = np.ones((Kb,), np.int64)  # dummy rows: len 1, never inserted
-        for i, prompt in enumerate(prompts):
-            toks[i, : len(prompt)] = prompt
-            lens[i] = len(prompt)
-        dev = self.device
-        cacheK = init_kv_cache(self.mcfg, Kb, dev)
-        rows = torch.arange(Kb, device=dev)
+        lens = np.ones((Kb,), np.int64)  # dummy rows: len 1, adapter 0, never inserted
+        aid = np.zeros((Kb,), np.int64)
+        aid[:K] = eff_ids
         chunk = self.ecfg.prefill_chunk
         # chunking pads T up to a chunk multiple; a prompt whose padded
         # length overruns the cache takes one whole chunk, as the JAX engine
         # does (a clamped write would overwrite earlier KV)
-        if not (0 < chunk < T and -(-T // chunk) * chunk <= self.mcfg.max_seq_len):
+        if not (0 < chunk < T and plen + -(-T // chunk) * chunk <= self.mcfg.max_seq_len):
             chunk = T
-        # chunks at absolute offsets into the scratch cache; each prompt's
-        # next-token logits come from the chunk holding its last token
-        Tc = -(-T // chunk) * chunk
-        toks_c = np.zeros((Kb, Tc), np.int32)
-        toks_c[:, :T] = toks
-        last = None
-        pparams = self._prefill_params()
-        for off in range(0, Tc, chunk):
-            pos = (off + torch.arange(chunk, device=dev)).expand(Kb, chunk)
-            logits, cacheK = llama_forward(
-                pparams, self._pf_cfg, torch.as_tensor(toks_c[:, off:off + chunk], device=dev),
-                cacheK, pos)
-            idx = np.clip(lens - 1 - off, 0, chunk - 1)
-            hit = torch.as_tensor((lens - 1 >= off) & (lens - 1 < off + chunk), device=dev)
-            at = logits[rows, torch.as_tensor(idx, device=dev)]
-            last = at if last is None else torch.where(hit[:, None], at, last)
-            del logits
-        del pparams
+        toks = np.zeros((Kb, -(-T // chunk) * chunk), np.int32)
+        for i, prompt in enumerate(prompts):
+            toks[i, : len(prompt)] = prompt
+            lens[i] = len(prompt)
+        last, cacheK = self._prefill(toks, lens, aid, chunk, pre, plen)
         nxt = self._sample(last)
 
         if self._alloc is None:
@@ -221,32 +294,34 @@ class InferenceEngine:
                 for key, leaf in self.cache.items():
                     leaf[:, slots[i]] = cacheK[key][:, i]
         else:
-            self._ingest(cacheK, prompts, slots)
+            self._ingest(cacheK, [plen + len(p) for p in prompts], slots)
         del cacheK
 
+        head = pre["tokens"] if pre is not None else []
         out_slots: List[int] = []
         for i, prompt in enumerate(prompts):
             slot = slots[i]
             tok = int(nxt[i])
-            self.slot_tokens[slot] = list(prompt) + [tok]
-            self.seq_lens[slot] = len(prompt)
+            self.slot_tokens[slot] = head + list(prompt) + [tok]
+            self.slot_adapter[slot] = aid[i]
+            self.seq_lens[slot] = plen + len(prompt)
             self._last_tokens[slot] = tok
             self.slot_budget[slot] = budget - 1
             self.active[slot] = not (tok == self.ecfg.eos_token or self.slot_budget[slot] <= 0)
             out_slots.append(slot)
         return out_slots
 
-    def _ingest(self, cacheK: Dict, prompts, slots) -> None:
-        """Paged mode: allocate each prompt's pages and copy its scratch
-        rows into them."""
+    def _ingest(self, cacheK: Dict, n_tokens, slots) -> None:
+        """Paged mode: allocate the pages of each prompt's ``n_tokens``
+        (its prefix included) and copy its scratch rows into them."""
         Kb = cacheK["k"].shape[1]
         page_ids = np.zeros((Kb, self._alloc.max_pages), np.int32)
         used = np.zeros((Kb,), np.int32)
         valid = np.zeros((Kb,), bool)
         got: List[int] = []
         try:
-            for i, prompt in enumerate(prompts):
-                pages = self._alloc.alloc_slot(slots[i], len(prompt))
+            for i, n in enumerate(n_tokens):
+                pages = self._alloc.alloc_slot(slots[i], n)
                 page_ids[i, : len(pages)] = pages
                 used[i] = len(pages)
                 valid[i] = True
@@ -295,7 +370,7 @@ class InferenceEngine:
             cache, cfg = self._paged_cache()
         tokens = torch.as_tensor(self._last_tokens.reshape(B, 1), device=dev)
         positions = torch.as_tensor(self.seq_lens.reshape(B, 1).astype(np.int64), device=dev)
-        logits, _ = llama_forward(self.params, cfg, tokens, cache, positions)
+        logits, _ = self._forward(self.params, cfg, tokens, cache, positions, self.slot_adapter)
         nxt = self._sample(logits[:, 0])
         out: Dict[int, int] = {}
         for b in range(B):
@@ -354,11 +429,125 @@ class InferenceEngine:
             fill()
         return [results[i] for i in range(len(prompts))]
 
-    def generate_speculative(self, *args, **kwargs):
-        raise NotImplementedError("speculative decoding is not ported yet (ROADMAP Queue A #12)")
+    def generate_speculative(self, prompts: Sequence[Sequence[int]], max_new_tokens: int,
+                             draft_params: Dict, draft_cfg: LlamaConfig, gamma: int = 4,
+                             temperature: float = 0.0, seed: int = 0,
+                             draft_forward=None) -> List[List[int]]:
+        """Speculative generation of the whole batch against this engine's
+        model as the target (``speculative_generate_jit``): ragged prompts
+        right-padded with per-row cursors, so each row gets its own
+        prompt's generation; the batch commits in lockstep. Leaves the slot
+        pool and cache alone. EOS truncation as in generate() (the EOS
+        token kept, nothing after it). The round's statistics are kept in
+        ``last_speculative_stats``."""
+        from .speculative import speculative_generate_jit
 
-    def snapshot(self):
-        raise NotImplementedError("engine snapshots are not ported yet (ROADMAP Queue A #6)")
+        if self._lora is not None:
+            raise NotImplementedError("speculative decoding does not apply the engine's lora "
+                                      "adapters: it would serve the base model")
+        lens = [len(p) for p in prompts]
+        if min(lens) < 1:
+            raise ValueError("generate_speculative needs non-empty prompts")
+        toks = np.zeros((len(prompts), max(lens)), np.int64)
+        for i, pr in enumerate(prompts):
+            toks[i, : lens[i]] = pr
+        out, stats = speculative_generate_jit(
+            self.params, self.mcfg, draft_params, draft_cfg,
+            torch.as_tensor(toks, device=self.device), max_new_tokens, gamma=gamma,
+            temperature=temperature, seed=seed,
+            draft_forward=draft_forward or llama_forward,
+            lengths=torch.as_tensor(lens, device=self.device))
+        self.last_speculative_stats = stats
+        rows = out.tolist()
+        eos = self.ecfg.eos_token
+        if eos >= 0:
+            rows = [r[: r.index(eos) + 1] if eos in r else r for r in rows]
+        return rows
 
-    def restore(self, snap):
-        raise NotImplementedError("engine snapshots are not ported yet (ROADMAP Queue A #6)")
+    # ------------------------------------------------------------- recovery
+    def snapshot(self) -> Dict:
+        """The serving state: a copy of the KV cache (the engine writes its
+        cache in place) and the host-side scheduler state, the sampler's
+        included, so that a restore resumes bit for bit."""
+        snap = {
+            "cache": {k: v.clone() for k, v in self.cache.items()},
+            "seq_lens": self.seq_lens.copy(),
+            "active": self.active.copy(),
+            "slot_tokens": [list(t) for t in self.slot_tokens],
+            "slot_budget": self.slot_budget.copy(),
+            "slot_adapter": self.slot_adapter.copy(),
+            "last_tokens": self._last_tokens.copy(),
+            "rng": self._gen.get_state(),
+        }
+        if self._alloc is not None:  # the page tables ride the snapshot
+            snap["page_tables"] = [list(self._alloc.tables.get(b, []))
+                                   for b in range(self.ecfg.max_batch)]
+        return snap
+
+    def durable_snapshot(self) -> Dict:
+        """snapshot() with every field a fixed-shape tensor, for
+        ``torch.save``; ``torch.load`` reads it back with its default
+        ``weights_only=True``."""
+        snap = self.snapshot()
+        # sized from the slots' contents: a per-call max_new_tokens may
+        # exceed ecfg.max_new_tokens
+        S = max(self.mcfg.max_seq_len + self.ecfg.max_new_tokens,
+                max((len(t) for t in snap["slot_tokens"]), default=0) + 1)
+        toks = np.zeros((self.ecfg.max_batch, S), np.int32)
+        lens = np.zeros((self.ecfg.max_batch,), np.int32)
+        for i, t in enumerate(snap.pop("slot_tokens")):
+            toks[i, : len(t)] = t
+            lens[i] = len(t)
+        snap["slot_tokens_padded"] = toks
+        snap["slot_token_lens"] = lens
+        if "page_tables" in snap:
+            tabs = snap.pop("page_tables")
+            pt = np.zeros((self.ecfg.max_batch, self._alloc.max_pages), np.int32)
+            pl = np.zeros((self.ecfg.max_batch,), np.int32)
+            for i, t in enumerate(tabs):
+                pt[i, : len(t)] = t
+                pl[i] = len(t)
+            snap["page_tables_padded"] = pt
+            snap["page_table_lens"] = pl
+        return {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                for k, v in snap.items()}
+
+    def restore_durable(self, snap: Dict) -> None:
+        """restore() from a durable_snapshot()."""
+        snap = dict(snap)
+        toks = np.asarray(snap.pop("slot_tokens_padded"))
+        lens = np.asarray(snap.pop("slot_token_lens"))
+        snap["slot_tokens"] = [[int(x) for x in row[:n]] for row, n in zip(toks, lens)]
+        if "page_tables_padded" in snap:
+            pt = np.asarray(snap.pop("page_tables_padded"))
+            pl = np.asarray(snap.pop("page_table_lens"))
+            snap["page_tables"] = [[int(x) for x in row[:n]] for row, n in zip(pt, pl)]
+        self.restore(snap)
+
+    def restore(self, snap: Dict) -> None:
+        """Resume decoding from a snapshot of an engine of the same model
+        and engine config: in-flight requests continue from their exact
+        positions. The snapshot's cache is copied, so it can be restored
+        again."""
+        if self._alloc is not None and "page_tables" not in snap:
+            raise ValueError("snapshot has no page tables: it was taken by a non-paged engine "
+                             "and cannot restore into paged mode")
+        self.cache = {k: torch.as_tensor(v).to(self.device, copy=True)
+                      for k, v in snap["cache"].items()}
+        self.seq_lens = np.asarray(snap["seq_lens"], np.int32).copy()
+        self.active = np.asarray(snap["active"], bool).copy()
+        self.slot_tokens = [list(t) for t in snap["slot_tokens"]]
+        self.slot_budget = np.asarray(snap["slot_budget"], np.int32).copy()
+        if "slot_adapter" in snap:
+            self.slot_adapter = np.asarray(snap["slot_adapter"], np.int32).copy()
+        else:
+            # older snapshots were taken with every slot on adapter 0
+            self.slot_adapter = np.zeros_like(self.slot_adapter)
+        self._last_tokens = np.asarray(snap["last_tokens"], np.int32).copy()
+        if self._alloc is not None:
+            self._alloc.tables = {b: [int(p) for p in t]
+                                  for b, t in enumerate(snap["page_tables"]) if len(t)}
+            held = {p for t in self._alloc.tables.values() for p in t}
+            self._alloc._free = [p for p in range(1, self._alloc.num_pages) if p not in held]
+        if "rng" in snap:  # sampled decoding resumes bit for bit too
+            self._gen.set_state(snap["rng"])

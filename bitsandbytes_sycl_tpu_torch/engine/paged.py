@@ -13,14 +13,14 @@ of the free list, page 0 reserved), so pools can be compared page by page.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..ops.common import resolve_device
 
-__all__ = ["PageAllocator", "init_page_pool", "paged_ingest"]
+__all__ = ["PageAllocator", "PagedKVPool", "init_page_pool", "paged_ingest"]
 
 
 class PageAllocator:
@@ -142,3 +142,64 @@ def paged_ingest(pool: Dict, cacheK: Dict, page_ids, used, valid) -> Dict:
             pool["k_scale"][:, pid] = ksp
             pool["v_scale"][:, pid] = vsp
     return pool
+
+
+class PagedKVPool(PageAllocator):
+    """A fixed pool of int8 KV pages shared by all sequences and layers,
+    with its allocator: the standalone (non-engine) API, which owns its
+    tensors on ``device`` (CUDA unless given another) and writes them in
+    place. ``init_page_pool`` gives the layout; the engine's paged mode
+    keeps its pool in a dict beside a bare ``PageAllocator``."""
+
+    def __init__(self, cfg, num_pages: int, page_size: int = 128,
+                 max_pages_per_seq: Optional[int] = None, device=None):
+        super().__init__(num_pages, page_size,
+                         max_pages_per_seq or -(-cfg.max_seq_len // page_size))
+        self.cfg = cfg
+        if getattr(cfg, "kv_bits", 8) == 4:
+            raise NotImplementedError(
+                "kv_bits=4 pages are written by the engine's paged mode (nibble pairs of "
+                "adjacent tokens); this pool writes int8 rows: use InferenceEngine(paged=True)")
+        self.device = resolve_device(device)
+        pool = init_page_pool(cfg, num_pages, page_size, self.device)
+        self.k, self.v = pool["k"], pool["v"]
+        self.k_scale, self.v_scale = pool["k_scale"], pool["v_scale"]
+
+    def _leaves(self) -> Dict:
+        return {"k": self.k, "v": self.v, "k_scale": self.k_scale, "v_scale": self.v_scale}
+
+    # -------------------------------------------------------------- writes
+    def write_decode_step(self, li: int, kq, ks, vq, vs, slots: Sequence[int], positions) -> None:
+        """Write one decode step's quantized k/v of layer ``li``: kq (B, H,
+        D, 1) int8, ks (B, H, 1), vq (B, H, 1, D), vs (B, H, 1), at the
+        absolute ``positions`` (B,) of ``slots`` (whose pages the caller
+        has extended to cover them)."""
+        positions = np.asarray(positions, np.int64)
+        for b, s in enumerate(slots):
+            p = self.tables[s][int(positions[b]) // self.page_size]
+            o = int(positions[b]) % self.page_size
+            self.k[li, p, :, o] = kq[b, :, :, 0]
+            self.v[li, p, :, o] = vq[b, :, 0]
+            self.k_scale[li, p, :, o] = ks[b, :, 0]
+            self.v_scale[li, p, :, o] = vs[b, :, 0]
+
+    def ingest_contiguous(self, slot: int, cache: Dict, batch_index: int, n_tokens: int) -> None:
+        """Allocate ``slot``'s pages for ``n_tokens`` and copy row
+        ``batch_index`` of a contiguous int8 cache (models/llama layout: k
+        (L, B, H, D, S), v (L, B, H, S, D), scales (L, B, H, S)) into them,
+        page by page."""
+        pages = self.alloc_slot(slot, n_tokens)
+        row = {k: cache[k][:, batch_index:batch_index + 1] for k in self._leaves()}
+        paged_ingest(self._leaves(), row, np.asarray([pages]), [len(pages)], [True])
+
+    # ------------------------------------------------------------ attention
+    def attend(self, li: int, q: torch.Tensor, slots: Sequence[int], lengths) -> torch.Tensor:
+        """Paged decode attention of q (B, 1, Hq, D) over layer ``li`` of
+        ``slots``' pages, ``lengths`` (B,) tokens each: kernel D's
+        single-layer entry."""
+        from ..ops.paged_attention import paged_decode_attention_int8
+
+        pt = torch.as_tensor(self.table_array(slots), device=self.device)
+        lens = torch.as_tensor(np.asarray(lengths, np.int32), device=self.device)
+        return paged_decode_attention_int8(q, self.k[li], self.k_scale[li], self.v[li],
+                                           self.v_scale[li], pt, lens)

@@ -4,7 +4,8 @@ Parameters are plain dicts of tensors with the JAX package's structure:
 ``{"embed", "layers": [{"q_proj": weight, ..., "input_norm",
 "post_attn_norm"}], "final_norm", "lm_head"}``, where a weight is a 4-bit
 ``QLinearWeight`` or an LLM.int8 dict ``{"CB", "SCB"[, "outliers"]}``. The
-KV cache is a dict in the JAX package's int8 layout, contiguous or paged.
+KV cache is a dict in the JAX package's layouts: int8, contiguous or
+paged, or the contiguous bf16 cache (``kv_quant=False``).
 LoRA adapters (``models/lora.py``) are a per-layer list of ``{proj_name:
 {"A", "B", "scale"}}`` threaded through ``llama_forward(lora=...)``; the
 4-bit linears' backwards (``ops.matmul_4bit.ExactDequantGrad``) and the
@@ -49,6 +50,8 @@ __all__ = [
     "apply_linear",
     "linear_route",
     "repack_params_int8",
+    "write_and_attend",
+    "kernel_attends",
 ]
 
 
@@ -332,12 +335,15 @@ def quantize_params(fp_params: Dict, cfg: LlamaConfig) -> Dict:
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, device=None) -> Dict:
     """Contiguous int8 cache: K (L, B, H, D, S) transposed, V (L, B, H, S, D),
-    scales (L, B, H, S)."""
-    if not cfg.kv_quant:
-        raise NotImplementedError("the bf16 KV cache (kv_quant=False) is not ported yet "
-                                  "(ROADMAP Queue A #4)")
+    scales (L, B, H, S); with ``kv_quant=False`` the bf16 cache, K and V
+    both (L, B, H, S, D) in ``cfg.dtype`` and no scales."""
     dev = resolve_device(device)
     L, B, S, H, D = cfg.num_layers, batch, cfg.max_seq_len, cfg.num_kv_heads, cfg.hd
+    if not cfg.kv_quant:
+        return {
+            "k": torch.zeros((L, B, H, S, D), dtype=cfg.dtype, device=dev),
+            "v": torch.zeros((L, B, H, S, D), dtype=cfg.dtype, device=dev),
+        }
     return {
         "k": torch.zeros((L, B, H, D, S), dtype=torch.int8, device=dev),
         "v": torch.zeros((L, B, H, S, D), dtype=torch.int8, device=dev),
@@ -349,20 +355,33 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, device=None) -> Dict:
 _LEVELS: Dict = {}
 
 
+def _levels(levels: float, device) -> torch.Tensor:
+    """``levels`` as an f32 tensor on ``device``, one per device and level:
+    PyTorch computes a Python scalar over a tensor (or a tensor over a
+    scalar, on CUDA) through a rounded reciprocal, which rounds twice, so
+    the KV codecs divide by this tensor."""
+    key = (str(device), levels)
+    lv = _LEVELS.get(key)
+    if lv is None:
+        lv = _LEVELS[key] = torch.tensor(levels, dtype=torch.float32, device=device)
+    return lv
+
+
 def _kv_quantize(x: torch.Tensor, levels: float = 127.0):
     """(B, T, H, D) -> int8 codes on the +-levels grid and the per-(token,
     head) absmax (stored as is; the codes take levels / absmax, divided
-    by a tensor: PyTorch computes a Python scalar over a tensor as the
-    tensor's rounded reciprocal times the scalar, which rounds twice)."""
+    by a tensor)."""
     xf = x.float()
     absmax = xf.abs().amax(dim=-1)
-    key = (str(xf.device), levels)
-    lv = _LEVELS.get(key)
-    if lv is None:
-        lv = _LEVELS[key] = torch.tensor(levels, dtype=torch.float32, device=xf.device)
-    scale = torch.where(absmax > 0, lv / absmax, torch.zeros_like(absmax))
+    scale = torch.where(absmax > 0, _levels(levels, xf.device) / absmax, torch.zeros_like(absmax))
     q = torch.clamp(torch.round(xf * scale[..., None]), -levels, levels)
     return q.to(torch.int8), absmax
+
+
+def _kv_dequantize(q: torch.Tensor, absmax: torch.Tensor, dtype, levels: float = 127.0):
+    """int8 codes (..., D) and their absmax (...) -> values in ``dtype``:
+    codes times absmax / levels in f32, rounded once to ``dtype``."""
+    return (q.float() * (absmax / _levels(levels, absmax.device))[..., None]).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -455,55 +474,108 @@ def _paged_write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg):
     return attn, cache
 
 
-def write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg):
+def _cache_mask(positions: torch.Tensor, S: int, window: Optional[int]) -> torch.Tensor:
+    """(B, T, S) mask of a cached forward: query t may attend cache slot s
+    iff s <= its absolute position, and (sliding window) lies less than
+    ``window`` positions behind it."""
+    s_ids = torch.arange(S, device=positions.device)[None, None, :]
+    q_pos = positions.long()[:, :, None]
+    mask = s_ids <= q_pos
+    if window is not None:
+        mask = mask & (q_pos - s_ids < window)
+    return mask
+
+
+def kernel_attends(cache: Dict, cfg, T: int, Hq: int) -> bool:
+    """Whether layer attention of a cached forward of T rows runs on a
+    kernel: the paged pool always, the int8 cache where the JAX package's
+    decode (T = 1) or prefill kernel takes the shapes, the bf16 cache
+    never. Otherwise ``write_and_attend`` takes the dequantize-then-attend
+    route (``_attention``), chosen by these shapes before any launch."""
+    if "page_table" in cache:
+        return True
+    if not cfg.kv_quant:
+        return False
+    from ..ops.attention import decode_attention_ok, prefill_attention_ok
+
+    Hkv, S, D = cache["v"].shape[2], cache["v"].shape[3], cache["v"].shape[4]
+    ok = decode_attention_ok if T == 1 else prefill_attention_ok
+    return ok(T, S, D, Hq, Hkv)
+
+
+def write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg, mask=None):
     """Write this step's k/v into layer li of the cache and attend q over
     it: the paged decode step, or the contiguous decode step or prefill.
     Returns (attn (B, T, Hq, hd), cache); the cache is updated in place.
-    The attention kernels take the shapes the JAX package's kernels take
-    and raise ValueError on the others: there is no dequantize-and-attend
-    path."""
+    The int8 cache attends on kernels C and H where they take the shapes
+    (``kernel_attends``); elsewhere, and over the bf16 cache, q attends
+    through ``_attention`` over layer li alone, made seq-major (and
+    dequantized to ``cfg.dtype`` from int8), under ``mask`` (B, T, S), the
+    absolute-position mask, built here when not given. The JAX package
+    takes the same routes. ``write_and_attend.dequant_calls`` and
+    ``.bf16_calls`` count the calls of the two ``_attention`` routes."""
     from ..ops.attention import decode_attention_int8_stacked, prefill_attention_int8_stacked
 
     starts = positions[:, 0]
-    T = q.shape[1]
+    B, T, Hq = q.shape[:3]
     if "page_table" in cache:
         if T != 1:
             raise ValueError("paged KV cache supports decode (T=1) steps only")
         if not cfg.kv_quant:
             raise ValueError("paged KV cache requires kv_quant=True (int8 pages)")
         return _paged_write_and_attend(cache, li, q, k, v, positions, cfg)
-    if not cfg.kv_quant:
-        raise NotImplementedError("the bf16 KV cache (kv_quant=False) is not ported yet "
-                                  "(ROADMAP Queue A #4)")
-    kq, ks = _kv_quantize(k)
-    vq, vs = _kv_quantize(v)
-    S = cache["k"].shape[-1]
-    B = q.shape[0]
+    S = cache["v"].shape[3]
     # rows land at [start, start + T), the start clamped into the cache as
     # the JAX package's dynamic_update_slice clamps it
     pos = starts.long().clamp(0, S - T)[:, None] + torch.arange(T, device=q.device)[None, :]
     bi = torch.arange(B, device=q.device)[:, None].expand(B, T)
-    cache["k"][li][bi, :, :, pos] = kq  # (B, T, H, D) into (B, H, D, S)
-    cache["v"][li][bi, :, pos, :] = vq
-    cache["k_scale"][li][bi, :, pos] = ks
-    cache["v_scale"][li][bi, :, pos] = vs
-    # the kernels take the stacked cache and the layer index: a per-layer
-    # copy of the cache would move ~2.2 GB per 7B decode step at B = 8
-    if T == 1:
-        # the step's token is written: attend over the positions before it
-        # with the token folded in, as the JAX package's deferred write
-        attn = decode_attention_int8_stacked(
-            q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], li, starts,
-            new_kv=(kq[:, 0], ks[:, 0], vq[:, 0], vs[:, 0]), window=cfg.sliding_window,
-            softcap=cfg.attn_logit_softcap, sm_scale=_sm_scale(cfg),
-        )
+    if not cfg.kv_quant:
+        cache["k"][li][bi, :, pos, :] = k.to(cache["k"].dtype)  # (B, T, H, D) into (B, H, S, D)
+        cache["v"][li][bi, :, pos, :] = v.to(cache["v"].dtype)
+        k_full, v_full = cache["k"][li].transpose(1, 2), cache["v"][li].transpose(1, 2)
+        write_and_attend.bf16_calls += 1
     else:
-        attn = prefill_attention_int8_stacked(
-            q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], li,
-            starts=starts, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
-            sm_scale=_sm_scale(cfg),
-        )
+        kq, ks = _kv_quantize(k)
+        vq, vs = _kv_quantize(v)
+        cache["k"][li][bi, :, :, pos] = kq  # (B, T, H, D) into (B, H, D, S)
+        cache["v"][li][bi, :, pos, :] = vq
+        cache["k_scale"][li][bi, :, pos] = ks
+        cache["v_scale"][li][bi, :, pos] = vs
+        # the kernels take the stacked cache and the layer index: a per-layer
+        # copy of the cache would move ~2.2 GB per 7B decode step at B = 8
+        if kernel_attends(cache, cfg, T, Hq):
+            if T == 1:
+                # the step's token is written: attend over the positions
+                # before it with the token folded in, as the JAX package's
+                # deferred write
+                attn = decode_attention_int8_stacked(
+                    q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], li, starts,
+                    new_kv=(kq[:, 0], ks[:, 0], vq[:, 0], vs[:, 0]), window=cfg.sliding_window,
+                    softcap=cfg.attn_logit_softcap, sm_scale=_sm_scale(cfg),
+                )
+            else:
+                attn = prefill_attention_int8_stacked(
+                    q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], li,
+                    starts=starts, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
+                    sm_scale=_sm_scale(cfg),
+                )
+            return attn, cache
+        # the shapes the kernels decline: dequantize layer li alone (never
+        # the stacked cache) and make it seq-major
+        k_full = _kv_dequantize(cache["k"][li].transpose(-1, -2), cache["k_scale"][li],
+                                cfg.dtype).transpose(1, 2)
+        v_full = _kv_dequantize(cache["v"][li], cache["v_scale"][li], cfg.dtype).transpose(1, 2)
+        write_and_attend.dequant_calls += 1
+    if mask is None:
+        mask = _cache_mask(positions, S, cfg.sliding_window)
+    attn = _attention(q, k_full, v_full, mask, cfg.dtype, sm_scale=_sm_scale(cfg),
+                      softcap=cfg.attn_logit_softcap)
     return attn, cache
+
+
+# calls of the dequantize-then-attend route (int8 cache) and of the bf16 cache's
+write_and_attend.dequant_calls = 0
+write_and_attend.bf16_calls = 0
 
 
 def llama_forward(
@@ -534,14 +606,19 @@ def llama_forward(
     norm_off = cfg.norm_offset
     use_cache = cache is not None
     sw = cfg.sliding_window
-    mask = mask_global = None  # with a cache the kernels mask by position
+    alternating = cfg.sliding_alternating and sw is not None
+    mask = mask_global = None  # the kernels mask by position
     if not use_cache:
         mask = mask_global = torch.tril(
             torch.ones((T, T), dtype=torch.bool, device=dev))[None].expand(B, T, T)
         if sw is not None:
             q_ids = torch.arange(T, device=dev)[:, None]
             mask = mask & ((q_ids - torch.arange(T, device=dev)[None, :]) < sw)[None]
-    alternating = cfg.sliding_alternating and sw is not None
+    elif not kernel_attends(cache, cfg, T, cfg.num_heads):
+        # the absolute-position mask of the _attention route, once a forward
+        S = cache["v"].shape[3]
+        mask = _cache_mask(positions, S, sw)
+        mask_global = _cache_mask(positions, S, None) if alternating else mask
     if alternating:
         cfg_global = dataclasses.replace(cfg, sliding_window=None)
 
@@ -563,7 +640,7 @@ def llama_forward(
         k = _rope(k.reshape(B, T, cfg.num_kv_heads, cfg.hd), positions, cfg.rope_theta)
         v = v.reshape(B, T, cfg.num_kv_heads, cfg.hd)
         if use_cache:
-            attn, cache = write_and_attend(cache, li, q, k, v, positions, lcfg)
+            attn, cache = write_and_attend(cache, li, q, k, v, positions, lcfg, lmask)
         else:
             attn = _attention(q, k, v, lmask, cfg.dtype, sm_scale=_sm_scale(cfg),
                               softcap=cfg.attn_logit_softcap)

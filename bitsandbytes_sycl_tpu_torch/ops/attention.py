@@ -35,8 +35,9 @@ from . import _build
 from .common import check_cuda_tensors, scratch_buffer, sm_count, ticket_buffer
 
 __all__ = [
-    "prefill_attention_int8_stacked", "prefill_attn_int8", "prefill_plan",
-    "decode_attention_int8", "decode_attention_int8_stacked", "decode_attn_int8",
+    "prefill_attention_int8_stacked", "prefill_attention_ok", "prefill_attn_int8",
+    "prefill_plan", "decode_attention_int8", "decode_attention_int8_stacked",
+    "decode_attention_ok", "decode_attn_int8",
     "decode_plan", "DecodePlan",
 ]
 
@@ -141,6 +142,23 @@ prefill_attn_int8.launches = 0
 prefill_attn_int8.launches_tc = 0
 
 
+def prefill_attention_ok(T: int, S: int, D: int, Hq: int, Hkv: int, tq: int = 256,
+                         ts: int = 512) -> bool:
+    """Whether the JAX package's prefill kernel takes these shapes: D a
+    multiple of 128, Hq of Hkv, and T and S tiled by query and key tiles
+    of at least 8 and 128 rows (T < 8 never is). Where it is False the
+    model attends through its dequantize-then-attend route, as the JAX
+    package does, and ``prefill_attention_int8_stacked`` raises."""
+    tq = min(tq, T)
+    while T % tq != 0 and tq > 8:
+        tq //= 2
+    ts = min(ts, S)
+    while S % ts != 0 and ts >= 256:
+        ts //= 2
+    return (D % 128 == 0 and Hq % Hkv == 0 and T % tq == 0 and S % ts == 0 and tq >= 8
+            and ts >= 128)
+
+
 def prefill_attention_int8_stacked(
     q: torch.Tensor,  # (B, T, Hq, D)
     kq: torch.Tensor,  # (L, B, Hkv, D, S) int8
@@ -159,17 +177,11 @@ def prefill_attention_int8_stacked(
     """Causal flash attention of q over layer ``li`` of the int8 cache,
     (B, T, Hq, D). Raises ValueError on the shapes the JAX kernel declines
     (D not a multiple of 128, Hq not a multiple of Hkv, T or S that its
-    tiles cannot cover); the JAX package attends those without the kernel,
-    and the port has no such path."""
+    tiles cannot cover: ``prefill_attention_ok``); the model attends those
+    through its dequantize-then-attend route, as the JAX package does."""
     B, T, Hq, D = q.shape
     Hkv, S = vq.shape[2], vq.shape[3]
-    tq = min(tq, T)
-    while T % tq != 0 and tq > 8:
-        tq //= 2
-    ts = min(ts, S)
-    while S % ts != 0 and ts >= 256:
-        ts //= 2
-    if D % 128 != 0 or Hq % Hkv != 0 or T % tq != 0 or S % ts != 0 or tq < 8 or ts < 128:
+    if not prefill_attention_ok(T, S, D, Hq, Hkv, tq, ts):
         raise ValueError(f"prefill_attention_int8_stacked: the kernel does not take "
                          f"T={T}, S={S}, D={D}, Hq={Hq}, Hkv={Hkv}")
     if window is not None and window >= S:
@@ -333,6 +345,16 @@ decode_attn_int8.launches = 0
 decode_attn_int8.launches_split = 0
 
 
+def decode_attention_ok(T: int, S: int, D: int, Hq: int, Hkv: int) -> bool:
+    """Whether the JAX package's decode kernel takes these shapes: one
+    query row, D and S multiples of 128, Hq a multiple of Hkv, and one
+    row's K and V within 8 MiB. Where it is False the model attends
+    through its dequantize-then-attend route, as the JAX package does, and
+    ``decode_attention_int8_stacked`` raises."""
+    return (T == 1 and D % 128 == 0 and Hq % Hkv == 0 and S % 128 == 0
+            and 2 * S * D <= 8 * 1024 * 1024)
+
+
 def decode_attention_int8_stacked(
     q: torch.Tensor,  # (B, 1, Hq, D)
     kq: torch.Tensor,  # (L, B, Hkv, D, S) int8
@@ -350,11 +372,12 @@ def decode_attention_int8_stacked(
     """Single-step attention over layer ``li`` of the stacked cache, (B, 1,
     Hq, D) in q's dtype. Raises ValueError on the shapes the JAX kernel
     declines (T != 1, D or S not a multiple of 128, Hq not a multiple of
-    Hkv, K and V of one row over 8 MiB); the JAX package attends those
-    without the kernel, and the port has no such path."""
+    Hkv, K and V of one row over 8 MiB: ``decode_attention_ok``); the model
+    attends those through its dequantize-then-attend route, as the JAX
+    package does."""
     B, T, Hq, D = q.shape
     Hkv, S = vq.shape[2], vq.shape[3]
-    if T != 1 or D % 128 != 0 or Hq % Hkv != 0 or S % 128 != 0 or 2 * S * D > 8 * 1024 * 1024:
+    if not decode_attention_ok(T, S, D, Hq, Hkv):
         raise ValueError(f"decode_attention_int8_stacked: the kernel does not take "
                          f"T={T}, S={S}, D={D}, Hq={Hq}, Hkv={Hkv}")
     if window is not None and window >= S:

@@ -103,6 +103,32 @@ Phases, each of which exits non-zero on failure:
      outlier columns) at 4 rows (225 launches of I) and one layer's seven
      trainable ones forward and backward at 128 rows (7 of I), against the
      plain route;
+  9. the rest of the serving engine at Llama-7B width and depth, after
+     phase 4b, on phase 3's NF4 weights and prompts: (a) the paged engine
+     serving 4 stacked adapters (rank 64, alpha 16, all seven projections):
+     all 8 requests on adapter 0 (B = 0) give phase 3's tokens bit for bit,
+     then the requests spread over the four; (b) a seeded 512-token prefix
+     registered once (G at 512 rows, C at T = 512), phase 3's prompts as
+     suffixes, contiguous and paged, whole and in 16-token chunks: every
+     slot's first 512 positions hold the stored prefix KV bit for bit, C
+     runs every suffix prefill at starts 512 (+ the chunk's offset), and
+     the suffix prefill is timed beside the same prompts prefilled whole;
+     (c) snapshots of the paged and the contiguous engine after 8 decode
+     steps, greedy and sampled: 8 more steps after restore() and after
+     restore_durable() of a torch.save'd durable_snapshot() equal the
+     uninterrupted engine's bit for bit; (d) the bf16 KV cache
+     (kv_quant=False, contiguous): no C, D or H launch, A 225 times a
+     decode step; (e) PagedKVPool at the 7B layer shape: its bytes equal
+     paged_ingest's, one decode step written, one layer attended (one D
+     launch within 1% of its plain version); (f) speculative decoding with
+     the LLM.int8 7B target (built here from seed 0, kept for phase 6) and
+     the NF4 7B draft, gamma 4, 4 ragged prompts, 32 new tokens: greedy
+     tokens equal to the target's own generate() under the gap rule,
+     launches exactly I 225 a target forward, A 225 a draft forward, H 32 a
+     draft decode step, and the dequantize-then-attend route 32 a verify
+     and a draft ingest (and nowhere else in the script); sampling runs;
+     at 2 layers the host loop against the loop variant. (a), (b) and (d)
+     also run 2 layers at 7B width on the card against the CPU;
 Every prefill of phases 3, 3b, 3c, 4b and 6 must run C's tensor-core body
 (the model's q is bf16), every paged decode launch D's split body, every
 contiguous decode launch H's split body, and every decode step's W4A8
@@ -1861,22 +1887,36 @@ def check_edges(torch):
 
 
 # --------------------------------------------------------------- phases 3-5
+def counted(kernels):
+    """The kernel wrappers and the model's write_and_attend, whose
+    ``dequant_calls`` and ``bf16_calls`` count the layer attentions that
+    ran through _attention (the dequantize-then-attend route, the bf16
+    cache) instead of a kernel."""
+    from bitsandbytes_sycl_tpu_torch.models.llama import write_and_attend
+
+    return (*kernels, write_and_attend)
+
+
 def reset_counts(kernels):
     """Every launch counter of each wrapper to 0 (``launches`` and the
-    per-body ones, ``launches_tc`` of B and ``launches_wgmma`` of G)."""
-    for k in kernels:
-        for a in [a for a in vars(k) if a.startswith("launches")]:
+    per-body ones, ``launches_tc`` of B and ``launches_wgmma`` of G), and
+    the model's route counters."""
+    for k in counted(kernels):
+        for a in [a for a in vars(k) if a.startswith("launches") or a.endswith("_calls")]:
             setattr(k, a, 0)
 
 
 def read_counts(kernels):
     """{wrapper: launches} plus {wrapper.body: launches} for the per-body
-    counters (``mm4_fused.tc``, ``w4a8_grouped.wgmma``)."""
+    counters (``mm4_fused.tc``, ``w4a8_grouped.wgmma``), and the model's
+    route counters (``write_and_attend.dequant``, ``write_and_attend.bf16``)."""
     out = {}
-    for k in kernels:
+    for k in counted(kernels):
         for a, v in vars(k).items():
             if a.startswith("launches"):
                 out[k.__name__ + a[len("launches"):].replace("_", ".", 1)] = v
+            elif a.endswith("_calls"):
+                out[f"{k.__name__}.{a[:-len('_calls')]}"] = v
     return out
 
 
@@ -1885,9 +1925,13 @@ def need_new_bodies(counts, label, decode=True, per_step=None):
     tensor-core body (the model's q is bf16), with ``decode`` every launch
     of kernel D through its split body, every launch of kernel H
     (decode only) through its split body, and every launch of kernel F
-    through its tiled body. With ``per_step`` (launches per
+    through its tiled body, and no layer attention took the
+    dequantize-then-attend route. With ``per_step`` (launches per
     profiled decode step), every decode step's launches of A went through
     its fused body and those of H through its split body."""
+    need(counts.get("write_and_attend.dequant", 0) == 0,
+         f"{label}: {counts.get('write_and_attend.dequant')} layer attentions took the"
+         " dequantize-then-attend route")
     need(counts["prefill_attn_int8.tc"] == counts["prefill_attn_int8"],
          f"{label}: {counts['prefill_attn_int8'] - counts['prefill_attn_int8.tc']} of"
          f" {counts['prefill_attn_int8']} prefill attention launches missed C's tensor-core body")
@@ -1916,17 +1960,18 @@ def prompts_from_seed(seed, n, vocab):
 
 
 def serve(torch, cfg, params, prompts, max_new, device="cuda", paged=True, per_request=None,
-          max_batch=4, **engine_kw):
+          max_batch=4, lora=None, adapter_ids=None, **engine_kw):
     """generate() through an engine of ``max_batch`` slots (paged, or the
-    default contiguous cache). ``per_request`` maps each request to the
-    logits rows its tokens were sampled from."""
+    default contiguous cache), with stacked adapters ``lora`` and one
+    adapter id per request if given. ``per_request`` maps each request to
+    the logits rows its tokens were sampled from."""
     import numpy as np
 
     from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
 
     ecfg = EngineConfig(max_batch=max_batch, paged=paged, page_size=128, max_new_tokens=max_new,
                         **engine_kw)
-    eng = InferenceEngine(cfg, params, ecfg, device=device)
+    eng = InferenceEngine(cfg, params, ecfg, device=device, lora=lora)
     steps = []
     step = eng.step
     state = {"step": False}
@@ -1957,7 +2002,8 @@ def serve(torch, cfg, params, prompts, max_new, device="cuda", paged=True, per_r
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = eng.generate(prompts, on_token=None if per_request is None else on_token)
+    outs = eng.generate(prompts, adapter_ids=adapter_ids,
+                        on_token=None if per_request is None else on_token)
     if device == "cuda":
         torch.cuda.synchronize()
     return outs, time.perf_counter() - t0, steps
@@ -3936,6 +3982,499 @@ def library_7b(torch, kernels, cfg, device="cuda", shapes=SHAPES_7B):
     return stats
 
 
+# --------------------------------------------------------------- phase 9
+def seeded_adapters(torch, cfg, n, rank=64, alpha=16.0, seed=7, device="cuda"):
+    """n adapters at phase 7b's QLoRA setting (rank 64, alpha 16, all seven
+    projections), stacked: adapter 0 as init_lora leaves it (B = 0), the
+    others with seeded normal B (std 0.01)."""
+    from bitsandbytes_sycl_tpu_torch.models.lora import ALL_TARGETS, init_lora, stack_lora
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    adapters = []
+    with torch.no_grad():
+        for i in range(n):
+            a = init_lora(cfg, seed=seed + i, rank=rank, alpha=alpha, targets=ALL_TARGETS,
+                          device=device)
+            if i:
+                for layer in a:
+                    for ab in layer.values():
+                        ab["B"].copy_(torch.randn(ab["B"].shape, generator=gen, device=device)
+                                      * 0.01)
+            adapters.append(a)
+        return stack_lora(adapters)  # under no_grad: leaves without grad
+
+
+def adapters_to(torch, lora, device, layers=None):
+    """A stacked adapter tree (its first ``layers`` layers) on ``device``."""
+    lora = lora if layers is None else lora[:layers]
+    return [{t: {k: v.to(device) for k, v in ab.items()} for t, ab in layer.items()}
+            for layer in lora]
+
+
+def run_requests(torch, eng, prompts, adapter_ids=None, prefix=None):
+    """add_requests then decode steps until every slot retires, recording
+    the logits each token came from: (outs, per-request logits)."""
+    rec = []
+    sample = eng._sample
+    eng._sample = lambda logits: (rec.append(logits.float().cpu()), sample(logits))[1]
+    slots = eng.add_requests(prompts, adapter_ids=adapter_ids, prefix=prefix)
+    while eng.active.any():
+        eng.step()
+    eng._sample = sample
+    head = 0 if prefix is None else len(eng._prefixes[prefix]["tokens"])
+    outs = [eng.slot_tokens[s][head + len(p):] for s, p in zip(slots, prompts)]
+    logits = {r: [rec[i][s] for i in range(len(outs[r]))] for r, s in enumerate(slots)}
+    return outs, logits
+
+
+def engine_card_vs_cpu(torch, label, cfg2, p_cpu, p_gpu, prompts, lora=None, adapter_ids=None,
+                       prefix=None, new=2, **ekw):
+    """One engine run of 2 layers at 7B width on the card and on the CPU
+    (plain versions): the first tokens' logits within phase 5's limits (4%
+    relative L2, 5% of the largest logit), the greedy tokens equal under
+    the gap rule."""
+    from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
+
+    runs = {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+        eng = InferenceEngine(cfg2, p, EngineConfig(max_batch=len(prompts), max_new_tokens=new,
+                                                    **ekw),
+                              device=dev, lora=None if lora is None else adapters_to(torch, lora, dev))
+        pid = None if prefix is None else eng.register_prefix(prefix)
+        runs[dev] = run_requests(torch, eng, prompts, adapter_ids, pid)
+        del eng
+    (out_c, lg_c), (out_g, lg_g) = runs["cpu"], runs["cuda"]
+    first_c = torch.stack([lg_c[r][0] for r in range(len(prompts))])
+    first_g = torch.stack([lg_g[r][0] for r in range(len(prompts))])
+    need(torch.isfinite(first_g).all().item(), f"{label}: non-finite logits on the card")
+    err, mag = max_err(torch, first_g, first_c)
+    rel = float((first_g - first_c).norm() / first_c.norm())
+    need(rel <= 4e-2, f"{label} card vs CPU: first-token logits relative L2 {rel} > 0.04")
+    need(err <= 5e-2 * mag, f"{label} card vs CPU: first-token logits max err {err} > {5e-2 * mag}")
+    checked = greedy_agree(out_c, lg_c, out_g, f"{label} card vs CPU")
+    print(f"{label} 2-layer 7B-width card vs CPU: first-token logits rel L2 {rel:.3g}, max err"
+          f" {err:.4g} (tol {5e-2 * mag:.4g}); {checked} of {sum(map(len, out_c))} greedy tokens"
+          " compared equal", flush=True)
+    return dict(rel_l2=rel, max_err=err, max_abs=mag, tokens_compared_equal=checked)
+
+
+def lora_7b(torch, cfg, params, prompts, ref_outs, kernels, cpu2):
+    """9a: the paged engine (max_batch 4) serving 4 stacked adapters at
+    phase 7b's setting; all 8 requests on adapter 0 (B = 0) give phase 3's
+    tokens bit for bit; then the requests spread over the 4 adapters."""
+    t0 = time.perf_counter()
+    lora = seeded_adapters(torch, cfg, 4)
+    stats = dict(adapter_gb=sum(v.numel() * 4 for layer in lora for ab in layer.values()
+                                for v in ab.values()) / 1e9)
+    reset_counts(kernels)
+    outs0, wall0, steps0 = serve(torch, cfg, params, prompts, 32, lora=lora,
+                                 adapter_ids=[0] * len(prompts))
+    counts0 = read_counts(kernels)
+    need(outs0 == ref_outs, "[9a] adapter 0 (B = 0): tokens differ from phase 3's")
+    need_new_bodies(counts0, "[9a] adapter 0")
+    ids = [i % 4 for i in range(len(prompts))]
+    reset_counts(kernels)
+    outs, wall, steps = serve(torch, cfg, params, prompts, 32, lora=lora, adapter_ids=ids)
+    counts = read_counts(kernels)
+    need(all(len(o) == 32 for o in outs), f"[9a] wrong output lengths {[len(o) for o in outs]}")
+    need(all(0 <= t < cfg.vocab_size for o in outs for t in o), "[9a] token id out of range")
+    need(any(o != r for o, r, a in zip(outs, ref_outs, ids) if a), "[9a] the adapters never acted")
+    need(all(o == r for o, r, a in zip(outs, ref_outs, ids) if not a),
+         "[9a] adapter 0's requests differ from phase 3's beside other adapters")
+    for k in ("w4a8_gemv", "prefill_attn_int8", "paged_attn_int8"):
+        need(counts[k] > 0, f"[9a] the multi-adapter run never launched {k}")
+    need_new_bodies(counts, "[9a] four adapters")
+    med = sorted(steps)[len(steps) // 2] * 1e3
+    stats.update(seconds_zero_adapter=wall0, seconds=wall, decode_ms_per_step_median=med,
+                 decode_ms_per_step_median_zero_adapter=sorted(steps0)[len(steps0) // 2] * 1e3,
+                 launches=counts, adapter_ids=ids)
+    print(f"[9a] 4 stacked adapters (r 64, all seven projections, {stats['adapter_gb']:.2f} GB):"
+          f" adapter 0 gives phase 3's tokens bit for bit ({wall0:.2f} s); spread over 4"
+          f" adapters {sum(map(len, outs))} tokens in {wall:.2f} s, median {med:.2f} ms/step;"
+          f" launches {counts}", flush=True)
+    cfg2, p_cpu, p_gpu = cpu2
+    lora2 = adapters_to(torch, lora, "cpu", layers=2)
+    del lora
+    stats["card_vs_cpu"] = engine_card_vs_cpu(torch, "[9a]", cfg2, p_cpu, p_gpu, prompts[:2],
+                                              lora=lora2, adapter_ids=[1, 3], paged=True)
+    stats["phase_s"] = time.perf_counter() - t0
+    return stats
+
+
+def prefix_7b(torch, cfg, params, prompts, kernels, cpu2):
+    """9b: a seeded 512-token prefix registered once (G at 512 rows, C at T
+    = 512), phase 3's prompts as suffixes, contiguous and paged, whole and
+    in chunks of 16 (a chunk of 64 would not split the 32-token bucket of
+    these suffixes, as in the JAX engine); every slot's first 512 positions
+    hold the stored prefix KV bit for bit, and kernel C runs every suffix
+    prefill at starts = 512 (+ the chunk's offset)."""
+    from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
+    from bitsandbytes_sycl_tpu_torch.ops import attention
+
+    t0 = time.perf_counter()
+    prefix = long_prompts(40, 1, 512, 512, cfg.vocab_size)[0]
+    starts = []
+    original = attention.prefill_attention_int8_stacked
+
+    def recording(q, kq, ks, vq, vs, li, **kw):
+        if li == 0:  # the model passes starts= by name
+            starts.append((int(kw["starts"].min()), int(kw["starts"].max())))
+        return original(q, kq, ks, vq, vs, li, **kw)
+
+    stats = {}
+    attention.prefill_attention_int8_stacked = recording
+    try:
+        for paged in (False, True):
+            for chunk in (0, 16):
+                label = f"[9b] {'paged' if paged else 'contiguous'}, chunk {chunk or 'none'}"
+                eng = InferenceEngine(cfg, params, EngineConfig(
+                    max_batch=4, max_new_tokens=8, paged=paged, prefill_chunk=chunk), device="cuda")
+                reset_counts(kernels)
+                starts.clear()
+                t_reg = time.perf_counter()
+                pid = eng.register_prefix(prefix)
+                torch.cuda.synchronize()
+                t_reg = time.perf_counter() - t_reg
+                reg = read_counts(kernels)
+                need(reg["w4a8_grouped"] == 7 * cfg.num_layers + 1 and
+                     reg["prefill_attn_int8"] == cfg.num_layers and starts == [(0, 0)],
+                     f"{label}: the prefix prefill launched {reg}, C at {starts}")
+                stored = eng._prefixes[pid]["cache"]
+                reset_counts(kernels)
+                starts.clear()
+                outs, t_suffix = [], 0.0
+                for i in range(0, len(prompts), 4):
+                    sfx = prompts[i:i + 4]
+                    slots = eng.add_requests(sfx, prefix=pid)
+                    torch.cuda.synchronize()
+                    for b, s in enumerate(slots):  # the slot's first 512 positions
+                        if paged:
+                            for j, page in enumerate(eng._alloc.tables[s][:512 // 128]):
+                                for key, pos_axis in (("k", -1), ("v", -2), ("k_scale", -1),
+                                                      ("v_scale", -1)):
+                                    want = stored[key][:, 0].narrow(pos_axis, j * 128, 128)
+                                    if key == "k":
+                                        want = want.transpose(-1, -2)
+                                    need(torch.equal(eng.cache[key][:, page], want),
+                                         f"{label}: page {j} of slot {s} ({key}) is not the prefix's")
+                        else:
+                            for key, pos_axis in (("k", -1), ("v", -2), ("k_scale", -1),
+                                                  ("v_scale", -1)):
+                                need(torch.equal(eng.cache[key][:, s].narrow(pos_axis, 0, 512),
+                                                 stored[key][:, 0].narrow(pos_axis, 0, 512)),
+                                     f"{label}: slot {s}'s first 512 positions ({key}) are not"
+                                     " the prefix's")
+                    while eng.active.any():
+                        eng.step()
+                    outs += [eng.slot_tokens[s][512 + len(p):] for s, p in zip(slots, sfx)]
+                counts = read_counts(kernels)
+                n_calls = len(starts)
+                offs = [512 + c for c in range(0, 32, chunk)] if chunk else [512]
+                need(sorted(set(starts)) == [(o, o) for o in offs] and n_calls == 2 * len(offs),
+                     f"{label}: kernel C ran the suffix prefills at starts {starts}, not {offs}")
+                need(all(len(o) == 8 for o in outs) and all(0 <= t < cfg.vocab_size
+                                                           for o in outs for t in o),
+                     f"{label}: wrong outputs")
+                need_new_bodies(counts, label, decode=paged)
+                need(torch.equal(stored["k"], eng._prefixes[pid]["cache"]["k"]),
+                     f"{label}: the stored prefix changed")
+                stats[label] = dict(register_s=t_reg, register_launches=reg, launches=counts,
+                                    c_starts=starts[:], outputs=outs)
+                # paged decode runs kernel D, contiguous H: the tokens are
+                # compared, not held (phase 3c holds them under the gap rule)
+                first = stats.setdefault("outputs_contiguous", outs)
+                stats[label]["tokens_equal_contiguous"] = sum(
+                    a == b for o, f in zip(outs, first) for a, b in zip(o, f))
+                print(f"{label}: prefix of 512 registered in {t_reg:.3f} s (G {reg['w4a8_grouped']},"
+                      f" C {reg['prefill_attn_int8']}); 8 suffixes over it, C at starts"
+                      f" {sorted(set(starts))}; {stats[label]['tokens_equal_contiguous']} of 64"
+                      f" tokens equal to the contiguous unchunked run's; launches {counts}",
+                      flush=True)
+                del eng, stored
+                torch.cuda.empty_cache()
+    finally:
+        attention.prefill_attention_int8_stacked = original
+    # the suffix prefill beside the same prompts prefilled whole, one batch of 4
+    eng = InferenceEngine(cfg, params, EngineConfig(max_batch=4, max_new_tokens=1),
+                          device="cuda")
+    pid = eng.register_prefix(prefix)
+    times = {}
+    for name, batch, kw in (("suffix", prompts[:4], dict(prefix=pid)),
+                            ("whole", [prefix + p for p in prompts[:4]], {})):
+        for _ in range(2):  # the second, warm
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng.add_requests(batch, **kw)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t1
+    del eng
+    torch.cuda.empty_cache()
+    stats.update(suffix_prefill_s=times["suffix"], whole_prefill_s=times["whole"])
+    print(f"[9b] 4 prompts after the 512-token prefix: suffix prefill {times['suffix'] * 1e3:.1f} ms,"
+          f" the same prompts prefilled whole {times['whole'] * 1e3:.1f} ms", flush=True)
+    cfg2, p_cpu, p_gpu = cpu2
+    stats["card_vs_cpu"] = engine_card_vs_cpu(
+        torch, "[9b]", cfg2, p_cpu, p_gpu, prompts[:2],
+        prefix=long_prompts(41, 1, 64, 64, cfg.vocab_size)[0], new=2)
+    stats["phase_s"] = time.perf_counter() - t0
+    return stats
+
+
+def snapshots_7b(torch, cfg, params, prompts):
+    """9c: snapshot the engine after 8 decode steps, 8 more steps; restore
+    into a fresh engine from snapshot() and from durable_snapshot() through
+    torch.save: the same 8 steps bit for bit. Paged and contiguous, greedy
+    and sampled (temperature 0.8, top-k 5)."""
+    import tempfile
+
+    from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
+
+    t0 = time.perf_counter()
+    stats = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for paged in (True, False):
+            for sampled in (False, True):
+                label = f"[9c] {'paged' if paged else 'contiguous'}, {'sampled' if sampled else 'greedy'}"
+                # a pool of 9 pages holds the 4 slots (a page each) and page 0
+                kw = dict(max_batch=4, max_new_tokens=32, paged=paged, num_pages=9 if paged else 0)
+                if sampled:
+                    kw.update(temperature=0.8, top_k=5)
+                ecfg = EngineConfig(**kw)
+                eng = InferenceEngine(cfg, params, ecfg, device="cuda", seed=3)
+                eng.add_requests(prompts[:4])
+                for _ in range(8):
+                    eng.step()
+                snap = eng.snapshot()
+                path = os.path.join(tmp, "engine.pt")
+                t1 = time.perf_counter()
+                torch.save(eng.durable_snapshot(), path)
+                t_save = time.perf_counter() - t1
+                ref = [eng.step() for _ in range(8)]
+                del eng
+                got = {}
+                for how in ("snapshot", "durable"):
+                    fresh = InferenceEngine(cfg, params, ecfg, device="cuda", seed=11)
+                    if how == "snapshot":
+                        fresh.restore(snap)
+                    else:
+                        fresh.restore_durable(torch.load(path))
+                    got[how] = [fresh.step() for _ in range(8)]
+                    del fresh
+                    need(got[how] == ref, f"{label}: the steps after restore from {how} differ")
+                del snap
+                torch.cuda.empty_cache()
+                stats[label] = dict(tokens=ref, save_s=t_save, file_gb=os.path.getsize(path) / 1e9)
+                print(f"{label}: 8 steps after restore from snapshot() and from durable_snapshot()"
+                      f" ({stats[label]['file_gb']:.2f} GB through torch.save, {t_save:.2f} s) equal"
+                      " the uninterrupted engine's bit for bit", flush=True)
+    stats["phase_s"] = time.perf_counter() - t0
+    return stats
+
+
+def bf16_cache_7b(torch, cfg, params, prompts, kernels, cpu2):
+    """9d: ``cfg`` with kv_quant=False (LlamaConfig.llama7b(kv_quant=False))
+    through the contiguous engine: no attention kernel (C, D, H) launches,
+    A 225 times a decode step, the bf16 cache's _attention 32 times a
+    forward."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, kv_quant=False)
+    reset_counts(kernels)
+    outs, wall, steps = serve(torch, cfg, params, prompts, 32, paged=False)
+    counts = read_counts(kernels)
+    n_fwd = len(steps) + -(-len(prompts) // 4)  # decode steps and prefill batches
+    n_lin = 7 * cfg.num_layers + 1
+    need(all(len(o) == 32 for o in outs) and all(0 <= t < cfg.vocab_size for o in outs for t in o),
+         "[9d] wrong outputs")
+    need(counts["prefill_attn_int8"] == counts["paged_attn_int8"] == counts["decode_attn_int8"] == 0,
+         f"[9d] an int8 attention kernel ran over the bf16 cache: {counts}")
+    need(counts["w4a8_gemv.fused"] == n_lin * len(steps) and counts["w4a8_gemv"] == n_lin * n_fwd,
+         f"[9d] kernel A launched {counts['w4a8_gemv']} times ({counts['w4a8_gemv.fused']} fused),"
+         f" not {n_lin} a forward over {n_fwd} forwards ({len(steps)} decode steps)")
+    need(counts["write_and_attend.bf16"] == cfg.num_layers * n_fwd
+         and counts["write_and_attend.dequant"] == 0,
+         f"[9d] {counts['write_and_attend.bf16']} bf16-cache attention calls, not"
+         f" {cfg.num_layers * n_fwd}")
+    med = sorted(steps)[len(steps) // 2] * 1e3
+    print(f"[9d] llama7b bf16 cache, contiguous: {sum(map(len, outs))} tokens in {wall:.2f} s,"
+          f" median {med:.2f} ms/step; launches {counts}", flush=True)
+    stats = dict(seconds=wall, decode_ms_per_step_median=med, launches=counts, outputs=outs)
+    cfg2, p_cpu, p_gpu = cpu2
+    stats["card_vs_cpu"] = engine_card_vs_cpu(torch, "[9d]", dataclasses.replace(cfg2, kv_quant=False),
+                                              p_cpu, p_gpu, prompts[:2])
+    stats["phase_s"] = time.perf_counter() - t0
+    return stats
+
+
+def paged_pool_7b(torch, cfg, params, prompts, kernels):
+    """9e: PagedKVPool at the 7B layer shape (32 kv heads, D 128, pages of
+    128): ingest the contiguous cache of a 7B prefill of phase 3's prompts
+    (the pool's bytes equal paged_ingest's of the same cache), write one
+    decode step, attend one layer through D's single-layer entry (one
+    launch) within 1% against D's plain version."""
+    import numpy as np
+
+    from bitsandbytes_sycl_tpu_torch.engine import PagedKVPool, init_page_pool, paged_ingest
+    from bitsandbytes_sycl_tpu_torch.models.llama import _kv_quantize, init_kv_cache, llama_forward
+    from bitsandbytes_sycl_tpu_torch.ops import paged_attention
+
+    t0 = time.perf_counter()
+    batch = prompts[:4]
+    toks = torch.tensor([p + [0] * (32 - len(p)) for p in batch], device="cuda")
+    with torch.no_grad():
+        _, cache = llama_forward(params, cfg, toks, init_kv_cache(cfg, 4, "cuda"))
+    pool = PagedKVPool(cfg, num_pages=9, device="cuda")
+    lens = [len(p) for p in batch]
+    slots = [3, 0, 2, 1]
+    for b, s in enumerate(slots):
+        pool.ingest_contiguous(s, cache, b, lens[b])
+    ref = init_page_pool(cfg, 9, 128, "cuda")
+    paged_ingest(ref, cache, np.asarray([pool.tables[s] for s in slots]), [1] * 4, [True] * 4)
+    for key in ref:
+        need(torch.equal(getattr(pool, key), ref[key]), f"[9e] the pool's {key} differs from"
+                                                        " paged_ingest's")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    H, D, li = cfg.num_kv_heads, cfg.hd, cfg.num_layers // 2
+    kq, ks = _kv_quantize(torch.randn((4, 1, H, D), generator=gen, device="cuda"))
+    vq, vs = _kv_quantize(torch.randn((4, 1, H, D), generator=gen, device="cuda"))
+    for b, s in enumerate(slots):
+        pool.extend_slot(s, lens[b] + 1)
+    pool.write_decode_step(li, kq.permute(0, 2, 3, 1), ks.permute(0, 2, 1), vq.permute(0, 2, 1, 3),
+                           vs.permute(0, 2, 1), slots, np.asarray(lens))
+    q = torch.randn((4, 1, cfg.num_heads, D), generator=gen, device="cuda").to(torch.bfloat16)
+    new_len = torch.tensor(lens, dtype=torch.int32, device="cuda") + 1
+    reset_counts(kernels)
+    got = pool.attend(li, q, slots, np.asarray(lens) + 1)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    need(counts["paged_attn_int8"] == 1, f"[9e] attend launched kernel D {counts['paged_attn_int8']}"
+                                         " times, not once")
+    pt = torch.as_tensor(pool.table_array(slots), device="cuda")
+    plain = paged_attention._paged_plain(
+        q.reshape(4, H, 1, D), pool.k[li][None], pool.k_scale[li][None], pool.v[li][None],
+        pool.v_scale[li][None], 0, pt, new_len, None, (1.0 / D ** 0.5) / 127.0, None, None, None)
+    err, mag = max_err(torch, got.reshape(4, H, 1, D), plain)
+    need(err <= 1e-2 * mag, f"[9e] attend: max err {err} > {1e-2 * mag} against D's plain version")
+    written = [bool(torch.equal(pool.k[li, pool.tables[s][lens[b] // 128], :, lens[b] % 128],
+                                kq[b, 0])) for b, s in enumerate(slots)]
+    need(all(written), "[9e] write_decode_step did not write the step's keys where the table says")
+    print(f"[9e] PagedKVPool at the 7B layer shape: 4 rows ingested equal to paged_ingest's bytes;"
+          f" one decode step written; attend (D once, {counts['paged_attn_int8.split']} on its"
+          f" split body) max err {err:.3g} (tol {1e-2 * mag:.3g})", flush=True)
+    del cache, pool, ref
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, tol=1e-2 * mag, launches=counts, phase_s=time.perf_counter() - t0)
+
+
+def speculative_7b(torch, cfg, params, prompts, kernels):
+    """9f: the LLM.int8 7B target (phase 6's weights) with the NF4 7B draft
+    (phase 3's: the same seed-0 draws), gamma 4, 4 ragged prompts of phase
+    3, 32 new tokens through generate_speculative on the int8 engine:
+    greedy tokens equal to the target engine's own generate() under the
+    gap rule, and exact launch counts (I on every target forward, A and H
+    on the draft's steps, the dequantize route on the verify and the
+    draft's two-token ingest only). Then the host loop against the loop
+    variant at 2 layers, and sampling. Returns (stats, the int8 params)."""
+    from bitsandbytes_sycl_tpu_torch.engine import (
+        EngineConfig, InferenceEngine, speculative_generate, speculative_generate_jit)
+    from bitsandbytes_sycl_tpu_torch.models.llama import init_params
+
+    t0 = time.perf_counter()
+    cfg8 = dataclasses.replace(cfg, quant="int8")  # LlamaConfig.llama7b(quant="int8")
+    params8 = init_params(cfg8, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    batch = prompts[:4]
+    gamma, new = 4, 32
+    rec = {}
+    ref, t_ref, _ = serve(torch, cfg8, params8, batch, new, paged=False, per_request=rec)
+    eng = InferenceEngine(cfg8, params8, EngineConfig(max_batch=4, max_new_tokens=new),
+                          device="cuda")
+    eng.generate_speculative(batch[:1], 4, params, cfg, gamma=gamma)  # first use of each shape
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = eng.generate_speculative(batch, new, params, cfg, gamma=gamma)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = read_counts(kernels)
+    st = eng.last_speculative_stats
+    rounds, n_lin, L = st["rounds"], 7 * cfg.num_layers + 1, cfg.num_layers
+    T = max(len(p) for p in batch)
+    need(all(len(o) == new for o in out), f"[9f] wrong output lengths {[len(o) for o in out]}")
+    checked = greedy_agree(ref, rec, out, "[9f] speculative vs the target's greedy")
+    want = {"int8_matmul": n_lin * st["target_calls"],
+            "w4a8_gemv": n_lin * (1 + gamma * rounds),
+            "decode_attn_int8": L * (gamma - 1) * rounds,
+            "prefill_attn_int8": 2 * L if T >= 8 else 0,
+            "write_and_attend.dequant": L * (2 * rounds + (0 if T >= 8 else 2))}
+    got = {k: counts[k] for k in want}
+    need(got == want, f"[9f] launches {got}, not {want}")
+    need(counts["paged_attn_int8"] == 0, "[9f] kernel D ran")
+    ms_tok = wall / (len(batch) * new) * 1e3
+    print(f"[9f] speculative, LLM.int8 7B target + NF4 7B draft, gamma {gamma}: {len(batch)} x"
+          f" {new} tokens in {wall:.2f} s ({ms_tok:.2f} ms a token; the target alone"
+          f" {t_ref / (len(batch) * new) * 1e3:.2f}), acceptance {st['accept_rate']:.3f},"
+          f" {st['target_calls']} target calls over {rounds} rounds; {checked} greedy tokens equal"
+          f" to the target's own generate(); launches {counts}", flush=True)
+    sampled = eng.generate_speculative(batch, 16, params, cfg, gamma=gamma, temperature=0.8, seed=1)
+    need(all(len(o) == 16 and all(0 <= t < cfg.vocab_size for t in o) for o in sampled),
+         "[9f] sampling: wrong outputs")
+    del eng
+    # 2 layers: the host loop and the loop variant against the target's greedy
+    cfg8_2, cfg_2 = (dataclasses.replace(c, num_layers=2) for c in (cfg8, cfg))
+    p8_2, p_2 = (dict(p, layers=p["layers"][:2]) for p in (params8, params))
+    uniform = [p[:5] for p in batch]
+    rec2 = {}
+    ref2, _, _ = serve(torch, cfg8_2, p8_2, uniform, 16, paged=False, per_request=rec2)
+    host, _ = speculative_generate(p8_2, cfg8_2, p_2, cfg_2, torch.tensor(uniform, device="cuda"),
+                                   16, gamma=gamma)
+    loop, _ = speculative_generate_jit(p8_2, cfg8_2, p_2, cfg_2, torch.tensor(uniform, device="cuda"),
+                                       16, gamma=gamma)
+    equal = host.tolist() == loop.tolist()
+    c_host = greedy_agree(ref2, rec2, host.tolist(), "[9f] 2 layers, host loop")
+    c_loop = greedy_agree(ref2, rec2, loop.tolist(), "[9f] 2 layers, loop variant")
+    print(f"[9f] 2 layers: host loop and loop variant tokens equal: {equal}; {c_host} and {c_loop}"
+          " greedy tokens equal to the target's", flush=True)
+    stats = dict(init_int8_s=t_init, seconds=wall, ms_per_token=ms_tok,
+                 target_alone_ms_per_token=t_ref / (len(batch) * new) * 1e3,
+                 accept_rate=st["accept_rate"], target_calls=st["target_calls"], rounds=rounds,
+                 launches=counts, tokens_compared_equal=checked, host_equals_loop_2_layers=equal,
+                 phase_s=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    return stats, params8
+
+
+def serving_engine_7b(torch, cfg, params, prompts, ref_outs, kernels):
+    """Phase 9: the rest of the serving engine at Llama-7B width and depth
+    (9a multi-LoRA, 9b the prefix cache, 9c snapshots, 9d the bf16 cache, 9e
+    PagedKVPool, 9f speculative decoding). Returns (stats, the LLM.int8
+    params 9f built, for phase 6)."""
+    from bitsandbytes_sycl_tpu_torch.models.llama import init_params
+
+    t0 = time.perf_counter()
+    stats = {}
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    p_cpu = init_params(cfg2, seed=1, device="cpu")
+    cpu2 = (cfg2, p_cpu, to_cuda(torch, p_cpu))
+    stats["lora"] = lora_7b(torch, cfg, params, prompts, ref_outs, kernels, cpu2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["prefix"] = prefix_7b(torch, cfg, params, prompts, kernels, cpu2)
+    stats["snapshots"] = snapshots_7b(torch, cfg, params, prompts)
+    stats["bf16_cache"] = bf16_cache_7b(torch, cfg, params, prompts, kernels, cpu2)
+    stats["paged_pool"] = paged_pool_7b(torch, cfg, params, prompts, kernels)
+    del cpu2, p_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["speculative"], params8 = speculative_7b(torch, cfg, params, prompts, kernels)
+    stats["seconds"] = {k: v["phase_s"] for k, v in stats.items()}
+    stats["seconds"]["total"] = time.perf_counter() - t0
+    print(f"[9] phase 9 seconds {json.dumps({k: round(v, 2) for k, v in stats['seconds'].items()})}",
+          flush=True)
+    return stats, params8
+
+
 def to_cuda(torch, o):
     """A params tree (tensors, QLinearWeights, dicts, lists) on the card."""
     from bitsandbytes_sycl_tpu_torch.ops.common import QLinearWeight
@@ -4113,6 +4652,16 @@ def main() -> int:
         w8a8_stats = w8a8_prefill_batches(torch, cfg, params, KERNELS)
         phases["w8a8_prefill_s"] = time.perf_counter() - t0
 
+        # 9. the rest of the serving engine at 7B width and depth: multi-LoRA,
+        # the prefix cache, snapshots, the bf16 cache, PagedKVPool and
+        # speculative decoding (its LLM.int8 target serves phase 6 too)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serving_stats, params8 = serving_engine_7b(torch, cfg, params, prompts, outs, KERNELS)
+        phases["serving_engine_s"] = serving_stats["seconds"]["total"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
         # 7b. QLoRA fine-tuning of Llama-7B on the same frozen NF4 base
         gc.collect()
         t0 = time.perf_counter()
@@ -4184,12 +4733,10 @@ def main() -> int:
         # 6. LLM.int8 Llama-7B (threshold 6, static outlier columns) through
         # the default engine, then card against CPU at 2 layers
         t0 = time.perf_counter()
-        cfg8 = LlamaConfig.llama7b(quant="int8")
-        params8 = init_params(cfg8, seed=0, device="cuda")
-        torch.cuda.synchronize()
+        cfg8 = LlamaConfig.llama7b(quant="int8")  # params8: initialised in phase 9f
         int8_gb = sum(w["CB"].numel() for layer in params8["layers"] for w in layer.values()
                       if isinstance(w, dict)) / 1e9 + params8["lm_head"]["CB"].numel() / 1e9
-        phases["init_int8_s"] = time.perf_counter() - t0
+        phases["init_int8_s"] = serving_stats["speculative"]["init_int8_s"]
         print(f"[6] LLM.int8 Llama-7B: {int8_gb:.2f} GB of int8 weights, initialised in"
               f" {phases['init_int8_s']:.1f} s", flush=True)
         t0 = time.perf_counter()
@@ -4320,7 +4867,7 @@ def main() -> int:
         json.dump(dict(card=card, kernels=report, serve=serve_stats, long_prompts=long_stats,
                        chunked=chunk_stats, contiguous=contig_stats, w8a8_prefill=w8a8_stats,
                        int8=int8_stats, qlora=train_stats, lean=lean_stats, library=library_stats,
-                       phases=phases), f,
+                       serving=serving_stats, phases=phases), f,
                   indent=1, default=str)
     print(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
     print(card)

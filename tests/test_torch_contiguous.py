@@ -285,14 +285,23 @@ def test_w8a8_prefill_first_token_is_the_repacked_models(models, paged):
 
 
 def test_unported_options_still_raise(models):
+    """Tensor parallelism (#13) and other families (#10) still raise; the
+    bf16 cache, prefixes and snapshots (#4, #6) are served (their parity
+    tests: test_torch_bf16_cache.py, test_torch_engine_serving.py)."""
     _, tc, _, tp = models["nf4"]
     eng = InferenceEngine(tc, tp, EngineConfig(max_batch=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A #4"):
-        InferenceEngine(dataclasses.replace(tc, kv_quant=False), tp, EngineConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A #13"):
+        InferenceEngine(tc, tp, EngineConfig(), device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="Queue A #10"):
+        InferenceEngine(tc, tp, EngineConfig(), device="cpu", forward_fn=TL.llama_forward)
+    bf16 = InferenceEngine(dataclasses.replace(tc, kv_quant=False), tp,
+                           EngineConfig(max_batch=2, max_new_tokens=2), device="cpu")
+    assert bf16.cache["k"].dtype == tc.dtype and set(bf16.cache) == {"k", "v"}
+    assert [len(o) for o in bf16.generate([[1, 2, 3]])] == [2]
     with pytest.raises(ValueError, match="kv_quant"):
         InferenceEngine(dataclasses.replace(tc, kv_quant=False), tp, EngineConfig(paged=True),
                         device="cpu")
-    for call in (lambda: eng.register_prefix([1, 2]), eng.snapshot,
-                 lambda: eng.add_requests([[1, 2]], prefix=0)):
-        with pytest.raises(NotImplementedError, match="Queue A #6"):
-            call()
+    pid = eng.register_prefix([1, 2])
+    assert eng.add_requests([[3, 4]], prefix=pid) == [0]
+    assert eng.slot_tokens[0][:4] == [1, 2, 3, 4] and eng.seq_lens[0] == 4
+    assert eng.snapshot()["seq_lens"][0] == 4

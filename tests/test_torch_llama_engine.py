@@ -229,10 +229,11 @@ def test_engine_generate_and_unported_options(models):
     t_eng = InferenceEngine(tc, tp, EngineConfig(max_batch=2, paged=True, temperature=0.8, top_k=5),
                             device="cpu")
     assert all(0 <= t < 256 for o in t_eng.generate(prompts[:2], max_new_tokens=3) for t in o)
-    # the bf16 cache has no kernel yet, in either mode (the paged pool
+    # the bf16 cache serves through the contiguous engine (the paged pool
     # never takes it)
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(dataclasses.replace(tc, kv_quant=False), tp, EngineConfig(), device="cpu")
+    bf16 = InferenceEngine(dataclasses.replace(tc, kv_quant=False), tp, EngineConfig(max_batch=2),
+                           device="cpu")
+    assert [len(o) for o in bf16.generate(prompts[:2], max_new_tokens=3)] == [3, 3]
     with pytest.raises(ValueError, match="kv_quant"):
         InferenceEngine(dataclasses.replace(tc, kv_quant=False), tp, EngineConfig(paged=True),
                         device="cpu")
@@ -262,10 +263,12 @@ def test_engine_generate_and_unported_options(models):
     want = np.stack([jlog[2][0], jlog[1][1]])
     _close_logits(tlog[0], want)
     assert c_eng.slot_tokens[0][-1] == je.slot_tokens[0][-1]
-    with pytest.raises(NotImplementedError):
-        eng.register_prefix([1, 2, 3])
-    with pytest.raises(NotImplementedError):
-        eng.snapshot()
+    # prefixes and snapshots serve in paged mode too (their parity tests:
+    # test_torch_engine_serving.py)
+    pid = eng.register_prefix([1, 2, 3])
+    slot = eng.add_requests([[4, 5]], prefix=pid, max_new_tokens=2)[0]
+    assert eng.slot_tokens[slot][:5] == [1, 2, 3, 4, 5]
+    assert eng.snapshot()["page_tables"][slot] == eng._alloc.tables[slot]
     with pytest.raises(ValueError, match="page_size"):
         InferenceEngine(dataclasses.replace(tc, max_seq_len=200), tp,
                         EngineConfig(paged=True), device="cpu")
