@@ -1,4 +1,4 @@
-"""Turn the JAX package's Llama parameters, LoRA adapters, optimizer
+"""Turn the JAX package's model parameters, LoRA adapters, optimizer
 states, QuantStates and ``nn`` modules' variables into the port's.
 
 The input is the JAX parameter tree with its arrays converted to numpy
@@ -69,11 +69,14 @@ def _convert(obj, device):
 
 
 def params_from_jax(tree: Dict, cfg, device=None) -> Dict:
-    """The JAX package's llama params (numpy leaves) as the port's params:
-    embed, norms, per-layer QLinearWeights or LLM.int8 dicts and the
-    optional lm_head."""
-    if getattr(cfg, "num_experts", 1) > 1:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP Queue A #10)")
+    """The JAX package's params of any family (numpy leaves) as the port's,
+    the same tree: Llama's embed, norms, per-layer QLinearWeights or
+    LLM.int8 dicts and optional lm_head, with a MoE layer's router and
+    stacked experts (QLinearWeights whose packed and absmax carry a leading
+    expert dimension); the GPT-J and OPT substrates' ``wte``, ``wpe``,
+    ``ln_*`` and ``*_b`` leaves. ``cfg`` is the model's config; the tree
+    alone decides the layout."""
+    del cfg
     dev = resolve_device(device)
     return _convert(tree, dev)
 

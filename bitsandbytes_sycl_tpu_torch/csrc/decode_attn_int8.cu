@@ -16,11 +16,18 @@
 // Bound on the H100: memory. Each used position's K and V bytes (2 D per kv
 // head) and scales are read once; a position costs ~4 flops per byte.
 //
-// Two bodies; the wrapper picks one (`ops/attention.decode_plan`).
+// Two bodies; the wrapper picks one (`ops/attention.decode_plan`). Both take
+// any group size rep = Hq / Hkv: a CTA serves a group of kG q heads of one
+// kv head (kG a template constant, each K/V read shared by the group), and
+// the rep heads of a kv head are ceil(rep / kG) groups on the grid's third
+// axis. A last group with fewer than kG heads repeats its last head in the
+// spare places and stores only its own heads. kG = rep for rep 1, 2 and 4
+// (and 8 in the SIMT body): one group, as before.
 //
-// Split body (`decode_split_kernel`: D = 128, rep 1, 2 or 4, S % 16 == 0):
-// flash-decoding over the contiguous layout. The grid is (kv head, batch
-// row, split); split z takes an equal share of the 128-position tiles of
+// Split body (`decode_split_kernel`: D = 128, S % 16 == 0, groups of up
+// to 4 heads): flash-decoding over the contiguous layout. The grid is (kv
+// head, batch row, group x split); split z takes an equal share of the
+// 128-position tiles of
 // the row's used span [lo, len), read from the lengths on the card, so
 // every CTA of a row gets the same work however long the row; the plan
 // sets the split count from host-known sizes only. One thread brings each
@@ -29,22 +36,23 @@
 // contiguous bytes and the two scale rows by bulk copies, so two tiles
 // (66 KB) stream in while one is scored and a short row is one round trip.
 // Each of the 8 warps takes 16 positions of a tile. Scores: a lane holds q
-// at 4 dims (32 j + lane) of each rep head in registers and reads those K
-// rows' 16 positions as one 16-byte piece (the swizzle keeps the 8 lanes of
+// at 4 dims (32 j + lane) of each head of its group in registers and reads
+// those K rows' 16 positions as one 16-byte piece (the swizzle keeps the 8
+// lanes of
 // a load phase on 8 banks), then 16 shuffles per head leave each lane
 // with one position's score. Each warp keeps its own online softmax (m, l
 // warp-uniform), with masked positions at weight 0, so an empty share
 // keeps l = 0 and acc = 0. P.V: 8 lanes read one V row in 16-byte pieces,
 // 4 rows a load. int8 becomes f32 by a byte permute into 2^23's mantissa
-// and one add. The warps merge in shared memory in a fixed order; each
-// split writes its (m, l, acc) to an f32 scratch and takes a ticket (a
-// fence, then atomicAdd on a per-(b, hk) counter): the row's last CTA
+// and one add. The warps merge in shared memory in a fixed order; each split
+// writes its (m, l, acc) to an f32 scratch and takes a ticket (a fence,
+// then atomicAdd on a per-(b, hk, group) counter): the group's last CTA
 // merges the partials in split order (so the output repeats bit for bit),
 // folds in new_kv and sets the counter back to 0.
 //
-// SIMT body (`decode_kernel`, f32 or bf16 q, the shapes the split body does
-// not take): one block of 8 warps per (kv head, batch row); all rep q heads
-// of the kv head share each K/V read. The block walks only positions < len
+// SIMT body (`decode_kernel`, f32 or bf16 q, D = 128 to 512 in steps of
+// 128, groups of up to 8 heads): one block of 8 warps per (kv head, batch
+// row, group); the heads of the group share each K/V read. The block walks only positions < len
 // (from the window's first position, where one binds), 1024 at a time.
 // Scores: K is stored (D, S), so a thread takes 4 consecutive positions and
 // reads one 4-byte word per d, a warp 128 contiguous bytes of each K row.
@@ -66,7 +74,15 @@ __device__ __forceinline__ void unpack4(uint32_t w, float (&v)[4]) {
   for (int e = 0; e < 4; ++e) v[e] = (float)(int8_t)((w >> (8 * e)) & 0xffu);
 }
 
-// kDW = D / 128: the 4-byte words of a V row that each lane reads.
+// the q head of place r of group g (rep heads per kv head, groups of kG):
+// a place past the last head repeats it
+template <int kG>
+__device__ __forceinline__ int group_head(int g, int r, int rep) {
+  return min(g * kG + r, rep - 1);
+}
+
+// kRep: the heads of a group; kDW = D / 128: the 4-byte words of a V row
+// that each lane reads.
 template <int kRep, int kDW>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restrict__ kc,
@@ -74,18 +90,20 @@ decode_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restrict__
               const float* __restrict__ vs, const int* __restrict__ lens,
               const float* __restrict__ alibi, const int8_t* __restrict__ kn,
               const float* __restrict__ ksn, const int8_t* __restrict__ vn,
-              const float* __restrict__ vsn, void* out, int li, int B, int Hkv, int S,
+              const float* __restrict__ vsn, void* out, int li, int B, int Hkv, int rep, int S,
               int window, float scale, float softcap) {
   constexpr int D = 128 * kDW;
   constexpr int kScratch = kCH > kWarps * D ? kCH : kWarps * D;
   extern __shared__ float smem[];
-  float* qs = smem;                      // [rep][D]
-  float* sc = qs + kRep * D;             // [rep][kCH]; at the end [warps][rep][D]
+  float* qs = smem;                      // [kRep][D]
+  float* sc = qs + kRep * D;             // [kRep][kCH]; at the end [warps][kRep][D]
   float* red = sc + kRep * kScratch;     // [32]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const size_t qbase = ((size_t)b * Hkv + hk) * kRep * D;
-  for (int i = tid; i < kRep * D; i += kThreads) qs[i] = ld_f(q, qbase + i, q_bf16);
+  const int hk = blockIdx.x, b = blockIdx.y, grp = blockIdx.z;
+  const int nr = min(kRep, rep - grp * kRep);  // this group's own heads
+  const size_t hbase = ((size_t)b * Hkv + hk) * rep;  // the kv head's first q head
+  for (int i = tid; i < kRep * D; i += kThreads)
+    qs[i] = ld_f(q, (hbase + group_head<kRep>(grp, i / D, rep)) * D + i % D, q_bf16);
 
   const size_t slab = ((size_t)li * B + b) * Hkv + hk;
   const int8_t* K = kc + slab * D * S;
@@ -101,9 +119,10 @@ decode_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restrict__
   const float inv_cap = softcap > 0.0f ? 1.0f / softcap : 0.0f;
   const float inv127 = (float)(1.0 / 127.0);
 
-  float m[kRep], l[kRep], acc[kRep][kDW][4];
+  float m[kRep], l[kRep], acc[kRep][kDW][4], slope[kRep];
 #pragma unroll
   for (int r = 0; r < kRep; ++r) {
+    slope[r] = alibi != nullptr ? alibi[(size_t)hk * rep + group_head<kRep>(grp, r, rep)] : 0.0f;
     m[r] = -1e30f;
     l[r] = 0.0f;
 #pragma unroll
@@ -140,7 +159,7 @@ decode_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restrict__
 #pragma unroll
         for (int r = 0; r < kRep; ++r) {
           float s = dot[r][e] * kscale;
-          if (alibi != nullptr) s = s + alibi[hk * kRep + r] * (float)(pos - qpos);
+          if (alibi != nullptr) s = s + slope[r] * (float)(pos - qpos);
           if (softcap > 0.0f) s = softcap * tanhf(s * inv_cap);
           sc[r * kCH + 4 * tid + e] = valid ? s : -1e30f;
         }
@@ -208,6 +227,7 @@ decode_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restrict__
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < kRep; ++r) {
+    if (r >= nr) break;
     for (int d = tid; d < D; d += kThreads) {
       float o = 0.0f;
 #pragma unroll
@@ -221,7 +241,7 @@ decode_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restrict__
       } else {
         o = o * (len > 0 ? 1.0f / l[r] : 0.0f);
       }
-      st_f(out, qbase + (size_t)r * D + d, o, q_bf16);
+      st_f(out, (hbase + grp * kRep + r) * D + d, o, q_bf16);
     }
   }
 }
@@ -230,8 +250,8 @@ template <int kRep, int kDW>
 int launch(dim3 grid, cudaStream_t st, const void* q, int q_bf16, const int8_t* kc,
            const float* ks, const int8_t* vc, const float* vs, const int* lens,
            const float* alibi, const int8_t* kn, const float* ksn, const int8_t* vn,
-           const float* vsn, void* out, int li, int B, int Hkv, int S, int window, float scale,
-           float softcap) {
+           const float* vsn, void* out, int li, int B, int Hkv, int rep, int S, int window,
+           float scale, float softcap) {
   constexpr int D = 128 * kDW;
   constexpr int kScratch = kCH > kWarps * D ? kCH : kWarps * D;
   const size_t shmem = ((size_t)kRep * D + (size_t)kRep * kScratch + 32) * sizeof(float);
@@ -242,7 +262,7 @@ int launch(dim3 grid, cudaStream_t st, const void* q, int q_bf16, const int8_t* 
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<grid, kThreads, shmem, st>>>(q, q_bf16, kc, ks, vc, vs, lens, alibi, kn, ksn, vn, vsn,
-                                        out, li, B, Hkv, S, window, scale, softcap);
+                                        out, li, B, Hkv, rep, S, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -295,8 +315,8 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
                     const float* __restrict__ alibi, const int8_t* __restrict__ kn,
                     const float* __restrict__ ksn, const int8_t* __restrict__ vn,
                     const float* __restrict__ vsn, void* out, float* __restrict__ part,
-                    int* __restrict__ tickets, int li, int B, int Hkv, int S, int window,
-                    float scale, float softcap) {
+                    int* __restrict__ tickets, int li, int B, int Hkv, int rep, int S,
+                    int nsplit, int window, float scale, float softcap) {
   constexpr int D = kSD, kW = kSplitWarps;
   constexpr int kElems = kRep * D, kPer = (kElems + kSplitThreads - 1) / kSplitThreads;
   extern __shared__ uint8_t smem_raw[];
@@ -306,9 +326,11 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 3, c = lane & 7;  // P.V: token group of the warp, 16-byte piece
-  const int hk = blockIdx.x, b = blockIdx.y, z = blockIdx.z, nsplit = gridDim.z;
-  const size_t pair = (size_t)b * Hkv + hk;
-  const size_t qbase = pair * kRep * D;
+  const int hk = blockIdx.x, b = blockIdx.y, z = blockIdx.z % nsplit, grp = blockIdx.z / nsplit;
+  const int nr = min(kRep, rep - grp * kRep);         // this group's own heads
+  const size_t kvp = (size_t)b * Hkv + hk;            // the new token's row
+  const size_t hbase = kvp * rep;                     // the kv head's first q head
+  const size_t pair = kvp * (gridDim.z / nsplit) + grp;  // tickets and partials: per group
   const size_t slab = ((size_t)li * B + b) * Hkv + hk;
   const int len = lens[b];
   const bool has_new = kn != nullptr;
@@ -348,7 +370,8 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
 #pragma unroll
   for (int r = 0; r < kRep; ++r)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) qr[r][j] = ld_f(q, qbase + r * D + 32 * j + lane, q_bf16);
+    for (int j = 0; j < 4; ++j)
+      qr[r][j] = ld_f(q, (hbase + group_head<kRep>(grp, r, rep)) * D + 32 * j + lane, q_bf16);
   // the new token's score for each rep head, in every lane (only the CTA
   // that finishes the row uses it), and this thread's new V values
   float sn[kRep], vnf[kPer];
@@ -356,8 +379,8 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
   if (has_new) {
     float kf[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) kf[j] = (float)kn[pair * D + 32 * j + lane];
-    const float ks_new = ksn[pair] * scale;
+    for (int j = 0; j < 4; ++j) kf[j] = (float)kn[kvp * D + 32 * j + lane];
+    const float ks_new = ksn[kvp] * scale;
 #pragma unroll
     for (int r = 0; r < kRep; ++r) {
       float v = 0.0f;
@@ -367,17 +390,17 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
       if (softcap > 0.0f) v = softcap * tanhf(v * inv_cap);
       sn[r] = v;
     }
-    vsn_s = vsn[pair] * inv127;
+    vsn_s = vsn[kvp] * inv127;
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       const int e = tid + k * kSplitThreads;
-      vnf[k] = e < kElems ? (float)vn[pair * D + e % D] : 0.0f;
+      vnf[k] = e < kElems ? (float)vn[kvp * D + e % D] : 0.0f;
     }
   }
   float m[kRep], l[kRep], acc[kRep][16], slope[kRep];
 #pragma unroll
   for (int r = 0; r < kRep; ++r) {
-    slope[r] = alibi != nullptr ? alibi[hk * kRep + r] : 0.0f;
+    slope[r] = alibi != nullptr ? alibi[(size_t)hk * rep + group_head<kRep>(grp, r, rep)] : 0.0f;
     m[r] = -1e30f;
     l[r] = 0.0f;
 #pragma unroll
@@ -516,8 +539,9 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
     Av[k] = As;
   }
   if (nsplit > 1) {
-    float* part_ml = part;                                                       // [pairs][nsplit][kRep][2]
-    float* part_acc = part + (size_t)gridDim.x * gridDim.y * nsplit * kRep * 2;  // [..][kRep][D]
+    // [kv heads x rows x groups][nsplit][kRep][2], then [..][kRep][D]
+    float* part_ml = part;
+    float* part_acc = part + (size_t)gridDim.x * gridDim.y * gridDim.z * kRep * 2;
     const size_t slot = pair * nsplit + z;
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
@@ -567,6 +591,7 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
     const int e = tid + k * kSplitThreads;
     if (e >= kElems) break;
     const int r = e / D;
+    if (r >= nr) break;
     float o;
     if (has_new) {
       float snr = sn[0];
@@ -580,7 +605,7 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
     } else {
       o = Av[k] * (len > 0 ? 1.0f / Lv[k] : 0.0f);
     }
-    st_f(out, qbase + e, o, q_bf16);
+    st_f(out, (hbase + grp * kRep) * D + e, o, q_bf16);
   }
 }
 
@@ -589,22 +614,31 @@ int launch_split(dim3 grid, cudaStream_t st, const CUtensorMap& kmap, const void
                  const float* ks, const int8_t* vc, const float* vs, const int* lens,
                  const float* alibi, const int8_t* kn, const float* ksn, const int8_t* vn,
                  const float* vsn, void* out, float* part, int* tickets, int li, int B, int Hkv,
-                 int S, int window, float scale, float softcap) {
+                 int rep, int S, int nsplit, int window, float scale, float softcap) {
   auto kernel = decode_split_kernel<kRep>;
   const cudaError_t e = allow_smem_once<decode_split_kernel<kRep>>(kSplitSmem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<grid, kSplitThreads, kSplitSmem, st>>>(kmap, q, q_bf16, ks, vc, vs, lens, alibi, kn,
                                                   ksn, vn, vsn, out, part, tickets, li, B, Hkv,
-                                                  S, window, scale, softcap);
+                                                  rep, S, nsplit, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The heads of a group: rep itself for 1, 2 and 4 (and 8 in the SIMT
+// body), else the next of those up to the body's largest
+// (`ops/attention.decode_groups`).
+static int group_size(int rep, int largest) {
+  int g = 1;
+  while (g < rep && g < largest) g *= 2;
+  return g;
+}
+
 // q and out (B, Hkv, rep, D) f32/bf16; kc (L, B, Hkv, D, S) int8; vc (L, B,
 // Hkv, S, D) int8; ks, vs (L, B, Hkv, S) f32; lens (B) int32; alibi (Hkv *
 // rep) f32 or null; kn, vn (B, Hkv, D) int8 and ksn, vsn (B, Hkv) f32, all
-// four null or all four given. rep in {1, 2, 4, 8}, D in {128, 256}, S % 4
+// four null or all four given. rep >= 1, D in {128, 256, 384, 512}, S % 4
 // == 0. window <= 0: none; softcap <= 0: none.
 extern "C" int decode_attn_int8(const void* q, const void* kc, const void* ks, const void* vc,
                                 const void* vs, const void* lens, const void* alibi,
@@ -612,12 +646,12 @@ extern "C" int decode_attn_int8(const void* q, const void* kc, const void* ks, c
                                 void* out, int li, int L, int B, int Hkv, int rep, int D, int S,
                                 int window, int has_new, int q_bf16, float scale, float softcap,
                                 void* stream) {
-  if (li < 0 || li >= L || (rep != 1 && rep != 2 && rep != 4 && rep != 8) ||
-      (D != 128 && D != 256) || S <= 0 || S % 4) {
+  if (li < 0 || li >= L || rep < 1 || D < 128 || D > 512 || D % 128 || S <= 0 || S % 4) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  dim3 grid(Hkv, B);
+  const int kg = group_size(rep, 8);
+  dim3 grid(Hkv, B, (rep + kg - 1) / kg);
   auto* k8 = reinterpret_cast<const int8_t*>(kc);
   auto* v8 = reinterpret_cast<const int8_t*>(vc);
   auto* ksf = reinterpret_cast<const float*>(ks);
@@ -630,28 +664,32 @@ extern "C" int decode_attn_int8(const void* q, const void* kc, const void* ks, c
   auto* vsnf = reinterpret_cast<const float*>(vsn);
 #define BNB_DECODE_LAUNCH(R, W)                                                              \
   return launch<R, W>(grid, st, q, q_bf16, k8, ksf, v8, vsf, ln, al, kn8, ksnf, vn8, vsnf, out, \
-                      li, B, Hkv, S, window, scale, softcap)
-  const int dw = D / 128;
-  switch (rep * 10 + dw) {
-    case 11: BNB_DECODE_LAUNCH(1, 1);
-    case 12: BNB_DECODE_LAUNCH(1, 2);
-    case 21: BNB_DECODE_LAUNCH(2, 1);
-    case 22: BNB_DECODE_LAUNCH(2, 2);
-    case 41: BNB_DECODE_LAUNCH(4, 1);
-    case 42: BNB_DECODE_LAUNCH(4, 2);
-    case 81: BNB_DECODE_LAUNCH(8, 1);
-    default: BNB_DECODE_LAUNCH(8, 2);
+                      li, B, Hkv, rep, S, window, scale, softcap)
+#define BNB_DECODE_WIDTHS(R)                \
+  switch (D / 128) {                        \
+    case 1: BNB_DECODE_LAUNCH(R, 1);        \
+    case 2: BNB_DECODE_LAUNCH(R, 2);        \
+    case 3: BNB_DECODE_LAUNCH(R, 3);        \
+    default: BNB_DECODE_LAUNCH(R, 4);       \
   }
+  switch (kg) {
+    case 1: BNB_DECODE_WIDTHS(1);
+    case 2: BNB_DECODE_WIDTHS(2);
+    case 4: BNB_DECODE_WIDTHS(4);
+    default: BNB_DECODE_WIDTHS(8);
+  }
+#undef BNB_DECODE_WIDTHS
 #undef BNB_DECODE_LAUNCH
 }
 
 // The split body. Arguments as decode_attn_int8's, plus: part, an f32
-// scratch of B * Hkv * nsplit * rep * (D + 2) floats (unused when nsplit
-// == 1); tickets, B * Hkv int32 counters, all 0 (left at 0); nsplit >= 1
-// splits, at most the cache's ceil(S / 128) tiles, split z of a row taking
-// the tiles [t + z n / nsplit, t + (z + 1) n / nsplit) of the n tiles from
-// tile t = min(lo, len) / 128 to the one holding position len - 1. D 128,
-// rep 1, 2 or 4, S % 16 == 0 (the TMA row stride), the caches 16-byte
+// scratch of B * Hkv * groups * nsplit * kG * (D + 2) floats, kG the
+// group size (1, 2 or 4) and groups = ceil(rep / kG) (unused when nsplit
+// == 1); tickets, B * Hkv * groups int32 counters, all 0 (left at 0);
+// nsplit >= 1 splits, at most the cache's ceil(S / 128) tiles, split z of a
+// row taking the tiles [t + z n / nsplit, t + (z + 1) n / nsplit) of the n
+// tiles from tile t = min(lo, len) / 128 to the one holding position len -
+// 1. D 128, rep >= 1, S % 16 == 0 (the TMA row stride), the caches 16-byte
 // aligned.
 extern "C" int decode_attn_int8_split(const void* q, const void* kc, const void* ks, const void* vc,
                                       const void* vs, const void* lens, const void* alibi,
@@ -660,7 +698,7 @@ extern "C" int decode_attn_int8_split(const void* q, const void* kc, const void*
                                       int L, int B, int Hkv, int rep, int D, int S, int nsplit,
                                       int window, int has_new, int q_bf16, float scale,
                                       float softcap, void* stream) {
-  if (li < 0 || li >= L || (rep != 1 && rep != 2 && rep != 4) || D != kSD || S <= 0 || S % 16 ||
+  if (li < 0 || li >= L || rep < 1 || D != kSD || S <= 0 || S % 16 ||
       nsplit < 1 || nsplit > (S + kTile - 1) / kTile ||
       (nsplit > 1 && (part == nullptr || tickets == nullptr))) {
     return (int)cudaErrorInvalidValue;
@@ -672,7 +710,8 @@ extern "C" int decode_attn_int8_split(const void* q, const void* kc, const void*
                                         (uint64_t)L * B * Hkv * D, S, S, D, kTile,
                                         CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
-  dim3 grid(Hkv, B, nsplit);
+  const int kg = group_size(rep, 4);
+  dim3 grid(Hkv, B, ((rep + kg - 1) / kg) * nsplit);
   auto* ksf = reinterpret_cast<const float*>(ks);
   auto* v8 = reinterpret_cast<const int8_t*>(vc);
   auto* vsf = reinterpret_cast<const float*>(vs);
@@ -686,9 +725,9 @@ extern "C" int decode_attn_int8_split(const void* q, const void* kc, const void*
   auto* tk = reinterpret_cast<int*>(tickets);
 #define BNB_SPLIT_LAUNCH(R)                                                                     \
   return launch_split<R>(grid, st, kmap, q, q_bf16, ksf, v8, vsf, ln, al, kn8, ksnf, vn8, vsnf, \
-                         out, pf, tk, li, B, Hkv, S, window, scale, softcap)
-  if (rep == 1) BNB_SPLIT_LAUNCH(1);
-  if (rep == 2) BNB_SPLIT_LAUNCH(2);
+                         out, pf, tk, li, B, Hkv, rep, S, nsplit, window, scale, softcap)
+  if (kg == 1) BNB_SPLIT_LAUNCH(1);
+  if (kg == 2) BNB_SPLIT_LAUNCH(2);
   BNB_SPLIT_LAUNCH(4);
 #undef BNB_SPLIT_LAUNCH
 }

@@ -30,11 +30,17 @@
 // bounds this body now is each CTA's own instruction chain per page (byte
 // permutes, FMAs, shuffles: PERF.md, `chip_smoke.py --probe attention`).
 //
-// Two bodies; the wrapper picks one (`ops/paged_attention.paged_plan`).
+// Two bodies; the wrapper picks one (`ops/paged_attention.paged_plan`). Both
+// take any group size rep = Hq / Hkv: a CTA serves a group of kG q heads of
+// one kv head (kG a template constant, each page read shared by the group),
+// and the rep heads of a kv head are ceil(rep / kG) groups on the grid's
+// third axis. A last group with fewer than kG heads repeats its last head in
+// the spare places and stores only its own heads. kG = rep where rep is 1,
+// 2 or 4 (and 8 in the SIMT body) and the split body's kG * D <= 512 allows.
 //
-// Split body (`paged_split_kernel`, D = 128 or 256, rep * D <= 512, P a
-// multiple of 128): flash-decoding. The grid is (kv head, batch row, split)
-// and split z takes the pages [z u / nsplit, (z + 1) u / nsplit) of the
+// Split body (`paged_split_kernel`, D = 128 or 256, groups of kG heads with
+// kG * D <= 512, P a multiple of 128): flash-decoding. The grid is (kv head,
+// batch row, group x split) and split z takes the pages [z u / nsplit, (z + 1) u / nsplit) of the
 // row's u = max(ceil(len / P), 1) used pages, read from the lengths on the
 // card: every CTA of a row gets an equal share, however long the row. The
 // plan sets `nsplit` from the SMs that one CTA per (row, kv head) would
@@ -65,8 +71,9 @@
 // new_kv, writes the output and sets the counter back to 0. No second
 // kernel: a decode step launches D once per layer, as before.
 //
-// SIMT body (`paged_kernel`, the shapes the split body does not take): one
-// block per (kv head, batch row), D threads, walking the row's used pages
+// SIMT body (`paged_kernel`, the shapes the split body does not take, groups
+// of up to 8 heads): one block per (kv head, batch row, group), D threads,
+// walking the row's used pages
 // in series. Scores: a thread per token; softmax reductions across the
 // block; P.V: a thread per output element.
 #include "common.cuh"
@@ -118,6 +125,14 @@ __device__ __forceinline__ float kv_val(int8_t b, int t) {
   return (float)((c & 8) ? -(c & 7) : (c & 7));
 }
 
+// the q head of place r of group g (rep heads per kv head, groups of kG):
+// a place past the last head repeats it
+template <int kG>
+__device__ __forceinline__ int group_head(int g, int r, int rep) {
+  return min(g * kG + r, rep - 1);
+}
+
+// kRep: the heads of a group
 template <int kRep, bool kKv4>
 __global__ void paged_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restrict__ kp,
                              const float* __restrict__ ks, const int8_t* __restrict__ vp,
@@ -125,17 +140,19 @@ __global__ void paged_kernel(const void* __restrict__ q, int q_bf16, const int8_
                              const int* __restrict__ lens, const float* __restrict__ alibi,
                              const int8_t* __restrict__ kn, const float* __restrict__ ksn,
                              const int8_t* __restrict__ vn, const float* __restrict__ vsn,
-                             void* out, int li, int NP, int Hkv, int D, int P, int MAXP,
-                             int window, float scale, float softcap) {
+                             void* out, int li, int NP, int Hkv, int rep_all, int D, int P,
+                             int MAXP, int window, float scale, float softcap) {
   constexpr int rep = kRep;
   extern __shared__ float smem[];
   float* qs = smem;              // [rep][D]
   float* sc = qs + rep * D;      // [rep][P]
   float* red = sc + rep * P;     // [32]
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const size_t qbase = ((size_t)b * Hkv + hk) * rep * D;
-  for (int i = tid; i < rep * D; i += nt) qs[i] = ld_f(q, qbase + i, q_bf16);
+  const int hk = blockIdx.x, b = blockIdx.y, grp = blockIdx.z;
+  const int nr = min(kRep, rep_all - grp * kRep);  // this group's own heads
+  const size_t hbase = ((size_t)b * Hkv + hk) * rep_all;  // the kv head's first q head
+  for (int i = tid; i < rep * D; i += nt)
+    qs[i] = ld_f(q, (hbase + group_head<kRep>(grp, i / D, rep_all)) * D + i % D, q_bf16);
 
   const int len = lens[b];
   const bool has_new = kn != nullptr;
@@ -145,8 +162,9 @@ __global__ void paged_kernel(const void* __restrict__ q, int q_bf16, const int8_
   const float vfac = kKv4 ? 1.0f / 7.0f : 1.0f / 127.0f;
   const int rows = kKv4 ? P / 2 : P;  // byte rows of a page
 
-  float m[kRep], l[kRep], acc[kRep];
+  float m[kRep], l[kRep], acc[kRep], slope[kRep];
   for (int r = 0; r < kRep; ++r) {
+    slope[r] = alibi != nullptr ? alibi[(size_t)hk * rep_all + group_head<kRep>(grp, r, rep_all)] : 0.0f;
     m[r] = -1e30f;
     l[r] = 0.0f;
     acc[r] = 0.0f;
@@ -178,7 +196,7 @@ __global__ void paged_kernel(const void* __restrict__ q, int q_bf16, const int8_
       const bool valid = pos < len && (window <= 0 || pos >= qpos + 1 - window);
       for (int r = 0; r < rep; ++r) {
         float s = dot[r] * kscale;
-        if (alibi != nullptr) s = s + alibi[hk * rep + r] * (float)(pos - qpos);
+        if (alibi != nullptr) s = s + slope[r] * (float)(pos - qpos);
         if (softcap > 0.0f) s = softcap * tanhf(s * inv_cap);
         sc[r * P + t] = valid ? s : -1e30f;
       }
@@ -213,7 +231,7 @@ __global__ void paged_kernel(const void* __restrict__ q, int q_bf16, const int8_
   // tid == d (blockDim.x == D): each thread finishes its output element
   const int d = tid;
   for (int r = 0; r < rep; ++r) {
-    float o;
+    float o;  // a spare place's sums too: block_reduce wants every thread
     if (has_new) {
       const size_t nb = (size_t)b * Hkv + hk;
       const float part = qs[r * D + d] * (float)kn[nb * D + d];
@@ -228,7 +246,7 @@ __global__ void paged_kernel(const void* __restrict__ q, int q_bf16, const int8_
     } else {
       o = acc[r] * (len > 0 ? 1.0f / l[r] : 0.0f);
     }
-    st_f(out, qbase + (size_t)r * D + d, o, q_bf16);
+    if (r < nr) st_f(out, (hbase + grp * kRep + r) * D + d, o, q_bf16);
   }
 }
 
@@ -258,7 +276,7 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
                    const int8_t* __restrict__ kn, const float* __restrict__ ksn,
                    const int8_t* __restrict__ vn, const float* __restrict__ vsn, void* out,
                    float* __restrict__ part, int* __restrict__ tickets, int li, int NP, int Hkv,
-                   int P, int MAXP, int window, float scale, float softcap) {
+                   int rep, int P, int MAXP, int nsplit, int window, float scale, float softcap) {
   constexpr int D = 128 * kPc, kW = kSplitWarps;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -272,9 +290,11 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 3, c = lane & 7;  // token group of the warp, 16-byte piece
-  const int hk = blockIdx.x, b = blockIdx.y, z = blockIdx.z, nsplit = gridDim.z;
-  const size_t pair = (size_t)b * Hkv + hk;
-  const size_t qbase = pair * kRep * D;
+  const int hk = blockIdx.x, b = blockIdx.y, z = blockIdx.z % nsplit, grp = blockIdx.z / nsplit;
+  const int nr = min(kRep, rep - grp * kRep);            // this group's own heads
+  const size_t kvp = (size_t)b * Hkv + hk;               // the new token's row
+  const size_t hbase = kvp * rep;                        // the kv head's first q head
+  const size_t pair = kvp * (gridDim.z / nsplit) + grp;  // tickets and partials: per group
   const int len = lens[b];
   const bool has_new = kn != nullptr;
   const int qpos = has_new ? len : len - 1;
@@ -294,7 +314,9 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
 #pragma unroll
     for (int p = 0; p < kPc; ++p)
 #pragma unroll
-      for (int i = 0; i < 16; ++i) qr[r][p][i] = ld_f(q, qbase + r * D + (c + 8 * p) * 16 + i, q_bf16);
+      for (int i = 0; i < 16; ++i)
+        qr[r][p][i] = ld_f(q, (hbase + group_head<kRep>(grp, r, rep)) * D + (c + 8 * p) * 16 + i,
+                           q_bf16);
   // the new token's score for each rep head, in every lane (its loads
   // overlap the page loads; only the CTA that finishes the row uses it),
   // and this thread's new V values
@@ -308,13 +330,13 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
 #pragma unroll
     for (int p = 0; p < kPc; ++p) {
       float kf[16];
-      i8x16_to_f32(*reinterpret_cast<const uint4*>(kn + pair * D + (c + 8 * p) * 16), kf);
+      i8x16_to_f32(*reinterpret_cast<const uint4*>(kn + kvp * D + (c + 8 * p) * 16), kf);
 #pragma unroll
       for (int r = 0; r < kRep; ++r)
 #pragma unroll
         for (int e = 0; e < 16; ++e) dn[r] = fmaf(qr[r][p][e], kf[e], dn[r]);
     }
-    const float ks_new = ksn[pair] * scale;
+    const float ks_new = ksn[kvp] * scale;
 #pragma unroll
     for (int r = 0; r < kRep; ++r) {
       float v = dn[r];
@@ -325,17 +347,17 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
       if (softcap > 0.0f) v = softcap * tanhf(v * inv_cap);
       sn[r] = v;
     }
-    vsn_s = vsn[pair] * vfac;
+    vsn_s = vsn[kvp] * vfac;
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       const int e = tid + k * kSplitThreads;
-      vnf[k] = e < kElems ? (float)vn[pair * D + e % D] : 0.0f;
+      vnf[k] = e < kElems ? (float)vn[kvp * D + e % D] : 0.0f;
     }
   }
   float m[kRep], l[kRep], acc[kRep][kPc][16], slope[kRep];
 #pragma unroll
   for (int r = 0; r < kRep; ++r) {
-    slope[r] = alibi != nullptr ? alibi[hk * kRep + r] : 0.0f;
+    slope[r] = alibi != nullptr ? alibi[(size_t)hk * rep + group_head<kRep>(grp, r, rep)] : 0.0f;
     m[r] = -1e30f;
     l[r] = 0.0f;
 #pragma unroll
@@ -497,8 +519,9 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
   __syncthreads();
   // this CTA's (M, L, A) of element e = r * D + d: kept in red_acc[0][e]
   // (A), red_m[r] and red_l[r] (M, L) once every thread has read the warps'
-  float* part_ml = part;                                     // [pairs][nsplit][kRep][2]
-  float* part_acc = part + (size_t)gridDim.x * gridDim.y * nsplit * kRep * 2;  // [..][kRep][D]
+  // [kv heads x rows x groups][nsplit][kRep][2], then [..][kRep][D]
+  float* part_ml = part;
+  float* part_acc = part + (size_t)gridDim.x * gridDim.y * gridDim.z * kRep * 2;
   float Mv[kPer], Lv[kPer], Av[kPer];
 #pragma unroll
   for (int k = 0; k < (kElems + kSplitThreads - 1) / kSplitThreads; ++k) {
@@ -566,6 +589,7 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
     const int e = tid + k * kSplitThreads;
     if (e >= kElems) break;
     const int r = e / D;
+    if (r >= nr) break;
     float o;
     if (has_new) {
       float snr = sn[0];
@@ -580,7 +604,7 @@ paged_split_kernel(const void* __restrict__ q, int q_bf16, const int8_t* __restr
     } else {
       o = Av[k] * (len > 0 ? 1.0f / Lv[k] : 0.0f);
     }
-    st_f(out, qbase + e, o, q_bf16);
+    st_f(out, (hbase + grp * kRep) * D + e, o, q_bf16);
   }
 }
 
@@ -589,38 +613,48 @@ int launch_split(dim3 grid, cudaStream_t st, size_t shmem, const void* q, int q_
                  const int8_t* kp, const float* ks, const int8_t* vp, const float* vs,
                  const int* pt, const int* ln, const float* al, const int8_t* kn,
                  const float* ksn, const int8_t* vn, const float* vsn, void* out, float* part,
-                 int* tickets, int li, int NP, int Hkv, int P, int MAXP, int window,
-                 float scale, float softcap) {
+                 int* tickets, int li, int NP, int Hkv, int rep, int P, int MAXP, int nsplit,
+                 int window, float scale, float softcap) {
   auto kernel = paged_split_kernel<kRep, kPc, kKv4>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kSplitThreads, shmem, st>>>(q, q_bf16, kp, ks, vp, vs, pt, ln, al, kn, ksn, vn,
-                                            vsn, out, part, tickets, li, NP, Hkv, P, MAXP,
-                                            window, scale, softcap);
+                                            vsn, out, part, tickets, li, NP, Hkv, rep, P, MAXP,
+                                            nsplit, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The heads of a group: rep itself for 1, 2 and 4 (and 8 in the SIMT
+// body), else the next of those up to `largest`
+// (`ops/paged_attention.paged_groups`).
+static int group_size(int rep, int largest) {
+  int g = 1;
+  while (g < rep && g < largest) g *= 2;
+  return g;
+}
+
 // q and out (B, Hkv, rep, D) f32/bf16; kp, vp (L, NP, Hkv, P, D) int8, or
 // with kv4 (L, NP, Hkv, P/2, D) uint8 nibble pairs; ks, vs (L, NP, Hkv, P)
 // f32 (kv4: in parity-grouped column order); page_table (B, MAXP) int32;
 // lens (B) int32; alibi (Hkv * rep) f32 or null; kn, vn (B, Hkv, D) int8
-// and ksn, vsn (B, Hkv) f32, all four null or all four given. window <= 0:
-// none; softcap <= 0: none.
+// and ksn, vsn (B, Hkv) f32, all four null or all four given. rep >= 1, D a
+// multiple of 32 up to 1024. window <= 0: none; softcap <= 0: none.
 extern "C" int paged_attn_int8(const void* q, const void* kp, const void* ks, const void* vp,
                                const void* vs, const void* page_table, const void* lens,
                                const void* alibi, const void* kn, const void* ksn, const void* vn,
                                const void* vsn, void* out, int li, int L, int NP, int B, int Hkv,
                                int rep, int D, int P, int MAXP, int window, int has_new,
                                int q_bf16, int kv4, float scale, float softcap, void* stream) {
-  if (li < 0 || li >= L || (rep != 1 && rep != 2 && rep != 4 && rep != 8) || D % 32 ||
-      D > 1024 || P <= 0 || MAXP <= 0 || (kv4 && P % 2)) {
+  if (li < 0 || li >= L || rep < 1 || D % 32 || D <= 0 || D > 1024 || P <= 0 || MAXP <= 0 ||
+      (kv4 && P % 2)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const size_t shmem = ((size_t)rep * D + (size_t)rep * P + 32) * sizeof(float);
-  dim3 grid(Hkv, B);
+  const int kg = group_size(rep, 8);
+  const size_t shmem = ((size_t)kg * D + (size_t)kg * P + 32) * sizeof(float);
+  dim3 grid(Hkv, B, (rep + kg - 1) / kg);
   auto* kp8 = reinterpret_cast<const int8_t*>(kp);
   auto* vp8 = reinterpret_cast<const int8_t*>(vp);
   auto* ksf = reinterpret_cast<const float*>(ks);
@@ -633,18 +667,25 @@ extern "C" int paged_attn_int8(const void* q, const void* kp, const void* ks, co
   auto* vn8 = reinterpret_cast<const int8_t*>(vn);
   auto* vsnf = reinterpret_cast<const float*>(vsn);
 #define BNB_PAGED_LAUNCH(R, KV4)                                                             \
-  paged_kernel<R, KV4><<<grid, D, shmem, st>>>(q, q_bf16, kp8, ksf, vp8, vsf, pt, ln, al, kn8, \
-                                               ksnf, vn8, vsnf, out, li, NP, Hkv, D, P, MAXP, \
-                                               window, scale, softcap)
+  do {                                                                                       \
+    if (shmem > 48 * 1024) {                                                                 \
+      const cudaError_t e = cudaFuncSetAttribute(                                            \
+          paged_kernel<R, KV4>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);   \
+      if (e != cudaSuccess) return (int)e;                                                   \
+    }                                                                                        \
+    paged_kernel<R, KV4><<<grid, D, shmem, st>>>(q, q_bf16, kp8, ksf, vp8, vsf, pt, ln, al,  \
+                                                 kn8, ksnf, vn8, vsnf, out, li, NP, Hkv, rep, \
+                                                 D, P, MAXP, window, scale, softcap);         \
+  } while (0)
   if (kv4) {
-    switch (rep) {
+    switch (kg) {
       case 1: BNB_PAGED_LAUNCH(1, true); break;
       case 2: BNB_PAGED_LAUNCH(2, true); break;
       case 4: BNB_PAGED_LAUNCH(4, true); break;
       default: BNB_PAGED_LAUNCH(8, true); break;
     }
   } else {
-    switch (rep) {
+    switch (kg) {
       case 1: BNB_PAGED_LAUNCH(1, false); break;
       case 2: BNB_PAGED_LAUNCH(2, false); break;
       case 4: BNB_PAGED_LAUNCH(4, false); break;
@@ -656,12 +697,12 @@ extern "C" int paged_attn_int8(const void* q, const void* kp, const void* ks, co
 }
 
 // The split body. Arguments as paged_attn_int8's, plus: part, an f32 scratch
-// of B * Hkv * nsplit * rep * (D + 2) floats (unused when nsplit == 1);
-// tickets, B * Hkv int32 counters, all 0 (left at 0); nsplit <= MAXP
-// splits, split z of a row taking its used pages [z u / nsplit,
-// (z + 1) u / nsplit), u = min(max(ceil(len / P), 1), MAXP). D 128 or
-// 256, rep 1, 2 or 4 with rep * D <= 512, P a multiple of 128; kn 16-byte
-// aligned.
+// of B * Hkv * groups * nsplit * kG * (D + 2) floats, kG the group size
+// (1, 2 or 4, kG * D <= 512) and groups = ceil(rep / kG) (unused when nsplit
+// == 1); tickets, B * Hkv * groups int32 counters, all 0 (left at 0); nsplit
+// <= MAXP splits, split z of a row taking its used pages [z u / nsplit,
+// (z + 1) u / nsplit), u = min(max(ceil(len / P), 1), MAXP). D 128 or 256,
+// rep >= 1, P a multiple of 128; kn 16-byte aligned.
 extern "C" int paged_attn_int8_split(const void* q, const void* kp, const void* ks, const void* vp,
                                      const void* vs, const void* page_table, const void* lens,
                                      const void* alibi, const void* kn, const void* ksn,
@@ -670,14 +711,15 @@ extern "C" int paged_attn_int8_split(const void* q, const void* kp, const void* 
                                      int D, int P, int MAXP, int nsplit, int window,
                                      int has_new, int q_bf16, int kv4, float scale,
                                      float softcap, void* stream) {
-  const size_t shmem = split_smem_bytes(P, D, rep, kv4 != 0);
-  if (li < 0 || li >= L || (D != 128 && D != 256) || (rep != 1 && rep != 2 && rep != 4) ||
-      rep * D > 512 || P <= 0 || P % kChunk || MAXP <= 0 || nsplit < 1 || nsplit > MAXP ||
-      shmem > 232448 || (nsplit > 1 && (part == nullptr || tickets == nullptr))) {
+  const int kg = group_size(rep, D == 128 ? 4 : 2);
+  const size_t shmem = split_smem_bytes(P, D, kg, kv4 != 0);
+  if (li < 0 || li >= L || (D != 128 && D != 256) || rep < 1 || P <= 0 || P % kChunk ||
+      MAXP <= 0 || nsplit < 1 || nsplit > MAXP || shmem > 232448 ||
+      (nsplit > 1 && (part == nullptr || tickets == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  dim3 grid(Hkv, B, nsplit);
+  dim3 grid(Hkv, B, ((rep + kg - 1) / kg) * nsplit);
   auto* kp8 = reinterpret_cast<const int8_t*>(kp);
   auto* vp8 = reinterpret_cast<const int8_t*>(vp);
   auto* ksf = reinterpret_cast<const float*>(ks);
@@ -693,15 +735,15 @@ extern "C" int paged_attn_int8_split(const void* q, const void* kp, const void* 
   auto* tk = reinterpret_cast<int*>(tickets);
 #define BNB_SPLIT_LAUNCH(R, PC, KV4)                                                         \
   return launch_split<R, PC, KV4>(grid, st, shmem, q, q_bf16, kp8, ksf, vp8, vsf, pt, ln, al, \
-                                  kn8, ksnf, vn8, vsnf, out, pf, tk, li, NP, Hkv, P, MAXP,    \
-                                  window, scale, softcap)
-#define BNB_SPLIT_SHAPES(KV4)               \
-  if (D == 128) {                           \
-    if (rep == 1) BNB_SPLIT_LAUNCH(1, 1, KV4); \
-    if (rep == 2) BNB_SPLIT_LAUNCH(2, 1, KV4); \
-    BNB_SPLIT_LAUNCH(4, 1, KV4);               \
-  }                                         \
-  if (rep == 1) BNB_SPLIT_LAUNCH(1, 2, KV4);   \
+                                  kn8, ksnf, vn8, vsnf, out, pf, tk, li, NP, Hkv, rep, P,     \
+                                  MAXP, nsplit, window, scale, softcap)
+#define BNB_SPLIT_SHAPES(KV4)                     \
+  if (D == 128) {                                 \
+    if (kg == 1) BNB_SPLIT_LAUNCH(1, 1, KV4);     \
+    if (kg == 2) BNB_SPLIT_LAUNCH(2, 1, KV4);     \
+    BNB_SPLIT_LAUNCH(4, 1, KV4);                  \
+  }                                               \
+  if (kg == 1) BNB_SPLIT_LAUNCH(1, 2, KV4);       \
   BNB_SPLIT_LAUNCH(2, 2, KV4)
   if (kv4) {
     BNB_SPLIT_SHAPES(true);

@@ -50,7 +50,7 @@
 // each converted tile, and a producer warpgroup converting the next tile
 // while two consumers computed, both measured no faster on the H100.
 //
-// SIMT body (`prefill_kernel`: f32 q, D = 256, other S). Bound the same
+// SIMT body (`prefill_kernel`: f32 q, D = 256 to 512, other S). Bound the same
 // way, at the f32 rate. One warp per query row, four rows (warps) per block
 // sharing the (b, h) K/V reads through L1. Keys go in chunks of 32, one key
 // per lane: the K cache is transposed (D, S), so a lane's key column is read
@@ -414,13 +414,14 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap kmap, const __nv_bfloat16*
 
 // q and out (B, T, Hq, D) f32/bf16; kq (L, B, Hkv, D, S) int8; ks, vs
 // (L, B, Hkv, S) f32; vq (L, B, Hkv, S, D) int8; starts (B) int32; alibi
-// (Hq) f32 or null. window <= 0: none; softcap <= 0: none. D is 128 or 256.
+// (Hq) f32 or null. window <= 0: none; softcap <= 0: none. D is 128, 256, 384
+// or 512.
 extern "C" int prefill_attn_int8(const void* q, const void* kq, const void* ks, const void* vq,
                                  const void* vs, const void* starts, const void* alibi, void* out,
                                  int li, int L, int B, int T, int Hq, int Hkv, int D, int S,
                                  int window, int q_bf16, float scale, float softcap,
                                  void* stream) {
-  if (li < 0 || li >= L || Hkv <= 0 || Hq % Hkv || T <= 0 || (D != 128 && D != 256)) {
+  if (li < 0 || li >= L || Hkv <= 0 || Hq % Hkv || T <= 0 || D < 128 || D > 512 || D % 128) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -431,13 +432,16 @@ extern "C" int prefill_attn_int8(const void* q, const void* kq, const void* ks, 
   auto* vsf = reinterpret_cast<const float*>(vs);
   auto* st32 = reinterpret_cast<const int*>(starts);
   auto* al = reinterpret_cast<const float*>(alibi);
-  if (D == 128) {
-    prefill_kernel<4><<<grid, 32 * kRows, 0, st>>>(q, q_bf16, kq8, ksf, vq8, vsf, st32, al, out,
-                                                   li, B, T, Hq, Hkv, S, window, scale, softcap);
-  } else {
-    prefill_kernel<8><<<grid, 32 * kRows, 0, st>>>(q, q_bf16, kq8, ksf, vq8, vsf, st32, al, out,
-                                                   li, B, T, Hq, Hkv, S, window, scale, softcap);
+#define BNB_PREFILL_LAUNCH(DPL)                                                                 \
+  prefill_kernel<DPL><<<grid, 32 * kRows, 0, st>>>(q, q_bf16, kq8, ksf, vq8, vsf, st32, al, out, \
+                                                   li, B, T, Hq, Hkv, S, window, scale, softcap)
+  switch (D / 128) {
+    case 1: BNB_PREFILL_LAUNCH(4); break;
+    case 2: BNB_PREFILL_LAUNCH(8); break;
+    case 3: BNB_PREFILL_LAUNCH(12); break;
+    default: BNB_PREFILL_LAUNCH(16); break;
   }
+#undef BNB_PREFILL_LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -27,6 +27,14 @@ positions ``plen + t``), snapshots of the whole serving state
 speculative generation (``generate_speculative``, engine/speculative.py).
 The cache is written in place, so a snapshot clones it and a restore
 clones it back.
+
+The engine is model-agnostic, as the JAX package's: any forward with the
+``(params, cfg, tokens, cache, positions) -> (logits, cache)`` contract
+serves through ``forward_fn`` (``gptj_forward``, ``opt_forward`` and their
+family aliases; ``llama_forward`` by default), with the cache from
+``init_cache_fn`` (``init_kv_cache`` by default, whose layout every family
+shares). Every model call (prefill, prefix, decode step, speculative
+target) goes through that one forward.
 """
 
 from __future__ import annotations
@@ -81,9 +89,10 @@ def _grid_bucket(n: int, cap: int) -> int:
 
 
 class InferenceEngine:
-    """Continuous-batching decode of a quantized Llama-family model over
-    the contiguous KV cache (int8, or bf16 with ``kv_quant=False``), or the
-    paged int8 pool with ``EngineConfig(paged=True)``; ``lora`` is a
+    """Continuous-batching decode of a quantized decoder over the
+    contiguous KV cache (int8, or bf16 with ``kv_quant=False``), or the
+    paged int8 pool with ``EngineConfig(paged=True)``; ``forward_fn`` and
+    ``init_cache_fn`` serve another family than Llama's; ``lora`` is a
     ``stack_lora`` tree whose adapters the requests pick by id."""
 
     def __init__(
@@ -101,13 +110,22 @@ class InferenceEngine:
     ):
         if mesh is not None:
             raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP Queue A #13)")
-        if forward_fn is not None or init_cache_fn is not None:
-            raise NotImplementedError("other model families are not ported yet (ROADMAP Queue A #10)")
         # multi-adapter serving: a stack_lora tree; each request picks its
         # adapter with add_request(adapter_id=...)
         self._lora = lora
         self._n_adapters = 1
         if lora is not None:
+            if forward_fn is not None:
+                # a family's forward must take the adapter kwargs (gptj_forward
+                # and opt_forward do); a **kwargs wrapper passes them on
+                import inspect
+
+                sig = inspect.signature(forward_fn).parameters
+                var_kw = any(p.kind is inspect.Parameter.VAR_KEYWORD for p in sig.values())
+                if not var_kw and ("lora" not in sig or "lora_ids" not in sig):
+                    raise NotImplementedError(
+                        "forward_fn does not accept lora/lora_ids kwargs: lora serving needs a "
+                        "forward with the llama_forward adapter contract")
             first = next(iter(lora[0].values()))
             if first["A"].dim() != 3:
                 raise ValueError("engine lora must be the stacked form (stack_lora): a 2-D "
@@ -118,6 +136,8 @@ class InferenceEngine:
         if engine_cfg.paged and model_cfg.max_seq_len % engine_cfg.page_size:
             raise ValueError("paged mode needs max_seq_len % page_size == 0")
         self.device = resolve_device(device)
+        self._fwd = forward_fn or llama_forward
+        self._init_cache = init_cache_fn or init_kv_cache
         self.mcfg = model_cfg
         self.ecfg = engine_cfg
         self.params = params
@@ -133,7 +153,7 @@ class InferenceEngine:
             self._alloc = PageAllocator(n_pages, engine_cfg.page_size, maxp, reserve_page0=True)
             self.cache = init_page_pool(model_cfg, n_pages, engine_cfg.page_size, self.device)
         else:
-            self.cache = init_kv_cache(model_cfg, B, self.device)
+            self.cache = self._init_cache(model_cfg, B, self.device)
         self.seq_lens = np.zeros((B,), np.int32)
         self.active = np.zeros((B,), bool)
         self.slot_tokens: List[List[int]] = [[] for _ in range(B)]
@@ -146,11 +166,11 @@ class InferenceEngine:
         self.last_speculative_stats: Optional[Dict] = None
 
     def _forward(self, params, cfg, tokens, cache, positions, adapter_ids):
-        """llama_forward with the engine's adapters, one id per batch row."""
+        """The engine's forward with its adapters, one id per batch row."""
         if self._lora is None:
-            return llama_forward(params, cfg, tokens, cache, positions)
+            return self._fwd(params, cfg, tokens, cache, positions)
         ids = torch.as_tensor(np.asarray(adapter_ids, np.int64), device=self.device)
-        return llama_forward(params, cfg, tokens, cache, positions, lora=self._lora, lora_ids=ids)
+        return self._fwd(params, cfg, tokens, cache, positions, lora=self._lora, lora_ids=ids)
 
     def _sample(self, logits: torch.Tensor) -> List[int]:
         """Greedy (first maximum) or temperature / top-k sampling; the step
@@ -222,7 +242,7 @@ class InferenceEngine:
         Kb, Tc = toks.shape
         dev = self.device
         if pre is None:
-            cacheK = init_kv_cache(self.mcfg, Kb, dev)
+            cacheK = self._init_cache(self.mcfg, Kb, dev)
         else:
             cacheK = {k: v.expand(v.shape[0], Kb, *v.shape[2:]).clone(
                 memory_format=torch.contiguous_format) for k, v in pre["cache"].items()}
@@ -439,7 +459,8 @@ class InferenceEngine:
         prompt's generation; the batch commits in lockstep. Leaves the slot
         pool and cache alone. EOS truncation as in generate() (the EOS
         token kept, nothing after it). The round's statistics are kept in
-        ``last_speculative_stats``."""
+        ``last_speculative_stats``. The target runs through the engine's
+        forward, and the draft through ``draft_forward`` or the same one."""
         from .speculative import speculative_generate_jit
 
         if self._lora is not None:
@@ -455,7 +476,7 @@ class InferenceEngine:
             self.params, self.mcfg, draft_params, draft_cfg,
             torch.as_tensor(toks, device=self.device), max_new_tokens, gamma=gamma,
             temperature=temperature, seed=seed,
-            draft_forward=draft_forward or llama_forward,
+            target_forward=self._fwd, draft_forward=draft_forward or self._fwd,
             lengths=torch.as_tensor(lens, device=self.device))
         self.last_speculative_stats = stats
         rows = out.tolist()

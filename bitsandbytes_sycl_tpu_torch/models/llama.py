@@ -17,6 +17,19 @@ Decode steps write each layer's quantized token in place before attending
 with ``lengths = position`` and the token folded in as ``new_kv``; the
 attention masks positions ``>= len``, so the early write leaves the result
 equal to the JAX package's deferred write.
+
+Mixtral's mixture of experts (``num_experts > 1``): a layer carries a
+``router`` (E, h) and ``experts``, the gate/up/down weights of its E
+experts stacked on a leading dimension (``stack_experts``); ``_moe_ffn``
+routes each token to its top-k experts (softmax over all E, top-k,
+renormalized) and runs every expert on every token (dense combine), or
+from ``moe_dispatch_min_tokens`` tokens only on the ones it chose, up to a
+capacity (``_moe_dispatch``). ALiBi (``alibi`` in a config, BLOOM) goes to
+the attention kernels as per-head slopes and to the ``_attention`` routes
+as a bias. The helpers that every family shares (``apply_linear``,
+``write_and_attend``, ``init_kv_cache``, ``kernel_attends``) read the
+config's optional fields with ``getattr``, as the JAX package does, so the
+GPT-J and OPT substrates (``models/gptj.py``, ``models/opt.py``) use them.
 """
 
 from __future__ import annotations
@@ -52,6 +65,8 @@ __all__ = [
     "repack_params_int8",
     "write_and_attend",
     "kernel_attends",
+    "stack_experts",
+    "alibi_slopes",
 ]
 
 
@@ -135,7 +150,7 @@ def _quantize_linear(W: torch.Tensor, cfg: LlamaConfig):
         return quantize_4bit_native(
             W, blocksize=cfg.blocksize, quant_type=cfg.quant,
             compress_statistics=cfg.compress_stats,
-            absmax_dtype=getattr(torch, cfg.absmax_dtype),
+            absmax_dtype=getattr(torch, getattr(cfg, "absmax_dtype", "float32")),
         )
     if cfg.quant == "int8":
         CB, SCB = F.int8_vectorwise_quant(W)
@@ -157,10 +172,11 @@ def repack_params_int8(params: Dict, cfg: LlamaConfig, only=None):
     grid per output row), with the matching config (quant="int8",
     threshold 0: no outlier decomposition). ``only``: the set of key names
     to repack (e.g. the FFN projections and lm_head); the rest stay 4-bit.
-    Returns (params8, cfg8); the input tree is not changed."""
+    Stacked MoE experts (3-D) stay 4-bit, as in the JAX package. Returns
+    (params8, cfg8); the input tree is not changed."""
     def walk(obj, name=None):
         if isinstance(obj, QLinearWeight):
-            if only is not None and name not in only:
+            if obj.packed.dim() != 2 or (only is not None and name not in only):
                 return obj
             CB, SCB = F.int8_vectorwise_quant(obj.dequantize().float())
             return {"CB": CB, "SCB": SCB}
@@ -177,7 +193,7 @@ def linear_route(rows: int, w: QLinearWeight, cfg: LlamaConfig) -> str:
     """The JAX package's apply_linear routing by padded row count:
     "w4a8", "grouped", "w8a8" or "exact"."""
     lim = 256 if w.blocksize >= 256 else 128
-    a8 = cfg.a8_decode
+    a8 = getattr(cfg, "a8_decode", False)
     if a8 and 0 < rows <= lim and w.quant_type != "int4":
         return "w4a8"
     if a8 and rows > grouped_min_m(w.blocksize) and (
@@ -271,9 +287,8 @@ def _fp_layer_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, int]]:
 def init_params(cfg: LlamaConfig, seed: int = 0, device=None) -> Dict:
     """Random weights from a seeded torch.Generator on ``device``, scaled
     as the JAX package's init_params (1/sqrt(K); embed and lm_head 0.02),
-    quantized one weight at a time on that device."""
-    if cfg.num_experts > 1:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP Queue A #10)")
+    quantized one weight at a time on that device; with ``num_experts > 1``
+    a router and the experts' stacked weights take the dense MLP's place."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -282,10 +297,18 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device=None) -> Dict:
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale
 
     ones = lambda: torch.ones((cfg.hidden_size,), dtype=torch.float32, device=dev)  # noqa: E731
+    moe = getattr(cfg, "num_experts", 1) > 1
     layers = []
     for _ in range(cfg.num_layers):
         shapes = _fp_layer_shapes(cfg)
+        if moe:  # the dense MLP is replaced by the router and the stacked experts
+            mlp_shapes = {n: shapes.pop(n) for n in ("gate_proj", "up_proj", "down_proj")}
         layer = {name: _quantize_linear(dense(shape), cfg) for name, shape in shapes.items()}
+        if moe:
+            layer["router"] = dense((cfg.num_experts, cfg.hidden_size))
+            layer["experts"] = stack_experts([
+                {n: _quantize_linear(dense(sh), cfg) for n, sh in mlp_shapes.items()}
+                for _ in range(cfg.num_experts)])
         layer["input_norm"] = ones()
         layer["post_attn_norm"] = ones()
         if cfg.sandwich_norms:
@@ -319,9 +342,16 @@ def quantize_params(fp_params: Dict, cfg: LlamaConfig) -> Dict:
             if name.endswith("_proj"):
                 q[name] = _quantize_linear(w.float(), cfg)
             elif name == "experts":
-                raise NotImplementedError("MoE is not ported yet (ROADMAP Queue A #10)")
+                # stacked ({name: (E, n, k)}) or a per-expert list: quantize
+                # each expert's weights and restack
+                per_expert = list(w) if isinstance(w, (list, tuple)) else [
+                    {n2: w2[e] for n2, w2 in w.items()}
+                    for e in range(next(iter(w.values())).shape[0])]
+                q[name] = stack_experts([
+                    {n2: _quantize_linear(w2.float(), cfg) for n2, w2 in ex.items()}
+                    for ex in per_expert])
             else:
-                q[name] = w
+                q[name] = w  # norms, biases, the router
         out["layers"].append(q)
     if "lm_head" in fp_params:
         out["lm_head"] = _quantize_linear(fp_params["lm_head"].float(), cfg)
@@ -333,7 +363,7 @@ def quantize_params(fp_params: Dict, cfg: LlamaConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 
-def init_kv_cache(cfg: LlamaConfig, batch: int, device=None) -> Dict:
+def init_kv_cache(cfg, batch: int, device=None) -> Dict:
     """Contiguous int8 cache: K (L, B, H, D, S) transposed, V (L, B, H, S, D),
     scales (L, B, H, S); with ``kv_quant=False`` the bf16 cache, K and V
     both (L, B, H, S, D) in ``cfg.dtype`` and no scales."""
@@ -418,8 +448,10 @@ def _sm_scale(cfg) -> Optional[float]:
     return None if qs is None else float(qs) ** -0.5
 
 
-def _attention(q, k, v, mask, dtype, sm_scale=None, softcap=None):
-    """q: (B, T, Hq, D); k, v: (B, S, Hkv, D); mask (B, T, S)."""
+def _attention(q, k, v, mask, dtype, sm_scale=None, softcap=None, bias=None):
+    """q: (B, T, Hq, D); k, v: (B, S, Hkv, D); mask (B, T, S); bias (B, Hq,
+    T, S) added to the scaled scores before the softcap and the mask
+    (ALiBi)."""
     D = q.shape[-1]
     Hq, Hkv = q.shape[2], k.shape[2]
     if Hq != Hkv:
@@ -427,11 +459,163 @@ def _attention(q, k, v, mask, dtype, sm_scale=None, softcap=None):
         v = v.repeat_interleave(Hq // Hkv, dim=2)
     scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
     scores = scores * (sm_scale if sm_scale is not None else 1.0 / np.sqrt(D))
+    if bias is not None:
+        scores = scores + bias
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
     scores = torch.where(mask[:, None, :, :], scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhts,bshd->bthd", probs, v.float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# ALiBi (BLOOM)
+# ---------------------------------------------------------------------------
+
+
+def alibi_slopes(n: int) -> np.ndarray:
+    """ALiBi per-head slopes (Press et al., arxiv 2108.12409): the
+    geometric sequence 2^(-8/n), with the paper's interpolation for head
+    counts that are not powers of two (HF BloomModel.build_alibi); the JAX
+    package's values bit for bit."""
+    def pow2(m):
+        start = 2.0 ** (-(2.0 ** -(math.log2(m) - 3)))
+        return [start * start ** i for i in range(m)]
+
+    if math.log2(n).is_integer():
+        return np.asarray(pow2(n), np.float32)
+    closest = 2 ** int(math.floor(math.log2(n)))
+    return np.asarray(pow2(closest) + pow2(2 * closest)[0::2][: n - closest], np.float32)
+
+
+_SLOPES: Dict = {}
+
+
+def _alibi_slopes_local(cfg, device) -> Optional[torch.Tensor]:
+    """(Hq,) f32 ALiBi slopes of an ALiBi config on ``device`` (one copy per
+    device and head count), or None. Without tensor parallelism the slopes
+    are those of ``cfg.num_heads``."""
+    if not getattr(cfg, "alibi", False):
+        return None
+    key = (str(device), cfg.num_heads)
+    t = _SLOPES.get(key)
+    if t is None:
+        t = _SLOPES[key] = torch.from_numpy(alibi_slopes(cfg.num_heads)).to(device)
+    return t
+
+
+def _alibi_bias(cfg, positions: torch.Tensor, S: int) -> torch.Tensor:
+    """(B, Hq, T, S) additive score bias -slope_h * (q_pos - k_pos) at
+    absolute positions (k_pos > q_pos is masked anyway); equal after the
+    softmax to HF Bloom's slope * k_pos form."""
+    slopes = _alibi_slopes_local(cfg, positions.device)
+    dist = positions.long()[:, None, :, None] - torch.arange(S, device=positions.device)
+    return -slopes[None, :, None, None] * dist.float()
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts (Mixtral)
+# ---------------------------------------------------------------------------
+
+
+def _tree_stack(xs):
+    x0 = xs[0]
+    if isinstance(x0, QLinearWeight):
+        st = lambda name: (None if getattr(x0, name) is None  # noqa: E731
+                           else torch.stack([getattr(x, name) for x in xs]))
+        return dataclasses.replace(x0, packed=st("packed"), absmax=st("absmax"),
+                                   absmax_scale=st("absmax_scale"),
+                                   absmax_offset=st("absmax_offset"))
+    if isinstance(x0, dict):
+        return {k: _tree_stack([x[k] for x in xs]) for k in x0}
+    return torch.stack(xs)
+
+
+def stack_experts(expert_list: list):
+    """Per-expert weight dicts (quantized or full-precision linears) ->
+    one dict whose tensors carry a leading expert dimension E, the layout
+    of a MoE layer's ``experts``; a QLinearWeight's ``shape`` still
+    describes one expert."""
+    return _tree_stack(list(expert_list))
+
+
+def _expert_slice(experts, e: int):
+    """Expert e of the stacked weights: views, never copies (a slice of a
+    contiguous stack is contiguous), which kernels A, B and G take as they
+    are."""
+    if isinstance(experts, QLinearWeight):
+        sl = lambda t: None if t is None else t[e]  # noqa: E731
+        return dataclasses.replace(experts, packed=experts.packed[e], absmax=experts.absmax[e],
+                                   absmax_scale=sl(experts.absmax_scale),
+                                   absmax_offset=sl(experts.absmax_offset))
+    if isinstance(experts, dict):
+        return {k: _expert_slice(v, e) for k, v in experts.items()}
+    return experts[e]
+
+
+def _expert_ffn(x, ex, cfg):
+    gate = apply_linear(x, ex["gate_proj"], cfg)
+    up = apply_linear(x, ex["up_proj"], cfg)
+    return apply_linear(_mlp_act(cfg, gate.float()).to(cfg.dtype) * up, ex["down_proj"], cfg)
+
+
+def _moe_ffn(h: torch.Tensor, layer: Dict, cfg) -> torch.Tensor:
+    """Top-k routed mixture-of-experts FFN (HF MixtralSparseMoeBlock): the
+    router in f32, softmax over all E experts, the top k, renormalized.
+    Dense combine: every expert runs on every token and the router weight
+    (0 for an expert not chosen) scales its output, in f32; from
+    ``moe_dispatch_min_tokens`` tokens, capacity-bounded dispatch."""
+    router = layer["router"]
+    E = router.shape[0]
+    k = cfg.num_experts_per_tok
+    probs = torch.softmax(torch.matmul(h.float(), router.float().T), dim=-1)  # (..., E)
+    topw, topi = torch.topk(probs, k, dim=-1)
+    topw = topw / topw.sum(dim=-1, keepdim=True)
+    w_full = torch.zeros_like(probs).scatter(-1, topi, topw)
+    experts = layer["experts"]
+    n_tok = int(np.prod(h.shape[:-1]))
+    min_disp = getattr(cfg, "moe_dispatch_min_tokens", 0)
+    if min_disp and n_tok >= min_disp:
+        return _moe_dispatch(h, experts, w_full, cfg)
+    out = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    for e in range(E):
+        d = _expert_ffn(h, _expert_slice(experts, e), cfg)
+        out = out + w_full[..., e:e + 1] * d.float()
+    return out.to(cfg.dtype)
+
+
+def _moe_dispatch(h: torch.Tensor, experts, w: torch.Tensor, cfg) -> torch.Tensor:
+    """Capacity-bounded dispatch (GShard, arxiv 2006.16668): expert e runs
+    on a buffer of C token slots, token n in slot pos[n, e] = (the tokens
+    before it that chose e), kept while pos < C; an expert's overflowing
+    tokens are dropped for that expert (their weight is missing from the
+    sum), the same tokens as in the JAX package's cumsum. C = ceil(cf * N
+    * k / E), rounded up to 8, at least 8 and at most N."""
+    lead, hd = h.shape[:-1], h.shape[-1]
+    n = int(np.prod(lead))
+    E = w.shape[-1]
+    cf = getattr(cfg, "moe_capacity_factor", 2.0)
+    cap = int(np.ceil(cf * n * cfg.num_experts_per_tok / E))
+    cap = min(n, max(8, -(-cap // 8) * 8))
+    x = h.reshape(n, hd)
+    wn = w.reshape(n, E)
+    chosen = wn > 0.0
+    pos = torch.cumsum(chosen.long(), dim=0) - 1  # slot within the expert
+    keep = chosen & (pos < cap)
+    slot = torch.where(keep, pos, torch.full_like(pos, cap))  # dropped: a spare slot
+    out = torch.zeros((n, hd), dtype=torch.float32, device=h.device)
+    for e in range(E):
+        xs = torch.zeros((cap + 1, hd), dtype=x.dtype, device=x.device)
+        xs.index_copy_(0, slot[:, e], x)  # the spare slot takes any dropped row
+        ys = _expert_ffn(xs[:cap], _expert_slice(experts, e), cfg)
+        got = ys.float()[slot[:, e].clamp(max=cap - 1)]
+        out = out + torch.where(keep[:, e:e + 1], wn[:, e:e + 1] * got, torch.zeros_like(got))
+    return out.reshape(*lead, hd).to(cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# cached attention
+# ---------------------------------------------------------------------------
 
 
 def _paged_write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg):
@@ -444,8 +628,18 @@ def _paged_write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg):
     scales go to column (off % 2) * P/2 + off // 2. The JAX package builds
     the odd byte from a staged copy of that nibble instead of reading the
     pool; the bytes agree wherever a slot's tokens are its own (not on the
-    trash page 0, which retired rows share)."""
-    from ..ops.paged_attention import nib_sign_mag, paged_decode_attention_int8_stacked
+    trash page 0, which retired rows share).
+
+    Where kernel D's JAX counterpart declines the shapes
+    (``paged_attention_ok``: D or P not a multiple of 128), the row's pages
+    are gathered, dequantized (kv4 unpacked) and made seq-major, the
+    token's own quantize-dequantize round trip appended as column S + 1
+    (distance 0), and q attends through ``_attention`` under the length,
+    window and ALiBi masks, as the JAX package does; the choice is made by
+    the shapes before any launch and counted in
+    ``write_and_attend.paged_dequant_calls``."""
+    from ..ops.paged_attention import (kv4_scales_logical, kv4_unpack, nib_sign_mag,
+                                       paged_decode_attention_int8_stacked)
 
     kv4 = cache["v"].dtype == torch.uint8
     levels = 7.0 if kv4 else 127.0
@@ -465,13 +659,50 @@ def _paged_write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg):
         cache["v"][li, pages, :, offs] = vq[:, 0]
     cache["k_scale"][li, pages, :, offs] = ks[:, 0]
     cache["v_scale"][li, pages, :, offs] = vs[:, 0]
-    attn = paged_decode_attention_int8_stacked(
-        q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], li,
-        cache["page_table"], positions[:, 0], new_kv=(kq[:, 0], ks[:, 0], vq[:, 0], vs[:, 0]),
-        window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
-        sm_scale=_sm_scale(cfg), pages_hint=cfg.pages_hint,
-    )
-    return attn, cache
+    window = getattr(cfg, "sliding_window", None)
+    softcap = getattr(cfg, "attn_logit_softcap", None)
+    if kernel_attends(cache, cfg, q.shape[1], q.shape[2]):
+        attn = paged_decode_attention_int8_stacked(
+            q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], li,
+            cache["page_table"], positions[:, 0], new_kv=(kq[:, 0], ks[:, 0], vq[:, 0], vs[:, 0]),
+            window=window, softcap=softcap, sm_scale=_sm_scale(cfg),
+            pages_hint=getattr(cfg, "pages_hint", None),
+            alibi_slopes=_alibi_slopes_local(cfg, q.device),
+        )
+        return attn, cache
+    # the gather route: layer li's pages of each row, seq-major
+    pt = cache["page_table"].long()
+    B, MAXP = pt.shape
+    kg, vg = cache["k"][li][pt], cache["v"][li][pt]  # (B, MAXP, H, rows, D)
+    ksg, vsg = cache["k_scale"][li][pt], cache["v_scale"][li][pt]  # (B, MAXP, H, P)
+    if kv4:
+        kg, vg = kv4_unpack(kg), kv4_unpack(vg)
+        ksg, vsg = kv4_scales_logical(ksg), kv4_scales_logical(vsg)
+    H, P, D = kg.shape[2], kg.shape[3], kg.shape[4]
+    S = MAXP * P
+    k_full = _kv_dequantize(kg.permute(0, 1, 3, 2, 4).reshape(B, S, H, D),
+                            ksg.permute(0, 1, 3, 2).reshape(B, S, H), cfg.dtype, levels)
+    v_full = _kv_dequantize(vg.permute(0, 1, 3, 2, 4).reshape(B, S, H, D),
+                            vsg.permute(0, 1, 3, 2).reshape(B, S, H), cfg.dtype, levels)
+    k_full = torch.cat([k_full, _kv_dequantize(kq, ks, cfg.dtype, levels)], dim=1)
+    v_full = torch.cat([v_full, _kv_dequantize(vq, vs, cfg.dtype, levels)], dim=1)
+    s_ids = torch.arange(S, device=q.device)[None, None, :]
+    qp = positions.long()[:, :, None]
+    mask = s_ids < qp
+    if window is not None:
+        mask = mask & (qp - s_ids < window)
+    mask = torch.cat([mask, torch.ones((B, q.shape[1], 1), dtype=torch.bool, device=q.device)],
+                     dim=2)  # the token itself: always valid
+    bias = None
+    if getattr(cfg, "alibi", False):
+        # pool order is token order; the appended token sits at the query's position
+        kpos = torch.cat([torch.arange(S, device=q.device).expand(B, S), positions[:, 0:1].long()],
+                         dim=1)
+        dist = positions.long()[:, None, :, None] - kpos[:, None, None, :]
+        bias = -_alibi_slopes_local(cfg, q.device)[None, :, None, None] * dist.float()
+    write_and_attend.paged_dequant_calls += 1
+    return _attention(q, k_full, v_full, mask, cfg.dtype, sm_scale=_sm_scale(cfg),
+                      softcap=softcap, bias=bias), cache
 
 
 def _cache_mask(positions: torch.Tensor, S: int, window: Optional[int]) -> torch.Tensor:
@@ -488,12 +719,16 @@ def _cache_mask(positions: torch.Tensor, S: int, window: Optional[int]) -> torch
 
 def kernel_attends(cache: Dict, cfg, T: int, Hq: int) -> bool:
     """Whether layer attention of a cached forward of T rows runs on a
-    kernel: the paged pool always, the int8 cache where the JAX package's
-    decode (T = 1) or prefill kernel takes the shapes, the bf16 cache
-    never. Otherwise ``write_and_attend`` takes the dequantize-then-attend
-    route (``_attention``), chosen by these shapes before any launch."""
+    kernel: the paged pool where the JAX package's paged kernel takes the
+    shapes (``paged_attention_ok``), the int8 cache where its decode (T =
+    1) or prefill kernel does, the bf16 cache never. Otherwise
+    ``write_and_attend`` takes a dequantize-then-attend route
+    (``_attention``), chosen by these shapes before any launch."""
     if "page_table" in cache:
-        return True
+        from ..ops.paged_attention import paged_attention_ok
+
+        Hkv, rows, D = cache["v"].shape[2], cache["v"].shape[3], cache["v"].shape[4]
+        return paged_attention_ok(T, D, Hq, Hkv, cache["v_scale"].shape[3], rows)
     if not cfg.kv_quant:
         return False
     from ..ops.attention import decode_attention_ok, prefill_attention_ok
@@ -511,9 +746,11 @@ def write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg, mask=None):
     (``kernel_attends``); elsewhere, and over the bf16 cache, q attends
     through ``_attention`` over layer li alone, made seq-major (and
     dequantized to ``cfg.dtype`` from int8), under ``mask`` (B, T, S), the
-    absolute-position mask, built here when not given. The JAX package
-    takes the same routes. ``write_and_attend.dequant_calls`` and
-    ``.bf16_calls`` count the calls of the two ``_attention`` routes."""
+    absolute-position mask, built here when not given, and the ALiBi bias
+    of an ALiBi config. The JAX package takes the same routes.
+    ``write_and_attend.dequant_calls``, ``.bf16_calls`` and
+    ``.paged_dequant_calls`` count the calls of the three ``_attention``
+    routes (int8 cache, bf16 cache, paged pool)."""
     from ..ops.attention import decode_attention_int8_stacked, prefill_attention_int8_stacked
 
     starts = positions[:, 0]
@@ -524,6 +761,8 @@ def write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg, mask=None):
         if not cfg.kv_quant:
             raise ValueError("paged KV cache requires kv_quant=True (int8 pages)")
         return _paged_write_and_attend(cache, li, q, k, v, positions, cfg)
+    window = getattr(cfg, "sliding_window", None)
+    softcap = getattr(cfg, "attn_logit_softcap", None)
     S = cache["v"].shape[3]
     # rows land at [start, start + T), the start clamped into the cache as
     # the JAX package's dynamic_update_slice clamps it
@@ -544,20 +783,21 @@ def write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg, mask=None):
         # the kernels take the stacked cache and the layer index: a per-layer
         # copy of the cache would move ~2.2 GB per 7B decode step at B = 8
         if kernel_attends(cache, cfg, T, Hq):
+            slopes = _alibi_slopes_local(cfg, q.device)
             if T == 1:
                 # the step's token is written: attend over the positions
                 # before it with the token folded in, as the JAX package's
                 # deferred write
                 attn = decode_attention_int8_stacked(
                     q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], li, starts,
-                    new_kv=(kq[:, 0], ks[:, 0], vq[:, 0], vs[:, 0]), window=cfg.sliding_window,
-                    softcap=cfg.attn_logit_softcap, sm_scale=_sm_scale(cfg),
+                    new_kv=(kq[:, 0], ks[:, 0], vq[:, 0], vs[:, 0]), window=window,
+                    softcap=softcap, sm_scale=_sm_scale(cfg), alibi_slopes=slopes,
                 )
             else:
                 attn = prefill_attention_int8_stacked(
                     q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], li,
-                    starts=starts, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
-                    sm_scale=_sm_scale(cfg),
+                    starts=starts, window=window, softcap=softcap, sm_scale=_sm_scale(cfg),
+                    alibi_slopes=slopes,
                 )
             return attn, cache
         # the shapes the kernels decline: dequantize layer li alone (never
@@ -567,15 +807,18 @@ def write_and_attend(cache: Dict, li: int, q, k, v, positions, cfg, mask=None):
         v_full = _kv_dequantize(cache["v"][li], cache["v_scale"][li], cfg.dtype).transpose(1, 2)
         write_and_attend.dequant_calls += 1
     if mask is None:
-        mask = _cache_mask(positions, S, cfg.sliding_window)
+        mask = _cache_mask(positions, S, window)
+    bias = _alibi_bias(cfg, positions, S) if getattr(cfg, "alibi", False) else None
     attn = _attention(q, k_full, v_full, mask, cfg.dtype, sm_scale=_sm_scale(cfg),
-                      softcap=cfg.attn_logit_softcap)
+                      softcap=softcap, bias=bias)
     return attn, cache
 
 
-# calls of the dequantize-then-attend route (int8 cache) and of the bf16 cache's
+# calls of the dequantize-then-attend routes: the int8 cache's, the bf16
+# cache's and the paged pool's gather route
 write_and_attend.dequant_calls = 0
 write_and_attend.bf16_calls = 0
+write_and_attend.paged_dequant_calls = 0
 
 
 def llama_forward(
@@ -614,7 +857,7 @@ def llama_forward(
         if sw is not None:
             q_ids = torch.arange(T, device=dev)[:, None]
             mask = mask & ((q_ids - torch.arange(T, device=dev)[None, :]) < sw)[None]
-    elif not kernel_attends(cache, cfg, T, cfg.num_heads):
+    elif "page_table" not in cache and not kernel_attends(cache, cfg, T, cfg.num_heads):
         # the absolute-position mask of the _attention route, once a forward
         S = cache["v"].shape[3]
         mask = _cache_mask(positions, S, sw)
@@ -623,8 +866,6 @@ def llama_forward(
         cfg_global = dataclasses.replace(cfg, sliding_window=None)
 
     for li, layer in enumerate(params["layers"]):
-        if "experts" in layer:
-            raise NotImplementedError("MoE is not ported yet (ROADMAP Queue A #10)")
         lcfg, lmask = cfg, mask
         if alternating and li % 2 == 1:
             lcfg, lmask = cfg_global, mask_global
@@ -650,10 +891,14 @@ def llama_forward(
             o = _rms_norm(o, layer["attn_out_norm"], cfg.rms_eps, norm_off)
         x = x + o
         h = _rms_norm(x, layer["post_attn_norm"], cfg.rms_eps, norm_off)
-        gate = apply_linear(h, layer["gate_proj"], cfg, _lora_for(lora, li, "gate_proj"), ids_bt)
-        up = apply_linear(h, layer["up_proj"], cfg, _lora_for(lora, li, "up_proj"), ids_bt)
-        d = apply_linear(_mlp_act(cfg, gate.float()).to(cfg.dtype) * up, layer["down_proj"], cfg,
-                         _lora_for(lora, li, "down_proj"), ids_bt)
+        if "experts" in layer:  # Mixtral's MoE block (adapters target attention only)
+            d = _moe_ffn(h, layer, cfg)
+        else:
+            gate = apply_linear(h, layer["gate_proj"], cfg, _lora_for(lora, li, "gate_proj"),
+                                ids_bt)
+            up = apply_linear(h, layer["up_proj"], cfg, _lora_for(lora, li, "up_proj"), ids_bt)
+            d = apply_linear(_mlp_act(cfg, gate.float()).to(cfg.dtype) * up, layer["down_proj"],
+                             cfg, _lora_for(lora, li, "down_proj"), ids_bt)
         if cfg.sandwich_norms:
             d = _rms_norm(d, layer["ffn_out_norm"], cfg.rms_eps, norm_off)
         x = x + d

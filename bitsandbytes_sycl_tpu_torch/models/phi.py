@@ -1,0 +1,54 @@
+"""Phi family (phi-1, 1.5, 2) on the GPT-J substrate: half-split (NeoX)
+rotary on the first ``rotary_dim`` dims and biased attention projections
+(``rope_style="neox"``, ``attn_bias``). Phi-2's head_dim of 80 is not a
+multiple of 128, so its cached attention takes the dequantize-then-attend
+routes, as in the JAX package."""
+
+from __future__ import annotations
+
+from ._hf import loader_not_ported
+from .gptj import GPTJConfig
+from .gptj import gptj_forward as phi_forward
+
+__all__ = ["PhiConfig", "phi_forward", "load_phi_from_hf"]
+
+
+class PhiConfig(GPTJConfig):
+    """GPTJConfig with phi-2 defaults (32L/2560h/32H, rotary_dim 32 = 0.4
+    of head_dim, NeoX rotary, biased attention projections)."""
+
+    def __init__(self, **kw):
+        defaults = dict(
+            vocab_size=51200, hidden_size=2560, num_layers=32,
+            num_heads=32, rotary_dim=32, max_seq_len=2048,
+            rope_style="neox", attn_bias=True,
+        )
+        defaults.update(kw)
+        super().__init__(**defaults)
+
+    @classmethod
+    def tiny(cls, **kw):
+        d = dict(vocab_size=256, hidden_size=256, num_layers=2, num_heads=2,
+                 rotary_dim=64, max_seq_len=128)
+        d.update(kw)
+        return cls(**d)
+
+
+load_phi_from_hf = loader_not_ported("load_phi_from_hf")
+
+
+def _config_from_hf(hf: dict, quant: str = "nf4") -> PhiConfig:
+    """A HuggingFace Phi config.json dict -> the PhiConfig of the JAX
+    package's loader."""
+    hd = hf["hidden_size"] // hf["num_attention_heads"]
+    return PhiConfig(
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=hf["num_attention_heads"],
+        rotary_dim=int(hf.get("partial_rotary_factor", 0.4) * hd),
+        max_seq_len=min(hf.get("max_position_embeddings", 2048), 4096),
+        ln_eps=hf.get("layer_norm_eps", 1e-5),
+        rope_theta=hf.get("rope_theta", 10000.0),
+        quant=quant,
+    )

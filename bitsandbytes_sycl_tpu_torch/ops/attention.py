@@ -18,9 +18,15 @@ layer out of the stacked cache.
 
 Kernel C has two bodies (``prefill_plan``): a tensor-core body for bf16 q
 at head_dim 128 (the model's dtype, so every prefill of a served Llama),
-and a SIMT body for f32 q and head_dim 256. Kernel H has two too
-(``decode_plan``): a split body (flash-decoding, head_dim 128, group sizes
-1, 2 and 4) and a SIMT body for the other shapes.
+and a SIMT body for f32 q and head_dim 256 to 512. Kernel H has two too
+(``decode_plan``): a split body (flash-decoding, head_dim 128) and a SIMT
+body for the other shapes. Both take any group size ``rep = Hq // Hkv``,
+a CTA serving ``decode_groups(rep, body)[0]`` q heads of one kv head.
+
+``prefill_kernel_takes`` and ``decode_kernel_takes`` are the wrappers' shape
+guards; they accept every shape the JAX predicates (``prefill_attention_ok``,
+``decode_attention_ok``) accept but head_dim 640 to 1024, which no
+configuration of either package reaches (ROADMAP Queue C).
 """
 
 from __future__ import annotations
@@ -35,11 +41,43 @@ from . import _build
 from .common import check_cuda_tensors, scratch_buffer, sm_count, ticket_buffer
 
 __all__ = [
-    "prefill_attention_int8_stacked", "prefill_attention_ok", "prefill_attn_int8",
-    "prefill_plan", "decode_attention_int8", "decode_attention_int8_stacked",
-    "decode_attention_ok", "decode_attn_int8",
-    "decode_plan", "DecodePlan",
+    "prefill_attention_int8", "prefill_attention_int8_stacked", "prefill_attention_ok",
+    "prefill_attn_int8", "prefill_kernel_takes", "prefill_plan", "decode_attention_int8",
+    "decode_attention_int8_stacked", "decode_attention_ok", "decode_attn_int8",
+    "decode_kernel_takes", "decode_groups", "decode_plan", "DecodePlan",
 ]
+
+# head dims the SIMT bodies of kernels C and H are built for
+KERNEL_HEAD_DIMS = (128, 256, 384, 512)
+
+
+def prefill_kernel_takes(T: int, S: int, D: int, Hq: int, Hkv: int) -> bool:
+    """Kernel C's shape guard: head_dim 128 to 512 in steps of 128, Hq a
+    multiple of Hkv, at least one query row (the wrapper also checks that
+    the cache's shapes agree)."""
+    return D in KERNEL_HEAD_DIMS and Hkv > 0 and Hq % Hkv == 0 and T >= 1 and S >= 1
+
+
+def decode_kernel_takes(S: int, D: int, rep: int) -> bool:
+    """Kernel H's shape guard: head_dim 128 to 512 in steps of 128, any
+    group size, S a multiple of 4 (the SIMT body reads K four positions a
+    word)."""
+    return D in KERNEL_HEAD_DIMS and rep >= 1 and S > 0 and S % 4 == 0
+
+
+def _group_size(rep: int, largest: int) -> int:
+    g = 1
+    while g < rep and g < largest:
+        g *= 2
+    return g
+
+
+def decode_groups(rep: int, body: str):
+    """(heads per CTA, groups per kv head) of kernel H's body: rep itself
+    for 1, 2 and 4 (and 8 in the SIMT body), else groups of 4 (split) or 8
+    (SIMT), the last one padded; the C entry's ``group_size``."""
+    g = _group_size(rep, 4 if body == "split" else 8)
+    return g, -(-rep // g)
 
 
 def prefill_plan(D: int, S: int, q_dtype) -> str:
@@ -47,7 +85,8 @@ def prefill_plan(D: int, S: int, q_dtype) -> str:
     tiles per CTA, one warpgroup), takes bf16 q at D = 128 over a cache of a
     whole number of key tiles, at every prompt length: at B = 4, T = 32 its
     CTAs fill half their rows and it still beat the SIMT body on the H100
-    (PERF.md). "simt", one warp per query row, takes f32 q and D = 256."""
+    (PERF.md). "simt", one warp per query row, takes f32 q and D = 256 to
+    512."""
     if q_dtype == torch.bfloat16 and D == 128 and S % 64 == 0:
         return "tc"
     return "simt"
@@ -95,7 +134,8 @@ def prefill_attn_int8(q, kq, ks, vq, vs, li: int, starts, scale: float,
     if kq.dtype != torch.int8 or vq.dtype != torch.int8 or ks.dtype != torch.float32 \
             or vs.dtype != torch.float32:
         raise ValueError("prefill_attn_int8: int8 K/V with f32 scales only")
-    if D not in (128, 256) or Hq % Hkv or kq.shape != (L, B, Hkv, D, S) or vq.shape != (L, B, Hkv, S, D):
+    if not prefill_kernel_takes(T, S, D, Hq, Hkv) or kq.shape != (L, B, Hkv, D, S) \
+            or vq.shape != (L, B, Hkv, S, D):
         raise ValueError(f"prefill_attn_int8: unsupported shapes q={tuple(q.shape)} "
                          f"k={tuple(kq.shape)} v={tuple(vq.shape)}")
     if not 0 <= li < L:
@@ -191,6 +231,33 @@ def prefill_attention_int8_stacked(
                              window=window, softcap=softcap, alibi=alibi_slopes)
 
 
+def prefill_attention_int8(
+    q: torch.Tensor,  # (B, T, Hq, D)
+    kq: torch.Tensor,  # (B, Hkv, D, S) int8
+    ks: torch.Tensor,  # (B, Hkv, S)
+    vq: torch.Tensor,  # (B, Hkv, S, D) int8
+    vs: torch.Tensor,  # (B, Hkv, S)
+    starts: torch.Tensor,  # (B,) absolute position of query row 0
+    tq: int = 256,
+    ts: int = 512,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    sm_scale: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,  # (Hq,)
+) -> Optional[torch.Tensor]:
+    """Single-layer cache form of ``prefill_attention_int8_stacked``: kernel
+    C over a one-layer view of the cache (no copy). Returns None where the
+    JAX kernel declines the shapes (``prefill_attention_ok``), as the JAX
+    package's entry does; its caller then attends another way."""
+    B, T, Hq, D = q.shape
+    Hkv, S = vq.shape[1], vq.shape[2]
+    if not prefill_attention_ok(T, S, D, Hq, Hkv, tq, ts):
+        return None
+    return prefill_attention_int8_stacked(
+        q, kq[None], ks[None], vq[None], vs[None], 0, starts, tq, ts, window=window,
+        softcap=softcap, sm_scale=sm_scale, alibi_slopes=alibi_slopes)
+
+
 # ---------------------------------------------------------------------------
 # decode (kernel H)
 # ---------------------------------------------------------------------------
@@ -255,16 +322,19 @@ _DECODE_CTAS_PER_SM = 1
 def decode_plan(B: int, Hkv: int, S: int, D: int, rep: int, q_dtype, sms: int) -> DecodePlan:
     """Kernel H's launch on ``sms`` SMs from host-known sizes only (reading
     the lengths would stop the host in every layer of a decode step). The
-    split body takes f32 or bf16 q at D = 128, rep 1, 2 or 4 and S % 16 ==
-    0 (the row stride of its TMA copies of K); it splits each row's used
-    span into ``nsplit`` equal shares of 128-position tiles, B * Hkv *
-    nsplit CTAs about _DECODE_CTAS_PER_SM per SM, never more splits than
-    the cache has tiles. The SIMT body takes the rest (rep 8, D = 256,
-    other S), one CTA per row and kv head."""
-    if q_dtype in (torch.float32, torch.bfloat16) and D == 128 and rep in (1, 2, 4) \
-            and S % 16 == 0:
+    split body takes f32 or bf16 q at D = 128, any rep but 8 (rep 8 keeps
+    the SIMT body, which reads each position once for all 8 heads), and
+    S % 16 == 0 (the row stride of its TMA copies of K); it splits each
+    head group's used span into ``nsplit`` equal shares of 128-position
+    tiles, B * Hkv * groups * nsplit CTAs about _DECODE_CTAS_PER_SM per SM,
+    never more splits than the cache has tiles. The SIMT body takes the
+    rest (rep 8, D = 256 to 512, other S), one CTA per row, kv head and
+    group."""
+    if q_dtype in (torch.float32, torch.bfloat16) and D == 128 and rep != 8 and S % 16 == 0:
         tiles = -(-S // DECODE_TILE)
-        return DecodePlan("split", max(1, min(tiles, _DECODE_CTAS_PER_SM * sms // (B * Hkv))))
+        groups = decode_groups(rep, "split")[1]
+        per_row = _DECODE_CTAS_PER_SM * sms // (B * Hkv * groups)
+        return DecodePlan("split", max(1, min(tiles, per_row)))
     return DecodePlan("simt", 1)
 
 
@@ -284,7 +354,7 @@ def decode_attn_int8(q4, kq, ks, vq, vs, li: int, lengths, scale: float, new_kv=
     if kq.dtype != torch.int8 or vq.dtype != torch.int8 or ks.dtype != torch.float32 \
             or vs.dtype != torch.float32:
         raise ValueError("decode_attn_int8: int8 K/V with f32 scales only")
-    if D not in (128, 256) or rep not in (1, 2, 4, 8) or S % 4 \
+    if not decode_kernel_takes(S, D, rep) \
             or kq.shape != (L, B, Hkv, D, S) or vq.shape != (L, B, Hkv, S, D) \
             or ks.shape != (L, B, Hkv, S) or vs.shape != ks.shape:
         raise ValueError(f"decode_attn_int8: unsupported shapes q={tuple(q4.shape)} "
@@ -321,8 +391,9 @@ def _decode_launch(q4, kq, ks, vq, vs, li, lengths, scale, new_kv, window, softc
         assert all(t.data_ptr() % 16 == 0 for t in ts), "unaligned cache"
         part = tickets = None
         if plan.nsplit > 1:
-            part = scratch_buffer(q4.device, B * Hkv * plan.nsplit * rep * (D + 2))
-            tickets = ticket_buffer(q4.device, B * Hkv)
+            g, groups = decode_groups(rep, "split")
+            part = scratch_buffer(q4.device, B * Hkv * groups * plan.nsplit * g * (D + 2))
+            tickets = ticket_buffer(q4.device, B * Hkv * groups)
         fn = _build.kernel_fn("decode_attn_int8", "decode_attn_int8_split", 28,
                               int_args=range(14, 25), float_args=(25, 26))
         err = fn(*ptrs, None if part is None else part.data_ptr(),

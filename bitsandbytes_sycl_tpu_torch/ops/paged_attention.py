@@ -23,7 +23,15 @@ column (t % 2) * P/2 + t // 2 (``engine/paged._scale_cols``). K's factor is
 Two bodies (``paged_plan``): the split body spreads a row's pages over
 ``nsplit`` CTAs and merges their partial softmax states in split order; the
 SIMT body walks a row's pages in one CTA, for the shapes the split body
-does not take.
+does not take. Both take any group size ``rep = Hq // Hkv``, a CTA serving
+``paged_groups(rep, D, body)[0]`` q heads of one kv head.
+
+``paged_attention_ok`` is the JAX kernel's predicate: where it is False the
+model gathers the row's pages and attends through its dequantize-then-attend
+route, as the JAX package does. ``paged_kernel_takes`` is the wrapper's
+shape guard; it accepts every shape the predicate accepts up to head_dim
+1024 (no configuration of either package reaches a wider one; ROADMAP
+Queue C).
 """
 
 from __future__ import annotations
@@ -34,11 +42,35 @@ import numpy as np
 import torch
 
 from . import _build
+from .attention import _group_size
 from .common import check_cuda_tensors, scratch_buffer, sm_count, ticket_buffer
 
 __all__ = ["paged_decode_attention_int8", "paged_decode_attention_int8_stacked", "paged_attn_int8",
-           "paged_plan", "PagedPlan", "nib_sign_mag", "requant_nib4", "kv4_unpack",
-           "kv4_scales_logical"]
+           "paged_attention_ok", "paged_kernel_takes", "paged_groups", "paged_plan", "PagedPlan",
+           "nib_sign_mag", "requant_nib4", "kv4_unpack", "kv4_scales_logical"]
+
+
+def paged_attention_ok(T: int, D: int, Hq: int, Hkv: int, P: int, page_rows: int) -> bool:
+    """Whether the JAX package's paged kernel takes these shapes: one query
+    row, D and P multiples of 128, Hq a multiple of Hkv, and int8 pages
+    (``page_rows == P``) or kv4 pages (``P // 2`` byte rows)."""
+    return (T == 1 and D % 128 == 0 and Hq % Hkv == 0 and P % 128 == 0
+            and page_rows in (P, P // 2))
+
+
+def paged_kernel_takes(D: int, rep: int, P: int) -> bool:
+    """Kernel D's shape guard: head_dim a multiple of 128 up to 1024 (the
+    SIMT body's threads), any group size, an even page (kv4 byte rows)."""
+    return D % 128 == 0 and 0 < D <= 1024 and rep >= 1 and P > 0 and P % 2 == 0
+
+
+def paged_groups(rep: int, D: int, body: str):
+    """(heads per CTA, groups per kv head) of kernel D's body: rep itself
+    for 1, 2 and 4 (and 8 in the SIMT body), else the next of those up to
+    8 (SIMT) or 4 with heads x D <= 512 (split), the last group padded; the
+    C entry's ``group_size``."""
+    g = _group_size(rep, 8 if body == "simt" else (4 if D == 128 else 2))
+    return g, -(-rep // g)
 
 
 def nib_sign_mag(c4: torch.Tensor) -> torch.Tensor:
@@ -95,16 +127,21 @@ def paged_plan(B: int, Hkv: int, MAXP: int, P: int, D: int, rep: int, sms: int,
     """Kernel D's launch on ``sms`` SMs, from the page-table width MAXP, or
     the host-known ``pages_hint`` where given, and never from the lengths
     (reading them would stop the host in every layer of a decode step).
-    The split body takes D = 128 or 256, rep 1, 2 or 4 with rep * D <= 512
-    and P a multiple of 128 with a page-head's K and V (2 * P * D bytes)
-    within one 64 KB slot of its 2-slot ring; it splits each row's used
-    pages into ``nsplit`` equal shares, with B * Hkv * nsplit CTAs about
-    _PAGED_CTAS_PER_SM per SM, and no more splits than pages. The SIMT body
-    takes the rest, one CTA per row and kv head."""
+    The split body takes D = 128 or 256 and P a multiple of 128 with a
+    page-head's K and V (2 * P * D bytes) within one 64 KB slot of its
+    2-slot ring, at rep 1, 2 or 4 with rep * D <= 512 (one group: the
+    SIMT body keeps rep 8 and rep 4 at D = 256, where it reads each page
+    once for all heads) and at every other rep, in groups of
+    ``paged_groups``; it splits each head group's used pages into
+    ``nsplit`` equal shares, with B * Hkv * groups * nsplit CTAs about
+    _PAGED_CTAS_PER_SM per SM, and no more splits than pages. The SIMT
+    body takes the rest, one CTA per row, kv head and group."""
     pages = MAXP if pages_hint is None else max(1, min(int(pages_hint), MAXP))
-    if D in (128, 256) and rep in (1, 2, 4) and rep * D <= 512 and P % 128 == 0 \
-            and P * D <= 32768:
-        return PagedPlan("split", max(1, min(pages, _PAGED_CTAS_PER_SM * sms // (B * Hkv))))
+    one_group = rep * D <= 512 if rep in (1, 2, 4, 8) else True
+    if D in (128, 256) and one_group and P % 128 == 0 and P * D <= 32768:
+        groups = paged_groups(rep, D, "split")[1]
+        per_row = _PAGED_CTAS_PER_SM * sms // (B * Hkv * groups)
+        return PagedPlan("split", max(1, min(pages, per_row)))
     return PagedPlan("simt", 1)
 
 
@@ -186,9 +223,8 @@ def paged_attn_int8(q4, kp, ks, vp, vs, li: int, page_table, lengths, scale: flo
     if kp.dtype not in (torch.int8, torch.uint8) or vp.dtype != kp.dtype \
             or ks.dtype != torch.float32 or vs.dtype != torch.float32:
         raise ValueError("paged_attn_int8: int8 or kv4 (uint8) pages with f32 scales only")
-    if D % 128 or D > 1024 or rep not in (1, 2, 4, 8) or P % 2 \
-            or kp.shape != (L, NP, Hkv, rows, D) or vp.shape != kp.shape \
-            or ks.shape != (L, NP, Hkv, P) or vs.shape != ks.shape:
+    if not paged_kernel_takes(D, rep, P) or kp.shape != (L, NP, Hkv, rows, D) \
+            or vp.shape != kp.shape or ks.shape != (L, NP, Hkv, P) or vs.shape != ks.shape:
         raise ValueError(f"paged_attn_int8: unsupported shapes q={tuple(q4.shape)} "
                          f"pool={tuple(kp.shape)}")
     if not 0 <= li < L:
@@ -228,8 +264,9 @@ def _paged_launch(q4, kp, ks, vp, vs, li, page_table, lengths, scale, new_kv, wi
         assert all(t.data_ptr() % 16 == 0 for t in ts), "unaligned page pool"
         part = tickets = None
         if plan.nsplit > 1:
-            part = scratch_buffer(q4.device, B * Hkv * plan.nsplit * rep * (D + 2))
-            tickets = ticket_buffer(q4.device, B * Hkv)
+            g, groups = paged_groups(rep, D, "split")
+            part = scratch_buffer(q4.device, B * Hkv * groups * plan.nsplit * g * (D + 2))
+            tickets = ticket_buffer(q4.device, B * Hkv * groups)
         fn = _build.kernel_fn("paged_attn_int8", "paged_attn_int8_split", 32,
                               int_args=range(15, 29), float_args=(29, 30))
         err = fn(*ptrs, None if part is None else part.data_ptr(),
@@ -274,12 +311,12 @@ def paged_decode_attention_int8_stacked(
 ) -> torch.Tensor:
     """Single-step attention over layer ``li`` of the paged pool, (B, 1, Hq,
     D) in q's dtype. Raises ValueError on the shapes the JAX kernel declines
-    (T != 1, D or P not a multiple of 128, Hq not a multiple of Hkv); the
-    JAX package attends those without the kernel, and the port has no such
-    path."""
+    (``paged_attention_ok``: T != 1, D or P not a multiple of 128, Hq not a
+    multiple of Hkv); the model attends those through its gather route
+    (``models.llama._paged_write_and_attend``), as the JAX package does."""
     B, T, Hq, D = q.shape
     Hkv, P = vp.shape[2], vs.shape[3]
-    if T != 1 or D % 128 != 0 or Hq % Hkv != 0 or P % 128 != 0 or vp.shape[3] not in (P, P // 2):
+    if not paged_attention_ok(T, D, Hq, Hkv, P, vp.shape[3]):
         raise ValueError(f"paged_decode_attention_int8_stacked: the kernel does not take "
                          f"T={T}, D={D}, P={P}, Hq={Hq}, Hkv={Hkv}, pages {tuple(vp.shape)}")
     if window is not None and window >= page_table.shape[1] * P:

@@ -1,13 +1,16 @@
 """Optimizer families of the JAX package's ``optim/__init__.py`` as
 ``torch.optim.Optimizer``s: every family has base, 8bit, 32bit (and
 ``paged_*``, the paging flag ignored) constructors under the JAX names,
-with the parameters first, plus the class-name aliases."""
+with the parameters first, plus the class-name aliases; the per-parameter
+overrides (``GlobalOptimManager``) and the quantization-error diagnostic
+(``analysis_adam``)."""
 
 from __future__ import annotations
 
 from functools import partial as _partial
 
-from .base import BnbOptimizer, make_optimizer
+from .analysis import AnalysisAdam, AnalysisAdamState, analysis_adam
+from .base import BnbOptimizer, GlobalOptimManager, make_optimizer
 
 
 def _family(name, default_betas=(0.9, 0.999), default_eps=1e-8, **fixed):
@@ -117,7 +120,8 @@ RMSprop, RMSprop8bit, RMSprop32bit = rmsprop, rmsprop8bit, rmsprop32bit
 Adagrad, Adagrad8bit, Adagrad32bit = adagrad, adagrad8bit, adagrad32bit
 
 __all__ = [
-    "BnbOptimizer", "make_optimizer",
+    "BnbOptimizer", "GlobalOptimManager", "make_optimizer",
+    "AnalysisAdam", "AnalysisAdamState", "analysis_adam",
     "adam", "adam8bit", "adam32bit", "paged_adam", "paged_adam8bit", "paged_adam32bit",
     "adamw", "adamw8bit", "adamw32bit", "paged_adamw", "paged_adamw8bit", "paged_adamw32bit",
     "sgd", "sgd8bit", "sgd32bit", "momentum",

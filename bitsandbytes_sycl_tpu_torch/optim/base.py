@@ -9,6 +9,12 @@ percentile clipping. A leaf is 8-bit when ``optim_bits == 8`` and its
 ``numel >= min_8bit_size``. One step count per optimizer (``count``), as
 the JAX package's ``BnbOptimizerState.count``.
 
+``optim_bits``, ``min_8bit_size``, ``percentile_clipping``, ``block_wise``,
+``max_unorm`` and ``stochastic_rounding`` are param-group settings whose
+defaults the constructor's values give, so one optimizer holds groups of
+different configurations (``GlobalOptimManager.build``, the JAX package's
+``multi_transform`` of one transform per override).
+
 A step computes each leaf's new value and applies it as ``p + (new_p - p)``
 in p's dtype, as ``optax.apply_updates`` adds the update the JAX
 transform returns (it rounds otherwise than storing new_p). ``is_paged`` is
@@ -17,7 +23,9 @@ accepted and ignored, as in the JAX package.
 A step takes three routes (``_route``), each leaf ending bit for bit where
 its own update would put it:
 - "grouped": every 8-bit leaf with contiguous f32 p and grad (not a view)
-  goes through one launch of kernel J or K per device and blocksize, in
+  goes through one launch of kernel J or K per device, blocksize and
+  group configuration (the settings above; groups that differ only in
+  lr, betas, eps or weight decay share a launch, their scalars in rows), in
   place (a leaf of one block past 2048 elements, ``block_wise=False``,
   takes the two-pass body: a launch pair per device and leaf size)
   (``functional.optimizer_update_8bit_grouped``; param groups and
@@ -41,9 +49,12 @@ import torch
 
 from .. import functional as F
 
-__all__ = ["BnbOptimizer", "make_optimizer"]
+__all__ = ["BnbOptimizer", "make_optimizer", "GlobalOptimManager"]
 
 _2STATE = ("adam", "lamb")
+# the param-group settings beside lr, betas, eps and weight_decay
+_SETTINGS = ("optim_bits", "min_8bit_size", "percentile_clipping", "block_wise", "max_unorm",
+             "stochastic_rounding")
 
 
 def _leaf_is_8bit(p: torch.Tensor, optim_bits: int, min_8bit_size: int) -> bool:
@@ -79,22 +90,34 @@ class BnbOptimizer(torch.optim.Optimizer):
             raise NotImplementedError(
                 "sharded optimizer states (mesh=) are not ported yet (ROADMAP Queue A #13)")
         del is_paged, shard_axis
-        defaults = dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay)
+        defaults = dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay,
+                        optim_bits=optim_bits, min_8bit_size=min_8bit_size,
+                        percentile_clipping=percentile_clipping, block_wise=block_wise,
+                        max_unorm=max_unorm, stochastic_rounding=stochastic_rounding)
+        self._by_param = None
         super().__init__(params, defaults)
         self.name = name
-        self.optim_bits = optim_bits
-        self.min_8bit_size = min_8bit_size
-        self.percentile_clipping = percentile_clipping
-        self.max_unorm = max_unorm
-        self.stochastic_rounding = stochastic_rounding
-        self.block_wise = block_wise
         self.count = 0
         self.route_leaves = {"grouped": 0, "batched": 0, "per_leaf": 0}
+
+    def add_param_group(self, param_group: dict) -> None:
+        super().add_param_group(param_group)
+        self._by_param = None
+
+    def group_of(self, p: torch.Tensor) -> dict:
+        """The param group that holds p."""
+        if self._by_param is None:
+            self._by_param = {id(q): g for g in self.param_groups for q in g["params"]}
+        return self._by_param[id(p)]
+
+    def setting(self, p: torch.Tensor, key: str):
+        """A per-group setting (``_SETTINGS``) of leaf p."""
+        return self.group_of(p)[key]
 
     def blocksize(self, p: torch.Tensor) -> int:
         """The quantization block of an 8-bit leaf: 2048, or with
         ``block_wise=False`` the whole leaf."""
-        return 2048 if self.block_wise else max(p.numel(), 1)
+        return 2048 if self.setting(p, "block_wise") else max(p.numel(), 1)
 
     def init_state(self, p: torch.Tensor) -> dict:
         """The leaf's zero state on p's device, as the JAX package's
@@ -102,7 +125,7 @@ class BnbOptimizer(torch.optim.Optimizer):
         dev = p.device
         two = self.name in _2STATE
         s: dict = {}
-        if _leaf_is_8bit(p, self.optim_bits, self.min_8bit_size):
+        if _leaf_is_8bit(p, self.setting(p, "optim_bits"), self.setting(p, "min_8bit_size")):
             nb = F.blocks_for(p.numel(), self.blocksize(p))
             s["state1"] = torch.zeros(p.shape, dtype=torch.uint8, device=dev)
             s["absmax1"] = torch.zeros((nb,), dtype=torch.float32, device=dev)
@@ -113,7 +136,7 @@ class BnbOptimizer(torch.optim.Optimizer):
             s["state1"] = torch.zeros(p.shape, dtype=torch.float32, device=dev)
             if two:
                 s["state2"] = torch.zeros(p.shape, dtype=torch.float32, device=dev)
-        if self.percentile_clipping < 100:
+        if self.setting(p, "percentile_clipping") < 100:
             s["gnorm_vec"] = torch.zeros((100,), dtype=torch.float32, device=dev)
         return s
 
@@ -139,12 +162,13 @@ class BnbOptimizer(torch.optim.Optimizer):
                 route = self._route(p, s)
                 self.route_leaves[route] += 1
                 if route == "grouped":
-                    grouped.setdefault((p.device, self.blocksize(p)), []).append((p, s, hyper))
+                    key = (p.device, self.blocksize(p), tuple(group[k] for k in _SETTINGS))
+                    grouped.setdefault(key, []).append((p, s, hyper))
                 elif route == "batched":
                     batched.setdefault((p.device, gi), []).append((p, s, hyper))
                 else:
                     single.append((p, s, hyper))
-        for (_, bs), items in grouped.items():
+        for (_, bs, _), items in grouped.items():
             self._step_grouped(items, count, bs)
         for items in batched.values():
             self._step_batched(items, count)
@@ -156,30 +180,32 @@ class BnbOptimizer(torch.optim.Optimizer):
         """The route of leaf p with state s this step: "grouped" (8-bit),
         "batched" (32-bit) or "per_leaf" (see the module's docstring)."""
         g, s1, s2 = p.grad, s["state1"], s.get("state2")
-        plain = (self.max_unorm == 0.0 and p.dtype == torch.float32 and g.dtype == torch.float32
-                 and p.is_contiguous() and g.is_contiguous() and not p._is_view()
+        plain = (self.setting(p, "max_unorm") == 0.0 and p.dtype == torch.float32
+                 and g.dtype == torch.float32 and p.is_contiguous() and g.is_contiguous()
+                 and not p._is_view()
                  and s1.is_contiguous() and (s2 is None or s2.is_contiguous()))
         if not plain:
             return "per_leaf"
         if s1.dtype == torch.uint8:
             return "grouped"
-        return "batched" if self.percentile_clipping >= 100 else "per_leaf"
+        return "batched" if self.setting(p, "percentile_clipping") >= 100 else "per_leaf"
 
     def _step_grouped(self, items, count, blocksize):
-        """The 8-bit leaves of one device and blocksize: one launch of
-        kernel J or K (a pair past 2048)."""
+        """The 8-bit leaves of one device, blocksize and group configuration:
+        one launch of kernel J or K (a pair past 2048)."""
+        p0 = items[0][0]
+        clip = self.setting(p0, "percentile_clipping")
         scales = None
-        if self.percentile_clipping < 100:
+        if clip < 100:
             scales = []
             for p, s, _ in items:
                 gnorm = torch.linalg.vector_norm(p.grad.float())
-                s["gnorm_vec"], scale = F.percentile_clipping(
-                    gnorm, s["gnorm_vec"], count, self.percentile_clipping)
+                s["gnorm_vec"], scale = F.percentile_clipping(gnorm, s["gnorm_vec"], count, clip)
                 scales.append(scale)
         F.optimizer_update_8bit_grouped(
             self.name, [(p.grad, p, s) for p, s, _ in items], [h for _, _, h in items], count,
             gnorm_scales=scales, blocksize=blocksize,
-            stochastic_rounding=self.stochastic_rounding)
+            stochastic_rounding=self.setting(p0, "stochastic_rounding"))
 
     def _step_batched(self, items, count):
         """The 32-bit leaves of one device and param group: one update over
@@ -205,33 +231,34 @@ class BnbOptimizer(torch.optim.Optimizer):
 
     def _step_leaf(self, p, g, s, count, lr, beta1, beta2, eps, wd):
         gnorm_scale = 1.0
-        if self.percentile_clipping < 100:
+        clip = self.setting(p, "percentile_clipping")
+        max_unorm = self.setting(p, "max_unorm")
+        if clip < 100:
             gnorm = torch.linalg.vector_norm(g.float())
-            s["gnorm_vec"], gnorm_scale = F.percentile_clipping(
-                gnorm, s["gnorm_vec"], count, self.percentile_clipping)
+            s["gnorm_vec"], gnorm_scale = F.percentile_clipping(gnorm, s["gnorm_vec"], count, clip)
         eight = s["state1"].dtype == torch.uint8
         if eight:
             new_p, s["state1"], s["absmax1"], st2, am2 = F.optimizer_update_8bit_blockwise(
                 self.name, g, p, s["state1"], s["absmax1"], s.get("state2"), s.get("absmax2"),
                 None, None, beta1, beta2, eps, count, lr, weight_decay=wd,
                 gnorm_scale=gnorm_scale, blocksize=self.blocksize(p), codec="dynamic",
-                stochastic_rounding=self.stochastic_rounding,
+                stochastic_rounding=self.setting(p, "stochastic_rounding"),
             )
             if self.name in _2STATE:
                 s["state2"], s["absmax2"] = st2, am2
         else:
             new_p, s["state1"], s2 = F.optimizer_update_32bit(
                 self.name, g, p, s["state1"], s.get("state2"), beta1, beta2, eps, count, lr,
-                weight_decay=wd, gnorm_scale=gnorm_scale, max_unorm=self.max_unorm,
+                weight_decay=wd, gnorm_scale=gnorm_scale, max_unorm=max_unorm,
             )
             if self.name in _2STATE:
                 s["state2"] = s2
         delta = new_p.float() - p.float()
-        if self.max_unorm > 0.0 and eight:
+        if max_unorm > 0.0 and eight:
             # the blockwise 8-bit update has no unorm machinery: clip the
             # realized update post hoc (+eps so zero-norm params move)
             unorm = torch.linalg.vector_norm(delta)
-            limit = (self.max_unorm * torch.linalg.vector_norm(p.float()) + eps) * lr
+            limit = (max_unorm * torch.linalg.vector_norm(p.float()) + eps) * lr
             delta = delta * torch.where(unorm > limit, limit / unorm.clamp_min(1e-12),
                                         torch.ones_like(unorm))
         p.add_(delta.to(p.dtype))
@@ -242,3 +269,81 @@ def make_optimizer(params, name: str, learning_rate: Union[float, Callable] = 1e
     """The JAX package's ``make_optimizer`` with the parameters first, as a
     ``torch.optim.Optimizer``."""
     return BnbOptimizer(params, name, lr=learning_rate, **kw)
+
+
+# make_optimizer's keyword for the learning rate -> the param group's key
+_GROUP_KEYS = {"learning_rate": "lr"}
+
+
+class GlobalOptimManager:
+    """Per-parameter optimizer overrides, the JAX package's
+    GlobalOptimManager (the reference's registry that StableEmbedding uses
+    to keep 32-bit states): register predicates over parameter paths, then
+    ``build`` one optimizer whose param groups carry each override's
+    configuration (the JAX package builds an ``optax.multi_transform`` of
+    one transform per override)."""
+
+    _instance: "GlobalOptimManager" = None
+
+    def __init__(self):
+        self.overrides: list = []
+
+    @classmethod
+    def get_instance(cls) -> "GlobalOptimManager":
+        if cls._instance is None:
+            cls._instance = cls()
+        return cls._instance
+
+    def register_module_override(self, match, **config):
+        """``match``: a substring of the parameter's path, or a predicate
+        over the path; ``config``: make_optimizer keywords for the leaves
+        it matches (the last matching override wins)."""
+        if isinstance(match, str):
+            needle = match
+            match = lambda path: needle in path  # noqa: E731
+        self.overrides.append((match, config))
+
+    def override_config(self, match, **config):
+        self.register_module_override(match, **config)
+
+    @staticmethod
+    def _paths(params):
+        """(path, tensor) of every parameter: a dict/list tree's keys joined
+        by "/", or an nn.Module's ``named_parameters`` with "/" for "."."""
+        if isinstance(params, torch.nn.Module):
+            return [(n.replace(".", "/"), p) for n, p in params.named_parameters()]
+        out = []
+
+        def walk(obj, prefix):
+            if isinstance(obj, torch.Tensor):
+                out.append(("/".join(prefix), obj))
+            elif isinstance(obj, dict):
+                for k, v in obj.items():
+                    walk(v, prefix + [str(k)])
+            else:
+                for i, v in enumerate(obj):
+                    walk(v, prefix + [str(i)])
+
+        walk(params, [])
+        return out
+
+    def build(self, name: str, params, **default_kwargs) -> BnbOptimizer:
+        """One BnbOptimizer over ``params`` (a dict/list tree of tensors, or
+        an nn.Module): a param group per override that matches a leaf, with
+        ``{**default_kwargs, **override}`` as its configuration, beside the
+        default group."""
+        labels: dict = {}
+        for path, p in self._paths(params):
+            label = 0
+            for j, (pred, _) in enumerate(self.overrides, start=1):
+                if pred(path):
+                    label = j
+            labels.setdefault(label, []).append(p)
+        groups = []
+        for label in sorted(labels):
+            group = {"params": labels[label]}
+            if label:
+                for k, v in self.overrides[label - 1][1].items():
+                    group[_GROUP_KEYS.get(k, k)] = tuple(v) if k == "betas" else v
+            groups.append(group)
+        return make_optimizer(groups, name, **default_kwargs)

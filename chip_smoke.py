@@ -129,6 +129,20 @@ Phases, each of which exits non-zero on failure:
      and a draft ingest (and nowhere else in the script); sampling runs;
      at 2 layers the host loop against the loop variant. (a), (b) and (d)
      also run 2 layers at 7B width on the card against the CPU;
+  10. the other model families, after phase 8 (10o, the optimizer manager
+     over phase 7b's adapters, after 7d: o_proj's overridden to 32-bit, J
+     once a step for the 8-bit group): (k) kernels H and D at group sizes
+     3, 5, 7 and 16 and H and C at head_dim 384 (D at 256 and over kv4
+     pages) in every body, within 1% of their plain versions with the
+     options, the faults outside, 100 launches bit for bit, and H and D
+     timed at rep 7 beside rep 4; (a) Mixtral-8x7B at full width and
+     depth, (b) Qwen2-7B, (c) GPT-J-6B, (d) BLOOM-7B1, each served
+     contiguous and paged through its forward (8 prompts, 4 slots, 32 new
+     tokens), greedy tokens of the two modes under the gap rule, the
+     launches of one prefill and one decode step exact (Mixtral: A 897 a
+     step), and the first layer (Mixtral) or two against the CPU; (e)
+     eight more families at their published widths and 2 layers, the
+     dequantize routes exactly where head_dim % 128 != 0;
 Every prefill of phases 3, 3b, 3c, 4b and 6 must run C's tensor-core body
 (the model's q is bf16), every paged decode launch D's split body, every
 contiguous decode launch H's split body, and every decode step's W4A8
@@ -1960,18 +1974,19 @@ def prompts_from_seed(seed, n, vocab):
 
 
 def serve(torch, cfg, params, prompts, max_new, device="cuda", paged=True, per_request=None,
-          max_batch=4, lora=None, adapter_ids=None, **engine_kw):
+          max_batch=4, lora=None, adapter_ids=None, forward_fn=None, **engine_kw):
     """generate() through an engine of ``max_batch`` slots (paged, or the
     default contiguous cache), with stacked adapters ``lora`` and one
-    adapter id per request if given. ``per_request`` maps each request to
-    the logits rows its tokens were sampled from."""
+    adapter id per request if given, through the model's ``forward_fn``
+    (llama_forward by default). ``per_request`` maps each request to the
+    logits rows its tokens were sampled from."""
     import numpy as np
 
     from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
 
     ecfg = EngineConfig(max_batch=max_batch, paged=paged, page_size=128, max_new_tokens=max_new,
                         **engine_kw)
-    eng = InferenceEngine(cfg, params, ecfg, device=device, lora=lora)
+    eng = InferenceEngine(cfg, params, ecfg, device=device, lora=lora, forward_fn=forward_fn)
     steps = []
     step = eng.step
     state = {"step": False}
@@ -4475,15 +4490,502 @@ def serving_engine_7b(torch, cfg, params, prompts, ref_outs, kernels):
     return stats, params8
 
 
-def to_cuda(torch, o):
-    """A params tree (tensors, QLinearWeights, dicts, lists) on the card."""
+def to_cuda(torch, o, device="cuda"):
+    """A params tree (tensors, QLinearWeights, dicts, lists) on the card, or
+    on ``device``."""
     from bitsandbytes_sycl_tpu_torch.ops.common import QLinearWeight
 
     if isinstance(o, (torch.Tensor, QLinearWeight)):
-        return o.to("cuda")
+        return o.to(device)
     if isinstance(o, dict):
-        return {k: to_cuda(torch, v) for k, v in o.items()}
-    return [to_cuda(torch, v) for v in o]
+        return {k: to_cuda(torch, v, device) for k, v in o.items()}
+    return [to_cuda(torch, v, device) for v in o]
+
+
+# --------------------------------------------------------------- phase 10
+GROUP_REPS = (3, 5, 7, 16)
+
+
+def repeat_bits(torch, name, run, n=100):
+    """``run`` launched n times on one input gives the same bits each time
+    (the split merges add in a fixed order): a race would show here."""
+    first = run().clone()
+    for _ in range(n - 1):
+        out = run()
+        need(torch.equal(out.view(torch.int16) if out.dtype == torch.bfloat16 else out,
+                         first.view(torch.int16) if first.dtype == torch.bfloat16 else first),
+             f"{name}: {n} repeated launches did not give the same bits")
+
+
+def check_group_shapes(torch, report):
+    """Phase 10k: kernels H and D at group sizes 3, 5, 7 and 16 (16 q heads
+    of one kv head: several head groups per CTA pass), H and C at head_dim
+    384, D at head_dim 256 with a group of 7 and over kv4 pages, in every
+    body that takes the shape, against their plain versions within 1% of
+    the output's largest magnitude, with and without the window, softcap,
+    ALiBi and new_kv options. Each case: the deliberate faults of
+    check_decode / check_paged land outside the tolerance, and 100 repeated
+    launches give equal bits. Then H and D timed at rep 7 beside rep 4 over
+    the same K/V bytes (B = 4, 4 kv heads: Qwen2-7B's grouping)."""
+    from bitsandbytes_sycl_tpu_torch.ops import attention, paged_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    L, B, Hkv, li = 2, 4, 4, 1
+    n = 0
+    rows = []
+
+    def check(name, run, plain, faults, repeat=True):
+        nonlocal n
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        err, mag = max_err(torch, got, ref)
+        tol = 1e-2 * mag
+        need(err <= tol, f"{name}: max err {err} > {tol}")
+        margin = faults_exceed(torch, name, ref, faults, tol) if faults else None
+        if repeat:
+            repeat_bits(torch, name, run)
+        n += 1
+        rows.append(dict(name=name, max_abs_err=err, tol=tol, fault_margin=margin))
+        return err
+
+    # kernel H: both bodies at head_dim 128, the SIMT body at 384
+    S = 1024
+    lens = torch.tensor([1023, 1, 500, 0], dtype=torch.int32, device="cuda")
+    for rep, D in [(r, 128) for r in GROUP_REPS] + [(1, 384), (7, 384)]:
+        kq = torch.randint(-127, 128, (L, B, Hkv, D, S), generator=gen, device="cuda", dtype=torch.int8)
+        vq = torch.randint(-127, 128, (L, B, Hkv, S, D), generator=gen, device="cuda", dtype=torch.int8)
+        ks = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") * 2 + 1  # O(1) scores
+        vs = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") + 0.5
+        q = torch.randn((B, Hkv, rep, D), generator=gen, device="cuda").to(torch.bfloat16)
+        new_kv = (torch.randint(-127, 128, (B, Hkv, D), generator=gen, device="cuda", dtype=torch.int8),
+                  torch.rand((B, Hkv), generator=gen, device="cuda") * 2 + 1,
+                  torch.randint(-127, 128, (B, Hkv, D), generator=gen, device="cuda", dtype=torch.int8),
+                  torch.rand((B, Hkv), generator=gen, device="cuda") + 0.5)
+        alibi = torch.rand((Hkv * rep,), generator=gen, device="cuda") * 0.01
+        scale = (1.0 / D ** 0.5) / 127.0
+        k_other = kq.clone()
+        k_other[li] = kq[li - 1]
+        for body in (("split", "simt") if D == 128 else ("simt",)):
+            plan = attention.DecodePlan(body, 3 if body == "split" else 1)
+            for nk, opt in ((new_kv, dict(window=300, softcap=30.0, alibi=alibi)), (None, {})):
+                w, sc, al = opt.get("window"), opt.get("softcap"), opt.get("alibi")
+
+                def plain(kq_=kq, ks_=ks, lens_=lens, nk=nk, w=w, sc=sc, al=al):
+                    return attention._decode_plain(q, kq_, ks_, vq, vs, li, lens_, nk, scale, w, sc, al)
+
+                name = f"decode_attn_int8 rep={rep} D={D} {body} new_kv={nk is not None} {sorted(opt)}"
+                check(name, lambda nk=nk, w=w, sc=sc, al=al: attention._decode_launch(
+                    q, kq, ks, vq, vs, li, lens, scale, nk, w, sc, al, plan), plain, [
+                    ("K of another layer", lambda: plain(kq_=k_other)),
+                    ("K of the next kv head", lambda: plain(kq_=kq.roll(1, dims=2))),
+                    ("k_scale dropped", lambda: plain(ks_=torch.full_like(ks, 2.0))),
+                    ("the lengths one too long", lambda: plain(lens_=lens + 1)),
+                ] if nk is not None else [])
+        del kq, vq, ks, vs, k_other
+    # kernel D: both bodies at head_dim 128 and 256, int8 and kv4 pages
+    P, MAXP = 128, 8
+    lens = torch.tensor([1000, 1, 513, 0], dtype=torch.int32, device="cuda")
+    for rep, D, kv4 in [(r, 128, False) for r in GROUP_REPS] + [(7, 256, False), (7, 128, True),
+                                                                  (16, 128, True)]:
+        make = kv4_inputs if kv4 else paged_inputs
+        kp, ks, vp, vs, table, _, new_kv = make(torch, gen, L, B, Hkv, D, P, MAXP)
+        q = torch.randn((B, Hkv, rep, D), generator=gen, device="cuda").to(torch.bfloat16)
+        alibi = torch.rand((Hkv * rep,), generator=gen, device="cuda") * 0.01
+        scale = (1.0 / D ** 0.5) / (7.0 if kv4 else 127.0)
+        for body in ("split", "simt"):
+            plan = paged_attention.PagedPlan(body, 3 if body == "split" else 1)
+            for nk, opt in ((new_kv, dict(window=300, softcap=30.0, alibi=alibi)), (None, {})):
+                w, sc, al = opt.get("window"), opt.get("softcap"), opt.get("alibi")
+
+                def plain(table_=table, ks_=ks, lens_=lens, kp_=kp, nk=nk, w=w, sc=sc, al=al):
+                    return paged_attention._paged_plain(q, kp_, ks_, vp, vs, li, table_, lens_, nk,
+                                                        scale, w, sc, al)
+
+                name = (f"paged_attn_int8 rep={rep} D={D} {'kv4 ' if kv4 else ''}{body}"
+                        f" new_kv={nk is not None} {sorted(opt)}")
+                check(name, lambda nk=nk, w=w, sc=sc, al=al: paged_attention._paged_launch(
+                    q, kp, ks, vp, vs, li, table, lens, scale, nk, w, sc, al, plan), plain, [
+                    ("the page table shifted by a row", lambda: plain(table_=table.roll(1, dims=0))),
+                    ("K of the next kv head", lambda: plain(kp_=kp.roll(1, dims=2))),
+                    ("k_scale dropped", lambda: plain(ks_=torch.full_like(ks, ks.mean().item()))),
+                    ("the lengths one too long", lambda: plain(lens_=lens + 1)),
+                ] if nk is not None else [])
+        del kp, vp, ks, vs
+    # kernel C at head_dim 384 (its SIMT body), bf16 and f32 q, groups of 1 and 7
+    S, T, D = 256, 40, 384
+    kq = torch.randint(-127, 128, (L, B, Hkv, D, S), generator=gen, device="cuda", dtype=torch.int8)
+    vq = torch.randint(-127, 128, (L, B, Hkv, S, D), generator=gen, device="cuda", dtype=torch.int8)
+    ks = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") * 2 + 1
+    vs = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") + 0.5
+    starts = torch.tensor([0, 100, 7, 200], dtype=torch.int32, device="cuda")
+    scale = (1.0 / D ** 0.5) / 127.0
+    k_other = kq.clone()
+    k_other[li] = kq[li - 1]
+    for rep in (1, 7):
+        alibi = torch.rand((Hkv * rep,), generator=gen, device="cuda") * 0.01
+        for dt in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, T, Hkv * rep, D), generator=gen, device="cuda").to(dt)
+            for opt in (dict(window=64, softcap=30.0, alibi=alibi), {}):
+                w, sc, al = opt.get("window"), opt.get("softcap"), opt.get("alibi")
+
+                def plain(kq_=kq, ks_=ks, st_=starts, w=w, sc=sc, al=al, q=q):
+                    return attention._prefill_plain(q, kq_, ks_, vq, vs, li, st_, scale, w, sc, al)
+
+                check(f"prefill_attn_int8 rep={rep} D={D} {dt} {sorted(opt)}",
+                      lambda w=w, sc=sc, al=al, q=q: attention.prefill_attn_int8(
+                          q, kq, ks, vq, vs, li, starts, scale, window=w, softcap=sc, alibi=al),
+                      plain, [("K of another layer", lambda: plain(kq_=k_other)),
+                              ("K of the next kv head", lambda: plain(kq_=kq.roll(1, dims=2))),
+                              ("k_scale dropped", lambda: plain(ks_=torch.full_like(ks, 2.0))),
+                              ("the starts one too far", lambda: plain(st_=starts + 1))])
+    del kq, vq, ks, vs, k_other
+    report["group shapes"] = dict(cases=n, rows=rows)
+    print(f"[10k] {n} cases of H and D at rep {GROUP_REPS}, H and C at D = 384, D at D = 256 and"
+          f" over kv4 pages: within 1%, the faults outside, 100 launches bit for bit", flush=True)
+    time_groups(torch, report)
+    return n
+
+
+def time_groups(torch, report):
+    """Kernels H and D at rep 7 (two head groups of 4 per kv head in their
+    split bodies) beside rep 4 over the same K/V bytes: B = 4, Hkv = 4,
+    D = 128, S = 2048 (H) or 16 pages of 128 (D), full rows, new_kv given.
+    The bound: K/V bytes and scales once, q and out, at the H100's HBM
+    rate (or the f32 operations, if more)."""
+    from bitsandbytes_sycl_tpu_torch.ops import attention, paged_attention
+    from bitsandbytes_sycl_tpu_torch.ops.common import sm_count
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    L, B, Hkv, D, S, li = 2, 4, 4, 128, 2048, 1
+    lens_l = [2047] * B
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    kq = torch.randint(-127, 128, (L, B, Hkv, D, S), generator=gen, device="cuda", dtype=torch.int8)
+    vq = torch.randint(-127, 128, (L, B, Hkv, S, D), generator=gen, device="cuda", dtype=torch.int8)
+    ks = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") * 2 + 1
+    vs = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") + 0.5
+    new_kv = (torch.randint(-127, 128, (B, Hkv, D), generator=gen, device="cuda", dtype=torch.int8),
+              torch.rand((B, Hkv), generator=gen, device="cuda") * 2 + 1,
+              torch.randint(-127, 128, (B, Hkv, D), generator=gen, device="cuda", dtype=torch.int8),
+              torch.rand((B, Hkv), generator=gen, device="cuda") + 0.5)
+    kp, kps, vp, vps, table, _, pnew = paged_inputs(torch, gen, L, B, Hkv, D, 128, 16)
+    plens = torch.tensor([16 * 128 - 1] * B, dtype=torch.int32, device="cuda")
+    scale = (1.0 / D ** 0.5) / 127.0
+    out = {}
+    for rep in (4, 7):
+        Hq = Hkv * rep
+        q = torch.randn((B, Hkv, rep, D), generator=gen, device="cuda").to(torch.bfloat16)
+        nbytes = sum(lens_l) * Hkv * (2 * D + 8) + 2 * B * Hq * D * 2 + B * Hkv * (2 * D + 8) + 4 * B
+        flops = 4 * (sum(lens_l) + B) * Hq * D
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+        bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations"
+        plan = attention.decode_plan(B, Hkv, S, D, rep, q.dtype, sm_count(q.device))
+        run = lambda q=q, plan=plan: attention._decode_launch(  # noqa: E731
+            q, kq, ks, vq, vs, li, lens, scale, new_kv, None, None, None, plan)
+        plain = lambda q=q: attention._decode_plain(  # noqa: E731
+            q, kq, ks, vq, vs, li, lens, new_kv, scale, None, None, None)
+        err, _ = max_err(torch, run(), plain())
+        # SDPA over the same K/V dequantized, the kv heads repeated per group
+        kd = (kq[li].float() * (ks[li, :, :, None, :] / 127)).transpose(-1, -2)
+        vd = vq[li].float() * (vs[li, :, :, :, None] / 127)
+        kd = kd.repeat_interleave(rep, dim=1).contiguous().to(torch.bfloat16)
+        vd = vd.repeat_interleave(rep, dim=1).contiguous().to(torch.bfloat16)
+        lib_ms, lib_name, _ = time_sdpa(torch, q.reshape(B, Hq, 1, D), kd, vd)
+        del kd, vd
+        out[f"decode_attn_int8 rep={rep}"] = dict(
+            plan=tuple(plan), ms=time_cold(torch, run), plain_ms=time_cold(torch, plain, iters=5),
+            library_ms=lib_ms, library_backend=lib_name, bound_ms=bound, bound_by=bound_by,
+            max_abs_err=err, bytes=nbytes)
+        pplan = paged_attention.paged_plan(B, Hkv, 16, 128, D, rep, sm_count(q.device), 16)
+        prun = lambda q=q, pplan=pplan: paged_attention._paged_launch(  # noqa: E731
+            q, kp, kps, vp, vps, li, table, plens, scale, pnew, None, None, None, pplan)
+        pplain = lambda q=q: paged_attention._paged_plain(  # noqa: E731
+            q, kp, kps, vp, vps, li, table, plens, pnew, scale, None, None, None)
+        perr, _ = max_err(torch, prun(), pplain())
+        out[f"paged_attn_int8 rep={rep}"] = dict(
+            plan=tuple(pplan), ms=time_cold(torch, prun), plain_ms=time_cold(torch, pplain, iters=5),
+            library_ms=lib_ms, library_backend=lib_name, bound_ms=bound, bound_by=bound_by,
+            max_abs_err=perr, bytes=nbytes)
+    for k, r in out.items():
+        print(f"[10k] {k}: plan {r['plan']} {r['ms'] * 1e3:.1f} us (plain {r['plain_ms'] * 1e3:.1f} us,"
+              f" sdpa {fmt_us(r['library_ms'])}), bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}"
+              f" ({r['bound_ms'] / r['ms']:.0%}); err {r['max_abs_err']:.3g}", flush=True)
+    report["group timing"] = out
+    for kname in ("decode_attn_int8", "paged_attn_int8"):
+        r = out[f"{kname} rep=7"]
+        report[f"{kname} (rep 7)"] = dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                                          bound_by=r["bound_by"], library_ms=r["library_ms"])
+
+
+def forward_steps(torch, fwd, cfg, params, toks, device, steps=2, feed=None):
+    """A prefill of ``toks`` then ``steps`` decode steps through ``fwd`` on
+    ``device``, each fed the tokens ``feed[s]`` (B,) or, without ``feed``,
+    the argmax of the call before: the logits of each call, (B, vocab) f32
+    on the CPU."""
+    from bitsandbytes_sycl_tpu_torch.models.llama import init_kv_cache
+
+    B, T = toks.shape
+    cache = init_kv_cache(cfg, B, device)
+    pos = torch.arange(T, device=device).expand(B, T)
+    lg, cache = fwd(params, cfg, toks.to(device), cache, pos)
+    out = [lg[:, -1].float().cpu()]
+    for s in range(steps):
+        tok = out[-1].argmax(-1) if feed is None else feed[s]
+        lg, cache = fwd(params, cfg, tok[:, None].to(device), cache,
+                        torch.full((B, 1), T + s, device=device))
+        out.append(lg[:, 0].float().cpu())
+    return out
+
+
+def card_vs_cpu_layers(torch, label, fwd, cfg, params, layers, steps=2):
+    """The first ``layers`` layers of the card's params (their bytes copied
+    to the CPU, not re-initialized): a prefill of two phase-3 prompts and
+    ``steps`` decode steps on the card and through the plain versions on
+    the CPU; every call's logits within 4% relative L2 and 5% of the
+    largest logit (phase 5's limits), the decode tokens under the gap
+    rule."""
+    cfg_n = dataclasses.replace(cfg, num_layers=layers)
+    p_gpu = dict(params, layers=params["layers"][:layers])
+    p_cpu = to_cuda(torch, p_gpu, "cpu")
+    prompts = prompts_from_seed(1, 2, cfg.vocab_size)
+    toks = torch.tensor([p + [0] * (32 - len(p)) for p in prompts])
+    # both sides decode the CPU's greedy tokens, so every call sees one input
+    want = forward_steps(torch, fwd, cfg_n, p_cpu, toks, "cpu", steps)
+    got = forward_steps(torch, fwd, cfg_n, p_gpu, toks, "cuda", steps,
+                        feed=[w.argmax(-1) for w in want[:-1]])
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        need(torch.isfinite(g).all().item(), f"{label} card vs CPU: non-finite logits (call {i})")
+        rel = float((g - w).norm() / w.norm())
+        err, mag = max_err(torch, g, w)
+        need(rel <= 4e-2 and err <= 5e-2 * mag,
+             f"{label} card vs CPU, call {i}: relative L2 {rel} (tol 0.04), max err {err}"
+             f" (tol {5e-2 * mag})")
+        worst = max(worst, rel)
+    # the greedy token of every call, compared under the gap rule
+    gt = [[int(g[r].argmax()) for g in got] for r in range(2)]
+    wt = [[int(w[r].argmax()) for w in want] for r in range(2)]
+    compared = greedy_agree(wt, [[w[r] for w in want] for r in range(2)], gt,
+                            f"{label} card vs CPU")
+    del p_cpu
+    return dict(layers=layers, worst_rel_l2=worst, calls=len(got), tokens_compared_equal=compared)
+
+
+def family_step_counts(torch, cfg, params, fwd, prompts, kernels, paged):
+    """The launches of one 4-prompt prefill and of the decode step after it,
+    through an engine of 4 slots with ``fwd``."""
+    from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
+
+    eng = InferenceEngine(cfg, params, EngineConfig(max_batch=4, paged=paged, max_new_tokens=8),
+                          device="cuda", forward_fn=fwd)
+    reset_counts(kernels)
+    eng.add_requests(prompts[:4])
+    torch.cuda.synchronize()
+    prefill = {k: v for k, v in read_counts(kernels).items() if v}
+    reset_counts(kernels)
+    eng.step()
+    torch.cuda.synchronize()
+    step = {k: v for k, v in read_counts(kernels).items() if v}
+    del eng
+    return prefill, step
+
+
+def serve_family(torch, label, cfg, params, fwd, prompts, kernels, max_new=32, expect=None):
+    """Serve ``prompts`` (4 slots, ``max_new`` tokens) through ``fwd``
+    contiguous and paged with the counts set to 0 just before each run and
+    read just after; greedy tokens of the two under the gap rule; the
+    launches of one prefill and one decode step in each mode against
+    ``expect`` (a function of the mode giving {counter: launches}); peak
+    memory of each run."""
+    out = {}
+    recs = {}
+    for paged in (False, True):
+        mode = "paged" if paged else "contiguous"
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        rec = {}
+        outs, wall, steps = serve(torch, cfg, params, prompts, max_new, paged=paged, per_request=rec,
+                                  forward_fn=fwd)
+        counts = {k: v for k, v in read_counts(kernels).items() if v}
+        need(all(len(o) == max_new for o in outs), f"{label} {mode}: wrong output lengths")
+        need(all(0 <= t < cfg.vocab_size for o in outs for t in o), f"{label} {mode}: token out of range")
+        prefill, step = family_step_counts(torch, cfg, params, fwd, prompts, kernels, paged)
+        if expect is not None:
+            for k, v in expect(paged, "prefill").items():
+                need(prefill.get(k, 0) == v, f"{label} {mode}: {prefill.get(k, 0)} launches of {k}"
+                                             f" in one prefill, expected {v} ({prefill})")
+            for k, v in expect(paged, "step").items():
+                need(step.get(k, 0) == v, f"{label} {mode}: {step.get(k, 0)} launches of {k} in"
+                                          f" one decode step, expected {v} ({step})")
+        steps = sorted(steps)
+        out[mode] = dict(tokens=sum(map(len, outs)), wall_s=wall, decode_steps=len(steps),
+                         decode_ms_per_step_median=steps[len(steps) // 2] * 1e3,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts,
+                         prefill_launches=prefill, step_launches=step)
+        recs[mode] = (outs, rec)
+        print(f"{label} {mode}: {out[mode]['tokens']} tokens in {wall:.2f} s, median"
+              f" {out[mode]['decode_ms_per_step_median']:.2f} ms/step, peak"
+              f" {out[mode]['peak_gb']:.1f} GB; one step's launches {step}", flush=True)
+    out["tokens_compared_equal"] = greedy_agree(*recs["paged"], recs["contiguous"][0],
+                                                f"{label} paged vs contiguous")
+    return out
+
+
+def attention_expect(cfg):
+    """{counter: launches} of one prefill (4 prompts) and one decode step of
+    a model whose attention runs on kernels C, D and H: a layer each."""
+    L = cfg.num_layers
+
+    def expect(paged, what):
+        if what == "prefill":
+            return {"prefill_attn_int8": L, "write_and_attend.dequant": 0}
+        if paged:
+            return {"paged_attn_int8": L, "paged_attn_int8.split": L, "decode_attn_int8": 0,
+                    "write_and_attend.paged_dequant": 0}
+        return {"decode_attn_int8": L, "paged_attn_int8": 0, "write_and_attend.dequant": 0}
+
+    return expect
+
+
+def families_10(torch, prompts, kernels, report):
+    """Phase 10: kernel checks of the new shapes (10k), then Mixtral-8x7B
+    (10a) at full width and depth, Qwen2-7B (10b), GPT-J-6B (10c) and
+    BLOOM-7B1 (10d) at full width, each served contiguous and paged
+    through its forward and held against the CPU at its first layers, and
+    eight more families at their published widths and 2 layers (10e, held
+    against the CPU at a prefill and one decode step). Each model is freed
+    before the next."""
+    from bitsandbytes_sycl_tpu_torch import models as M
+
+    stats = {}
+    seconds = {}
+    t0 = time.perf_counter()
+    stats["10k"] = check_group_shapes(torch, report)
+    seconds["10k"] = time.perf_counter() - t0
+
+    def big(key, label, cfg, init, fwd, expect, cpu_layers, extra=None):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        params = init(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights_gb = torch.cuda.memory_allocated() / 1e9
+        row = serve_family(torch, label, cfg, params, fwd, prompts, kernels, expect=expect)
+        row.update(init_s=init_s, weights_gb=weights_gb, layers=cfg.num_layers)
+        if extra is not None:
+            row.update(extra(params))
+        row["card_vs_cpu"] = card_vs_cpu_layers(torch, label, fwd, cfg, params, cpu_layers)
+        print(f"{label}: {cfg.num_layers} layers, {weights_gb:.1f} GB on the card, init"
+              f" {init_s:.1f} s; card vs CPU at {cpu_layers} layer(s): worst relative L2"
+              f" {row['card_vs_cpu']['worst_rel_l2']:.3g}, {row['card_vs_cpu']['tokens_compared_equal']}"
+              " decode tokens equal", flush=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        stats[key] = row
+        seconds[key] = time.perf_counter() - t0
+
+    # 10a: Mixtral-8x7B: 8 experts x 3 GEMVs a layer (dense combine) beside attention's 4
+    mix = M.MixtralConfig()
+
+    def mix_expect(paged, what):
+        e = attention_expect(mix)(paged, what)
+        if what == "step":
+            e["w4a8_gemv"] = mix.num_layers * (4 + 3 * mix.num_experts) + 1
+        return e
+
+    big("10a", "[10a] Mixtral-8x7B NF4", mix, M.init_params, M.mixtral_forward, mix_expect, 1)
+    # 10b: Qwen2-7B: 28 q heads over 4 kv heads (rep 7) on H and D
+    qwen = M.Qwen2Config()
+    big("10b", "[10b] Qwen2-7B NF4", qwen, M.init_params, M.qwen2_forward, attention_expect(qwen), 2)
+    # 10c: GPT-J-6B: head_dim 256 on C's and H's SIMT bodies, D's split body
+    gptj = M.GPTJConfig()
+    big("10c", "[10c] GPT-J-6B NF4", gptj, M.init_gptj_params, M.gptj_forward,
+        attention_expect(gptj), 2)
+    # 10d: BLOOM-7B1: ALiBi slopes on C, D and H
+    bloom = M.BloomConfig()
+    big("10d", "[10d] BLOOM-7B1 NF4", bloom, M.init_opt_params, M.bloom_forward,
+        attention_expect(bloom), 2)
+    # 10e: the other families at their published widths, 2 layers each
+    t0 = time.perf_counter()
+    stats["10e"] = {}
+    for name, cfg, init, fwd in (
+            ("Mistral-7B", M.MistralConfig(num_layers=2), M.init_params, M.mistral_forward),
+            ("Gemma-7B", M.GemmaConfig(num_layers=2), M.init_params, M.gemma_forward),
+            ("Gemma-2-9B", M.Gemma2Config(num_layers=2), M.init_params, M.gemma2_forward),
+            ("Phi-2", M.PhiConfig(num_layers=2), M.init_gptj_params, M.phi_forward),
+            ("Pythia-6.9B", M.NeoXConfig(num_layers=2), M.init_gptj_params, M.neox_forward),
+            # 4544 = 71 x 64: K's halves hold whole blocks of 32, not of 64
+            ("Falcon-7B", M.FalconConfig(num_layers=2, blocksize=32), M.init_gptj_params,
+             M.falcon_forward),
+            ("OPT-6.7B", M.OPTConfig(num_layers=2), M.init_opt_params, M.opt_forward),
+            ("GPT-2", M.GPT2Config(num_layers=2), M.init_opt_params, M.gpt2_forward)):
+        t1 = time.perf_counter()
+        params = init(cfg, seed=0, device="cuda")
+        kernel_route = cfg.hd % 128 == 0
+        L = cfg.num_layers
+
+        def expect(paged, what, kernel_route=kernel_route, L=L):
+            if kernel_route:
+                return attention_expect(cfg)(paged, what)
+            # head_dim not a multiple of 128: the dequantize routes, no attention kernel
+            if what == "prefill":
+                return {"prefill_attn_int8": 0, "write_and_attend.dequant": L}
+            if paged:
+                return {"paged_attn_int8": 0, "write_and_attend.paged_dequant": L}
+            return {"decode_attn_int8": 0, "write_and_attend.dequant": L}
+
+        row = serve_family(torch, f"[10e] {name}", cfg, params, fwd, prompts[:4], kernels,
+                           max_new=9, expect=expect)
+        row["card_vs_cpu"] = card_vs_cpu_layers(torch, f"[10e] {name}", fwd, cfg, params, 2, steps=1)
+        row.update(head_dim=cfg.hd, kernel_route=kernel_route, seconds=time.perf_counter() - t1)
+        stats["10e"][name] = row
+        print(f"[10e] {name}: head_dim {cfg.hd} ({'kernels' if kernel_route else 'dequantize routes'});"
+              f" card vs CPU worst relative L2 {row['card_vs_cpu']['worst_rel_l2']:.3g};"
+              f" {row['seconds']:.1f} s", flush=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds["10e"] = time.perf_counter() - t0
+    stats["seconds"] = seconds
+    return stats
+
+
+def manager_7b(torch, cfg, params, kernels, steps=3):
+    """Phase 10o: GlobalOptimManager over phase 7's 7B QLoRA adapters (rank
+    64 on all seven projections), the o_proj adapters overridden to 32-bit
+    states: J launches once a step for the one 8-bit group configuration,
+    the overridden and scalar leaves take the batched 32-bit update."""
+    from bitsandbytes_sycl_tpu_torch import optim
+    from bitsandbytes_sycl_tpu_torch.models.lora import ALL_TARGETS, init_lora, qlora_loss_fn
+
+    lora = init_lora(cfg, seed=1, rank=64, alpha=16.0, targets=ALL_TARGETS)
+    mgr = optim.GlobalOptimManager()
+    mgr.register_module_override("o_proj", optim_bits=32)
+    opt = mgr.build("adam", lora, optim_bits=8, learning_rate=2e-4)
+    n8 = sum(p.numel() >= 4096 and "o_proj" not in path for path, p in mgr._paths(lora))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(1, cfg.vocab_size, (4, 513), generator=gen, device="cuda")
+    loss_fn = qlora_loss_fn(params, cfg)
+    rows = []
+    for i in range(steps):
+        routes = dict(opt.route_leaves)
+        lv, ms, counts, _ = qlora_step(torch, kernels, loss_fn, lora, tokens, opt)
+        routes = {k: v - routes[k] for k, v in opt.route_leaves.items()}
+        need(lv == lv and abs(lv) != float("inf"), f"[10o] step {i + 1}: loss {lv}")
+        need(counts.get("optim8_2state") == 1 and routes["grouped"] == n8,
+             f"[10o] step {i + 1}: {counts.get('optim8_2state')} launches of J for {routes}; expected"
+             f" one launch for the {n8} 8-bit leaves of the one 8-bit group configuration")
+        rows.append(dict(step=i + 1, loss=lv, **ms, leaves_by_route=routes,
+                         launches={k: v for k, v in counts.items() if v}))
+    wrong = [path for path, p in mgr._paths(lora) if path.endswith(("/A", "/B"))
+             and (opt.state[p]["state1"].dtype == torch.float32) != ("o_proj" in path)]
+    need(not wrong, f"[10o] the states of {wrong[:4]} have the other width")
+    print(f"[10o] GlobalOptimManager on the 7B QLoRA adapters, o_proj overridden to 32-bit:"
+          f" {steps} steps, losses {[round(r['loss'], 5) for r in rows]}, J once a step over"
+          f" {n8} leaves; leaves by route {rows[-1]['leaves_by_route']}", flush=True)
+    del opt, lora
+    return dict(steps=rows, eight_bit_leaves=n8)
 
 
 def main() -> int:
@@ -4672,6 +5174,10 @@ def main() -> int:
         maps = state_maps()
         train_stats["branches"] = qlora_branches(torch, cfg, params, KERNELS, maps)
         phases["qlora_branches_s"] = time.perf_counter() - t0
+        # 10o. GlobalOptimManager over the same adapters, one override to 32-bit
+        t0 = time.perf_counter()
+        train_stats["manager"] = manager_7b(torch, cfg, params, KERNELS)
+        phases["manager_10o_s"] = time.perf_counter() - t0
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -4776,6 +5282,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         library_stats = library_7b(torch, KERNELS, cfg)
         phases["library_7b_s"] = library_stats["seconds"]
+
+        # 10. the other model families: the kernel checks of their shapes,
+        # Mixtral-8x7B at full width and depth, Qwen2-7B, GPT-J-6B and
+        # BLOOM-7B1 at full width, eight more at 2 layers
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        family_stats = families_10(torch, prompts, KERNELS, report)
+        phases["families_s"] = time.perf_counter() - t0
+        phases.update({f"families_{k}_s": v for k, v in family_stats["seconds"].items()})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4852,6 +5368,18 @@ def main() -> int:
                                     f"7B QLoRA, {opt_name} with block_wise=False (phase 7d)",
                                     br[f"{kname} (two-pass)"]),
         })
+    # kernels H and D at Qwen2-7B's group of 7 (phase 10b)
+    q10 = family_stats["10b"]
+    sources.update({
+        "decode_attn_int8 (rep 7)": ("bitsandbytes_sycl_tpu/ops/attention.py:50",
+                                     "Qwen2-7B contiguous serve (phase 10b)",
+                                     q10["contiguous"]["launches"]["decode_attn_int8"]),
+        "paged_attn_int8 (rep 7)": ("bitsandbytes_sycl_tpu/ops/paged_attention.py:139",
+                                    "Qwen2-7B paged serve (phase 10b)",
+                                    q10["paged"]["launches"]["paged_attn_int8"]),
+    })
+    per_step.update({"decode_attn_int8 (rep 7)": q10["contiguous"]["step_launches"]["decode_attn_int8"],
+                     "paged_attn_int8 (rep 7)": q10["paged"]["step_launches"]["paged_attn_int8"]})
     for name, (replaces, path, launches) in sources.items():
         r = report[name]
         kernels.append(dict(
@@ -4867,7 +5395,7 @@ def main() -> int:
         json.dump(dict(card=card, kernels=report, serve=serve_stats, long_prompts=long_stats,
                        chunked=chunk_stats, contiguous=contig_stats, w8a8_prefill=w8a8_stats,
                        int8=int8_stats, qlora=train_stats, lean=lean_stats, library=library_stats,
-                       serving=serving_stats, phases=phases), f,
+                       serving=serving_stats, families=family_stats, phases=phases), f,
                   indent=1, default=str)
     print(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
     print(card)

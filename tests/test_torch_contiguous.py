@@ -285,15 +285,20 @@ def test_w8a8_prefill_first_token_is_the_repacked_models(models, paged):
 
 
 def test_unported_options_still_raise(models):
-    """Tensor parallelism (#13) and other families (#10) still raise; the
-    bf16 cache, prefixes and snapshots (#4, #6) are served (their parity
-    tests: test_torch_bf16_cache.py, test_torch_engine_serving.py)."""
+    """Tensor parallelism (#13) still raises; other families' forwards
+    (#10: forward_fn and init_cache_fn, their parity tests in
+    test_torch_family_engine.py), the bf16 cache, prefixes and snapshots
+    (#4, #6) are served (test_torch_bf16_cache.py,
+    test_torch_engine_serving.py)."""
     _, tc, _, tp = models["nf4"]
     eng = InferenceEngine(tc, tp, EngineConfig(max_batch=2), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A #13"):
         InferenceEngine(tc, tp, EngineConfig(), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A #10"):
-        InferenceEngine(tc, tp, EngineConfig(), device="cpu", forward_fn=TL.llama_forward)
+    # an explicit forward_fn and init_cache_fn serve as the defaults do
+    ecfg = EngineConfig(max_batch=2, max_new_tokens=3)
+    by_fn = InferenceEngine(tc, tp, ecfg, device="cpu", forward_fn=TL.llama_forward,
+                            init_cache_fn=TL.init_kv_cache).generate(PROMPTS)
+    assert by_fn == InferenceEngine(tc, tp, ecfg, device="cpu").generate(PROMPTS)
     bf16 = InferenceEngine(dataclasses.replace(tc, kv_quant=False), tp,
                            EngineConfig(max_batch=2, max_new_tokens=2), device="cpu")
     assert bf16.cache["k"].dtype == tc.dtype and set(bf16.cache) == {"k", "v"}

@@ -179,10 +179,15 @@ def test_multi_lora_validations(setup):
                             for layer in setup["lora_np"]], device="cpu")
     with pytest.raises(ValueError, match="stacked"):  # a 2-D adapter would ignore adapter_ids
         InferenceEngine(tc, tp, EngineConfig(**ECFG), device="cpu", lora=single)
-    # the unported options still raise, ahead of the adapter checks
-    with pytest.raises(NotImplementedError, match="Queue A #10"):
+    # a forward_fn is served with adapters: the stacked-form check still
+    # refuses a 2-D adapter, and a forward without the adapter kwargs is
+    # refused; tensor parallelism still raises
+    with pytest.raises(ValueError, match="stacked"):
         InferenceEngine(tc, tp, EngineConfig(**ECFG), device="cpu", lora=single,
                         forward_fn=TL.llama_forward)
+    with pytest.raises(NotImplementedError, match="lora/lora_ids"):
+        InferenceEngine(tc, tp, EngineConfig(**ECFG), device="cpu", lora=single,
+                        forward_fn=lambda p, c, t, cache, pos: TL.llama_forward(p, c, t, cache, pos))
     with pytest.raises(NotImplementedError, match="Queue A #13"):
         InferenceEngine(tc, tp, EngineConfig(**ECFG), device="cpu", mesh=object())
     eng = _engine(setup)
