@@ -13,7 +13,14 @@ blockwise 8-bit and 4-bit quantizers and ``QuantState`` (``functional``,
 ``types``), the LLM.int8 functions, the differentiable matmuls
 (``autograd``: ``matmul``, ``matmul_4bit``), the quantized layers
 (``nn``: ``Linear4bit``, ``LinearNF4``, ``Linear8bitLt``, ...) and
-``utils.replace_linear``. Serving: the 4-bit formats, the W4A8, exact
+``utils.replace_linear``, with the legacy surface (``legacy``: vectorwise
+int8, ``igemm``, sparse containers; ``matmul_cublas``) and the simulated
+FP8 matmuls (``research``). Checkpoints (``checkpoints``): the bnb
+quant-state format, ``torch.save`` trees of quantized weights and optimizer
+states, and HuggingFace directories (safetensors or ``.bin``) quantized on
+load by ``load_llama_from_hf``, ``load_gptj_from_hf`` and each family's
+``models.load_*_from_hf``; ``native`` is the host quantizer built by g++
+at first use, ``profiling`` the trace and roofline helpers. Serving: the 4-bit formats, the W4A8, exact
 4-bit and LLM.int8 linears (with the serving-time int8 repack), int8-KV
 prefill, contiguous and paged decode attention, the Llama model and the
 continuous-batching engine in its contiguous and paged modes. QLoRA
@@ -26,8 +33,8 @@ by nvcc at first use. Entry points run on CUDA unless given
 functional entries follow their tensors' device.
 """
 
-from . import autograd, codebooks, convert, functional, nn, optim, utils
-from .autograd import MatmulLtState, matmul, matmul_4bit
+from . import autograd, codebooks, convert, functional, legacy, nn, optim, research, utils
+from .autograd import MatmulLtState, bmm_cublas, matmul, matmul_4bit, matmul_cublas, mm_cublas
 from .functional import (
     dequantize_4bit,
     dequantize_blockwise,
@@ -68,7 +75,12 @@ __all__ = [
     "llm_int8_prepare_outliers",
     "matmul",
     "matmul_4bit",
+    "matmul_cublas",
+    "bmm_cublas",
+    "mm_cublas",
     "MatmulLtState",
+    "legacy",
+    "research",
     "autograd",
     "convert",
     "nn",

@@ -11,7 +11,11 @@ JAX package's ``autograd.py``, whose ``custom_vjp``s they follow):
   dequantize-and-matmul with its exact-dequant backward;
 - ``matmul_4bit_kernel``: a kernel-layout weight, whose backward is
   ``ops.matmul_4bit.ExactDequantGrad`` (kernel E in f32, then an f32
-  product).
+  product);
+- ``matmul_cublas`` (``mm_cublas``, ``bmm_cublas``): the legacy vectorwise
+  int8 matmul, A quantized per row and B per column
+  (``legacy.vectorwise_quant``), an exact int32 product, rescaled; its
+  backward is full precision.
 
 Quantized weights get no gradient. ``matmul`` is ``bnb.matmul``.
 """
@@ -28,7 +32,7 @@ from . import functional as F
 from .types import QuantState
 
 __all__ = ["matmul", "matmul_4bit", "matmul_4bit_kernel", "matmul_8bit_lt", "matmul_8bit_train",
-           "MatmulLtState", "GlobalOutlierPooler", "get_inverse_transform_indices", "undo_layout"]
+           "matmul_cublas", "mm_cublas", "bmm_cublas", "MatmulLtState", "GlobalOutlierPooler", "get_inverse_transform_indices", "undo_layout"]
 
 
 class _MatMul8bitLt(torch.autograd.Function):
@@ -157,6 +161,49 @@ def matmul(A: torch.Tensor, B: Optional[torch.Tensor], SCB: Optional[torch.Tenso
     if SCB is None:
         return matmul_8bit_train(A, B, threshold, bias)
     return matmul_8bit_lt(A, B, SCB, threshold, bias)
+
+
+def _legacy_int8_mm(A: torch.Tensor, B: torch.Tensor, quant_type: str) -> torch.Tensor:
+    from . import legacy as L
+
+    qA, sA = L.vectorwise_quant(A, dim=A.dim() - 1, quant_type=quant_type)
+    qB, sB = L.vectorwise_quant(B, dim=0, quant_type=quant_type)
+    i32 = L.igemm(qA, qB)
+    return L._div(i32.float() * (sA * sB), 127.0 * 127.0).to(A.dtype)
+
+
+class _MatMulCublas(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, A, B, quant_type):
+        ctx.save_for_backward(A, B)
+        return _legacy_int8_mm(A, B, quant_type)
+
+    @staticmethod
+    def backward(ctx, g):
+        A, B = ctx.saved_tensors
+        gf = g.float()
+        grad_A = (gf @ B.float().T).to(A.dtype)
+        grad_B = (A.reshape(-1, A.shape[-1]).float().T @ gf.reshape(-1, gf.shape[-1])).to(B.dtype)
+        return grad_A, grad_B, None
+
+
+def matmul_cublas(A: torch.Tensor, B: torch.Tensor, quant_type: str = "vector") -> torch.Tensor:
+    """bitsandbytes' legacy int8 matmul (MatMul8bit): A (..., K) quantized
+    per row and B (K, N) per column, vectorwise, an exact int32 product,
+    rescaled by the two scales / 127^2, in A's dtype. Gradients to A and B
+    in full precision."""
+    return _MatMulCublas.apply(A, B, quant_type)
+
+
+def mm_cublas(A: torch.Tensor, B: torch.Tensor, quant_type: str = "vector") -> torch.Tensor:
+    return matmul_cublas(A, B, quant_type)
+
+
+def bmm_cublas(A: torch.Tensor, B: torch.Tensor, quant_type: str = "vector") -> torch.Tensor:
+    """Batched legacy int8 matmul: (b, M, K) x (b, K, N), each pair
+    through ``matmul_cublas``."""
+    assert A.dim() == 3 and B.dim() == 3
+    return torch.stack([matmul_cublas(a, b, quant_type) for a, b in zip(A, B)])
 
 
 class GlobalOutlierPooler:

@@ -14,8 +14,9 @@ import itertools
 
 import numpy as np
 
-__all__ = ["NF4_CODE", "FP4_CODE", "get_4bit_type", "code_midpoints", "create_dynamic_map",
-           "create_linear_map", "create_normal_map", "create_fp8_map", "create_quantile_map"]
+__all__ = ["NF4_CODE", "FP4_CODE", "FP4_SORT_ORDER", "get_4bit_type", "code_midpoints",
+           "create_dynamic_map", "create_linear_map", "create_normal_map", "create_fp8_map",
+           "create_quantile_map"]
 
 # NF4 of the QLoRA paper (arxiv 2305.14314): equal-area bins under N(0, 1)
 NF4_CODE = np.array(
@@ -43,6 +44,10 @@ NF4_CODE = np.array(
 # FP4 (e2m1, bias 3) in code order, normalized by its absmax (12)
 FP4_CODE = np.array([0.0, 0.0625, 8.0, 12.0, 4.0, 6.0, 2.0, 3.0], dtype=np.float32) / 12.0
 FP4_CODE = np.concatenate([FP4_CODE, -FP4_CODE]).astype(np.float32)
+
+# the 3-bit codes of FP4's positive half in ascending value order (sorted
+# rank -> code)
+FP4_SORT_ORDER = np.argsort(FP4_CODE[:8]).astype(np.int32)
 
 # AF4 (arxiv 2306.06965), blocksize-64 table, stored in code order
 _AF4_RAW = np.array(

@@ -50,9 +50,9 @@
 // merges the partials in split order (so the output repeats bit for bit),
 // folds in new_kv and sets the counter back to 0.
 //
-// SIMT body (`decode_kernel`, f32 or bf16 q, D = 128 to 512 in steps of
-// 128, groups of up to 8 heads): one block of 8 warps per (kv head, batch
-// row, group); the heads of the group share each K/V read. The block walks only positions < len
+// SIMT body (`decode_kernel`, f32 or bf16 q, D = 128 to 1024 in steps of
+// 128, groups of up to 8 heads, 4 past D = 512): one block of 8 warps per
+// (kv head, batch row, group); the heads of the group share each K/V read. The block walks only positions < len
 // (from the window's first position, where one binds), 1024 at a time.
 // Scores: K is stored (D, S), so a thread takes 4 consecutive positions and
 // reads one 4-byte word per d, a warp 128 contiguous bytes of each K row.
@@ -638,19 +638,21 @@ static int group_size(int rep, int largest) {
 // q and out (B, Hkv, rep, D) f32/bf16; kc (L, B, Hkv, D, S) int8; vc (L, B,
 // Hkv, S, D) int8; ks, vs (L, B, Hkv, S) f32; lens (B) int32; alibi (Hkv *
 // rep) f32 or null; kn, vn (B, Hkv, D) int8 and ksn, vsn (B, Hkv) f32, all
-// four null or all four given. rep >= 1, D in {128, 256, 384, 512}, S % 4
-// == 0. window <= 0: none; softcap <= 0: none.
+// four null or all four given. rep >= 1, D a multiple of 128 up to 1024, S %
+// 4 == 0. window <= 0: none; softcap <= 0: none. Past D = 512 a group holds
+// at most 4 heads: the shared memory of 8 (their q rows and the warps'
+// partial sums, 8 D floats per head) passes 227 KB from D = 896.
 extern "C" int decode_attn_int8(const void* q, const void* kc, const void* ks, const void* vc,
                                 const void* vs, const void* lens, const void* alibi,
                                 const void* kn, const void* ksn, const void* vn, const void* vsn,
                                 void* out, int li, int L, int B, int Hkv, int rep, int D, int S,
                                 int window, int has_new, int q_bf16, float scale, float softcap,
                                 void* stream) {
-  if (li < 0 || li >= L || rep < 1 || D < 128 || D > 512 || D % 128 || S <= 0 || S % 4) {
+  if (li < 0 || li >= L || rep < 1 || D < 128 || D > 1024 || D % 128 || S <= 0 || S % 4) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int kg = group_size(rep, 8);
+  const int kg = group_size(rep, D > 512 ? 4 : 8);
   dim3 grid(Hkv, B, (rep + kg - 1) / kg);
   auto* k8 = reinterpret_cast<const int8_t*>(kc);
   auto* v8 = reinterpret_cast<const int8_t*>(vc);
@@ -672,12 +674,27 @@ extern "C" int decode_attn_int8(const void* q, const void* kc, const void* ks, c
     case 3: BNB_DECODE_LAUNCH(R, 3);        \
     default: BNB_DECODE_LAUNCH(R, 4);       \
   }
+#define BNB_DECODE_WIDE(R)                  \
+  switch (D / 128) {                        \
+    case 5: BNB_DECODE_LAUNCH(R, 5);        \
+    case 6: BNB_DECODE_LAUNCH(R, 6);        \
+    case 7: BNB_DECODE_LAUNCH(R, 7);        \
+    default: BNB_DECODE_LAUNCH(R, 8);       \
+  }
+  if (D > 512) {
+    switch (kg) {
+      case 1: BNB_DECODE_WIDE(1);
+      case 2: BNB_DECODE_WIDE(2);
+      default: BNB_DECODE_WIDE(4);
+    }
+  }
   switch (kg) {
     case 1: BNB_DECODE_WIDTHS(1);
     case 2: BNB_DECODE_WIDTHS(2);
     case 4: BNB_DECODE_WIDTHS(4);
     default: BNB_DECODE_WIDTHS(8);
   }
+#undef BNB_DECODE_WIDE
 #undef BNB_DECODE_WIDTHS
 #undef BNB_DECODE_LAUNCH
 }

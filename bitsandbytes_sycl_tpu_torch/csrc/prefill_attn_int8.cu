@@ -50,9 +50,11 @@
 // each converted tile, and a producer warpgroup converting the next tile
 // while two consumers computed, both measured no faster on the H100.
 //
-// SIMT body (`prefill_kernel`: f32 q, D = 256 to 512, other S). Bound the same
-// way, at the f32 rate. One warp per query row, four rows (warps) per block
-// sharing the (b, h) K/V reads through L1. Keys go in chunks of 32, one key
+// SIMT body (`prefill_kernel`: f32 q, D = 256 to 1024 in steps of 128, other
+// S). Bound the same way, at the f32 rate. One warp per query row, four rows
+// (warps) per block sharing the (b, h) K/V reads through L1; q's four rows
+// sit in shared memory (16 KB at D = 1024) and each lane's D/32 output
+// elements in registers (32 at D = 1024). Keys go in chunks of 32, one key
 // per lane: the K cache is transposed (D, S), so a lane's key column is read
 // with the warp's 32 neighbouring keys, 32 contiguous bytes per d. For P.V
 // each lane owns D/32 contiguous output elements of the V row (S, D) and
@@ -414,14 +416,14 @@ prefill_tc_kernel(const __grid_constant__ CUtensorMap kmap, const __nv_bfloat16*
 
 // q and out (B, T, Hq, D) f32/bf16; kq (L, B, Hkv, D, S) int8; ks, vs
 // (L, B, Hkv, S) f32; vq (L, B, Hkv, S, D) int8; starts (B) int32; alibi
-// (Hq) f32 or null. window <= 0: none; softcap <= 0: none. D is 128, 256, 384
-// or 512.
+// (Hq) f32 or null. window <= 0: none; softcap <= 0: none. D is a multiple of
+// 128 up to 1024.
 extern "C" int prefill_attn_int8(const void* q, const void* kq, const void* ks, const void* vq,
                                  const void* vs, const void* starts, const void* alibi, void* out,
                                  int li, int L, int B, int T, int Hq, int Hkv, int D, int S,
                                  int window, int q_bf16, float scale, float softcap,
                                  void* stream) {
-  if (li < 0 || li >= L || Hkv <= 0 || Hq % Hkv || T <= 0 || D < 128 || D > 512 || D % 128) {
+  if (li < 0 || li >= L || Hkv <= 0 || Hq % Hkv || T <= 0 || D < 128 || D > 1024 || D % 128) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -439,7 +441,11 @@ extern "C" int prefill_attn_int8(const void* q, const void* kq, const void* ks, 
     case 1: BNB_PREFILL_LAUNCH(4); break;
     case 2: BNB_PREFILL_LAUNCH(8); break;
     case 3: BNB_PREFILL_LAUNCH(12); break;
-    default: BNB_PREFILL_LAUNCH(16); break;
+    case 4: BNB_PREFILL_LAUNCH(16); break;
+    case 5: BNB_PREFILL_LAUNCH(20); break;
+    case 6: BNB_PREFILL_LAUNCH(24); break;
+    case 7: BNB_PREFILL_LAUNCH(28); break;
+    default: BNB_PREFILL_LAUNCH(32); break;
   }
 #undef BNB_PREFILL_LAUNCH
   return (int)cudaGetLastError();

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from . import codebooks
-from .types import FOUR_BIT_TYPES, QuantState, blocks_for
+from .types import FOUR_BIT_TYPES, QTensor, QuantState, blocks_for
 
 __all__ = [
     "quantize_blockwise", "dequantize_blockwise", "quantize_4bit", "dequantize_4bit",

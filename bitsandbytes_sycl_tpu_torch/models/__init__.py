@@ -1,8 +1,10 @@
 """Model families of the port: the Llama substrate (Llama, Mistral, Qwen2,
 Gemma, Gemma-2, Mixtral's mixture of experts), the GPT-J substrate (GPT-J,
 Phi, GPT-NeoX, Falcon) and the OPT substrate (OPT, GPT-2, BLOOM with
-ALiBi), with QLoRA adapters. The ``load_*_from_hf`` loaders raise until the
-checkpoint reader is ported (ROADMAP Queue A #11)."""
+ALiBi), with QLoRA adapters. Each family's ``load_*_from_hf`` reads a
+HuggingFace checkpoint directory (``checkpoints.read_safetensors`` or
+``.bin``) and quantizes it on load, on the card unless given
+``device="cpu"``."""
 
 from . import (bloom, falcon, gemma, gpt2, gptj, llama, lora, mistral, mixtral, neox, opt, phi,
                qwen2)

@@ -6,7 +6,8 @@ attention takes the dequantize-then-attend routes, as in the JAX package."""
 
 from __future__ import annotations
 
-from ._hf import loader_not_ported
+import torch
+
 from .gptj import GPTJConfig
 from .gptj import gptj_forward as falcon_forward
 
@@ -34,7 +35,78 @@ class FalconConfig(GPTJConfig):
         return cls(**d)
 
 
-load_falcon_from_hf = loader_not_ported("load_falcon_from_hf")
+def load_falcon_from_hf(model_dir: str, cfg=None, quant: str = "nf4", device=None):
+    """A HuggingFace Falcon checkpoint directory (FalconForCausalLM names)
+    -> (cfg, params) on the GPT-J substrate, quantized on ``device``; the
+    fused ``query_key_value`` is split for all three layouts: the new
+    decoder architecture's kv groups of [q * (H / Hkv) | k | v], multi-query
+    [q * H | k | v], and per-head [q | k | v]. Falcon ties lm_head to the
+    embedding unless the checkpoint ships one."""
+    from ..checkpoints import _getter, _read_config, _read_hf_tensors
+    from ..ops.common import resolve_device
+    from .llama import _quantize_linear
+
+    dev = resolve_device(device)
+    hf = _read_config(model_dir)
+    built = _config_from_hf(hf, quant)  # refuses the variants the substrate cannot run
+    cfg = built if cfg is None else cfg
+    new_arch = hf.get("new_decoder_architecture", False)
+    H, Hkv = built.num_heads, built.num_kv_heads
+    hd = hf["hidden_size"] // H
+    tensors = _read_hf_tensors(model_dir)
+    get = _getter(tensors, dev)
+
+    def q(name):
+        return _quantize_linear(get(name), cfg)
+
+    h = cfg.hidden_size
+    layers = []
+    for li in range(cfg.num_layers):
+        pre = f"transformer.h.{li}."
+        qkv = get(pre + "self_attention.query_key_value.weight")
+        if new_arch:
+            g = H // Hkv
+            w = qkv.reshape(Hkv, g + 2, hd, h)
+            qw = w[:, :g].reshape(H * hd, h)
+            kw = w[:, g].reshape(Hkv * hd, h)
+            vw = w[:, g + 1].reshape(Hkv * hd, h)
+        elif Hkv == 1:
+            qw, kw, vw = qkv[: H * hd], qkv[H * hd: H * hd + hd], qkv[H * hd + hd:]
+        else:
+            w = qkv.reshape(H, 3, hd, h)
+            qw, kw, vw = (w[:, j].reshape(H * hd, h) for j in range(3))
+        ffn = tensors[pre + "mlp.dense_h_to_4h.weight"].shape[0]
+        layer = {
+            "q_proj": _quantize_linear(qw.contiguous(), cfg),
+            "k_proj": _quantize_linear(kw.contiguous(), cfg),
+            "v_proj": _quantize_linear(vw.contiguous(), cfg),
+            "out_proj": q(pre + "self_attention.dense.weight"),
+            "fc_in": q(pre + "mlp.dense_h_to_4h.weight"),
+            "fc_in_b": torch.zeros((ffn,), dtype=torch.float32, device=dev),
+            "fc_out": q(pre + "mlp.dense_4h_to_h.weight"),
+            "fc_out_b": torch.zeros((h,), dtype=torch.float32, device=dev),
+        }
+        del qkv, qw, kw, vw
+        if new_arch:
+            layer["ln_w"] = get(pre + "ln_attn.weight")
+            layer["ln_b"] = get(pre + "ln_attn.bias")
+            layer["ln2_w"] = get(pre + "ln_mlp.weight")
+            layer["ln2_b"] = get(pre + "ln_mlp.bias")
+        else:
+            layer["ln_w"] = get(pre + "input_layernorm.weight")
+            layer["ln_b"] = get(pre + "input_layernorm.bias")
+        layers.append(layer)
+    wte = get("transformer.word_embeddings.weight")
+    head = get("lm_head.weight") if "lm_head.weight" in tensors else wte
+    params = {
+        "wte": wte.to(cfg.dtype),
+        "layers": layers,
+        "ln_f_w": get("transformer.ln_f.weight"),
+        "ln_f_b": get("transformer.ln_f.bias"),
+        "lm_head": _quantize_linear(head, cfg),
+        "lm_head_b": torch.zeros((cfg.vocab_size,), dtype=torch.float32, device=dev),
+    }
+    return cfg, params
 
 
 def _config_from_hf(hf: dict, quant: str = "nf4") -> FalconConfig:

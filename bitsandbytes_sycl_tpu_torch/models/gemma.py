@@ -12,7 +12,6 @@ split body.
 
 from __future__ import annotations
 
-from ._hf import loader_not_ported
 from .llama import LlamaConfig
 from .llama import llama_forward as gemma_forward
 from .llama import llama_forward as gemma2_forward
@@ -56,7 +55,16 @@ class GemmaConfig(LlamaConfig):
         return cls(**defaults)
 
 
-load_gemma_from_hf = loader_not_ported("load_gemma_from_hf")
+def load_gemma_from_hf(model_dir: str, cfg=None, use_native_quantizer: bool = True, device=None):
+    """A HuggingFace Gemma checkpoint directory -> (cfg, params), quantized
+    on ``device`` (the card unless the caller says otherwise): Llama key
+    names, the norm weights stored as offsets from one (``norm_offset``)."""
+    from ..checkpoints import _read_config, load_llama_from_hf
+
+    if cfg is None:
+        cfg = _config_from_hf(_read_config(model_dir))
+    return load_llama_from_hf(model_dir, cfg=cfg, use_native_quantizer=use_native_quantizer,
+                              device=device)
 
 
 def _config_from_hf(hf: dict) -> GemmaConfig:
@@ -104,7 +112,16 @@ class Gemma2Config(GemmaConfig):
         return cls(**defaults)
 
 
-load_gemma2_from_hf = loader_not_ported("load_gemma2_from_hf")
+def load_gemma2_from_hf(model_dir: str, cfg=None, use_native_quantizer: bool = True, device=None):
+    """A HuggingFace Gemma-2 checkpoint directory -> (cfg, params),
+    quantized on ``device`` (the card unless the caller says otherwise):
+    the sandwich norms through ``checkpoints._HF_LAYER_MAP_SANDWICH``."""
+    from ..checkpoints import _read_config, load_llama_from_hf
+
+    if cfg is None:
+        cfg = _config_from_hf2(_read_config(model_dir))
+    return load_llama_from_hf(model_dir, cfg=cfg, use_native_quantizer=use_native_quantizer,
+                              device=device)
 
 
 def _config_from_hf2(hf: dict) -> Gemma2Config:

@@ -5,7 +5,6 @@ package."""
 
 from __future__ import annotations
 
-from ._hf import loader_not_ported
 from .opt import OPTConfig
 from .opt import opt_forward as gpt2_forward
 
@@ -36,7 +35,64 @@ class GPT2Config(OPTConfig):
         return cls(**d)
 
 
-load_gpt2_from_hf = loader_not_ported("load_gpt2_from_hf")
+def load_gpt2_from_hf(model_dir: str, cfg=None, quant: str = "nf4", device=None):
+    """A HuggingFace GPT-2 checkpoint directory (GPT2LMHeadModel names,
+    Conv1D weights stored (in, out), transposed here) -> (cfg, params) on
+    the OPT substrate, quantized on ``device``; the column-fused c_attn
+    splits into q, k and v; lm_head is tied to wte unless shipped."""
+    from ..checkpoints import _getter, _read_config, _read_hf_tensors
+    from ..ops.common import resolve_device
+    from .llama import _quantize_linear
+
+    dev = resolve_device(device)
+    built = _config_from_hf(_read_config(model_dir), quant)  # refuses unsupported variants
+    cfg = built if cfg is None else cfg
+    tensors = _read_hf_tensors(model_dir)
+    pfx = "transformer." if any(k.startswith("transformer.") for k in tensors) else ""
+    get_any = _getter(tensors, dev)
+
+    def get(name):
+        return get_any(pfx + name)
+
+    def conv1d_t(name):
+        return get(name).T.contiguous()
+
+    h = cfg.hidden_size
+    layers = []
+    for li in range(cfg.num_layers):
+        pre = f"h.{li}."
+        qkv_w = conv1d_t(pre + "attn.c_attn.weight")  # (3h, h)
+        qkv_b = get(pre + "attn.c_attn.bias")
+        layers.append({
+            "ln1_w": get(pre + "ln_1.weight"),
+            "ln1_b": get(pre + "ln_1.bias"),
+            "q_proj": _quantize_linear(qkv_w[:h], cfg),
+            "q_bias": qkv_b[:h],
+            "k_proj": _quantize_linear(qkv_w[h:2 * h], cfg),
+            "k_bias": qkv_b[h:2 * h],
+            "v_proj": _quantize_linear(qkv_w[2 * h:], cfg),
+            "v_bias": qkv_b[2 * h:],
+            "out_proj": _quantize_linear(conv1d_t(pre + "attn.c_proj.weight"), cfg),
+            "out_bias": get(pre + "attn.c_proj.bias"),
+            "ln2_w": get(pre + "ln_2.weight"),
+            "ln2_b": get(pre + "ln_2.bias"),
+            "fc1": _quantize_linear(conv1d_t(pre + "mlp.c_fc.weight"), cfg),
+            "fc1_b": get(pre + "mlp.c_fc.bias"),
+            "fc2": _quantize_linear(conv1d_t(pre + "mlp.c_proj.weight"), cfg),
+            "fc2_b": get(pre + "mlp.c_proj.bias"),
+        })
+        del qkv_w
+    wte = get("wte.weight")
+    head = get_any("lm_head.weight") if "lm_head.weight" in tensors else wte
+    params = {
+        "wte": wte.to(cfg.dtype),
+        "wpe": get("wpe.weight").to(cfg.dtype),
+        "layers": layers,
+        "ln_f_w": get("ln_f.weight"),
+        "ln_f_b": get("ln_f.bias"),
+        "lm_head": _quantize_linear(head, cfg),
+    }
+    return cfg, params
 
 
 def _config_from_hf(hf: dict, quant: str = "nf4") -> GPT2Config:

@@ -4,7 +4,6 @@ forward is ``llama_forward``, and the int8 kernels mask it."""
 
 from __future__ import annotations
 
-from ._hf import loader_not_ported
 from .llama import LlamaConfig
 from .llama import llama_forward as mistral_forward
 
@@ -36,7 +35,16 @@ class MistralConfig(LlamaConfig):
         return cls(**defaults)
 
 
-load_mistral_from_hf = loader_not_ported("load_mistral_from_hf")
+def load_mistral_from_hf(model_dir: str, cfg=None, use_native_quantizer: bool = True, device=None):
+    """A HuggingFace Mistral checkpoint directory -> (cfg, params),
+    quantized on ``device`` (the card unless the caller says otherwise):
+    Llama key names, the window and GQA from config.json."""
+    from ..checkpoints import _read_config, load_llama_from_hf
+
+    if cfg is None:
+        cfg = _config_from_hf(_read_config(model_dir))[0]
+    return load_llama_from_hf(model_dir, cfg=cfg, use_native_quantizer=use_native_quantizer,
+                              device=device)
 
 
 def _config_from_hf(hf: dict):

@@ -6,7 +6,6 @@ The experts' weights are stacked on a leading dimension
 
 from __future__ import annotations
 
-from ._hf import loader_not_ported
 from .llama import LlamaConfig
 from .llama import llama_forward as mixtral_forward
 
@@ -37,7 +36,57 @@ class MixtralConfig(LlamaConfig):
         return cls(**defaults)
 
 
-load_mixtral_from_hf = loader_not_ported("load_mixtral_from_hf")
+def load_mixtral_from_hf(model_dir: str, cfg=None, use_native_quantizer: bool = True, device=None):
+    """A HuggingFace Mixtral checkpoint directory -> (cfg, params),
+    quantized on ``device`` (the card unless the caller says otherwise).
+    Attention, norms and embeddings have Llama's names; the MoE block maps
+    ``block_sparse_moe.gate`` to ``router`` and
+    ``block_sparse_moe.experts.{e}.w1/w3/w2`` to the stacked
+    gate/up/down_proj (``llama.stack_experts``). ``use_native_quantizer``
+    has no effect, as in the JAX package."""
+    from ..checkpoints import _getter, _read_config, _read_hf_tensors
+    from ..ops.common import resolve_device
+    from .llama import _quantize_linear, stack_experts
+
+    del use_native_quantizer
+    dev = resolve_device(device)
+    if cfg is None:
+        cfg = _config_from_hf(_read_config(model_dir))
+    tensors = _read_hf_tensors(model_dir)
+    get = _getter(tensors, dev)
+
+    def q(name):
+        return _quantize_linear(get(name), cfg)
+
+    layers = []
+    for li in range(cfg.num_layers):
+        pre = f"model.layers.{li}."
+        moe = pre + "block_sparse_moe."
+        layers.append({
+            "input_norm": get(pre + "input_layernorm.weight"),
+            "post_attn_norm": get(pre + "post_attention_layernorm.weight"),
+            "q_proj": q(pre + "self_attn.q_proj.weight"),
+            "k_proj": q(pre + "self_attn.k_proj.weight"),
+            "v_proj": q(pre + "self_attn.v_proj.weight"),
+            "o_proj": q(pre + "self_attn.o_proj.weight"),
+            "router": get(moe + "gate.weight"),
+            "experts": stack_experts([
+                {
+                    "gate_proj": q(moe + f"experts.{e}.w1.weight"),
+                    "up_proj": q(moe + f"experts.{e}.w3.weight"),
+                    "down_proj": q(moe + f"experts.{e}.w2.weight"),
+                }
+                for e in range(cfg.num_experts)
+            ]),
+        })
+    params = {
+        "embed": get("model.embed_tokens.weight").to(cfg.dtype),
+        "layers": layers,
+        "final_norm": get("model.norm.weight"),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = q("lm_head.weight")
+    return cfg, params
 
 
 def _config_from_hf(hf: dict) -> MixtralConfig:

@@ -21,7 +21,6 @@ import torch
 import torch.nn.functional as Fnn
 
 from ..ops.common import resolve_device
-from ._hf import loader_not_ported
 from .gptj import GPTJConfig, _ln
 from .llama import (_alibi_bias, _attention, _lora_for, _quantize_linear, apply_linear,
                     init_kv_cache, write_and_attend)
@@ -182,7 +181,63 @@ def init_opt_kv_cache(cfg: OPTConfig, batch: int, device=None) -> Dict:
     return init_kv_cache(cfg, batch, device)
 
 
-load_opt_from_hf = loader_not_ported("load_opt_from_hf")
+def load_opt_from_hf(model_dir: str, cfg=None, quant: str = "nf4", device=None):
+    """A HuggingFace OPT checkpoint directory (OPTForCausalLM names,
+    ``model.decoder.*``) -> (cfg, params), quantized on ``device``.
+    Pre-LayerNorm checkpoints only (every mainline size); the positions
+    table keeps HF's +2 offset rows; lm_head is tied to the embedding
+    unless the checkpoint ships one; OPT-350M's project_in/out load where
+    ``word_embed_proj_dim`` differs from the hidden size."""
+    from ..checkpoints import _getter, _read_config, _read_hf_tensors
+
+    dev = resolve_device(device)
+    built = _config_from_hf(_read_config(model_dir), quant)  # refuses unsupported variants
+    cfg = built if cfg is None else cfg
+    tensors = _read_hf_tensors(model_dir)
+    pfx = "model.decoder." if any(k.startswith("model.decoder.") for k in tensors) else "decoder."
+    get_any = _getter(tensors, dev)
+
+    def get(name):
+        return get_any(pfx + name)
+
+    def q(name):
+        return _quantize_linear(get(name), cfg)
+
+    layers = []
+    for li in range(cfg.num_layers):
+        pre = f"layers.{li}."
+        layers.append({
+            "ln1_w": get(pre + "self_attn_layer_norm.weight"),
+            "ln1_b": get(pre + "self_attn_layer_norm.bias"),
+            "q_proj": q(pre + "self_attn.q_proj.weight"),
+            "q_bias": get(pre + "self_attn.q_proj.bias"),
+            "k_proj": q(pre + "self_attn.k_proj.weight"),
+            "k_bias": get(pre + "self_attn.k_proj.bias"),
+            "v_proj": q(pre + "self_attn.v_proj.weight"),
+            "v_bias": get(pre + "self_attn.v_proj.bias"),
+            "out_proj": q(pre + "self_attn.out_proj.weight"),
+            "out_bias": get(pre + "self_attn.out_proj.bias"),
+            "ln2_w": get(pre + "final_layer_norm.weight"),
+            "ln2_b": get(pre + "final_layer_norm.bias"),
+            "fc1": q(pre + "fc1.weight"),
+            "fc1_b": get(pre + "fc1.bias"),
+            "fc2": q(pre + "fc2.weight"),
+            "fc2_b": get(pre + "fc2.bias"),
+        })
+    wte = get("embed_tokens.weight")
+    head = get_any("lm_head.weight") if "lm_head.weight" in tensors else wte
+    params = {
+        "wte": wte.to(cfg.dtype),
+        "wpe": get("embed_positions.weight").to(cfg.dtype),
+        "layers": layers,
+        "ln_f_w": get("final_layer_norm.weight"),
+        "ln_f_b": get("final_layer_norm.bias"),
+        "lm_head": _quantize_linear(head, cfg),
+    }
+    if cfg.word_embed_proj_dim and cfg.word_embed_proj_dim != cfg.hidden_size:
+        params["project_in"] = q("project_in.weight")
+        params["project_out"] = q("project_out.weight")
+    return cfg, params
 
 
 def _config_from_hf(hf: dict, quant: str = "nf4") -> OPTConfig:

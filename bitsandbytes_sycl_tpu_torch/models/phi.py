@@ -6,7 +6,6 @@ routes, as in the JAX package."""
 
 from __future__ import annotations
 
-from ._hf import loader_not_ported
 from .gptj import GPTJConfig
 from .gptj import gptj_forward as phi_forward
 
@@ -34,7 +33,52 @@ class PhiConfig(GPTJConfig):
         return cls(**d)
 
 
-load_phi_from_hf = loader_not_ported("load_phi_from_hf")
+def load_phi_from_hf(model_dir: str, cfg=None, quant: str = "nf4", device=None):
+    """A HuggingFace Phi checkpoint directory (PhiForCausalLM names:
+    ``model.layers.N.self_attn.{q,k,v}_proj``/``dense``, ``mlp.fc1/fc2``,
+    ``input_layernorm``, ``model.final_layernorm``, a biased lm_head) ->
+    (cfg, params) on the GPT-J substrate, quantized on ``device``."""
+    from ..checkpoints import _getter, _read_config, _read_hf_tensors
+    from ..ops.common import resolve_device
+    from .llama import _quantize_linear
+
+    dev = resolve_device(device)
+    if cfg is None:
+        cfg = _config_from_hf(_read_config(model_dir), quant)
+    tensors = _read_hf_tensors(model_dir)
+    get = _getter(tensors, dev)
+
+    def q(name):
+        return _quantize_linear(get(name), cfg)
+
+    layers = []
+    for li in range(cfg.num_layers):
+        pre = f"model.layers.{li}."
+        layers.append({
+            "ln_w": get(pre + "input_layernorm.weight"),
+            "ln_b": get(pre + "input_layernorm.bias"),
+            "q_proj": q(pre + "self_attn.q_proj.weight"),
+            "q_bias": get(pre + "self_attn.q_proj.bias"),
+            "k_proj": q(pre + "self_attn.k_proj.weight"),
+            "k_bias": get(pre + "self_attn.k_proj.bias"),
+            "v_proj": q(pre + "self_attn.v_proj.weight"),
+            "v_bias": get(pre + "self_attn.v_proj.bias"),
+            "out_proj": q(pre + "self_attn.dense.weight"),
+            "out_bias": get(pre + "self_attn.dense.bias"),
+            "fc_in": q(pre + "mlp.fc1.weight"),
+            "fc_in_b": get(pre + "mlp.fc1.bias"),
+            "fc_out": q(pre + "mlp.fc2.weight"),
+            "fc_out_b": get(pre + "mlp.fc2.bias"),
+        })
+    params = {
+        "wte": get("model.embed_tokens.weight").to(cfg.dtype),
+        "layers": layers,
+        "ln_f_w": get("model.final_layernorm.weight"),
+        "ln_f_b": get("model.final_layernorm.bias"),
+        "lm_head": q("lm_head.weight"),
+        "lm_head_b": get("lm_head.bias"),
+    }
+    return cfg, params
 
 
 def _config_from_hf(hf: dict, quant: str = "nf4") -> PhiConfig:

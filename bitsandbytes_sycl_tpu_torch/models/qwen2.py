@@ -5,7 +5,6 @@ a group of 7, which kernels H and D take."""
 
 from __future__ import annotations
 
-from ._hf import loader_not_ported
 from .llama import LlamaConfig
 from .llama import llama_forward as qwen2_forward
 
@@ -35,7 +34,16 @@ class Qwen2Config(LlamaConfig):
         return cls(**defaults)
 
 
-load_qwen2_from_hf = loader_not_ported("load_qwen2_from_hf")
+def load_qwen2_from_hf(model_dir: str, cfg=None, use_native_quantizer: bool = True, device=None):
+    """A HuggingFace Qwen2 checkpoint directory -> (cfg, params), quantized
+    on ``device`` (the card unless the caller says otherwise): Llama key
+    names and the q/k/v biases (``attn_bias``)."""
+    from ..checkpoints import _read_config, load_llama_from_hf
+
+    if cfg is None:
+        cfg = _config_from_hf(_read_config(model_dir))
+    return load_llama_from_hf(model_dir, cfg=cfg, use_native_quantizer=use_native_quantizer,
+                              device=device)
 
 
 def _config_from_hf(hf: dict) -> Qwen2Config:

@@ -18,15 +18,14 @@ layer out of the stacked cache.
 
 Kernel C has two bodies (``prefill_plan``): a tensor-core body for bf16 q
 at head_dim 128 (the model's dtype, so every prefill of a served Llama),
-and a SIMT body for f32 q and head_dim 256 to 512. Kernel H has two too
+and a SIMT body for f32 q and head_dim 256 to 1024. Kernel H has two too
 (``decode_plan``): a split body (flash-decoding, head_dim 128) and a SIMT
 body for the other shapes. Both take any group size ``rep = Hq // Hkv``,
 a CTA serving ``decode_groups(rep, body)[0]`` q heads of one kv head.
 
 ``prefill_kernel_takes`` and ``decode_kernel_takes`` are the wrappers' shape
 guards; they accept every shape the JAX predicates (``prefill_attention_ok``,
-``decode_attention_ok``) accept but head_dim 640 to 1024, which no
-configuration of either package reaches (ROADMAP Queue C).
+``decode_attention_ok``) accept.
 """
 
 from __future__ import annotations
@@ -48,18 +47,18 @@ __all__ = [
 ]
 
 # head dims the SIMT bodies of kernels C and H are built for
-KERNEL_HEAD_DIMS = (128, 256, 384, 512)
+KERNEL_HEAD_DIMS = tuple(range(128, 1025, 128))
 
 
 def prefill_kernel_takes(T: int, S: int, D: int, Hq: int, Hkv: int) -> bool:
-    """Kernel C's shape guard: head_dim 128 to 512 in steps of 128, Hq a
+    """Kernel C's shape guard: head_dim 128 to 1024 in steps of 128, Hq a
     multiple of Hkv, at least one query row (the wrapper also checks that
     the cache's shapes agree)."""
     return D in KERNEL_HEAD_DIMS and Hkv > 0 and Hq % Hkv == 0 and T >= 1 and S >= 1
 
 
 def decode_kernel_takes(S: int, D: int, rep: int) -> bool:
-    """Kernel H's shape guard: head_dim 128 to 512 in steps of 128, any
+    """Kernel H's shape guard: head_dim 128 to 1024 in steps of 128, any
     group size, S a multiple of 4 (the SIMT body reads K four positions a
     word)."""
     return D in KERNEL_HEAD_DIMS and rep >= 1 and S > 0 and S % 4 == 0
@@ -75,7 +74,8 @@ def _group_size(rep: int, largest: int) -> int:
 def decode_groups(rep: int, body: str):
     """(heads per CTA, groups per kv head) of kernel H's body: rep itself
     for 1, 2 and 4 (and 8 in the SIMT body), else groups of 4 (split) or 8
-    (SIMT), the last one padded; the C entry's ``group_size``."""
+    (SIMT), the last one padded; the C entry's ``group_size``. Past
+    head_dim 512 the SIMT body's C entry caps its groups at 4 heads."""
     g = _group_size(rep, 4 if body == "split" else 8)
     return g, -(-rep // g)
 
@@ -86,7 +86,7 @@ def prefill_plan(D: int, S: int, q_dtype) -> str:
     whole number of key tiles, at every prompt length: at B = 4, T = 32 its
     CTAs fill half their rows and it still beat the SIMT body on the H100
     (PERF.md). "simt", one warp per query row, takes f32 q and D = 256 to
-    512."""
+    1024."""
     if q_dtype == torch.bfloat16 and D == 128 and S % 64 == 0:
         return "tc"
     return "simt"
@@ -328,7 +328,7 @@ def decode_plan(B: int, Hkv: int, S: int, D: int, rep: int, q_dtype, sms: int) -
     head group's used span into ``nsplit`` equal shares of 128-position
     tiles, B * Hkv * groups * nsplit CTAs about _DECODE_CTAS_PER_SM per SM,
     never more splits than the cache has tiles. The SIMT body takes the
-    rest (rep 8, D = 256 to 512, other S), one CTA per row, kv head and
+    rest (rep 8, D = 256 to 1024, other S), one CTA per row, kv head and
     group."""
     if q_dtype in (torch.float32, torch.bfloat16) and D == 128 and rep != 8 and S % 16 == 0:
         tiles = -(-S // DECODE_TILE)

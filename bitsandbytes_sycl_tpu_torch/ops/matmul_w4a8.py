@@ -95,19 +95,25 @@ def _quant_rows(x2: torch.Tensor):
 
 
 def _w4a8_plain(x2: torch.Tensor, w: QLinearWeight, bias, out_dtype) -> torch.Tensor:
-    """Plain PyTorch version of kernel A; the integer block dots run in
-    float64, which holds them exactly."""
+    """Plain PyTorch version of kernel A. A block's integer dot sums bs
+    products of at most 127 * 127, so every partial sum is an integer that
+    f32 holds exactly while bs * 127 * 127 < 2**24 (blocksizes up to 1024);
+    larger blocks sum in float64."""
     M, K = x2.shape
     N = w.shape[0]
     bs = w.blocksize
     nbh = K // (2 * bs)
+    dt = torch.float32 if bs * 127 * 127 < 2 ** 24 else torch.float64
     xq, ra = _quant_rows(x2)
-    table = torch.tensor(_int8_code_table(w.code), dtype=torch.float64, device=x2.device)
-    wq = torch.cat([table[(w.packed >> 4).long()], table[(w.packed & 0xF).long()]], dim=0)
+    table = torch.tensor(_int8_code_table(w.code), dtype=dt, device=x2.device)
+    # a packed byte indexes its high nibble's code, then its low one's
+    idx = w.packed.reshape(-1).int()
+    wq = torch.cat([table.repeat_interleave(16).index_select(0, idx),
+                    table.repeat(16).index_select(0, idx)])
     # (2*nbh, bs, N) blocks, plane-major; x blocks to match
     d = torch.einsum(
         "mgb,gbn->gmn",
-        xq.double().reshape(M, 2 * nbh, bs),
+        xq.to(dt).reshape(M, 2 * nbh, bs),
         wq.reshape(2 * nbh, bs, N),
     ).float()  # exact int sums, (2*nbh, M, N)
     s = (w.scales_f32() * (1.0 / 127.0)).reshape(2 * nbh, 1, N)

@@ -104,6 +104,29 @@ class BnbOptimizer(torch.optim.Optimizer):
         super().add_param_group(param_group)
         self._by_param = None
 
+    def state_dict(self) -> dict:
+        """torch's optimizer state dict with the step count (``count``)."""
+        sd = super().state_dict()
+        sd["count"] = self.count
+        return sd
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Restore a ``state_dict()``: the param groups as torch restores
+        them, each leaf's states as saved (torch would cast them to the
+        param's dtype, turning uint8 codes into floats) on the param's
+        device, and the step count."""
+        sd = dict(state_dict)
+        count = int(sd.pop("count", 0))
+        saved = sd.pop("state")
+        super().load_state_dict({**sd, "state": {}})
+        self._by_param = None
+        params = [p for g in self.param_groups for p in g["params"]]
+        for idx, st in saved.items():
+            p = params[int(idx)]
+            self.state[p] = {k: v.to(p.device) if isinstance(v, torch.Tensor) else v
+                             for k, v in st.items()}
+        self.count = count
+
     def group_of(self, p: torch.Tensor) -> dict:
         """The param group that holds p."""
         if self._by_param is None:

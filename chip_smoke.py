@@ -8,6 +8,7 @@
     python3 chip_smoke.py --probe optim       # J's and K's leaf-table bodies only
     python3 chip_smoke.py --probe int8        # F's tiled and I's wgmma bodies only
     python3 chip_smoke.py --time-i [DIR]      # I's times, from the package under DIR
+    python3 chip_smoke.py --time-decode [DIR] # phase 3's decode step, from the package under DIR
 
 Phases, each of which exits non-zero on failure:
   1. build the hand-written kernels (nvcc, csrc/*.cu) and print the card;
@@ -132,10 +133,11 @@ Phases, each of which exits non-zero on failure:
   10. the other model families, after phase 8 (10o, the optimizer manager
      over phase 7b's adapters, after 7d: o_proj's overridden to 32-bit, J
      once a step for the 8-bit group): (k) kernels H and D at group sizes
-     3, 5, 7 and 16 and H and C at head_dim 384 (D at 256 and over kv4
-     pages) in every body, within 1% of their plain versions with the
-     options, the faults outside, 100 launches bit for bit, and H and D
-     timed at rep 7 beside rep 4; (a) Mixtral-8x7B at full width and
+     3, 5, 7 and 16 and H and C at head_dim 384, 640 and 1024 (D at 256
+     and over kv4 pages) in every body, within 1% of their plain versions
+     with the options, the faults outside, 100 launches bit for bit, H and
+     D timed at rep 7 beside rep 4, and C and H timed at head_dim 1024
+     (B = 4, 4 kv heads, S = 2048); (a) Mixtral-8x7B at full width and
      depth, (b) Qwen2-7B, (c) GPT-J-6B, (d) BLOOM-7B1, each served
      contiguous and paged through its forward (8 prompts, 4 slots, 32 new
      tokens), greedy tokens of the two modes under the gap rule, the
@@ -143,6 +145,27 @@ Phases, each of which exits non-zero on failure:
      step), and the first layer (Mixtral) or two against the CPU; (e)
      eight more families at their published widths and 2 layers, the
      dequantize routes exactly where head_dim % 128 != 0;
+  11. checkpoints, after phase 10: (a) a HuggingFace Llama-2-7B checkpoint
+     written by the script (its published config.json, 4 layers, bf16
+     weights from seed 0 in two hand-written safetensors shards, 2.1 GB)
+     and loaded on the card by checkpoints.load_llama_from_hf: q_proj of
+     layer 0, down_proj of layer 3 and lm_head bit for bit against the CPU
+     quantizer, every leaf against the same tensors quantized in memory,
+     phase 3's prompts served paged and contiguous with tokens equal to
+     the in-memory tree's and A, C, D and H launches per layer equal to
+     phases 3 and 3c's, the load's seconds, GB/s and peak RSS (a fresh
+     process); (b) GPT-J-6B at 2 layers as an F16 pytorch_model.bin
+     (torch.save), load_gptj_from_hf, served through gptj_forward with
+     the same checks; (c) save_checkpoint/load_checkpoint of (a)'s tree and
+     of a 2-layer QLoRA run's adamw8bit state, bit for bit, and a resumed
+     step equal to the uninterrupted one; (d) the host library built by
+     g++ here, quantize_4bit_np on a 4096 x 11008 weight byte-equal to the
+     card's quantizers; (e) legacy.igemm at the 7B shapes exact,
+     research.matmul_fp8_mixed card against CPU; (f, run in phase 2 before
+     any other profiler) profiling.roofline_report of A at 4096 x 4096,
+     M = 4, within 10% of A's duration on the device's clock
+     (torch.profiler through profiling.trace) and under phase 2's cold
+     time;
 Every prefill of phases 3, 3b, 3c, 4b and 6 must run C's tensor-core body
 (the model's q is bf16), every paged decode launch D's split body, every
 contiguous decode launch H's split body, and every decode step's W4A8
@@ -3424,7 +3447,7 @@ def qlora_branches(torch, cfg, params, kernels, maps):
 
 
 def qlora_card_vs_cpu(torch, cfg, kernels, launched=("w4a8_gemv", "optim8_2state"), tag="[7c]",
-                      steps=3, p_cpu=None, make_opt=None):
+                      steps=3, p_cpu=None, make_opt=None, cpu_first=None):
     """Phase 7c: 2 layers at 7B width, B = 1, T = 128 (the W4A8 route,
     kernel A; with compressed statistics B, and E in the backward),
     adapters with a seeded nonzero B, on the card and on the CPU: the loss
@@ -3433,7 +3456,10 @@ def qlora_card_vs_cpu(torch, cfg, kernels, launched=("w4a8_gemv", "optim8_2state
     ``steps`` optimizer steps (``make_opt(leaves)``, adamw8bit by default)
     a cosine >= 0.9 between the two runs' p - p0; every kernel in
     ``launched`` launched on the card. ``p_cpu``: the 2-layer model on the
-    CPU, if the caller has it (seed 1)."""
+    CPU, if the caller has it (seed 1). ``cpu_first``: a dict shared by
+    calls on the same ``p_cpu``; the CPU's first loss and gradients, which
+    come before any optimizer step and so do not depend on it, are
+    computed by the first call and reused by the others."""
     from bitsandbytes_sycl_tpu_torch import optim
     from bitsandbytes_sycl_tpu_torch.models.llama import init_params
     from bitsandbytes_sycl_tpu_torch.models.lora import ALL_TARGETS, init_lora, lora_leaves, qlora_loss_fn
@@ -3461,9 +3487,16 @@ def qlora_card_vs_cpu(torch, cfg, kernels, launched=("w4a8_gemv", "optim8_2state
         loss_fn = qlora_loss_fn(params, cfg2)
         losses, grads = [], None
         for step in range(steps):
-            loss = loss_fn(lora, toks.to(dev))
-            loss.backward()
-            losses.append(loss.item())
+            if dev == "cpu" and step == 0 and cpu_first:
+                for t, gr in zip(leaves, cpu_first["grads"]):
+                    t.grad = gr.clone()
+                losses.append(cpu_first["loss"])
+            else:
+                loss = loss_fn(lora, toks.to(dev))
+                loss.backward()
+                losses.append(loss.item())
+                if dev == "cpu" and step == 0 and cpu_first is not None:
+                    cpu_first.update(loss=losses[0], grads=[t.grad.clone() for t in leaves])
             if step == 0:
                 grads = torch.cat([t.grad.reshape(-1).float().cpu() for t in leaves])
             opt.step()
@@ -4460,17 +4493,15 @@ def speculative_7b(torch, cfg, params, prompts, kernels):
     return stats, params8
 
 
-def serving_engine_7b(torch, cfg, params, prompts, ref_outs, kernels):
+def serving_engine_7b(torch, cfg, params, prompts, ref_outs, kernels, p_cpu):
     """Phase 9: the rest of the serving engine at Llama-7B width and depth
     (9a multi-LoRA, 9b the prefix cache, 9c snapshots, 9d the bf16 cache, 9e
-    PagedKVPool, 9f speculative decoding). Returns (stats, the LLM.int8
-    params 9f built, for phase 6)."""
-    from bitsandbytes_sycl_tpu_torch.models.llama import init_params
-
+    PagedKVPool, 9f speculative decoding); ``p_cpu``: the 2-layer model
+    (seed 1) on the CPU. Returns (stats, the LLM.int8 params 9f built, for
+    phase 6)."""
     t0 = time.perf_counter()
     stats = {}
     cfg2 = dataclasses.replace(cfg, num_layers=2)
-    p_cpu = init_params(cfg2, seed=1, device="cpu")
     cpu2 = (cfg2, p_cpu, to_cuda(torch, p_cpu))
     stats["lora"] = lora_7b(torch, cfg, params, prompts, ref_outs, kernels, cpu2)
     gc.collect()
@@ -4479,7 +4510,7 @@ def serving_engine_7b(torch, cfg, params, prompts, ref_outs, kernels):
     stats["snapshots"] = snapshots_7b(torch, cfg, params, prompts)
     stats["bf16_cache"] = bf16_cache_7b(torch, cfg, params, prompts, kernels, cpu2)
     stats["paged_pool"] = paged_pool_7b(torch, cfg, params, prompts, kernels)
-    del cpu2, p_cpu
+    del cpu2
     gc.collect()
     torch.cuda.empty_cache()
     stats["speculative"], params8 = speculative_7b(torch, cfg, params, prompts, kernels)
@@ -4517,6 +4548,9 @@ def repeat_bits(torch, name, run, n=100):
              f"{name}: {n} repeated launches did not give the same bits")
 
 
+WIDE_DIMS = (384, 640, 1024)  # C's and H's SIMT head dims checked in phase 10k
+
+
 def check_group_shapes(torch, report):
     """Phase 10k: kernels H and D at group sizes 3, 5, 7 and 16 (16 q heads
     of one kv head: several head groups per CTA pass), H and C at head_dim
@@ -4548,10 +4582,10 @@ def check_group_shapes(torch, report):
         rows.append(dict(name=name, max_abs_err=err, tol=tol, fault_margin=margin))
         return err
 
-    # kernel H: both bodies at head_dim 128, the SIMT body at 384
+    # kernel H: both bodies at head_dim 128, the SIMT body at 384, 640 and 1024
     S = 1024
     lens = torch.tensor([1023, 1, 500, 0], dtype=torch.int32, device="cuda")
-    for rep, D in [(r, 128) for r in GROUP_REPS] + [(1, 384), (7, 384)]:
+    for rep, D in [(r, 128) for r in GROUP_REPS] + [(r, D) for D in WIDE_DIMS for r in (1, 7)]:
         kq = torch.randint(-127, 128, (L, B, Hkv, D, S), generator=gen, device="cuda", dtype=torch.int8)
         vq = torch.randint(-127, 128, (L, B, Hkv, S, D), generator=gen, device="cuda", dtype=torch.int8)
         ks = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") * 2 + 1  # O(1) scores
@@ -4611,39 +4645,126 @@ def check_group_shapes(torch, report):
                     ("the lengths one too long", lambda: plain(lens_=lens + 1)),
                 ] if nk is not None else [])
         del kp, vp, ks, vs
-    # kernel C at head_dim 384 (its SIMT body), bf16 and f32 q, groups of 1 and 7
-    S, T, D = 256, 40, 384
+    # kernel C at head_dim 384, 640 and 1024 (its SIMT body), bf16 and f32 q,
+    # groups of 1 and 7
+    S, T = 256, 40
+    starts = torch.tensor([0, 100, 7, 200], dtype=torch.int32, device="cuda")
+    for D in WIDE_DIMS:
+        kq = torch.randint(-127, 128, (L, B, Hkv, D, S), generator=gen, device="cuda", dtype=torch.int8)
+        vq = torch.randint(-127, 128, (L, B, Hkv, S, D), generator=gen, device="cuda", dtype=torch.int8)
+        ks = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") * 2 + 1
+        vs = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") + 0.5
+        scale = (1.0 / D ** 0.5) / 127.0
+        k_other = kq.clone()
+        k_other[li] = kq[li - 1]
+        for rep in (1, 7):
+            alibi = torch.rand((Hkv * rep,), generator=gen, device="cuda") * 0.01
+            for dt in (torch.bfloat16, torch.float32):
+                q = torch.randn((B, T, Hkv * rep, D), generator=gen, device="cuda").to(dt)
+                for opt in (dict(window=64, softcap=30.0, alibi=alibi), {}):
+                    w, sc, al = opt.get("window"), opt.get("softcap"), opt.get("alibi")
+
+                    def plain(kq_=kq, ks_=ks, st_=starts, w=w, sc=sc, al=al, q=q, kq=kq, ks=ks,
+                              vq=vq, vs=vs, scale=scale):
+                        return attention._prefill_plain(q, kq_, ks_, vq, vs, li, st_, scale, w, sc,
+                                                        al)
+
+                    check(f"prefill_attn_int8 rep={rep} D={D} {dt} {sorted(opt)}",
+                          lambda w=w, sc=sc, al=al, q=q, kq=kq, ks=ks, vq=vq, vs=vs, scale=scale:
+                          attention.prefill_attn_int8(q, kq, ks, vq, vs, li, starts, scale, window=w,
+                                                      softcap=sc, alibi=al),
+                          plain, [("K of another layer", lambda plain=plain, k_other=k_other:
+                                   plain(kq_=k_other)),
+                                  ("K of the next kv head", lambda plain=plain, kq=kq:
+                                   plain(kq_=kq.roll(1, dims=2))),
+                                  ("k_scale dropped", lambda plain=plain, ks=ks:
+                                   plain(ks_=torch.full_like(ks, 2.0))),
+                                  ("the starts one too far", lambda plain=plain:
+                                   plain(st_=starts + 1))])
+        del kq, vq, ks, vs, k_other
+    report["group shapes"] = dict(cases=n, rows=rows)
+    print(f"[10k] {n} cases of H and D at rep {GROUP_REPS}, H and C at D = {WIDE_DIMS}, D at"
+          f" D = 256 and over kv4 pages: within 1%, the faults outside, 100 launches bit for bit",
+          flush=True)
+    time_groups(torch, report)
+    time_wide_heads(torch, report)
+    return n
+
+
+def time_wide_heads(torch, report):
+    """Kernels C and H at head_dim 1024 (their SIMT bodies): B = 4, 4 kv
+    heads of 4 q heads, S = 2048; H over full rows with new_kv, C at T =
+    512 from position 0 (f32 q, the SIMT body's dtype) beside SDPA over the
+    same K/V dequantized to bf16. The bound: K/V bytes the lengths need and
+    their scales, q and out, at the H100's HBM rate, or the f32 operations
+    (4 D per score a head), whichever is more."""
+    from bitsandbytes_sycl_tpu_torch.ops import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    L, B, Hkv, rep, D, S, li = 2, 4, 4, 4, 1024, 2048, 1
+    Hq = Hkv * rep
     kq = torch.randint(-127, 128, (L, B, Hkv, D, S), generator=gen, device="cuda", dtype=torch.int8)
     vq = torch.randint(-127, 128, (L, B, Hkv, S, D), generator=gen, device="cuda", dtype=torch.int8)
     ks = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") * 2 + 1
     vs = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") + 0.5
-    starts = torch.tensor([0, 100, 7, 200], dtype=torch.int32, device="cuda")
     scale = (1.0 / D ** 0.5) / 127.0
-    k_other = kq.clone()
-    k_other[li] = kq[li - 1]
-    for rep in (1, 7):
-        alibi = torch.rand((Hkv * rep,), generator=gen, device="cuda") * 0.01
-        for dt in (torch.bfloat16, torch.float32):
-            q = torch.randn((B, T, Hkv * rep, D), generator=gen, device="cuda").to(dt)
-            for opt in (dict(window=64, softcap=30.0, alibi=alibi), {}):
-                w, sc, al = opt.get("window"), opt.get("softcap"), opt.get("alibi")
-
-                def plain(kq_=kq, ks_=ks, st_=starts, w=w, sc=sc, al=al, q=q):
-                    return attention._prefill_plain(q, kq_, ks_, vq, vs, li, st_, scale, w, sc, al)
-
-                check(f"prefill_attn_int8 rep={rep} D={D} {dt} {sorted(opt)}",
-                      lambda w=w, sc=sc, al=al, q=q: attention.prefill_attn_int8(
-                          q, kq, ks, vq, vs, li, starts, scale, window=w, softcap=sc, alibi=al),
-                      plain, [("K of another layer", lambda: plain(kq_=k_other)),
-                              ("K of the next kv head", lambda: plain(kq_=kq.roll(1, dims=2))),
-                              ("k_scale dropped", lambda: plain(ks_=torch.full_like(ks, 2.0))),
-                              ("the starts one too far", lambda: plain(st_=starts + 1))])
-    del kq, vq, ks, vs, k_other
-    report["group shapes"] = dict(cases=n, rows=rows)
-    print(f"[10k] {n} cases of H and D at rep {GROUP_REPS}, H and C at D = 384, D at D = 256 and"
-          f" over kv4 pages: within 1%, the faults outside, 100 launches bit for bit", flush=True)
-    time_groups(torch, report)
-    return n
+    kd = (kq[li].float() * (ks[li, :, :, None, :] / 127)).transpose(-1, -2)
+    vd = vq[li].float() * (vs[li, :, :, :, None] / 127)
+    kd = kd.repeat_interleave(rep, dim=1).contiguous().to(torch.bfloat16)
+    vd = vd.repeat_interleave(rep, dim=1).contiguous().to(torch.bfloat16)
+    out = {}
+    # H: full rows, this step's token folded in
+    lens_l = [S - 1] * B
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+    new_kv = (torch.randint(-127, 128, (B, Hkv, D), generator=gen, device="cuda", dtype=torch.int8),
+              torch.rand((B, Hkv), generator=gen, device="cuda") * 2 + 1,
+              torch.randint(-127, 128, (B, Hkv, D), generator=gen, device="cuda", dtype=torch.int8),
+              torch.rand((B, Hkv), generator=gen, device="cuda") + 0.5)
+    q = torch.randn((B, Hkv, rep, D), generator=gen, device="cuda").to(torch.bfloat16)
+    nbytes = sum(lens_l) * Hkv * (2 * D + 8) + 2 * B * Hq * D * 2 + B * Hkv * (2 * D + 8) + 4 * B
+    flops = 4 * (sum(lens_l) + B) * Hq * D
+    run = lambda: attention.decode_attn_int8(q, kq, ks, vq, vs, li, lens, scale, new_kv)  # noqa: E731
+    plain = lambda: attention._decode_plain(q, kq, ks, vq, vs, li, lens, new_kv, scale,  # noqa: E731
+                                            None, None, None)
+    c0 = attention.decode_attn_int8.launches
+    err, mag = max_err(torch, run(), plain())
+    need(attention.decode_attn_int8.launches == c0 + 1, "H at D = 1024: no launch")
+    need(err <= 1e-2 * mag, f"H at D = 1024: max err {err} > {1e-2 * mag}")
+    lib_ms, lib_name, _ = time_sdpa(torch, q.reshape(B, Hq, 1, D), kd, vd)
+    out["decode_attn_int8 D=1024"] = dict(
+        ms=time_cold(torch, run), plain_ms=time_cold(torch, plain, iters=5), library_ms=lib_ms,
+        library_backend=lib_name, max_abs_err=err, bytes=nbytes,
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
+        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations")
+    # C: a 512-token prompt from position 0 (keys 0..t for row t)
+    T = 512
+    starts = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    qp = torch.randn((B, T, Hq, D), generator=gen, device="cuda")
+    keys = T * (T + 1) // 2  # causal (row, key) pairs per head
+    nbytes = B * Hkv * T * (2 * D + 8) + 2 * B * T * Hq * D * 4
+    flops = 4 * B * Hq * keys * D
+    run = lambda: attention.prefill_attn_int8(qp, kq, ks, vq, vs, li, starts, scale)  # noqa: E731
+    plain = lambda: attention._prefill_plain(qp, kq, ks, vq, vs, li, starts, scale,  # noqa: E731
+                                             None, None, None)
+    c0 = attention.prefill_attn_int8.launches
+    err, mag = max_err(torch, run(), plain())
+    need(attention.prefill_attn_int8.launches == c0 + 1, "C at D = 1024: no launch")
+    need(err <= 1e-2 * mag, f"C at D = 1024: max err {err} > {1e-2 * mag}")
+    lib_ms, lib_name, _ = time_sdpa(torch, qp.transpose(1, 2).to(torch.bfloat16).contiguous(),
+                                    kd[:, :, :T].contiguous(), vd[:, :, :T].contiguous(),
+                                    is_causal=True)
+    out["prefill_attn_int8 D=1024"] = dict(
+        ms=time_cold(torch, run, iters=5), plain_ms=time_cold(torch, plain, iters=3),
+        library_ms=lib_ms, library_backend=lib_name, max_abs_err=err, bytes=nbytes,
+        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
+        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations")
+    del kq, vq, ks, vs, kd, vd
+    for k, r in out.items():
+        print(f"[10k] {k}: {r['ms'] * 1e3:.1f} us (plain {r['plain_ms'] * 1e3:.1f} us, sdpa"
+              f" {fmt_us(r['library_ms'])} {r['library_backend']}), bound {r['bound_ms'] * 1e3:.2f} us"
+              f" by {r['bound_by']} ({r['bound_ms'] / r['ms']:.0%}); err {r['max_abs_err']:.3g}",
+              flush=True)
+    report["wide heads"] = out
 
 
 def time_groups(torch, report):
@@ -4951,6 +5072,598 @@ def families_10(torch, prompts, kernels, report):
     return stats
 
 
+# --------------------------------------------------------------- phase 11
+# checkpoints written and loaded here, removed at the end (build/ is not committed)
+PHASE11_DIR = os.path.join(ROOT, "build", "phase11")
+# meta-llama/Llama-2-7b-hf config.json as published; num_hidden_layers is cut to 4 below
+LLAMA2_7B_HF = dict(
+    architectures=["LlamaForCausalLM"], bos_token_id=1, eos_token_id=2, hidden_act="silu",
+    hidden_size=4096, initializer_range=0.02, intermediate_size=11008,
+    max_position_embeddings=4096, model_type="llama", num_attention_heads=32,
+    num_hidden_layers=32, num_key_value_heads=32, pretraining_tp=1, rms_norm_eps=1e-05,
+    rope_scaling=None, tie_word_embeddings=False, torch_dtype="float16", vocab_size=32000)
+# EleutherAI/gpt-j-6b config.json as published; n_layer is cut to 2 below
+GPTJ_6B_HF = dict(
+    activation_function="gelu_new", architectures=["GPTJForCausalLM"], attn_pdrop=0.0,
+    bos_token_id=50256, embd_pdrop=0.0, eos_token_id=50256, initializer_range=0.02,
+    layer_norm_epsilon=1e-05, model_type="gptj", n_embd=4096, n_head=16, n_inner=None,
+    n_layer=28, n_positions=2048, resid_pdrop=0.0, rotary=True, rotary_dim=64,
+    scale_attn_weights=True, tie_word_embeddings=False, vocab_size=50400)
+LLAMA_LAYERS, GPTJ_LAYERS = 4, 2
+
+
+def write_safetensors(torch, path, tensors):
+    """A safetensors file written by hand (no safetensors package is
+    needed): the 8-byte little-endian header length, the JSON header padded
+    with spaces to 8 bytes, then each tensor's bytes in order. Returns the
+    file's bytes."""
+    import struct
+
+    names = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    for n, t in tensors.items():
+        nb = t.numel() * t.element_size()
+        header[n] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [off, off + nb]}
+        off += nb
+    hb = json.dumps(header).encode()
+    hb += b" " * (-len(hb) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for t in tensors.values():
+            f.write(memoryview(t.contiguous().cpu().view(torch.uint8).numpy()))
+    return 8 + len(hb) + off
+
+
+def seeded_tensors(torch, shapes, dtype, seed=0):
+    """{name: tensor on the card}: weights and biases N(0, 0.02), norm
+    weights 1 + N(0, 0.1), from one generator in the order given."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name, shape in shapes.items():
+        t = torch.randn(shape, generator=gen, device="cuda")
+        if len(shape) == 1 and ("norm" in name or name.endswith(("ln_1.weight", "ln_f.weight"))):
+            t = 1 + 0.1 * t
+        else:
+            t = 0.02 * t
+        out[name] = t.to(dtype)
+    return out
+
+
+def llama_hf_shapes(hf):
+    h, i, v = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
+    shapes = {"model.embed_tokens.weight": (v, h)}
+    for li in range(hf["num_hidden_layers"]):
+        pre = f"model.layers.{li}."
+        shapes.update({pre + "self_attn.q_proj.weight": (h, h), pre + "self_attn.k_proj.weight": (h, h),
+                       pre + "self_attn.v_proj.weight": (h, h), pre + "self_attn.o_proj.weight": (h, h),
+                       pre + "mlp.gate_proj.weight": (i, h), pre + "mlp.up_proj.weight": (i, h),
+                       pre + "mlp.down_proj.weight": (h, i), pre + "input_layernorm.weight": (h,),
+                       pre + "post_attention_layernorm.weight": (h,)})
+    shapes.update({"model.norm.weight": (h,), "lm_head.weight": (v, h)})
+    return shapes
+
+
+def gptj_hf_shapes(hf):
+    h, v = hf["n_embd"], hf["vocab_size"]
+    f = hf["n_inner"] or 4 * h
+    shapes = {"transformer.wte.weight": (v, h)}
+    for li in range(hf["n_layer"]):
+        pre = f"transformer.h.{li}."
+        shapes.update({pre + "ln_1.weight": (h,), pre + "ln_1.bias": (h,),
+                       pre + "attn.q_proj.weight": (h, h), pre + "attn.k_proj.weight": (h, h),
+                       pre + "attn.v_proj.weight": (h, h), pre + "attn.out_proj.weight": (h, h),
+                       pre + "mlp.fc_in.weight": (f, h), pre + "mlp.fc_in.bias": (f,),
+                       pre + "mlp.fc_out.weight": (h, f), pre + "mlp.fc_out.bias": (h,)})
+    shapes.update({"transformer.ln_f.weight": (h,), "transformer.ln_f.bias": (h,),
+                   "lm_head.weight": (v, h), "lm_head.bias": (v,)})
+    return shapes
+
+
+def llama_tree(T, cfg):
+    """Phase 11's in-memory Llama tree: each tensor of ``T`` (HF names, on
+    the card) upcast and quantized where it stands, no checkpoint read."""
+    from bitsandbytes_sycl_tpu_torch.models.llama import _quantize_linear
+
+    def q(n):
+        return _quantize_linear(T[n].float(), cfg)
+
+    layers = []
+    for li in range(cfg.num_layers):
+        pre = f"model.layers.{li}."
+        layer = {k: q(pre + f"{part}.{k}.weight") for part, ks in (
+            ("self_attn", ("q_proj", "k_proj", "v_proj", "o_proj")),
+            ("mlp", ("gate_proj", "up_proj", "down_proj"))) for k in ks}
+        layer["input_norm"] = T[pre + "input_layernorm.weight"].float()
+        layer["post_attn_norm"] = T[pre + "post_attention_layernorm.weight"].float()
+        layers.append(layer)
+    return {"embed": T["model.embed_tokens.weight"].float().to(cfg.dtype), "layers": layers,
+            "final_norm": T["model.norm.weight"].float(), "lm_head": q("lm_head.weight")}
+
+
+def gptj_tree(T, cfg):
+    """Phase 11's in-memory GPT-J tree, as llama_tree."""
+    from bitsandbytes_sycl_tpu_torch.models.llama import _quantize_linear
+
+    def q(n):
+        return _quantize_linear(T[n].float(), cfg)
+
+    layers = []
+    for li in range(cfg.num_layers):
+        pre = f"transformer.h.{li}."
+        layers.append({"ln_w": T[pre + "ln_1.weight"].float(), "ln_b": T[pre + "ln_1.bias"].float(),
+                       "q_proj": q(pre + "attn.q_proj.weight"), "k_proj": q(pre + "attn.k_proj.weight"),
+                       "v_proj": q(pre + "attn.v_proj.weight"),
+                       "out_proj": q(pre + "attn.out_proj.weight"),
+                       "fc_in": q(pre + "mlp.fc_in.weight"),
+                       "fc_in_b": T[pre + "mlp.fc_in.bias"].float(),
+                       "fc_out": q(pre + "mlp.fc_out.weight"),
+                       "fc_out_b": T[pre + "mlp.fc_out.bias"].float()})
+    return {"wte": T["transformer.wte.weight"].float().to(cfg.dtype), "layers": layers,
+            "ln_f_w": T["transformer.ln_f.weight"].float(), "ln_f_b": T["transformer.ln_f.bias"].float(),
+            "lm_head": q("lm_head.weight"), "lm_head_b": T["lm_head.bias"].float()}
+
+
+def tree_leaves(torch, tree, path=""):
+    """[(path, tensor)] of a params tree (QLinearWeights and dicts of
+    tensors), in order."""
+    from bitsandbytes_sycl_tpu_torch.ops.common import QLinearWeight
+
+    if isinstance(tree, torch.Tensor):
+        return [(path, tree)]
+    if isinstance(tree, QLinearWeight):
+        return [(f"{path}.{f}", getattr(tree, f)) for f in ("packed", "absmax", "absmax_scale",
+                                                            "absmax_offset")
+                if getattr(tree, f) is not None]
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in tree_leaves(torch, v, f"{path}/{k}")]
+    return [x for i, v in enumerate(tree) for x in tree_leaves(torch, v, f"{path}/{i}")]
+
+
+def need_same_tree(torch, a, b, label):
+    """Every leaf of ``a`` equals ``b``'s at the same path, dtype and bits."""
+    la, lb = tree_leaves(torch, a), tree_leaves(torch, b)
+    need([p for p, _ in la] == [p for p, _ in lb], f"{label}: the trees differ in their leaves")
+    for (p, x), (_, y) in zip(la, lb):
+        need(x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y.to(x.device)),
+             f"{label}: leaf {p} differs")
+    return len(la)
+
+
+def vm_rss() -> int:
+    """This process's resident set, bytes (/proc/self/status VmRSS)."""
+    with open("/proc/self/status") as f:
+        return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmRSS:"))
+
+
+def load_rss_main(model_dir) -> int:
+    """``--load-rss DIR``: load a Llama checkpoint directory on the card in
+    this fresh process and print one JSON line, in bytes and seconds: the
+    load's time, the files' bytes, the RSS before the load (VmRSS) and the
+    peak RSS (``resource.getrusage``'s ru_maxrss). Start it from a small
+    process (a shell that forks it): ru_maxrss carries over the RSS of the
+    process that forked it."""
+    import resource
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from bitsandbytes_sycl_tpu_torch.checkpoints import load_llama_from_hf
+
+    torch.zeros(1, device="cuda")  # the CUDA context, before the baseline
+    rss0 = vm_rss()
+    t0 = time.perf_counter()
+    cfg, params = load_llama_from_hf(model_dir, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    files = sum(os.path.getsize(os.path.join(model_dir, n)) for n in os.listdir(model_dir)
+                if n.endswith(".safetensors"))
+    print(json.dumps(dict(load_s=secs, file_bytes=files, rss_before=rss0,
+                          peak_rss=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+                          layers=cfg.num_layers)))
+    return 0
+
+
+def checkpoints_11(torch, prompts, kernels, report, ref_counts):
+    """Phase 11: (a) a Llama-2-7B-width HF checkpoint written here (4 layers,
+    bf16, two safetensors shards) loaded on the card: three weights' bytes
+    against the CPU quantizer, the whole tree against the same tensors
+    quantized in memory, phase 3's prompts served paged and contiguous with
+    tokens equal to the in-memory tree's and launches per layer equal to
+    phases 3 and 3c; the load's seconds, GB/s and peak RSS from a fresh
+    process; (b) GPT-J-6B at 2 layers as an F16 ``.bin``, served through
+    gptj_forward with the same checks; (c) save_checkpoint/load_checkpoint
+    of (a)'s tree and of a 2-layer QLoRA run's 8-bit optimizer state, every
+    leaf bit for bit and one more step after the reload equal to the
+    uninterrupted one; (d) the host library built by g++ here against the
+    card's quantizers; (e) legacy.igemm at the 7B shapes against exact
+    products, research.matmul_fp8_mixed card against CPU. (f), the roofline
+    report, runs in phase 2 (``roofline_11``)."""
+    import shutil
+
+    from bitsandbytes_sycl_tpu_torch import checkpoints as CK
+    from bitsandbytes_sycl_tpu_torch.models.gptj import gptj_forward
+    from bitsandbytes_sycl_tpu_torch.models.llama import _quantize_linear
+
+    stats, seconds = {}, {}
+    shutil.rmtree(PHASE11_DIR, ignore_errors=True)
+    os.makedirs(PHASE11_DIR)
+    try:
+        # (a) Llama-2-7B width, 4 layers, bf16, two shards
+        t0 = time.perf_counter()
+        hf = dict(LLAMA2_7B_HF, num_hidden_layers=LLAMA_LAYERS)
+        d = os.path.join(PHASE11_DIR, "llama2-7b-4l")
+        os.makedirs(d)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(hf, f, indent=2)
+        T = seeded_tensors(torch, llama_hf_shapes(hf), torch.bfloat16, seed=0)
+        names = list(T)
+        cut = names.index(f"model.layers.{LLAMA_LAYERS // 2}.self_attn.q_proj.weight")
+        shards = {"model-00001-of-00002.safetensors": names[:cut],
+                  "model-00002-of-00002.safetensors": names[cut:]}
+        file_bytes = 0
+        for fname, ns in shards.items():
+            file_bytes += write_safetensors(torch, os.path.join(d, fname), {n: T[n] for n in ns})
+        with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+            json.dump({"metadata": {"total_size": file_bytes},
+                       "weight_map": {n: fn for fn, ns in shards.items() for n in ns}}, f)
+        write_s = time.perf_counter() - t0
+        # a shell forks the loader (the command is not its last, so it forks
+        # rather than execs): the loader's ru_maxrss then starts from the
+        # shell's small RSS, not from this process's
+        child = subprocess.run(["/bin/sh", "-c", '"$0" "$1" --load-rss "$2"; exit $?',
+                                sys.executable, os.path.abspath(__file__), d],
+                               capture_output=True, text=True, timeout=300)
+        need(child.returncode == 0, f"[11a] the load in a fresh process failed:\n{child.stderr[-2000:]}")
+        rss = json.loads(child.stdout.strip().splitlines()[-1])
+        peak = rss["peak_rss"]
+        t1 = time.perf_counter()
+        cfg, loaded = CK.load_llama_from_hf(d, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        need(cfg.num_layers == LLAMA_LAYERS and cfg.hidden_size == 4096 and cfg.vocab_size == 32000,
+             f"[11a] config read as {cfg}")
+        # three weights against the CPU quantizer, bit for bit
+        for name, leaf in (("model.layers.0.self_attn.q_proj.weight", loaded["layers"][0]["q_proj"]),
+                           (f"model.layers.{LLAMA_LAYERS - 1}.mlp.down_proj.weight",
+                            loaded["layers"][-1]["down_proj"]),
+                           ("lm_head.weight", loaded["lm_head"])):
+            want = _quantize_linear(T[name].float().cpu(), cfg)
+            need(torch.equal(leaf.packed.cpu(), want.packed)
+                 and torch.equal(leaf.absmax.cpu().view(torch.int16), want.absmax.view(torch.int16)),
+                 f"[11a] {name}: the card's bytes differ from the CPU quantizer's")
+        mem = llama_tree(T, cfg)
+        n_leaves = need_same_tree(torch, mem, loaded, "[11a] loaded vs in-memory tree")
+        serve_rows = {}
+        for paged, ref in ((True, "paged"), (False, "contiguous")):
+            runs = []
+            for tree in (loaded, mem):
+                reset_counts(kernels)
+                outs, wall, steps = serve(torch, cfg, tree, prompts, 32, paged=paged)
+                runs.append((outs, read_counts(kernels), wall, steps))
+            need(runs[0][0] == runs[1][0], f"[11a] {ref}: the loaded tree's tokens differ from the"
+                                           " in-memory tree's")
+            counts, L, L3 = runs[0][1], cfg.num_layers, 32
+            rc = ref_counts[ref]
+            per_layer = {"w4a8_gemv": (counts["w4a8_gemv"] * (7 * L3 + 1),
+                                       rc["w4a8_gemv"] * (7 * L + 1)),
+                         "prefill_attn_int8": (counts["prefill_attn_int8"] * L3,
+                                               rc["prefill_attn_int8"] * L)}
+            att = "paged_attn_int8" if paged else "decode_attn_int8"
+            per_layer[att] = (counts[att] * L3, rc[att] * L)
+            for k, (a, b) in per_layer.items():
+                need(a == b and counts[k] > 0, f"[11a] {ref}: {counts[k]} launches of {k} over"
+                                               f" {L} layers against phase 3's {rc[k]} over {L3}")
+            steps = sorted(runs[0][3])
+            serve_rows[ref] = dict(launches={k: v for k, v in counts.items() if v}, wall_s=runs[0][2],
+                                   decode_ms_per_step_median=steps[len(steps) // 2] * 1e3)
+        stats["llama"] = dict(file_bytes=file_bytes, write_s=write_s, load_s=load_s,
+                              load_gb_per_s=file_bytes / load_s / 1e9, fresh_process=rss,
+                              fresh_load_gb_per_s=rss["file_bytes"] / rss["load_s"] / 1e9,
+                              peak_rss_gb=peak / 1e9,
+                              rss_over_baseline_gb=(peak - rss["rss_before"]) / 1e9,
+                              rss_beyond_files_gb=(peak - rss["rss_before"] - file_bytes) / 1e9,
+                              leaves_equal=n_leaves, serve=serve_rows)
+        print(f"[11a] Llama-2-7B width, {LLAMA_LAYERS} layers, bf16 in two safetensors shards:"
+              f" {file_bytes / 1e9:.2f} GB written in {write_s:.1f} s; loaded on the card in"
+              f" {load_s:.2f} s ({file_bytes / load_s / 1e9:.2f} GB/s, warm page cache); a fresh"
+              f" process {rss['load_s']:.2f} s ({stats['llama']['fresh_load_gb_per_s']:.2f} GB/s),"
+              f" peak RSS {peak / 1e9:.2f} GB (ru_maxrss)"
+              f" ({(peak - rss['rss_before']) / 1e9:.2f} GB over the"
+              f" {rss['rss_before'] / 1e9:.2f} GB before the load: the mapped files'"
+              f" {file_bytes / 1e9:.2f} GB and {stats['llama']['rss_beyond_files_gb']:.2f} GB more);"
+              f" q_proj 0,"
+              f" down_proj {LLAMA_LAYERS - 1} and lm_head equal the CPU quantizer's bytes;"
+              f" {n_leaves} leaves equal the in-memory tree's; tokens paged and contiguous equal;"
+              f" launches per layer as phase 3's: {json.dumps(serve_rows['paged']['launches'])}",
+              flush=True)
+        seconds["11a"] = time.perf_counter() - t0
+
+        # (c) save_checkpoint / load_checkpoint: (a)'s tree, then a QLoRA run's optimizer
+        t0 = time.perf_counter()
+        stats["save_load"] = save_load_11(torch, cfg, loaded, kernels)
+        seconds["11c"] = time.perf_counter() - t0
+        del T, mem, loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) GPT-J-6B width, 2 layers, F16 .bin through torch.save
+        t0 = time.perf_counter()
+        hfj = dict(GPTJ_6B_HF, n_layer=GPTJ_LAYERS)
+        dj = os.path.join(PHASE11_DIR, "gpt-j-6b-2l")
+        os.makedirs(dj)
+        with open(os.path.join(dj, "config.json"), "w") as f:
+            json.dump(hfj, f, indent=2)
+        Tj = seeded_tensors(torch, gptj_hf_shapes(hfj), torch.float16, seed=1)
+        torch.save({n: t.cpu() for n, t in Tj.items()}, os.path.join(dj, "pytorch_model.bin"))
+        bin_bytes = os.path.getsize(os.path.join(dj, "pytorch_model.bin"))
+        t1 = time.perf_counter()
+        cfgj, loadedj = CK.load_gptj_from_hf(dj, device="cuda")
+        torch.cuda.synchronize()
+        loadj_s = time.perf_counter() - t1
+        memj = gptj_tree(Tj, cfgj)
+        nj = need_same_tree(torch, memj, loadedj, "[11b] loaded vs in-memory GPT-J tree")
+        gj = {}
+        for paged in (False, True):
+            outs = []
+            for tree in (loadedj, memj):
+                reset_counts(kernels)
+                o, wall, _ = serve(torch, cfgj, tree, prompts[:4], 16, paged=paged,
+                                   forward_fn=gptj_forward)
+                outs.append((o, read_counts(kernels)))
+            mode = "paged" if paged else "contiguous"
+            need(outs[0][0] == outs[1][0], f"[11b] GPT-J {mode}: the loaded tree's tokens differ")
+            gj[mode] = {k: v for k, v in outs[0][1].items() if v}
+        stats["gptj"] = dict(file_bytes=bin_bytes, load_s=loadj_s, leaves_equal=nj, launches=gj)
+        print(f"[11b] GPT-J-6B width, {GPTJ_LAYERS} layers, F16 .bin ({bin_bytes / 1e9:.2f} GB):"
+              f" loaded in {loadj_s:.2f} s; {nj} leaves equal the in-memory tree's; tokens paged"
+              f" and contiguous equal; launches {json.dumps(gj)}", flush=True)
+        del Tj, memj, loadedj
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds["11b"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(PHASE11_DIR, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    stats["native"] = native_11(torch)
+    seconds["11d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats["legacy_research"] = legacy_research_11(torch)
+    seconds["11e"] = time.perf_counter() - t0
+    stats["seconds"] = seconds
+    return stats
+
+
+def save_load_11(torch, cfg, params, kernels):
+    """Phase 11c: (a)'s quantized tree through save_checkpoint and
+    load_checkpoint, every leaf bit for bit; then a QLoRA run on its first
+    2 layers (rank 64 on all seven projections, adamw8bit): one step, the
+    adapters and optimizer state saved and loaded, one more step from the
+    loaded state equal, bit for bit, to the uninterrupted run's second."""
+    from bitsandbytes_sycl_tpu_torch import checkpoints as CK
+    from bitsandbytes_sycl_tpu_torch import optim
+    from bitsandbytes_sycl_tpu_torch.models.lora import (ALL_TARGETS, init_lora, lora_leaves,
+                                                          qlora_loss_fn)
+
+    path = os.path.join(PHASE11_DIR, "tree.pt")
+    t0 = time.perf_counter()
+    CK.save_checkpoint(path, params)
+    save_s = time.perf_counter() - t0
+    tree_bytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    back = CK.load_checkpoint(path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_tree = need_same_tree(torch, params, back, "[11c] the saved and loaded quantized tree")
+    del back
+    os.remove(path)
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    p2 = dict(params, layers=params["layers"][:2])
+    lora = init_lora(cfg2, seed=2, rank=64, alpha=16.0, targets=ALL_TARGETS, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(1, cfg.vocab_size, (2, 129), generator=gen, device="cuda")
+    loss_fn = qlora_loss_fn(p2, cfg2)
+
+    def step(lo, opt):
+        loss = loss_fn(lo, toks)
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        return loss.item()
+
+    opt = optim.adamw8bit(lora_leaves(lora), 2e-4, weight_decay=0.0)
+    losses = [step(lora, opt)]
+    path = os.path.join(PHASE11_DIR, "qlora.pt")
+    CK.save_checkpoint(path, {"lora": lora, "opt": opt.state_dict()})
+    saved_states = [{k: v.clone() for k, v in opt.state[p].items()} for p in lora_leaves(lora)]
+    losses.append(step(lora, opt))
+    back = CK.load_checkpoint(path, device="cuda")
+    os.remove(path)
+    lora_b = back["lora"]
+    leaves_b = lora_leaves(lora_b)
+    need(all(t.is_leaf and t.requires_grad for t in leaves_b),
+         "[11c] the reloaded adapters are not trainable leaves")
+    opt_b = optim.adamw8bit(leaves_b, 2e-4, weight_decay=0.0)
+    opt_b.load_state_dict(back["opt"])
+    n_states = 0
+    for p, st in zip(leaves_b, saved_states):
+        for k, v in st.items():
+            need(opt_b.state[p][k].dtype == v.dtype and torch.equal(opt_b.state[p][k], v),
+                 f"[11c] optimizer state {k} differs after the reload")
+            n_states += 1
+    need(opt_b.count == 1, f"[11c] the reloaded step count is {opt_b.count}")
+    reset_counts(kernels)
+    loss_b = step(lora_b, opt_b)
+    j = read_counts(kernels)["optim8_2state"]
+    need(loss_b == losses[1], f"[11c] the resumed loss {loss_b} differs from {losses[1]}")
+    for a, b in zip(lora_leaves(lora), leaves_b):
+        need(torch.equal(a.detach(), b.detach()), "[11c] an adapter leaf differs after the resumed step")
+    for a, b in zip(lora_leaves(lora), leaves_b):
+        for k, v in opt.state[a].items():
+            need(torch.equal(v, opt_b.state[b][k]), f"[11c] optimizer state {k} differs after the"
+                                                    " resumed step")
+    need(j == 1, f"[11c] the resumed step launched J {j} times")
+    out = dict(tree_bytes=tree_bytes, save_s=save_s, load_s=load_s, tree_leaves=n_tree,
+               optimizer_states=n_states, losses=losses, resumed_loss=loss_b)
+    print(f"[11c] save_checkpoint of the 4-layer quantized tree ({tree_bytes / 1e9:.2f} GB) in"
+          f" {save_s:.2f} s, load_checkpoint in {load_s:.2f} s: {n_tree} leaves bit for bit; QLoRA"
+          f" (2 layers, rank 64, adamw8bit): {n_states} optimizer states reloaded bit for bit, the"
+          f" resumed step equals the uninterrupted one (loss {loss_b:.5f}, J once)", flush=True)
+    return out
+
+
+def native_11(torch):
+    """Phase 11d: the host library built by g++ on this machine, then its
+    4-bit quantizer on a 4096 x 11008 weight (NF4, blocksize 64) against
+    the card's: the bnb-order bytes and absmax of functional.quantize_4bit,
+    and, repacked to the kernel layout, quantize_4bit_native's (f32
+    scales), byte for byte."""
+    from bitsandbytes_sycl_tpu_torch import codebooks, functional, native
+    from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native, to_kernel_layout
+    from bitsandbytes_sycl_tpu_torch.types import QuantState
+
+    build_s = native.build_native()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    N, K = 4096, 11008
+    W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+    Wh = W.cpu().numpy()
+    code = codebooks.get_4bit_type("nf4")
+    t0 = time.perf_counter()
+    packed, absmax = native.quantize_4bit_np(Wh, code, 64)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    p_card, qs = functional.quantize_4bit(W, blocksize=64, quant_type="nf4")
+    need(torch.equal(torch.from_numpy(packed), p_card.cpu())
+         and torch.equal(torch.from_numpy(absmax), qs.absmax.cpu()),
+         "[11d] the host library's bytes differ from functional.quantize_4bit on the card")
+    kl = quantize_4bit_native(W, 64, "nf4", absmax_dtype=torch.float32)
+    st = QuantState(absmax=torch.from_numpy(absmax), code=torch.from_numpy(code), shape=(N, K),
+                    dtype="float32", blocksize=64, quant_type="nf4")
+    mine = to_kernel_layout(torch.from_numpy(packed), st)
+    need(torch.equal(mine.packed, kl.packed.cpu()) and torch.equal(mine.absmax, kl.absmax.cpu()),
+         "[11d] the host library's bytes differ from quantize_4bit_native on the card")
+    card_ms = time_cold(torch, lambda: quantize_4bit_native(W, 64, "nf4",
+                                                            absmax_dtype=torch.float32), iters=5)
+    print(f"[11d] host library built by g++ here in {build_s:.1f} s; quantize_4bit_np of"
+          f" {N} x {K} (NF4, bs 64) in {host_ms:.1f} ms on the host, byte-equal to"
+          f" functional.quantize_4bit and quantize_4bit_native ({card_ms:.2f} ms) on the card",
+          flush=True)
+    return dict(build_s=build_s, host_ms=host_ms, card_ms=card_ms, shape=[N, K])
+
+
+def legacy_research_11(torch):
+    """Phase 11e: legacy.igemm on the card at the 7B shapes (32 int8 rows,
+    torch._int_mm) against the exact product (float64 on the card holds
+    every int8 sum exactly; at 4096 x 4096 also int64 on the CPU), and
+    batched_igemm; research.matmul_fp8_mixed on the card against the CPU:
+    forward within the JAX tests' envelope (mean |error| < 0.115 against
+    the f32 product) on both, and card against CPU within 1e-4 relative
+    L2 (the same codes, another summation order), gradients too."""
+    from bitsandbytes_sycl_tpu_torch import legacy, research
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    M = 32
+    shapes = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
+    for N, K in shapes:
+        A = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
+        B = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        got = legacy.igemm(A, B)
+        want = (A.double() @ B.double()).long()
+        need(got.dtype == torch.int32 and torch.equal(got.long(), want),
+             f"[11e] igemm {M} x {K} x {N}: not the exact product")
+        if (N, K) == (4096, 4096):
+            need(torch.equal(got.cpu().long(), A.cpu().long() @ B.cpu().long()),
+                 "[11e] igemm 4096 x 4096: not the CPU's int64 product")
+            igemm_ms = time_cold(torch, lambda: legacy.igemm(A, B))
+    Ab = torch.randint(-127, 128, (4, 64, 512), generator=gen, device="cuda", dtype=torch.int8)
+    Bb = torch.randint(-127, 128, (4, 512, 256), generator=gen, device="cuda", dtype=torch.int8)
+    need(torch.equal(legacy.batched_igemm(Ab, Bb).cpu(), legacy.batched_igemm(Ab.cpu(), Bb.cpu())),
+         "[11e] batched_igemm: card and CPU differ")
+    m, k, n = 64, 4096, 4096
+    A = torch.randn((m, k), generator=gen, device="cuda")
+    B = torch.randn((k, n), generator=gen, device="cuda") * (2.0 / (k + n)) ** 0.5
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        a = A.detach().to(dev).requires_grad_()
+        b = B.detach().to(dev).requires_grad_()
+        out = research.matmul_fp8_mixed(a, b)
+        out.square().mean().backward()
+        ref = a.detach() @ b.detach()
+        outs[dev] = (out.detach().cpu(), a.grad.cpu(), b.grad.cpu(),
+                     float((out.detach() - ref).abs().mean()))
+    g, c = outs["cuda"], outs["cpu"]
+    need(g[3] < 0.115 and c[3] < 0.115, f"[11e] fp8 mixed forward mean error {g[3]} / {c[3]} >= 0.115")
+    rels = [float((x - y).norm() / y.norm()) for x, y in zip(g[:3], c[:3])]
+    need(max(rels) <= 1e-4, f"[11e] fp8 mixed card vs CPU relative L2 {rels} > 1e-4")
+    print(f"[11e] igemm at the four 7B shapes ({M} rows) exact ({igemm_ms * 1e3:.1f} us at 4096 x 4096);"
+          f" batched_igemm card = CPU; fp8 mixed forward mean error {g[3]:.4f} (card) /"
+          f" {c[3]:.4f} (CPU), card vs CPU relative L2 out/gradA/gradB {rels}", flush=True)
+    return dict(igemm_us=igemm_ms * 1e3, fp8_mean_err_card=g[3], fp8_mean_err_cpu=c[3],
+                fp8_card_vs_cpu_rel_l2=rels)
+
+
+def roofline_11(torch, report):
+    """Phase 11f: profiling.roofline_report of kernel A (fused body) at
+    4096 x 4096, M = 4, NF4 bs 64 with bf16 scales (phase 2's setting),
+    cold (L2 flushed before every call, the flushes' own loop
+    subtracted). Its time must be within 10% of A's own duration on the
+    device's clock (torch.profiler, through profiling.trace, the median
+    over 100 cold calls) and no more than phase 2's cold time for A at that
+    shape, which adds time_cold's event floor (the gap between the start
+    event and the kernel, measured at 3.6 us here); its HBM fraction
+    below 1.05; current_chip() the H100 entry."""
+    import statistics
+
+    from bitsandbytes_sycl_tpu_torch import profiling
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_w4a8
+    from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native
+
+    chip = profiling.current_chip()
+    need(chip.name == "H100", f"[11f] current_chip() gave {chip}")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    M, N, K = 4, 4096, 4096
+    W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+    w = quantize_4bit_native(W, 64, "nf4", absmax_dtype=torch.bfloat16)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def op(x, w):
+        return matmul_w4a8.w4a8_gemv(x, w, None, torch.bfloat16)
+
+    nbytes = M * K * 2 + N * K // 2 + N * K // 64 * 2 + M * N * 2
+    r = profiling.roofline_report("w4a8_gemv 4096x4096 M=4", op, x, w, flops=2.0 * M * N * K,
+                                  bytes_accessed=nbytes, cold=True)
+    warm = profiling.device_time(op, x, w) * 1e6
+    flush = torch.empty(96 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    # a profiler started after others stopped has missed the first launches
+    # of its window (phase 7b): a spin kernel first, then 100 cold calls
+    with profiling.trace() as prof:
+        torch.cuda._sleep(20_000_000)
+        for _ in range(100):
+            flush.zero_()
+            op(x, w)
+        torch.cuda.synchronize()
+    durs = [e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "w4a8_fused" in e.name]
+    need(len(durs) >= 30, f"[11f] the trace holds {len(durs)} of 100 launches of A's fused body")
+    kernel_us = statistics.median(durs)
+    phase2 = next(row["ms"] for row in report["w4a8_gemv"]["shapes"]
+                  if (row["N"], row["K"], row["M"]) == (N, K, M) and "ms" in row) * 1e3
+    print(f"[11f] roofline_report of A at 4096 x 4096, M = 4 on {chip.name}: {r['time_us']:.2f} us"
+          f" cold ({r['achieved_gbps']:.0f} GB/s = {r['frac_hbm_roofline']:.1%} of HBM); A's"
+          f" duration on the device's clock {kernel_us:.2f} us (median of {len(durs)} traced cold"
+          f" calls); phase 2's"
+          f" cold time {phase2:.2f} us with time_cold's event floor; warm back to back"
+          f" {warm:.2f} us", flush=True)
+    need(abs(r["time_us"] - kernel_us) <= 0.1 * kernel_us,
+         f"[11f] roofline time {r['time_us']:.2f} us is not within 10% of A's traced {kernel_us:.2f} us")
+    need(r["time_us"] <= phase2,
+         f"[11f] roofline time {r['time_us']:.2f} us over phase 2's {phase2:.2f}")
+    need(r["frac_hbm_roofline"] < 1.05, f"[11f] HBM fraction {r['frac_hbm_roofline']}")
+    return dict(r, phase2_us=phase2, traced_kernel_us=kernel_us, traced_calls=len(durs),
+                warm_us=warm)
+
+
 def manager_7b(torch, cfg, params, kernels, steps=3):
     """Phase 10o: GlobalOptimManager over phase 7's 7B QLoRA adapters (rank
     64 on all seven projections), the o_proj adapters overridden to 32-bit
@@ -5024,6 +5737,12 @@ def main() -> int:
         t0 = time.perf_counter()
         print("[2] kernels vs plain versions (cold L2, median of per-call CUDA-event times)")
         check_linears(torch, report)
+        # phase 11f, run here beside phase 2's times of A and before any
+        # other profiler: a profiler started after others had stopped
+        # caught none of A's launches in its window
+        t1 = time.perf_counter()
+        roofline = roofline_11(torch, report)
+        phases["checkpoints_11f_s"] = time.perf_counter() - t1
         check_prefill_linears(torch, report)
         check_repeatable(torch, report)
         check_routes(torch, report)
@@ -5159,7 +5878,10 @@ def main() -> int:
         # speculative decoding (its LLM.int8 target serves phase 6 too)
         gc.collect()
         torch.cuda.empty_cache()
-        serving_stats, params8 = serving_engine_7b(torch, cfg, params, prompts, outs, KERNELS)
+        # the 2-layer CPU model (seed 1) of phases 9, 5 and 7c, built once
+        p_cpu2 = init_params(dataclasses.replace(cfg, num_layers=2), seed=1, device="cpu")
+        serving_stats, params8 = serving_engine_7b(torch, cfg, params, prompts, outs, KERNELS,
+                                                   p_cpu2)
         phases["serving_engine_s"] = serving_stats["seconds"]["total"]
         gc.collect()
         torch.cuda.empty_cache()
@@ -5194,7 +5916,7 @@ def main() -> int:
         # 5. card against CPU, 2 layers at 7B width
         t0 = time.perf_counter()
         cfg2 = dataclasses.replace(cfg, num_layers=2)
-        p_cpu = init_params(cfg2, seed=1, device="cpu")
+        p_cpu = p_cpu2
         p_gpu = to_cuda(torch, p_cpu)
         toks = torch.tensor([p + [0] * (32 - len(p)) for p in prompts_from_seed(1, 2, cfg.vocab_size)])
         lg_cpu, _ = llama_forward(p_cpu, cfg2, toks, init_kv_cache(cfg2, 2, "cpu"))
@@ -5264,16 +5986,19 @@ def main() -> int:
         t0 = time.perf_counter()
         from bitsandbytes_sycl_tpu_torch import optim
 
-        p_cpu = init_params(dataclasses.replace(cfg, num_layers=2), seed=1, device="cpu")
-        train_stats["card_vs_cpu"] = qlora_card_vs_cpu(torch, cfg, KERNELS, p_cpu=p_cpu)
+        p_cpu = p_cpu2
+        first = {}
+        train_stats["card_vs_cpu"] = qlora_card_vs_cpu(torch, cfg, KERNELS, p_cpu=p_cpu,
+                                                       cpu_first=first)
         train_stats["card_vs_cpu_whole_leaf"] = qlora_card_vs_cpu(
             torch, cfg, KERNELS, ("w4a8_gemv", "optim8_2state.two_pass"), "[7c block_wise=False]",
-            p_cpu=p_cpu,
+            p_cpu=p_cpu, cpu_first=first,
             make_opt=lambda lv: optim.adamw8bit(lv, 2e-4, weight_decay=0.0, block_wise=False))
         train_stats["card_vs_cpu_lut"] = qlora_card_vs_cpu(
             torch, cfg, KERNELS, ("w4a8_gemv", "optim8_2state.lut"), "[7c LUT codec]",
-            p_cpu=p_cpu, make_opt=lambda lv: LutOptimizer(torch, lv, "adam", 2e-4, maps))
-        del p_cpu
+            p_cpu=p_cpu, cpu_first=first,
+            make_opt=lambda lv: LutOptimizer(torch, lv, "adam", 2e-4, maps))
+        del p_cpu, p_cpu2
         phases["qlora_card_vs_cpu_s"] = time.perf_counter() - t0
 
         # 8. the library at Llama-7B width and depth: the docstring path,
@@ -5292,6 +6017,18 @@ def main() -> int:
         family_stats = families_10(torch, prompts, KERNELS, report)
         phases["families_s"] = time.perf_counter() - t0
         phases.update({f"families_{k}_s": v for k, v in family_stats["seconds"].items()})
+
+        # 11. HF checkpoints written here and loaded on the card (Llama-2-7B and
+        # GPT-J-6B widths), save/load of quantized trees and optimizer states,
+        # the host library, legacy and research ops, the roofline report
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ckpt_stats = checkpoints_11(torch, prompts, KERNELS, report,
+                                    {"paged": main_counts, "contiguous": contig_stats["launches"]})
+        ckpt_stats["roofline"] = roofline
+        phases["checkpoints_s"] = time.perf_counter() - t0
+        phases.update({f"checkpoints_{k}_s": v for k, v in ckpt_stats["seconds"].items()})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5395,7 +6132,8 @@ def main() -> int:
         json.dump(dict(card=card, kernels=report, serve=serve_stats, long_prompts=long_stats,
                        chunked=chunk_stats, contiguous=contig_stats, w8a8_prefill=w8a8_stats,
                        int8=int8_stats, qlora=train_stats, lean=lean_stats, library=library_stats,
-                       serving=serving_stats, families=family_stats, phases=phases), f,
+                       serving=serving_stats, families=family_stats, checkpoints=ckpt_stats,
+                       phases=phases), f,
                   indent=1, default=str)
     print(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
     print(card)
@@ -5719,6 +6457,58 @@ def probe_int8(torch, out):
         del CB, SCB
 
 
+def time_decode_main(root=None, repeats=2) -> int:
+    """Phase 3's 7B NF4 decode step through the package under ``root``
+    (default: beside this script): phase 3's weights (seed 0), prompts and
+    warm-up, then ``repeats`` generate() runs through the paged and the
+    contiguous engine each, with the host yardsticks read before each run.
+    To compare two commits on one card, unpack the other one (``git
+    archive``) into a directory that .gitignore lists and run, in one call,
+    ``--time-decode DIR``, ``--time-decode``, ``--time-decode``,
+    ``--time-decode DIR``. Lines go to stdout and are appended to
+    chiprun_out/time_decode.jsonl."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --time-decode: no CUDA device", file=sys.stderr)
+        return 2
+    pkg_root = os.path.abspath(root or ROOT)
+    sys.path.insert(0, pkg_root)
+    from bitsandbytes_sycl_tpu_torch.models import llama
+    from bitsandbytes_sycl_tpu_torch.ops import _build
+
+    need(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(llama.__file__)))) == pkg_root,
+         f"--time-decode: imported {llama.__file__}, not the package under {pkg_root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    card = gpu_line()
+    label = os.path.relpath(pkg_root, ROOT)
+    cfg = llama.LlamaConfig.llama7b()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    prompts = prompts_from_seed(0, 8, cfg.vocab_size)
+    serve(torch, dataclasses.replace(cfg, num_layers=1),  # compile-free warm-up
+          dict(params, layers=params["layers"][:1]), prompts[:1], 2)
+    rows = []
+    for _ in range(repeats):
+        for paged in (True, False):
+            host = host_yardsticks(torch)
+            outs, wall, steps = serve(torch, cfg, params, prompts, 32, paged=paged)
+            need(all(len(o) == 32 for o in outs), f"--time-decode: output lengths {[len(o) for o in outs]}")
+            steps = sorted(steps)
+            ms = [steps[len(steps) * i // 4] * 1e3 for i in (1, 2, 3)]
+            row = dict(paged=paged, steps=len(steps), median_ms=ms[1], quartiles_ms=[ms[0], ms[2]],
+                       wall_s=wall, host=host)
+            rows.append(row)
+            print(f"decode step ({label}, {'paged' if paged else 'contiguous'}): median {ms[1]:.2f} ms"
+                  f" ({ms[0]:.2f}-{ms[2]:.2f}) over {len(steps)} steps; python loop"
+                  f" {host['python_loop_ms']:.2f} ms, enqueue {host['enqueue_us']:.2f} us", flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "time_decode.jsonl"), "a") as f:
+        f.write(json.dumps(dict(package=label, card=card, rows=rows)) + "\n")
+    print(card)
+    return 0
+
+
 def time_i_main(root=None) -> int:
     """Kernel I's cold times through ``ops.matmul_int8.int8_matmul`` of the
     package under ``root`` (default: beside this script), bf16 x and
@@ -5932,6 +6722,10 @@ def probe_main(only=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--load-rss"]:
+        sys.exit(load_rss_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--time-decode"]:
+        sys.exit(time_decode_main(sys.argv[2] if len(sys.argv) > 2 else None))
     if sys.argv[1:2] == ["--time-i"]:
         sys.exit(time_i_main(sys.argv[2] if len(sys.argv) > 2 else None))
     if sys.argv[1:2] == ["--probe"]:

@@ -4,14 +4,12 @@
   ``decode_kernel_takes``, ``paged_kernel_takes``) accept every shape that
   the JAX package's predicates (``prefill_attention_ok``,
   ``decode_attention_ok``, ``paged_attention_ok``) accept, over a grid of
-  group sizes 1-16, head dims 64-1024 and S, P in {128, 256}, but the kept
-  differences: head_dim 640 to 1024 on C and H, which no configuration of
-  either package reaches (ROADMAP Queue C). A guard that refused a shape
-  the predicate takes would raise where the JAX package attends on its
-  kernel.
+  group sizes 1-16, head dims 64-1024 and S, P in {128, 256}, with no
+  difference kept. A guard that refused a shape the predicate takes would
+  raise where the JAX package attends on its kernel.
 - Kernels H and D's plain versions (what their CUDA bodies are held to on
-  the card) at group sizes 3 and 7 and head_dim 384 against the JAX kernels
-  in interpret mode, f32 outputs within 2e-5 (the same f32 scores, one-shot
+  the card) at group sizes 3 and 7 and head_dim 384 (and H at 640) against
+  the JAX kernels in interpret mode, f32 outputs within 2e-5 (the same f32 scores, one-shot
   softmax in both).
 - The single-layer ``prefill_attention_int8`` (kernel C on a one-layer
   view) against the JAX entry with ALiBi, and None where the JAX entry
@@ -34,7 +32,6 @@ REPS = range(1, 17)
 DIMS = range(64, 1025, 64)
 SIZES = (128, 256)
 HKV = 2
-KEPT_DIMS = {640, 768, 896, 1024}  # C and H: no configuration reaches them
 
 
 def test_guards_accept_what_the_jax_predicates_accept():
@@ -57,7 +54,7 @@ def test_guards_accept_what_the_jax_predicates_accept():
                         checked += 1
                         assert TP.paged_kernel_takes(D, rep, S), (rep, D, S)
     assert checked > 1000
-    assert kept == {(k, D) for k in "CH" for D in KEPT_DIMS}
+    assert kept == set()
 
 
 @pytest.mark.parametrize("rep", REPS)
@@ -76,6 +73,9 @@ def test_plans_cover_every_group_size(rep):
                         else "simt")
     plan = TA.decode_plan(2, HKV, 256, 128, rep, torch.bfloat16, 132)
     assert plan.body == ("simt" if rep == 8 else "split") and plan.nsplit >= 1
+    # past head_dim 512 H runs its SIMT body
+    for D in (640, 1024):
+        assert TA.decode_plan(2, HKV, 256, D, rep, torch.bfloat16, 132).body == "simt"
 
 
 def _kv(rng, *lead, S, D):
@@ -96,7 +96,7 @@ def _pair(arrays):
     return [jnp.asarray(a) for a in arrays], [torch.from_numpy(np.asarray(a)) for a in arrays]
 
 
-@pytest.mark.parametrize("rep,D", [(3, 384), (7, 128)])
+@pytest.mark.parametrize("rep,D", [(3, 384), (7, 128), (3, 640)])
 def test_decode_plain_matches_jax_kernel(rep, D):
     """Kernel H's plain version at B = 2, S = 128 (a full row and a ragged
     one), the step's token folded in, ALiBi slopes per q head."""

@@ -276,14 +276,6 @@ def test_config_from_hf_gives_the_jax_fields(name):
     assert type(again) is type(got) and again.num_layers == 2 and again.vocab_size == got.vocab_size
 
 
-@pytest.mark.parametrize("name", ["mistral", "qwen2", "gemma", "gemma2", "mixtral", "phi", "neox",
-                                  "falcon", "opt", "gpt2", "bloom"])
-def test_hf_loaders_raise_until_the_checkpoint_reader_is_ported(name):
-    fn = getattr(TM, f"load_{name}_from_hf")
-    with pytest.raises(NotImplementedError, match="Queue A #11"):
-        fn("/nonexistent")
-
-
 def test_models_export_the_jax_names():
     assert set(JM.__all__) <= set(TM.__all__)
     for n in JM.__all__:

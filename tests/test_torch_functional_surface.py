@@ -399,7 +399,7 @@ def test_outlier_pooler_and_layout_indices():
 
 
 def test_the_root_exports_the_jax_surface():
-    left_out = {"legacy", "matmul_cublas", "mm_cublas", "bmm_cublas"}  # ROADMAP Queue A #11
+    left_out = set()
     missing = [n for n in jbnb.__all__ if n not in left_out and not hasattr(bnb, n)]
     assert not missing
     assert set(jbnb.__all__) - left_out <= set(bnb.__all__)

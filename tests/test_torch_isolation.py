@@ -25,6 +25,8 @@ MODULES = sorted(
 
 
 def test_import_leaves_jax_out():
+    assert {f"bitsandbytes_sycl_tpu_torch.{m}" for m in (
+        "checkpoints", "native", "legacy", "research", "profiling")} <= set(MODULES)
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
