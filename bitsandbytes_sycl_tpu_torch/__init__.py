@@ -52,6 +52,7 @@ from .functional import (
 )
 from .ops.common import QLinearWeight, quantize_4bit_native, resolve_device
 from .types import QTensor, QuantState
+from . import parallel
 
 __version__ = "0.1.0"
 
@@ -85,6 +86,7 @@ __all__ = [
     "convert",
     "nn",
     "optim",
+    "parallel",
     "utils",
     "QLinearWeight",
     "quantize_4bit_native",

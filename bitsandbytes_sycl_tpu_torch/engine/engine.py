@@ -35,11 +35,19 @@ family aliases; ``llama_forward`` by default), with the cache from
 ``init_cache_fn`` (``init_kv_cache`` by default, whose layout every family
 shares). Every model call (prefill, prefix, decode step, speculative
 target) goes through that one forward.
+
+Tensor parallelism (``mesh=``, a ``DeviceMesh`` with the ``tp_axis`` dim):
+every rank builds the engine over its shard of the params
+(``parallel.shard_llama_params``), holds its kv heads of the caches and
+serves through ``parallel.llama_forward_tp``, running the same host loop
+in lockstep with the others, as the JAX package's engine runs one program
+over the mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -108,8 +116,25 @@ class InferenceEngine:
         device=None,
         seed: int = 0,
     ):
+        # tensor parallelism: every rank builds the engine over its local
+        # params (parallel.shard_llama_params) and runs the same host loop in
+        # lockstep, so the page allocators and schedules stay identical
+        self.mesh = mesh
+        self._tp_axis = tp_axis
+        tp = 1
         if mesh is not None:
-            raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP Queue A #13)")
+            from ..parallel.mesh import axis_size
+
+            tp = axis_size(mesh, tp_axis)  # a TypeError for anything but a DeviceMesh
+            if engine_cfg.w8a8_prefill:
+                raise NotImplementedError(
+                    "w8a8_prefill does not compose with a TP mesh yet: the repacked {CB, SCB} "
+                    "leaves would need their own shardings; use repack_params_int8 on the "
+                    "unsharded tree before shard_llama_params instead")
+            if engine_cfg.paged and getattr(model_cfg, "kv_bits", 8) == 4:
+                raise NotImplementedError(
+                    "kv_bits=4 does not compose with a TP mesh yet: the nib_prev staging leaves "
+                    "need their own shardings")
         # multi-adapter serving: a stack_lora tree; each request picks its
         # adapter with add_request(adapter_id=...)
         self._lora = lora
@@ -138,6 +163,19 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self._fwd = forward_fn or llama_forward
         self._init_cache = init_cache_fn or init_kv_cache
+        # the caches hold this rank's kv heads under a mesh
+        self._kv_cfg = model_cfg
+        if mesh is not None:
+            from ..parallel.llama_tp import (_check_divisible, llama_forward_tp, local_config,
+                                             shard_lora_params)
+
+            self._kv_cfg = local_config(model_cfg, tp)
+            if forward_fn is None:
+                _check_divisible(model_cfg, tp)
+                self._fwd = functools.partial(llama_forward_tp, mesh=mesh, axis=tp_axis)
+                if lora is not None:
+                    # adapters shard congruently with the base projections
+                    self._lora = shard_lora_params(lora, mesh, tp_axis)
         self.mcfg = model_cfg
         self.ecfg = engine_cfg
         self.params = params
@@ -151,9 +189,9 @@ class InferenceEngine:
             n_pages = engine_cfg.num_pages or (B * maxp + 1)
             # page 0 is the reserved trash page: retired slots keep writing there
             self._alloc = PageAllocator(n_pages, engine_cfg.page_size, maxp, reserve_page0=True)
-            self.cache = init_page_pool(model_cfg, n_pages, engine_cfg.page_size, self.device)
+            self.cache = init_page_pool(self._kv_cfg, n_pages, engine_cfg.page_size, self.device)
         else:
-            self.cache = self._init_cache(model_cfg, B, self.device)
+            self.cache = self._init_cache(self._kv_cfg, B, self.device)
         self.seq_lens = np.zeros((B,), np.int32)
         self.active = np.zeros((B,), bool)
         self.slot_tokens: List[List[int]] = [[] for _ in range(B)]
@@ -174,7 +212,12 @@ class InferenceEngine:
 
     def _sample(self, logits: torch.Tensor) -> List[int]:
         """Greedy (first maximum) or temperature / top-k sampling; the step
-        moves only the sampled ids to the host."""
+        moves only the sampled ids to the host. Under a mesh every rank
+        samples the same ids without a broadcast: the logits are the same
+        bits on every rank (each all-reduce hands every rank the one reduced
+        result, and the final norm and lm_head run replicated on the same
+        inputs through deterministic kernels), and every rank's generator
+        starts from the same seed and draws in the same order."""
         t = float(self.ecfg.temperature)
         if t <= 0.0:
             return logits.argmax(dim=-1).tolist()
@@ -242,7 +285,7 @@ class InferenceEngine:
         Kb, Tc = toks.shape
         dev = self.device
         if pre is None:
-            cacheK = self._init_cache(self.mcfg, Kb, dev)
+            cacheK = self._init_cache(self._kv_cfg, Kb, dev)
         else:
             cacheK = {k: v.expand(v.shape[0], Kb, *v.shape[2:]).clone(
                 memory_format=torch.contiguous_format) for k, v in pre["cache"].items()}
@@ -460,7 +503,9 @@ class InferenceEngine:
         pool and cache alone. EOS truncation as in generate() (the EOS
         token kept, nothing after it). The round's statistics are kept in
         ``last_speculative_stats``. The target runs through the engine's
-        forward, and the draft through ``draft_forward`` or the same one."""
+        forward, and the draft through ``draft_forward`` or the same one.
+        Under a mesh both run tensor-parallel: pass ``draft_params`` sharded
+        with ``shard_llama_params(draft_cfg)`` on the same mesh."""
         from .speculative import speculative_generate_jit
 
         if self._lora is not None:
@@ -477,7 +522,8 @@ class InferenceEngine:
             torch.as_tensor(toks, device=self.device), max_new_tokens, gamma=gamma,
             temperature=temperature, seed=seed,
             target_forward=self._fwd, draft_forward=draft_forward or self._fwd,
-            lengths=torch.as_tensor(lens, device=self.device))
+            lengths=torch.as_tensor(lens, device=self.device), mesh=self.mesh,
+            tp_axis=self._tp_axis)
         self.last_speculative_stats = stats
         rows = out.tolist()
         eos = self.ecfg.eos_token

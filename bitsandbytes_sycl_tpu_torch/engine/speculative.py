@@ -29,7 +29,7 @@ import torch
 from ..models.llama import LlamaConfig, init_kv_cache, llama_forward
 from ..ops.common import resolve_device
 
-__all__ = ["speculative_generate", "speculative_generate_jit"]
+__all__ = ["speculative_generate", "speculative_generate_jit", "check_tp_draft"]
 
 
 def _greedy(logits: torch.Tensor) -> np.ndarray:
@@ -80,6 +80,15 @@ def _device_of(prompts, device) -> torch.device:
     if device is None and isinstance(prompts, torch.Tensor):
         return prompts.device
     return resolve_device(device)
+
+
+def check_tp_draft(draft_cfg: LlamaConfig, tp: int) -> None:
+    """The draft of a tensor-parallel engine runs TP over the same mesh
+    dim: the engine's divisibility contract, checked before any call."""
+    if draft_cfg.num_heads % tp or draft_cfg.num_kv_heads % tp or \
+            draft_cfg.intermediate_size % tp:
+        raise ValueError(f"draft config not divisible by TP={tp} "
+                         "(heads/kv_heads/intermediate_size)")
 
 
 def _check_need(target_cfg, draft_cfg, need: int) -> None:
@@ -230,6 +239,8 @@ def speculative_generate_jit(
     seed: int = 0,
     lengths=None,  # (B,) true prompt lengths (ragged)
     device=None,
+    mesh=None,
+    tp_axis: str = "model",
 ) -> Tuple[torch.Tensor, Dict]:
     """Speculative decode with the JAX package's single-program loop
     semantics: every round ingests a fixed two-token chunk [prev at cur-1,
@@ -246,6 +257,12 @@ def speculative_generate_jit(
     sit past the row's cursor and the absolute-position mask hides them
     until real tokens overwrite them, so each row gets its own prompt's
     generation.
+
+    Tensor parallelism (``mesh``): the forwards are TP ones (the engine's,
+    ``parallel.llama_forward_tp`` over ``tp_axis``) on this rank's shards
+    of both models, and the two caches hold the rank's kv heads. The
+    logits are the same bits on every rank, so every rank accepts the
+    same tokens and the loop stays in lockstep.
 
     Returns (tokens (B, max_new_tokens) on the device, {"rounds",
     "target_calls", "accept_rate"}).
@@ -266,8 +283,16 @@ def speculative_generate_jit(
         q = torch.softmax(logits.float() / temperature, dim=-1)
         return torch.multinomial(q, 1, generator=gen)[:, 0], q
 
-    t_cache = init_kv_cache(target_cfg, B, dev)
-    d_cache = init_kv_cache(draft_cfg, B, dev)
+    t_kv, d_kv = target_cfg, draft_cfg
+    if mesh is not None:
+        from ..parallel.llama_tp import local_config
+        from ..parallel.mesh import axis_size
+
+        tp = axis_size(mesh, tp_axis)
+        check_tp_draft(draft_cfg, tp)
+        t_kv, d_kv = local_config(target_cfg, tp), local_config(draft_cfg, tp)
+    t_cache = init_kv_cache(t_kv, B, dev)
+    d_cache = init_kv_cache(d_kv, B, dev)
     pos = torch.arange(T, device=dev).expand(B, T)
     logits, t_cache = target_forward(target_params, target_cfg, prompts, t_cache, pos)
     _, d_cache = draft_forward(draft_params, draft_cfg, prompts, d_cache, pos)

@@ -47,6 +47,7 @@ __all__ = [
     "int8_linear_matmul", "int8_mm_dequant", "llm_int8_prepare_outliers", "llm_int8_matmul",
     "matmul_4bit_ref", "gemv_4bit", "estimate_quantiles", "blocks_for", "OPTIMIZER_FUNCS_2STATE",
     "OPTIMIZER_FUNCS_1STATE", "optimizer_update_32bit", "optimizer_update_8bit_blockwise",
+    "optimizer_update_8bit_blockwise_sharded",
     "optimizer_update_8bit", "percentile_clipping", "histogram_scatter_add_2d",
 ]
 
@@ -867,6 +868,63 @@ def optimizer_update_8bit_blockwise(
         beta1, beta2, eps, step, lr, weight_decay, gnorm_scale,
         blocksize, p, g, noise=noise, qmaps=qmaps,
     )
+
+
+def _shard_rows(t: torch.Tensor, n: int, r: int) -> torch.Tensor:
+    """Rank r's dim-0 slice of t (of n), a view."""
+    rows = t.shape[0] // n
+    return t[r * rows:(r + 1) * rows]
+
+
+def optimizer_update_8bit_blockwise_sharded(
+    optimizer_name: str,
+    g: torch.Tensor,
+    p: torch.Tensor,
+    state1: torch.Tensor,
+    absmax1: torch.Tensor,
+    state2: Optional[torch.Tensor],
+    absmax2: Optional[torch.Tensor],
+    qmap1=None,
+    qmap2=None,
+    beta1: float = 0.9,
+    beta2: float = 0.999,
+    eps: float = 1e-8,
+    step: int = 1,
+    lr: float = 1e-3,
+    mesh=None,
+    axis: str = "data",
+    weight_decay: float = 0.0,
+    gnorm_scale=1.0,
+    blocksize: int = 2048,
+    codec: Optional[str] = None,
+    stochastic_rounding: bool = False,
+):
+    """``optimizer_update_8bit_blockwise`` with the states sharded on dim 0
+    over a mesh dim (ZeRO style). ``g`` and ``p`` are the whole leaf, as
+    every rank of ``axis`` holds it; ``state1``/``state2`` this rank's
+    dim-0 rows and ``absmax1``/``absmax2`` their blocks. The blockwise
+    update is elementwise per block, so with each rank's element count a
+    multiple of the blocksize every rank runs kernel J or K on its own
+    contiguous range and nothing moves: it returns (its rows of the new p,
+    state1, absmax1, state2, absmax2), bit for bit the unsharded update's
+    slices (the uniforms of ``stochastic_rounding`` are drawn per rank)."""
+    from .parallel.mesh import axis_rank, axis_size
+
+    ndev = axis_size(mesh, axis)
+    n = g.numel()
+    if g.shape[0] % ndev != 0:
+        raise ValueError(f"dim0 ({g.shape[0]}) must divide by mesh axis {axis} ({ndev})")
+    if (n // ndev) % blocksize != 0:
+        raise ValueError(
+            f"per-device size ({n // ndev}) must be a multiple of blocksize "
+            f"({blocksize}) so quantization blocks never cross shards"
+        )
+    r = axis_rank(mesh, axis)
+    return optimizer_update_8bit_blockwise(
+        optimizer_name, _shard_rows(g, ndev, r), _shard_rows(p, ndev, r), state1, absmax1,
+        state2, absmax2, qmap1, qmap2, beta1, beta2, eps, step, lr, weight_decay=weight_decay,
+        gnorm_scale=gnorm_scale, blocksize=blocksize, codec=codec,
+        stochastic_rounding=stochastic_rounding)
 
 
 def optimizer_update_8bit(

@@ -163,15 +163,18 @@ def gptj_forward(
     cache: Optional[Dict] = None,
     positions: Optional[torch.Tensor] = None,
     seq_lens: Optional[torch.Tensor] = None,  # unused, as in the JAX package
-    psum_axis: Optional[str] = None,
+    psum_axis=None,
     lora: Optional[list] = None,
     lora_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """llama_forward's contract: (logits (B, T, vocab) f32, cache), the
     cache updated in place. Adapters target q/k/v/out_proj, fc_in and
-    fc_out by key name."""
+    fc_out by key name. ``psum_axis``: the process group of the
+    tensor-parallel dim (``parallel.gptj_forward_tp``); the row-parallel
+    out_proj and fc_out partial sums are all-reduced, one each per layer,
+    and their biases added once, after the sums."""
     if psum_axis is not None:
-        raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP Queue A #13)")
+        from ..parallel.mesh import psum
     B, T = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -209,6 +212,9 @@ def gptj_forward(
             + layer["fc_in_b"].to(cfg.dtype)
         ff = Fnn.gelu(ff.float(), approximate="none" if exact_gelu else "tanh").to(cfg.dtype)
         ff = apply_linear(ff, layer["fc_out"], cfg, _lora_for(lora, li, "fc_out"), ids_bt)
+        if psum_axis is not None:  # row-parallel partial sums; the biases go in after
+            attn_out = psum(attn_out, psum_axis)
+            ff = psum(ff, psum_axis)
         if "out_bias" in layer:
             attn_out = attn_out + layer["out_bias"].to(cfg.dtype)
         ff = ff + layer["fc_out_b"].to(cfg.dtype)

@@ -493,14 +493,26 @@ _SLOPES: Dict = {}
 
 def _alibi_slopes_local(cfg, device) -> Optional[torch.Tensor]:
     """(Hq,) f32 ALiBi slopes of an ALiBi config on ``device`` (one copy per
-    device and head count), or None. Without tensor parallelism the slopes
-    are those of ``cfg.num_heads``."""
+    device and head block), or None. Without tensor parallelism the slopes
+    are those of ``cfg.num_heads``. Under it the slope sequence is global
+    while ``cfg.num_heads`` is the rank's head count: ``opt_forward_tp``
+    sets ``alibi_total_heads`` and ``alibi_axis`` (the process group of the
+    tensor-parallel dim), and rank r takes the block [r * Hq, (r + 1) * Hq)
+    of its heads (row-block sharded projections own those heads)."""
     if not getattr(cfg, "alibi", False):
         return None
-    key = (str(device), cfg.num_heads)
+    total = getattr(cfg, "alibi_total_heads", None) or cfg.num_heads
+    group = getattr(cfg, "alibi_axis", None)
+    off = 0
+    if group is not None:
+        import torch.distributed as dist
+
+        off = dist.get_rank(group) * cfg.num_heads
+    key = (str(device), total, off, cfg.num_heads)
     t = _SLOPES.get(key)
     if t is None:
-        t = _SLOPES[key] = torch.from_numpy(alibi_slopes(cfg.num_heads)).to(device)
+        t = _SLOPES[key] = torch.from_numpy(
+            alibi_slopes(total)[off: off + cfg.num_heads].copy()).to(device)
     return t
 
 
@@ -559,12 +571,18 @@ def _expert_ffn(x, ex, cfg):
     return apply_linear(_mlp_act(cfg, gate.float()).to(cfg.dtype) * up, ex["down_proj"], cfg)
 
 
-def _moe_ffn(h: torch.Tensor, layer: Dict, cfg) -> torch.Tensor:
+def _moe_ffn(h: torch.Tensor, layer: Dict, cfg, psum_axis=None) -> torch.Tensor:
     """Top-k routed mixture-of-experts FFN (HF MixtralSparseMoeBlock): the
     router in f32, softmax over all E experts, the top k, renormalized.
     Dense combine: every expert runs on every token and the router weight
     (0 for an expert not chosen) scales its output, in f32; from
-    ``moe_dispatch_min_tokens`` tokens, capacity-bounded dispatch."""
+    ``moe_dispatch_min_tokens`` tokens, capacity-bounded dispatch.
+
+    Expert parallelism (``psum_axis``, the process group of the dim the
+    stacked experts are sharded on): the router stays replicated, so the
+    routing is global, and rank r combines only its E_local experts
+    [r * E_local, (r + 1) * E_local) with their slice of the combine
+    weights; the caller sums the partial outputs over the group."""
     router = layer["router"]
     E = router.shape[0]
     k = cfg.num_experts_per_tok
@@ -573,29 +591,44 @@ def _moe_ffn(h: torch.Tensor, layer: Dict, cfg) -> torch.Tensor:
     topw = topw / topw.sum(dim=-1, keepdim=True)
     w_full = torch.zeros_like(probs).scatter(-1, topi, topw)
     experts = layer["experts"]
+    e_local = _stacked_leaf(experts).shape[0]
+    if psum_axis is not None:
+        import torch.distributed as dist
+
+        e0 = dist.get_rank(psum_axis) * e_local
+        w_full = w_full[..., e0: e0 + e_local]
     n_tok = int(np.prod(h.shape[:-1]))
     min_disp = getattr(cfg, "moe_dispatch_min_tokens", 0)
     if min_disp and n_tok >= min_disp:
-        return _moe_dispatch(h, experts, w_full, cfg)
+        return _moe_dispatch(h, experts, w_full, cfg, E)
     out = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
-    for e in range(E):
+    for e in range(e_local):
         d = _expert_ffn(h, _expert_slice(experts, e), cfg)
         out = out + w_full[..., e:e + 1] * d.float()
     return out.to(cfg.dtype)
 
 
-def _moe_dispatch(h: torch.Tensor, experts, w: torch.Tensor, cfg) -> torch.Tensor:
+def _stacked_leaf(experts) -> torch.Tensor:
+    """A tensor of the stacked experts (its leading dim counts them)."""
+    while not isinstance(experts, torch.Tensor):
+        experts = experts.packed if isinstance(experts, QLinearWeight) else \
+            next(iter(experts.values()))
+    return experts
+
+
+def _moe_dispatch(h: torch.Tensor, experts, w: torch.Tensor, cfg, e_global: int) -> torch.Tensor:
     """Capacity-bounded dispatch (GShard, arxiv 2006.16668): expert e runs
     on a buffer of C token slots, token n in slot pos[n, e] = (the tokens
     before it that chose e), kept while pos < C; an expert's overflowing
     tokens are dropped for that expert (their weight is missing from the
     sum), the same tokens as in the JAX package's cumsum. C = ceil(cf * N
-    * k / E), rounded up to 8, at least 8 and at most N."""
+    * k / E_global), rounded up to 8, at least 8 and at most N; ``w`` holds
+    the combine weights of this rank's experts."""
     lead, hd = h.shape[:-1], h.shape[-1]
     n = int(np.prod(lead))
     E = w.shape[-1]
     cf = getattr(cfg, "moe_capacity_factor", 2.0)
-    cap = int(np.ceil(cf * n * cfg.num_experts_per_tok / E))
+    cap = int(np.ceil(cf * n * cfg.num_experts_per_tok / e_global))
     cap = min(n, max(8, -(-cap // 8) * 8))
     x = h.reshape(n, hd)
     wn = w.reshape(n, E)
@@ -828,16 +861,23 @@ def llama_forward(
     cache: Optional[Dict] = None,
     positions: Optional[torch.Tensor] = None,  # (B, T) absolute positions
     seq_lens: Optional[torch.Tensor] = None,  # unused, as in the JAX package
-    psum_axis: Optional[str] = None,
+    psum_axis=None,
     lora: Optional[list] = None,
     lora_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (logits (B, T, vocab) f32, cache). With a cache, the cache
     dict is updated in place and returned. ``lora``: per-layer adapters
     (``models/lora.init_lora``), or batched ones (``stack_lora``) with
-    per-sequence ``lora_ids`` (B,)."""
+    per-sequence ``lora_ids`` (B,).
+
+    ``psum_axis``: the ``torch.distributed`` process group of the
+    tensor-parallel dim (the JAX package takes the mesh axis name), for a
+    rank's local shard of the params (``parallel.shard_llama_params``) and
+    of the cache, under the rank's local config (``parallel.llama_tp``):
+    the row-parallel o_proj and down_proj partial sums, and the
+    expert-parallel MoE block's, are all-reduced once each per layer."""
     if psum_axis is not None:
-        raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP Queue A #13)")
+        from ..parallel.mesh import psum
     B, T = tokens.shape
     dev = tokens.device
     ids_bt = None if lora_ids is None else lora_ids.reshape(B, 1).expand(B, T)
@@ -887,18 +927,22 @@ def llama_forward(
                               softcap=cfg.attn_logit_softcap)
         attn = attn.to(cfg.dtype).reshape(B, T, cfg.num_heads * cfg.hd)
         o = apply_linear(attn, layer["o_proj"], cfg, _lora_for(lora, li, "o_proj"), ids_bt)
+        if psum_axis is not None:  # row-parallel o_proj partial sums
+            o = psum(o, psum_axis)
         if cfg.sandwich_norms:
             o = _rms_norm(o, layer["attn_out_norm"], cfg.rms_eps, norm_off)
         x = x + o
         h = _rms_norm(x, layer["post_attn_norm"], cfg.rms_eps, norm_off)
         if "experts" in layer:  # Mixtral's MoE block (adapters target attention only)
-            d = _moe_ffn(h, layer, cfg)
+            d = _moe_ffn(h, layer, cfg, psum_axis)
         else:
             gate = apply_linear(h, layer["gate_proj"], cfg, _lora_for(lora, li, "gate_proj"),
                                 ids_bt)
             up = apply_linear(h, layer["up_proj"], cfg, _lora_for(lora, li, "up_proj"), ids_bt)
             d = apply_linear(_mlp_act(cfg, gate.float()).to(cfg.dtype) * up, layer["down_proj"],
                              cfg, _lora_for(lora, li, "down_proj"), ids_bt)
+        if psum_axis is not None:  # row-parallel / expert-parallel partial sums
+            d = psum(d, psum_axis)
         if cfg.sandwich_norms:
             d = _rms_norm(d, layer["ffn_out_norm"], cfg.rms_eps, norm_off)
         x = x + d

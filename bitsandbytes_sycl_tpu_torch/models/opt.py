@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as Fnn
@@ -33,7 +33,8 @@ __all__ = ["OPTConfig", "init_opt_params", "opt_forward", "init_opt_kv_cache",
 class OPTConfig(GPTJConfig):
     """GPTJConfig's fields (the rotary ones unused) and OPT's own, field
     for field the JAX package's; OPT-6.7B defaults. ``alibi_total_heads``
-    and ``alibi_axis`` belong to tensor parallelism, which is not ported."""
+    and ``alibi_axis`` (the tensor-parallel dim's process group) are set by
+    ``parallel.opt_forward_tp`` alone."""
 
     act: str = "relu"
     ffn_dim: Optional[int] = None  # None: 4 * hidden_size
@@ -41,7 +42,7 @@ class OPTConfig(GPTJConfig):
     pos_offset: int = 2  # OPT's learned-position offset; GPT-2 uses 0
     alibi: bool = False  # BLOOM: ALiBi in place of position embeddings
     alibi_total_heads: Optional[int] = None
-    alibi_axis: Optional[str] = None
+    alibi_axis: Optional[Any] = None
 
     @property
     def ffn(self) -> int:
@@ -113,15 +114,18 @@ def opt_forward(
     cache: Optional[Dict] = None,
     positions: Optional[torch.Tensor] = None,
     seq_lens: Optional[torch.Tensor] = None,  # unused, as in the JAX package
-    psum_axis: Optional[str] = None,
+    psum_axis=None,
     lora: Optional[list] = None,
     lora_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """llama_forward's contract: (logits (B, T, vocab) f32, cache), the
     cache updated in place. Adapters target q/k/v/out_proj, fc1 and fc2 by
-    key name."""
+    key name. ``psum_axis``: the process group of the tensor-parallel dim
+    (``parallel.opt_forward_tp``); the row-parallel out_proj and fc2
+    partial sums are all-reduced, one each per layer, and out_bias and
+    fc2_b added once, after the sums."""
     if psum_axis is not None:
-        raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP Queue A #13)")
+        from ..parallel.mesh import psum
     B, T = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -158,6 +162,8 @@ def opt_forward(
         attn = attn.to(cfg.dtype).reshape(B, T, -1)
         attn_out = apply_linear(attn, layer["out_proj"], cfg, _lora_for(lora, li, "out_proj"),
                                 ids_bt)
+        if psum_axis is not None:
+            attn_out = psum(attn_out, psum_axis)
         x = x + attn_out + layer["out_bias"].to(cfg.dtype)
         h = _ln(x, layer["ln2_w"], layer["ln2_b"], cfg.ln_eps)
         ff = apply_linear(h, layer["fc1"], cfg, _lora_for(lora, li, "fc1"), ids_bt) \
@@ -168,6 +174,8 @@ def opt_forward(
             ff = Fnn.gelu(ff.float(), approximate="tanh" if act == "gelu_tanh" else "none"
                           ).to(cfg.dtype)
         ff = apply_linear(ff, layer["fc2"], cfg, _lora_for(lora, li, "fc2"), ids_bt)
+        if psum_axis is not None:
+            ff = psum(ff, psum_axis)
         x = x + ff + layer["fc2_b"].to(cfg.dtype)
     x = _ln(x, params["ln_f_w"], params["ln_f_b"], cfg.ln_eps)
     if "project_out" in params:

@@ -39,6 +39,19 @@ its own update would put it:
   percentile clipping of a 32-bit leaf; other dtypes, non-contiguous
   tensors and views), one update each.
 ``route_leaves`` counts the leaves each route has stepped.
+
+Sharded states (``mesh=``, ``shard_axis``; ZeRO style): every rank holds
+the whole params and gradients (data parallelism: the caller sums the
+gradients over the ranks first), and a contiguous 8-bit leaf whose dim 0
+divides by the mesh dim's size, with each rank's element count a multiple
+of the blocksize (and no ``max_unorm``, whose norm is the whole leaf's),
+keeps only this rank's dim-0 rows of its states. A step updates those
+rows of p through the leaf's route (the slices of
+``functional.optimizer_update_8bit_blockwise_sharded``) and all-gathers
+the new rows into every rank's p, one all-gather per step; percentile
+clipping reads the norm of the whole gradient (the ranks' squared norms
+all-reduced). The other leaves take the unsharded routes, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -86,10 +99,14 @@ class BnbOptimizer(torch.optim.Optimizer):
     ):
         if name not in _2STATE and name not in F.OPTIMIZER_FUNCS_1STATE:
             raise NotImplementedError(f"optimizer {name!r} not implemented")
+        del is_paged
+        self._shard = None
         if mesh is not None:
-            raise NotImplementedError(
-                "sharded optimizer states (mesh=) are not ported yet (ROADMAP Queue A #13)")
-        del is_paged, shard_axis
+            from ..parallel.mesh import axis_group, axis_rank, axis_size
+
+            # (group, size, rank) of the dim the states shard over
+            self._shard = (axis_group(mesh, shard_axis), axis_size(mesh, shard_axis),
+                           axis_rank(mesh, shard_axis))
         defaults = dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay,
                         optim_bits=optim_bits, min_8bit_size=min_8bit_size,
                         percentile_clipping=percentile_clipping, block_wise=block_wise,
@@ -142,18 +159,35 @@ class BnbOptimizer(torch.optim.Optimizer):
         ``block_wise=False`` the whole leaf."""
         return 2048 if self.setting(p, "block_wise") else max(p.numel(), 1)
 
+    def sharded(self, p: torch.Tensor) -> bool:
+        """Whether leaf p's states are sharded over the mesh dim (see the
+        module docstring)."""
+        if self._shard is None or self.setting(p, "max_unorm") != 0.0 or not _leaf_is_8bit(
+                p, self.setting(p, "optim_bits"), self.setting(p, "min_8bit_size")):
+            return False
+        n = self._shard[1]
+        return (p.dim() > 0 and p.is_contiguous() and p.shape[0] % n == 0
+                and (p.numel() // n) % self.blocksize(p) == 0)
+
+    def _local(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's dim-0 rows of a sharded leaf's tensor, a view."""
+        _, n, r = self._shard
+        rows = t.shape[0] // n
+        return t[r * rows:(r + 1) * rows]
+
     def init_state(self, p: torch.Tensor) -> dict:
         """The leaf's zero state on p's device, as the JAX package's
-        ``_init_leaf``."""
+        ``_init_leaf``; a sharded leaf's 8-bit states are this rank's rows."""
         dev = p.device
         two = self.name in _2STATE
         s: dict = {}
         if _leaf_is_8bit(p, self.setting(p, "optim_bits"), self.setting(p, "min_8bit_size")):
-            nb = F.blocks_for(p.numel(), self.blocksize(p))
-            s["state1"] = torch.zeros(p.shape, dtype=torch.uint8, device=dev)
+            shape = self._local(p).shape if self.sharded(p) else p.shape
+            nb = F.blocks_for(shape.numel(), self.blocksize(p))
+            s["state1"] = torch.zeros(shape, dtype=torch.uint8, device=dev)
             s["absmax1"] = torch.zeros((nb,), dtype=torch.float32, device=dev)
             if two:
-                s["state2"] = torch.zeros(p.shape, dtype=torch.uint8, device=dev)
+                s["state2"] = torch.zeros(shape, dtype=torch.uint8, device=dev)
                 s["absmax2"] = torch.zeros((nb,), dtype=torch.float32, device=dev)
         else:
             s["state1"] = torch.zeros(p.shape, dtype=torch.float32, device=dev)
@@ -171,7 +205,7 @@ class BnbOptimizer(torch.optim.Optimizer):
                 loss = closure()
         self.count += 1
         count = self.count
-        grouped, batched, single = {}, {}, []
+        grouped, batched, single, gather = {}, {}, [], []
         for gi, group in enumerate(self.param_groups):
             lr = group["lr"](count) if callable(group["lr"]) else group["lr"]
             beta1, beta2 = group["betas"]
@@ -184,20 +218,59 @@ class BnbOptimizer(torch.optim.Optimizer):
                     s.update(self.init_state(p))
                 route = self._route(p, s)
                 self.route_leaves[route] += 1
+                # (param, the p and g the update reads and writes, state, hypers,
+                # sharded): a sharded leaf's update reads and writes its rows
+                item = (p, p, p.grad, s, hyper, False)
+                if self.sharded(p):
+                    item = (p, self._local(p.data), self._local(p.grad), s, hyper, True)
+                    gather.append(p)
                 if route == "grouped":
                     key = (p.device, self.blocksize(p), tuple(group[k] for k in _SETTINGS))
-                    grouped.setdefault(key, []).append((p, s, hyper))
+                    grouped.setdefault(key, []).append(item)
                 elif route == "batched":
-                    batched.setdefault((p.device, gi), []).append((p, s, hyper))
+                    batched.setdefault((p.device, gi), []).append(item)
                 else:
-                    single.append((p, s, hyper))
+                    single.append(item)
         for (_, bs, _), items in grouped.items():
             self._step_grouped(items, count, bs)
         for items in batched.values():
             self._step_batched(items, count)
-        for p, s, hyper in single:
-            self._step_leaf(p, p.grad, s, count, *hyper)
+        for param, p, g, s, hyper, sharded in single:
+            self._step_leaf(p, g, s, count, *hyper, param=param, sharded=sharded)
+        if gather:
+            self._gather_rows(gather)
         return loss
+
+    def _gather_rows(self, params) -> None:
+        """Every rank's new rows of the sharded leaves into every rank's
+        params: one all-gather of the rows laid end to end."""
+        from ..parallel.mesh import all_gather
+
+        group, n, _ = self._shard
+        by_dev = {}
+        for p in params:
+            by_dev.setdefault(p.device, []).append(p)
+        for ps in by_dev.values():
+            flat = torch.cat([self._local(p.data).reshape(-1) for p in ps])
+            got = all_gather(flat, group, dim=0).reshape(n, -1)
+            off = 0
+            for p in ps:
+                k = p.numel() // n
+                p.data.view(n, k).copy_(got[:, off:off + k])
+                off += k
+
+    def _gnorms(self, grads, sharded) -> list:
+        """The norm of each gradient, of the whole gradient for a sharded
+        leaf's rows (the ranks' squared norms, all-reduced in one call)."""
+        norms = [torch.linalg.vector_norm(g.float()) for g in grads]
+        idx = [i for i, sh in enumerate(sharded) if sh]
+        if idx:
+            from ..parallel.mesh import psum
+
+            sq = psum(torch.stack([norms[i] for i in idx]).square(), self._shard[0])
+            for j, i in enumerate(idx):
+                norms[i] = torch.sqrt(sq[j])
+        return norms
 
     def _route(self, p: torch.Tensor, s: dict) -> str:
         """The route of leaf p with state s this step: "grouped" (8-bit),
@@ -221,20 +294,21 @@ class BnbOptimizer(torch.optim.Optimizer):
         scales = None
         if clip < 100:
             scales = []
-            for p, s, _ in items:
-                gnorm = torch.linalg.vector_norm(p.grad.float())
+            norms = self._gnorms([it[2] for it in items], [it[5] for it in items])
+            for it, gnorm in zip(items, norms):
+                s = it[3]
                 s["gnorm_vec"], scale = F.percentile_clipping(gnorm, s["gnorm_vec"], count, clip)
                 scales.append(scale)
         F.optimizer_update_8bit_grouped(
-            self.name, [(p.grad, p, s) for p, s, _ in items], [h for _, _, h in items], count,
-            gnorm_scales=scales, blocksize=blocksize,
+            self.name, [(g, p, s) for _, p, g, s, _, _ in items], [it[4] for it in items],
+            count, gnorm_scales=scales, blocksize=blocksize,
             stochastic_rounding=self.setting(p0, "stochastic_rounding"))
 
     def _step_batched(self, items, count):
         """The 32-bit leaves of one device and param group: one update over
         their concatenation, p + (new_p - p) and the states scattered back."""
-        lr, beta1, beta2, eps, wd = items[0][2]
-        ps = [p for p, _, _ in items]
+        lr, beta1, beta2, eps, wd = items[0][4]
+        ps = [p for _, p, _, _, _, _ in items]
         sizes = [p.numel() for p in ps]
 
         def cat(ts):
@@ -243,29 +317,32 @@ class BnbOptimizer(torch.optim.Optimizer):
         two = self.name in _2STATE
         pc = cat(ps)
         new_p, s1, s2 = F.optimizer_update_32bit(
-            self.name, cat([p.grad for p in ps]), pc, cat([s["state1"] for _, s, _ in items]),
-            cat([s["state2"] for _, s, _ in items]) if two else None, beta1, beta2, eps, count,
+            self.name, cat([p.grad for p in ps]), pc, cat([it[3]["state1"] for it in items]),
+            cat([it[3]["state2"] for it in items]) if two else None, beta1, beta2, eps, count,
             lr, weight_decay=wd)
         torch._foreach_add_([p.view(-1) for p in ps], list((new_p - pc).split(sizes)))
         for name, new in (("state1", s1), ("state2", s2)):
             if new is not None:
-                for (p, s, _), part in zip(items, new.split(sizes)):
+                for (_, p, _, s, _, _), part in zip(items, new.split(sizes)):
                     s[name] = part.view(p.shape)
 
-    def _step_leaf(self, p, g, s, count, lr, beta1, beta2, eps, wd):
+    def _step_leaf(self, p, g, s, count, lr, beta1, beta2, eps, wd, param=None, sharded=False):
+        """One leaf's update of p from g: the param itself, or with
+        ``sharded`` the rows of ``param`` this rank updates."""
+        param = p if param is None else param
         gnorm_scale = 1.0
-        clip = self.setting(p, "percentile_clipping")
-        max_unorm = self.setting(p, "max_unorm")
+        clip = self.setting(param, "percentile_clipping")
+        max_unorm = self.setting(param, "max_unorm")
         if clip < 100:
-            gnorm = torch.linalg.vector_norm(g.float())
+            gnorm = self._gnorms([g], [sharded])[0]
             s["gnorm_vec"], gnorm_scale = F.percentile_clipping(gnorm, s["gnorm_vec"], count, clip)
         eight = s["state1"].dtype == torch.uint8
         if eight:
             new_p, s["state1"], s["absmax1"], st2, am2 = F.optimizer_update_8bit_blockwise(
                 self.name, g, p, s["state1"], s["absmax1"], s.get("state2"), s.get("absmax2"),
                 None, None, beta1, beta2, eps, count, lr, weight_decay=wd,
-                gnorm_scale=gnorm_scale, blocksize=self.blocksize(p), codec="dynamic",
-                stochastic_rounding=self.setting(p, "stochastic_rounding"),
+                gnorm_scale=gnorm_scale, blocksize=self.blocksize(param), codec="dynamic",
+                stochastic_rounding=self.setting(param, "stochastic_rounding"),
             )
             if self.name in _2STATE:
                 s["state2"], s["absmax2"] = st2, am2

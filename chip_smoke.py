@@ -9,6 +9,7 @@
     python3 chip_smoke.py --probe int8        # F's tiled and I's wgmma bodies only
     python3 chip_smoke.py --time-i [DIR]      # I's times, from the package under DIR
     python3 chip_smoke.py --time-decode [DIR] # phase 3's decode step, from the package under DIR
+    python3 chip_smoke.py --phase12           # phase 12 alone, after the references of 3 and 3c
 
 Phases, each of which exits non-zero on failure:
   1. build the hand-written kernels (nvcc, csrc/*.cu) and print the card;
@@ -138,7 +139,7 @@ Phases, each of which exits non-zero on failure:
      with the options, the faults outside, 100 launches bit for bit, H and
      D timed at rep 7 beside rep 4, and C and H timed at head_dim 1024
      (B = 4, 4 kv heads, S = 2048); (a) Mixtral-8x7B at full width and
-     depth, (b) Qwen2-7B, (c) GPT-J-6B, (d) BLOOM-7B1, each served
+     16 of its 32 layers, (b) Qwen2-7B, (c) GPT-J-6B, (d) BLOOM-7B1, each served
      contiguous and paged through its forward (8 prompts, 4 slots, 32 new
      tokens), greedy tokens of the two modes under the gap rule, the
      launches of one prefill and one decode step exact (Mixtral: A 897 a
@@ -166,6 +167,26 @@ Phases, each of which exits non-zero on failure:
      M = 4, within 10% of A's duration on the device's clock
      (torch.profiler through profiling.trace) and under phase 2's cold
      time;
+  12. parallel/ on torch.distributed, after phase 11: (a) NCCL at world
+     size 1 in this process: phase 3's tree through shard_llama_params on
+     make_mesh({"model": 1}), phase 3's prompts through the paged and the
+     contiguous TP engine, tokens bit for bit and A, C, D and H launches
+     equal to phases 3 and 3c, 64 all-reduces a decode step; (b) a gloo
+     world of two child processes on this card (chip_smoke.py --tp-rank):
+     Llama-7B NF4 at TP = 2, full width and depth, kernel A at the shard
+     shapes (N = 2048, 5504; K = 2048, 5504) within 1% of its plain
+     version with the fault outside, the prefill logits within 10% of one
+     device's (W4A8's per-rank activation scales), phase 3's prompts
+     paged and contiguous, 16 new tokens each, under the gap rule (10%
+     against phase 3, 5% between the two TP runs), the same on both
+     ranks; (c) in
+     that world, each path on the card against the same path on the CPU:
+     LLM.int8 Llama-7B, Mixtral-8x7B expert parallel, GPT-J-6B, OPT-6.7B
+     and BLOOM-7B1 (ALiBi) at TP = 2 and 2 layers (phase 5's limits), a
+     2-stage pipeline, ring attention at S = 4096, and adamw8bit over phase
+     7b's leaf table with sharded states, bit for bit against the
+     unsharded update. The ranks' logs and summaries go to
+     chiprun_out/phase12/; their times are two ranks sharing one card;
 Every prefill of phases 3, 3b, 3c, 4b and 6 must run C's tensor-core body
 (the model's q is bf16), every paged decode launch D's split body, every
 contiguous decode launch H's split body, and every decode step's W4A8
@@ -1997,19 +2018,21 @@ def prompts_from_seed(seed, n, vocab):
 
 
 def serve(torch, cfg, params, prompts, max_new, device="cuda", paged=True, per_request=None,
-          max_batch=4, lora=None, adapter_ids=None, forward_fn=None, **engine_kw):
+          max_batch=4, lora=None, adapter_ids=None, forward_fn=None, mesh=None, **engine_kw):
     """generate() through an engine of ``max_batch`` slots (paged, or the
     default contiguous cache), with stacked adapters ``lora`` and one
     adapter id per request if given, through the model's ``forward_fn``
-    (llama_forward by default). ``per_request`` maps each request to the
-    logits rows its tokens were sampled from."""
+    (llama_forward by default), tensor-parallel over ``mesh`` if given.
+    ``per_request`` maps each request to the logits rows its tokens were
+    sampled from."""
     import numpy as np
 
     from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
 
     ecfg = EngineConfig(max_batch=max_batch, paged=paged, page_size=128, max_new_tokens=max_new,
                         **engine_kw)
-    eng = InferenceEngine(cfg, params, ecfg, device=device, lora=lora, forward_fn=forward_fn)
+    eng = InferenceEngine(cfg, params, ecfg, device=device, lora=lora, forward_fn=forward_fn,
+                          mesh=mesh)
     steps = []
     step = eng.step
     state = {"step": False}
@@ -2406,7 +2429,7 @@ def serve_path(torch, label, cfg, params, prompts, kernels, launched, ref=None, 
                  decode_ms_per_step_median=median,
                  decode_ms_per_step_quartiles=[steps[len(steps) // 4] * 1e3,
                                                steps[3 * len(steps) // 4] * 1e3],
-                 launches=counts, tokens_compared_equal=compared, profile=prof,
+                 launches=counts, tokens_compared_equal=compared, profile=prof, outs=outs,
                  device_idle_share=None if not busy else 1 - busy / median)
     print(f"{label}: {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s; {len(steps)} decode"
           f" steps, median {median:.2f} ms/step (quartiles {stats['decode_ms_per_step_quartiles'][0]:.2f}"
@@ -4838,15 +4861,16 @@ def time_groups(torch, report):
                                           bound_by=r["bound_by"], library_ms=r["library_ms"])
 
 
-def forward_steps(torch, fwd, cfg, params, toks, device, steps=2, feed=None):
+def forward_steps(torch, fwd, cfg, params, toks, device, steps=2, feed=None, cache_cfg=None):
     """A prefill of ``toks`` then ``steps`` decode steps through ``fwd`` on
     ``device``, each fed the tokens ``feed[s]`` (B,) or, without ``feed``,
     the argmax of the call before: the logits of each call, (B, vocab) f32
-    on the CPU."""
+    on the CPU. The cache is ``cache_cfg``'s (a rank's under TP), or
+    cfg's."""
     from bitsandbytes_sycl_tpu_torch.models.llama import init_kv_cache
 
     B, T = toks.shape
-    cache = init_kv_cache(cfg, B, device)
+    cache = init_kv_cache(cache_cfg or cfg, B, device)
     pos = torch.arange(T, device=device).expand(B, T)
     lg, cache = fwd(params, cfg, toks.to(device), cache, pos)
     out = [lg[:, -1].float().cpu()]
@@ -5006,8 +5030,9 @@ def families_10(torch, prompts, kernels, report):
         stats[key] = row
         seconds[key] = time.perf_counter() - t0
 
-    # 10a: Mixtral-8x7B: 8 experts x 3 GEMVs a layer (dense combine) beside attention's 4
-    mix = M.MixtralConfig()
+    # 10a: Mixtral-8x7B: 8 experts x 3 GEMVs a layer (dense combine) beside attention's 4;
+    # 16 of its 32 layers, to pay for phase 12
+    mix = M.MixtralConfig(num_layers=16)
 
     def mix_expect(paged, what):
         e = attention_expect(mix)(paged, what)
@@ -5701,6 +5726,521 @@ def manager_7b(torch, cfg, params, kernels, steps=3):
     return dict(steps=rows, eight_bit_leaves=n8)
 
 
+# --------------------------------------------------------------- phase 12
+PHASE12_DIR = os.path.join(ROOT, "chiprun_out", "phase12")  # the ranks' logs and summaries
+PHASE12_WORK = os.path.join(ROOT, "build", "phase12")  # the store and the ranks' tensors
+TP_WORLD = 2
+TP_CHILD_TIMEOUT_S = 600
+TWO_RANKS = "two ranks time-sharing one H100 over gloo, not a multi-GPU figure"
+# TP = 2 against one device, Llama-7B NF4 with W4A8 decode at 32 layers:
+# each row-parallel rank quantizes its own activation slice (as the JAX
+# package does) and the partial sums are rounded to bf16 before the
+# all-reduce, so the logits move by up to 6.1% of the largest (an H100,
+# tools/torch_tp_vs_one_device.py: 3.7% at 2 layers, 4.9% at 8; 2.3% at 32
+# on the exact path). Tokens of the two may part only where phase 3's
+# top-2 gap is within this limit; the TP runs among themselves keep phase
+# 5's 5%.
+TP_GAP = 0.10
+TP_NEW_TOKENS = 16  # of phase 3's 32 a prompt, to keep phase 12 near two minutes
+
+
+def sharded_a_12b(torch, layer):
+    """Kernel A at the local shapes of a TP = 2 rank's layer (q_proj and
+    gate_proj column shards, o_proj and down_proj retiled row shards) and
+    4 rows, against its plain version within 1% of the largest output,
+    with the lo plane's scales on the hi plane as the fault."""
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_w4a8 as mw
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for name in ("q_proj", "gate_proj", "o_proj", "down_proj"):
+        w = layer[name]
+        N, K = w.shape
+        x = torch.randn((4, K), generator=gen, device="cuda").to(torch.bfloat16)
+        n0 = mw.w4a8_gemv.launches
+        got, ref = mw.w4a8_gemv(x, w, None, torch.bfloat16), mw._w4a8_plain(x, w, None,
+                                                                             torch.bfloat16)
+        torch.cuda.synchronize()
+        need(mw.w4a8_gemv.launches == n0 + 1, f"[12b] {name}: kernel A did not launch once")
+        err, scale = max_err(torch, got, ref)
+        tol = 1e-2 * scale
+        need(err <= tol, f"[12b] A at the {name} shard N={N} K={K}: max err {err} > {tol}")
+        w_bad = dataclasses.replace(w, absmax=w.absmax[1:].expand(2, -1, -1).contiguous())
+        fault = faults_exceed(torch, f"[12b] A at the {name} shard", ref, [
+            ("the lo plane's scales on the hi plane",
+             lambda: mw._w4a8_plain(x, w_bad, None, torch.bfloat16))], tol)
+        rows.append(dict(name=name, N=N, K=K, M=4, max_abs_err=err, tol=tol,
+                         fault_over_tol=fault))
+    return rows
+
+
+def tp_step_counts(torch, cfg, params, prompts, kernels, paged, mesh, profile=False):
+    """The kernel launches and all-reduces of one decode step of the TP
+    engine with 4 requests in flight; with ``profile``, also the NCCL
+    kernels the profiler saw in it."""
+    import contextlib
+
+    from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
+    from bitsandbytes_sycl_tpu_torch.parallel.mesh import psum
+
+    eng = InferenceEngine(cfg, params, EngineConfig(max_batch=4, paged=paged, max_new_tokens=8),
+                          device="cuda", mesh=mesh)
+    eng.add_requests(prompts[:4])
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    psum.calls = 0
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) \
+        if profile else contextlib.nullcontext()
+    with prof:
+        eng.step()
+        torch.cuda.synchronize()
+    out = dict(read_counts(kernels), all_reduces=psum.calls)
+    if profile:
+        out["nccl_kernels"] = sum(e.count for e in prof.key_averages() if "nccl" in e.key.lower())
+    return out
+
+
+def twelve_c_tokens(torch, vocab):
+    """Two phase-3 prompts padded to 32 tokens, as phases 5 and 10 feed them."""
+    return torch.tensor([p + [0] * (32 - len(p)) for p in prompts_from_seed(1, 2, vocab)])
+
+
+def prefill_logits(torch, fwd, cfg, params, device, cache_cfg=None):
+    """The last position's logits of twelve_c_tokens through ``fwd``."""
+    return forward_steps(torch, fwd, cfg, params, twelve_c_tokens(torch, cfg.vocab_size), device,
+                         steps=0, cache_cfg=cache_cfg)[0]
+
+
+def tp_serve_12b(torch, kernels, mesh):
+    """A rank of phase 12b: Llama-7B NF4 at full width and depth, TP = 2,
+    phase 3's weights and prompts through the paged and the contiguous
+    engine, TP_NEW_TOKENS a prompt (per-request logits of the paged run
+    kept); kernel A at the
+    rank's shapes against its plain version; the TP prefill logits of
+    phase 5's two prompts."""
+    import functools
+
+    from bitsandbytes_sycl_tpu_torch.models.llama import LlamaConfig, init_params
+    from bitsandbytes_sycl_tpu_torch.parallel import llama_forward_tp, shard_llama_params
+    from bitsandbytes_sycl_tpu_torch.parallel.llama_tp import local_config
+    from bitsandbytes_sycl_tpu_torch.parallel.mesh import psum
+
+    cfg = LlamaConfig.llama7b()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")  # phase 3's tree
+    local = shard_llama_params(params, cfg, mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out = {"init_shard_s": time.perf_counter() - t0,
+           "local_gb": torch.cuda.memory_allocated() / 1e9,
+           "a_checks": sharded_a_12b(torch, local["layers"][0]),
+           "prefill_logits": prefill_logits(
+               torch, functools.partial(llama_forward_tp, mesh=mesh, axis="model"), cfg, local,
+               "cuda", local_config(cfg, TP_WORLD))}
+    prompts = prompts_from_seed(0, 8, cfg.vocab_size)
+    for mode, paged in (("paged", True), ("contiguous", False)):
+        reset_counts(kernels)
+        psum.calls = 0
+        rec = {} if paged else None
+        outs, wall, steps = serve(torch, cfg, local, prompts, TP_NEW_TOKENS, paged=paged,
+                                  mesh=mesh, per_request=rec)
+        counts = dict(read_counts(kernels), all_reduces=psum.calls)
+        steps = sorted(steps)
+        out[mode] = dict(outs=outs, logits=rec, wall_s=wall, decode_steps=len(steps),
+                         decode_ms_per_step_median=steps[len(steps) // 2] * 1e3, launches=counts,
+                         step_launches=tp_step_counts(torch, cfg, local, prompts, kernels, paged,
+                                                      mesh))
+    return out
+
+
+def twelve_c_models(torch):
+    """(key, config, init, seed, shard, TP forward) of phase 12c: 2 layers
+    at the published widths."""
+    from bitsandbytes_sycl_tpu_torch import models as M
+    from bitsandbytes_sycl_tpu_torch import parallel as P
+
+    llama = (P.shard_llama_params, P.llama_forward_tp)
+    return [
+        ("LLM.int8 Llama-7B", M.LlamaConfig.llama7b(quant="int8", num_layers=2), M.init_params,
+         3) + llama,
+        ("Mixtral-8x7B EP", M.MixtralConfig(num_layers=2), M.init_params, 4) + llama,
+        ("GPT-J-6B", M.GPTJConfig(num_layers=2), M.init_gptj_params, 5, P.shard_gptj_params,
+         P.gptj_forward_tp),
+        ("OPT-6.7B", M.OPTConfig(num_layers=2), M.init_opt_params, 6, P.shard_opt_params,
+         P.opt_forward_tp),
+        ("BLOOM-7B1", M.BloomConfig(num_layers=2), M.init_opt_params, 7, P.shard_opt_params,
+         P.opt_forward_tp),
+    ]
+
+
+def close_logits(torch, label, got, want, rel_tol=4e-2, max_tol=5e-2, gap=5e-2):
+    """Phase 5's limits by default: relative L2 <= 4%, max err <= 5% of the
+    largest logit, and each row's greedy token under the gap rule."""
+    need(torch.isfinite(got).all().item(), f"{label}: non-finite logits")
+    rel = float((got - want).norm() / want.norm())
+    err, mag = max_err(torch, got, want)
+    need(rel <= rel_tol and err <= max_tol * mag,
+         f"{label}: relative L2 {rel} (tol {rel_tol}), max err {err} (tol {max_tol * mag})")
+    compared = greedy_agree([[int(w.argmax())] for w in want], [[w] for w in want],
+                            [[int(g.argmax())] for g in got], label, rel=gap)
+    return dict(rel_l2=rel, max_err=err, tol=max_tol * mag, tokens_compared_equal=compared)
+
+
+RING_SHAPE = (1, 4096, 32, 128)  # S = 4096 at Llama-7B's heads, f32
+RING_TOL = 1e-4  # of the largest output: f32 matmuls, card against CPU
+
+
+def qlora_leaves_12c(torch, cfg, rank=64):
+    """Phase 7b's 448 QLoRA leaves (A (64, K) and B (N, 64) of the seven
+    projections of every layer), seeded, and one gradient each."""
+    from bitsandbytes_sycl_tpu_torch.models.llama import _fp_layer_shapes
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    shapes = []
+    for _ in range(cfg.num_layers):
+        for N, K in _fp_layer_shapes(cfg).values():
+            shapes += [(rank, K), (N, rank)]
+    ps = [torch.randn(s, generator=gen, device="cuda") * 0.02 for s in shapes]
+    gs = [torch.randn(s, generator=gen, device="cuda") * 1e-3 for s in shapes]
+    return ps, gs
+
+
+def sharded_adamw_12c(torch, mesh, steps=2):
+    """adamw8bit over the QLoRA leaf table with its states sharded over the
+    2 ranks (mesh dim "data") against the unsharded optimizer in this
+    process: every param and every state row bit for bit, one J launch a
+    step."""
+    from bitsandbytes_sycl_tpu_torch import optim
+    from bitsandbytes_sycl_tpu_torch.models.llama import LlamaConfig
+    from bitsandbytes_sycl_tpu_torch.ops.optim8 import optim8_2state
+
+    ps, gs = qlora_leaves_12c(torch, LlamaConfig.llama7b())
+    whole = [p.clone() for p in ps]
+    sh = [p.clone() for p in ps]
+    o1 = optim.adamw8bit(whole, 2e-4, weight_decay=0.0)
+    o2 = optim.adamw8bit(sh, 2e-4, weight_decay=0.0, mesh=mesh, shard_axis="data")
+    launches = []
+    for _ in range(steps):
+        for a, b, g in zip(whole, sh, gs):
+            a.grad, b.grad = g, g.clone()
+        o1.step()
+        n0 = optim8_2state.launches
+        o2.step()
+        torch.cuda.synchronize()
+        launches.append(optim8_2state.launches - n0)
+    r = mesh.get_local_rank("data")
+    for i, (a, b) in enumerate(zip(whole, sh)):
+        need(bits_equal(torch, a, b), f"[12c] sharded adamw8bit: leaf {i}'s params differ")
+        rows = a.shape[0] // TP_WORLD
+        for name in ("state1", "state2"):
+            need(torch.equal(o2.state[b][name], o1.state[a][name][r * rows:(r + 1) * rows]),
+                 f"[12c] sharded adamw8bit: leaf {i}'s {name} codes differ from the unsharded")
+    need(all(n == 1 for n in launches), f"[12c] sharded adamw8bit: J launches a step {launches}")
+    return dict(leaves=len(ps), steps=steps, j_launches_per_step=launches,
+                sharded_leaves=sum(o2.sharded(p) for p in sh),
+                state_bytes_per_rank=sum(o2.state[b]["state1"].numel() * 2 for b in sh))
+
+
+def tp_more_12c(torch, kernels, mesh):
+    """A rank of phase 12c, each path on the card and the same path on the
+    CPU (the plain versions, over the same gloo world), 2 layers at
+    published widths: the TP forwards of twelve_c_models (a prefill of two
+    prompts) under phase 5's limits, the pipeline (2 stages, 2
+    microbatches), ring attention at S = 4096 within RING_TOL, and the
+    sharded adamw8bit update bit for bit against the unsharded one."""
+    import functools
+
+    from bitsandbytes_sycl_tpu_torch import parallel as P
+    from bitsandbytes_sycl_tpu_torch.models.llama import LlamaConfig, init_params
+    from bitsandbytes_sycl_tpu_torch.parallel.llama_tp import local_config
+
+    out = {}
+    for key, cfg, init, seed, shard, fwd_tp in twelve_c_models(torch):
+        t0 = time.perf_counter()
+        local = shard(init(cfg, seed=seed, device="cuda"), cfg, mesh)
+        gc.collect()
+        fwd = functools.partial(fwd_tp, mesh=mesh, axis="model")
+        kv = local_config(cfg, TP_WORLD)
+        reset_counts(kernels)
+        card = prefill_logits(torch, fwd, cfg, local, "cuda", kv)
+        torch.cuda.synchronize()
+        counts = read_counts(kernels)
+        t1 = time.perf_counter()
+        cpu = prefill_logits(torch, fwd, cfg, to_cuda(torch, local, "cpu"), "cpu", kv)
+        row = close_logits(torch, f"[12c] {key} card vs CPU", card, cpu)
+        out[key] = dict(row, launches=counts, card_s=t1 - t0, cpu_s=time.perf_counter() - t1)
+        del local
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the pipeline: Llama-7B width, 2 layers, one a stage, 2 microbatches
+    t0 = time.perf_counter()
+    cfg = LlamaConfig.llama7b(num_layers=2)
+    stage_mesh = P.make_mesh({"stage": TP_WORLD})
+    layers, rest = P.stack_stage_params(init_params(cfg, seed=8, device="cuda"), cfg, TP_WORLD,
+                                        stage_mesh)
+    gc.collect()
+    toks = twelve_c_tokens(torch, cfg.vocab_size)
+    reset_counts(kernels)
+    card = P.llama_forward_pp(layers, rest, cfg, toks.cuda(), stage_mesh, n_micro=2)[:, -1]
+    counts = read_counts(kernels)
+    t1 = time.perf_counter()
+    cpu = P.llama_forward_pp(to_cuda(torch, layers, "cpu"), to_cuda(torch, rest, "cpu"), cfg, toks,
+                             stage_mesh, n_micro=2)[:, -1]
+    out["pipeline 2 x 1 layer"] = dict(close_logits(torch, "[12c] pipeline card vs CPU",
+                                                    card.float().cpu(), cpu),
+                                       launches=counts, card_s=t1 - t0,
+                                       cpu_s=time.perf_counter() - t1)
+    del layers, rest
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ring attention over the 2 ranks: this rank's 2048 positions, f32
+    t0 = time.perf_counter()
+    sp_mesh = P.make_mesh({"sp": TP_WORLD})
+    r, chunk = sp_mesh.get_local_rank("sp"), RING_SHAPE[1] // TP_WORLD
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v = (torch.randn(RING_SHAPE, generator=gen, device="cuda")[:, r * chunk:(r + 1) * chunk]
+               for _ in range(3))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    card = P.ring_attention(q, k, v, sp_mesh, axis="sp")
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t1
+    cpu = P.ring_attention(q.cpu(), k.cpu(), v.cpu(), sp_mesh, axis="sp")
+    err, mag = max_err(torch, card.cpu(), cpu)
+    need(err <= RING_TOL * mag, f"[12c] ring attention card vs CPU: max err {err} > "
+                                f"{RING_TOL * mag}")
+    out["ring"] = dict(max_err=err, tol=RING_TOL * mag, ring_s=ring_s,
+                       seconds=time.perf_counter() - t0)
+    del q, k, v, card, cpu
+    t0 = time.perf_counter()
+    out["adamw8bit"] = sharded_adamw_12c(torch, P.make_mesh({"data": TP_WORLD}))
+    out["adamw8bit"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tp_child_main(rank, world, out_dir) -> int:
+    """One rank of phases 12b and 12c (``chip_smoke.py --tp-rank RANK WORLD
+    DIR``): a gloo world of ``world`` processes on cuda:0, joined through
+    DIR/store; the results go to DIR/rank<RANK>.pt (tensors) and, numbers
+    only, to PHASE12_DIR/rank<RANK>.json, the log to the file the parent
+    gave this process's output. Nothing is built here: the parent's phase
+    1 built the kernels, which this process loads. Checks that fail raise,
+    and the process exits non-zero."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from bitsandbytes_sycl_tpu_torch import parallel as P
+    from bitsandbytes_sycl_tpu_torch.ops import KERNELS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(out_dir, 'store')}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = P.make_mesh({"model": world})
+        t0 = time.perf_counter()
+        res = {"12b": tp_serve_12b(torch, KERNELS, mesh)}
+        res["12b"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["12c"] = tp_more_12c(torch, KERNELS, mesh)
+        res["12c"]["seconds"] = time.perf_counter() - t0
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+        with open(os.path.join(PHASE12_DIR, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f, indent=1, default=lambda o: None if isinstance(o, torch.Tensor)
+                      else str(o))
+    finally:
+        dist.destroy_process_group()
+    print(f"rank {rank}: done", flush=True)
+    return 0
+
+
+def nccl_world1_12a(torch, cfg, prompts, refs, kernels):
+    """Phase 12a: NCCL at world size 1 in this process (FileStore): phase
+    3's tree through shard_llama_params on make_mesh({"model": 1}), phase
+    3's prompts through the paged and the contiguous TP engine; tokens
+    equal to phases 3 and 3c bit for bit (the retile and the all-reduce
+    are the identity at TP = 1) and A, C, D and H launches equal, and one
+    decode step's all-reduces (2 a layer) and NCCL kernels counted. Also
+    the single device's prefill logits of phase 5's two prompts, for 12b."""
+    import torch.distributed as dist
+
+    from bitsandbytes_sycl_tpu_torch.models.llama import init_params, llama_forward
+    from bitsandbytes_sycl_tpu_torch.parallel import make_mesh, shard_llama_params
+    from bitsandbytes_sycl_tpu_torch.parallel.mesh import psum
+
+    os.makedirs(PHASE12_DIR, exist_ok=True)
+    os.makedirs(PHASE12_WORK, exist_ok=True)
+    store_path = os.path.join(PHASE12_WORK, "store_nccl")
+    if os.path.exists(store_path):
+        os.remove(store_path)
+    dist.init_process_group("nccl", store=dist.FileStore(store_path, 1), rank=0, world_size=1)
+    stats = {}
+    try:
+        mesh = make_mesh({"model": 1})
+        params = init_params(cfg, seed=0, device="cuda")
+        stats["single_device_logits"] = prefill_logits(torch, llama_forward, cfg, params, "cuda")
+        local = shard_llama_params(params, cfg, mesh)
+        del params
+        gc.collect()
+        for mode, paged, ref_outs, ref_counts, attn in (
+                ("paged", True, refs["paged_outs"], refs["paged_counts"], "paged_attn_int8"),
+                ("contiguous", False, refs["contiguous_outs"], refs["contiguous_counts"],
+                 "decode_attn_int8")):
+            reset_counts(kernels)
+            psum.calls = 0
+            outs, wall, steps = serve(torch, cfg, local, prompts, 32, paged=paged, mesh=mesh)
+            counts = read_counts(kernels)
+            need(outs == ref_outs, f"[12a] NCCL world 1, {mode}: tokens differ from phase "
+                                   f"{'3' if paged else '3c'}'s")
+            for k in ("w4a8_gemv", "prefill_attn_int8", attn):
+                need(counts[k] == ref_counts[k],
+                     f"[12a] {mode}: {k} launched {counts[k]} times, phase "
+                     f"{'3' if paged else '3c'} {ref_counts[k]}")
+            step = tp_step_counts(torch, cfg, local, prompts, kernels, paged, mesh, profile=True)
+            need(step["all_reduces"] == 2 * cfg.num_layers,
+                 f"[12a] {mode}: {step['all_reduces']} all-reduces a decode step")
+            nccl = step["nccl_kernels"]
+            steps = sorted(steps)
+            stats[mode] = dict(wall_s=wall, decode_steps=len(steps),
+                               decode_ms_per_step_median=steps[len(steps) // 2] * 1e3,
+                               launches=counts, all_reduces=psum.calls, step_launches=step)
+            print(f"[12a] NCCL world 1, TP engine {mode}: {sum(map(len, outs))} tokens equal to"
+                  f" phase {'3' if paged else '3c'}'s bit for bit, A/C/{attn[0].upper()} launches"
+                  f" equal ({counts['w4a8_gemv']}/{counts['prefill_attn_int8']}/{counts[attn]});"
+                  f" a decode step: {step['all_reduces']} all-reduces, {nccl} NCCL kernels"
+                  f" (none: one rank), A {step['w4a8_gemv']}, {attn} {step[attn]}; median"
+                  f" {stats[mode]['decode_ms_per_step_median']:.2f} ms/step", flush=True)
+        del local
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return stats
+
+
+def parallel_12(torch, cfg, prompts, refs, kernels):
+    """Phase 12: 12a in this process, then 12b and 12c in a gloo world of
+    two child processes on cuda:0 (spawned after phase 1 built the
+    kernels, which they load). A child that fails or outlives
+    TP_CHILD_TIMEOUT_S fails the phase."""
+    stats, seconds = {}, {}
+    t0 = time.perf_counter()
+    stats["12a"] = nccl_world1_12a(torch, cfg, prompts, refs, kernels)
+    one = stats["12a"].pop("single_device_logits")
+    seconds["12a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name in ["store"] + [f"rank{r}.pt" for r in range(TP_WORLD)]:
+        if os.path.exists(os.path.join(PHASE12_WORK, name)):
+            os.remove(os.path.join(PHASE12_WORK, name))
+    logs = [os.path.join(PHASE12_DIR, f"rank{r}.log") for r in range(TP_WORLD)]
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    procs = []
+    for r in range(TP_WORLD):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank",
+                                           str(r), str(TP_WORLD), PHASE12_WORK], stdout=log,
+                                          stderr=subprocess.STDOUT, env=env, cwd=ROOT))
+    try:
+        rcs = [p.wait(timeout=max(1.0, t0 + TP_CHILD_TIMEOUT_S - time.perf_counter()))
+               for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    tails = ""
+    for r in range(TP_WORLD):
+        with open(logs[r]) as log:
+            tails += f"--- rank {r} ---\n" + log.read()[-3000:] + "\n"
+    need(rcs is not None, f"[12] the ranks outlived {TP_CHILD_TIMEOUT_S} s:\n{tails}")
+    need(rcs == [0] * TP_WORLD, f"[12] the ranks exited {rcs}:\n{tails}")
+    res = [torch.load(os.path.join(PHASE12_WORK, f"rank{r}.pt"), weights_only=False)
+           for r in range(TP_WORLD)]
+    for name in ["store"] + [f"rank{r}.pt" for r in range(TP_WORLD)]:
+        if os.path.exists(os.path.join(PHASE12_WORK, name)):
+            os.remove(os.path.join(PHASE12_WORK, name))
+    seconds["12bc_ranks"] = time.perf_counter() - t0
+    # 12b: A at the shard shapes ran in each rank; the TP logits and tokens here
+    b = [r["12b"] for r in res]
+    need(all(torch.equal(r["prefill_logits"], b[0]["prefill_logits"]) for r in b),
+         "[12b] the ranks' logits differ")
+    envelope = close_logits(torch, "[12b] TP = 2 vs one device, 32 layers",
+                            b[0]["prefill_logits"], one, rel_tol=TP_GAP, max_tol=TP_GAP,
+                            gap=TP_GAP)
+    stats["12b"] = {"ranks": [{k: v for k, v in r.items()
+                               if k not in ("paged", "contiguous", "prefill_logits")} for r in b],
+                    "tp_vs_one_device": envelope}
+    print(f"[12b] TP = 2 Llama-7B NF4 prefill logits (32 layers, phase 5's prompts) against one"
+          f" device: relative L2 {envelope['rel_l2']:.4f}, max err {envelope['max_err']:.4g} of"
+          f" {envelope['tol'] / TP_GAP:.4g} (limit {TP_GAP:.0%} of the largest, W4A8 local"
+          " activation scales in the row-parallel layers)", flush=True)
+    for mode in ("paged", "contiguous"):
+        need(all(r[mode]["outs"] == b[0][mode]["outs"] for r in b),
+             f"[12b] {mode}: the ranks generated different tokens")
+        compared = greedy_agree(refs["paged_outs"], refs["paged_logits"], b[0][mode]["outs"],
+                                f"[12b] TP = 2 {mode} vs phase 3", rel=TP_GAP)
+        among = None
+        if mode == "contiguous":  # the two TP runs: phase 5's 5%, as 3c against 3
+            among = greedy_agree(b[0]["paged"]["outs"], b[0]["paged"]["logits"],
+                                 b[0][mode]["outs"], "[12b] TP = 2 contiguous vs TP paged")
+        step = b[0][mode]["step_launches"]
+        need(step["all_reduces"] == 2 * cfg.num_layers,
+             f"[12b] {mode}: {step['all_reduces']} all-reduces a decode step")
+        need(step["w4a8_gemv"] == step.get("w4a8_gemv.fused") == 7 * cfg.num_layers + 1,
+             f"[12b] {mode}: kernel A launched {step['w4a8_gemv']} times a decode step")
+        need_new_bodies(b[0][mode]["launches"], f"[12b] {mode}", decode=mode == "paged")
+        stats["12b"][mode] = dict(tokens_compared_equal=compared, tokens_equal_to_tp_paged=among,
+                                  **{k: [r[mode][k] for r in b] for k in (
+                                      "wall_s", "decode_steps", "decode_ms_per_step_median",
+                                      "launches", "step_launches")})
+        routes = {k: v for k, v in b[0][mode]["launches"].items() if k.startswith("write_and")}
+        print(f"[12b] TP = 2 Llama-7B NF4 {mode}, 32 layers: {sum(map(len, b[0][mode]['outs']))}"
+              f" tokens, the same on both ranks, {compared} greedy tokens equal to phase 3's under"
+              f" the {TP_GAP:.0%} gap rule" + ("" if among is None else
+                                            f", {among} to the TP paged run's under 5%")
+              + f"; a decode step per rank: {step['all_reduces']} all-reduces, A"
+              f" {step['w4a8_gemv']} (fused {step['w4a8_gemv.fused']}), C"
+              f" {step['prefill_attn_int8']}, D {step['paged_attn_int8']}, H"
+              f" {step['decode_attn_int8']}; route counters {routes}; median ms/step per rank"
+              f" {[round(r[mode]['decode_ms_per_step_median'], 2) for r in b]} ({TWO_RANKS})",
+              flush=True)
+    for r, rank in enumerate(b):
+        print(f"[12b] rank {r}: A at its shard shapes within 1% of its plain version, the fault"
+              f" outside: " + ", ".join(f"{a['name']} {a['N']}x{a['K']} err {a['max_abs_err']:.3g}"
+                                        f" (tol {a['tol']:.3g}, fault {a['fault_over_tol']:.1f}x)"
+                                        for a in rank["a_checks"])
+              + f"; local weights {rank['local_gb']:.2f} GB, init and shard"
+              f" {rank['init_shard_s']:.1f} s", flush=True)
+    # 12c: every check ran in the ranks (card against the same path on the CPU)
+    c = [r["12c"] for r in res]
+    stats["12c"] = c
+    for key, row in c[0].items():
+        if key in ("seconds", "ring", "adamw8bit"):
+            continue
+        print(f"[12c] {key} (TP/EP/PP over 2 ranks), card vs CPU: relative L2"
+              f" {row['rel_l2']:.3g} (tol 0.04), max err {row['max_err']:.4g} (tol"
+              f" {row['tol']:.4g}); launches per rank"
+              f" {dict((k, v) for k, v in row['launches'].items() if v)}; card"
+              f" {row['card_s']:.1f} s, CPU {row['cpu_s']:.1f} s ({TWO_RANKS})", flush=True)
+    ring = c[0]["ring"]
+    print(f"[12c] ring attention, S = 4096, 32 heads over 2 ranks (f32): card vs CPU max err"
+          f" {ring['max_err']:.3g} (tol {ring['tol']:.3g}); the card's ring"
+          f" {[round(r['ring']['ring_s'], 3) for r in c]} s per rank ({TWO_RANKS})", flush=True)
+    a = c[0]["adamw8bit"]
+    print(f"[12c] sharded adamw8bit over the {a['leaves']}-leaf QLoRA table ({a['sharded_leaves']}"
+          f" leaves sharded, {a['steps']} steps): params and J's codes bit for bit equal to the"
+          f" unsharded update on each rank; J launches a step {a['j_launches_per_step']};"
+          f" {a['state_bytes_per_rank'] / 1e6:.1f} MB of 8-bit states a rank", flush=True)
+    stats["seconds"] = seconds
+    return stats
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -6009,7 +6549,7 @@ def main() -> int:
         phases["library_7b_s"] = library_stats["seconds"]
 
         # 10. the other model families: the kernel checks of their shapes,
-        # Mixtral-8x7B at full width and depth, Qwen2-7B, GPT-J-6B and
+        # Mixtral-8x7B at full width and 16 layers, Qwen2-7B, GPT-J-6B and
         # BLOOM-7B1 at full width, eight more at 2 layers
         gc.collect()
         torch.cuda.empty_cache()
@@ -6029,6 +6569,19 @@ def main() -> int:
         ckpt_stats["roofline"] = roofline
         phases["checkpoints_s"] = time.perf_counter() - t0
         phases.update({f"checkpoints_{k}_s": v for k, v in ckpt_stats["seconds"].items()})
+
+        # 12. parallel/ on torch.distributed: NCCL at world size 1 here, then
+        # a gloo world of two processes on this card (TP, EP, PP, ring
+        # attention, the sharded 8-bit update), against phases 3 and 3c
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        parallel_stats = parallel_12(torch, cfg, prompts, dict(
+            paged_outs=outs, paged_logits=rec_paged, paged_counts=main_counts,
+            contiguous_outs=contig_stats["outs"], contiguous_counts=contig_stats["launches"]),
+            KERNELS)
+        phases["parallel_s"] = time.perf_counter() - t0
+        phases.update({f"parallel_{k}_s": v for k, v in parallel_stats["seconds"].items()})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6133,6 +6686,7 @@ def main() -> int:
                        chunked=chunk_stats, contiguous=contig_stats, w8a8_prefill=w8a8_stats,
                        int8=int8_stats, qlora=train_stats, lean=lean_stats, library=library_stats,
                        serving=serving_stats, families=family_stats, checkpoints=ckpt_stats,
+                       parallel=parallel_stats,
                        phases=phases), f,
                   indent=1, default=str)
     print(f"phases (s): {json.dumps({k: round(v, 2) for k, v in phases.items()})}")
@@ -6721,7 +7275,59 @@ def probe_main(only=None) -> int:
     return 0
 
 
+def phase12_main() -> int:
+    """Phase 12 alone (``chip_smoke.py --phase12``): the build, phase 3's
+    paged and phase 3c's contiguous serves for the references (no
+    profile), then phase 12."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from bitsandbytes_sycl_tpu_torch.models.llama import LlamaConfig, init_params
+    from bitsandbytes_sycl_tpu_torch.ops import KERNELS, _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    try:
+        print(f"[1] built {len(KERNELS)} kernels in {_build.build_all():.1f} s; {gpu_line()};"
+              f" torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+        cfg = LlamaConfig.llama7b()
+        params = init_params(cfg, seed=0, device="cuda")
+        prompts = prompts_from_seed(0, 8, cfg.vocab_size)
+        refs = {"paged_logits": {}}
+        for mode, paged in (("paged", True), ("contiguous", False)):
+            reset_counts(KERNELS)
+            refs[f"{mode}_outs"], wall, _ = serve(
+                torch, cfg, params, prompts, 32, paged=paged,
+                per_request=refs["paged_logits"] if paged else None)
+            refs[f"{mode}_counts"] = read_counts(KERNELS)
+            print(f"[3{'' if paged else 'c'}] reference serve {mode}: {wall:.2f} s", flush=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        stats = parallel_12(torch, cfg, prompts, refs, KERNELS)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    stats["seconds"]["parallel"] = time.perf_counter() - t0
+    stats["seconds"]["total"] = time.perf_counter() - t_start
+    os.makedirs(PHASE12_DIR, exist_ok=True)
+    with open(os.path.join(PHASE12_DIR, "phase12.json"), "w") as f:
+        json.dump(stats, f, indent=1, default=str)
+    print(f"phase 12 seconds: {json.dumps({k: round(v, 2) for k, v in stats['seconds'].items()})}")
+    print(gpu_line())
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_child_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--phase12"]:
+        sys.exit(phase12_main())
     if sys.argv[1:2] == ["--load-rss"]:
         sys.exit(load_rss_main(sys.argv[2]))
     if sys.argv[1:2] == ["--time-decode"]:

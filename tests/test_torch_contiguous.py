@@ -284,16 +284,26 @@ def test_w8a8_prefill_first_token_is_the_repacked_models(models, paged):
     assert [o[0] for o in out] == [o[0] for o in full]
 
 
-def test_unported_options_still_raise(models):
-    """Tensor parallelism (#13) still raises; other families' forwards
-    (#10: forward_fn and init_cache_fn, their parity tests in
-    test_torch_family_engine.py), the bf16 cache, prefixes and snapshots
-    (#4, #6) are served (test_torch_bf16_cache.py,
-    test_torch_engine_serving.py)."""
+def test_unported_options_still_raise(models, tmp_path):
+    """A mesh is served: a one-rank mesh gives the single device's tokens
+    (TP = 1: the retile and the all-reduce are the identity; TP = 2 is
+    test_torch_parallel_models.py's), and anything but a DeviceMesh raises
+    a TypeError, as the JAX engine raises on anything but a Mesh. Other
+    families' forwards (forward_fn and init_cache_fn, their parity tests
+    in test_torch_family_engine.py), the bf16 cache, prefixes and snapshots
+    are served (test_torch_bf16_cache.py, test_torch_engine_serving.py)."""
+    import torch_parallel_cases as C
+    from bitsandbytes_sycl_tpu_torch.parallel import shard_llama_params
+
     _, tc, _, tp = models["nf4"]
     eng = InferenceEngine(tc, tp, EngineConfig(max_batch=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A #13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         InferenceEngine(tc, tp, EngineConfig(), device="cpu", mesh=object())
+    ecfg1 = EngineConfig(max_batch=2, max_new_tokens=3)
+    with C.one_rank_mesh(tmp_path, {"model": 1}) as mesh:
+        on_mesh = InferenceEngine(tc, shard_llama_params(tp, tc, mesh), ecfg1, device="cpu",
+                                  mesh=mesh).generate(PROMPTS)
+    assert on_mesh == InferenceEngine(tc, tp, ecfg1, device="cpu").generate(PROMPTS)
     # an explicit forward_fn and init_cache_fn serve as the defaults do
     ecfg = EngineConfig(max_batch=2, max_new_tokens=3)
     by_fn = InferenceEngine(tc, tp, ecfg, device="cpu", forward_fn=TL.llama_forward,

@@ -173,7 +173,7 @@ def test_multi_lora_matches_jax(setup, paged):
     assert got != base.generate(PROMPTS)  # the adapters act
 
 
-def test_multi_lora_validations(setup):
+def test_multi_lora_validations(setup, tmp_path):
     tc, tp = setup["tc"], setup["tp"]
     single = lora_from_jax([{t: {k: v[0] for k, v in ab.items()} for t, ab in layer.items()}
                             for layer in setup["lora_np"]], device="cpu")
@@ -181,15 +181,26 @@ def test_multi_lora_validations(setup):
         InferenceEngine(tc, tp, EngineConfig(**ECFG), device="cpu", lora=single)
     # a forward_fn is served with adapters: the stacked-form check still
     # refuses a 2-D adapter, and a forward without the adapter kwargs is
-    # refused; tensor parallelism still raises
+    # refused; a mesh must be a DeviceMesh (the adapters then shard with
+    # the base weights: test_torch_parallel_models.py)
     with pytest.raises(ValueError, match="stacked"):
         InferenceEngine(tc, tp, EngineConfig(**ECFG), device="cpu", lora=single,
                         forward_fn=TL.llama_forward)
     with pytest.raises(NotImplementedError, match="lora/lora_ids"):
         InferenceEngine(tc, tp, EngineConfig(**ECFG), device="cpu", lora=single,
                         forward_fn=lambda p, c, t, cache, pos: TL.llama_forward(p, c, t, cache, pos))
-    with pytest.raises(NotImplementedError, match="Queue A #13"):
-        InferenceEngine(tc, tp, EngineConfig(**ECFG), device="cpu", mesh=object())
+    stacked = lora_from_jax(setup["lora_np"], device="cpu")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        InferenceEngine(tc, tp, EngineConfig(**ECFG), device="cpu", mesh=object(), lora=stacked)
+    # a one-rank mesh serves the adapters as the single device does
+    import torch_parallel_cases as C
+    from bitsandbytes_sycl_tpu_torch.parallel import shard_llama_params
+
+    with C.one_rank_mesh(tmp_path, {"model": 1}) as mesh:
+        on_mesh = InferenceEngine(tc, shard_llama_params(tp, tc, mesh), EngineConfig(**ECFG),
+                                  device="cpu", mesh=mesh, lora=stacked).generate(
+                                      PROMPTS, adapter_ids=[0, 1])
+    assert on_mesh == _engine(setup).generate(PROMPTS, adapter_ids=[0, 1])
     eng = _engine(setup)
     with pytest.raises(ValueError, match="out of range"):
         eng.add_request([1, 2, 3], adapter_id=5)

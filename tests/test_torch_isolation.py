@@ -37,6 +37,39 @@ def test_import_leaves_jax_out():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
+def test_parallel_package_alone_leaves_jax_out():
+    """parallel/ holds the JAX package's seven modules, and importing it on
+    its own pulls in neither JAX nor the JAX package."""
+    names = {p.stem for p in (PORT / "parallel").glob("*.py")}
+    assert {"mesh", "collectives", "llama_tp", "gptj_tp", "opt_tp", "pipeline", "ring"} <= names
+    code = (
+        "import sys\n"
+        "import bitsandbytes_sycl_tpu_torch.parallel as P\n"
+        "assert P.make_mesh and P.ring_attention and P.llama_forward_pp_decode\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m.split('.')[0] == 'bitsandbytes_sycl_tpu')\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_parallel_entry_points_need_cuda_and_nccl_unless_told(monkeypatch):
+    """make_mesh defaults to CUDA and initialize_distributed to NCCL; both
+    raise without a GPU unless given the CPU or gloo."""
+    import inspect
+
+    from bitsandbytes_sycl_tpu_torch import parallel as P
+
+    assert inspect.signature(P.make_mesh).parameters["device_type"].default == "cuda"
+    assert inspect.signature(P.initialize_distributed).parameters["backend"].default == "nccl"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        P.make_mesh({"model": 1})
+    with pytest.raises(RuntimeError, match="backend='gloo'"):
+        P.initialize_distributed(world_size=2, rank=0)
+    P.initialize_distributed(world_size=1, backend="gloo")  # one process: nothing to do
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_imports_jax_or_the_jax_package(path):

@@ -340,10 +340,13 @@ def test_optimizer_class_matches_jax(ctor, kw, jax_kernel_path):
         params = {k: np.asarray(v) for k, v in pj.items()}
 
 
-def test_optimizer_class_runs_free_and_raises(jax_kernel_path):
+def test_optimizer_class_runs_free_and_raises(jax_kernel_path, tmp_path):
     """Without re-synchronising, 5 adam8bit steps stay within the 8-bit
-    drift envelope of the JAX package's (mean |dp| 1e-5 at lr 1e-3), and
-    the options not ported raise."""
+    drift envelope of the JAX package's (mean |dp| 1e-5 at lr 1e-3); a
+    one-rank mesh steps as no mesh does (sharded states over two ranks:
+    test_torch_parallel.py), anything but a DeviceMesh raises, and so does
+    lars without momentum."""
+    import torch_parallel_cases as C
     rng = np.random.default_rng(4)
     p0 = (rng.normal(size=(64, 128)) * 0.05).astype(np.float32)
     tx = jopt.adam8bit(1e-3, min_8bit_size=64)
@@ -356,7 +359,11 @@ def test_optimizer_class_runs_free_and_raises(jax_kernel_path):
         tp.grad = torch.from_numpy(g)
         opt.step()
     assert np.abs(tp.numpy() - np.asarray(jp["w"])).mean() < 1e-5
-    with pytest.raises(NotImplementedError, match="Queue A #13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         topt.adam8bit([tp], mesh=object())
+    with C.one_rank_mesh(tmp_path, {"data": 1}) as mesh:
+        on_mesh = C.run_optimizer(mesh)
+    want = C.run_optimizer()
+    assert all(torch.equal(on_mesh[0][k], want[0][k]) for k in want[0])
     with pytest.raises(ValueError):
         topt.lars([tp], momentum=0)
