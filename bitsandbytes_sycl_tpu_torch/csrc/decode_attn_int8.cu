@@ -24,34 +24,47 @@
 // spare places and stores only its own heads. kG = rep for rep 1, 2 and 4
 // (and 8 in the SIMT body): one group, as before.
 //
-// Split body (`decode_split_kernel`: D = 128, S % 16 == 0, groups of up
-// to 4 heads): flash-decoding over the contiguous layout. The grid is (kv
-// head, batch row, group x split); split z takes an equal share of the
-// 128-position tiles of
-// the row's used span [lo, len), read from the lengths on the card, so
+// Split body (`decode_split_kernel<kG, kDW, cluster>`: D = 128 to 1024, S % 16
+// == 0, groups of up to 4 heads): flash-decoding over the contiguous
+// layout. A CTA holds kDW x 128 dims of the head: all of them at D = 128
+// and 256; past 256, where three 128-position ring slots of the whole head
+// pass 227 KB, a cluster of D / 128 CTAs each holds 128 dims (K and V
+// by TMA boxes of its dims), adds each tile's score shares of every CTA
+// from distributed shared memory in rank order (the same scores, so the
+// same softmax, in every CTA; one cluster barrier a tile) and owns its 128
+// output dims through the split merge, with tickets and partials per CTA.
+// The grid is (kv head, batch row, group x split); split z takes an equal
+// share of the 128-position tiles of the row's used span [lo, len), read
+// from the lengths on the card, so
 // every CTA of a row gets the same work however long the row; the plan
 // sets the split count from host-known sizes only. One thread brings each
 // tile into a 3-slot ring on mbarriers: K's D rows x 128 positions (row
-// stride S) by one TMA box with the 128-byte swizzle, V's 128 x D
-// contiguous bytes and the two scale rows by bulk copies, so two tiles
-// (66 KB) stream in while one is scored and a short row is one round trip.
+// stride S) by one TMA box with the 128-byte swizzle (256 rows, TMA's
+// largest box, at D = 256), V's 128 x D contiguous bytes and the two scale
+// rows by bulk copies, so two tiles (66 KB at D = 128, 130 KB at 256;
+// 200,704 bytes of shared memory there) stream in while one is scored and a
+// short row is one round trip.
 // Each of the 8 warps takes 16 positions of a tile. Scores: a lane holds q
-// at 4 dims (32 j + lane) of each head of its group in registers and reads
-// those K rows' 16 positions as one 16-byte piece (the swizzle keeps the 8
-// lanes of
+// at D / 32 dims (32 j + lane) of each head of its group in registers and
+// reads those K rows' 16 positions as one 16-byte piece (the swizzle keeps
+// the 8 lanes of
 // a load phase on 8 banks), then 16 shuffles per head leave each lane
 // with one position's score. Each warp keeps its own online softmax (m, l
 // warp-uniform), with masked positions at weight 0, so an empty share
-// keeps l = 0 and acc = 0. P.V: 8 lanes read one V row in 16-byte pieces,
-// 4 rows a load. int8 becomes f32 by a byte permute into 2^23's mantissa
-// and one add. The warps merge in shared memory in a fixed order; each split
+// keeps l = 0 and acc = 0. P.V: D / 16 lanes read one V row in 16-byte
+// pieces (8 at D = 128: 4 rows a load; 16 at D = 256: 2 rows), so a lane
+// keeps 16 output dims of each head at either width (218 registers a
+// thread at D = 256 with 4 heads). int8 becomes f32 by a byte permute into
+// 2^23's mantissa and one add. The warps merge in shared memory in a fixed
+// order; each split
 // writes its (m, l, acc) to an f32 scratch and takes a ticket (a fence,
 // then atomicAdd on a per-(b, hk, group) counter): the group's last CTA
 // merges the partials in split order (so the output repeats bit for bit),
 // folds in new_kv and sets the counter back to 0.
 //
 // SIMT body (`decode_kernel`, f32 or bf16 q, D = 128 to 1024 in steps of
-// 128, groups of up to 8 heads, 4 past D = 512): one block of 8 warps per
+// 128, groups of up to 8 heads, 4 past D = 512; the plan gives it rep 8 at
+// D = 128, D = 384 to 1024 and S % 16 != 0): one block of 8 warps per
 // (kv head, batch row, group); the heads of the group share each K/V read. The block walks only positions < len
 // (from the window's first position, where one binds), 1024 at a time.
 // Scores: K is stored (D, S), so a thread takes 4 consecutive positions and
@@ -272,10 +285,11 @@ int launch(dim3 grid, cudaStream_t st, const void* q, int q_bf16, const int8_t* 
 constexpr int kSplitWarps = 8;
 constexpr int kSplitThreads = 32 * kSplitWarps;
 constexpr int kTile = 128;   // positions per tile (16 per warp)
-constexpr int kSD = 128;     // head_dim of the split body
-constexpr int kStages = 3;   // ring slots (2 to 5 measured alike on the H100)
-constexpr int kStageBytes = 2 * kSD * kTile + 8 * kTile;  // K, V, k scales, v scales
-constexpr int kSplitSmem = 1024 + kStages * kStageBytes;  // alignment slack, the ring
+constexpr int kStages = 3;   // ring slots (2 to 5 measured alike on the H100 at D = 128)
+// K, V, k scales, v scales of one tile at head dim D
+__host__ __device__ constexpr int split_stage_bytes(int D) { return 2 * D * kTile + 8 * kTile; }
+// alignment slack, the ring
+__host__ __device__ constexpr int split_smem_bytes(int D) { return 1024 + kStages * split_stage_bytes(D); }
 
 // v[0..15]: this lane's partial dots of 16 positions. Sums them over the
 // warp so that lane l ends with position l & 15 (a fixed order: bit for
@@ -307,30 +321,47 @@ __device__ __forceinline__ float transpose_sum16(float (&v)[16], int lane) {
   return v[0] + __shfl_xor_sync(BNB_FULL_MASK, v[0], 16);
 }
 
-template <int kRep>
+constexpr int kMaxCluster = 8;  // CTAs of a cluster at most (D = 1024)
+
+// kRep: the heads of a group; kDW: the CTA's dims / 128 (1 or 2); kCl: a
+// cluster of nc CTAs (a run-time count, one instance for every D past
+// 256), each holding kDW x 128 of the head's nc kDW x 128 dims; without
+// it nc is 1
+template <int kRep, int kDW, bool kCl>
 __global__ void __launch_bounds__(kSplitThreads)
-decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __restrict__ q,
+decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                    const void* __restrict__ q,
                     int q_bf16, const float* __restrict__ ks, const int8_t* __restrict__ vc,
                     const float* __restrict__ vs, const int* __restrict__ lens,
                     const float* __restrict__ alibi, const int8_t* __restrict__ kn,
                     const float* __restrict__ ksn, const int8_t* __restrict__ vn,
                     const float* __restrict__ vsn, void* out, float* __restrict__ part,
                     int* __restrict__ tickets, int li, int B, int Hkv, int rep, int S,
-                    int nsplit, int window, float scale, float softcap) {
-  constexpr int D = kSD, kW = kSplitWarps;
+                    int nsplit, int nc, int window, float scale, float softcap) {
+  constexpr int D = 128 * kDW, kW = kSplitWarps;
+  const int DT = D * nc;  // this CTA's dims, the head's
+  constexpr int kStageBytes = split_stage_bytes(D);
+  // P.V: a V row is 8 kDW 16-byte pieces, read by as many lanes; the warp's
+  // kG token groups each take every kG-th of its 16 positions
+  constexpr int kLanesRow = 8 * kDW, kG = 32 / kLanesRow;
   constexpr int kElems = kRep * D, kPer = (kElems + kSplitThreads - 1) / kSplitThreads;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ int s_last;
+  // kCl: the cluster's CTAs' shares of each tile's scores (two slots, by
+  // tile parity) and of the new token's
+  __shared__ float share[kCl ? 2 * kW * kRep * 16 : 1], share_new[kRep];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 3, c = lane & 7;  // P.V: token group of the warp, 16-byte piece
-  const int hk = blockIdx.x, b = blockIdx.y, z = blockIdx.z % nsplit, grp = blockIdx.z / nsplit;
+  const int g = lane / kLanesRow, c = lane % kLanesRow;  // P.V: token group, 16-byte piece
+  const int ds = kCl ? (int)cluster_rank() : 0;     // this CTA's dims: D ds .. D ds + D - 1
+  const int hk = blockIdx.x / nc, b = blockIdx.y, z = blockIdx.z % nsplit, grp = blockIdx.z / nsplit;
   const int nr = min(kRep, rep - grp * kRep);         // this group's own heads
   const size_t kvp = (size_t)b * Hkv + hk;            // the new token's row
   const size_t hbase = kvp * rep;                     // the kv head's first q head
-  const size_t pair = kvp * (gridDim.z / nsplit) + grp;  // tickets and partials: per group
+  // tickets and partials: per group (and per CTA of a cluster)
+  const size_t pair = (kvp * (gridDim.z / nsplit) + grp) * nc + ds;
   const size_t slab = ((size_t)li * B + b) * Hkv + hk;
   const int len = lens[b];
   const bool has_new = kn != nullptr;
@@ -344,14 +375,19 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
   const float inv127 = 1.0f / 127.0f;
 
   // one thread: tile i of this split into slot i % kStages (V and the
-  // scales of a tile past S only as far as S; K's box reads zeros there)
+  // scales of a tile past S only as far as S; K's box reads zeros there,
+  // and so does V's in a cluster, where this CTA's dims of a V row are a
+  // box column of the (rows, DT) V cache)
   auto load = [&](int i) {
     const int s0 = (i0 + i) * kTile, nv = min(kTile, S - s0);
     uint8_t* dst = smem + (i % kStages) * kStageBytes;
     uint64_t* bar = &full[i % kStages];
-    mbar_expect_tx(bar, (uint32_t)(D * kTile + nv * (D + 8)));
-    tma_load_2d(dst, &kmap, bar, s0, (int)(slab * D));
-    bulk_load(dst + D * kTile, vc + (slab * S + s0) * D, (uint32_t)(nv * D), bar);
+    mbar_expect_tx(bar, (uint32_t)(D * kTile + (kCl ? kTile : nv) * D + 8 * nv));
+    tma_load_2d(dst, &kmap, bar, s0, (int)(slab * DT) + D * ds);
+    if (kCl)
+      tma_load_2d(dst + D * kTile, &vmap, bar, D * ds, (int)(slab * S) + s0);
+    else
+      bulk_load(dst + D * kTile, vc + (slab * S + s0) * D, (uint32_t)(nv * D), bar);
     bulk_load(dst + 2 * D * kTile, ks + slab * S + s0, (uint32_t)(4 * nv), bar);
     bulk_load(dst + 2 * D * kTile + 4 * kTile, vs + slab * S + s0, (uint32_t)(4 * nv), bar);
   };
@@ -366,27 +402,47 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
   }
 
   // q at this lane's dims 32 j + lane of each rep head
-  float qr[kRep][4];
+  float qr[kRep][4 * kDW];
 #pragma unroll
   for (int r = 0; r < kRep; ++r)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      qr[r][j] = ld_f(q, (hbase + group_head<kRep>(grp, r, rep)) * D + 32 * j + lane, q_bf16);
+    for (int j = 0; j < 4 * kDW; ++j)
+      qr[r][j] = ld_f(q, (hbase + group_head<kRep>(grp, r, rep)) * DT + D * ds + 32 * j + lane,
+                      q_bf16);
   // the new token's score for each rep head, in every lane (only the CTA
   // that finishes the row uses it), and this thread's new V values
   float sn[kRep], vnf[kPer];
   float vsn_s = 0.0f;
   if (has_new) {
-    float kf[4];
+    float kf[4 * kDW];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) kf[j] = (float)kn[kvp * D + 32 * j + lane];
+    for (int j = 0; j < 4 * kDW; ++j) kf[j] = (float)kn[kvp * DT + D * ds + 32 * j + lane];
     const float ks_new = ksn[kvp] * scale;
+    float dn[kRep];
 #pragma unroll
     for (int r = 0; r < kRep; ++r) {
       float v = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) v = fmaf(qr[r][j], kf[j], v);
-      v = warp_sum(v) * ks_new;
+      for (int j = 0; j < 4 * kDW; ++j) v = fmaf(qr[r][j], kf[j], v);
+      dn[r] = warp_sum(v);
+    }
+    if constexpr (kCl) {  // the cluster's shares, added in rank order
+      if (tid == 0) {
+#pragma unroll
+        for (int r = 0; r < kRep; ++r) share_new[r] = dn[r];
+      }
+      cluster_sync();
+#pragma unroll
+      for (int r = 0; r < kRep; ++r) {
+        float t = 0.0f;
+#pragma unroll
+        for (int cc = 0; cc < nc; ++cc) t += ld_peer_f(peer_addr(&share_new[r], (uint32_t)cc));
+        dn[r] = t;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRep; ++r) {
+      float v = dn[r] * ks_new;
       if (softcap > 0.0f) v = softcap * tanhf(v * inv_cap);
       sn[r] = v;
     }
@@ -394,7 +450,7 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       const int e = tid + k * kSplitThreads;
-      vnf[k] = e < kElems ? (float)vn[kvp * D + e % D] : 0.0f;
+      vnf[k] = e < kElems ? (float)vn[kvp * DT + D * ds + e % D] : 0.0f;
     }
   }
   float m[kRep], l[kRep], acc[kRep][16], slope[kRep];
@@ -424,7 +480,7 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
 #pragma unroll
         for (int e = 0; e < 16; ++e) v[r][e] = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < 4 * kDW; ++j) {
         const int d = 32 * j + lane;
         float kf[16];
         i8x16_to_f32(*reinterpret_cast<const uint4*>(Kt + d * kTile + ((warp ^ (d & 7)) << 4)), kf);
@@ -440,6 +496,32 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
 #pragma unroll
     for (int r = 0; r < kRep; ++r) sc[r] = qr[r][0];
 #endif
+    if constexpr (kCl) {
+      // each CTA's share of the scores, added in rank order: the same
+      // scores, so the same softmax, in every CTA of the cluster. A slot is
+      // written again two tiles on, after every CTA passed the next
+      // tile's barrier, which follows its reads of this one.
+      float* sh = share + (i & 1) * (kW * kRep * 16) + warp * kRep * 16 + (lane & 15);
+      if (lane < 16) {
+#pragma unroll
+        for (int r = 0; r < kRep; ++r) sh[16 * r] = sc[r];
+      }
+      cluster_sync();
+      float v[kRep][kMaxCluster];  // every load issued before the first add
+#pragma unroll
+      for (int r = 0; r < kRep; ++r)
+#pragma unroll
+        for (int cc = 0; cc < kMaxCluster; ++cc)
+          if (cc < nc) v[r][cc] = ld_peer_f(peer_addr(sh + 16 * r, (uint32_t)cc));
+#pragma unroll
+      for (int r = 0; r < kRep; ++r) {
+        float t = 0.0f;
+#pragma unroll
+        for (int cc = 0; cc < kMaxCluster; ++cc)
+          if (cc < nc) t += v[r][cc];
+        sc[r] = t;
+      }
+    }
     const int pos = s0 + tq;
     const bool ok = pos >= lo && pos < end;
     const float kscale = KS[tq] * scale;  // stale past S: masked below
@@ -477,8 +559,8 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
     }
 #ifndef BNB_PROBE_NO_MATH
 #pragma unroll
-    for (int it = 0; it < 4; ++it) {
-      const int src = 4 * it + g;  // the lane that holds position src's weight
+    for (int it = 0; it < 16 / kG; ++it) {
+      const int src = kG * it + g;  // the lane that holds position src's weight
       float vf[16];
       i8x16_to_f32(*reinterpret_cast<const uint4*>(Vt + (warp * 16 + src) * D + c * 16), vf);
 #pragma unroll
@@ -495,8 +577,9 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
     __syncthreads();  // every warp is done with slot i % kStages
     if (tid == 0 && i + kStages < ntiles) load(i + kStages);
   }
+  if constexpr (kCl) cluster_sync();  // no CTA leaves while another reads its shares
 
-  // the warp's four token groups, then the warps in order; the ring is free
+  // the warp's token groups, then the warps in order; the ring is free
   float* red_m = reinterpret_cast<float*>(smem);  // [kW][kRep]
   float* red_l = red_m + kW * kRep;               // [kW][kRep]
   float* red_acc = red_l + kW * kRep;             // [kW][kRep][D]
@@ -505,8 +588,8 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
 #pragma unroll
     for (int e = 0; e < 16; ++e) {
       float v = acc[r][e];
-      v += __shfl_xor_sync(BNB_FULL_MASK, v, 8);
-      v += __shfl_xor_sync(BNB_FULL_MASK, v, 16);
+#pragma unroll
+      for (int x = kLanesRow; x < 32; x *= 2) v += __shfl_xor_sync(BNB_FULL_MASK, v, x);
       if (g == 0) red_acc[(warp * kRep + r) * D + c * 16 + e] = v;
     }
   if (lane == 0) {
@@ -605,22 +688,37 @@ decode_split_kernel(const __grid_constant__ CUtensorMap kmap, const void* __rest
     } else {
       o = Av[k] * (len > 0 ? 1.0f / Lv[k] : 0.0f);
     }
-    st_f(out, (hbase + grp * kRep) * D + e, o, q_bf16);
+    st_f(out, (hbase + grp * kRep + r) * DT + D * ds + e % D, o, q_bf16);
   }
 }
 
-template <int kRep>
-int launch_split(dim3 grid, cudaStream_t st, const CUtensorMap& kmap, const void* q, int q_bf16,
-                 const float* ks, const int8_t* vc, const float* vs, const int* lens,
-                 const float* alibi, const int8_t* kn, const float* ksn, const int8_t* vn,
-                 const float* vsn, void* out, float* part, int* tickets, int li, int B, int Hkv,
-                 int rep, int S, int nsplit, int window, float scale, float softcap) {
-  auto kernel = decode_split_kernel<kRep>;
-  const cudaError_t e = allow_smem_once<decode_split_kernel<kRep>>(kSplitSmem);
+template <int kRep, int kDW, bool kCl>
+int launch_split(dim3 grid, cudaStream_t st, const CUtensorMap& kmap, const CUtensorMap& vmap,
+                 const void* q, int q_bf16, const float* ks, const int8_t* vc, const float* vs,
+                 const int* lens, const float* alibi, const int8_t* kn, const float* ksn,
+                 const int8_t* vn, const float* vsn, void* out, float* part, int* tickets, int li,
+                 int B, int Hkv, int rep, int S, int nsplit, int nc, int window, float scale,
+                 float softcap) {
+  auto kernel = decode_split_kernel<kRep, kDW, kCl>;
+  constexpr int kSmem = split_smem_bytes(128 * kDW);
+  const cudaError_t e = allow_smem_once<decode_split_kernel<kRep, kDW, kCl>>(kSmem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, kSplitThreads, kSplitSmem, st>>>(kmap, q, q_bf16, ks, vc, vs, lens, alibi, kn,
-                                                  ksn, vn, vsn, out, part, tickets, li, B, Hkv,
-                                                  rep, S, nsplit, window, scale, softcap);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid.x * nc, grid.y, grid.z);
+  cfg.blockDim = dim3(kSplitThreads, 1, 1);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kCl ? 1 : 0;
+  const cudaError_t le = cudaLaunchKernelEx(&cfg, kernel, kmap, vmap, q, q_bf16, ks, vc, vs, lens,
+                                            alibi, kn, ksn, vn, vsn, out, part, tickets, li, B,
+                                            Hkv, rep, S, nsplit, nc, window, scale, softcap);
+  if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
 }
 
@@ -700,14 +798,16 @@ extern "C" int decode_attn_int8(const void* q, const void* kc, const void* ks, c
 }
 
 // The split body. Arguments as decode_attn_int8's, plus: part, an f32
-// scratch of B * Hkv * groups * nsplit * kG * (D + 2) floats, kG the
-// group size (1, 2 or 4) and groups = ceil(rep / kG) (unused when nsplit
-// == 1); tickets, B * Hkv * groups int32 counters, all 0 (left at 0);
-// nsplit >= 1 splits, at most the cache's ceil(S / 128) tiles, split z of a
-// row taking the tiles [t + z n / nsplit, t + (z + 1) n / nsplit) of the n
+// scratch of B * Hkv * groups * nsplit * kG * (D + 2 n) floats, kG the
+// group size (1, 2 or 4), groups = ceil(rep / kG) and n the CTAs of a
+// cluster (D / 128 past D = 256, else 1; unused when nsplit == 1);
+// tickets, B * Hkv * groups * n int32 counters, all 0 (left at 0); nsplit
+// >= 1 splits, at most the cache's ceil(S / 128) tiles, split z of a row
+// taking the tiles [t + z m / nsplit, t + (z + 1) m / nsplit) of the m
 // tiles from tile t = min(lo, len) / 128 to the one holding position len -
-// 1. D 128, rep >= 1, S % 16 == 0 (the TMA row stride), the caches 16-byte
-// aligned.
+// 1. D a multiple of 128 up to 1024 (past 256 a cluster of D / 128 CTAs,
+// each holding 128 dims), rep >= 1, S % 16 == 0 (the TMA row stride), the
+// caches 16-byte aligned.
 extern "C" int decode_attn_int8_split(const void* q, const void* kc, const void* ks, const void* vc,
                                       const void* vs, const void* lens, const void* alibi,
                                       const void* kn, const void* ksn, const void* vn,
@@ -715,18 +815,27 @@ extern "C" int decode_attn_int8_split(const void* q, const void* kc, const void*
                                       int L, int B, int Hkv, int rep, int D, int S, int nsplit,
                                       int window, int has_new, int q_bf16, float scale,
                                       float softcap, void* stream) {
-  if (li < 0 || li >= L || rep < 1 || D != kSD || S <= 0 || S % 16 ||
+  if (li < 0 || li >= L || rep < 1 || D < 128 || D > 1024 || D % 128 || S <= 0 || S % 16 ||
       nsplit < 1 || nsplit > (S + kTile - 1) / kTile ||
       (nsplit > 1 && (part == nullptr || tickets == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  // the K cache as rows of S positions: (L B Hkv D) rows, boxes of D rows x 128 positions
-  CUtensorMap kmap;
-  const int err = make_tmap_2d_swizzled(&kmap, kc, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
-                                        (uint64_t)L * B * Hkv * D, S, S, D, kTile,
-                                        CU_TENSOR_MAP_SWIZZLE_128B);
+  // the K cache as rows of S positions: (L B Hkv D) rows, boxes of the
+  // CTA's dims x 128 positions; past D = 256 also the V cache as rows of D
+  // bytes, boxes of 128 positions x 128 dims
+  const int cta_d = D <= 256 ? D : 128;
+  CUtensorMap kmap, vmap;
+  int err = make_tmap_2d_swizzled(&kmap, kc, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                                  (uint64_t)L * B * Hkv * D, S, S, cta_d, kTile,
+                                  CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
+  vmap = kmap;
+  if (D > 256) {
+    err = make_tmap_2d(&vmap, vc, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, (uint64_t)L * B * Hkv * S, D, D,
+                       kTile, 128, false);
+    if (err != 0) return err;
+  }
   const int kg = group_size(rep, 4);
   dim3 grid(Hkv, B, ((rep + kg - 1) / kg) * nsplit);
   auto* ksf = reinterpret_cast<const float*>(ks);
@@ -740,11 +849,21 @@ extern "C" int decode_attn_int8_split(const void* q, const void* kc, const void*
   auto* vsnf = reinterpret_cast<const float*>(vsn);
   auto* pf = reinterpret_cast<float*>(part);
   auto* tk = reinterpret_cast<int*>(tickets);
-#define BNB_SPLIT_LAUNCH(R)                                                                     \
-  return launch_split<R>(grid, st, kmap, q, q_bf16, ksf, v8, vsf, ln, al, kn8, ksnf, vn8, vsnf, \
-                         out, pf, tk, li, B, Hkv, rep, S, nsplit, window, scale, softcap)
-  if (kg == 1) BNB_SPLIT_LAUNCH(1);
-  if (kg == 2) BNB_SPLIT_LAUNCH(2);
-  BNB_SPLIT_LAUNCH(4);
+#define BNB_SPLIT_LAUNCH(R, W, CL, NC)                                                            \
+  return launch_split<R, W, CL>(grid, st, kmap, vmap, q, q_bf16, ksf, v8, vsf, ln, al, kn8, ksnf, \
+                                vn8, vsnf, out, pf, tk, li, B, Hkv, rep, S, nsplit, NC, window,   \
+                                scale, softcap)
+#define BNB_SPLIT_GROUPS(W, CL, NC)              \
+  if (kg == 1) BNB_SPLIT_LAUNCH(1, W, CL, NC);   \
+  if (kg == 2) BNB_SPLIT_LAUNCH(2, W, CL, NC);   \
+  BNB_SPLIT_LAUNCH(4, W, CL, NC)
+  if (D == 128) {
+    BNB_SPLIT_GROUPS(1, false, 1);
+  }
+  if (D == 256) {
+    BNB_SPLIT_GROUPS(2, false, 1);
+  }
+  BNB_SPLIT_GROUPS(1, true, D / 128);
+#undef BNB_SPLIT_GROUPS
 #undef BNB_SPLIT_LAUNCH
 }

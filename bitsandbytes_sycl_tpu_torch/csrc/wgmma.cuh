@@ -4,7 +4,9 @@
 // H (decode_attn_int8.cu), the fused body of kernel A (w4a8_gemv.cu) and
 // the tiled body of kernel F (dequant_int8.cu): TMA tensor and bulk copies
 // and TMA tensor stores, mbarriers, shared-memory matrix descriptors and
-// the warpgroup products they use, written as inline PTX for sm_90a.
+// the warpgroup products they use, and the cluster barrier and distributed
+// shared memory accesses of C's and H's widest head dims, written as
+// inline PTX for sm_90a.
 //
 // Operand layouts in shared memory, both K-major:
 // - activations arrive by TMA as rows of 64 bytes with the 64-byte swizzle
@@ -292,6 +294,24 @@ __device__ __forceinline__ void wgmma_bf16_n64_bmn(float (&d)[32], uint64_t da, 
       : "memory");
 }
 
+#define BNB_ACC16(c)                                                                       \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]), c(d[8]), c(d[9]), \
+      c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15])
+
+#define BNB_REGS16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64 x 32 f32, this thread's 16) += A (64 x 16 bf16, K-major) * B (16 x
+// 32 bf16, MN-major), both from shared memory, as wgmma_bf16_n64_bmn
+__device__ __forceinline__ void wgmma_bf16_n32_bmn(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " BNB_REGS16
+      ", %16, %17, p, 1, 1, 0, 1;\n}\n"
+      : BNB_ACC16("+f")
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
 // d (64 x 128 f32) += A (64 x 16 bf16, from registers: a[0..3] hold this
 // thread's pairs in the layout of an m64nN accumulator's columns 0-15, see
 // acc_row / acc_col) * B (16 x 128 bf16, shared memory, MN-major)
@@ -328,6 +348,11 @@ __device__ __forceinline__ void acc_fence(float (&d)[32]) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+__device__ __forceinline__ void acc_fence(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
 __device__ __forceinline__ void acc_fence(int (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
@@ -338,3 +363,47 @@ __device__ __forceinline__ void acc_fence(int (&d)[64]) {
 // column 8 * (i / 4) + 2 * (t % 4) + i % 2.
 __device__ __forceinline__ int acc_row(int t, int i) { return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1); }
 __device__ __forceinline__ int acc_col(int t, int i) { return 8 * (i >> 2) + 2 * (t & 3) + (i & 1); }
+
+// ---- thread block clusters (C's cluster body, H's split body past D = 256)
+// this CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster arrives (releasing its shared
+// memory writes) and waits for the others (acquiring theirs)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+
+// p's address in the shared memory of the cluster's CTA `rank`
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+// 4-byte and 16-byte loads and a 16-byte store at a peer's address
+__device__ __forceinline__ void st_peer(uint32_t a, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "f"(v.x), "f"(v.y),
+               "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ float ld_peer_f(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_peer(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}

@@ -17,11 +17,13 @@ step) is given, else at ``len - 1``; a row with ``len == 0`` and no
 layer out of the stacked cache.
 
 Kernel C has two bodies (``prefill_plan``): a tensor-core body for bf16 q
-at head_dim 128 (the model's dtype, so every prefill of a served Llama),
-and a SIMT body for f32 q and head_dim 256 to 1024. Kernel H has two too
-(``decode_plan``): a split body (flash-decoding, head_dim 128) and a SIMT
-body for the other shapes. Both take any group size ``rep = Hq // Hkv``,
-a CTA serving ``decode_groups(rep, body)[0]`` q heads of one kv head.
+(the model's dtype, so every prefill of a served model) at every head_dim
+(a cluster of CTAs past 512), and a SIMT body for f32 q and caches that
+are not a whole number of key tiles. Kernel H has two too
+(``decode_plan``): a split body (flash-decoding at every head_dim, a
+cluster of CTAs past 256) and a SIMT body for the other shapes. Both take
+any group size ``rep = Hq // Hkv``, a CTA serving
+``decode_groups(rep, body)[0]`` q heads of one kv head.
 
 ``prefill_kernel_takes`` and ``decode_kernel_takes`` are the wrappers' shape
 guards; they accept every shape the JAX predicates (``prefill_attention_ok``,
@@ -43,7 +45,7 @@ __all__ = [
     "prefill_attention_int8", "prefill_attention_int8_stacked", "prefill_attention_ok",
     "prefill_attn_int8", "prefill_kernel_takes", "prefill_plan", "decode_attention_int8",
     "decode_attention_int8_stacked", "decode_attention_ok", "decode_attn_int8",
-    "decode_kernel_takes", "decode_groups", "decode_plan", "DecodePlan",
+    "decode_kernel_takes", "decode_groups", "decode_plan", "DecodePlan", "split_cluster",
 ]
 
 # head dims the SIMT bodies of kernels C and H are built for
@@ -80,14 +82,22 @@ def decode_groups(rep: int, body: str):
     return g, -(-rep // g)
 
 
+# Kernel C's tensor-core instances: head_dim -> keys per tile (the C
+# entry's instances; past 512, where a tile's 64 rows of f32 output no
+# longer fit one CTA's registers beside S and P, its cluster instance, a
+# CTA per 128 dims).
+TC_KEY_TILE = {128: 64, 256: 64, 384: 32, 512: 32, 640: 64, 768: 64, 896: 64, 1024: 64}
+
+
 def prefill_plan(D: int, S: int, q_dtype) -> str:
-    """Kernel C's body: "tc", the tensor-core body (64 query rows and 64-key
-    tiles per CTA, one warpgroup), takes bf16 q at D = 128 over a cache of a
-    whole number of key tiles, at every prompt length: at B = 4, T = 32 its
-    CTAs fill half their rows and it still beat the SIMT body on the H100
-    (PERF.md). "simt", one warp per query row, takes f32 q and D = 256 to
-    1024."""
-    if q_dtype == torch.bfloat16 and D == 128 and S % 64 == 0:
+    """Kernel C's body: "tc", the tensor-core body (64 query rows per CTA,
+    D / 128 warpgroups each owning 128 output dims, key tiles of
+    ``TC_KEY_TILE[D]``; past D = 512 a cluster of D / 128 CTAs of one
+    warpgroup each), takes bf16 q over a cache of a whole number of key
+    tiles, at every prompt length: at B = 4, T = 32 its CTAs fill half
+    their rows and it still beat the SIMT body on the H100 (PERF.md).
+    "simt", one warp per query row, takes f32 q and the other S."""
+    if q_dtype == torch.bfloat16 and D in TC_KEY_TILE and S % TC_KEY_TILE[D] == 0:
         return "tc"
     return "simt"
 
@@ -318,22 +328,31 @@ DECODE_TILE = 128  # positions per tile of the split body
 _DECODE_CTAS_PER_SM = 1
 
 
+def split_cluster(D: int) -> int:
+    """CTAs of kernel H's split body that share one head group's split: past
+    head_dim 256 a cluster of D / 128, each holding 128 dims (three
+    128-position ring slots of the whole head pass 227 KB there)."""
+    return D // 128 if D > 256 else 1
+
+
 @functools.lru_cache(maxsize=None)
 def decode_plan(B: int, Hkv: int, S: int, D: int, rep: int, q_dtype, sms: int) -> DecodePlan:
     """Kernel H's launch on ``sms`` SMs from host-known sizes only (reading
     the lengths would stop the host in every layer of a decode step). The
-    split body takes f32 or bf16 q at D = 128, any rep but 8 (rep 8 keeps
-    the SIMT body, which reads each position once for all 8 heads), and
-    S % 16 == 0 (the row stride of its TMA copies of K); it splits each
-    head group's used span into ``nsplit`` equal shares of 128-position
-    tiles, B * Hkv * groups * nsplit CTAs about _DECODE_CTAS_PER_SM per SM,
-    never more splits than the cache has tiles. The SIMT body takes the
-    rest (rep 8, D = 256 to 1024, other S), one CTA per row, kv head and
-    group."""
-    if q_dtype in (torch.float32, torch.bfloat16) and D == 128 and rep != 8 and S % 16 == 0:
+    split body takes f32 or bf16 q at every head_dim (past 256 as clusters
+    of ``split_cluster(D)`` CTAs), any rep but 8 at D = 128 (rep 8 keeps
+    the SIMT body there, which reads each position once for all 8 heads;
+    at D = 256 two groups of 4 beat it, PERF.md), and S % 16 == 0 (the row
+    stride of its TMA copies of K); it splits each head group's used span
+    into ``nsplit`` equal shares of 128-position tiles, B * Hkv * groups *
+    clusters * nsplit CTAs about _DECODE_CTAS_PER_SM per SM, never more
+    splits than the cache has tiles. The SIMT body takes the rest (rep 8
+    at D = 128, other S), one CTA per row, kv head and group."""
+    if q_dtype in (torch.float32, torch.bfloat16) and not (D == 128 and rep == 8) \
+            and S % 16 == 0:
         tiles = -(-S // DECODE_TILE)
         groups = decode_groups(rep, "split")[1]
-        per_row = _DECODE_CTAS_PER_SM * sms // (B * Hkv * groups)
+        per_row = _DECODE_CTAS_PER_SM * sms // (B * Hkv * groups * split_cluster(D))
         return DecodePlan("split", max(1, min(tiles, per_row)))
     return DecodePlan("simt", 1)
 
@@ -392,8 +411,9 @@ def _decode_launch(q4, kq, ks, vq, vs, li, lengths, scale, new_kv, window, softc
         part = tickets = None
         if plan.nsplit > 1:
             g, groups = decode_groups(rep, "split")
-            part = scratch_buffer(q4.device, B * Hkv * groups * plan.nsplit * g * (D + 2))
-            tickets = ticket_buffer(q4.device, B * Hkv * groups)
+            n = split_cluster(D)
+            part = scratch_buffer(q4.device, B * Hkv * groups * plan.nsplit * g * (D + 2 * n))
+            tickets = ticket_buffer(q4.device, B * Hkv * groups * n)
         fn = _build.kernel_fn("decode_attn_int8", "decode_attn_int8_split", 28,
                               int_args=range(14, 25), float_args=(25, 26))
         err = fn(*ptrs, None if part is None else part.data_ptr(),

@@ -19,7 +19,11 @@ Phases, each of which exits non-zero on failure:
      the tolerance; kernel A's fused body at 1, 4 and 8 rows, B's
      tensor-core body at 256 and 1024 rows, G's wgmma body at 512 and 2048,
      C's tensor-core body at T = 32 and 512, D's split body at 1 and 16
-     pages, H's split body at B = 1, 2, 4 and 8, each checked to have run,
+     pages, H's split body at B = 1, 2, 4 and 8, each checked to have run;
+     C's tensor-core and H's split bodies at head_dim 256, the shapes of
+     GPT-J-6B and Gemma-2-9B with every option, and both at 384 to 1024,
+     each timed beside its SIMT body and SDPA and required to beat the
+     SIMT body,
      and every plan of the fast bodies of A, B, C, D, G, H and I and F's
      tiled body launched 100 times on one input must repeat its output bit
      for bit), and time
@@ -143,9 +147,13 @@ Phases, each of which exits non-zero on failure:
      contiguous and paged through its forward (8 prompts, 4 slots, 32 new
      tokens), greedy tokens of the two modes under the gap rule, the
      launches of one prefill and one decode step exact (Mixtral: A 897 a
-     step), and the first layer (Mixtral) or two against the CPU; (e)
-     eight more families at their published widths and 2 layers, the
-     dequantize routes exactly where head_dim % 128 != 0;
+     step; every prefill launch of C on its tensor-core body and every
+     decode launch of D and H on their split bodies, GPT-J's head_dim 256
+     too), and the first layer (Mixtral) or two against the CPU; (e)
+     eight more families at their published widths and 2 layers (OPT-6.7B
+     with its published 32 heads of 128), the dequantize routes exactly
+     where head_dim % 128 != 0, the new bodies as in (c) elsewhere (Gemma-7B
+     and Gemma-2-9B at head_dim 256);
   11. checkpoints, after phase 10: (a) a HuggingFace Llama-2-7B checkpoint
      written by the script (its published config.json, 4 layers, bf16
      weights from seed 0 in two hand-written safetensors shards, 2.1 GB)
@@ -157,8 +165,10 @@ Phases, each of which exits non-zero on failure:
      phases 3 and 3c's, the load's seconds, GB/s and peak RSS (a fresh
      process); (b) GPT-J-6B at 2 layers as an F16 pytorch_model.bin
      (torch.save), load_gptj_from_hf, served through gptj_forward with
-     the same checks; (c) save_checkpoint/load_checkpoint of (a)'s tree and
-     of a 2-layer QLoRA run's adamw8bit state, bit for bit, and a resumed
+     the same checks, every prefill on C's tensor-core body and every
+     decode launch on D's or H's split body; (c)
+     save_checkpoint/load_checkpoint of (a)'s tree and of a 2-layer QLoRA
+     run's adamw8bit state, bit for bit, and a resumed
      step equal to the uninterrupted one; (d) the host library built by
      g++ here, quantize_4bit_np on a 4096 x 11008 weight byte-equal to the
      card's quantizers; (e) legacy.igemm at the 7B shapes exact,
@@ -1562,6 +1572,270 @@ def check_decode(torch, report):
         del kq, vq, ks, vs, k_other
     head = next(r for r in rows if "ms" in r)
     report["decode_attn_int8"] = dict(head, max_abs_err=max(r["max_abs_err"] for r in rows), shapes=rows)
+
+
+def attn_bound(nbytes, flops, peak=BF16_FLOPS_PER_S):
+    """(bound ms, what bounds it): bytes at the H100's HBM rate or
+    operations at ``peak``, whichever takes longer."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def prefill_pairs(starts, T, S, window):
+    """(row, key) pairs a causal prefill attends, and the keys each batch
+    row reads (from its first window key to its last row's position)."""
+    pairs = keys = 0
+    for st in starts:
+        for t in range(T):
+            qp = min(st + t, S - 1)
+            lo = max(0, qp - window + 1) if window else 0
+            pairs += qp + 1 - lo
+        keys += min(st + T, S) - (max(0, st - window + 1) if window else 0)
+    return pairs, keys
+
+
+def check_wide_bodies(torch, report):
+    """Kernels C and H at head_dim 256 on their new bodies (C's tensor-core
+    body with two warpgroups, H's split body with 8 dims of q a lane), and
+    wider (C to 1024, H's split body in clusters at 384 to 1024): C at
+    GPT-J-6B's shape (B = 2, 16 heads, T = 512 from position 0 over S =
+    2048) and Gemma-2-9B's (16 q heads over 8 kv heads, softcap 50, a
+    256-key window), H at GPT-J-6B's (B = 4 full rows, B = 8 ragged) and
+    Gemma-2-9B's, and ALiBi, offset starts, short prompts, empty and
+    one-token rows and groups of 3 and 8 heads; each within 1% of its plain
+    version's largest output (C also within PREFILL_L2_TOL relative L2),
+    the deliberate faults outside, 100 launches bit for bit. Timed in one
+    call: the new body, the SIMT body, the plain version, SDPA's fastest
+    fused backend and the bound. Then C's tensor-core body at head_dim 384
+    to 1024 and H's split body at 384 to 1024 the same way (timed at B =
+    4, 4 kv heads of 4 q heads: C at T = 512 and D = 384, 512 and 1024, H
+    over full rows at 1024). Every timed shape that a plan gives a new body
+    must run faster there than on the SIMT body."""
+    from bitsandbytes_sycl_tpu_torch.ops import attention
+    from bitsandbytes_sycl_tpu_torch.ops.common import sm_count
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    L, S, li = 2, 2048, 1
+    rows = []
+
+    def cache(B, Hkv, D):
+        return (torch.randint(-127, 128, (L, B, Hkv, D, S), generator=gen, device="cuda",
+                              dtype=torch.int8),
+                torch.rand((L, B, Hkv, S), generator=gen, device="cuda") * 2 + 1,  # O(1) scores
+                torch.randint(-127, 128, (L, B, Hkv, S, D), generator=gen, device="cuda",
+                              dtype=torch.int8),
+                torch.rand((L, B, Hkv, S), generator=gen, device="cuda") + 0.5)
+
+    def dequant(kq, ks, vq, vs, rep, n):
+        """bf16 K and V of layer li's first n positions, kv heads repeated
+        per group, every operand with a contiguous last dimension (SDPA's
+        fused backends need it)."""
+        kd = (kq[li, :, :, :, :n].float() * (ks[li, :, :, None, :n] / 127)).transpose(-1, -2)
+        vd = vq[li, :, :, :n].float() * (vs[li, :, :, :n, None] / 127)
+        return (kd.repeat_interleave(rep, dim=1).contiguous().to(torch.bfloat16),
+                vd.repeat_interleave(rep, dim=1).contiguous().to(torch.bfloat16))
+
+    # kernel C: label, D, B, Hq, Hkv, T, starts, options, timed
+    c_cases = [
+        ("GPT-J-6B B=2 T=512", 256, 2, 16, 16, 512, [0, 0], {}, True),
+        ("Gemma-2-9B B=2 T=512 softcap+window", 256, 2, 16, 8, 512, [0, 0],
+         dict(softcap=50.0, window=256), True),
+        ("B=2 T=100 starts+alibi", 256, 2, 16, 8, 100, [0, 700], dict(alibi=True), False),
+        ("B=4 T=24 all options", 256, 4, 16, 16, 24, [5, 1000, 2000, 64],
+         dict(window=300, softcap=30.0, alibi=True), False),
+        ("D=384 B=4 T=512", 384, 4, 16, 4, 512, [0] * 4, {}, True),
+        ("D=384 B=2 T=130 all options", 384, 2, 8, 4, 130, [0, 900],
+         dict(window=200, softcap=30.0, alibi=True), False),
+        ("D=512 B=4 T=512", 512, 4, 16, 4, 512, [0] * 4, {}, True),
+        ("D=512 B=2 T=70 all options", 512, 2, 8, 4, 70, [33, 1500],
+         dict(window=100, softcap=30.0, alibi=True), False),
+        # past 512: the cluster instances, a CTA per 128 dims
+        ("D=640 B=2 T=100 all options", 640, 2, 8, 4, 100, [0, 700],
+         dict(window=150, softcap=30.0, alibi=True), False),
+        ("D=768 B=1 T=64", 768, 1, 4, 2, 64, [100], {}, False),
+        ("D=896 B=2 T=24 all options", 896, 2, 4, 4, 24, [5, 1000],
+         dict(window=300, softcap=30.0, alibi=True), False),
+        ("D=1024 B=4 T=512", 1024, 4, 16, 4, 512, [0] * 4, {}, True),
+    ]
+    for label, D, B, Hq, Hkv, T, starts_l, opt, timed in c_cases:
+        kq, ks, vq, vs = cache(B, Hkv, D)
+        q = torch.randn((B, T, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+        starts = torch.tensor(starts_l, dtype=torch.int32, device="cuda")
+        scale = (1.0 / D ** 0.5) / 127.0
+        window, softcap = opt.get("window"), opt.get("softcap")
+        alibi = (torch.rand((Hq,), generator=gen, device="cuda") * 0.01) if opt.get("alibi") else None
+        body = attention.prefill_plan(D, S, q.dtype)
+        name = f"prefill_attn_int8 D={D} ({label})"
+        kern = lambda: attention.prefill_attn_int8(  # noqa: E731
+            q, kq, ks, vq, vs, li, starts, scale, window=window, softcap=softcap, alibi=alibi)
+        tc = lambda: attention._prefill_launch(  # noqa: E731
+            q, kq, ks, vq, vs, li, starts, scale, window, softcap, alibi, "tc")
+        simt = lambda: attention._prefill_launch(  # noqa: E731
+            q, kq, ks, vq, vs, li, starts, scale, window, softcap, alibi, "simt")
+
+        def plain(kq_=kq, ks_=ks, st_=starts):
+            return attention._prefill_plain(q, kq_, ks_, vq, vs, li, st_, scale, window, softcap,
+                                            alibi)
+
+        tc0 = attention.prefill_attn_int8.launches_tc
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        need(body == "tc", f"{name}: prefill_plan gave bf16 q the {body} body")
+        need(attention.prefill_attn_int8.launches_tc == tc0 + (body == "tc"),
+             f"{name}: the launch missed the {body} body")
+        got_tc = tc()
+        err, mag = max_err(torch, got_tc, ref)
+        tol = 1e-2 * mag
+        need(err <= tol, f"{name}: tensor-core body max err {err} > {tol}")
+        l2 = rel_l2(torch, got_tc, ref)
+        need(l2 <= PREFILL_L2_TOL, f"{name}: relative L2 err {l2} > {PREFILL_L2_TOL}")
+        err_simt, _ = max_err(torch, simt(), ref)
+        need(err_simt <= tol, f"{name}: SIMT body max err {err_simt} > {tol}")
+        k_other = kq.clone()
+        k_other[li] = kq[li - 1]
+        margin = faults_exceed(torch, name, ref, [
+            ("K of the next kv head", lambda: plain(kq_=kq.roll(1, dims=2))),
+            ("K of another layer", lambda: plain(kq_=k_other)),
+            ("k_scale dropped", lambda: plain(ks_=torch.full_like(ks, 2.0))),
+            ("the starts one too far", lambda: plain(st_=starts + 1)),
+        ], tol)
+        del k_other
+        repeat_bits(torch, name, tc)
+        row = dict(kernel="C", label=label, D=D, B=B, Hq=Hq, Hkv=Hkv, T=T, starts=starts_l,
+                   options=sorted(opt), body=body, max_abs_err=err, tol=tol, rel_l2=l2,
+                   simt_max_abs_err=err_simt, fault_margin=margin)
+        if timed:
+            pairs, keys = prefill_pairs(starts_l, T, S, window)
+            nbytes = 2 * B * T * Hq * D * 2 + Hkv * keys * (2 * D + 8)
+            bound, bound_by = attn_bound(nbytes, 4 * Hq * D * pairs)
+            kd, vd = dequant(kq, ks, vq, vs, Hq // Hkv, T)
+            lib_ms, lib_name, lib_all = time_sdpa(torch, q.transpose(1, 2).contiguous(), kd, vd,
+                                                  is_causal=True)
+            del kd, vd
+            row.update(tc_ms=time_cold(torch, tc), simt_ms=time_cold(torch, simt, iters=5),
+                       plain_ms=time_cold(torch, plain, iters=5), library_ms=lib_ms,
+                       library_backend=lib_name, library_all=lib_all, bytes=nbytes,
+                       bound_ms=bound, bound_by=bound_by)
+            row["ms"] = row["tc_ms"] if body == "tc" else row["simt_ms"]
+            need(body != "tc" or row["tc_ms"] < row["simt_ms"],
+                 f"{name}: the tensor-core body ({row['tc_ms']} ms) is no faster than the SIMT"
+                 f" body ({row['simt_ms']} ms)")
+        rows.append(row)
+        print(f"  {name} body={body} err={err:.3g} rel={err / mag:.2g} (tol {tol:.3g}; faults >="
+              f" {margin:.3g}x tol; rel L2 {l2:.3g}); 100 launches bit for bit"
+              + (f"; tensor-core {row['tc_ms'] * 1e3:.1f} us, SIMT {row['simt_ms'] * 1e3:.1f} us"
+                 f" ({row['simt_ms'] / row['tc_ms']:.1f}x), plain {row['plain_ms'] * 1e3:.1f} us,"
+                 f" sdpa {fmt_us(row['library_ms'])} ({row['library_backend']};"
+                 f" {row['tc_ms'] / row['library_ms']:.2f}x), bound {bound * 1e3:.2f} us by"
+                 f" {bound_by} ({bound / row['tc_ms']:.0%})" if timed else ""), flush=True)
+        del q, kq, vq, ks, vs
+
+    # kernel H: label, D, B, Hkv, rep, lengths, options, timed
+    h_cases = [
+        ("GPT-J-6B B=4 full", 256, 4, 16, 1, [2047] * 4, {}, True),
+        ("GPT-J-6B B=8 ragged", 256, 8, 16, 1, [1, 127, 128, 2047, 900, 1500, 33, 2000], {}, True),
+        ("Gemma-2-9B B=4 softcap+window", 256, 4, 8, 2, [2047, 1000, 300, 5],
+         dict(softcap=50.0, window=256), True),
+        ("B=4 edges+alibi", 256, 4, 16, 1, [0, 1, 127, 128], dict(alibi=True), False),
+        ("rep 3 B=2 all options", 256, 2, 4, 3, [1500, 77],
+         dict(window=400, softcap=30.0, alibi=True), False),
+        ("Gemma-2B rep 8 B=4 full", 256, 4, 1, 8, [2047] * 4, {}, True),
+        # past 256: clusters of D / 128 CTAs
+        ("D=384 rep 3 B=2 all options", 384, 2, 4, 3, [1500, 77],
+         dict(window=400, softcap=30.0, alibi=True), False),
+        ("D=640 B=4 edges+alibi", 640, 4, 2, 2, [0, 1, 127, 1300], dict(alibi=True), False),
+        ("D=1024 rep 4 B=4 full", 1024, 4, 4, 4, [2047] * 4, {}, True),
+    ]
+    for label, D, B, Hkv, rep, lens_l, opt, timed in h_cases:
+        scale = (1.0 / D ** 0.5) / 127.0
+        Hq = Hkv * rep
+        kq, ks, vq, vs = cache(B, Hkv, D)
+        q = torch.randn((B, Hkv, rep, D), generator=gen, device="cuda").to(torch.bfloat16)
+        new_kv = (torch.randint(-127, 128, (B, Hkv, D), generator=gen, device="cuda", dtype=torch.int8),
+                  torch.rand((B, Hkv), generator=gen, device="cuda") * 2 + 1,
+                  torch.randint(-127, 128, (B, Hkv, D), generator=gen, device="cuda", dtype=torch.int8),
+                  torch.rand((B, Hkv), generator=gen, device="cuda") + 0.5)
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        window, softcap = opt.get("window"), opt.get("softcap")
+        alibi = (torch.rand((Hq,), generator=gen, device="cuda") * 0.01) if opt.get("alibi") else None
+        k_other = kq.clone()
+        k_other[li] = kq[li - 1]
+        plan = attention.decode_plan(B, Hkv, S, D, rep, q.dtype, sm_count(q.device))
+        need(plan.body == "split", f"decode_plan gave D = {D} ({label}) the {plan.body} body")
+        for nk in (new_kv, None):
+            name = f"decode_attn_int8 D={D} ({label}, new_kv={nk is not None})"
+            kern = lambda nk=nk: attention.decode_attn_int8(  # noqa: E731
+                q, kq, ks, vq, vs, li, lens, scale, new_kv=nk, window=window, softcap=softcap,
+                alibi=alibi)
+
+            def plain(kq_=kq, ks_=ks, lens_=lens, nk=nk):
+                return attention._decode_plain(q, kq_, ks_, vq, vs, li, lens_, nk, scale, window,
+                                               softcap, alibi)
+
+            sp0 = attention.decode_attn_int8.launches_split
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            need(attention.decode_attn_int8.launches_split == sp0 + 1,
+                 f"{name}: the launch missed the split body")
+            err, mag = max_err(torch, got, ref)
+            tol = 1e-2 * mag
+            need(err <= tol, f"{name}: max err {err} > {tol}")
+            faults = [("K of another layer", lambda: plain(kq_=k_other)),
+                      ("k_scale dropped", lambda: plain(ks_=torch.full_like(ks, 2.0))),
+                      ("the lengths one too long", lambda: plain(lens_=lens + 1))]
+            if Hkv > 1:  # one kv head has no next one
+                faults.append(("K of the next kv head", lambda: plain(kq_=kq.roll(1, dims=2))))
+            margin = faults_exceed(torch, name, ref, faults, tol)
+            repeat_bits(torch, name, kern)
+            row = dict(kernel="H", label=label, D=D, B=B, Hq=Hq, Hkv=Hkv, lens=lens_l,
+                       options=sorted(opt), new_kv=nk is not None, plan=tuple(plan),
+                       max_abs_err=err, tol=tol, fault_margin=margin)
+            if timed and nk is not None:
+                alts = {}
+                for body, nsplit in [("simt", 1)] + [("split", n) for n in (1, 2, 3, 4, 6, 8)]:
+                    alt = attention.DecodePlan(body, nsplit)
+                    run = lambda alt=alt: attention._decode_launch(  # noqa: E731
+                        q, kq, ks, vq, vs, li, lens, scale, nk, window, softcap, alibi, alt)
+                    e_alt, _ = max_err(torch, run(), ref)
+                    need(e_alt <= tol, f"{name} {tuple(alt)}: max err {e_alt} > {tol}")
+                    alts[f"{body} nsplit={nsplit}"] = time_cold(torch, run)
+                Smax = max(lens_l) + 1
+                kd, vd = dequant(kq, ks, vq, vs, rep, Smax)
+                mask = (torch.arange(Smax, device="cuda")[None, :] <= lens[:, None])[:, None, None, :]
+                lib_ms, lib_name, lib_all = time_sdpa(torch, q.reshape(B, Hq, 1, D), kd, vd,
+                                                      attn_mask=mask)
+                del kd, vd
+                used = sum(min(n, window) if window else n for n in lens_l)
+                nbytes = (used * Hkv * (2 * D + 8) + 2 * B * Hq * D * 2 + B * Hkv * (2 * D + 8)
+                          + 4 * B)
+                bound, bound_by = attn_bound(nbytes, 4 * (used + B) * Hq * D, F32_FLOPS_PER_S)
+                row.update(ms=time_cold(torch, kern), plans_ms=alts, simt_ms=alts["simt nsplit=1"],
+                           plain_ms=time_cold(torch, plain, iters=5), library_ms=lib_ms,
+                           library_backend=lib_name, library_all=lib_all, bytes=nbytes,
+                           bound_ms=bound, bound_by=bound_by)
+                need(row["ms"] < row["simt_ms"], f"{name}: the split body ({row['ms']} ms) is no"
+                                                 f" faster than the SIMT body ({row['simt_ms']} ms)")
+            rows.append(row)
+            print(f"  {name} {tuple(plan)} err={err:.3g} rel={err / mag:.2g} (tol {tol:.3g}; faults"
+                  f" >= {margin:.3g}x tol); 100 launches bit for bit"
+                  + (f"; split {row['ms'] * 1e3:.1f} us, SIMT {row['simt_ms'] * 1e3:.1f} us"
+                     f" ({row['simt_ms'] / row['ms']:.1f}x), plain {row['plain_ms'] * 1e3:.1f} us,"
+                     f" sdpa {fmt_us(row['library_ms'])} ({row['library_backend']}), bound"
+                     f" {row['bound_ms'] * 1e3:.2f} us ({row['bound_ms'] / row['ms']:.0%})"
+                     if "ms" in row else ""), flush=True)
+            if "plans_ms" in row:
+                print(f"    plans (us): {json.dumps({k: round(v * 1e3, 1) for k, v in row['plans_ms'].items()})}",
+                      flush=True)
+        del q, kq, vq, ks, vs, k_other
+    report["wide bodies"] = rows
+    for kname, kernel, label in (("prefill_attn_int8", "C", "GPT-J-6B B=2 T=512"),
+                                 ("decode_attn_int8", "H", "GPT-J-6B B=4 full")):
+        r = next(r for r in rows if r["label"] == label and "ms" in r)
+        report[f"{kname} (head_dim 256)"] = dict(
+            max_abs_err=max(x["max_abs_err"] for x in rows if x["kernel"] == kernel and x["D"] == 256),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], simt_ms=r["simt_ms"])
+    return len(rows)
 
 
 def check_int8(torch, report):
@@ -4571,7 +4845,11 @@ def repeat_bits(torch, name, run, n=100):
              f"{name}: {n} repeated launches did not give the same bits")
 
 
-WIDE_DIMS = (384, 640, 1024)  # C's and H's SIMT head dims checked in phase 10k
+# C's and H's wide head dims checked in phase 10k: C takes bf16 q on its
+# tensor-core body (a cluster of CTAs at 640 and 1024) and f32 q on its SIMT
+# body; H's split body (a cluster of CTAs at all three) and SIMT body run
+# each
+WIDE_DIMS = (384, 640, 1024)
 
 
 def check_group_shapes(torch, report):
@@ -4622,7 +4900,7 @@ def check_group_shapes(torch, report):
         scale = (1.0 / D ** 0.5) / 127.0
         k_other = kq.clone()
         k_other[li] = kq[li - 1]
-        for body in (("split", "simt") if D == 128 else ("simt",)):
+        for body in ("split", "simt"):
             plan = attention.DecodePlan(body, 3 if body == "split" else 1)
             for nk, opt in ((new_kv, dict(window=300, softcap=30.0, alibi=alibi)), (None, {})):
                 w, sc, al = opt.get("window"), opt.get("softcap"), opt.get("alibi")
@@ -4715,7 +4993,8 @@ def check_group_shapes(torch, report):
 
 
 def time_wide_heads(torch, report):
-    """Kernels C and H at head_dim 1024 (their SIMT bodies): B = 4, 4 kv
+    """Kernel C at head_dim 1024 on its SIMT body, H on its split body (the
+    SIMT body beside it in check_wide_bodies): B = 4, 4 kv
     heads of 4 q heads, S = 2048; H over full rows with new_kv, C at T =
     512 from position 0 (f32 q, the SIMT body's dtype) beside SDPA over the
     same K/V dequantized to bf16. The bound: K/V bytes the lengths need and
@@ -4978,16 +5257,20 @@ def serve_family(torch, label, cfg, params, fwd, prompts, kernels, max_new=32, e
 
 def attention_expect(cfg):
     """{counter: launches} of one prefill (4 prompts) and one decode step of
-    a model whose attention runs on kernels C, D and H: a layer each."""
+    a model whose attention runs on kernels C, D and H: a layer each, every
+    prefill launch of C on its tensor-core body and every decode launch of
+    D and H on their split bodies (the served families' head dims 128 and
+    256 and their group sizes all take them)."""
     L = cfg.num_layers
 
     def expect(paged, what):
         if what == "prefill":
-            return {"prefill_attn_int8": L, "write_and_attend.dequant": 0}
+            return {"prefill_attn_int8": L, "prefill_attn_int8.tc": L, "write_and_attend.dequant": 0}
         if paged:
             return {"paged_attn_int8": L, "paged_attn_int8.split": L, "decode_attn_int8": 0,
                     "write_and_attend.paged_dequant": 0}
-        return {"decode_attn_int8": L, "paged_attn_int8": 0, "write_and_attend.dequant": 0}
+        return {"decode_attn_int8": L, "decode_attn_int8.split": L, "paged_attn_int8": 0,
+                "write_and_attend.dequant": 0}
 
     return expect
 
@@ -5044,7 +5327,7 @@ def families_10(torch, prompts, kernels, report):
     # 10b: Qwen2-7B: 28 q heads over 4 kv heads (rep 7) on H and D
     qwen = M.Qwen2Config()
     big("10b", "[10b] Qwen2-7B NF4", qwen, M.init_params, M.qwen2_forward, attention_expect(qwen), 2)
-    # 10c: GPT-J-6B: head_dim 256 on C's and H's SIMT bodies, D's split body
+    # 10c: GPT-J-6B: head_dim 256 on C's tensor-core body and D's and H's split bodies
     gptj = M.GPTJConfig()
     big("10c", "[10c] GPT-J-6B NF4", gptj, M.init_gptj_params, M.gptj_forward,
         attention_expect(gptj), 2)
@@ -5064,7 +5347,9 @@ def families_10(torch, prompts, kernels, report):
             # 4544 = 71 x 64: K's halves hold whole blocks of 32, not of 64
             ("Falcon-7B", M.FalconConfig(num_layers=2, blocksize=32), M.init_gptj_params,
              M.falcon_forward),
-            ("OPT-6.7B", M.OPTConfig(num_layers=2), M.init_opt_params, M.opt_forward),
+            # OPTConfig keeps the reference's 16 heads (GPTJConfig's); OPT-6.7B has 32 of 128
+            ("OPT-6.7B", M.OPTConfig(num_layers=2, num_heads=32), M.init_opt_params,
+             M.opt_forward),
             ("GPT-2", M.GPT2Config(num_layers=2), M.init_opt_params, M.gpt2_forward)):
         t1 = time.perf_counter()
         params = init(cfg, seed=0, device="cuda")
@@ -5439,6 +5724,15 @@ def checkpoints_11(torch, prompts, kernels, report, ref_counts):
             mode = "paged" if paged else "contiguous"
             need(outs[0][0] == outs[1][0], f"[11b] GPT-J {mode}: the loaded tree's tokens differ")
             gj[mode] = {k: v for k, v in outs[0][1].items() if v}
+            # head_dim 256: every prefill on C's tensor-core body, every decode
+            # launch on the split body of D (paged) or H (contiguous)
+            for counts in (gj[mode], outs[1][1]):
+                need(counts.get("prefill_attn_int8", 0) > 0
+                     and counts.get("prefill_attn_int8.tc", 0) == counts["prefill_attn_int8"],
+                     f"[11b] GPT-J {mode}: prefill launches off C's tensor-core body ({counts})")
+                dk = "paged_attn_int8" if paged else "decode_attn_int8"
+                need(counts.get(dk, 0) > 0 and counts.get(f"{dk}.split", 0) == counts[dk],
+                     f"[11b] GPT-J {mode}: decode launches off {dk}'s split body ({counts})")
         stats["gptj"] = dict(file_bytes=bin_bytes, load_s=loadj_s, leaves_equal=nj, launches=gj)
         print(f"[11b] GPT-J-6B width, {GPTJ_LAYERS} layers, F16 .bin ({bin_bytes / 1e9:.2f} GB):"
               f" loaded in {loadj_s:.2f} s; {nj} leaves equal the in-memory tree's; tokens paged"
@@ -5868,7 +6162,8 @@ def twelve_c_models(torch):
         ("Mixtral-8x7B EP", M.MixtralConfig(num_layers=2), M.init_params, 4) + llama,
         ("GPT-J-6B", M.GPTJConfig(num_layers=2), M.init_gptj_params, 5, P.shard_gptj_params,
          P.gptj_forward_tp),
-        ("OPT-6.7B", M.OPTConfig(num_layers=2), M.init_opt_params, 6, P.shard_opt_params,
+        ("OPT-6.7B", M.OPTConfig(num_layers=2, num_heads=32), M.init_opt_params, 6,
+         P.shard_opt_params,
          P.opt_forward_tp),
         ("BLOOM-7B1", M.BloomConfig(num_layers=2), M.init_opt_params, 7, P.shard_opt_params,
          P.opt_forward_tp),
@@ -6291,6 +6586,9 @@ def main() -> int:
         check_compressed(torch, report)
         check_kv4(torch, report)
         check_decode(torch, report)
+        n_wide = check_wide_bodies(torch, report)
+        print(f"[2] {n_wide} cases of C and H at head_dim 256 (and 384 to 1024) on their new"
+              f" bodies: within 1%, the faults outside, 100 launches bit for bit", flush=True)
         check_int8(torch, report)
         n_edges = check_edges(torch)
         print(f"[2] {n_edges} edge-case comparisons (odd rows, f32/bias, all B modes, ragged G"
@@ -6670,6 +6968,17 @@ def main() -> int:
     })
     per_step.update({"decode_attn_int8 (rep 7)": q10["contiguous"]["step_launches"]["decode_attn_int8"],
                      "paged_attn_int8 (rep 7)": q10["paged"]["step_launches"]["paged_attn_int8"]})
+    # C's tensor-core and H's split bodies at head_dim 256 (phase 10c, GPT-J-6B)
+    g10 = family_stats["10c"]["contiguous"]
+    sources.update({
+        "prefill_attn_int8 (head_dim 256)": ("bitsandbytes_sycl_tpu/ops/attention.py:356",
+                                             "GPT-J-6B contiguous serve (phase 10c)",
+                                             g10["launches"]["prefill_attn_int8.tc"]),
+        "decode_attn_int8 (head_dim 256)": ("bitsandbytes_sycl_tpu/ops/attention.py:50",
+                                            "GPT-J-6B contiguous serve (phase 10c)",
+                                            g10["launches"]["decode_attn_int8.split"]),
+    })
+    per_step.update({"decode_attn_int8 (head_dim 256)": g10["step_launches"]["decode_attn_int8.split"]})
     for name, (replaces, path, launches) in sources.items():
         r = report[name]
         kernels.append(dict(
@@ -6708,7 +7017,9 @@ PROBE_PARTS = {  # the BNB_PROBE_* switches of the kernel sources and wgmma.cuh
 ATTN_PROBE_PARTS = {
     "prefill_attn_int8": {"no copies": ("BNB_PROBE_NO_COPY",),
                           "no conversion": ("BNB_PROBE_NO_DECODE",),
-                          "no wgmma": ("BNB_PROBE_NO_MMA",), "no softmax": ("BNB_PROBE_NO_SOFTMAX",)},
+                          "no wgmma": ("BNB_PROBE_NO_MMA",), "no softmax": ("BNB_PROBE_NO_SOFTMAX",),
+                          # the cluster body's exchange of S shares (D > 512)
+                          "no exchange": ("BNB_PROBE_NO_EXCHANGE",)},
     "paged_attn_int8": {"no copies": ("BNB_PROBE_NO_COPY",), "no math": ("BNB_PROBE_NO_MATH",)},
 }
 
@@ -6748,6 +7059,18 @@ def probe_attention(torch, out):
                                                clean_l2=clean, us=ms * 1e3))
             print(f"sdpa B={B} T={T}: {name}{', clean L2' if clean else ''} {ms * 1e3:.1f} us",
                   flush=True)
+    # the wide instances: GPT-J-6B's head_dim 256 (two warpgroups) and 1024 (a
+    # cluster of 8 CTAs), 4 kv heads of 4 q heads at 1024
+    for Dw, B, Hq, Hkv, T in ((256, 2, 16, 16, 512), (1024, 4, 16, 4, 512)):
+        q = torch.randn((B, T, Hq, Dw), generator=gen, device="cuda").to(torch.bfloat16)
+        kq = torch.randint(-127, 128, (L, B, Hkv, Dw, S), generator=gen, device="cuda", dtype=torch.int8)
+        vq = torch.randint(-127, 128, (L, B, Hkv, S, Dw), generator=gen, device="cuda", dtype=torch.int8)
+        ks = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") + 1
+        vs = torch.rand((L, B, Hkv, S), generator=gen, device="cuda") + 0.5
+        st = torch.zeros((B,), dtype=torch.int32, device="cuda")
+        runs.append(("prefill_attn_int8", f"D={Dw} B={B} T={T}",
+                     lambda q=q, kq=kq, ks=ks, vq=vq, vs=vs, st=st, Dw=Dw: attention.prefill_attn_int8(
+                         q, kq, ks, vq, vs, 1, st, (1.0 / Dw ** 0.5) / 127)))
     kp, kps, vp, vps, table, qd, new_kv = paged_inputs(torch, gen, L, 4, H, D, 128, 16)
     for label, lens_l in (("1 page", [40, 64, 17, 33]), ("16 pages", [2047, 1500, 900, 2000])):
         lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")

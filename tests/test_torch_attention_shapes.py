@@ -8,9 +8,10 @@
   difference kept. A guard that refused a shape the predicate takes would
   raise where the JAX package attends on its kernel.
 - Kernels H and D's plain versions (what their CUDA bodies are held to on
-  the card) at group sizes 3 and 7 and head_dim 384 (and H at 640) against
-  the JAX kernels in interpret mode, f32 outputs within 2e-5 (the same f32 scores, one-shot
-  softmax in both).
+  the card) at group sizes 3 and 7 and head_dim 384 (and H at 640), H's and
+  C's at head_dim 256 with a group of 2, softcap and a window, against the
+  JAX kernels in interpret mode, f32 outputs within 2e-5 (the same f32
+  scores, one-shot softmax in both).
 - The single-layer ``prefill_attention_int8`` (kernel C on a one-layer
   view) against the JAX entry with ALiBi, and None where the JAX entry
   declines.
@@ -23,6 +24,7 @@ import torch
 
 from bitsandbytes_sycl_tpu.ops.attention import decode_attention_int8_stacked as j_decode
 from bitsandbytes_sycl_tpu.ops.attention import prefill_attention_int8 as j_prefill1
+from bitsandbytes_sycl_tpu.ops.attention import prefill_attention_int8_stacked as j_prefill
 from bitsandbytes_sycl_tpu.ops.paged_attention import paged_decode_attention_int8_stacked as j_paged
 from bitsandbytes_sycl_tpu_torch.ops import attention as TA
 from bitsandbytes_sycl_tpu_torch.ops import paged_attention as TP
@@ -73,9 +75,15 @@ def test_plans_cover_every_group_size(rep):
                         else "simt")
     plan = TA.decode_plan(2, HKV, 256, 128, rep, torch.bfloat16, 132)
     assert plan.body == ("simt" if rep == 8 else "split") and plan.nsplit >= 1
-    # past head_dim 512 H runs its SIMT body
-    for D in (640, 1024):
-        assert TA.decode_plan(2, HKV, 256, D, rep, torch.bfloat16, 132).body == "simt"
+    # from head_dim 256 H's split body (in clusters past 256) takes every
+    # group size, rep 8 too
+    for D in (256, 384, 512, 640, 1024):
+        plan = TA.decode_plan(2, HKV, 256, D, rep, torch.bfloat16, 132)
+        assert plan.body == "split" and plan.nsplit >= 1
+    # C's tensor-core body (a cluster of CTAs past 512) serves every group
+    # size at every head dim
+    for D in (128, 256, 384, 512, 640, 1024):
+        assert TA.prefill_plan(D, 256, torch.bfloat16) == "tc"
 
 
 def _kv(rng, *lead, S, D):
@@ -96,20 +104,45 @@ def _pair(arrays):
     return [jnp.asarray(a) for a in arrays], [torch.from_numpy(np.asarray(a)) for a in arrays]
 
 
-@pytest.mark.parametrize("rep,D", [(3, 384), (7, 128), (3, 640)])
+# Gemma-2's options at head_dim 256 (softcap and a window that binds)
+OPTIONS = {(2, 256): dict(softcap=50.0, window=100)}
+
+
+@pytest.mark.parametrize("rep,D", [(3, 384), (7, 128), (3, 640), (2, 256)])
 def test_decode_plain_matches_jax_kernel(rep, D):
     """Kernel H's plain version at B = 2, S = 128 (a full row and a ragged
-    one), the step's token folded in, ALiBi slopes per q head."""
+    one), the step's token folded in, ALiBi slopes per q head; at head_dim
+    256 with a group of 2 (Gemma-2-9B's), softcap and a window too."""
     rng = np.random.default_rng(40 + rep)
     B, S = 2, 128
+    opt = OPTIONS.get((rep, D), {})
     q = rng.normal(size=(B, 1, HKV * rep, D)).astype(np.float32)
     slopes = rng.uniform(0.01, 0.5, (HKV * rep,)).astype(np.float32)
     lengths = np.asarray([S - 1, 70], np.int32)
     (jq, *jc, jl, js), (tq, *tc, tl, ts) = _pair([q, *_kv(rng, 2, B, HKV, S=S, D=D), lengths,
                                                   slopes])
     jn, tn = _pair(_new_kv(rng, B, D))
-    want = j_decode(jq, *jc, 1, jl, new_kv=jn, alibi_slopes=js)
-    got = TA.decode_attention_int8_stacked(tq, *tc, 1, tl, new_kv=tn, alibi_slopes=ts)
+    want = j_decode(jq, *jc, 1, jl, new_kv=jn, alibi_slopes=js, **opt)
+    got = TA.decode_attention_int8_stacked(tq, *tc, 1, tl, new_kv=tn, alibi_slopes=ts, **opt)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("rep,D", [(2, 256)])
+def test_prefill_plain_matches_jax_kernel(rep, D):
+    """Kernel C's plain version at B = 2, T = 16 from positions 0 and 90 of
+    a 128-position cache, with ALiBi, softcap and a window that binds,
+    against the JAX kernel in interpret mode (Gemma-2-9B's group of 2 at
+    head_dim 256)."""
+    rng = np.random.default_rng(70 + rep)
+    B, T, S = 2, 16, 128
+    opt = OPTIONS[(rep, D)]
+    q = rng.normal(size=(B, T, HKV * rep, D)).astype(np.float32)
+    starts = np.asarray([0, 90], np.int32)
+    slopes = rng.uniform(0.01, 0.5, (HKV * rep,)).astype(np.float32)
+    (jq, *jc, jst, js), (tq, *tc, tst, ts) = _pair([q, *_kv(rng, 2, B, HKV, S=S, D=D), starts,
+                                                    slopes])
+    want = j_prefill(jq, *jc, 1, jst, alibi_slopes=js, **opt)
+    got = TA.prefill_attention_int8_stacked(tq, *tc, 1, tst, alibi_slopes=ts, **opt)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 

@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from bitsandbytes_sycl_tpu_torch.ops.attention import DECODE_TILE, decode_plan, prefill_plan
+from bitsandbytes_sycl_tpu_torch.ops.attention import (DECODE_TILE, decode_groups, decode_plan,
+                                                       prefill_plan, split_cluster)
 from bitsandbytes_sycl_tpu_torch.ops.common import H100_SMS
 from bitsandbytes_sycl_tpu_torch.ops.matmul_4bit import mm4_plan
 from bitsandbytes_sycl_tpu_torch.ops.matmul_int8 import (INT8_SMEM, INT8_WIDTHS, int8_plan,
@@ -106,17 +107,31 @@ def test_launch_plan(case):
 
 
 # kernel C: (D, S, q dtype) -> body. The tensor-core body takes bf16 q at
-# D = 128 over a whole number of 64-key tiles, whatever the batch and the
-# prompt length; f32 q, D = 256 and other S keep the SIMT body.
+# every head_dim over a whole number of key tiles (64 keys at D = 128 and
+# 256 and in the cluster instances past 512, 32 at 384 and 512), whatever
+# the batch and the prompt length; f32 q and other S keep the SIMT body.
 PREFILL_CASES = [
     ((128, 2048, torch.bfloat16), "tc"),
     ((128, 4096, torch.bfloat16), "tc"),
     ((128, 256, torch.bfloat16), "tc"),
     ((128, 64, torch.bfloat16), "tc"),
     ((128, 2048, torch.float32), "simt"),
-    ((256, 256, torch.bfloat16), "simt"),
+    ((256, 256, torch.bfloat16), "tc"),
     ((256, 2048, torch.float32), "simt"),
     ((128, 2000, torch.bfloat16), "simt"),
+    ((256, 2048, torch.bfloat16), "tc"),  # GPT-J-6B, Gemma-7B, Gemma-2-9B
+    ((256, 8192, torch.bfloat16), "tc"),
+    ((256, 2000, torch.bfloat16), "simt"),
+    ((384, 2048, torch.bfloat16), "tc"),
+    ((384, 2080, torch.bfloat16), "tc"),
+    ((512, 2048, torch.bfloat16), "tc"),
+    ((512, 2000, torch.bfloat16), "simt"),
+    ((384, 2048, torch.float32), "simt"),
+    ((640, 2048, torch.bfloat16), "tc"),
+    ((768, 4096, torch.bfloat16), "tc"),
+    ((1024, 2048, torch.bfloat16), "tc"),
+    ((1024, 2080, torch.bfloat16), "simt"),
+    ((1024, 2048, torch.float32), "simt"),
 ]
 
 
@@ -169,16 +184,27 @@ def test_paged_plan(case, body, hint):
 
 
 # kernel H: (B, Hkv, S, D, rep, q dtype) -> body. The split body takes f32
-# or bf16 q at D = 128, rep 1, 2 or 4 and S % 16 == 0 (its TMA row stride);
-# rep 8, D = 256 and other S keep the SIMT body.
+# or bf16 q at every head dim (past 256 in clusters of D / 128 CTAs), any
+# rep but 8 at D = 128, and S % 16 == 0 (its TMA row stride); rep 8 at D =
+# 128 and other S keep the SIMT body.
 DECODE_CASES = (
     [((B, 32, 2048, 128, 1, torch.bfloat16), "split") for B in (1, 2, 4, 8, 16, 32)]  # 7B
     + [((4, 8, 2048, 128, 4, torch.bfloat16), "split"), ((4, 16, 2048, 128, 2, torch.bfloat16), "split"),
        ((2, 2, 384, 128, 1, torch.float32), "split"), ((2, 2, 400, 128, 4, torch.float32), "split"),
        ((1, 1, 16, 128, 1, torch.bfloat16), "split"), ((3, 4, 4096, 128, 2, torch.bfloat16), "split")]
-    + [((4, 8, 2048, 128, 8, torch.bfloat16), "simt"), ((2, 2, 384, 256, 1, torch.float32), "simt"),
-       ((2, 2, 384, 256, 2, torch.bfloat16), "simt"), ((2, 2, 388, 128, 1, torch.bfloat16), "simt"),
+    + [((4, 8, 2048, 128, 8, torch.bfloat16), "simt"), ((2, 2, 384, 256, 1, torch.float32), "split"),
+       ((2, 2, 384, 256, 2, torch.bfloat16), "split"), ((2, 2, 388, 128, 1, torch.bfloat16), "simt"),
        ((2, 2, 392, 128, 2, torch.float32), "simt"), ((4, 32, 2048, 128, 1, torch.float16), "simt")]
+    # head_dim 256: GPT-J-6B and Gemma-7B (16 heads), Gemma-2-9B (16 over 8),
+    # Gemma-2B (8 over 1: two groups of 4)
+    + [((B, 16, 2048, 256, 1, torch.bfloat16), "split") for B in (1, 4, 8)]
+    + [((4, 8, 8192, 256, 2, torch.bfloat16), "split"), ((4, 1, 8192, 256, 8, torch.bfloat16), "split"),
+       ((2, 2, 400, 256, 3, torch.float32), "split"), ((2, 2, 388, 256, 1, torch.bfloat16), "simt"),
+       ((2, 2, 384, 384, 1, torch.bfloat16), "split"), ((2, 2, 384, 512, 2, torch.bfloat16), "split"),
+       ((4, 16, 2048, 256, 1, torch.float16), "simt")]
+    # past 256: clusters of D / 128 CTAs a split
+    + [((4, 4, 2048, 1024, 4, torch.bfloat16), "split"), ((1, 2, 4096, 640, 8, torch.float32), "split"),
+       ((2, 2, 388, 1024, 1, torch.bfloat16), "simt")]
 )
 
 
@@ -194,9 +220,10 @@ def test_decode_plan(case, body):
     # the SMs: about one CTA per SM, never fewer than one per row and kv head
     tiles = -(-S // DECODE_TILE)
     assert 1 <= plan.nsplit <= tiles
-    ctas = B * Hkv * plan.nsplit
-    assert ctas <= max(H100_SMS, B * Hkv)
-    assert ctas > H100_SMS - B * Hkv or plan.nsplit == tiles
+    rows = B * Hkv * decode_groups(rep, "split")[1] * split_cluster(D)  # CTAs of one split
+    ctas = rows * plan.nsplit
+    assert ctas <= max(H100_SMS, rows)
+    assert ctas > H100_SMS - rows or plan.nsplit == tiles
     if (Hkv, S, rep) == (32, 2048, 1):  # 7B: B = 1 and 2 split, B >= 4 fills the SMs
         assert (plan.nsplit > 1) == (B < 4)
     # the plan reads no lengths: the kernel's shares of any row's tiles
