@@ -19,10 +19,17 @@
 // The LUT codec (ops/optim8.LutCodec, any 256-entry table) takes the
 // place of that table with kLutWords words per state (ops/optim8.lut_words):
 // the decode table, the f32 midpoints between the table's sorted distinct
-// values padded with +inf to 256, the rank -> code bytes, n_neg and top.
-// Encode is an 8-step binary search over the midpoints (rank = #{mids <
-// x}, NaN at rank 0), state1's sign fix in rank space, then the code byte;
-// decode is one shared-memory load.
+// values padded with +inf to 256, the rank -> code bytes, n_neg, top, the
+// largest bucket occupancy, and a bucket index: one byte per value of the
+// top kLutBucketBits bits of an f32's order-preserving key (-0.0 keyed as
+// +0.0), the count of midpoints in lower buckets (ops/optim8._bucket_index).
+// Encode takes x's bucket, that least rank, and adds the few midpoints
+// from it on (the largest occupancy, 1-5 for the usual maps) that lie
+// below x: rank = #{mids < x}, NaN at rank 0, as the 8-step binary search
+// (lut_rank_search, kept for the card's exhaustive check) finds it, with
+// independent loads from neighbouring words instead of a chain of 8
+// dependent ones; then state1's sign fix in rank space, then the code
+// byte. Decode is one shared-memory load.
 //
 // The step's leaves come as a table of Leaf rows (ops/optim8.py builds it
 // on the host each step and copies it with one asynchronous copy). A
@@ -34,7 +41,9 @@
 // first folds each chunk's state maxima into its block's slots of a scratch
 // (an atomic max of bit patterns) and keeps the block's old absmax there;
 // the second recomputes the update from the unchanged inputs, encodes with
-// the block's maximum and writes p, the codes and the absmax.
+// the block's maximum and writes p, the codes and the absmax. The walk
+// goes either way through the leaf table (kernel J's second pass runs its
+// chunks backwards).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,8 +62,10 @@ constexpr int kMinCtas = 3;               // CTAs per SM the registers must allo
 constexpr int kDecS = 0, kDecU = 256, kBinS = 512, kBinU = 770, kDecadeS = 1028, kDecadeU = 1042,
               kTopS = 1056, kTopU = 1057, kTableWords = 1058;
 constexpr unsigned kNanBinade = 128;
-// word offsets of one LUT codec (ops/optim8.LUT_WORDS)
-constexpr int kLutWords = 580, kLutMids = 256, kLutCode = 512, kLutNNeg = 576, kLutTop = 577;
+// word offsets of one LUT codec (ops/optim8.LUT_WORDS, LUT_BUCKET_BITS)
+constexpr int kLutBucketBits = 14;
+constexpr int kLutMids = 256, kLutCode = 512, kLutNNeg = 576, kLutTop = 577, kLutMost = 578,
+              kLutIndex = 580, kLutWords = kLutIndex + (1 << kLutBucketBits) / 4;
 
 // One row of the leaf table (ops/optim8.LEAF_WORDS int64 words). A 1-state
 // leaf has s2 = am2 = null; u is null unless rounding is stochastic.
@@ -133,15 +144,43 @@ __device__ __forceinline__ int sign_fix(int r, float normed) {
   return mism ? min(max(r + step, 0), 255) : r;
 }
 
-// ops/optim8.LutCodec.rank: #{mids < x} over the midpoints padded with
-// +inf to 256 (a monotone predicate, so 8 halving steps find it; NaN
-// compares false everywhere and stays at rank 0)
-__device__ __forceinline__ int lut_rank(float x, const float* lut) {
+// ops/optim8.LutCodec.rank by binary search: #{mids < x} over the
+// midpoints padded with +inf to 256 (a monotone predicate, so 8 halving
+// steps find it; NaN compares false everywhere and stays at rank 0). The
+// reference of the card's exhaustive check of lut_ranks8.
+__device__ __forceinline__ int lut_rank_search(float x, const float* lut) {
   const float* mids = lut + kLutMids;
   int r = 0;
 #pragma unroll
   for (int s = 128; s > 0; s >>= 1) r += x > mids[r + s - 1] ? s : 0;
   return r;
+}
+
+// The same rank of 8 values at once through the bucket index
+// (ops/optim8.lut_bucket_rank): midpoints of lower buckets lie below x,
+// those of higher buckets and the +inf padding (mids[255] is always
+// padding) do not. The scan runs over the candidates, each step one
+// independent load for every value, so the 8 values' loads overlap.
+__device__ __forceinline__ void lut_ranks8(const float (&x)[kPer], const float* lut,
+                                           int (&r)[kPer]) {
+  const float* mids = lut + kLutMids;
+  const uint8_t* index = reinterpret_cast<const uint8_t*>(lut + kLutIndex);
+  int lo[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    uint32_t u = __float_as_uint(x[k]);
+    u = (u & 0x7fffffffu) ? u : 0u;  // -0.0 keyed as +0.0
+    const uint32_t key = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+    lo[k] = index[key >> (32 - kLutBucketBits)];
+    r[k] = lo[k];
+  }
+  const int most = __float_as_int(lut[kLutMost]);
+  for (int j = 0; j < most; ++j) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) r[k] += mids[min(lo[k] + j, 255)] < x[k] ? 1 : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) r[k] = x[k] != x[k] ? 0 : r[k];
 }
 
 // Requantize one state of the thread's 8 values through a LUT codec with
@@ -152,15 +191,18 @@ __device__ __forceinline__ void lut_requant8(const float (&v)[kPer], float m, co
   const float inv = m > 0.0f ? __fdiv_rn(1.0f, m) : 0.0f;
   const uint8_t* code = reinterpret_cast<const uint8_t*>(lut + kLutCode);
   const int n_neg = __float_as_int(lut[kLutNNeg]), top = __float_as_int(lut[kLutTop]);
+  float normed[kPer];
+  int r[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) normed[k] = __fmul_rn(v[k], inv);
+  lut_ranks8(normed, lut, r);
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
-    const float normed = __fmul_rn(v[k], inv);
-    int r = lut_rank(normed, lut);
     if (kSignFix) {
-      const bool mism = (r < n_neg) != (bool)signbit(normed);
-      r = mism ? min(max(r + (normed > 0.0f ? 1 : -1), 0), top) : r;
+      const bool mism = (r[k] < n_neg) != (bool)signbit(normed[k]);
+      r[k] = mism ? min(max(r[k] + (normed[k] > 0.0f ? 1 : -1), 0), top) : r[k];
     }
-    c[k] = code[r];
+    c[k] = code[r[k]];
   }
 }
 
@@ -196,8 +238,9 @@ __device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
 }
 
 // The CTA's place in the leaf table: the leaf holding global block b, for
-// b that only grows. Every thread walks alike (the table is read through
-// L1, the same row by all).
+// b that only grows (advance) or, kernel J's second pass, only shrinks
+// (retreat). Every thread walks alike (the table is read through L1, the
+// same row by all).
 struct Walk {
   const Leaf* leaves;
   int nleaves;
@@ -209,12 +252,26 @@ struct Walk {
   __device__ __forceinline__ bool advance(long long b, int bs) {
     if (b < next) return false;
     while (l + 1 < nleaves && leaves[l + 1].first <= b) ++l;
+    load(bs);
+    return true;
+  }
+
+  // the same for b that only shrinks (after a first call that walks
+  // forwards): back to the last leaf starting at or before b
+  __device__ __forceinline__ bool retreat(long long b, int bs) {
+    if (l < 0) return advance(b, bs);
+    if (b >= cur.first) return false;
+    while (l > 0 && leaves[l].first > b) --l;
+    load(bs);
+    return true;
+  }
+
+  __device__ __forceinline__ void load(int bs) {
     cur = leaves[l];
     next = l + 1 < nleaves ? leaves[l + 1].first : (1LL << 62);
     const uintptr_t a16 = (uintptr_t)cur.g | (uintptr_t)cur.p | (uintptr_t)cur.u;
     const uintptr_t a8 = (uintptr_t)cur.s1 | (uintptr_t)cur.s2;
     aligned = (a16 & 15) == 0 && (a8 & 7) == 0 && bs % kPer == 0;
-    return true;
   }
 
   // Thread 0 prefetches block lb + 1 of the current leaf into L2 when it
@@ -306,32 +363,43 @@ __device__ __forceinline__ void store_codes(uint8_t* x, const Span& s, const int
   }
 }
 
-// The block max of |v| over the elements that lie in the block, for kN
-// states at once: warp shuffles, then one shared row per warp. `red`
-// alternates between two halves by block parity, so a fast warp's next
-// write never meets a slow warp's read of this block's row.
+// The block max of per-thread maxima x (abs_bits patterns) for kN states
+// at once: warp shuffles, then one shared row per warp. Consecutive
+// reductions must use the two halves of `red` in turn, so a fast warp's
+// next write never meets a slow warp's read of this reduction's row.
 template <int kN>
-__device__ __forceinline__ void block_absmax(const float (&v)[kN][kPer], int inb, int* red,
-                                             float (&m)[kN]) {
+__device__ __forceinline__ void block_max_bits(int (&x)[kN], int* red, float (&m)[kN]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int s = 0; s < kN; ++s) {
-    int x = 0;
 #pragma unroll
-    for (int k = 0; k < kPer; ++k)
-      if (k < inb) x = max(x, abs_bits(v[s][k]));
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
-    if (lane == 0) red[s * kWarps + warp] = x;
+    for (int o = 16; o > 0; o >>= 1) x[s] = max(x[s], __shfl_xor_sync(0xffffffffu, x[s], o));
+    if (lane == 0) red[s * kWarps + warp] = x[s];
   }
   __syncthreads();
 #pragma unroll
   for (int s = 0; s < kN; ++s) {
-    int x = red[s * kWarps];
+    int y = red[s * kWarps];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) x = max(x, red[s * kWarps + w]);
-    m[s] = __int_as_float(x);
+    for (int w = 1; w < kWarps; ++w) y = max(y, red[s * kWarps + w]);
+    m[s] = __int_as_float(y);
   }
+}
+
+// The block max of |v| over the elements that lie in the block, for kN
+// states at once; `red` alternates between two halves by block parity.
+template <int kN>
+__device__ __forceinline__ void block_absmax(const float (&v)[kN][kPer], int inb, int* red,
+                                             float (&m)[kN]) {
+  int x[kN];
+#pragma unroll
+  for (int s = 0; s < kN; ++s) {
+    x[s] = 0;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+      if (k < inb) x[s] = max(x[s], abs_bits(v[s][k]));
+  }
+  block_max_bits<kN>(x, red, m);
 }
 
 // Requantize one state of the thread's 8 values with the block's absmax m
@@ -354,10 +422,15 @@ __device__ __forceinline__ void requant8(const float (&v)[kPer], float m, const 
 }
 
 // Copy the codec table (the dynamic maps' kTableWords, or the LUT codecs'
-// words) into shared memory (once per CTA).
+// words) into shared memory (once per CTA), 16 bytes a load (both are
+// 16-byte aligned) and the tail word by word.
 __device__ __forceinline__ void stage_table(const float* __restrict__ table, float* tab,
                                             int words = kTableWords) {
-  for (int k = threadIdx.x; k < words; k += kThreads) tab[k] = table[k];
+  const int w4 = words / 4;
+  for (int k = threadIdx.x; k < w4; k += kThreads) {
+    reinterpret_cast<float4*>(tab)[k] = __ldg(reinterpret_cast<const float4*>(table) + k);
+  }
+  for (int k = 4 * w4 + threadIdx.x; k < words; k += kThreads) tab[k] = table[k];
   __syncthreads();
 }
 

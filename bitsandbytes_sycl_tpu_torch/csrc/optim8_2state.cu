@@ -38,28 +38,42 @@
 // barrier; the encode finds its decade by the exponent bits and multiplies
 // by n / 0.9 rounded once (dynamic8.cuh). A block's reads all happen before
 // its barrier and its absmax writes after it, so the update runs in place.
-// The LUT codec stages its tables in place of the dynamic one and encodes
-// by a binary search over the midpoints (8 shared loads a value).
+// The LUT codec stages its tables and their bucket indexes in place of the
+// dynamic one and encodes by the bucketed rank (dynamic8.cuh lut_ranks8: a
+// byte of the index, then 1-5 independent compares for the usual maps,
+// where the binary search of the first LUT body made 8 dependent loads).
 //
 // Blocks larger than kMaxBlock (the global-max update, block_wise=False)
 // take the two-pass body (kPass 1 and 2, dynamic8.cuh): a block's absmax is
-// a reduction across CTAs. Pass 1 computes the new states and folds each
-// chunk's maxima into the block's scratch slots; pass 2 recomputes them from
+// a reduction across CTAs. Pass 1 computes the new states, keeps each
+// thread's maxima over the CTA's run of chunks of a block, and folds them
+// into the block's scratch slots once a block and CTA (one block reduction
+// and one atomic max, not one a chunk); pass 2 recomputes them from
 // the same inputs (nothing was written), encodes with the block's maxima
 // and writes p, the codes and the absmax (it reads the old absmax from the
-// scratch, so writing the new one in place races with no reader). It moves
-// g, p and the codes twice: ~26 bytes a parameter against the bound's 16.
+// scratch, so writing the new one in place races with no reader, and each
+// chunk reads and writes only its own elements, in either order). Pass 1
+// reads g and the codes but not p (the states do not depend on it): 6
+// bytes a parameter, and pass 2 the bound's 16, so the body moves 22 bytes
+// for the bound's 16 and cannot pass 73% of the bound. Pass 1, a light
+// streaming reduction, runs 4 CTAs an SM on a grid a third larger than the
+// plan's (3 an SM), for more loads in flight. Pass 2 walks each CTA's
+// chunks in the reverse of pass 1's order, so its first chunks are the
+// ones pass 1 read last, still in the 50 MB L2.
 #include "dynamic8.cuh"
 
 namespace {
 
 using namespace dyn8;
 
+// pass 1 keeps fewer values live: 4 CTAs an SM, and a grid a third larger
+constexpr int kP1Ctas = 4;
+
 // kPass 0: the one-pass body (bs <= kMaxBlock); 1 and 2: the two passes
 // over kMaxBlock chunks of larger blocks. kLut: the LUT codec (never with
 // kStoch).
 template <int kPass, bool kStoch, bool kLut>
-__global__ void __launch_bounds__(kThreads, kMinCtas)
+__global__ void __launch_bounds__(kThreads, kPass == 1 ? kP1Ctas : kMinCtas)
 optim8_2state_kernel(const Leaf* __restrict__ leaves, int nleaves, const float* __restrict__ scalars,
                      const float* __restrict__ table, long long total, int bs, int delta,
                      int* __restrict__ scratch) {
@@ -70,13 +84,15 @@ optim8_2state_kernel(const Leaf* __restrict__ leaves, int nleaves, const float* 
   Walk w{leaves, nleaves};
   float b1 = 0, b2 = 0, eps_c2 = 0, step_size = 0, decay = 0, gscale = 0, omb1 = 0, omb2 = 0;
   int parity = 0;
+  int run[2] = {0, 0}, rp = 0;  // pass 1: the thread's maxima over the run's chunks of a block
   const int cpb = kPass == 0 ? 1 : (bs + kMaxBlock - 1) / kMaxBlock;  // chunks a block
   long long lo, hi;
   block_range(total * cpb, lo, hi);
-  for (long long c = lo; c < hi; ++c, parity ^= 1) {
+  for (long long i = 0; i < hi - lo; ++i, parity ^= 1) {
+    const long long c = kPass == 2 ? hi - 1 - i : lo + i;  // pass 2 backwards
     const long long b = kPass == 0 ? c : c / cpb;
     const int off = kPass == 0 ? 0 : (int)(c - b * cpb) * kMaxBlock;
-    if (w.advance(b, bs)) {
+    if (kPass == 2 ? w.retreat(b, bs) : w.advance(b, bs)) {
       const float* sc = scalars + w.cur.row * 8;
       b1 = sc[0], b2 = sc[1], eps_c2 = sc[2], step_size = sc[3], decay = sc[4], gscale = sc[5];
       omb1 = __fsub_rn(1.0f, b1), omb2 = __fsub_rn(1.0f, b2);
@@ -90,7 +106,12 @@ optim8_2state_kernel(const Leaf* __restrict__ leaves, int nleaves, const float* 
     float gv[kPer], pv[kPer], uv[kPer];
     int c1[kPer], c2[kPer];
     BNB_OPT_LOAD8(w.cur.g, s, 0.0f, gv);
-    BNB_OPT_LOAD8(w.cur.p, s, 0.0f, pv);
+    if (kPass != 1) {
+      BNB_OPT_LOAD8(w.cur.p, s, 0.0f, pv);
+    } else {  // the states' maxima do not depend on p
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) pv[k] = 0.0f;
+    }
     BNB_OPT_LOADC(w.cur.s1, s, 127, c1);
     BNB_OPT_LOADC(w.cur.s2, s, 0, c2);
     if (kStoch && kPass != 1) BNB_OPT_LOAD8(w.cur.u, s, 0.0f, uv);
@@ -132,15 +153,24 @@ optim8_2state_kernel(const Leaf* __restrict__ leaves, int nleaves, const float* 
       n[1][k] = m2;
     }
     float m[2];
-    if (kPass == 1) {  // fold the chunk's maxima into the block's slots, write nothing else
-      block_absmax<2>(n, s.inb, red[parity], m);
-      if (threadIdx.x == 0) {
-        atomicMax(slot, __float_as_int(m[0]));
-        atomicMax(slot + 1, __float_as_int(m[1]));
-        if (off == 0) {
-          slot[2] = __float_as_int(a1);
-          slot[3] = __float_as_int(a2);
+    if (kPass == 1) {  // fold the chunk's maxima into the thread's, write nothing else
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int k = 0; k < kPer; ++k)
+          if (k < s.inb) run[t] = max(run[t], abs_bits(n[t][k]));
+      if (threadIdx.x == 0 && off == 0) {
+        slot[2] = __float_as_int(a1);
+        slot[3] = __float_as_int(a2);
+      }
+      if (i + 1 == hi - lo || off + kMaxBlock >= bs) {  // the block's last chunk in this run:
+        block_max_bits<2>(run, red[rp], m);              // one reduction and one atomic max
+        rp ^= 1;
+        if (threadIdx.x == 0) {
+          atomicMax(slot, __float_as_int(m[0]));
+          atomicMax(slot + 1, __float_as_int(m[1]));
         }
+        run[0] = run[1] = 0;
       }
       continue;
     }
@@ -210,6 +240,32 @@ __global__ void encode_sweep_kernel(const float* __restrict__ table, const float
   if (bad_u) atomicAdd(mismatches + 1, bad_u);
 }
 
+// The bucketed rank against the binary search on every f32 bit pattern,
+// for each of the two LUT codecs in `table` (ops/optim8.lut_words of two
+// tables): counts the patterns whose ranks differ.
+__global__ void lut_rank_sweep_kernel(const float* __restrict__ table,
+                                      unsigned long long* __restrict__ mismatches) {
+  __shared__ __align__(16) float tab[2 * kLutWords];
+  stage_table(table, tab, 2 * kLutWords);
+  unsigned long long bad[2] = {0, 0};
+  const unsigned long long stride = (unsigned long long)gridDim.x * blockDim.x * kPer;
+  for (unsigned long long i = ((unsigned long long)blockIdx.x * blockDim.x + threadIdx.x) * kPer;
+       i < (1ULL << 32); i += stride) {
+    float x[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) x[k] = __uint_as_float((uint32_t)(i + k));
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      int r[kPer];
+      lut_ranks8(x, tab + t * kLutWords, r);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) bad[t] += r[k] != lut_rank_search(x[k], tab + t * kLutWords);
+    }
+  }
+  if (bad[0]) atomicAdd(mismatches, bad[0]);
+  if (bad[1]) atomicAdd(mismatches + 1, bad[1]);
+}
+
 }  // namespace
 
 // One launch over a leaf table (two past kMaxBlock): leaves (nleaves rows of
@@ -234,10 +290,13 @@ extern "C" int optim8_2state(const void* leaves, int nleaves, const float* scala
   }
   cudaError_t err = cudaMemsetAsync(scratch, 0, total * dyn8::kScratchWords * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
-  launch<1>(stochastic, lut, grid, st, lv, nleaves, scalars, table, total, bs, delta, scratch);
+  launch<1>(stochastic, lut, grid * kP1Ctas / dyn8::kMinCtas, st, lv, nleaves, scalars, table, total,
+            bs, delta, scratch);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+#ifndef BNB_PROBE_PASS1_ONLY  // chip_smoke.py --probe optim: the first pass's time alone
   launch<2>(stochastic, lut, grid, st, lv, nleaves, scalars, table, total, bs, delta, scratch);
+#endif
   return (int)cudaGetLastError();
 }
 
@@ -247,5 +306,13 @@ extern "C" int dyn8_encode_sweep(const float* table, const float* consts,
                                  unsigned long long* mismatches, void* stream) {
   encode_sweep_kernel<<<132 * 8, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(table, consts,
                                                                                  mismatches);
+  return (int)cudaGetLastError();
+}
+
+// mismatches: 2 zeroed u64 on the device (one per codec); table: two LUT
+// codecs' words (ops/optim8.lut_words) on the device.
+extern "C" int lut_rank_sweep(const float* table, unsigned long long* mismatches, void* stream) {
+  lut_rank_sweep_kernel<<<132 * 8, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(table,
+                                                                                   mismatches);
   return (int)cudaGetLastError();
 }

@@ -16,11 +16,13 @@ f32 range and mean per plane and column, ``ops.common.compress_absmax``)
 decode each scale once as ``decode_absmax`` does, one fma rounded once,
 in both kernels and their plain versions; the rest is unchanged.
 
-Kernel E decodes with the same rounding points into a dense W^T (K, N);
-from ``PREFILL_MIN_M`` rows (``PREFILL_MIN_M_UNALIGNED`` for weights whose
-half-K is not a multiple of 8 quantization blocks) ``matmul_4bit_fused``
-decodes the weight once with it and runs one dense matmul, as the JAX
-package does.
+Kernel E decodes with the same rounding points into a dense W^T (K, N),
+on a TMA body for both scale formats where N is a multiple of 16 and on
+the first port's bodies (the unaligned route) elsewhere, as
+``dequant4_plan`` picks before the launch; from ``PREFILL_MIN_M`` rows
+(``PREFILL_MIN_M_UNALIGNED`` for weights whose half-K is not a multiple
+of 8 quantization blocks) ``matmul_4bit_fused`` decodes the weight once
+with it and runs one dense matmul, as the JAX package does.
 
 The 4-bit routes are differentiable in x and the bias (``ExactDequantGrad``,
 the JAX package's custom_vjp): the backward is the exact-dequant product
@@ -33,8 +35,9 @@ over the rows. The packed weight gets no gradient.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,7 +50,8 @@ from .dynamic8 import decode_table
 
 __all__ = [
     "matmul_4bit_fused", "mm4_fused", "dequantize_transposed", "ExactDequantGrad",
-    "PREFILL_MIN_M", "PREFILL_MIN_M_UNALIGNED", "mm4_plan",
+    "PREFILL_MIN_M", "PREFILL_MIN_M_UNALIGNED", "mm4_plan", "dequant4_plan", "Dequant4Plan",
+    "deq4_smem",
 ]
 
 # rows from which matmul_4bit_fused decodes the weight once to a dense
@@ -151,13 +155,74 @@ def _dequant4_plain(w: QLinearWeight, out_dtype) -> torch.Tensor:
     return torch.cat(_decode_planes(w, mode, out_dtype), dim=0)
 
 
+class Dequant4Plan(NamedTuple):
+    """Kernel E's launch: ``body`` "tma" (the TMA body: tiles of ``rows``
+    packed rows by ``cols`` columns through a ring of ``slots`` stages on
+    ``grid`` persistent CTAs) or "unaligned" (N % 16 != 0: the first
+    port's bodies, all other fields 0)."""
+
+    body: str
+    rows: int
+    cols: int
+    slots: int
+    grid: int
+
+
+DEQ4_MAX_ROWS = 64  # packed rows of a tile at most
+DEQ4_SLOTS = 4  # ring stages
+DEQ4_SMEM_MAX = 225 * 1024  # dynamic shared memory a CTA may take (kSmemMax in the source)
+_SMEM_PER_SM = 233472  # shared memory of an H100 SM; a CTA also reserves 1 KB
+
+
+def deq4_smem(rows: int, cols: int, slots: int, bs: int, compressed: bool = False) -> int:
+    """Dynamic shared memory of the TMA body: the ring's stages (the packed
+    box, both planes' scale boxes with room for f32 scales, and for
+    compressed scales both planes' range and mean), for compressed scales
+    the tile's decoded scales, and 1 KB to align to (``deq4_slot_bytes``
+    in csrc/dequantize_transposed.cu)."""
+    nsr = rows // bs if rows >= bs else 1
+    stage = rows * cols + 2 * nsr * cols * 4 + (16 * cols if compressed else 0)
+    return 1024 + slots * stage + (2 * nsr * cols * 4 if compressed else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def dequant4_plan(N: int, K: int, bs: int, sms: int, compressed: bool = False) -> Dequant4Plan:
+    """Kernel E's route and launch for a weight the wrapper's guard takes
+    (N % 4 == 0, K % (2 bs) == 0, bs % 4 == 0). The TMA body where N is a
+    multiple of 16 (TMA's row stride), else the unaligned route. Tiles:
+    the most packed rows up to DEQ4_MAX_ROWS that divide K/2, are a
+    multiple or a divisor of bs (a tile touches whole scale rows) and keep
+    the ring within DEQ4_SMEM_MAX (at bs 4 a 64-row tile holds 16 scale
+    rows, too many with compressed scales), by 256 columns (128 where N is
+    a multiple of 128 but not of 256), through a ring of DEQ4_SLOTS
+    stages. The grid: as many CTAs as fit the SMs'
+    shared memory, up to 3 an SM, for raw scales; one an SM for
+    compressed ones, whose tiles add a decode and a barrier (the fastest
+    over a 7B layer's linears of the plans ``chip_smoke.py --probe
+    dequant`` timed on the H100); evened out so that every CTA takes the
+    same number of tiles or one fewer."""
+    if N % 16:
+        return Dequant4Plan("unaligned", 0, 0, 0, 0)
+    half = K // 2
+    cols = 128 if N % 256 and N % 128 == 0 else 256
+    rows = max(r for r in range(4, DEQ4_MAX_ROWS + 1, 4)
+               if half % r == 0 and (r % bs == 0 or bs % r == 0)
+               and deq4_smem(r, cols, DEQ4_SLOTS, bs, compressed) <= DEQ4_SMEM_MAX)
+    per_sm = 1 if compressed else min(3, _SMEM_PER_SM // (
+        deq4_smem(rows, cols, DEQ4_SLOTS, bs) + 1024))
+    tiles = -(-N // cols) * (half // rows)
+    waves = -(-tiles // (per_sm * sms))
+    return Dequant4Plan("tma", rows, cols, DEQ4_SLOTS, -(-tiles // waves))
+
+
 def dequantize_transposed(w: QLinearWeight, out_dtype=torch.bfloat16) -> torch.Tensor:
     """W^T (K, N) densely decoded in out_dtype (f32 or bf16): kernel E on
-    CUDA tensors, its plain version on CPU tensors. The JAX package decodes
-    shapes its Pallas kernel declines (blocksize >= 256 at bf16, or a K
-    that padding to 8 quantization blocks would double) in XLA instead,
-    with one f32 product rounded once; kernel E takes every shape, so
-    there the result can differ from the JAX package's by one rounding."""
+    CUDA tensors (the route ``dequant4_plan`` picks), its plain version on
+    CPU tensors. The JAX package decodes shapes its Pallas kernel declines
+    (blocksize >= 256 at bf16, or a K that padding to 8 quantization blocks
+    would double) in XLA instead, with one f32 product rounded once; kernel
+    E takes every shape, so there the result can differ from the JAX
+    package's by one rounding."""
     if not check_cuda_tensors("dequantize_transposed", w.packed, w.absmax, w.absmax_scale,
                               w.absmax_offset):
         return _dequant4_plain(w, out_dtype)
@@ -165,30 +230,47 @@ def dequantize_transposed(w: QLinearWeight, out_dtype=torch.bfloat16) -> torch.T
     bs = w.blocksize
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dequantize_transposed: out_dtype must be f32 or bf16, got {out_dtype}")
-    s_bf16, am_s, am_o, dtab = _scale_args(w)
     if N % 4 or K % (2 * bs) or bs % 4 or tuple(w.packed.shape) != (K // 2, N):
         raise ValueError(f"dequantize_transposed: unsupported shape N={N} K={K} bs={bs}")
     if not (w.packed.is_contiguous() and w.absmax.is_contiguous()):
         raise ValueError("dequantize_transposed: weight tensors must be contiguous")
+    return _dequant4_launch(w, out_dtype,
+                            dequant4_plan(N, K, bs, sm_count(w.packed.device), w.compressed))
+
+
+def _dequant4_launch(w: QLinearWeight, out_dtype, plan: Dequant4Plan) -> torch.Tensor:
+    """Launch kernel E's route ``plan.body`` on checked CUDA tensors."""
+    N, K = w.shape
+    bs = w.blocksize
+    if plan.body == "tma":  # TMA reads from 16-byte aligned addresses
+        odd = {k: t.clone() for k in ("packed", "absmax", "absmax_scale", "absmax_offset")
+               if (t := getattr(w, k)) is not None and t.data_ptr() % 16}
+        if odd:
+            w = dataclasses.replace(w, **odd)
+    s_bf16, am_s, am_o, dtab = _scale_args(w)
+    packed, absmax = w.packed, w.absmax
     mode = _decode_mode(w, out_dtype, None)
-    out = torch.empty((K, N), dtype=out_dtype, device=w.packed.device)
-    fn = _build.kernel_fn("dequantize_transposed", "dequantize_transposed", 14,
-                          int_args=range(4, 10))
+    out = torch.empty((K, N), dtype=out_dtype, device=packed.device)
+    fn = _build.kernel_fn("dequantize_transposed", "dequantize_transposed", 18,
+                          int_args=range(4, 14))
     err = fn(
-        w.packed.data_ptr(), w.absmax.data_ptr(), out.data_ptr(),
+        packed.data_ptr(), absmax.data_ptr(), out.data_ptr(),
         ctypes.addressof(_decode_table(w.quant_type, bs, mode)),
         K, N, bs, s_bf16, int(out_dtype == torch.bfloat16), int(mode == _MODE_BF16_TABLE),
-        am_s, am_o, dtab, torch.cuda.current_stream(w.packed.device).cuda_stream,
+        plan.rows, plan.cols, plan.slots, plan.grid, am_s, am_o, dtab,
+        torch.cuda.current_stream(packed.device).cuda_stream,
     )
-    _build.check("dequantize_transposed", err)
+    _build.check(f"dequantize_transposed ({plan.body})", err)
     dequantize_transposed.launches += 1
     dequantize_transposed.launches_compressed += int(w.compressed)
+    dequantize_transposed.launches_tma += int(plan.body == "tma")
     return out
 
 
-# launches, and those on compressed scales
+# launches of either route, those on compressed scales, and those of the TMA body
 dequantize_transposed.launches = 0
 dequantize_transposed.launches_compressed = 0
+dequantize_transposed.launches_tma = 0
 
 
 def _dense_matmul(x2: torch.Tensor, wt: torch.Tensor, compute_dtype) -> torch.Tensor:

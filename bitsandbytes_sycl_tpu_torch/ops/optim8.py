@@ -51,7 +51,7 @@ from .dynamic8 import dynamic_decode, dynamic_encode, encode_consts, kernel_tabl
 
 __all__ = ["optim8_blockwise_fused", "optim8_update", "optim8_2state",
            "optim8_1state", "Optim8Leaf", "LeafPlan", "leaf_plan", "ONE_STATE", "TWO_STATE",
-           "ONE_PASS_MAX", "LutCodec", "lut_table_ok"]
+           "ONE_PASS_MAX", "LutCodec", "lut_table_ok", "lut_bucket_rank"]
 
 TWO_STATE = ("adam", "lamb")
 ONE_STATE = ("momentum", "rmsprop", "adagrad", "lion")
@@ -61,7 +61,13 @@ ONE_PASS_MAX = 2048
 CTAS_PER_SM = 3  # the persistent grid (csrc/dynamic8.cuh kMinCtas)
 LEAF_WORDS = 10  # int64 words of a leaf table row (csrc/dynamic8.cuh Leaf)
 PAD_CODES = (127, 0)  # a ragged block's state1 and state2 codes past the leaf
-LUT_WORDS = 580  # f32 words of one LUT codec in the kernels' table (csrc/dynamic8.cuh kLutWords)
+# the bucket index of a LUT codec: one byte per value of the top bits of an
+# f32's order-preserving key (csrc/dynamic8.cuh kLutBucketBits)
+LUT_BUCKET_BITS = 14
+# f32 words of one LUT codec in the kernels' table (csrc/dynamic8.cuh
+# kLutWords): decode table, midpoints, rank -> code, n_neg, top, the
+# largest bucket occupancy, a spare word, then the bucket index
+LUT_WORDS = 580 + (1 << LUT_BUCKET_BITS) // 4
 
 
 def _apply_sign_fix(rank: torch.Tensor, normed: torch.Tensor, n_neg: int, top: int) -> torch.Tensor:
@@ -113,13 +119,39 @@ def lut_table_ok(q) -> bool:
 class LutParts(NamedTuple):
     """The host-side description of one 256-entry table: the decode table,
     the f32 midpoints between its sorted (distinct) values, the rank ->
-    code map, the count of sorted values with the sign bit set, and the
-    top rank."""
+    code map, the count of sorted values with the sign bit set, the top
+    rank, and the bucket index of the midpoints (``_bucket_index``)."""
     table: np.ndarray  # f32 (256,), index = code
     mids: np.ndarray   # f32 (top,), ascending
     code: np.ndarray   # uint8 (top + 1,)
     n_neg: int
     top: int
+    bucket_lo: np.ndarray  # uint8 (2^LUT_BUCKET_BITS,): midpoints in lower buckets
+    bucket_max: int        # the most midpoints in one bucket
+
+
+def _order_keys(x: np.ndarray) -> np.ndarray:
+    """The f32 values' order-preserving uint32 keys, -0.0 keyed as +0.0
+    (they compare equal): for values that are not NaN, a < b exactly where
+    key(a) < key(b)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).copy()
+    u[(u & np.uint32(0x7FFFFFFF)) == 0] = 0
+    return np.where(u >> np.uint32(31) != 0, ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def _bucket_index(mids: np.ndarray):
+    """The kernels' index over ascending midpoints: bucket b holds the
+    values whose key's top LUT_BUCKET_BITS bits are b. Returns (lo, max):
+    lo[b] = #{mids in buckets below b}, the least rank of any value in
+    bucket b, and the most midpoints any one bucket holds. A value x (not
+    NaN) in bucket b then has rank lo[b] + #{mids[lo[b] + k] < x, k <
+    max}: midpoints of lower buckets are all below x, those of higher ones
+    (and the +inf padding) all above."""
+    b = (_order_keys(mids) >> np.uint32(32 - LUT_BUCKET_BITS)).astype(np.int64)
+    assert np.all(np.diff(b) >= 0), "midpoints must ascend"
+    lo = np.searchsorted(b, np.arange(1 << LUT_BUCKET_BITS), side="left")
+    most = int(np.bincount(b).max()) if b.size else 0
+    return lo.astype(np.uint8), most
 
 
 def _table_bytes(qmap) -> bytes:
@@ -148,7 +180,8 @@ def _lut_parts(key: bytes) -> LutParts:
         code = np.argsort(table, kind="stable")
         sc = table[code]
     mids = ((sc[1:] + sc[:-1]) / 2.0).astype(np.float32)
-    return LutParts(table, mids, code.astype(np.uint8), int(np.signbit(sc).sum()), sc.size - 1)
+    return LutParts(table, mids, code.astype(np.uint8), int(np.signbit(sc).sum()), sc.size - 1,
+                    *_bucket_index(mids))
 
 
 def lut_parts(qmap) -> LutParts:
@@ -186,6 +219,25 @@ class LutCodec:
         return torch.from_numpy(self.parts.code).to(normed.device)[rank.long()]
 
 
+def lut_bucket_rank(parts: LutParts, x: torch.Tensor) -> torch.Tensor:
+    """The plain version of the kernels' rank of f32 values ``x`` among a
+    table's midpoints: the bucket of x's order-preserving key
+    (``_order_keys``), the least rank there, plus the midpoints from that
+    rank on (at most ``bucket_max``, past ``top`` the +inf padding) that lie
+    below x; NaN at rank 0. Equal to ``LutCodec.rank`` for every f32."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = torch.where((bits & 0x7FFFFFFF) == 0, torch.zeros_like(bits), bits)
+    key = torch.where(bits >= 1 << 31, 0xFFFFFFFF - bits, bits | 1 << 31)
+    lo = torch.from_numpy(parts.bucket_lo.astype(np.int64)).to(x.device)[
+        key >> (32 - LUT_BUCKET_BITS)]
+    mids = torch.full((256,), float("inf"), dtype=torch.float32, device=x.device)
+    mids[:parts.mids.size] = torch.from_numpy(parts.mids).to(x.device)
+    r = lo.clone()
+    for k in range(parts.bucket_max):
+        r += (mids[(lo + k).clamp(max=255)] < x).long()
+    return torch.where(torch.isnan(x), torch.zeros_like(r), r)
+
+
 def _codecs(two: bool, qmaps=None):
     """The codecs of the plain bodies: (state1 with the sign fix, state2 or
     None), dynamic without ``qmaps``, else LUT codecs over its tables."""
@@ -197,7 +249,8 @@ def _codecs(two: bool, qmaps=None):
 def lut_words(parts: LutParts) -> np.ndarray:
     """One codec's words of the kernels' table (csrc/dynamic8.cuh): the
     decode table, the midpoints padded with +inf to 256, the rank -> code
-    bytes, n_neg and top as int32 bits."""
+    bytes, n_neg, top and the largest bucket occupancy as int32 bits, a
+    spare word, then the bucket index's bytes."""
     w = np.zeros(LUT_WORDS, np.float32)
     w[:256] = parts.table
     w[256:512] = np.inf
@@ -205,7 +258,8 @@ def lut_words(parts: LutParts) -> np.ndarray:
     code = np.zeros(256, np.uint8)
     code[:parts.code.size] = parts.code
     w[512:576] = code.view(np.float32)
-    w[576:578] = np.array([parts.n_neg, parts.top], np.int32).view(np.float32)
+    w[576:579] = np.array([parts.n_neg, parts.top, parts.bucket_max], np.int32).view(np.float32)
+    w[580:] = parts.bucket_lo.view(np.float32)
     return w
 
 
@@ -609,4 +663,18 @@ def encode_sweep(device) -> tuple:
     fn = _build.kernel_fn("optim8_2state", "dyn8_encode_sweep", 4)
     _build.check("dyn8_encode_sweep", fn(kernel_table(dev).data_ptr(), consts.data_ptr(),
                                          out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+    return tuple(int(v) for v in out.cpu())
+
+
+def lut_rank_sweep(device, qmap1, qmap2) -> tuple:
+    """On the card: the kernels' bucketed rank (csrc/dynamic8.cuh lut_rank)
+    against the binary search over the midpoints (lut_rank_search) on all
+    2^32 f32 bit patterns, for the LUT codecs of two tables. Returns the
+    mismatch counts (one per table)."""
+    dev = torch.device(device)
+    table = _lut_table((_table_bytes(qmap1), _table_bytes(qmap2)), str(dev))
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    fn = _build.kernel_fn("optim8_2state", "lut_rank_sweep", 3)
+    _build.check("lut_rank_sweep", fn(table.data_ptr(), out.data_ptr(),
+                                      torch.cuda.current_stream(dev).cuda_stream))
     return tuple(int(v) for v in out.cpu())

@@ -2,13 +2,15 @@
 """Smoke run of bitsandbytes_sycl_tpu_torch on one CUDA card (H100).
 
     python3 chip_smoke.py            # the smoke run below
-    python3 chip_smoke.py --probe    # where A's, B's, C's, D's, G's, H's, J's and K's time goes
+    python3 chip_smoke.py --probe    # where A's-K's time goes
     python3 chip_smoke.py --probe attention   # C's and D's only
     python3 chip_smoke.py --probe decode      # A's fused and H's split bodies only
-    python3 chip_smoke.py --probe optim       # J's and K's leaf-table bodies only
+    python3 chip_smoke.py --probe optim       # J's and K's leaf-table bodies, J's branches only
     python3 chip_smoke.py --probe int8        # F's tiled and I's wgmma bodies only
+    python3 chip_smoke.py --probe dequant     # E's TMA body only: parts, stores, plans
     python3 chip_smoke.py --time-i [DIR]      # I's times, from the package under DIR
     python3 chip_smoke.py --time-decode [DIR] # phase 3's decode step, from the package under DIR
+    python3 chip_smoke.py --time-optim [DIR]  # J's and K's branches, from the package under DIR
     python3 chip_smoke.py --phase12           # phase 12 alone, after the references of 3 and 3c
 
 Phases, each of which exits non-zero on failure:
@@ -24,9 +26,9 @@ Phases, each of which exits non-zero on failure:
      GPT-J-6B and Gemma-2-9B with every option, and both at 384 to 1024,
      each timed beside its SIMT body and SDPA and required to beat the
      SIMT body,
-     and every plan of the fast bodies of A, B, C, D, G, H and I and F's
-     tiled body launched 100 times on one input must repeat its output bit
-     for bit), and time
+     and every plan of the fast bodies of A, B, C, D, G, H and I, E's TMA
+     body and unaligned route and F's tiled body launched 100 times on one
+     input must repeat its output bit for bit), and time
      kernel, plain version and one PyTorch
      library call that computes the same function (for attention, SDPA's
      fused backends only, each alone, the fastest kept); then hold the W8A8
@@ -73,8 +75,9 @@ Phases, each of which exits non-zero on failure:
   7. QLoRA: (a, in phase 2) the 8-bit optimizer kernels J and K, one launch
      over a leaf table, bit for bit against their plain version over the
      448-leaf QLoRA table, a mixed table with ragged leaves and 16.8M
-     parameters, with eight deliberate faults, 100 repeated launches and
-     the encode's exponent-bit search checked on every f32; then their
+     parameters, with eight deliberate faults, 100 repeated launches, and
+     the encode's exponent-bit search and the LUT codec's bucketed rank
+     (four tables) checked on every f32; then their
      LUT codec (every optimizer over those three tables under seven maps:
      quantile, linear signed and unsigned, fp8, normal, a padded 7-bit
      map, a permuted one) and their two-pass body (blocks of 4096, 262144,
@@ -210,7 +213,12 @@ first tokens equal to the default engine's under the gap rule. Phase 2
 also holds kernels H and I at the 7B shapes (H within 1% with four
 deliberate faults; I bit for bit at M = 1-128, and within 1 bf16 ulp with
 the next row's SCB as fault) and the LLM.int8 route at 256 and 1024 rows;
-kernel F's tiled body bit for bit at the 7B shapes (blocksizes 64 and 128)
+kernel E bit for bit on both routes (its TMA body, and the unaligned route
+at N % 16 != 0): nf4, fp4 and int4, bf16 and f32 out, raw f32, raw bf16 and
+compressed scales, at the 7B shapes, 4544 x 4544 (bs 32), 4100 x 4096 and
+two narrow shapes, timed beside the bodies it replaced (a BNB_E_OLD_BODIES
+build, made alongside phase 1's); kernel F's tiled body bit for bit at the
+7B shapes (blocksizes 64 and 128)
 and three small ones (one with a ragged column tile), its stride body at
 blocksize 8, and 100 repeated launches of F and of every plan of I (each
 wgmma width at 4096 x 4096); the compressed branches of B (both bodies at
@@ -468,8 +476,8 @@ def ulp_ratio(torch, got, ref, dtype, bias=None):
 
 
 def check_prefill_linears(torch, report):
-    """Kernels E (dequantize_transposed), F (dequant_int8) and G (w4a8_grouped) against
-    their plain versions at the four 7B linear shapes. E and F must be bit
+    """Kernels F (dequant_int8) and G (w4a8_grouped) against their plain
+    versions at the four 7B linear shapes (E: check_dequant4). F must be bit
     for bit equal; G within 2 f32 ulps (1 bf16 ulp for bf16 output) of the
     output, or of the bias where it is larger, since its int32 sum is exact
     and its epilogue keeps the plain version's order; the column-grid
@@ -479,39 +487,19 @@ def check_prefill_linears(torch, report):
     dequantize_to_int8 accepts (blocksizes 64 and 48) and, called directly,
     at N = 400 (a ragged last column tile); its stride body at a
     blocksize of 8 that dequantize_to_int8 accepts. Each check
-    also feeds the plain version a deliberate fault (E: the planes
-    swapped; F: the lo plane scaled by the hi plane's factors; G: the colmax
-    of the next column), which must land outside the tolerance."""
+    also feeds the plain version a deliberate fault (F: the lo plane scaled
+    by the hi plane's factors; G: the colmax of the next column), which must
+    land outside the tolerance."""
     from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit as m4
     from bitsandbytes_sycl_tpu_torch.ops import matmul_w4a8 as mw
     from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    rows = {"dequantize_transposed": [], "dequant_int8": [], "w4a8_grouped": []}
+    rows = {"dequant_int8": [], "w4a8_grouped": []}
     for N, K in [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]:
         W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
         Wd = W.to(torch.bfloat16)
         nbh = K // 128
-        for qt in ("nf4", "int4"):
-            w = quantize_4bit_native(W, 64, qt, absmax_dtype=torch.bfloat16)
-            for od in (torch.bfloat16, torch.float32):
-                got, ref = m4.dequantize_transposed(w, od), m4._dequant4_plain(w, od)
-                torch.cuda.synchronize()
-                need(torch.equal(got, ref), f"dequantize_transposed {qt} {od} N={N} K={K}: "
-                                            f"max err {max_err(torch, got, ref)[0]} (must be 0)")
-                lo, hi = m4._decode_planes(w, m4._decode_mode(w, od, None), od)
-                need(not torch.equal(torch.cat([hi, lo]), ref),
-                     "dequantize_transposed: the plain version with the planes swapped matches")
-                row = dict(N=N, K=K, quant=qt, out=str(od), max_abs_err=0.0)
-                if qt == "nf4" and od == torch.bfloat16:
-                    nbytes = K // 2 * N + 2 * nbh * N * 2 + K * N * 2
-                    row.update(ms=time_cold(torch, lambda: m4.dequantize_transposed(w, od)),
-                               plain_ms=time_cold(torch, lambda: m4._dequant4_plain(w, od), iters=5),
-                               library_ms=None, bytes=nbytes,
-                               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
-                rows["dequantize_transposed"].append(row)
-                del got, ref, lo, hi
-            del w
         # (weight, blocksize, type, through dequantize_to_int8, body)
         f_cases = [(W, 64, "nf4", True, "tiled"), (W, 64, "int4", True, "tiled"),
                    (W, 128, "nf4", True, "tiled")]
@@ -607,8 +595,7 @@ def check_prefill_linears(torch, report):
                           + f" bound {r['bound_ms']*1e3:.2f} us ({r['bound_ms'] / r['ms']:.0%},"
                           f" {r['bound_by']})", flush=True)
     g = rows["w4a8_grouped"]
-    print(f"  checked: dequantize_transposed {len(rows['dequantize_transposed'])} cases bit-exact,"
-          f" dequant_int8 "
+    print(f"  checked: dequant_int8 "
           f"{len(rows['dequant_int8'])} bit-exact, w4a8_grouped {len(g)} within "
           f"{max(r['ulps'] for r in g):.3g} ulps (faults >= {min(r['fault_ulps'] for r in g):.3g} ulps)")
     for name, rs in rows.items():
@@ -618,6 +605,156 @@ def check_prefill_linears(torch, report):
             library_ms=None if name != "w4a8_grouped" else sum(r["library_ms"] for r in timed),
             bound_ms=sum(r["bound_ms"] for r in timed), bound_by=timed[0]["bound_by"],
             max_abs_err=max(r["max_abs_err"] for r in rs))
+
+
+# kernel E: the build of the bodies its TMA body replaced, timed beside it
+E_OLD_BODIES = ("dequantize_transposed", ("BNB_E_OLD_BODIES",))
+# shapes past the 7B ones: Falcon-7B's width at blocksize 32 (a ragged
+# column tile), N % 16 != 0 (the unaligned route), N = 400 (ragged) and a
+# weight narrower than one tile
+E_SHAPES = ([(N, K, 64) for N, K in [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]]
+            + [(4544, 4544, 32), (4100, 4096, 64), (400, 1152, 64), (48, 1024, 32),
+               (2048, 2048, 4), (512, 1680, 4)])
+# a 7B layer's seven linears: q, k, v, o (4096 x 4096), gate and up
+# (11008 x 4096), down (4096 x 11008)
+E_LAYER = {(4096, 4096): 4, (11008, 4096): 2, (4096, 11008): 1}
+
+
+def start_variant_build(variants):
+    """Build kernel variants (``_build.build_variants``) in a thread beside
+    the package's own build; returns a function that waits for them and
+    gives {key: library}."""
+    import threading
+
+    from bitsandbytes_sycl_tpu_torch.ops import _build
+
+    box = {}
+
+    def run():
+        try:
+            box["libs"] = _build.build_variants(variants)
+        except Exception as e:  # noqa: BLE001 — raised where the libraries are wanted
+            box["err"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def wait():
+        th.join()
+        if "err" in box:
+            raise box["err"]
+        return box["libs"]
+
+    return wait
+
+
+def e_bytes(N, K, bs, out_bytes, compressed, scale_bytes=2):
+    """The bytes kernel E must move: the packed weight read, the scales
+    read (the codes, each column's range and mean of both planes and the
+    1 KB decode table, or the raw scales), the output written."""
+    nbh = K // (2 * bs)
+    scales = 2 * nbh * N + 16 * N + 1024 if compressed else 2 * nbh * N * scale_bytes
+    return K // 2 * N + scales + K * N * out_bytes
+
+
+def check_dequant4(torch, report, old_lib):
+    """Kernel E (dequantize_transposed) bit for bit against its plain
+    version on both routes: nf4, fp4 and int4, bf16 and f32 out, raw f32,
+    raw bf16 and compressed scales, at the four 7B shapes (blocksize 64),
+    Falcon-7B's 4544 x 4544 at blocksize 32, 4100 x 4096 (N % 16 != 0: the
+    unaligned route), 400 x 1152, 48 x 1024, and 2048 x 2048 and 512 x 1680
+    at blocksize 4 (16 and 15 scale rows a 64- or 60-row tile, more than
+    compressed scales fit: the plan takes 32 and 56 rows). Each launch must take the
+    route dequant4_plan picks; the plain version with the planes swapped
+    must differ. Timed at the 7B shapes (nf4, bs 64, raw bf16 and
+    compressed scales, bf16 and f32 out): the kernel, the bodies it
+    replaced (``old_lib``, the BNB_E_OLD_BODIES build) in the same call,
+    the plain version, and the byte bound; and over a 7B layer's seven
+    linears."""
+    from bitsandbytes_sycl_tpu_torch.ops import _build
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit as m4
+    from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native, sm_count
+
+    E = m4.dequantize_transposed
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sms = sm_count(torch.device("cuda"))
+    rows, n_cases = [], 0
+    for N, K, bs in E_SHAPES:
+        W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+        for qt in ("nf4", "fp4", "int4"):
+            for fmt in ("f32", "bf16", "compressed"):
+                plan = m4.dequant4_plan(N, K, bs, sms, fmt == "compressed")
+                need(plan.body == ("tma" if N % 16 == 0 else "unaligned"),
+                     f"dequant4_plan gave N={N} the {plan.body} route")
+                w = quantize_4bit_native(W, bs, qt, compress_statistics=fmt == "compressed",
+                                         absmax_dtype=torch.bfloat16 if fmt == "bf16" else torch.float32)
+                for od in (torch.bfloat16, torch.float32):
+                    before = (E.launches, E.launches_tma, E.launches_compressed)
+                    got, ref = E(w, od), m4._dequant4_plain(w, od)
+                    torch.cuda.synchronize()
+                    moved = tuple(a - b for a, b in zip((E.launches, E.launches_tma,
+                                                         E.launches_compressed), before))
+                    want = (1, int(plan.body == "tma"), int(fmt == "compressed"))
+                    label = f"dequantize_transposed {qt} {fmt} scales N={N} K={K} bs={bs} {od}"
+                    need(moved == want, f"{label}: launches (all, tma, compressed) moved by {moved},"
+                                        f" not {want}")
+                    need(torch.equal(got, ref), f"{label} ({plan.body}): {int((got != ref).sum())}"
+                                                " elements differ from the plain version")
+                    half = K // 2
+                    need(not torch.equal(torch.cat([ref[half:], ref[:half]]), ref),
+                         f"{label}: the plain version with the planes swapped matches")
+                    n_cases += 1
+                    if qt == "nf4" and fmt != "f32" and (N, K) in SHAPES_7B:  # timed
+                        ob = 2 if od == torch.bfloat16 else 4
+                        nbytes = e_bytes(N, K, bs, ob, fmt == "compressed")
+                        run = lambda: E(w, od)  # noqa: E731
+                        ms = time_cold(torch, run)
+                        old = _build.use_library("dequantize_transposed", old_lib)
+                        try:
+                            old_ms = time_cold(torch, run)
+                        finally:
+                            _build.use_library("dequantize_transposed", old)
+                        row = dict(N=N, K=K, bs=bs, out=str(od).replace("torch.", ""), scales=fmt,
+                                   route=plan.body, plan=tuple(plan), max_abs_err=0.0, ms=ms,
+                                   old_ms=old_ms,
+                                   plain_ms=time_cold(torch, lambda: m4._dequant4_plain(w, od),
+                                                      iters=3),
+                                   bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                                   bound_by="bytes", library_ms=None)
+                        rows.append(row)
+                        print(f"  dequantize_transposed N={N:5d} K={K:5d} {row['out']:8s} {fmt:10s}"
+                              f" scales: {plan.body} {ms * 1e3:.1f} us (old bodies"
+                              f" {old_ms * 1e3:.1f} us, {ms / old_ms:.2f}x) plain"
+                              f" {row['plain_ms'] * 1e3:.1f} us bound {row['bound_ms'] * 1e3:.2f} us"
+                              f" ({row['bound_ms'] / ms:.0%})", flush=True)
+                    del got, ref
+                del w
+        del W
+    layer = {}
+    for out in ("bfloat16", "float32"):
+        for fmt in ("bf16", "compressed"):
+            rs = {(r["N"], r["K"]): r for r in rows if r["out"] == out and r["scales"] == fmt}
+            agg = {k: sum(c * rs[nk][k] for nk, c in E_LAYER.items())
+                   for k in ("ms", "old_ms", "bound_ms")}
+            agg["share"] = agg["bound_ms"] / agg["ms"]
+            layer[f"{out} out, {fmt} scales"] = agg
+            print(f"  dequantize_transposed over a 7B layer's seven linears, {out} out, {fmt}"
+                  f" scales: {agg['ms'] * 1e3:.1f} us (old bodies {agg['old_ms'] * 1e3:.1f} us)"
+                  f" against a bound of {agg['bound_ms'] * 1e3:.1f} us ({agg['share']:.0%})",
+                  flush=True)
+    print(f"  dequantize_transposed: {n_cases} cases bit for bit on both routes (the planes"
+          " swapped differ in each)", flush=True)
+    for name, out, fmt in (("dequantize_transposed", "bfloat16", "bf16"),
+                           ("dequantize_transposed (compressed)", "bfloat16", "compressed"),
+                           ("dequantize_transposed (f32 out)", "float32", "bf16")):
+        rs = [r for r in rows if r["out"] == out and r["scales"] == fmt]
+        report[name] = dict(
+            shapes=rs, ms=sum(r["ms"] for r in rs), old_ms=sum(r["old_ms"] for r in rs),
+            plain_ms=sum(r["plain_ms"] for r in rs), library_ms=None,
+            bound_ms=sum(r["bound_ms"] for r in rs), bound_by="bytes", max_abs_err=0.0,
+            layer=layer, cases=n_cases)
+    report["dequantize_transposed (compressed, f32 out)"] = dict(
+        shapes=[r for r in rows if r["out"] == "float32" and r["scales"] == "compressed"])
 
 
 def check_repeatable(torch, report, n=100):
@@ -630,7 +767,11 @@ def check_repeatable(torch, report, n=100):
     decode_plan and gemv_plan pick there and other split counts; F's tiled
     body at 4096 x 4096 and I's body (whose last CTA adds the splits) at
     every plan int8_plan picks at the 7B shapes for 4 and 128 rows, at
-    three splits, and at 4096 x 4096 in each of its ten wgmma widths. Their
+    three splits, and at 4096 x 4096 in each of its ten wgmma widths; E's
+    TMA body at 4096 x 4096 (raw scales, bf16 out; compressed, f32 out)
+    and at 32000 x 4096 (compressed, bf16 out: the lean prefill's
+    instance, many tiles a CTA, so the ring wraps) and its unaligned route
+    at 4100 x 4096. Their
     sums run in a fixed order, so every output must equal the first bit
     for bit; a difference is a race between warps or warpgroups."""
     from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit as m4
@@ -737,6 +878,27 @@ def check_repeatable(torch, report, n=100):
                 rows.append(dict(kernel="w4a8_gemv", N=N2, K=K2, M=M, plan=tuple(plan), launches=n))
                 n_a += 1
         del w2
+    # kernel E on each route: the TMA body at 4096 x 4096 (raw and
+    # compressed scales) and 32000 x 4096 (compressed, bf16 out), and the
+    # unaligned route at 4100 x 4096
+    W4 = torch.randn((32000, K), generator=gen, device="cuda") / K ** 0.5
+    e_cases = [("tma", w, torch.bfloat16), ("tma", quantize_4bit_native(
+        W4[:N].contiguous(), 64, "nf4", compress_statistics=True), torch.float32),
+        ("tma", quantize_4bit_native(W4, 64, "nf4", compress_statistics=True), torch.bfloat16),
+        ("unaligned", quantize_4bit_native(W4[:4100].contiguous(), 64, "nf4",
+                                           absmax_dtype=torch.bfloat16), torch.bfloat16)]
+    del W4
+    for route, we, od in e_cases:
+        plan = m4.dequant4_plan(we.shape[0], K, 64, sms, we.compressed)
+        need(plan.body == route, f"dequant4_plan gave N={we.shape[0]} the {plan.body} route")
+        first = m4._dequant4_launch(we, od, plan)
+        differ = sum(int(not torch.equal(m4._dequant4_launch(we, od, plan), first))
+                     for _ in range(n - 1))
+        need(differ == 0, f"dequantize_transposed {route} N={we.shape[0]} plan {tuple(plan)}:"
+                          f" {differ} of {n - 1} repeated launches differ from the first")
+        rows.append(dict(kernel="dequantize_transposed", N=we.shape[0], K=K, plan=tuple(plan),
+                         compressed=we.compressed, launches=n))
+    del e_cases, first
     # kernel F's tiled body at 4096 x 4096, and kernel I (whose last CTA
     # adds the splits' sums) at every plan int8_plan picks at the 7B shapes
     # for 4 and 128 rows, one other split count, and 4096 x 4096 at the
@@ -775,7 +937,8 @@ def check_repeatable(torch, report, n=100):
                 n_i += 1
         del CB, SCB
     print(f"  {len(cases)} plans of B's tensor-core and G's wgmma bodies, C's tensor-core, D's and"
-          f" H's split bodies ({len(h_plans)} plans of H), {n_a} plans of A's fused body, F's tiled"
+          f" H's split bodies ({len(h_plans)} plans of H), {n_a} plans of A's fused body, E's TMA"
+          f" body (raw and compressed scales) and unaligned route, F's tiled"
           f" body and {n_i} plans of I at 7B shapes, {n} launches each on one input: every output"
           f" equal to the first bit for bit", flush=True)
     report["repeatable"] = rows
@@ -826,7 +989,7 @@ def check_routes(torch, report):
                 unit = "bf16 ulps"
             else:
                 got = m4.matmul_4bit_fused(x, w, bias, torch.bfloat16)
-                want = {"dequantize_transposed": 1}
+                want = {"dequantize_transposed": 1, "dequantize_transposed.tma": 1}
                 hi, lo = m4._decode_planes(w, m4._MODE_BF16_TABLE, torch.bfloat16)
                 ref = x.float() @ torch.cat([hi, lo]).float() + bias
                 bad = x.float() @ torch.cat([lo, hi]).float() + bias
@@ -1097,20 +1260,19 @@ def check_paged(torch, report):
 
 # --------------------------------------------------------------- slice 10: compressed scales, kv4 pages
 def check_compressed(torch, report):
-    """Kernels B and E on compressed statistics (compress_stats: uint8
-    dynamic-map codes of the block scales with a range and mean per plane
-    and column) at the 7B shapes, NF4 bs 64. B in both bodies, the
+    """Kernel B on compressed statistics (compress_stats: uint8 dynamic-map
+    codes of the block scales with a range and mean per plane and column)
+    at the 7B shapes, NF4 bs 64 (E's: check_dequant4). B in both bodies, the
     tensor-core one (bf16 x) and the SIMT one (f32 x), at 4, 256 and 2048
     rows (the SIMT body at 2048 rows at 4096 x 4096 only: it decodes the
     weight again for every 4-row tile), within 1% of the largest output;
     the plain version fed the lo plane's codes on the hi plane, or the
-    scales decoded without their column mean, must land outside it. E with
-    bf16 and f32 output, bit for bit; the W8A8 route's col_grid (which
-    decodes the codes) and F on its grid, bit for bit. Every tensor-core
-    plan and E repeat their bits over 100 launches. Timed: B at 4 and 256
-    rows beside the same weight with raw bf16 scales, its plain version
-    and bf16 torch.matmul; E (bf16 out) beside its plain version; a
-    small-shape sweep of the decode modes, tiles and blocksizes follows."""
+    scales decoded without their column mean, must land outside it. The
+    W8A8 route's col_grid (which decodes the codes) and F on its grid, bit
+    for bit. Every tensor-core plan repeats its bits over 100 launches.
+    Timed: B at 4 and 256 rows beside the same weight with raw bf16 scales,
+    its plain version and bf16 torch.matmul; a small-shape sweep of the
+    decode modes, tiles and blocksizes follows."""
     import dataclasses as dc
 
     from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit as m4
@@ -1119,7 +1281,7 @@ def check_compressed(torch, report):
 
     gen = torch.Generator(device="cuda").manual_seed(21)
     shapes = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
-    rows_b, rows_e = [], []
+    rows_b = []
     n_rep = 0
     for N, K in shapes:
         W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
@@ -1139,35 +1301,6 @@ def check_compressed(torch, report):
         del colmax, f, colmax_p, f_p
         w_lo = dc.replace(w, absmax=w.absmax[1:].expand(2, -1, -1).contiguous())
         w_nomean = dc.replace(w, absmax_offset=torch.zeros_like(w.absmax_offset))
-        # E, bit for bit
-        for od in (torch.bfloat16, torch.float32):
-            e0 = m4.dequantize_transposed.launches_compressed
-            got, ref = m4.dequantize_transposed(w, od), m4._dequant4_plain(w, od)
-            torch.cuda.synchronize()
-            need(m4.dequantize_transposed.launches_compressed == e0 + 1,
-                 f"dequantize_transposed N={N} K={K}: the compressed launch was not counted")
-            need(torch.equal(got, ref), f"dequantize_transposed compressed N={N} K={K} {od}: "
-                                        f"{int((got != ref).sum())} elements differ from the plain version")
-            row = dict(N=N, K=K, out=str(od).replace("torch.", ""), max_abs_err=0.0)
-            if od == torch.bfloat16:
-                first = got
-                differ = sum(int(not torch.equal(m4.dequantize_transposed(w, od), first))
-                             for _ in range(99))
-                need(differ == 0, f"dequantize_transposed compressed N={N} K={K}: {differ} of 99"
-                                  " repeated launches differ from the first")
-                n_rep += 1
-                nbytes = N * K // 2 + N * K // 64 + 16 * N + N * K * 2
-                row.update(ms=time_cold(torch, lambda: m4.dequantize_transposed(w, od)),
-                           raw_ms=time_cold(torch, lambda: m4.dequantize_transposed(w_raw, od)),
-                           plain_ms=time_cold(torch, lambda: m4._dequant4_plain(w, od), iters=5),
-                           bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
-            rows_e.append(row)
-            print(f"  dequantize_transposed compressed N={N:5d} K={K:5d} {row['out']}: bit for bit"
-                  + (f"; kernel {row['ms']*1e3:.1f} us (raw bf16 scales {row['raw_ms']*1e3:.1f} us)"
-                     f" plain {row['plain_ms']*1e3:.1f} us bound {row['bound_ms']*1e3:.2f} us"
-                     f" ({row['bound_ms'] / row['ms']:.0%}); 100 launches equal" if "ms" in row else ""),
-                  flush=True)
-            del got, ref
         # B, both bodies
         for M in (4, 256, 2048):
             for body, dt in (("tc", torch.bfloat16), ("simt", torch.float32)):
@@ -1228,15 +1361,12 @@ def check_compressed(torch, report):
     print(f"  compressed scales: {n_edge} small-shape cases (decode modes 0-2 in both bodies, every"
           f" tile, blocksizes 32-256, int4, E's ragged strips) within tolerance; {n_rep} plans and"
           f" shapes repeated 100 times", flush=True)
-    for name, rs, m in (("mm4_fused (compressed)", rows_b, 4),
-                        ("dequantize_transposed (compressed)", rows_e, None)):
-        timed = [r for r in rs if "ms" in r and (m is None or (r["M"] == m and r["body"] == "tc"))]
-        report[name] = dict(
-            shapes=rs, ms=sum(r["ms"] for r in timed), plain_ms=sum(r["plain_ms"] for r in timed),
-            raw_ms=sum(r["raw_ms"] for r in timed),
-            library_ms=sum(r["library_ms"] for r in timed) if m else None,
-            bound_ms=sum(r["bound_ms"] for r in timed), bound_by=timed[0]["bound_by"],
-            max_abs_err=max(r["max_abs_err"] for r in rs))
+    timed = [r for r in rows_b if "ms" in r and r["M"] == 4 and r["body"] == "tc"]
+    report["mm4_fused (compressed)"] = dict(
+        shapes=rows_b, ms=sum(r["ms"] for r in timed), plain_ms=sum(r["plain_ms"] for r in timed),
+        raw_ms=sum(r["raw_ms"] for r in timed), library_ms=sum(r["library_ms"] for r in timed),
+        bound_ms=sum(r["bound_ms"] for r in timed), bound_by=timed[0]["bound_by"],
+        max_abs_err=max(r["max_abs_err"] for r in rows_b))
 
 
 def compressed_edges(torch, gen):
@@ -2256,8 +2386,9 @@ def need_new_bodies(counts, label, decode=True, per_step=None):
     """Every prefill launch of kernel C in ``counts`` went through its
     tensor-core body (the model's q is bf16), with ``decode`` every launch
     of kernel D through its split body, every launch of kernel H
-    (decode only) through its split body, and every launch of kernel F
-    through its tiled body, and no layer attention took the
+    (decode only) through its split body, every launch of kernel F
+    through its tiled body and of kernel E through its TMA body, and no
+    layer attention took the
     dequantize-then-attend route. With ``per_step`` (launches per
     profiled decode step), every decode step's launches of A went through
     its fused body and those of H through its split body."""
@@ -2277,6 +2408,8 @@ def need_new_bodies(counts, label, decode=True, per_step=None):
     need(counts["dequant_int8.tiled"] == counts["dequant_int8"],
          f"{label}: {counts['dequant_int8'] - counts['dequant_int8.tiled']} of"
          f" {counts['dequant_int8']} W8A8 decodes missed F's tiled body")
+    e_all, e_tma = counts.get("dequantize_transposed", 0), counts.get("dequantize_transposed.tma", 0)
+    need(e_tma == e_all, f"{label}: {e_all - e_tma} of {e_all} dense decodes missed E's TMA body")
     if per_step is not None:
         for name, body in (("w4a8_gemv", "fused"), ("decode_attn_int8", "split")):
             need(per_step.get(f"{name}.{body}", 0) == per_step.get(name, 0),
@@ -2518,8 +2651,11 @@ def profile_prefill(torch, cfg, params, Kb, T):
         if name is not None:
             ms, n = f_route.get(name, (0.0, 0))
             f_route[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    e = [k for k in kernels if "dequant4_" in k.key]  # kernel E, either route
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy, attention=attention_time(kernels),
-                f_route=f_route, top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
+                f_route=f_route, e=(sum(k.self_device_time_total for k in e) / 1e3,
+                                    sum(k.count for k in e)),
+                top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
 
 
 F_ROUTE_KERNELS = {"dequant_tiled_kernel": "F tiled", "dequant_int8_kernel": "F stride",
@@ -2622,7 +2758,7 @@ def serve_long(torch, cfg, params, kernels, lean=False):
         print(f"{tag} {label}: profiled prefill forward {prof['wall_ms']:.1f} ms, device busy"
               f" {prof['device_busy_ms']:.1f} ms (idle {1 - prof['device_busy_ms'] / prof['wall_ms']:.0%});"
               f" attention (ms, launches) {prof['attention']}; W8A8 route (ms, launches)"
-              f" {prof['f_route']}")
+              f" {prof['f_route']}; E (ms, launches) {prof['e']}")
         for key, ms, cnt in prof["top"]:
             print(f"      {ms:8.3f} ms  {cnt:5d}x  {key[:90]}")
     del eng
@@ -2965,7 +3101,9 @@ def check_optim8(torch, report):
     two scalars rows) and 16.8M parameters, with and without stochastic
     rounding, p written as p + (new_p - p) (the optimizer's route) and as
     new_p (the JAX entry's). The encode's exponent-bit decade search
-    against the edge-by-edge encode on all 2^32 f32 patterns. Eight
+    against the edge-by-edge encode, and the LUT codec's bucketed rank
+    against the binary search over the midpoints (four tables), on all
+    2^32 f32 patterns. Eight
     deliberate faults in the plain version must each change the result.
     100 launches repeat their bits. Times of J (adam) and K (lion) at the
     three leaf sizes and over the whole table against the byte bound."""
@@ -2977,6 +3115,14 @@ def check_optim8(torch, report):
                         " f32 patterns (signed, unsigned)")
     print("  encode: exponent-bit decade search equals the edge-by-edge encode on all 2^32 f32"
           " patterns of both maps", flush=True)
+    q = dict(lut_tables())
+    for pair in (("quantile", "linear unsigned"), ("7-bit padded", "permuted")):
+        bad = O.lut_rank_sweep("cuda", q[pair[0]], q[pair[1]])
+        need(bad == (0, 0), f"the LUT codec's bucketed rank differs from the binary search on"
+                            f" {bad} f32 patterns ({pair[0]}, {pair[1]})")
+    print("  LUT codec: the bucketed rank equals the binary search over the midpoints on all 2^32"
+          " f32 patterns of four tables (quantile, linear unsigned, 7-bit padded, permuted)",
+          flush=True)
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = {"optim8_2state": [], "optim8_1state": []}
     cases = 0
@@ -3516,11 +3662,12 @@ def qlora_step(torch, kernels, loss_fn, lora, tokens, opt, profile=False):
 
 
 # per Adam step of phase 7b: G forward, E in every backward but layer 0's q/k/v
-QLORA_LAUNCHES = {"w4a8_grouped": 225, "w4a8_grouped.wgmma": 225, "dequantize_transposed": 222}
+QLORA_LAUNCHES = {"w4a8_grouped": 225, "w4a8_grouped.wgmma": 225, "dequantize_transposed": 222,
+                  "dequantize_transposed.tma": 222}
 # phase 3d's base (compressed statistics): E's compressed branch forward
 # (2052 rows: each weight decoded once) and in the backward, and no G
 QLORA_LEAN_LAUNCHES = {"w4a8_grouped": 0, "dequantize_transposed": 447,
-                       "dequantize_transposed.compressed": 447}
+                       "dequantize_transposed.compressed": 447, "dequantize_transposed.tma": 447}
 
 
 def qlora_7b(torch, cfg, params, kernels, plan=(("adamw8bit", 4), ("lion8bit", 2)),
@@ -3567,7 +3714,9 @@ def qlora_7b(torch, cfg, params, kernels, plan=(("adamw8bit", 4), ("lion8bit", 2
                 need(parts is not None, f"7B QLoRA {phase}: the profile holds no marker kernel")
                 fb, ev = parts
                 busy = sum(us for _, us in fb + ev) / 1e3
+                e_us = [us for name, us in fb if "dequant4_" in name]  # kernel E, the backward's
                 row.update(profiled=True, device_busy_ms=busy if busy > 0 else None,
+                           e_device_ms=sum(e_us) / 1e3, e_events=len(e_us),
                            optimizer_device_ms=sum(us for _, us in ev) / 1e3,
                            optimizer_kernels=len(ev),
                            optim8_device_ms=sum(us for name, us in ev if "optim8" in name) / 1e3,
@@ -3614,6 +3763,7 @@ def qlora_7b(torch, cfg, params, kernels, plan=(("adamw8bit", 4), ("lion8bit", 2
                device_idle_share=None if not busy else max(0.0, 1 - busy / median),
                optimizer_bound_ms=opt_bound_ms, optim8_device_ms=prof_row["optim8_device_ms"],
                optimizer_ms=opt_ms, optimizer_kernels=prof_row["optimizer_kernels"],
+               e_device_ms=prof_row["e_device_ms"], e_events=prof_row["e_events"],
                lion_optim8_device_ms=lion[-1]["optim8_device_ms"] if lion else None,
                lion_optimizer_kernels=lion[-1]["optimizer_kernels"] if lion else None,
                losses=[r["loss"] for r in steps])
@@ -3623,6 +3773,7 @@ def qlora_7b(torch, cfg, params, kernels, plan=(("adamw8bit", 4), ("lion8bit", 2
           + (f" (idle {out['device_idle_share']:.0%} of the median)" if busy else "")
           + f"; optimizer wall per step adam {[round(v, 1) for v in opt_ms['adamw8bit']]} ms"
           + (f", lion {[round(v, 1) for v in opt_ms['lion8bit']]} ms" if lion else "")
+          + f"; kernel E {prof_row['e_device_ms']:.3f} ms over {prof_row['e_events']} launches"
           + f"; kernel J {prof_row['optim8_device_ms']:.3f}"
           f" ms of device time in the profiled optimizer step ({prof_row['optimizer_kernels']} device"
           f" events) against the update's {opt_bound_ms:.3f} ms bound"
@@ -4065,7 +4216,8 @@ def library_launches(n_4bit, n_int8, n_train=7):
     return {"nf4, 4 rows": {"mm4_fused": n_4bit, "mm4_fused.tc": n_4bit,
                             "dequantize_transposed": 0},
             "nf4, 2048 rows forward and backward": {"mm4_fused": 0,
-                                                    "dequantize_transposed": 2 * n_4bit},
+                                                    "dequantize_transposed": 2 * n_4bit,
+                                                    "dequantize_transposed.tma": 2 * n_4bit},
             "int8, 4 rows": {"int8_matmul": n_int8},
             "int8 trainable, 128 rows forward and backward": {"int8_matmul": n_train}}
 
@@ -6560,8 +6712,9 @@ def main() -> int:
     report = {}
     phases = {}
     try:
-        # 1. build
+        # 1. build (E's old bodies, timed beside its TMA body in phase 2, alongside)
         t0 = time.perf_counter()
+        e_old = start_variant_build({"old": E_OLD_BODIES})
         secs = _build.build_all(verbose=True)
         phases["build_s"] = time.perf_counter() - t0
         card = gpu_line()
@@ -6579,6 +6732,9 @@ def main() -> int:
         roofline = roofline_11(torch, report)
         phases["checkpoints_11f_s"] = time.perf_counter() - t1
         check_prefill_linears(torch, report)
+        t1 = time.perf_counter()
+        check_dequant4(torch, report, e_old()["old"])
+        phases["dequant4_s"] = time.perf_counter() - t1
         check_repeatable(torch, report)
         check_routes(torch, report)
         check_prefill(torch, report)
@@ -6696,9 +6852,10 @@ def main() -> int:
         outs_xl, wall_xl, _ = serve(torch, cfg_x, params_x, long4, 2)
         counts_xl = read_counts(KERNELS)
         n_linears = 7 * cfg_x.num_layers + 1
-        need(counts_xl["dequantize_transposed"] == n_linears,
+        need(counts_xl["dequantize_transposed"] == counts_xl["dequantize_transposed.tma"] == n_linears,
              f"exact path, 2048 rows: dequantize_transposed launched "
-             f"{counts_xl['dequantize_transposed']} times, "
+             f"{counts_xl['dequantize_transposed']} times"
+             f" ({counts_xl['dequantize_transposed.tma']} on its TMA body), "
              f"not once per linear ({n_linears})")
         need(all(len(o) == 2 for o in outs_xl), "exact path, long prompts: wrong output lengths")
         phases["exact_path_s"] = time.perf_counter() - t0
@@ -6926,7 +7083,11 @@ def main() -> int:
               "paged_attn_int8": {"split": main_counts["paged_attn_int8.split"]},
               "w4a8_gemv": {"fused": main_counts["w4a8_gemv.fused"]},
               "decode_attn_int8": {"split": contig_stats["launches"]["decode_attn_int8.split"]},
-              "dequant_int8": {"tiled": long_counts["rows 4096"]["dequant_int8.tiled"]}}
+              "dequant_int8": {"tiled": long_counts["rows 4096"]["dequant_int8.tiled"]},
+              "dequantize_transposed": {
+                  "tma": long_counts["rows 256"]["dequantize_transposed.tma"],
+                  "unaligned": long_counts["rows 256"]["dequantize_transposed"]
+                  - long_counts["rows 256"]["dequantize_transposed.tma"]}}
     # the branches of slice 10, each with its phase 3d path (the kernel's
     # source file is the base name's)
     lean_per = lean_stats["profile"]["launches_per_step"]
@@ -6938,10 +7099,18 @@ def main() -> int:
         "dequantize_transposed (compressed)": ("bitsandbytes_sycl_tpu/ops/matmul_4bit.py:120",
                                                "7B lean prefill, 2048 rows (phase 3d)",
                                                lean_2048["dequantize_transposed.compressed"]),
+        # f32 out: the exact-dequant backward of every QLoRA step
+        "dequantize_transposed (f32 out)": ("bitsandbytes_sycl_tpu/ops/matmul_4bit.py:120",
+                                            "7B QLoRA, 4 adamw8bit steps' backward (phase 7b)",
+                                            train_stats["launches"]["adamw8bit"][
+                                                "dequantize_transposed"]),
         "paged_attn_int8 (kv4)": ("bitsandbytes_sycl_tpu/ops/paged_attention.py:139",
                                   "7B lean decode (phase 3d)",
                                   lean_stats["launches"]["paged_attn_int8.kv4"]),
     })
+    bodies["dequantize_transposed (compressed)"] = {
+        "tma": lean_2048["dequantize_transposed.tma"],
+        "unaligned": lean_2048["dequantize_transposed"] - lean_2048["dequantize_transposed.tma"]}
     per_step.update({"mm4_fused (compressed)": lean_per.get("mm4_fused.compressed", 0),
                      "paged_attn_int8 (kv4)": lean_per.get("paged_attn_int8.kv4", 0)})
     # J's and K's LUT codec and two-pass body,
@@ -7198,17 +7367,20 @@ OPTIM_PROBE_PARTS = {  # J's and K's bodies: copies, math, encode, skeleton
     "math alone (no copies)": ("BNB_PROBE_NO_COPY",),
     "encode alone (no copies, no update)": ("BNB_PROBE_NO_COPY", "BNB_PROBE_NO_UPDATE"),
     "launch skeleton (no copies, no math)": ("BNB_PROBE_NO_COPY", "BNB_PROBE_NO_MATH"),
+    "two-pass: the first pass alone (J)": ("BNB_PROBE_PASS1_ONLY",),
 }
 
 
 def probe_optim(torch, out):
     """Where the time of J's and K's leaf-table bodies goes: adam (J) and
-    lion (K) at 16.8M parameters and over the 448-leaf QLoRA table, each
-    launch timed as built (cold L2 by write, and clean) and built with
-    parts switched off (OPTIM_PROBE_PARTS; those builds compute wrong
-    results), then the real body at 1-8 persistent CTAs per SM. Launches
-    go through ops/optim8._launch with the table checked once, so the
-    times hold the leaf table's copy but not the host's checks."""
+    lion (K) at 16.8M parameters and over the 448-leaf QLoRA table, and J's
+    LUT codec (the quantile maps of phase 7d) and two-pass body (one block
+    a leaf, a launch pair per leaf size) at the same sizes, each launch
+    timed as built (cold L2 by write, and clean) and built with parts
+    switched off (OPTIM_PROBE_PARTS; those builds compute wrong results),
+    then the dynamic body at 1-8 persistent CTAs per SM. Launches go
+    through ops/optim8._launch with the table checked once, so the times
+    hold the leaf table's copy but not the host's checks."""
     from bitsandbytes_sycl_tpu_torch.ops import _build
     from bitsandbytes_sycl_tpu_torch.ops import optim8 as O
     from bitsandbytes_sycl_tpu_torch.ops.common import sm_count
@@ -7222,17 +7394,27 @@ def probe_optim(torch, out):
     floor = time_cold(torch, lambda: one.add_(1), iters=20) * 1e3
     out["optim_parts"].append(dict(kernel="one-element add_", part="floor", us=floor))
     print(f"time_cold of a one-element add_ (the timing floor): {floor:.1f} us", flush=True)
-    for name, stem in (("adam", "optim8_2state"), ("lion", "optim8_1state")):
+    maps = state_maps()
+    lut = tuple(O.lut_parts(m) for m in maps)
+    for name, stem, branch in (("adam", "optim8_2state", "dynamic"), ("lion", "optim8_1state", "dynamic"),
+                               ("adam", "optim8_2state", "lut"), ("adam", "optim8_2state", "two-pass")):
         for label, sizes in (("16.8M", (16777216,)), ("QLoRA table", QLORA_LEAVES)):
-            leaves, scalars, rws, _ = optim8_table(torch, gen, name, sizes, 3, False,
-                                                   len(sizes) > 1, 1)
-            rws, _, table, _ = O._check_leaves(name, leaves, scalars, rws, 2048)
-            plan = O.leaf_plan(tuple(lf.p.numel() for lf in leaves), 2048, sms)
-            nbytes = optim8_bytes(name == "adam", sizes)
+            groups = [(sizes, 2048)] if branch != "two-pass" else \
+                [((n,) * sizes.count(n), n) for n in sorted(set(sizes))]
+            launches = []
+            for sz, bs in groups:
+                leaves, scalars, rws, _ = optim8_table(torch, gen, name, sz, 3, False, len(sz) > 1, 1,
+                                                       bs=bs)
+                rws, _, table, _ = O._check_leaves(name, leaves, scalars, rws, bs)
+                plan = O.leaf_plan(tuple(lf.p.numel() for lf in leaves), bs, sms)
+                launches.append([leaves, scalars, rws, table, plan, bs])
+            nbytes = sum(optim8_bytes(name == "adam", sz, bs) for sz, bs in groups)
+            qm = lut if branch == "lut" else None
 
-            def run(plan=plan):
-                O._launch(stem, name, table, scalars, rws, plan, 2048, True, False,
-                          torch.device("cuda"))
+            def run(launches=launches, qm=qm, plan=None):
+                for _, scalars, rws, table, p, bs in launches:
+                    O._launch(stem, name, table, scalars, rws, plan or p, bs, True, False,
+                              torch.device("cuda"), qm)
 
             for part in ["real", "real, clean L2"] + list(OPTIM_PROBE_PARTS):
                 old = _build.use_library(stem, built[(stem, part)]) if part in OPTIM_PROBE_PARTS \
@@ -7241,18 +7423,99 @@ def probe_optim(torch, out):
                                spin_cycles=4_000_000) * 1e3
                 if old is not None:
                     _build.use_library(stem, old)
-                out["optim_parts"].append(dict(kernel=stem, shape=label, part=part, us=us,
-                                               bound_us=nbytes / HBM_BYTES_PER_S * 1e6))
-                print(f"{stem} {name} {label}: {part:38s} {us:8.1f} us"
+                out["optim_parts"].append(dict(kernel=stem, branch=branch, shape=label, part=part,
+                                               us=us, bound_us=nbytes / HBM_BYTES_PER_S * 1e6))
+                print(f"{stem} {name} {branch} {label}: {part:38s} {us:8.1f} us"
                       f" ({nbytes / us / 1e6:.2f} TB/s of the update's bytes)", flush=True)
-            for cps in (1, 2, 3, 4, 6, 8):
-                p2 = plan._replace(grid=min(plan.total, sms * cps))
-                us = time_cold(torch, lambda: run(p2), iters=20, spin_cycles=4_000_000) * 1e3
-                out["optim_grids"].append(dict(kernel=stem, shape=label, ctas_per_sm=cps,
-                                               picked=p2 == plan, us=us))
-                print(f"{stem} {name} {label}: {cps} CTAs per SM"
-                      f"{' (picked)' if p2 == plan else ''}: {us:.1f} us", flush=True)
-            del leaves
+            if branch == "dynamic":
+                plan = launches[0][4]
+                for cps in (1, 2, 3, 4, 6, 8):
+                    p2 = plan._replace(grid=min(plan.total, sms * cps))
+                    us = time_cold(torch, lambda: run(plan=p2), iters=20,
+                                   spin_cycles=4_000_000) * 1e3
+                    out["optim_grids"].append(dict(kernel=stem, shape=label, ctas_per_sm=cps,
+                                                   picked=p2 == plan, us=us))
+                    print(f"{stem} {name} {label}: {cps} CTAs per SM"
+                          f"{' (picked)' if p2 == plan else ''}: {us:.1f} us", flush=True)
+            del launches
+
+
+DEQUANT_PROBE_PARTS = {  # E's TMA body: copies, conversion or stores alone; the old bodies
+    "copies alone (no conversion, no stores)": ("BNB_PROBE_NO_DECODE", "BNB_PROBE_NO_STORE"),
+    "conversion alone (no copies, no stores)": ("BNB_PROBE_NO_COPY", "BNB_PROBE_NO_STORE"),
+    "stores alone (no copies, no conversion)": ("BNB_PROBE_NO_COPY", "BNB_PROBE_NO_DECODE"),
+    "launch skeleton (all off)": ("BNB_PROBE_NO_COPY", "BNB_PROBE_NO_DECODE", "BNB_PROBE_NO_STORE"),
+    "old bodies": ("BNB_E_OLD_BODIES",),
+}
+
+
+def probe_dequant(torch, out):
+    """Where the time of E's TMA body goes, at the four 7B shapes (nf4, bs
+    64; raw bf16 and compressed scales; bf16 and f32 out): each timed as
+    built (cold L2 by write, and clean), built with parts switched off
+    (DEQUANT_PROBE_PARTS: copies alone, conversion alone, stores alone;
+    those builds compute wrong results) and as the bodies it replaced; then,
+    bf16 out, the plans around dequant4_plan's pick (tile rows and
+    columns, ring stages, CTAs per SM)."""
+    from bitsandbytes_sycl_tpu_torch.ops import _build
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit as m4
+    from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native, sm_count
+
+    stem = "dequantize_transposed"
+    built = _build.build_variants({part: (stem, macros)
+                                   for part, macros in DEQUANT_PROBE_PARTS.items()})
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    sms = sm_count(torch.device("cuda"))
+    one = torch.zeros(1, device="cuda")
+    floor = time_cold(torch, lambda: one.add_(1), iters=20) * 1e3
+    out["dequant_parts"].append(dict(kernel="one-element add_", part="floor", us=floor))
+    print(f"time_cold of a one-element add_ (the timing floor): {floor:.1f} us", flush=True)
+    for N, K in SHAPES_7B:
+        W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+        for fmt in ("bf16", "compressed"):
+            plan = m4.dequant4_plan(N, K, 64, sms, fmt == "compressed")
+            w = quantize_4bit_native(W, 64, "nf4", absmax_dtype=torch.bfloat16,
+                                     compress_statistics=fmt == "compressed")
+            for od in (torch.bfloat16, torch.float32):
+                bound = e_bytes(N, K, 64, 2 if od == torch.bfloat16 else 4,
+                                fmt == "compressed") / HBM_BYTES_PER_S * 1e6
+                label = f"N={N} K={K} {str(od)[6:]} out, {fmt} scales"
+                for part in ["real", "real, clean L2"] + list(DEQUANT_PROBE_PARTS):
+                    old = _build.use_library(stem, built[part]) if part in DEQUANT_PROBE_PARTS \
+                        else None
+                    us = time_cold(torch, lambda: m4._dequant4_launch(w, od, plan), iters=20,
+                                   flush_by_read=part == "real, clean L2") * 1e3
+                    if old is not None:
+                        _build.use_library(stem, old)
+                    out["dequant_parts"].append(dict(kernel=stem, shape=label, part=part, us=us,
+                                                     bound_us=bound))
+                    print(f"{stem} {label}: {part:42s} {us:7.1f} us (bound {bound:.2f})",
+                          flush=True)
+                if od != torch.bfloat16:
+                    continue
+                comp = fmt == "compressed"
+                for rows in (32, 64):
+                    for cols in (128, 256):
+                        for slots in (2, 3, 4, 6):
+                            tiles = -(-N // cols) * (K // 2 // rows)
+                            smem = m4.deq4_smem(rows, cols, slots, 64, comp)
+                            if smem > 225 * 1024:
+                                continue
+                            for per_sm in (1, 2, 3, 4):
+                                if per_sm * (smem + 1024) > 233472:
+                                    continue
+                                waves = -(-tiles // (per_sm * sms))
+                                p2 = m4.Dequant4Plan("tma", rows, cols, slots, -(-tiles // waves))
+                                us = time_cold(torch, lambda: m4._dequant4_launch(w, od, p2),
+                                               iters=20) * 1e3
+                                out["dequant_plans"].append(dict(
+                                    N=N, K=K, scales=fmt, plan=tuple(p2), ctas_per_sm=per_sm,
+                                    picked=p2 == plan, us=us, bound_us=bound))
+                                print(f"{stem} N={N:5d} K={K:5d} {fmt} scales {tuple(p2)} ({per_sm} a"
+                                      f" SM){' (picked)' if p2 == plan else ''}: {us:.1f} us",
+                                      flush=True)
+            del w
+        del W
 
 
 INT8_PROBE_PARTS = {  # F's tiled and I's wgmma bodies: copies, decode or products, skeleton
@@ -7431,6 +7694,68 @@ def time_i_main(root=None) -> int:
     return 0
 
 
+def time_optim_main(root=None) -> int:
+    """Kernels J and K through ``ops.optim8`` of the package under ``root``
+    (default: beside this script), cold L2: the dynamic one-pass body, the
+    LUT codec (phase 7d's quantile maps) and the two-pass body (one block a
+    leaf), each at 16.8M parameters and over the 448-leaf QLoRA table. To
+    compare two commits on one card, unpack the other one (``git archive``)
+    into a directory that .gitignore lists and run, in one call,
+    ``--time-optim DIR``, ``--time-optim``, ``--time-optim``,
+    ``--time-optim DIR``. Lines go to stdout and are appended to
+    chiprun_out/time_optim.jsonl."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --time-optim: no CUDA device", file=sys.stderr)
+        return 2
+    pkg_root = os.path.abspath(root or ROOT)
+    sys.path.insert(0, pkg_root)
+    from bitsandbytes_sycl_tpu_torch.ops import _build
+    from bitsandbytes_sycl_tpu_torch.ops import optim8 as O
+
+    need(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(O.__file__)))) == pkg_root,
+         f"--time-optim: imported {O.__file__}, not the package under {pkg_root}")
+    _build.build_all()
+    card = gpu_line()
+    label = os.path.relpath(pkg_root, ROOT)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lut = tuple(O.lut_parts(m) for m in state_maps())
+    rows = []
+    for name, stem in (("adam", "optim8_2state"), ("lion", "optim8_1state")):
+        for branch in ("dynamic", "lut", "two-pass"):
+            for shape, sizes in (("16.8M", (16777216,)), ("QLoRA table", QLORA_LEAVES)):
+                groups = [(sizes, 2048)] if branch != "two-pass" else \
+                    [((n,) * sizes.count(n), n) for n in sorted(set(sizes))]
+                launches = []
+                for sz, bs in groups:
+                    leaves, scalars, rws, _ = optim8_table(torch, gen, name, sz, 3, False,
+                                                           len(sz) > 1, 1, bs=bs)
+                    rws, _, table, _ = O._check_leaves(name, leaves, scalars, rws, bs)
+                    plan = O.leaf_plan(tuple(lf.p.numel() for lf in leaves), bs, sms)
+                    launches.append((leaves, scalars, rws, table, plan, bs))
+                qm = (lut if name == "adam" else (lut[0], None)) if branch == "lut" else None
+
+                def run(launches=launches, qm=qm, name=name, stem=stem):
+                    for _, scalars, rws, table, p, bs in launches:
+                        O._launch(stem, name, table, scalars, rws, p, bs, True, False,
+                                  torch.device("cuda"), qm)
+
+                us = time_cold(torch, run, iters=20, spin_cycles=4_000_000) * 1e3
+                bound = sum(optim8_bytes(name == "adam", sz, bs) for sz, bs in groups) \
+                    / HBM_BYTES_PER_S * 1e6
+                rows.append(dict(kernel=stem, branch=branch, shape=shape, us=us, bound_us=bound))
+                print(f"{stem} ({label}) {branch:8s} {shape:11s}: {us:.1f} us (bound {bound:.2f})",
+                      flush=True)
+                del launches
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "time_optim.jsonl"), "a") as f:
+        f.write(json.dumps(dict(package=label, card=card, rows=rows)) + "\n")
+    print(card)
+    return 0
+
+
 def probe_candidates(kernel, M, N, K, bs=64):
     """The launch plans near the ones mm4_plan / grouped_plan can pick:
     every tile (B) and 1-6 K splits on whole quantization blocks."""
@@ -7490,9 +7815,10 @@ def probe_main(only=None) -> int:
     bounds the kernel; those builds compute wrong results. (0) First, the
     same for C's tensor-core and D's split bodies (probe_attention), for
     A's fused and H's split bodies (probe_decode), for J's and K's
-    leaf-table bodies (probe_optim) and for F's tiled and I's wgmma bodies
-    (probe_int8); with ``only`` ("attention", "decode", "optim" or "int8")
-    that one alone. Lines go to stdout and
+    leaf-table bodies and J's LUT and two-pass branches (probe_optim), for
+    F's tiled and I's wgmma bodies (probe_int8) and for E's TMA body
+    (probe_dequant); with ``only`` ("attention", "decode", "optim", "int8"
+    or "dequant") that one alone. Lines go to stdout and
     chiprun_out/probe.json."""
     import torch
 
@@ -7516,7 +7842,7 @@ def probe_main(only=None) -> int:
     sms = sm_count(torch.device("cuda"))
     out = dict(card=card, sms=sms, plans=[], parts=[], fit={}, picks=[], attention_parts=[],
                decode_parts=[], gemv_splits=[], decode_splits=[], optim_parts=[], optim_grids=[],
-               int8_parts=[], int8_plans=[])
+               int8_parts=[], int8_plans=[], dequant_parts=[], dequant_plans=[])
     if only in (None, "attention"):
         probe_attention(torch, out)
     if only in (None, "decode"):
@@ -7525,6 +7851,8 @@ def probe_main(only=None) -> int:
         probe_optim(torch, out)
     if only in (None, "int8"):
         probe_int8(torch, out)
+    if only in (None, "dequant"):
+        probe_dequant(torch, out)
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = []
     for N, K in ([] if attention_only else [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]):
@@ -7657,8 +7985,10 @@ if __name__ == "__main__":
         sys.exit(time_decode_main(sys.argv[2] if len(sys.argv) > 2 else None))
     if sys.argv[1:2] == ["--time-i"]:
         sys.exit(time_i_main(sys.argv[2] if len(sys.argv) > 2 else None))
+    if sys.argv[1:2] == ["--time-optim"]:
+        sys.exit(time_optim_main(sys.argv[2] if len(sys.argv) > 2 else None))
     if sys.argv[1:2] == ["--probe"]:
         sys.exit(probe_main(only=sys.argv[2] if sys.argv[2:3] in (["attention"], ["decode"], ["optim"],
-                                                                ["int8"])
+                                                                ["int8"], ["dequant"])
                             else None))
     sys.exit(main())

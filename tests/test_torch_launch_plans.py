@@ -1,6 +1,7 @@
 """Launch plans of kernels B (``mm4_plan``), G (``grouped_plan``), C
 (``prefill_plan``), D (``paged_plan``), H (``decode_plan``), A
-(``gemv_plan``), F (``dequant8_plan``) and I (``int8_plan``): plain Python
+(``gemv_plan``), F (``dequant8_plan``), I (``int8_plan``) and E
+(``dequant4_plan``): plain Python
 that picks a body, a tile and a split from the call's dtype and shape. For
 B and G each case checks that the grid covers every output tile once, that
 the K splits partition the quantization blocks in order within a plane,
@@ -10,7 +11,9 @@ tiles; for A the body, its row tile and that the splits partition the
 64-row stages; for F that the persistent CTAs take every tile once and the
 tiles write every output byte once; for I the wgmma width, that the
 splits partition the 128-byte K steps, and the stage bytes and ring the
-kernel takes."""
+kernel takes; for E that the route is its predicate, that the tiles
+cover (K/2, N) once with whole scale rows, and that the persistent CTAs
+take every tile once, evenly."""
 
 import numpy as np
 import pytest
@@ -19,7 +22,8 @@ import torch
 from bitsandbytes_sycl_tpu_torch.ops.attention import (DECODE_TILE, decode_groups, decode_plan,
                                                        prefill_plan, split_cluster)
 from bitsandbytes_sycl_tpu_torch.ops.common import H100_SMS
-from bitsandbytes_sycl_tpu_torch.ops.matmul_4bit import mm4_plan
+from bitsandbytes_sycl_tpu_torch.ops.matmul_4bit import (Dequant4Plan, deq4_smem, dequant4_plan,
+                                                         mm4_plan)
 from bitsandbytes_sycl_tpu_torch.ops.matmul_int8 import (INT8_SMEM, INT8_WIDTHS, int8_plan,
                                                          int8_split_plan)
 from bitsandbytes_sycl_tpu_torch.ops.matmul_w4a8 import (DEQ8_COLS, DEQ8_ROWS, GEMV_FUSED_MAX_M,
@@ -397,3 +401,63 @@ def test_int8_split_plan(case):
     assert (plan.ksplit - 1) * plan.per < steps <= plan.ksplit * plan.per
     assert plan.width == int8_plan(M, N, K, H100_SMS).width
     _check_int8_stages(plan, N, K)
+
+
+# kernel E: (N, K, bs) over every combination of these that the wrapper's
+# guard takes (N % 4 == 0, K % (2 bs) == 0, bs % 4 == 0): the 7B widths,
+# Falcon-7B's 4544, 2560 and 768, narrow N and N % 16 != 0, blocksizes
+# down to 4 (up to 16 scale rows a tile); raw and compressed scales (whose
+# stages also hold each column's range and mean and the decoded scales).
+DEQ4_CASES = [(N, K, bs, compressed)
+              for N in (4096, 11008, 32000, 4544, 2560, 768, 400, 48, 4100, 4104, 772)
+              for K in (4096, 11008, 4544, 2560, 768)
+              for bs in (4, 8, 16, 32, 64, 128, 256)
+              for compressed in (False, True)
+              if K % (2 * bs) == 0]
+
+
+@pytest.mark.parametrize("case", DEQ4_CASES, ids=lambda c: "N{}-K{}-bs{}-{}".format(
+    *c[:3], "compressed" if c[3] else "raw"))
+def test_dequant4_plan(case):
+    N, K, bs, compressed = case
+    half = K // 2
+    plan = dequant4_plan(N, K, bs, H100_SMS, compressed)
+    # the route is its predicate: TMA takes rows of a whole number of 16 bytes
+    assert plan.body == ("tma" if N % 16 == 0 else "unaligned")
+    if plan.body == "unaligned":
+        assert plan == Dequant4Plan("unaligned", 0, 0, 0, 0)
+        return
+    rows, cols = plan.rows, plan.cols
+    # a tile: whole scale rows (a whole number of blocks, or part of one),
+    # rows that divide K/2 exactly, 128 or 256 columns, the last clipped at N
+    assert 4 <= rows <= 64 and half % rows == 0 and (rows % bs == 0 or bs % rows == 0)
+    assert cols in (128, 256) and 1 <= plan.slots <= 8
+    nsr = rows // bs if rows >= bs else 1
+    assert 1 <= nsr <= 16
+    ntn, ntj = -(-N // cols), half // rows
+    tiles = ntn * ntj
+    t = np.arange(tiles)
+    j0, n0 = t // ntn * rows, t % ntn * cols
+    assert len(set(zip(j0.tolist(), n0.tolist()))) == tiles
+    area = (np.minimum(n0 + cols, N) - n0) * rows
+    assert (area > 0).all() and int(area.sum()) == half * N
+    # the scale rows a tile's TMA boxes read lie in its plane: j0 / bs + nsr <= nbh
+    assert ((j0 // bs + nsr) <= half // bs).all()
+    # the persistent CTAs take every tile once, evenly
+    assert 1 <= plan.grid <= tiles
+    taken = np.zeros(tiles, np.int64)
+    for b in range(plan.grid):
+        taken[b::plan.grid] += 1
+    assert (taken == 1).all()
+    per_cta = [len(range(b, tiles, plan.grid)) for b in range(plan.grid)]
+    assert max(per_cta) - min(per_cta) <= 1
+    # shared memory within a CTA's budget, and no more CTAs than the SMs hold at once
+    smem = deq4_smem(rows, cols, plan.slots, bs, compressed)
+    assert smem <= 225 * 1024
+    # and the tile is the tallest that does
+    assert all(deq4_smem(r, cols, plan.slots, bs, compressed) > 225 * 1024
+               for r in range(rows + 4, 65, 4) if half % r == 0 and (r % bs == 0 or bs % r == 0))
+    per_sm = 1 if compressed else min(3, 233472 // (smem + 1024))
+    assert plan.grid <= per_sm * H100_SMS
+    if tiles >= per_sm * H100_SMS:  # enough work: every resident CTA takes one
+        assert plan.grid * 2 > per_sm * H100_SMS

@@ -197,6 +197,60 @@ def test_lut_codec_matches_jax_select_trees(table, sign_fix):
                 np.asarray(take_tree(jnp.asarray(codes.astype(np.int32)), q)).astype(np.float32))
 
 
+def _rank_jax(table, x):
+    """JAX's rank of x among a table's midpoints: the select tree over
+    _LutCodec's midpoints (sorted tables) or over those of the stably
+    argsorted table (functional._codec_xla's unsorted branch)."""
+    if np.all(np.diff(table) >= 0):
+        mids = JO._LutCodec(table).mids
+    else:
+        sc = table[np.argsort(table, kind="stable")]
+        mids = ((sc[1:] + sc[:-1]) / 2.0).astype(np.float32)
+    return np.broadcast_to(np.asarray(searchsorted_tree(jnp.asarray(x), mids, side="left")),
+                           x.shape)
+
+
+@pytest.mark.parametrize("table", list(_tables()))
+def test_bucketed_rank_matches_searchsorted_and_jax(table):
+    """The kernels' bucketed rank (``lut_bucket_rank``, the index of
+    ``lut_parts``) equals LutCodec.rank and JAX's select tree, bit for bit,
+    over each midpoint and its neighbours one ulp away, the table's values,
+    +-0.0, subnormals, +-inf, NaN of both signs and seeded random bit
+    patterns; the index's least ranks agree with the midpoints' buckets and
+    the largest occupancy bounds every bucket. XLA on the CPU compares
+    subnormal inputs as zeros (against the 0.0 midpoint between an unsorted
+    table's duplicate zeros that shifts the rank by one), so at a subnormal
+    x JAX's rank is held to the port's rank at x flushed to a signed zero;
+    the card keeps subnormals, as LutCodec.rank does."""
+    q = _tables()[table]
+    parts = TO.lut_parts(q)
+    mids = parts.mids
+    rng = np.random.default_rng(41)
+    x = np.concatenate([
+        mids, np.nextafter(mids, np.float32(np.inf)), np.nextafter(mids, np.float32(-np.inf)),
+        q, -q, np.float32([0.0, -0.0, np.inf, -np.inf, 1e-45, -1e-45, 1e-40, -1e-40, 1.17e-38,
+                           -1.17e-38, 3.4e38, -3.4e38]),
+        np.uint32([0x7FC00000, 0xFFC00000, 0x7F800001, 0xFF812345]).view(np.float32),
+        rng.integers(0, 2 ** 32, 20000, dtype=np.uint64).astype(np.uint32).view(np.float32),
+        rng.normal(size=4000).astype(np.float32),
+    ]).astype(np.float32)
+    got = TO.lut_bucket_rank(parts, torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, TO.LutCodec(parts).rank(torch.from_numpy(x)).numpy())
+    sub = (x != 0) & (np.abs(x) < np.finfo(np.float32).tiny)
+    flushed = np.where(sub, np.copysign(np.float32(0.0), x), x).astype(np.float32)
+    want = np.where(sub, TO.lut_bucket_rank(parts, torch.from_numpy(flushed)).numpy(), got)
+    np.testing.assert_array_equal(want, _rank_jax(q, x))
+    assert np.all(got[np.isnan(x)] == 0) and sub.sum() > 4
+    keys = TO._order_keys(mids) >> np.uint32(32 - TO.LUT_BUCKET_BITS)
+    counts = np.bincount(keys.astype(np.int64), minlength=1 << TO.LUT_BUCKET_BITS)
+    assert parts.bucket_max == (counts.max() if mids.size else 0)
+    np.testing.assert_array_equal(parts.bucket_lo, (np.cumsum(counts) - counts).astype(np.uint8))
+    words = TO.lut_words(parts)
+    assert words.size == TO.LUT_WORDS
+    assert words[580:].view(np.uint8).tobytes() == parts.bucket_lo.tobytes()
+    assert int(words[578:579].view(np.int32)[0]) == parts.bucket_max
+
+
 def test_lut_table_checks():
     q1, _ = _quantile_maps()
     for q in (q1, q1[:100], q1[::-1].copy(), np.zeros(256, np.float32), None,
