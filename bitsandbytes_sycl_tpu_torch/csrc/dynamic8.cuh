@@ -43,7 +43,8 @@
 // the second recomputes the update from the unchanged inputs, encodes with
 // the block's maximum and writes p, the codes and the absmax. The walk
 // goes either way through the leaf table (kernel J's second pass runs its
-// chunks backwards).
+// chunks backwards). Kernel K's resident body (optim8_1state.cu) walks it
+// by cluster instead, a block at a time.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -367,21 +368,22 @@ __device__ __forceinline__ void store_codes(uint8_t* x, const Span& s, const int
 // at once: warp shuffles, then one shared row per warp. Consecutive
 // reductions must use the two halves of `red` in turn, so a fast warp's
 // next write never meets a slow warp's read of this reduction's row.
-template <int kN>
+// kNWarps: the CTA's warps (kernel K's resident body runs 16).
+template <int kN, int kNWarps = kWarps>
 __device__ __forceinline__ void block_max_bits(int (&x)[kN], int* red, float (&m)[kN]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int s = 0; s < kN; ++s) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) x[s] = max(x[s], __shfl_xor_sync(0xffffffffu, x[s], o));
-    if (lane == 0) red[s * kWarps + warp] = x[s];
+    if (lane == 0) red[s * kNWarps + warp] = x[s];
   }
   __syncthreads();
 #pragma unroll
   for (int s = 0; s < kN; ++s) {
-    int y = red[s * kWarps];
+    int y = red[s * kNWarps];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) y = max(y, red[s * kWarps + w]);
+    for (int w = 1; w < kNWarps; ++w) y = max(y, red[s * kNWarps + w]);
     m[s] = __int_as_float(y);
   }
 }
@@ -423,14 +425,15 @@ __device__ __forceinline__ void requant8(const float (&v)[kPer], float m, const 
 
 // Copy the codec table (the dynamic maps' kTableWords, or the LUT codecs'
 // words) into shared memory (once per CTA), 16 bytes a load (both are
-// 16-byte aligned) and the tail word by word.
+// 16-byte aligned) and the tail word by word; kStride: the CTA's threads.
+template <int kStride = kThreads>
 __device__ __forceinline__ void stage_table(const float* __restrict__ table, float* tab,
                                             int words = kTableWords) {
   const int w4 = words / 4;
-  for (int k = threadIdx.x; k < w4; k += kThreads) {
+  for (int k = threadIdx.x; k < w4; k += kStride) {
     reinterpret_cast<float4*>(tab)[k] = __ldg(reinterpret_cast<const float4*>(table) + k);
   }
-  for (int k = 4 * w4 + threadIdx.x; k < words; k += kThreads) tab[k] = table[k];
+  for (int k = 4 * w4 + threadIdx.x; k < words; k += kStride) tab[k] = table[k];
   __syncthreads();
 }
 

@@ -5,8 +5,8 @@
 // the tiled body of kernel F (dequant_int8.cu): TMA tensor and bulk copies
 // and TMA tensor stores, mbarriers, shared-memory matrix descriptors and
 // the warpgroup products they use, and the cluster barrier and distributed
-// shared memory accesses of C's and H's widest head dims, written as
-// inline PTX for sm_90a.
+// shared memory accesses of C's and H's widest head dims (and of kernel K's
+// resident body, optim8_1state.cu), written as inline PTX for sm_90a.
 //
 // Operand layouts in shared memory, both K-major:
 // - activations arrive by TMA as rows of 64 bytes with the 64-byte swizzle
@@ -364,7 +364,8 @@ __device__ __forceinline__ void acc_fence(int (&d)[64]) {
 __device__ __forceinline__ int acc_row(int t, int i) { return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1); }
 __device__ __forceinline__ int acc_col(int t, int i) { return 8 * (i >> 2) + 2 * (t & 3) + (i & 1); }
 
-// ---- thread block clusters (C's cluster body, H's split body past D = 256)
+// ---- thread block clusters (C's cluster body, H's split body past D = 256,
+// kernel K's resident body)
 // this CTA's rank in its cluster
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
@@ -391,6 +392,10 @@ __device__ __forceinline__ void st_peer(uint32_t a, float4 v) {
   asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "f"(v.x), "f"(v.y),
                "f"(v.z), "f"(v.w)
                : "memory");
+}
+
+__device__ __forceinline__ void st_peer_u32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
 }
 
 __device__ __forceinline__ float ld_peer_f(uint32_t a) {

@@ -14,9 +14,14 @@ table: one launch takes every 8-bit leaf of an optimizer step
 no padding copy; the ragged last block of a leaf reads as the JAX
 package's kernel route pads it (g, p 0, state1 code 127, state2 code 0,
 under either codec). Blocks of up to ``ONE_PASS_MAX`` elements take the
-one-pass body (a CTA holds a block); a larger block spans several CTAs
-and takes two launches (the first folds each chunk's maximum into its
-block's slot, the second recomputes the update and encodes with it). The
+one-pass body (a CTA holds a block). A larger block of kernel K up to
+``resident_max`` elements, in a table of enough such blocks, takes the
+resident body: a cluster of up to 16 CTAs holds the block's new states
+in shared memory, agrees on its maximum and encodes them, in one launch.
+Any other larger block spans several CTAs and takes two launches (the
+first folds each chunk's maximum into its block's slot, the second
+recomputes the update and encodes with it). ``leaf_plan`` picks the
+route from the shape. The
 JAX entry on (nb, bs) rows (``optim8_blockwise_fused``) runs the same
 bodies over a one-leaf table of copies. The step's eight f32 scalars
 (``functional._optim8_scalars``) come as rows of an (R, 8) tensor, one
@@ -47,11 +52,13 @@ import torch
 from . import _build
 from .common import check_cuda_tensors, safe_inv
 from .common import sm_count as _sm_count
-from .dynamic8 import dynamic_decode, dynamic_encode, encode_consts, kernel_table, stochastic_adjust
+from .dynamic8 import (KERNEL_TABLE_PARTS, dynamic_decode, dynamic_encode, encode_consts,
+                       kernel_table, stochastic_adjust)
 
 __all__ = ["optim8_blockwise_fused", "optim8_update", "optim8_2state",
-           "optim8_1state", "Optim8Leaf", "LeafPlan", "leaf_plan", "ONE_STATE", "TWO_STATE",
-           "ONE_PASS_MAX", "LutCodec", "lut_table_ok", "lut_bucket_rank"]
+           "optim8_1state", "Optim8Leaf", "LeafPlan", "leaf_plan", "optim8_route",
+           "resident_cluster", "resident_max", "resident_slices", "ONE_STATE", "TWO_STATE",
+           "ONE_PASS_MAX", "RESIDENT_SMEM_MAX", "LutCodec", "lut_table_ok", "lut_bucket_rank"]
 
 TWO_STATE = ("adam", "lamb")
 ONE_STATE = ("momentum", "rmsprop", "adagrad", "lion")
@@ -68,6 +75,19 @@ LUT_BUCKET_BITS = 14
 # kLutWords): decode table, midpoints, rank -> code, n_neg, top, the
 # largest bucket occupancy, a spare word, then the bucket index
 LUT_WORDS = 580 + (1 << LUT_BUCKET_BITS) // 4
+# kernel K's resident body (csrc/optim8_1state.cu): the dynamic shared
+# memory a CTA may take (kResSmemMax), its threads, the largest cluster
+# (16 CTAs, past the portable 8), and the bytes beside the new states and
+# the codec table: two rows of the 16 warps' maxima and two rows of the
+# cluster's 16 CTA maxima (kResSlotBytes)
+RESIDENT_SMEM_MAX = 225 * 1024
+RESIDENT_THREADS = 512
+RESIDENT_CLUSTER_MAX = 16
+RESIDENT_SLOT_BYTES = (2 * (RESIDENT_THREADS // 32) + 2 * RESIDENT_CLUSTER_MAX) * 4
+# the elements a CTA of a cluster aims to hold, and the blocks per cluster
+# the resident route needs (the cluster sweep on the H100, PERF.md)
+RESIDENT_PER_CTA = 32768
+RESIDENT_MIN_RUN = 2
 
 
 def _apply_sign_fix(rank: torch.Tensor, normed: torch.Tensor, n_neg: int, top: int) -> torch.Tensor:
@@ -383,27 +403,99 @@ class LeafPlan(NamedTuple):
     blocks: tuple   # quantization blocks of each leaf
     first: tuple    # each leaf's first global block (the prefix sum of blocks)
     total: int      # blocks of the step
-    grid: int       # persistent CTAs of the launch
+    grid: int       # persistent CTAs of the launch (the resident route: clusters x cluster)
+    route: str = "one_pass"  # "one_pass", "resident" or "two_pass" (optim8_route)
+    cluster: int = 0         # the resident route: CTAs of a cluster, one block at a time
+    per_cta: int = 0         # the resident route: elements of a block a CTA holds
+    smem: int = 0            # the resident route: dynamic shared memory bytes a CTA
+
+
+def _table_words(lut: bool) -> int:
+    return LUT_WORDS if lut else KERNEL_TABLE_PARTS["words"]
+
+
+def resident_per_cta_max(lut: bool) -> int:
+    """The most elements of a block one CTA of the resident body holds: a
+    multiple of 8 (a thread's run) whose f32 states fit RESIDENT_SMEM_MAX
+    beside the codec table (the dynamic maps' 1,058 words, or one LUT
+    codec's LUT_WORDS) and the reduction and exchange slots."""
+    return (RESIDENT_SMEM_MAX - 4 * _table_words(lut) - RESIDENT_SLOT_BYTES) // 32 * 8
+
+
+def resident_max(lut: bool) -> int:
+    """The largest block kernel K's resident body takes: a cluster of
+    RESIDENT_CLUSTER_MAX CTAs, each holding resident_per_cta_max elements
+    (903,552 under the dynamic maps, 845,696 under a LUT codec; both
+    multiples of 128)."""
+    return RESIDENT_CLUSTER_MAX * resident_per_cta_max(lut)
+
+
+def resident_cluster(blocksize: int, lut: bool) -> int:
+    """The resident body's cluster size for a block: the next power of two
+    at or past both the fewest CTAs whose shared memory holds the block and
+    RESIDENT_PER_CTA elements a CTA (8 at 262,144, 16 at 704,512, from
+    the cluster sweep on the H100)."""
+    want = max(-(-blocksize // resident_per_cta_max(lut)), -(-blocksize // RESIDENT_PER_CTA))
+    return min(1 << (want - 1).bit_length(), RESIDENT_CLUSTER_MAX)
+
+
+def optim8_route(one_state: bool, blocksize: int, lut: bool, total: int, sm_count: int) -> str:
+    """The body a table of ``total`` blocks of ``blocksize`` elements takes:
+    "one_pass" up to ONE_PASS_MAX; then for kernel K (``one_state``)
+    "resident" up to ``resident_max(lut)`` where the table gives each
+    cluster the card holds at once RESIDENT_MIN_RUN blocks or more (at one
+    a cluster's update, barrier and encode do not overlap, and the
+    two-pass body, on every SM, is as fast or faster); else "two_pass"
+    (kernel J always past ONE_PASS_MAX)."""
+    if blocksize <= ONE_PASS_MAX:
+        return "one_pass"
+    if one_state and blocksize <= resident_max(lut):
+        clusters = max(1, sm_count // resident_cluster(blocksize, lut))
+        if total >= RESIDENT_MIN_RUN * clusters:
+            return "resident"
+    return "two_pass"
+
+
+def resident_slices(blocksize: int, cluster: int, lut: bool) -> tuple:
+    """(per_cta, smem) of the resident body at ``cluster`` CTAs a block:
+    the elements of a block each CTA holds (a multiple of 8) and its
+    dynamic shared memory bytes (the held states, the codec table and the
+    slots). Raises where the cluster cannot hold the block."""
+    per_cta = -(-blocksize // (8 * cluster)) * 8
+    if not 1 <= cluster <= RESIDENT_CLUSTER_MAX or per_cta > resident_per_cta_max(lut):
+        raise ValueError(f"leaf_plan: a cluster of {cluster} CTAs cannot hold a block of {blocksize}")
+    return per_cta, 4 * per_cta + 4 * _table_words(lut) + RESIDENT_SLOT_BYTES
 
 
 @functools.lru_cache(maxsize=64)
-def leaf_plan(numels: tuple, blocksize: int, sm_count: int) -> LeafPlan:
+def leaf_plan(numels: tuple, blocksize: int, sm_count: int, one_state: bool = False,
+              lut: bool = False) -> LeafPlan:
     """The launch plan of one step's leaf table: block counts and offsets
-    per leaf, and a persistent grid of CTAS_PER_SM CTAs per SM (fewer when
+    per leaf, the route (``optim8_route``) and the persistent grid. The
+    one-pass and two-pass routes run CTAS_PER_SM CTAs per SM (fewer when
     the step has fewer blocks, or, past ONE_PASS_MAX, fewer 2048-element
-    chunks of blocks). The whole table goes in one launch (a launch pair
-    past ONE_PASS_MAX): it reaches the kernel as one device buffer,
-    whatever its length."""
+    chunks of blocks). The resident route runs clusters of
+    ``resident_cluster`` CTAs, one CTA an SM, at most one cluster a block:
+    each CTA holds ``per_cta`` elements of a block in ``smem`` bytes of
+    dynamic shared memory (``resident_slices``). The whole table goes in one launch (a launch
+    pair on the two-pass route): it reaches the kernel as one device
+    buffer, whatever its length."""
     if blocksize < 1:
         raise ValueError(f"leaf_plan: blocksize {blocksize} must be >= 1 (any size: blocks past "
-                         f"{ONE_PASS_MAX} take the two-pass body)")
+                         f"{ONE_PASS_MAX} take the resident or the two-pass body)")
     if any(n < 0 for n in numels):
         raise ValueError(f"leaf_plan: negative leaf size in {numels}")
     blocks = tuple(-(-int(n) // blocksize) for n in numels)
     first = tuple(itertools.accumulate(blocks[:-1], initial=0)) if blocks else ()
     total = sum(blocks)
-    chunks = total * -(-blocksize // ONE_PASS_MAX)
-    return LeafPlan(blocks, first, total, min(chunks, sm_count * CTAS_PER_SM))
+    route = optim8_route(one_state, blocksize, lut, total, sm_count)
+    if route != "resident":
+        chunks = total * -(-blocksize // ONE_PASS_MAX)
+        return LeafPlan(blocks, first, total, min(chunks, sm_count * CTAS_PER_SM), route)
+    c = resident_cluster(blocksize, lut)
+    per_cta, smem = resident_slices(blocksize, c, lut)
+    clusters = min(total, max(1, sm_count // c))
+    return LeafPlan(blocks, first, total, clusters * c, route, c, per_cta, smem)
 
 
 def _check_leaves(name, leaves: Sequence[Optim8Leaf], scalars, rows, blocksize):
@@ -513,9 +605,9 @@ def _grouped_plain(name, leaves, scalars, rows, plan, blocksize, apply_delta, qm
 
 def _launch(kname, name, table, scalars, rows, plan, blocksize, apply_delta, stochastic, dev,
             qmaps=None) -> int:
-    """One launch over the leaf table (rows of _check_leaves), a launch
-    pair past ONE_PASS_MAX; ``qmaps`` None or LutParts. Returns the
-    launches made."""
+    """The launch over the leaf table (rows of _check_leaves) on the plan's
+    route: one launch, a launch pair on the two-pass route; ``qmaps`` None
+    or LutParts. Returns the launches made."""
     if blocksize >= 2 ** 31:
         raise ValueError(f"optim8: blocksize {blocksize} does not fit the kernels' int32")
     tab = np.zeros((len(table), LEAF_WORDS), np.int64)
@@ -529,20 +621,21 @@ def _launch(kname, name, table, scalars, rows, plan, blocksize, apply_delta, sto
         codec = kernel_table(dev)
     else:
         codec = _lut_table(tuple(q.table.tobytes() for q in qmaps if q is not None), str(dev))
-    two_pass = blocksize > ONE_PASS_MAX
+    two_pass = plan.route == "two_pass"
     # per block: the two states' maxima (int bits, zeroed by the C entry)
     # and their old absmax, between the two launches
     scratch = torch.empty((plan.total, 4), dtype=torch.int32, device=dev) if two_pass else None
     args = (leaves_dev.data_ptr(), len(table), scalars.data_ptr(), codec.data_ptr(),
             plan.total, blocksize, plan.grid, int(apply_delta), int(stochastic),
-            int(qmaps is not None), 0 if scratch is None else scratch.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(qmaps is not None))
+    tail = (0 if scratch is None else scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if kname == "optim8_2state":
         fn = _build.kernel_fn(kname, kname, 12, int_args=(1, 5, 6, 7, 8, 9), long_args=(4,))
-        err = fn(*args)
+        err = fn(*args, *tail)
     else:
-        fn = _build.kernel_fn(kname, kname, 13, int_args=(0, 2, 6, 7, 8, 9, 10), long_args=(5,))
-        err = fn(ONE_STATE.index(name), *args)
+        fn = _build.kernel_fn(kname, kname, 16, int_args=(0, 2, 6, 7, 8, 9, 10, 11, 12, 13),
+                              long_args=(5,))
+        err = fn(ONE_STATE.index(name), *args, plan.cluster, plan.per_cta, plan.smem, *tail)
     _build.check(kname, err)
     return 2 if two_pass else 1
 
@@ -550,15 +643,15 @@ def _launch(kname, name, table, scalars, rows, plan, blocksize, apply_delta, sto
 def optim8_update(name: str, leaves: Sequence[Optim8Leaf], scalars: torch.Tensor, rows=None,
                   blocksize: int = 2048, apply_delta: bool = False, qmaps=None) -> None:
     """Kernel J (2-state) or K (1-state) over a leaf table, in place: one
-    launch on CUDA tensors (two past ONE_PASS_MAX), the plain version on
-    CPU tensors; a table of no block launches nothing. ``scalars`` is an
-    (R, 8) f32 tensor, ``rows`` a row index per leaf (default 0). p
+    launch on CUDA tensors (two on the two-pass route), the plain version
+    on CPU tensors; a table of no block launches nothing. ``scalars`` is
+    an (R, 8) f32 tensor, ``rows`` a row index per leaf (default 0). p
     becomes new_p, or p + (new_p - p) with ``apply_delta`` (the
     optimizer's route). ``qmaps``: None for the dynamic maps, or (state1's
     table, state2's table or None) for the LUT codec, which takes no
     uniforms. Counters on the kernel: ``launches`` (every launch),
-    ``launches_lut`` (LUT codec), ``launches_two_pass`` (blocks past
-    ONE_PASS_MAX)."""
+    ``launches_lut`` (LUT codec), ``launches_two_pass`` (the two-pass
+    route), and on K ``launches_resident`` (the resident route)."""
     rows, stochastic, table, on_cuda = _check_leaves(name, leaves, scalars, rows, blocksize)
     if qmaps is not None:
         if qmaps[0] is None or (name in TWO_STATE) != (qmaps[1] is not None):
@@ -569,7 +662,7 @@ def optim8_update(name: str, leaves: Sequence[Optim8Leaf], scalars: torch.Tensor
         qmaps = tuple(None if q is None else lut_parts(q) for q in qmaps)
     dev = leaves[0].p.device
     plan = leaf_plan(tuple(row[7] for row in table), blocksize,
-                     _sm_count(dev) if on_cuda else 1)
+                     _sm_count(dev) if on_cuda else 1, name in ONE_STATE, qmaps is not None)
     if plan.total == 0:
         return
     if not on_cuda:
@@ -581,7 +674,9 @@ def optim8_update(name: str, leaves: Sequence[Optim8Leaf], scalars: torch.Tensor
     fn = _KERNEL_OF[kname]
     fn.launches += n
     fn.launches_lut += n if qmaps is not None else 0
-    fn.launches_two_pass += n if blocksize > ONE_PASS_MAX else 0
+    fn.launches_two_pass += n if plan.route == "two_pass" else 0
+    if plan.route == "resident":
+        fn.launches_resident += n
 
 
 def _rows_launch(kname, name, g, p, states, scalars, u, qmaps):
@@ -611,7 +706,8 @@ def optim8_2state(name, g, p, s1, am1, s2, am2, scalars, u=None, qmaps=None):
 
 def optim8_1state(name, g, p, s1, am1, scalars, u=None, qmaps=None):
     """Kernel K on (nb, bs) rows, as optim8_2state (qmaps: (state1's table,
-    None)); returns new (p, state1, absmax1)."""
+    None)); returns new (p, state1, absmax1). ``launches_resident`` counts
+    the launches of its resident body (blocks past 2048)."""
     if name not in ONE_STATE:
         raise ValueError(f"optim8_1state: {name!r} is not a 1-state optimizer")
     if not check_cuda_tensors("optim8_1state", g, p, s1, am1, scalars, u):
@@ -621,6 +717,7 @@ def optim8_1state(name, g, p, s1, am1, scalars, u=None, qmaps=None):
 
 for _fn in (optim8_2state, optim8_1state):
     _fn.launches = _fn.launches_lut = _fn.launches_two_pass = 0
+optim8_1state.launches_resident = 0
 _KERNEL_OF = {"optim8_2state": optim8_2state, "optim8_1state": optim8_1state}
 
 

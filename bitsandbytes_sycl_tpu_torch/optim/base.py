@@ -26,8 +26,10 @@ its own update would put it:
   goes through one launch of kernel J or K per device, blocksize and
   group configuration (the settings above; groups that differ only in
   lr, betas, eps or weight decay share a launch, their scalars in rows), in
-  place (a leaf of one block past 2048 elements, ``block_wise=False``,
-  takes the two-pass body: a launch pair per device and leaf size)
+  place (leaves of one block past 2048 elements, ``block_wise=False``,
+  take kernel K's resident body, one launch per device and leaf size,
+  where ``ops.optim8.leaf_plan`` routes them there, else the two-pass
+  body, a launch pair)
   (``functional.optimizer_update_8bit_grouped``; param groups and
   percentile clipping as rows of the launch's scalars, stochastic
   rounding's uniforms in its leaf table);

@@ -80,20 +80,27 @@ Phases, each of which exits non-zero on failure:
      (four tables) checked on every f32; then their
      LUT codec (every optimizer over those three tables under seven maps:
      quantile, linear signed and unsigned, fp8, normal, a padded 7-bit
-     map, a permuted one) and their two-pass body (blocks of 4096, 262144,
-     704512 and 16.8M, one block and several, ragged, under both codecs
-     and stochastic rounding), bit for bit, with six deliberate faults
-     (side='right', no sign fix, the last index of a duplicate run,
-     state2 encoded with state1's table, pad code 0, a per-CTA maximum),
-     100 repeated launches of each new plan, each branch timed, and
-     estimate_quantiles at 32M elements against numpy; (b) QLoRA
+     map, a permuted one) and their blocks past 2048 (blocks of 4096,
+     262144, 704512 and 16.8M and each codec's resident capacity and the
+     next multiple of 128, one block and several, ragged, and the QLoRA
+     table's whole-leaf blocks as block_wise=False launches them, under
+     both codecs and stochastic rounding: J's two-pass body, K's resident
+     body up to its capacity and its two-pass body past it), bit for bit, with
+     six deliberate faults (side='right', no sign fix, the last index of a
+     duplicate run, state2 encoded with state1's table, pad code 0, a
+     per-CTA maximum cut at the plan's slices), 100 repeated launches of
+     each new plan, each branch timed (K's resident route beside its
+     two-pass body, in turns), and estimate_quantiles at 32M elements
+     against numpy; (b) QLoRA
      fine-tuning of Llama-7B on phase 3's NF4 base, rank 64 on all seven
      projections, 4 adamw8bit and 2 lion8bit steps on a (4, 513) batch
      (225 G on its wgmma body, 222 E and one J launch per Adam step, one
      K launch per Lion step, for the 448 8-bit leaves), the last step of each
      profiled with its optimizer apart; (d) the same setting through the
      new branches: 2 adamw8bit(block_wise=False) steps and a lion8bit one
-     (J's and K's two-pass body, a launch pair per leaf size), then 2 Adam
+     (J's two-pass body, a launch pair per leaf size; K's resident body,
+     one launch per leaf size), one lion8bit(block_wise=False) step of a
+     4096 x 4096 full weight (K's two-pass body), then 2 Adam
      steps and a Lion one with every 8-bit leaf's states through
      optimizer_update_8bit_blockwise(qmap1=, qmap2=) (quantile maps of a
      seeded normal sample and of its squares; 448 LUT launches a step);
@@ -2978,6 +2985,24 @@ QLORA_LEAVES = (262144,) * 352 + (704512,) * 96
 # a mixed table: 2048-multiples, the 47 x 97 ragged leaf, one element, one block, ragged tails
 MIXED_LEAVES = (262144, 4559, 4096, 262144 + 1000, 2048, 1, 704512, 5000)
 OPTIM8_TIMED = (262144, 704512, 16777216)
+# kernel K's resident route against its two-pass body: pairs of timings in turns
+TURN_PAIRS = 10
+
+
+def turns(torch, fn, other, r):
+    """fn and other timed in TURN_PAIRS pairs, each pair's order the last
+    one's reversed (fn, other, other, fn, ...): a time moves by ~1 us with
+    the order. Records both lists and the spread of their differences in
+    r["turns"]; returns the medians (fn, other)."""
+    t = ([], [])
+    for k in range(TURN_PAIRS):
+        for side in ((0, 1) if k % 2 == 0 else (1, 0)):
+            t[side].append(time_cold(torch, (fn, other)[side], iters=10, warmup=1,
+                                     spin_cycles=20_000_000))
+    d = sorted(a - b for a, b in zip(*t))
+    r["turns"] = dict(ms=t[0], other_ms=t[1], diff_median_ms=d[len(d) // 2], diff_min_ms=d[0],
+                      diff_max_ms=d[-1], faster=sum(x < 0 for x in d), pairs=TURN_PAIRS)
+    return sorted(t[0])[TURN_PAIRS // 2], sorted(t[1])[TURN_PAIRS // 2]
 
 
 def bits_equal(torch, a, b):
@@ -3306,11 +3331,25 @@ def check_optim8(torch, report):
 
 
 # the blocksizes of the two-pass checks, each with a mixed table: a leaf of one
-# block, leaves of several, ragged tails (the third ragged leaf's absmax finite)
+# block, leaves of several, ragged tails (the third ragged leaf's absmax finite);
+# tables of few blocks, so K takes its two-pass body there too
 TWO_PASS_LEAVES = {4096: (3 * 4096 + 100, 4096, 4097, 5000, 1),
                    262144: (2 * 262144 + 777, 262144, 262144 + 9, 1000, 3 * 262144),
                    704512: (704512, 2 * 704512 + 5, 7, 100003),
                    16777216: (16777216, 16777216 + 4097, 5, 33)}
+# K's resident checks: mixed tables of enough blocks for its resident route
+# (two a cluster the card holds: 264 of 4096, 32 of 262144, 16 of 704512)
+RESIDENT_LEAVES = {4096: (300 * 4096 + 100, 4096, 4097, 5000, 1),
+                   262144: (30 * 262144 + 777, 262144, 262144 + 9, 1000),
+                   704512: (14 * 704512 + 5, 704512, 7, 100003)}
+
+
+def qlora_whole_leaves():
+    """[(blocksize, sizes)]: the QLoRA table as a block_wise=False step
+    launches it, one table of whole-leaf blocks per leaf size (352 of
+    262,144 and 96 of 704,512: K's resident route, each cluster walking
+    ~22 and ~12 blocks)."""
+    return [(n, (n,) * QLORA_LEAVES.count(n)) for n in sorted(set(QLORA_LEAVES))]
 
 
 def lut_tables():
@@ -3346,49 +3385,79 @@ class patched:
         setattr(self.obj, self.attr, self.old)
 
 
+def capacity_edges():
+    """{blocksize: (sizes, modes)}: kernel K's resident capacity under each
+    codec (the largest resident multiple of 128) and the next multiple of
+    128 (two-pass), each with a mixed ragged table: the dynamic maps'
+    edges under the dynamic and stochastic modes, the LUT codec's under
+    the LUT mode."""
+    from bitsandbytes_sycl_tpu_torch.ops import optim8 as O
+
+    out = {}
+    for lut, modes in ((False, ("dynamic", "stochastic")), (True, ("lut",))):
+        e = O.resident_max(lut)
+        out[e] = ((15 * e + 5, e, 7, 100003), modes)  # 19 blocks: resident
+        out[e + 128] = ((e + 128, 2 * (e + 128) - 3, 9), modes)
+    return out
+
+
 def check_optim8_branches(torch, report):
     """The branches of kernels J and K added for any codebook and any block
     size, bit for bit against their plain version (ops/optim8._grouped_plain)
     on the card: the LUT codec for every optimizer over the 448-leaf QLoRA
     table (packed), the mixed ragged table (NaN/Inf absmax and non-finite g)
     and one 16.8M leaf, under each of lut_tables() (state1 a table, state2
-    the next one); the two-pass body (blocks past 2048) at blocksizes 4096,
-    262144, 704512 and 16.8M, one block and several with ragged tails, for
-    every optimizer under the dynamic maps, the LUT codec and stochastic
-    rounding. Each launch must have taken its branch. Six deliberate faults
-    of the plain version must each change the result; 100 launches of each
-    new plan repeat their bits; each branch is timed at the three leaf
-    sizes and over the QLoRA table against the byte bound of J and K. Then
+    the next one); the blocks past 2048 (J's two-pass body; K's resident
+    body up to its capacity, its two-pass body past it) at blocksizes 4096,
+    262144, 704512 and 16.8M and at each codec's capacity edge, one block
+    and several with ragged tails, for every optimizer under the dynamic
+    maps, the LUT codec and stochastic rounding. Each launch must have
+    taken its plan's route. Six deliberate faults of the plain version
+    must each change the result; 100 launches of each new plan repeat
+    their bits; each branch is timed at the three leaf sizes and over the
+    QLoRA table against the byte bound of J and K, K's blocks past 2048
+    beside its two-pass body (in turns where the route is the resident
+    one). Then
     ``functional.estimate_quantiles`` at 32M elements against numpy."""
     import numpy as np
     from bitsandbytes_sycl_tpu_torch import functional as F
     from bitsandbytes_sycl_tpu_torch.ops import optim8 as O
+    from bitsandbytes_sycl_tpu_torch.ops.common import sm_count
 
     gen = torch.Generator(device="cuda").manual_seed(31)
     tables = lut_tables()
     q = dict(tables)
-    cases = {"lut": 0, "two_pass": 0}
+    sms = sm_count(torch.device("cuda"))
+    cases = {"lut": 0, "two_pass": 0, "resident": 0}
 
     def counters(kname):
         fn = O._KERNEL_OF[kname]
-        return fn.launches, fn.launches_lut, fn.launches_two_pass
+        return (fn.launches, fn.launches_lut, fn.launches_two_pass,
+                getattr(fn, "launches_resident", 0))
+
+    def card_plan(name, leaves, bs, qmaps=None):
+        return O.leaf_plan(tuple(lf.p.numel() for lf in leaves), bs, sms, name in O.ONE_STATE,
+                           qmaps is not None)
 
     def compare(label, name, table, bs=2048, qmaps=None, delta=True):
         leaves, scalars, rws, flat = table
         kname = "optim8_2state" if name in O.TWO_STATE else "optim8_1state"
         got, ref = clone_table(torch, leaves, flat), clone_table(torch, leaves, flat)
+        route = card_plan(name, leaves, bs, qmaps).route
         before = counters(kname)
         O.optim8_update(name, got, scalars, rws, blocksize=bs, apply_delta=delta, qmaps=qmaps)
-        n = 2 if bs > O.ONE_PASS_MAX else 1
-        want = (n, n if qmaps is not None else 0, n if bs > O.ONE_PASS_MAX else 0)
-        need(tuple(a - b for a, b in zip(counters(kname), before)) == want,
-             f"{label} {name}: launches (all, lut, two-pass) moved by "
-             f"{tuple(a - b for a, b in zip(counters(kname), before))}, expected {want}")
+        n = 2 if route == "two_pass" else 1
+        want = (n, n if qmaps is not None else 0, n if route == "two_pass" else 0,
+                n if route == "resident" else 0)
+        moved = tuple(a - b for a, b in zip(counters(kname), before))
+        need(moved == want, f"{label} {name}: launches (all, lut, two-pass, resident) moved by"
+             f" {moved}, expected {want} (route {route})")
         plan = O.leaf_plan(tuple(lf.p.numel() for lf in ref), bs, 1)
         O._grouped_plain(name, ref, scalars, tuple(rws), plan, bs, delta, qmaps)
         torch.cuda.synchronize()
         ok, diff = tables_equal(torch, got, ref)
         need(ok, f"{label} {name}: kernel differs from its plain version ({diff})")
+        return route
 
     # the LUT codec: every name, every table, three tables of leaves
     for name in O.TWO_STATE + O.ONE_STATE:
@@ -3402,18 +3471,30 @@ def check_optim8_branches(torch, report):
                 compare(f"LUT {tl}, {label}", name, table, qmaps=qm)
                 cases["lut"] += 1
             del table
-    # the two-pass body: every name at each blocksize, both codecs, stochastic rounding
-    for bs, sizes in TWO_PASS_LEAVES.items():
-        for name in O.TWO_STATE + O.ONE_STATE:
+    # blocks past 2048: every name at each blocksize in tables of few blocks
+    # (two-pass), K's resident tables and capacity edges (the 1-state names),
+    # both codecs, stochastic rounding; each with the route K must take
+    three = ("dynamic", "stochastic", "lut")
+    runs = [(bs, sz, three, O.TWO_STATE + O.ONE_STATE, "two_pass")
+            for bs, sz in TWO_PASS_LEAVES.items()]
+    runs += [(bs, sz, three, O.ONE_STATE, "resident") for bs, sz in RESIDENT_LEAVES.items()]
+    runs += [(bs, sz, three, O.ONE_STATE, "resident") for bs, sz in qlora_whole_leaves()]
+    runs += [(bs, sz, modes, O.ONE_STATE, "resident" if bs in (O.resident_max(False),
+                                                               O.resident_max(True)) else "two_pass")
+             for bs, (sz, modes) in capacity_edges().items()]
+    for bs, sizes, modes, names, want in runs:
+        for name in names:
             two = name in O.TWO_STATE
-            for mode in ("dynamic", "stochastic", "lut"):
+            for mode in modes:
                 table = optim8_table(torch, gen, name, sizes, 3, mode == "stochastic", False, 2,
                                      bs=bs)
                 qm = (q["quantile"], q["linear unsigned"] if two else None) if mode == "lut" \
                     else None
-                compare(f"two-pass bs {bs} ({mode})", name, table, bs=bs, qmaps=qm,
-                        delta=mode != "dynamic")
-                cases["two_pass"] += 1
+                route = compare(f"bs {bs} ({mode}, {len(sizes)} leaves)", name, table, bs=bs,
+                                qmaps=qm, delta=mode != "dynamic")
+                need(route == want, f"{name} at bs {bs} ({mode}) over {len(sizes)} leaves took the"
+                     f" {route} route, expected {want}")
+                cases[route] += 1
                 del table
     # the JAX entry's rows with tables, and its refusals
     for name in ("adam", "lion"):
@@ -3436,7 +3517,9 @@ def check_optim8_branches(torch, report):
         except ValueError:
             pass
     print(f"  J and K equal their plain version bit for bit: LUT codec in {cases['lut']} tables"
-          f" ({len(tables)} maps), two-pass body in {cases['two_pass']}", flush=True)
+          f" ({len(tables)} maps), two-pass body in {cases['two_pass']}, K's resident body in"
+          f" {cases['resident']} (capacity {O.resident_max(False)} dynamic,"
+          f" {O.resident_max(True)} LUT; the next multiple of 128 two-pass)", flush=True)
 
     # deliberate faults in the plain version, each must change the result
     base = dict(adam=(q["quantile"], q["linear unsigned"]), lion=(q["quantile"], None))
@@ -3459,11 +3542,18 @@ def check_optim8_branches(torch, report):
         c2.encode = O.LutCodec(qmaps[0]).encode
         return c1, c2
 
-    def per_cta(s, codec, u=None):
-        nb, bs = s.shape
-        a = s.abs().reshape(nb, bs // 2048, 2048).amax(dim=2, keepdim=True)
-        amax = a.expand(-1, -1, 2048).reshape(nb, bs)
-        return codec.encode(s * O.safe_inv(amax), u=u), a[:, 0]
+    def per_cta(size):
+        """_requant_rows with each CTA's maximum (slices of ``size``
+        elements of a block: the plan's per_cta on K's resident route, a
+        2048-element chunk on the two-pass route) instead of the block's."""
+        def requant(s, codec, u=None):
+            nb, bs = s.shape
+            k = -(-bs // size)
+            a = torch.nn.functional.pad(s.abs(), (0, k * size - bs)).reshape(nb, k, size)
+            a = a.amax(dim=2, keepdim=True)
+            amax = a.expand(-1, -1, size).reshape(nb, k * size)[:, :bs]
+            return codec.encode(s * O.safe_inv(amax), u=u), a[:, 0]
+        return requant
 
     no_zero = F.codebooks.create_linear_map(True, 8, False)  # 0.0 is a midpoint
     n_faults = {}
@@ -3476,15 +3566,17 @@ def check_optim8_branches(torch, report):
              (O, "_apply_sign_fix", lambda rank, normed, n_neg, top: rank.to(torch.int32))),
             ("the last index of a duplicate run", (q["normal"], q2), 2048, None),
             ("pad code 0 instead of 127", (q1, q2), 2048, (O, "PAD_CODES", (0, 0))),
-            ("a per-CTA maximum instead of the block's", (q1, q2), 4096,
-             (O, "_requant_rows", per_cta)),
-            ("a per-CTA maximum, dynamic maps", None, 4096, (O, "_requant_rows", per_cta)),
+            ("a per-CTA maximum instead of the block's", (q1, q2), 4096, "per_cta"),
+            ("a per-CTA maximum, dynamic maps", None, 4096, "per_cta"),
         ]
         if two:
             faults.append(("state2 encoded with state1's table", (q1, q2), 2048,
                            (O, "_codecs", state2_by_state1)))
         for label, qm, bs, patch in faults:
-            sizes = MIXED_LEAVES if bs == 2048 else TWO_PASS_LEAVES[bs]
+            if patch == "per_cta" and not two:  # K: at its resident route's slices
+                bs = 262144
+            sizes = MIXED_LEAVES if bs == 2048 else \
+                RESIDENT_LEAVES[bs] if patch == "per_cta" and not two else TWO_PASS_LEAVES[bs]
             leaves, scalars, rws, _ = optim8_table(torch, gen, name, sizes, 1, False, False, 2,
                                                    bs=bs)
             if label.startswith("pad code"):  # small gradients: the states set the absmax
@@ -3492,6 +3584,10 @@ def check_optim8_branches(torch, report):
                     lf.g.mul_(1e-4)
             got = clone_table(torch, leaves)
             O.optim8_update(name, got, scalars, rws, blocksize=bs, apply_delta=True, qmaps=qm)
+            if patch == "per_cta":
+                cp = card_plan(name, leaves, bs, qm)
+                patch = (O, "_requant_rows",
+                         per_cta(cp.per_cta if cp.route == "resident" else O.ONE_PASS_MAX))
             bad = clone_table(torch, leaves)
             plan = O.leaf_plan(tuple(lf.p.numel() for lf in bad), bs, 1)
             pq = qm
@@ -3521,7 +3617,15 @@ def check_optim8_branches(torch, report):
             ("adam", TWO_PASS_LEAVES[262144], 262144, False, None),
             ("adam", TWO_PASS_LEAVES[4096], 4096, True, None),
             ("lion", TWO_PASS_LEAVES[704512], 704512, False, base["lion"]),
-            ("adam", TWO_PASS_LEAVES[16777216], 16777216, False, base["adam"])):
+            ("adam", TWO_PASS_LEAVES[16777216], 16777216, False, base["adam"]),
+            # K: its resident body under each mode, its two-pass body past the capacity
+            ("momentum", RESIDENT_LEAVES[262144], 262144, False, None),
+            ("rmsprop", RESIDENT_LEAVES[4096], 4096, True, None),
+            ("lion", RESIDENT_LEAVES[704512], 704512, False, base["lion"]),
+            ("lion", TWO_PASS_LEAVES[16777216], 16777216, False, None),
+            # K's resident body over the main path's whole-leaf tables
+            ("lion",) + qlora_whole_leaves()[0][::-1] + (False, None),
+            ("momentum",) + qlora_whole_leaves()[1][::-1] + (True, None)):
         leaves, scalars, rws, flat = optim8_table(torch, gen, name, sizes, 3, stochastic, True, 2,
                                                   bs=bs)
         work, wflat = clone_table(torch, leaves, flat, with_buffers=True)
@@ -3537,19 +3641,21 @@ def check_optim8_branches(torch, report):
                 need(all(bits_equal(torch, snap[f], first[f]) for f in flat),
                      f"{name} bs {bs} ({'LUT' if qm else 'dynamic'}): 100 launches differ")
         print(f"  {name} over {len(sizes)} leaves, bs {bs}, {'LUT' if qm else 'dynamic'}"
-              f"{', stochastic' if stochastic else ''}: 100 launches repeat their bits", flush=True)
+              f"{', stochastic' if stochastic else ''} ({card_plan(name, leaves, bs, qm).route}):"
+              " 100 launches repeat their bits", flush=True)
         del leaves, flat, work, wflat, first
 
-    # times: each branch at the three leaf sizes and over the QLoRA table
+    # times: each branch at the three leaf sizes and over the QLoRA table;
+    # blocks past 2048 one block a leaf (block_wise=False), one update per
+    # leaf size, K's also on its two-pass body (in turns with its route)
+    dev = torch.device("cuda")
     for name in ("adam", "lion"):
         two = name == "adam"
         kname = "optim8_2state" if two else "optim8_1state"
-        for branch in ("lut", "two_pass"):
+        for branch in ("lut", "two_pass" if two else "blocks"):
             rows, table_row = [], None
             for sizes in [(n,) for n in OPTIM8_TIMED] + [QLORA_LEAVES]:
                 qm = base[name] if branch == "lut" else None
-                # the two-pass branch: one block a leaf (block_wise=False), one
-                # update per leaf size
                 groups = [(sizes, 2048)] if branch == "lut" else \
                     [((n,) * sizes.count(n), n) for n in sorted(set(sizes))]
                 tabs = [(optim8_table(torch, gen, name, sz, 3, False, len(sz) > 1, 1, bs=bs), bs)
@@ -3569,19 +3675,58 @@ def check_optim8_branches(torch, report):
                 ms = time_cold(torch, run, spin_cycles=20_000_000)
                 plain_ms = time_cold(torch, run_plain, iters=3, warmup=1)
                 r = dict(n=sum(sizes), leaves=len(sizes), bytes=nbytes,
-                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, ms=ms, plain_ms=plain_ms)
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, ms=ms, plain_ms=plain_ms,
+                         routes=[card_plan(name, lv, bs, qm).route for (lv, *_), bs in tabs])
+                extra = ""
+                if branch == "blocks":  # K's two-pass body, in turns where the route differs
+                    forced = []
+                    for (lv, sc, rw, _), bs in tabs:
+                        rws2, _, tab, _ = O._check_leaves(name, lv, sc, rw, bs)
+                        forced.append((tab, sc, rws2, O.leaf_plan(tuple(lf.p.numel() for lf in lv),
+                                                                  bs, sms), bs))
+
+                    def run_two_pass(forced=forced):
+                        for tab, sc, rws2, plan, bs in forced:
+                            O._launch(kname, name, tab, sc, rws2, plan, bs, True, False, dev)
+
+                    if set(r["routes"]) == {"two_pass"}:
+                        r["two_pass_ms"] = ms
+                        extra = "two-pass"
+                    else:
+                        ms, r["two_pass_ms"] = turns(torch, run, run_two_pass, r)
+                        r["ms"] = ms
+                        tr = r["turns"]
+                        extra = (f"{'/'.join(r['routes'])}; two-pass body {r['two_pass_ms'] * 1e3:.1f}"
+                                 f" us in {tr['pairs']} pairs in turns: route - two-pass median"
+                                 f" {tr['diff_median_ms'] * 1e3:+.1f} us, range"
+                                 f" {tr['diff_min_ms'] * 1e3:+.1f}..{tr['diff_max_ms'] * 1e3:+.1f}")
+                    if sizes == (16777216,):  # weight decay 0 (Lion's default)
+                        sc0 = forced[0][1].clone()
+                        sc0[:, 4] = 0.0
+                        f0 = [(forced[0][0], sc0) + forced[0][2:]]
+                        r["wd0_ms"] = time_cold(torch, lambda: run_two_pass(f0),
+                                                spin_cycles=20_000_000)
+                        extra += f"; weight decay 0: {r['wd0_ms'] * 1e3:.1f} us"
+                    extra = f" [{extra}]"
                 print(f"  {kname:13s} {name:5s} {branch:8s} {len(sizes):3d} leaves, n={sum(sizes):9d}:"
                       f" kernel {ms * 1e3:8.1f} us plain {plain_ms * 1e3:9.1f} us bound"
-                      f" {r['bound_ms'] * 1e3:7.2f} us ({r['bound_ms'] / ms:.0%})", flush=True)
+                      f" {r['bound_ms'] * 1e3:7.2f} us ({r['bound_ms'] / ms:.0%}){extra}", flush=True)
                 if len(sizes) > 1:
                     table_row = r
                 else:
                     rows.append(r)
                 del tabs
-            report[f"{kname} ({branch.replace('_', '-')})"] = dict(
-                shapes=rows, table=table_row, ms=sum(r["ms"] for r in rows),
-                plain_ms=sum(r["plain_ms"] for r in rows), bound_ms=sum(r["bound_ms"] for r in rows),
-                bound_by="bytes", library_ms=None, max_abs_err=0.0, faults=n_faults[name])
+            if branch != "blocks":
+                by_route = {f"{kname} ({branch.replace('_', '-')})": rows}
+            else:  # each route's rows (the QLoRA table's among them where both leaf sizes share it)
+                by_route = {f"{kname} ({route.replace('_', '-')})":
+                            [r for r in rows + [table_row] if set(r["routes"]) == {route}]
+                            for route in ("resident", "two_pass")}
+            for key, rs in by_route.items():
+                report[key] = dict(
+                    shapes=rs, table=table_row, ms=sum(r["ms"] for r in rs),
+                    plain_ms=sum(r["plain_ms"] for r in rs), bound_ms=sum(r["bound_ms"] for r in rs),
+                    bound_by="bytes", library_ms=None, max_abs_err=0.0, faults=n_faults[name])
 
     # estimate_quantiles past torch.quantile's 2^24 elements
     x = torch.randn(32 * 1024 * 1024, generator=gen, device="cuda")
@@ -3845,13 +3990,16 @@ class LutOptimizer:
 
 def qlora_branches(torch, cfg, params, kernels, maps):
     """Phase 7d: the 7B QLoRA setting of phase 7b on the same base with the
-    new branches of J and K: 2 adamw8bit(block_wise=False) steps and one
-    lion8bit(block_wise=False) step (a block a leaf: the two-pass body, one
-    launch pair per leaf size, 4 launches a step), then 2 Adam steps and one
-    Lion step with every 8-bit leaf's states through
+    new branches of J and K: 2 adamw8bit(block_wise=False) steps (a block a
+    leaf: J's two-pass body, one launch pair per leaf size, 4 launches a
+    step) and one lion8bit(block_wise=False) step (K's resident body, one
+    launch per leaf size, 2 a step), then 2 Adam steps and one Lion step
+    with every 8-bit leaf's states through
     ``optimizer_update_8bit_blockwise(qmap1=, qmap2=)`` (``maps``; 448 LUT
     launches a step). Each step's branch counters must rise by that count
-    and its loss be finite."""
+    and its loss be finite. Then one lion8bit(block_wise=False) step of a
+    4096 x 4096 full weight (a 7B projection fine-tuned whole: one block
+    past K's resident capacity, its two-pass body's launch pair)."""
     from bitsandbytes_sycl_tpu_torch import optim
     from bitsandbytes_sycl_tpu_torch.models.lora import ALL_TARGETS, init_lora, lora_leaves, qlora_loss_fn
 
@@ -3864,7 +4012,7 @@ def qlora_branches(torch, cfg, params, kernels, maps):
     loss_fn = qlora_loss_fn(params, cfg)
     runs = (("block_wise=False", "adam", 2, "two_pass", 2 * len(sizes),
              lambda: optim.adamw8bit(leaves, 2e-4, weight_decay=0.0, block_wise=False)),
-            ("block_wise=False", "lion", 1, "two_pass", 2 * len(sizes),
+            ("block_wise=False", "lion", 1, "resident", len(sizes),
              lambda: optim.lion8bit(leaves, 2e-5, block_wise=False)),
             ("LUT codec", "adam", 2, "lut", n8,
              lambda: LutOptimizer(torch, leaves, "adam", 2e-4, maps)),
@@ -3891,6 +4039,26 @@ def qlora_branches(torch, cfg, params, kernels, maps):
                   f" {ms['optimizer_ms']:.1f} ms; {got} launches of {kname}'s {branch} branch",
                   flush=True)
         del opt
+    # a full 4096 x 4096 weight, block_wise=False: K's two-pass body
+    w = torch.nn.Parameter(torch.randn(4096, 4096, generator=gen, device="cuda") * 0.02)
+    opt = optim.lion8bit([w], 2e-5, block_wise=False)
+    w.grad = torch.randn(4096, 4096, generator=gen, device="cuda") * 1e-3
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    opt.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts(kernels)
+    got = counts.get("optim8_1state.two_pass", 0)
+    need(got == 2 and counts.get("optim8_1state") == 2 and bool(torch.isfinite(w).all()),
+         f"lion8bit(block_wise=False) of a 4096 x 4096 weight: {got} two-pass launches of K"
+         f" ({counts.get('optim8_1state')} in all; expected 2), finite {bool(torch.isfinite(w).all())}")
+    totals["optim8_1state (two-pass)"] = totals.get("optim8_1state (two-pass)", 0) + got
+    out.append(dict(setting="block_wise=False, 4096 x 4096 weight", optimizer="lion", step=1,
+                    optimizer_ms=step_ms, launches={k: v for k, v in counts.items() if v}))
+    print(f"[7d] block_wise=False lion step of a 4096 x 4096 weight: {step_ms:.1f} ms; {got}"
+          " launches of optim8_1state's two_pass branch", flush=True)
+    del opt, w
     return dict(steps=out, launches=totals)
 
 
@@ -6754,8 +6922,9 @@ def main() -> int:
               f" tables (every optimizer: the 448-leaf QLoRA table, a mixed table with ragged"
               f" leaves, 16.8M; NaN/Inf, zero block, stochastic rounding)", flush=True)
         n_br = check_optim8_branches(torch, report)
-        print(f"[7a] J's and K's LUT codec ({n_br['lut']} tables) and two-pass body"
-              f" ({n_br['two_pass']}) equal their plain version bit for bit", flush=True)
+        print(f"[7a] J's and K's LUT codec ({n_br['lut']} tables), two-pass body"
+              f" ({n_br['two_pass']}) and K's resident body ({n_br['resident']}) equal their"
+              " plain version bit for bit", flush=True)
         phases["kernels_s"] = time.perf_counter() - t0
 
         # 3. serve Llama-7B through the paged engine
@@ -7113,8 +7282,8 @@ def main() -> int:
         "unaligned": lean_2048["dequantize_transposed"] - lean_2048["dequantize_transposed.tma"]}
     per_step.update({"mm4_fused (compressed)": lean_per.get("mm4_fused.compressed", 0),
                      "paged_attn_int8 (kv4)": lean_per.get("paged_attn_int8.kv4", 0)})
-    # J's and K's LUT codec and two-pass body,
-    # each with its phase 7d run
+    # J's and K's LUT codec and blocks past 2048 (J's two-pass body, K's
+    # resident and two-pass bodies), each with its phase 7d run
     br = train_stats["branches"]["launches"]
     for kname, line, opt_name in (("optim8_2state", 166, "adam"), ("optim8_1state", 206, "lion")):
         sources.update({
@@ -7122,9 +7291,14 @@ def main() -> int:
                                f"7B QLoRA, {opt_name} with table-coded states (phase 7d)",
                                br[f"{kname} (lut)"]),
             f"{kname} (two-pass)": (f"bitsandbytes_sycl_tpu/ops/optim8.py:{line}",
-                                    f"7B QLoRA, {opt_name} with block_wise=False (phase 7d)",
+                                    f"7B QLoRA, {opt_name} with block_wise=False (phase 7d)"
+                                    if kname == "optim8_2state" else
+                                    "lion8bit(block_wise=False) of a 4096 x 4096 weight (phase 7d)",
                                     br[f"{kname} (two-pass)"]),
         })
+    sources["optim8_1state (resident)"] = ("bitsandbytes_sycl_tpu/ops/optim8.py:206",
+                                           "7B QLoRA, lion with block_wise=False (phase 7d)",
+                                           br["optim8_1state (resident)"])
     # kernels H and D at Qwen2-7B's group of 7 (phase 10b)
     q10 = family_stats["10b"]
     sources.update({
@@ -7369,25 +7543,36 @@ OPTIM_PROBE_PARTS = {  # J's and K's bodies: copies, math, encode, skeleton
     "launch skeleton (no copies, no math)": ("BNB_PROBE_NO_COPY", "BNB_PROBE_NO_MATH"),
     "two-pass: the first pass alone (J)": ("BNB_PROBE_PASS1_ONLY",),
 }
+K_RESIDENT_PROBE_PARTS = {  # K's resident body: its loads and updates alone; without the exchange
+    "resident: updates alone, no codes, no exchange (K)": ("BNB_PROBE_SWEEP1_ONLY",),
+    "resident: no exchange, each CTA's own maximum (K)": ("BNB_PROBE_NO_EXCHANGE",),
+}
 
 
 def probe_optim(torch, out):
     """Where the time of J's and K's leaf-table bodies goes: adam (J) and
-    lion (K) at 16.8M parameters and over the 448-leaf QLoRA table, and J's
+    lion (K) at 16.8M parameters and over the 448-leaf QLoRA table, J's
     LUT codec (the quantile maps of phase 7d) and two-pass body (one block
-    a leaf, a launch pair per leaf size) at the same sizes, each launch
-    timed as built (cold L2 by write, and clean) and built with parts
-    switched off (OPTIM_PROBE_PARTS; those builds compute wrong results),
-    then the dynamic body at 1-8 persistent CTAs per SM. Launches go
-    through ops/optim8._launch with the table checked once, so the times
-    hold the leaf table's copy but not the host's checks."""
+    a leaf, a launch pair per leaf size) at the same sizes, and K's
+    resident body (one block a leaf, one launch per leaf size) over the
+    table, each launch timed as built (cold L2 by write, and clean) and
+    built with parts switched off (OPTIM_PROBE_PARTS, and for K's resident
+    body K_RESIDENT_PROBE_PARTS: its loads and updates alone, and its
+    sweep without the cluster's exchange; those builds compute wrong
+    results), then the dynamic body at 1-8 persistent CTAs per SM, then
+    probe_resident (K's cluster sweep and its route against the two-pass
+    body by table size). Launches go through ops/optim8._launch with the
+    table checked once, so the times hold the leaf table's copy but not
+    the host's checks."""
     from bitsandbytes_sycl_tpu_torch.ops import _build
     from bitsandbytes_sycl_tpu_torch.ops import optim8 as O
     from bitsandbytes_sycl_tpu_torch.ops.common import sm_count
 
     stems = ("optim8_2state", "optim8_1state")
-    built = _build.build_variants({(stem, part): (stem, macros) for stem in stems
-                                   for part, macros in OPTIM_PROBE_PARTS.items()})
+    built = _build.build_variants({**{(stem, part): (stem, macros) for stem in stems
+                                      for part, macros in OPTIM_PROBE_PARTS.items()},
+                                   **{("optim8_1state", part): ("optim8_1state", macros)
+                                      for part, macros in K_RESIDENT_PROBE_PARTS.items()}})
     gen = torch.Generator(device="cuda").manual_seed(12)
     sms = sm_count(torch.device("cuda"))
     one = torch.zeros(1, device="cuda")
@@ -7397,16 +7582,20 @@ def probe_optim(torch, out):
     maps = state_maps()
     lut = tuple(O.lut_parts(m) for m in maps)
     for name, stem, branch in (("adam", "optim8_2state", "dynamic"), ("lion", "optim8_1state", "dynamic"),
-                               ("adam", "optim8_2state", "lut"), ("adam", "optim8_2state", "two-pass")):
+                               ("adam", "optim8_2state", "lut"), ("adam", "optim8_2state", "two-pass"),
+                               ("lion", "optim8_1state", "resident")):
         for label, sizes in (("16.8M", (16777216,)), ("QLoRA table", QLORA_LEAVES)):
-            groups = [(sizes, 2048)] if branch != "two-pass" else \
+            if branch == "resident" and label == "16.8M":  # past the resident capacity
+                continue
+            groups = [(sizes, 2048)] if branch in ("dynamic", "lut") else \
                 [((n,) * sizes.count(n), n) for n in sorted(set(sizes))]
             launches = []
             for sz, bs in groups:
                 leaves, scalars, rws, _ = optim8_table(torch, gen, name, sz, 3, False, len(sz) > 1, 1,
                                                        bs=bs)
                 rws, _, table, _ = O._check_leaves(name, leaves, scalars, rws, bs)
-                plan = O.leaf_plan(tuple(lf.p.numel() for lf in leaves), bs, sms)
+                plan = O.leaf_plan(tuple(lf.p.numel() for lf in leaves), bs, sms,
+                                   branch == "resident")
                 launches.append([leaves, scalars, rws, table, plan, bs])
             nbytes = sum(optim8_bytes(name == "adam", sz, bs) for sz, bs in groups)
             qm = lut if branch == "lut" else None
@@ -7416,9 +7605,9 @@ def probe_optim(torch, out):
                     O._launch(stem, name, table, scalars, rws, plan or p, bs, True, False,
                               torch.device("cuda"), qm)
 
-            for part in ["real", "real, clean L2"] + list(OPTIM_PROBE_PARTS):
-                old = _build.use_library(stem, built[(stem, part)]) if part in OPTIM_PROBE_PARTS \
-                    else None
+            parts = K_RESIDENT_PROBE_PARTS if branch == "resident" else OPTIM_PROBE_PARTS
+            for part in ["real", "real, clean L2"] + list(parts):
+                old = _build.use_library(stem, built[(stem, part)]) if part in parts else None
                 us = time_cold(torch, run, iters=20, flush_by_read=part == "real, clean L2",
                                spin_cycles=4_000_000) * 1e3
                 if old is not None:
@@ -7438,6 +7627,56 @@ def probe_optim(torch, out):
                     print(f"{stem} {name} {label}: {cps} CTAs per SM"
                           f"{' (picked)' if p2 == plan else ''}: {us:.1f} us", flush=True)
             del launches
+    probe_resident(torch, out, gen, sms)
+
+
+def probe_resident(torch, out, gen, sms):
+    """Kernel K's resident body (lion, dynamic maps, one block a leaf): its
+    cluster size swept over the QLoRA table's two leaf sizes (352 blocks of
+    262,144, 96 of 704,512), then its route against its two-pass body over
+    tables of 1 to 64 blocks of each, beside the route the plan takes
+    (optim8_route: resident from RESIDENT_MIN_RUN blocks a cluster)."""
+    from bitsandbytes_sycl_tpu_torch.ops import optim8 as O
+
+    def timed(leaves, scalars, rws, table, plan, bs):
+        return time_cold(torch, lambda: O._launch("optim8_1state", "lion", table, scalars, rws, plan,
+                                                  bs, True, False, torch.device("cuda")),
+                         iters=20, spin_cycles=4_000_000) * 1e3
+
+    def table_of(n, T):
+        leaves, scalars, rws, _ = optim8_table(torch, gen, "lion", (n,) * T, 3, False, T > 1, 1, bs=n)
+        rws, _, table, _ = O._check_leaves("lion", leaves, scalars, rws, n)
+        return leaves, scalars, rws, table
+
+    def resident_at(n, T, c):
+        """K's resident plan of T blocks of n at clusters of c CTAs, whatever
+        route the plan takes for the table."""
+        plan = O.leaf_plan((n,) * T, n, sms, True)
+        per_cta, smem = O.resident_slices(n, c, False)
+        return plan._replace(route="resident", grid=min(T, max(1, sms // c)) * c, cluster=c,
+                             per_cta=per_cta, smem=smem)
+
+    for n, T in ((262144, 352), (704512, 96)):
+        t = table_of(n, T)
+        picked = O.resident_cluster(n, False)
+        least = -(-n // O.resident_per_cta_max(False))
+        for c in range(least, O.RESIDENT_CLUSTER_MAX + 1):
+            us = timed(*t, resident_at(n, T, c), n)
+            out["optim_clusters"].append(dict(n=n, blocks=T, cluster=c, picked=c == picked, us=us))
+            print(f"optim8_1state resident {n} x{T}: cluster {c:2d}{' (picked)' if c == picked else ''}:"
+                  f" {us:.1f} us", flush=True)
+        del t
+    for n, Ts in ((262144, (1, 4, 16, 32, 64)), (704512, (1, 4, 8, 16, 32))):
+        for T in Ts:
+            t = table_of(n, T)
+            two = timed(*t, O.leaf_plan((n,) * T, n, sms), n)
+            res = timed(*t, resident_at(n, T, O.resident_cluster(n, False)), n)
+            route = O.leaf_plan((n,) * T, n, sms, True).route
+            out["optim_routes"].append(dict(n=n, blocks=T, two_pass_us=two, resident_us=res,
+                                            route=route))
+            print(f"optim8_1state {n} x{T:3d}: two-pass {two:7.1f} us, resident {res:7.1f} us; the plan"
+                  f" takes {route}", flush=True)
+            del t
 
 
 DEQUANT_PROBE_PARTS = {  # E's TMA body: copies, conversion or stores alone; the old bodies
@@ -7697,8 +7936,12 @@ def time_i_main(root=None) -> int:
 def time_optim_main(root=None) -> int:
     """Kernels J and K through ``ops.optim8`` of the package under ``root``
     (default: beside this script), cold L2: the dynamic one-pass body, the
-    LUT codec (phase 7d's quantile maps) and the two-pass body (one block a
-    leaf), each at 16.8M parameters and over the 448-leaf QLoRA table. To
+    LUT codec (phase 7d's quantile maps) and the blocks past 2048 (one
+    block a leaf: J's two-pass body, K's on the route its plan takes, the
+    resident body where the package has one), each at 16.8M parameters
+    and over the 448-leaf QLoRA table, the blocks past 2048 also at one
+    leaf of 262,144 and of 704,512. Each update goes through
+    ``optim8_update``, so each package takes its own route. To
     compare two commits on one card, unpack the other one (``git archive``)
     into a directory that .gitignore lists and run, in one call,
     ``--time-optim DIR``, ``--time-optim``, ``--time-optim``,
@@ -7720,29 +7963,26 @@ def time_optim_main(root=None) -> int:
     card = gpu_line()
     label = os.path.relpath(pkg_root, ROOT)
     gen = torch.Generator(device="cuda").manual_seed(12)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    lut = tuple(O.lut_parts(m) for m in state_maps())
+    maps = state_maps()
     rows = []
     for name, stem in (("adam", "optim8_2state"), ("lion", "optim8_1state")):
-        for branch in ("dynamic", "lut", "two-pass"):
-            for shape, sizes in (("16.8M", (16777216,)), ("QLoRA table", QLORA_LEAVES)):
-                groups = [(sizes, 2048)] if branch != "two-pass" else \
+        for branch in ("dynamic", "lut", "blocks>2048"):
+            shapes = [("16.8M", (16777216,)), ("QLoRA table", QLORA_LEAVES)]
+            if branch == "blocks>2048":
+                shapes += [(str(n), (n,)) for n in (262144, 704512)]
+            for shape, sizes in shapes:
+                groups = [(sizes, 2048)] if branch != "blocks>2048" else \
                     [((n,) * sizes.count(n), n) for n in sorted(set(sizes))]
-                launches = []
-                for sz, bs in groups:
-                    leaves, scalars, rws, _ = optim8_table(torch, gen, name, sz, 3, False,
-                                                           len(sz) > 1, 1, bs=bs)
-                    rws, _, table, _ = O._check_leaves(name, leaves, scalars, rws, bs)
-                    plan = O.leaf_plan(tuple(lf.p.numel() for lf in leaves), bs, sms)
-                    launches.append((leaves, scalars, rws, table, plan, bs))
-                qm = (lut if name == "adam" else (lut[0], None)) if branch == "lut" else None
+                qm = (maps if name == "adam" else (maps[0], None)) if branch == "lut" else None
+                launches = [optim8_table(torch, gen, name, sz, 3, False, len(sz) > 1, 1, bs=bs)[:3]
+                            + (bs,) for sz, bs in groups]
 
-                def run(launches=launches, qm=qm, name=name, stem=stem):
-                    for _, scalars, rws, table, p, bs in launches:
-                        O._launch(stem, name, table, scalars, rws, p, bs, True, False,
-                                  torch.device("cuda"), qm)
+                def run(launches=launches, qm=qm, name=name):
+                    for leaves, scalars, rws, bs in launches:
+                        O.optim8_update(name, leaves, scalars, rws, blocksize=bs, apply_delta=True,
+                                        qmaps=qm)
 
-                us = time_cold(torch, run, iters=20, spin_cycles=4_000_000) * 1e3
+                us = time_cold(torch, run, iters=20, spin_cycles=20_000_000) * 1e3
                 bound = sum(optim8_bytes(name == "adam", sz, bs) for sz, bs in groups) \
                     / HBM_BYTES_PER_S * 1e6
                 rows.append(dict(kernel=stem, branch=branch, shape=shape, us=us, bound_us=bound))
@@ -7842,7 +8082,8 @@ def probe_main(only=None) -> int:
     sms = sm_count(torch.device("cuda"))
     out = dict(card=card, sms=sms, plans=[], parts=[], fit={}, picks=[], attention_parts=[],
                decode_parts=[], gemv_splits=[], decode_splits=[], optim_parts=[], optim_grids=[],
-               int8_parts=[], int8_plans=[], dequant_parts=[], dequant_plans=[])
+               optim_clusters=[], optim_routes=[], int8_parts=[], int8_plans=[], dequant_parts=[],
+               dequant_plans=[])
     if only in (None, "attention"):
         probe_attention(torch, out)
     if only in (None, "decode"):

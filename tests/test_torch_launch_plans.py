@@ -1,7 +1,8 @@
 """Launch plans of kernels B (``mm4_plan``), G (``grouped_plan``), C
 (``prefill_plan``), D (``paged_plan``), H (``decode_plan``), A
 (``gemv_plan``), F (``dequant8_plan``), I (``int8_plan``) and E
-(``dequant4_plan``): plain Python
+(``dequant4_plan``) and the 8-bit optimizers J and K (``optim8.leaf_plan``):
+plain Python
 that picks a body, a tile and a split from the call's dtype and shape. For
 B and G each case checks that the grid covers every output tile once, that
 the K splits partition the quantization blocks in order within a plane,
@@ -13,7 +14,10 @@ tiles write every output byte once; for I the wgmma width, that the
 splits partition the 128-byte K steps, and the stage bytes and ring the
 kernel takes; for E that the route is its predicate, that the tiles
 cover (K/2, N) once with whole scale rows, and that the persistent CTAs
-take every tile once, evenly."""
+take every tile once, evenly; for J and K that the route is its
+predicate (the capacity, and enough blocks for the card's clusters) and
+that the resident route's clusters hold every block in their CTAs'
+shared memory, each cluster a contiguous run of blocks."""
 
 import numpy as np
 import pytest
@@ -29,6 +33,10 @@ from bitsandbytes_sycl_tpu_torch.ops.matmul_int8 import (INT8_SMEM, INT8_WIDTHS,
 from bitsandbytes_sycl_tpu_torch.ops.matmul_w4a8 import (DEQ8_COLS, DEQ8_ROWS, GEMV_FUSED_MAX_M,
                                                          Dequant8Plan, deq8_smem, dequant8_plan,
                                                          gemv_plan, grouped_plan)
+from bitsandbytes_sycl_tpu_torch.ops.optim8 import (LUT_WORDS, ONE_PASS_MAX, RESIDENT_CLUSTER_MAX,
+                                                    RESIDENT_SLOT_BYTES, RESIDENT_SMEM_MAX,
+                                                    leaf_plan, optim8_route, resident_cluster,
+                                                    resident_max, resident_per_cta_max)
 from bitsandbytes_sycl_tpu_torch.ops.paged_attention import paged_plan
 
 SHAPES_7B = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
@@ -461,3 +469,55 @@ def test_dequant4_plan(case):
     assert plan.grid <= per_sm * H100_SMS
     if tiles >= per_sm * H100_SMS:  # enough work: every resident CTA takes one
         assert plan.grid * 2 > per_sm * H100_SMS
+
+
+# kernels J and K past one CTA's block: (one_state, blocksize, lut, leaves)
+# at the QLoRA leaf sizes (352 and 96 whole-leaf blocks, and one), 4096,
+# 16.8M, and each codec's resident capacity and the next multiple of 128
+# in tables of 19 blocks (enough for the resident route) and of 3
+OPTIM8_EDGES = [resident_max(False), resident_max(True)]
+OPTIM8_CASES = [(one, bs, lut, leaves)
+                for one in (True, False)
+                for bs, leaves in ((2048, 448), (4096, 5), (4096, 300), (262144, 352), (262144, 1),
+                                   (262144, 40), (704512, 96), (704512, 1), (704512, 16),
+                                   (16777216, 1))
+                + tuple((e + d, n) for e in OPTIM8_EDGES for d in (-128, 0, 128) for n in (3, 19))
+                for lut in (False, True)]
+
+
+@pytest.mark.parametrize("case", OPTIM8_CASES, ids=lambda c: "{}-bs{}-{}-x{}".format(
+    "K" if c[0] else "J", c[1], "lut" if c[2] else "dynamic", c[3]))
+def test_optim8_plan(case):
+    one_state, bs, lut, leaves = case
+    plan = leaf_plan((bs,) * leaves, bs, H100_SMS, one_state, lut)
+    assert plan.route == optim8_route(one_state, bs, lut, leaves, H100_SMS)
+    # the route is its predicate: K's resident body up to each codec's
+    # capacity (a multiple of 128; the next one goes two-pass) where every
+    # cluster the card holds gets two blocks or more; J never resident
+    cap = RESIDENT_CLUSTER_MAX * resident_per_cta_max(lut)
+    assert cap % 128 == 0 and optim8_route(True, cap + 128, lut, 10 ** 6, H100_SMS) == "two_pass"
+    c = resident_cluster(bs, lut) if ONE_PASS_MAX < bs <= cap else 0
+    fits = c and leaves >= 2 * (H100_SMS // c)
+    want = ("one_pass" if bs <= ONE_PASS_MAX else
+            "resident" if one_state and bs <= cap and fits else "two_pass")
+    assert plan.route == want
+    if one_state and (bs, leaves) in ((262144, 352), (704512, 96)):
+        assert plan.route == "resident"  # the QLoRA tables, either codec and stochastically
+    if plan.route != "resident":
+        assert plan.cluster == plan.per_cta == plan.smem == 0
+        assert plan.grid == min(leaves * -(-bs // ONE_PASS_MAX), 3 * H100_SMS)
+        return
+    c, per = plan.cluster, plan.per_cta
+    assert 1 <= c <= RESIDENT_CLUSTER_MAX and per % 8 == 0 and c * per >= bs
+    # every CTA holds part of the block, in shared memory within budget
+    assert (c - 1) * per < bs
+    words = LUT_WORDS if lut else 1058
+    assert plan.smem == 4 * per + 4 * words + RESIDENT_SLOT_BYTES <= RESIDENT_SMEM_MAX == 230400
+    # a persistent grid of whole clusters, one CTA an SM, no more clusters than blocks
+    assert plan.grid % c == 0 and c <= plan.grid <= H100_SMS
+    clusters = plan.grid // c
+    assert clusters <= plan.total == leaves
+    # each cluster takes a contiguous run of the table's blocks; every block once
+    bounds = [plan.total * k // clusters for k in range(clusters + 1)]
+    assert bounds[0] == 0 and bounds[-1] == plan.total
+    assert all(b1 - b0 >= 1 for b0, b1 in zip(bounds, bounds[1:]))

@@ -265,31 +265,48 @@ def test_leaf_table_rejects():
 
 
 def test_launch_count_only_where_the_kernel_launches(monkeypatch):
-    """On CUDA tensors the count goes up by one with each launch (two for
-    a block past 2048: the two-pass body), and a table of no block (every
-    leaf empty) launches nothing and counts nothing; the branch counters
-    count the LUT codec's and the two-pass body's launches. The CPU stands
-    in for the card: the table's checks report CUDA tensors and the launch
-    is recorded instead of run."""
+    """On CUDA tensors the count goes up by one with each launch (two on
+    the two-pass route), and a table of no block (every leaf empty)
+    launches nothing and counts nothing; the branch counters count the
+    LUT codec's, the two-pass body's and (kernel K) the resident body's
+    launches. The CPU stands in for the card: the table's checks report
+    CUDA tensors and the launch is recorded instead of run."""
     check, launched = O._check_leaves, []
     monkeypatch.setattr(O, "_check_leaves", lambda *a: check(*a)[:3] + (True,))
     monkeypatch.setattr(O, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(O, "_launch", lambda kname, name, table, scalars, rows, plan, bs, *a:
-                        launched.append(kname) or (2 if bs > O.ONE_PASS_MAX else 1))
+                        launched.append((kname, plan.route))
+                        or (2 if plan.route == "two_pass" else 1))
     for fn in (O.optim8_2state, O.optim8_1state):
         for attr in ("launches", "launches_lut", "launches_two_pass"):
             monkeypatch.setattr(fn, attr, 0)
+    monkeypatch.setattr(O.optim8_1state, "launches_resident", 0)
     sc = TF._optim8_scalars("adam", 0.9, 0.999, 1e-8, 1, 1e-3, 0.0, 1.0, "cpu").reshape(1, 8)
     empty = _table("adam", [0, 0], seed=2)
     O.optim8_update("adam", empty, sc, apply_delta=True)
     assert launched == [] and O.optim8_2state.launches == 0
     O.optim8_update("adam", _table("adam", [4096, 0, 100], seed=2), sc, apply_delta=True)
-    assert launched == ["optim8_2state"] and O.optim8_2state.launches == 1
+    assert launched == [("optim8_2state", "one_pass")] and O.optim8_2state.launches == 1
     O.optim8_update("adam", _table("adam", [2048, 2048], seed=2), sc, blocksize=4096,
                     qmaps=(TC.create_linear_map(True), TC.create_linear_map(False)))
     assert O.optim8_2state.launches == 3 and O.optim8_2state.launches_two_pass == 2
     assert O.optim8_2state.launches_lut == 2
     assert O.optim8_1state.launches == 0
+    # kernel K: one resident launch past 2048 (either codec) for a table of
+    # enough blocks (264 of 4096: two a cluster of one CTA on each of 132
+    # SMs), a launch pair for a table of few, or past the resident capacity
+    sc1 = TF._optim8_scalars("lion", 0.9, 0.99, 1e-8, 1, 1e-3, 0.0, 1.0, "cpu").reshape(1, 8)
+    many = _table("lion", [100] * 264, seed=3)
+    O.optim8_update("lion", many, sc1, blocksize=4096)
+    O.optim8_update("lion", many, sc1, blocksize=4096, qmaps=(TC.create_linear_map(True), None))
+    assert launched[-2:] == [("optim8_1state", "resident")] * 2
+    assert (O.optim8_1state.launches, O.optim8_1state.launches_resident) == (2, 2)
+    assert (O.optim8_1state.launches_lut, O.optim8_1state.launches_two_pass) == (1, 0)
+    O.optim8_update("lion", _table("lion", [2048], seed=3), sc1, blocksize=4096)
+    O.optim8_update("lion", many, sc1, blocksize=O.resident_max(False) + 128)
+    assert launched[-2:] == [("optim8_1state", "two_pass")] * 2
+    assert (O.optim8_1state.launches, O.optim8_1state.launches_resident,
+            O.optim8_1state.launches_two_pass) == (6, 2, 4)
 
 
 # ------------------------------------------------------------- leaf_plan

@@ -423,29 +423,35 @@ def test_stochastic_rounding_with_a_table_warns():
 # ------------------------------------------------------ blocks past 2048
 
 
-@pytest.mark.parametrize("codec", ["dynamic", "lut"])
-def test_global_max_update_matches_jax(codec, jax_kernel_path):
+@pytest.mark.parametrize("codec,name", [("dynamic", "adam"), ("lut", "adam"),
+                                        ("dynamic", "lion"), ("lut", "momentum")],
+                         ids=["dynamic", "lut", "lion-dynamic", "momentum-lut"])
+def test_global_max_update_matches_jax(codec, name, jax_kernel_path):
     """optimizer_update_8bit: n = 3000 in one block of 4096 (ragged), one
-    step from random codes and maxima, the maxima of shape (1,)."""
+    step from random codes and maxima, the maxima of shape (1,); kernel J
+    (adam) and kernel K (lion, momentum: its resident route on the card)."""
     rng = np.random.default_rng(21)
     n, lr = 3000, 1e-3
+    two = name == "adam"
     q1, q2 = _quantile_maps() if codec == "lut" else (None, None)
+    q2 = q2 if two else None
     p = (rng.normal(size=(n,)) * 0.1).astype(np.float32)
     s1, s2 = rng.integers(0, 256, (2, n)).astype(np.uint8)
-    m1, m2 = np.float32([2e-3]), np.float32([3e-5])
+    s2 = s2 if two else None
+    m1, m2 = np.float32([2e-3]), np.float32([3e-5]) if two else None
+    b2 = 0.999 if two else 0.99
     for step in (3,):
         g = (rng.normal(size=(n,)) * 0.01).astype(np.float32)
         kw = dict(qmap1=q1, qmap2=q2, weight_decay=0.01, codec=None if codec == "lut" else "dynamic")
-        want = JF.optimizer_update_8bit("adam", _j(g), _j(p), _j(s1), _j(s2), 0.9, 0.999, 1e-8,
+        want = JF.optimizer_update_8bit(name, _j(g), _j(p), _j(s1), _j(s2), 0.9, b2, 1e-8,
                                         step, lr, max1=_j(m1), max2=_j(m2), **kw)
-        got = TF.optimizer_update_8bit("adam", _t(g), _t(p), _t(s1), _t(s2), 0.9, 0.999, 1e-8,
+        got = TF.optimizer_update_8bit(name, _t(g), _t(p), _t(s1), _t(s2), 0.9, b2, 1e-8,
                                        step, lr, max1=_t(m1), max2=_t(m2), **kw)
-        assert got[2].shape == got[4].shape == (1,)
+        assert got[2].shape == (1,) and (got[4].shape == (1,) if two else got[4] is None)
         _close_p(got[0], want[0], lr)
-        for ci, ai in ((1, 2), (3, 4)):
+        for ci, ai in ((1, 2), (3, 4)) if two else ((1, 2),):
             _codes_close(got[ci], want[ci])
             np.testing.assert_allclose(_np(got[ai]), _np(want[ai]), rtol=1e-6, atol=0)
-        p, s1, m1, s2, m2 = (np.asarray(a) for a in want)
 
 
 def test_two_pass_plain_equals_rows_of_one_block():
