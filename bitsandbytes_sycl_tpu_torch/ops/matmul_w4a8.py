@@ -26,10 +26,14 @@ multiple of 16, N of 16) that streams tiles of the packed weight by TMA,
 decodes through per-column code tables in shared memory and stores the
 transposed codes by TMA; and a grid-stride body for the other shapes.
 
-Kernel A has two bodies (``gemv_plan``): a fused body for decode rows
+Kernel A has three bodies (``gemv_plan``): a fused body for decode rows
 (M <= 8, blocksize 32 or 64), one launch that quantizes the activations,
-streams the weights and merges its K splits itself; and a SIMT body for
-up to 128 rows, three launches (row quantization, the GEMV, the ordered
+streams the weights and merges its K splits itself; a tensor-core body for
+every other call at a blocksize that is a multiple of 32 (every row count
+of the route: 9-128 rows at blocksize 64, 1-128 at 128, 1-256 at 256), two
+launches (row quantization, then mma.sync products over one pass of the
+weight per 128 rows, merging its K splits itself); and a SIMT body for the
+other blocksizes, three launches (row quantization, the GEMV, the ordered
 sum of its K splits).
 
 The three routes are differentiable in x and the bias with the exact-
@@ -41,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -55,7 +60,7 @@ __all__ = [
     "matmul_4bit_w4a8", "matmul_4bit_w4a8_grouped", "matmul_4bit_w8a8_prefill",
     "dequantize_to_int8", "w4a8_gemv", "w4a8_grouped", "dequant_int8",
     "grouped_min_m", "W8A8_PREFILL_MIN_M", "grouped_plan", "col_grid", "gemv_plan",
-    "dequant8_plan", "Dequant8Plan",
+    "simt_plan", "dequant8_plan", "Dequant8Plan",
 ]
 
 # routing thresholds of the JAX package (models/llama.apply_linear reads them)
@@ -133,6 +138,16 @@ _GEMV_X_BYTES = 32768  # quantized activations a fused CTA keeps in shared memor
 _GEMV_CTAS_PER_SM = 1
 
 
+# the tensor-core body: rows a pass holds at most, and at each row tile the
+# columns a CTA covers and the CTAs an SM holds (shared memory, registers).
+# csrc/w4a8_gemv.cu decides both (tc_bn, __launch_bounds__): its entry
+# refuses a plan's bn other than tc_bn, and chip_smoke.py holds the CTAs
+# against the kernel's occupancy on the card (w4a8_gemv_tc_ctas)
+GEMV_TC_ROWS = 128
+_GEMV_TC_COLS = {16: 128, 32: 128, 64: 64, 128: 64}
+_GEMV_TC_CTAS = {16: 2, 32: 2, 64: 2, 128: 1}
+
+
 @functools.lru_cache(maxsize=None)
 def gemv_plan(M: int, N: int, K: int, bs: int, sms: int) -> LaunchPlan:
     """Kernel A's launch. The fused body ("fused") takes M <= 8 rows (bm,
@@ -140,9 +155,16 @@ def gemv_plan(M: int, N: int, K: int, bs: int, sms: int) -> LaunchPlan:
     K % 128 == 0: the grid is (N / 128, ksplit), split s taking the stages
     [s * per, (s + 1) * per) of 64 packed rows, with about
     _GEMV_CTAS_PER_SM CTAs per SM, no more splits than stages, and at most
-    _GEMV_X_BYTES of quantized activations per CTA. The SIMT body ("simt")
-    takes the rest: rows in tiles of 4, ``per`` quantization blocks per
-    warp, ``ksplit`` K splits."""
+    _GEMV_X_BYTES of quantized activations per CTA. The tensor-core body
+    ("tc") takes every other call at bs % 32 == 0 and N % 128 == 0: bm rows
+    a pass (16, 32, 64 or 128; ceil(M / 128) passes past 128 rows), bn
+    columns a CTA (128; 64 at bm = 64 and 128), split s taking the stages
+    [s * per, (s + 1) * per) of 64 packed rows (the last may hold 32), per
+    * 64 rows a whole number of quantization blocks (a block's int32 sums
+    never cross a split: per a multiple of lcm(bs, 64) / 64), and the split
+    count that fills the SMs' CTA slots in the fewest rounds without moving
+    much of the weight's bytes again as partials. The SIMT body ("simt")
+    takes the rest (simt_plan)."""
     half = K // 2
     if 0 < M <= GEMV_FUSED_MAX_M and bs in (32, 64) and N % 128 == 0 \
             and half % _GEMV_STAGE_ROWS == 0:
@@ -151,6 +173,28 @@ def gemv_plan(M: int, N: int, K: int, bs: int, sms: int) -> LaunchPlan:
         ks = max(1, min(steps, int(_GEMV_CTAS_PER_SM * sms / tiles + 0.5)))
         per = min(-(-steps // ks), _GEMV_X_BYTES // (bm * 2 * _GEMV_STAGE_ROWS))
         return LaunchPlan("fused", bm, per, -(-steps // per))
+    if M > 0 and bs % 32 == 0 and N % 128 == 0 and half % bs == 0:
+        bm = next(b for b in (16, 32, 64, GEMV_TC_ROWS) if b >= min(M, GEMV_TC_ROWS))
+        bn = _GEMV_TC_COLS[bm]
+        steps = -(-half // _GEMV_STAGE_ROWS)
+        # the fewest stages that end on a block boundary (3 at blocksize 96)
+        unit = math.lcm(bs, _GEMV_STAGE_ROWS) // _GEMV_STAGE_ROWS
+        units = -(-steps // unit)
+        tiles = N // bn * -(-M // bm)
+        slots = _GEMV_TC_CTAS[bm] * sms
+        # rounds of CTA slots a split count takes per unit of work, plus each
+        # split's partials (M x N f32 written and read: 16 M / K of the
+        # weight's bytes, a quarter of which reach memory past L2)
+        ks = min(range(1, units + 1),
+                 key=lambda k: -(-tiles * k // slots) / k + 4 * (k - 1) * M / K)
+        per = unit * -(-units // ks)
+        return LaunchPlan("tc", bm, per, -(-steps // per), bn)
+    return simt_plan(M, N, K, bs)
+
+
+def simt_plan(M: int, N: int, K: int, bs: int) -> LaunchPlan:
+    """The SIMT body's launch: rows in tiles of 4, ``per`` quantization
+    blocks per warp, ``ksplit`` K splits."""
     g, ks = _ksplit(K // (2 * bs), N // 128, -(-M // 4))
     return LaunchPlan("simt", 4, g, ks)
 
@@ -179,8 +223,8 @@ def w4a8_gemv(x2: torch.Tensor, w: QLinearWeight, bias: Optional[torch.Tensor],
 
 def _gemv_launch(x2, w: QLinearWeight, bias, out_dtype, plan: LaunchPlan) -> torch.Tensor:
     """Launch kernel A's body ``plan.body`` on checked CUDA tensors. The
-    fused body allocates only ``out``: split partials and tickets are kept
-    per device."""
+    fused and tensor-core bodies keep their split partials and tickets per
+    device."""
     M, K = x2.shape
     N = w.shape[0]
     dev = x2.device
@@ -202,6 +246,23 @@ def _gemv_launch(x2, w: QLinearWeight, bias, out_dtype, plan: LaunchPlan) -> tor
         fn = _build.kernel_fn("w4a8_gemv", "w4a8_gemv_fused", 18, int_args=range(8, 17))
         err = fn(*ptrs, part, tickets, table, M, N, K, w.blocksize, plan.per, plan.ksplit, *flags)
         w4a8_gemv.launches_fused += 1
+    elif plan.body == "tc":
+        # x is read 16 bytes at a time, the weight and its scales by TMA:
+        # 16-byte aligned addresses (a view at an odd offset is copied)
+        x2 = x2 if ptrs[0] % 16 == 0 else x2.clone()
+        packed = w.packed if ptrs[1] % 16 == 0 else w.packed.clone()
+        absmax = w.absmax if ptrs[2] % 16 == 0 else w.absmax.clone()
+        ptrs = (x2.data_ptr(), packed.data_ptr(), absmax.data_ptr()) + ptrs[3:]
+        xq = torch.empty((M, K), dtype=torch.int8, device=dev)
+        ra = torch.empty((M,), dtype=torch.float32, device=dev)
+        part = tickets = None
+        if plan.ksplit > 1:
+            part = scratch_buffer(dev, plan.ksplit * M * N).data_ptr()
+            tickets = ticket_buffer(dev, -(-M // plan.bm) * N // plan.bn).data_ptr()
+        fn = _build.kernel_fn("w4a8_gemv", "w4a8_gemv_tc", 22, int_args=range(10, 21))
+        err = fn(*ptrs, xq.data_ptr(), ra.data_ptr(), part, tickets, table, M, N, K, w.blocksize,
+                 plan.bm, plan.bn, plan.per, plan.ksplit, *flags)
+        w4a8_gemv.launches_tc += 1
     else:
         xq = torch.empty((M, K), dtype=torch.int8, device=dev)
         ra = torch.empty((M,), dtype=torch.float32, device=dev)
@@ -214,9 +275,10 @@ def _gemv_launch(x2, w: QLinearWeight, bias, out_dtype, plan: LaunchPlan) -> tor
     return out
 
 
-# launches of either body, and of the fused body alone
+# launches of any body, and of the fused and the tensor-core body alone
 w4a8_gemv.launches = 0
 w4a8_gemv.launches_fused = 0
+w4a8_gemv.launches_tc = 0
 
 
 def matmul_4bit_w4a8(

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --probe optim       # J's and K's leaf-table bodies, J's branches only
     python3 chip_smoke.py --probe int8        # F's tiled and I's wgmma bodies only
     python3 chip_smoke.py --probe dequant     # E's TMA body only: parts, stores, plans
+    python3 chip_smoke.py --probe tc          # A's tensor-core body only: parts, split counts
     python3 chip_smoke.py --time-i [DIR]      # I's times, from the package under DIR
     python3 chip_smoke.py --time-decode [DIR] # phase 3's decode step, from the package under DIR
     python3 chip_smoke.py --time-optim [DIR]  # J's and K's branches, from the package under DIR
@@ -18,8 +19,11 @@ Phases, each of which exits non-zero on failure:
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the 7B serving path gives it (attention inputs with O(1)
      scores, and the plain version fed deliberate faults must land outside
-     the tolerance; kernel A's fused body at 1, 4 and 8 rows, B's
-     tensor-core body at 256 and 1024 rows, G's wgmma body at 512 and 2048,
+     the tolerance; kernel A's fused body at 1, 4 and 8 rows and its
+     tensor-core body at 16-128 rows (blocksize 64), 4, 32 and 128
+     (blocksize 128) and 256 (blocksize 256), each timed beside its SIMT
+     body, which it must beat, B's tensor-core body at 256 and 1024 rows,
+     G's wgmma body at 512 and 2048,
      C's tensor-core body at T = 32 and 512, D's split body at 1 and 16
      pages, H's split body at B = 1, 2, 4 and 8, each checked to have run;
      C's tensor-core and H's split bodies at head_dim 256, the shapes of
@@ -37,7 +41,8 @@ Phases, each of which exits non-zero on failure:
   3. serve Llama-7B (NF4, bs 64, bf16 scales, W4A8 decode, int8 paged KV,
      random weights from a seed) through the paged engine: 8 prompts, 4
      slots, 32 new tokens each; the W4A8, prefill and paged-attention
-     kernels must have been launched; then profile decode steps on the
+     kernels must have been launched, every prefill's 225 W4A8 launches on
+     A's tensor-core body; then profile decode steps on the
      device (torch.profiler) and on the host (cProfile, and each step
      against a host-speed yardstick);
   3b. long prompts through the paged engine at full 7B width and depth
@@ -49,6 +54,11 @@ Phases, each of which exits non-zero on failure:
      prefill (256-token chunks) of two 700-1000-token prompts against the
      whole-prompt engine, with W4A8 linears (chunks on G) and with
      a8_decode=False (chunks on B);
+  3e. LlamaConfig.serving7b() (NF4 at blocksize 128: the JAX package's
+     single-chip 7B serving preset) at full width and depth through the
+     paged engine, 32 prompts, max_batch 32, 16 new tokens each: every
+     launch of A on its tensor-core body (225 a decode step at 32 rows), a
+     profiled decode step at 32 rows, and 2 layers card against CPU;
   4. the same weights, 4 layers, on the exact path (a8_decode=False): the
      exact 4-bit kernel must have been launched, and a batch of four
      257-512-token prompts must decode every linear's weight once (E);
@@ -209,8 +219,9 @@ Phases, each of which exits non-zero on failure:
      chiprun_out/phase12/; their times are two ranks sharing one card;
 Every prefill of phases 3, 3b, 3c, 4b and 6 must run C's tensor-core body
 (the model's q is bf16), every paged decode launch D's split body, every
-contiguous decode launch H's split body, and every decode step's W4A8
-linears A's fused body (one launch each; phases 3 and 3c).
+contiguous decode launch H's split body, every decode step's W4A8
+linears A's fused body (one launch each; phases 3 and 3c), and no launch
+of A its SIMT body.
 Between them: 3c serves phase 3's prompts through the engine's default,
 the contiguous int8 cache (kernel H, 32 launches per step), and its greedy
 tokens must equal the paged engine's under the gap rule; 4b prefills on
@@ -245,6 +256,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -362,16 +374,34 @@ def faults_exceed(torch, name, ref, faults, tol):
 
 
 # --------------------------------------------------------------- phase 2
+# kernel A past the fused body: (blocksize, rows) of the 7B linears that
+# take the tensor-core body (check_linears holds and times each of them)
+A_TC_CELLS = ((64, 16), (64, 32), (64, 64), (64, 128), (128, 4), (128, 32), (128, 128), (256, 256))
+
+
+def a_bound(M, N, K, bs):
+    """(bytes, bound ms, bound_by) of kernel A at (M, N, K, bs): bf16 x
+    and output, the packed weight and its bf16 scales, each once, over the
+    card's memory rate, against 2 M N K int8 operations."""
+    nbytes = M * K * 2 + N * K // 2 + N * K // bs * 2 + M * N * 2
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, 2 * M * N * K / INT8_OPS_PER_S
+    return nbytes, max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
 def check_linears(torch, report):
     """Kernels A and B against their plain versions at the 7B shapes, within
     1% of the largest output (bf16 output: a few ulps after a reordered f32
     sum). A at 1, 4 and 8 rows (its fused body; 8 is the edge of gemv_plan)
-    and at 128 (its SIMT body); B at 4 and 128 rows and at the 256 and 1024
-    rows of the exact prefill path (its tensor-core body). The plain
-    version fed the lo plane's scales on the hi plane must land outside the
-    tolerance (A at 1, 4 and 8 rows, B from 256). Timed: A at 1 and 4 rows
-    beside its SIMT body (the earlier design, three launches), B at 4 rows
-    and at 256 and 1024 rows beside its SIMT body at 256."""
+    and at A_TC_CELLS (its tensor-core body: 16-128 rows at blocksize 64, 4,
+    32 and 128 at blocksize 128, 256 at blocksize 256 where K % 512 == 0),
+    each call shown to have run the body gemv_plan names; B at 4 and 128
+    rows and at the 256 and 1024 rows of the exact prefill path (its
+    tensor-core body). The plain version fed the lo plane's scales on the
+    hi plane must land outside the tolerance (A at every row count, B from
+    256). Timed: A at 1 and 4 rows and at every tensor-core row beside its
+    SIMT body (the earlier design, three launches, through simt_plan), which
+    the tensor-core body must beat; B at 4 rows and at 256 and 1024 rows
+    beside its SIMT body at 256."""
     import dataclasses as dc
 
     from bitsandbytes_sycl_tpu_torch.ops import matmul_4bit, matmul_w4a8
@@ -379,94 +409,134 @@ def check_linears(torch, report):
                                                         sm_count)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    shapes = [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]
-    rows = {"w4a8_gemv": [], "mm4_fused": []}
+    rows = {"w4a8_gemv": [], "mm4_fused": [], "w4a8_gemv (tc)": []}
     mode = matmul_4bit._MODE_BF16_TABLE
     edge = matmul_w4a8.GEMV_FUSED_MAX_M
-    for N, K in shapes:
+    gemv = matmul_w4a8.w4a8_gemv
+
+    def a_case(x, w, w_bad, Wd, timed):
+        """A on the body gemv_plan picks, within 1%, the fault outside; with
+        ``timed`` its cold time beside its SIMT body, bf16 torch.matmul, its
+        plain version and the bound."""
+        M, K = x.shape
+        N, bs = w.shape[0], w.blocksize
+        plan = matmul_w4a8.gemv_plan(M, N, K, bs, sm_count(x.device))
+        n0, fu0, tc0 = gemv.launches, gemv.launches_fused, gemv.launches_tc
+        got = matmul_w4a8.w4a8_gemv(x, w, None, torch.bfloat16)
+        ref = matmul_w4a8._w4a8_plain(x, w, None, torch.bfloat16)
+        torch.cuda.synchronize()
+        ran = {"fused": gemv.launches_fused - fu0, "tc": gemv.launches_tc - tc0}
+        ran["simt"] = gemv.launches - n0 - ran["fused"] - ran["tc"]
+        need(ran == {b: int(b == plan.body) for b in ran},
+             f"w4a8_gemv N={N} K={K} bs={bs} M={M}: launches by body {ran}, not the {plan.body} body")
+        err, scale = max_err(torch, got, ref)
+        tol = 1e-2 * scale  # bf16 output: a few ulps after a reordered f32 sum
+        need(err <= tol, f"w4a8_gemv N={N} K={K} bs={bs} M={M}: max err {err} > {tol}")
+        row = dict(N=N, K=K, bs=bs, M=M, max_abs_err=err, tol=tol, plan=tuple(plan))
+        row["fault_over_tol"] = faults_exceed(torch, f"w4a8_gemv N={N} K={K} bs={bs} M={M}", ref, [
+            ("the lo plane's scales on the hi plane",
+             lambda: matmul_w4a8._w4a8_plain(x, w_bad, None, torch.bfloat16))], tol)
+        if timed:
+            nbytes, bound, by = a_bound(M, N, K, bs)
+            row.update(
+                ms=time_cold(torch, lambda: matmul_w4a8.w4a8_gemv(x, w, None, torch.bfloat16)),
+                plain_ms=time_cold(torch, lambda: matmul_w4a8._w4a8_plain(x, w, None, torch.bfloat16),
+                                   iters=5),
+                library_ms=time_cold(torch, lambda: torch.matmul(x, Wd.T)),
+                simt_ms=time_cold(torch, lambda: matmul_w4a8._gemv_launch(
+                    x, w, None, torch.bfloat16, matmul_w4a8.simt_plan(M, N, K, bs))),
+                bytes=nbytes, bound_ms=bound, bound_by=by)
+            if plan.body == "tc":
+                need(row["ms"] < row["simt_ms"], f"w4a8_gemv N={N} K={K} bs={bs} M={M}: the"
+                     f" tensor-core body ({row['ms'] * 1e3:.1f} us) is not faster than the SIMT body"
+                     f" ({row['simt_ms'] * 1e3:.1f} us)")
+        print(f"  w4a8_gemv  N={N:5d} K={K:5d} bs={bs:3d} M={M:4d} err={err:.3g} rel={err / scale:.2g}"
+              f" (tol {tol:.3g}); fault {row['fault_over_tol']:.3g}x tol"
+              + (f" kernel {row['ms']*1e3:.1f} us plain {row['plain_ms']*1e3:.1f} us bf16 matmul"
+                 f" {row['library_ms']*1e3:.1f} us SIMT body {row['simt_ms']*1e3:.1f} us bound"
+                 f" {row['bound_ms']*1e3:.2f} us ({row['bound_ms']/row['ms']:.0%})" if timed else "")
+              + f" plan {row['plan']}", flush=True)
+        rows["w4a8_gemv" if plan.body == "fused" else "w4a8_gemv (tc)"].append(row)
+
+    # the tensor-core body's CTAs an SM at each row tile: what gemv_plan
+    # assumes against the kernel's occupancy (its shared memory, registers)
+    from bitsandbytes_sycl_tpu_torch.ops import _build
+    ctas = {bm: _build.kernel_fn("w4a8_gemv", "w4a8_gemv_tc_ctas", 1, int_args=(0,))(bm)
+            for bm in matmul_w4a8._GEMV_TC_CTAS}
+    need(ctas == matmul_w4a8._GEMV_TC_CTAS, f"w4a8_gemv (tc): the kernel holds {ctas} CTAs an SM"
+         f" by row tile, gemv_plan plans for {matmul_w4a8._GEMV_TC_CTAS}")
+    for N, K in SHAPES_7B:
         W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
-        w = quantize_4bit_native(W, 64, "nf4", absmax_dtype=torch.bfloat16)
         Wd = W.to(torch.bfloat16)
-        del W
-        w_bad = dc.replace(w, absmax=w.absmax[1:].expand(2, -1, -1).contiguous())  # lo scales on hi
-        for M in sorted({1, 4, edge, 128, 256, 1024}):
-            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
-            for name, kern, plain in (
-                ("w4a8_gemv", lambda: matmul_w4a8.w4a8_gemv(x, w, None, torch.bfloat16),
-                 lambda: matmul_w4a8._w4a8_plain(x, w, None, torch.bfloat16)),
-                ("mm4_fused", lambda: matmul_4bit.mm4_fused(x, w, None, torch.bfloat16),
-                 lambda: matmul_4bit._mm4_plain(x, w, None, torch.bfloat16, mode)),
-            ):
-                if name == "w4a8_gemv" and M > 128:
-                    continue  # A serves up to 128 rows; B also the 256-row prefill
-                if name == "mm4_fused" and M in (1, edge) and M != 4:
-                    continue
+        for bs in sorted({64} | {b for b, _ in A_TC_CELLS if K % (2 * b) == 0}):
+            w = quantize_4bit_native(W, bs, "nf4", absmax_dtype=torch.bfloat16)
+            w_bad = dc.replace(w, absmax=w.absmax[1:].expand(2, -1, -1).contiguous())  # lo scales on hi
+            cells = [m for b, m in A_TC_CELLS if b == bs] + ([1, 4, edge] if bs == 64 else [])
+            for M in sorted(cells):
+                x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+                a_case(x, w, w_bad, Wd, timed=M not in (edge,))
+            if bs != 64:
+                continue
+            for M in (4, 128, 256, 1024):
+                x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
                 tc0 = matmul_4bit.mm4_fused.launches_tc
-                fu0 = matmul_w4a8.w4a8_gemv.launches_fused
-                got, ref = kern(), plain()
+                got = matmul_4bit.mm4_fused(x, w, None, torch.bfloat16)
+                ref = matmul_4bit._mm4_plain(x, w, None, torch.bfloat16, mode)
                 torch.cuda.synchronize()
                 err, scale = max_err(torch, got, ref)
-                tol = 1e-2 * scale  # bf16 output: a few ulps after a reordered f32 sum
-                need(err <= tol, f"{name} N={N} K={K} M={M}: max err {err} > {tol}")
+                tol = 1e-2 * scale
+                need(err <= tol, f"mm4_fused N={N} K={K} M={M}: max err {err} > {tol}")
+                need(matmul_4bit.mm4_fused.launches_tc == tc0 + 1,
+                     f"mm4_fused N={N} K={K} M={M}: bf16 x did not take the tensor-core body")
                 row = dict(N=N, K=K, M=M, max_abs_err=err, tol=tol)
-                if name == "mm4_fused":
-                    need(matmul_4bit.mm4_fused.launches_tc == tc0 + 1,
-                         f"mm4_fused N={N} K={K} M={M}: bf16 x did not take the tensor-core body")
-                else:
-                    fused = matmul_w4a8.w4a8_gemv.launches_fused - fu0
-                    need(fused == int(M <= edge), f"w4a8_gemv N={N} K={K} M={M}: "
-                         f"{'the SIMT' if M <= edge else 'the fused'} body ran")
-                    row["plan"] = tuple(matmul_w4a8.gemv_plan(M, N, K, 64, sm_count(x.device)))
-                if (name == "mm4_fused" and M >= 256) or (name == "w4a8_gemv" and M <= edge):
-                    row["fault_over_tol"] = faults_exceed(torch, f"{name} N={N} K={K} M={M}", ref, [
+                if M >= 256:
+                    row["fault_over_tol"] = faults_exceed(torch, f"mm4_fused N={N} K={K} M={M}", ref, [
                         ("the lo plane's scales on the hi plane",
-                         (lambda: matmul_4bit._mm4_plain(x, w_bad, None, torch.bfloat16, mode))
-                         if name == "mm4_fused" else
-                         (lambda: matmul_w4a8._w4a8_plain(x, w_bad, None, torch.bfloat16)))], tol)
-                timed_rows = (1, 4) if name == "w4a8_gemv" else (4, 256, 1024)
-                if M in timed_rows:
+                         lambda: matmul_4bit._mm4_plain(x, w_bad, None, torch.bfloat16, mode))], tol)
+                if M in (4, 256, 1024):
                     nbytes = M * K * 2 + N * K // 2 + N * K // 64 * 2 + M * N * 2
                     ops_ = 2 * M * N * K
                     # the M = 4 rows keep the f32 peak (bytes bound them either way)
-                    peak = (INT8_OPS_PER_S if name == "w4a8_gemv" else
-                            F32_FLOPS_PER_S if M == 4 else BF16_FLOPS_PER_S)
+                    peak = F32_FLOPS_PER_S if M == 4 else BF16_FLOPS_PER_S
+                    kern = lambda: matmul_4bit.mm4_fused(x, w, None, torch.bfloat16)  # noqa: E731
                     row.update(
                         ms=time_cold(torch, kern),
-                        plain_ms=time_cold(torch, plain, iters=5 if M < 1024 else 3),
+                        plain_ms=time_cold(torch, lambda: matmul_4bit._mm4_plain(
+                            x, w, None, torch.bfloat16, mode), iters=5 if M < 1024 else 3),
                         library_ms=time_cold(torch, lambda: torch.matmul(x, Wd.T)),
                         bytes=nbytes, bound_ms=max(nbytes / HBM_BYTES_PER_S, ops_ / peak) * 1e3,
                         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops_ / peak else "operations",
-                    )
-                    if name == "mm4_fused":
-                        row["plan"] = tuple(matmul_4bit.mm4_plan(M, N, K, 64, x.dtype,
-                                                                 sm_count(x.device)))
-                    g, ks = _ksplit(K // 128, N // 128, -(-M // 4))
-                    if name == "mm4_fused" and M == 256:
+                        plan=tuple(matmul_4bit.mm4_plan(M, N, K, 64, x.dtype, sm_count(x.device))))
+                    if M == 256:
+                        g, ks = _ksplit(K // 128, N // 128, -(-M // 4))
                         row["simt_ms"] = time_cold(torch, lambda: matmul_4bit._mm4_launch(
                             x, w, None, mode, LaunchPlan("simt", 4, g, ks)), iters=3)
-                    if name == "w4a8_gemv":  # the earlier design: quant_rows, the GEMV, the split sum
-                        row["simt_ms"] = time_cold(torch, lambda: matmul_w4a8._gemv_launch(
-                            x, w, None, torch.bfloat16, LaunchPlan("simt", 4, g, ks)))
-                rows[name].append(row)
-                print(f"  {name:10s} N={N:5d} K={K:5d} M={M:4d} err={err:.3g} rel={err / scale:.2g}"
+                rows["mm4_fused"].append(row)
+                print(f"  mm4_fused  N={N:5d} K={K:5d} M={M:4d} err={err:.3g} rel={err / scale:.2g}"
                       f" (tol {tol:.3g})"
                       + (f"; fault {row['fault_over_tol']:.3g}x tol" if "fault_over_tol" in row else "")
                       + (f" kernel {row['ms']*1e3:.1f} us plain {row['plain_ms']*1e3:.1f} us"
                          f" bf16 matmul {row['library_ms']*1e3:.1f} us bound"
                          f" {row['bound_ms']*1e3:.2f} us ({row['bound_ms']/row['ms']:.0%})"
-                         if "ms" in row else "")
-                      + (f" plan {row['plan']}" if "plan" in row else "")
+                         f" plan {row['plan']}" if "ms" in row else "")
                       + (f" SIMT body {row['simt_ms']*1e3:.1f} us" if "simt_ms" in row else ""),
                       flush=True)
-        del w, w_bad, Wd
-    # the JSON line: A at 4 rows (decode), B at 256 rows (the exact prefill)
+            del w, w_bad
+        del W, Wd
+    # the JSON line: A at 4 rows (decode, fused), at 32 rows and blocksize
+    # 128 (phase 3e's serving7b decode step, tensor-core body), B at 256
+    # rows (the exact prefill)
     for name, rs in rows.items():
-        timed = [r for r in rs if "ms" in r and r["M"] == (4 if name == "w4a8_gemv" else 256)]
+        timed = [r for r in rs if "ms" in r and (r["M"], r.get("bs", 64)) == {
+            "w4a8_gemv": (4, 64), "mm4_fused": (256, 64), "w4a8_gemv (tc)": (32, 128)}[name]]
         report[name] = dict(
             shapes=rs, ms=sum(r["ms"] for r in timed), plain_ms=sum(r["plain_ms"] for r in timed),
             library_ms=sum(r["library_ms"] for r in timed),
             bound_ms=sum(r["bound_ms"] for r in timed), bound_by=timed[0]["bound_by"],
             max_abs_err=max(r["max_abs_err"] for r in rs))
+    report["w4a8_gemv (tc)"]["simt_ms"] = sum(
+        r["simt_ms"] for r in rows["w4a8_gemv (tc)"] if "ms" in r and (r["M"], r["bs"]) == (32, 128))
+    report["w4a8_gemv (tc)"]["ctas_per_sm"] = ctas
 
 
 def ulp_ratio(torch, got, ref, dtype, bias=None):
@@ -769,9 +839,9 @@ def check_repeatable(torch, report, n=100):
     of its tiles (the plans mm4_plan picks at 256 and 1024 rows, and every
     tile forced at 256 rows) and G's wgmma body at 512 and 2048 rows, each
     launched n times on one input at 4096 x 4096; C's tensor-core body and
-    the split bodies of D and H and the fused body of A (whose last CTA
-    merges the splits in order) at their 7B shapes, every plan that
-    decode_plan and gemv_plan pick there and other split counts; F's tiled
+    the split bodies of D and H and the fused and tensor-core bodies of A
+    (whose last CTA merges the splits in order) at their 7B shapes, every
+    plan that decode_plan and gemv_plan pick there and other split counts; F's tiled
     body at 4096 x 4096 and I's body (whose last CTA adds the splits) at
     every plan int8_plan picks at the 7B shapes for 4 and 128 rows, at
     three splits, and at 4096 x 4096 in each of its ten wgmma widths; E's
@@ -860,31 +930,45 @@ def check_repeatable(torch, report, n=100):
         rows.append(dict(kernel=name, body=body, launches=n))
     del q, kq, vq, ks, vs, kp, kps, vp, vps, kq4, vq4
     # kernel A's fused body: the plan's pick at the four 7B shapes and 1, 4
-    # and 8 rows, and every split count at 4096 x 4096 and 4 rows
-    n_a = 0
-    for N2, K2 in ((4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)):
+    # and 8 rows, and every split count at 4096 x 4096 and 4 rows; its
+    # tensor-core body: the plan's pick at every A_TC_CELLS row of the 7B
+    # shapes, and at 4096 x 4096 four splits at 128 rows (blocksize 64) and
+    # one split at 4 rows (blocksize 128)
+    n_a = n_tc = 0
+    for N2, K2 in SHAPES_7B:
         W2 = torch.randn((N2, K2), generator=gen, device="cuda") / K2 ** 0.5
-        w2 = quantize_4bit_native(W2, 64, "nf4", absmax_dtype=torch.bfloat16)
-        del W2
-        for M in (1, 4, mw.GEMV_FUSED_MAX_M):
-            x = torch.randn((M, K2), generator=gen, device="cuda").to(torch.bfloat16)
-            plans = [mw.gemv_plan(M, N2, K2, 64, sms)]
-            if (N2, K2, M) == (4096, 4096, 4):
+        for bs in sorted({64} | {b for b, _ in A_TC_CELLS if K2 % (2 * b) == 0}):
+            w2 = quantize_4bit_native(W2, bs, "nf4", absmax_dtype=torch.bfloat16)
+            for M in sorted([m for b, m in A_TC_CELLS if b == bs]
+                            + ([1, 4, mw.GEMV_FUSED_MAX_M] if bs == 64 else [])):
+                x = torch.randn((M, K2), generator=gen, device="cuda").to(torch.bfloat16)
+                plans = [mw.gemv_plan(M, N2, K2, bs, sms)]
+                body = "fused" if M <= mw.GEMV_FUSED_MAX_M and bs == 64 else "tc"
                 steps = K2 // 128
-                plans += [LaunchPlan("fused", 4, -(-steps // ks), -(-steps // -(-steps // ks)))
-                          for ks in (1, 2, 3, 4, 6)]
-            for plan in plans:
-                need(plan.body == "fused", f"gemv_plan gave M={M} the {plan.body} body")
-                c0 = mw.w4a8_gemv.launches_fused
-                run = lambda: mw._gemv_launch(x, w2, None, torch.bfloat16, plan)  # noqa: E731
-                first = run()
-                differ = sum(int(not torch.equal(run(), first)) for _ in range(n - 1))
-                need(mw.w4a8_gemv.launches_fused == c0 + n, "w4a8_gemv: the fused body did not run")
-                need(differ == 0, f"w4a8_gemv N={N2} K={K2} M={M} plan {tuple(plan)}: {differ} of"
-                                  f" {n - 1} repeated launches differ from the first (a race)")
-                rows.append(dict(kernel="w4a8_gemv", N=N2, K=K2, M=M, plan=tuple(plan), launches=n))
-                n_a += 1
-        del w2
+                if (N2, K2, M, bs) == (4096, 4096, 4, 64):
+                    plans += [LaunchPlan("fused", 4, -(-steps // ks), -(-steps // -(-steps // ks)))
+                              for ks in (1, 2, 3, 4, 6)]
+                if (N2, K2, M, bs) == (4096, 4096, 128, 64):
+                    plans.append(LaunchPlan("tc", 128, steps // 4, 4, 64))
+                if (N2, K2, M, bs) == (4096, 4096, 4, 128):
+                    plans.append(LaunchPlan("tc", 16, steps, 1, 128))
+                for plan in plans:
+                    need(plan.body == body, f"gemv_plan gave M={M} bs={bs} the {plan.body} body")
+                    count = lambda: getattr(mw.w4a8_gemv, f"launches_{body}")  # noqa: E731
+                    c0 = count()
+                    run = lambda: mw._gemv_launch(x, w2, None, torch.bfloat16, plan)  # noqa: E731
+                    first = run()
+                    differ = sum(int(not torch.equal(run(), first)) for _ in range(n - 1))
+                    need(count() == c0 + n, f"w4a8_gemv: the {body} body did not run")
+                    need(differ == 0, f"w4a8_gemv N={N2} K={K2} bs={bs} M={M} plan {tuple(plan)}:"
+                                      f" {differ} of {n - 1} repeated launches differ from the first"
+                                      " (a race)")
+                    rows.append(dict(kernel="w4a8_gemv", N=N2, K=K2, bs=bs, M=M, plan=tuple(plan),
+                                     launches=n))
+                    n_a += body == "fused"
+                    n_tc += body == "tc"
+            del w2
+        del W2
     # kernel E on each route: the TMA body at 4096 x 4096 (raw and
     # compressed scales) and 32000 x 4096 (compressed, bf16 out), and the
     # unaligned route at 4100 x 4096
@@ -944,7 +1028,8 @@ def check_repeatable(torch, report, n=100):
                 n_i += 1
         del CB, SCB
     print(f"  {len(cases)} plans of B's tensor-core and G's wgmma bodies, C's tensor-core, D's and"
-          f" H's split bodies ({len(h_plans)} plans of H), {n_a} plans of A's fused body, E's TMA"
+          f" H's split bodies ({len(h_plans)} plans of H), {n_a} plans of A's fused body and {n_tc}"
+          f" of its tensor-core body, E's TMA"
           f" body (raw and compressed scales) and unaligned route, F's tiled"
           f" body and {n_i} plans of I at 7B shapes, {n} launches each on one input: every output"
           f" equal to the first bit for bit", flush=True)
@@ -2081,7 +2166,9 @@ def check_edges(torch):
     ragged planes, the W8A8 route at few rows, every option of kernels C, D
     and H (H at every group size and head_dim 256, its split body at every
     split count and past a whole tile), kernel A's fused body at every row
-    tile, and kernel I at odd row counts in f32."""
+    tile and its tensor-core body at ragged rows, blocksizes 32-256 and
+    every split count from one to one a stage, and kernel I at odd row
+    counts in f32."""
     from bitsandbytes_sycl_tpu_torch.ops import attention, matmul_4bit, matmul_w4a8
     from bitsandbytes_sycl_tpu_torch.ops import paged_attention
     from bitsandbytes_sycl_tpu_torch.ops.common import quantize_4bit_native
@@ -2134,6 +2221,39 @@ def check_edges(torch):
                               matmul_w4a8._w4a8_plain(x, w, b, dt))
                         need(matmul_w4a8.w4a8_gemv.launches_fused == fu0 + 1,
                              "w4a8 fused edge: the fused body did not run")
+    # kernel A's tensor-core body: ragged rows (129 and 255 at blocksize 256:
+    # two passes), N = 128 and 384, blocksizes 32 (a ragged last stage:
+    # half-K 544) to 256, and 96 and 160 (blocks that end inside a stage;
+    # half-K 480 ragged), f32 and bf16 x, output and scales, with and
+    # without bias, one K split, the most the plan allows (one a stage, or
+    # one per run of stages ending on a block) and twice that run
+    for qt, bs, N, K, absmax in (("nf4", 32, 384, 1088, torch.bfloat16),
+                                 ("fp4", 64, 128, 1024, torch.float32),
+                                 ("nf4", 128, 384, 2048, torch.bfloat16),
+                                 ("fp4", 256, 128, 2048, torch.float32),
+                                 ("nf4", 256, 384, 1024, torch.bfloat16),
+                                 ("nf4", 96, 256, 1536, torch.bfloat16),
+                                 ("fp4", 96, 384, 960, torch.float32),
+                                 ("nf4", 160, 128, 1920, torch.float32)):
+        W = torch.randn((N, K), generator=gen, device="cuda") * 0.02
+        w = quantize_4bit_native(W, bs, qt, absmax_dtype=absmax)
+        bias = torch.randn((N,), generator=gen, device="cuda")
+        steps = -(-(K // 2) // 64)
+        for M in (9, 17, 63, 65, 100, 127) + ((129, 255) if bs == 256 else ()):
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+                plan = matmul_w4a8.gemv_plan(M, N, K, bs, 132)
+                need(plan.body == "tc", f"w4a8 tc edge: gemv_plan gave M={M} bs={bs} {plan.body}")
+                unit = math.lcm(bs, 64) // 64
+                for b in (None, bias):
+                    for per in sorted({steps, unit, min(steps, 2 * unit)}):
+                        p2 = matmul_w4a8.LaunchPlan("tc", plan.bm, per, -(-steps // per), plan.bn)
+                        tc0 = matmul_w4a8.w4a8_gemv.launches_tc
+                        close(f"w4a8 tc {qt} bs={bs} N={N} K={K} M={M} {dt} ksplit={p2.ksplit}"
+                              f" bias={b is not None}", matmul_w4a8._gemv_launch(x, w, b, dt, p2),
+                              matmul_w4a8._w4a8_plain(x, w, b, dt))
+                        need(matmul_w4a8.w4a8_gemv.launches_tc == tc0 + 1,
+                             "w4a8 tc edge: the tensor-core body did not run")
     # kernel B's tensor-core body (bf16 x): ragged row counts, N = 384 (128-
     # column tiles), a whole-half K (1152), every decode mode (2: table
     # codebooks; 1: int4; 0: an f32 decode asked for) and blocksizes 32-256
@@ -2389,16 +2509,16 @@ def read_counts(kernels):
     return out
 
 
-def need_new_bodies(counts, label, decode=True, per_step=None):
+def need_new_bodies(counts, label, decode=True, per_step=None, a_body="fused"):
     """Every prefill launch of kernel C in ``counts`` went through its
     tensor-core body (the model's q is bf16), with ``decode`` every launch
     of kernel D through its split body, every launch of kernel H
     (decode only) through its split body, every launch of kernel F
-    through its tiled body and of kernel E through its TMA body, and no
-    layer attention took the
-    dequantize-then-attend route. With ``per_step`` (launches per
-    profiled decode step), every decode step's launches of A went through
-    its fused body and those of H through its split body."""
+    through its tiled body and of kernel E through its TMA body, every
+    launch of A through its fused or tensor-core body, and no layer
+    attention took the dequantize-then-attend route. With ``per_step``
+    (launches per profiled decode step), every decode step's launches of A
+    went through its ``a_body`` body and those of H through its split body."""
     need(counts.get("write_and_attend.dequant", 0) == 0,
          f"{label}: {counts.get('write_and_attend.dequant')} layer attentions took the"
          " dequantize-then-attend route")
@@ -2417,8 +2537,11 @@ def need_new_bodies(counts, label, decode=True, per_step=None):
          f" {counts['dequant_int8']} W8A8 decodes missed F's tiled body")
     e_all, e_tma = counts.get("dequantize_transposed", 0), counts.get("dequantize_transposed.tma", 0)
     need(e_tma == e_all, f"{label}: {e_all - e_tma} of {e_all} dense decodes missed E's TMA body")
+    a_all = counts.get("w4a8_gemv", 0)
+    a_new = counts.get("w4a8_gemv.fused", 0) + counts.get("w4a8_gemv.tc", 0)
+    need(a_new == a_all, f"{label}: {a_all - a_new} of {a_all} W4A8 launches took A's SIMT body")
     if per_step is not None:
-        for name, body in (("w4a8_gemv", "fused"), ("decode_attn_int8", "split")):
+        for name, body in (("w4a8_gemv", a_body), ("decode_attn_int8", "split")):
             need(per_step.get(f"{name}.{body}", 0) == per_step.get(name, 0),
                  f"{label}: {per_step.get(name, 0)} launches of {name} per decode step, "
                  f"{per_step.get(f'{name}.{body}', 0)} of them on its {body} body")
@@ -2585,19 +2708,21 @@ def step_vs_host_speed(torch, eng, n=16):
     return dict(pairs=pairs, corr=float(np.corrcoef(a[:, 0], a[:, 1])[0, 1]))
 
 
-def profile_steps(torch, cfg, params, prompts, n=4, paged=True, host=True, host_name=None):
-    """Device busy time of n steady decode steps (B=4) against their wall
-    time, from torch.profiler's per-kernel device times, and each ported
-    kernel's launches per step; with ``host``, also where the host's time
-    goes, from cProfile, and whether the step follows the host's speed."""
+def profile_steps(torch, cfg, params, prompts, n=4, paged=True, host=True, host_name=None,
+                  max_batch=4):
+    """Device busy time of n steady decode steps (B = max_batch live rows)
+    against their wall time, from torch.profiler's per-kernel device times,
+    and each ported kernel's launches per step; with ``host``, also where
+    the host's time goes, from cProfile, and whether the step follows the
+    host's speed."""
     from torch.profiler import ProfilerActivity, profile
 
     from bitsandbytes_sycl_tpu_torch.engine import EngineConfig, InferenceEngine
     from bitsandbytes_sycl_tpu_torch.ops import KERNELS
 
-    eng = InferenceEngine(cfg, params, EngineConfig(max_batch=4, paged=paged, max_new_tokens=64),
-                          device="cuda")
-    eng.add_requests(prompts[:4])
+    eng = InferenceEngine(cfg, params, EngineConfig(max_batch=max_batch, paged=paged,
+                                                    max_new_tokens=64), device="cuda")
+    eng.add_requests(prompts[:max_batch])
     eng.step()
     torch.cuda.synchronize()
     reset_counts(KERNELS)
@@ -2616,7 +2741,8 @@ def profile_steps(torch, cfg, params, prompts, n=4, paged=True, host=True, host_
     out = dict(wall_ms=wall * 1e3, device_busy_ms=busy if busy > 0 else None,
                kernels_per_step=sum(e.count for e in kernels) / n, launches_per_step=per_step,
                attention=attention_time(kernels, n),
-               top=[(e.key, e.self_device_time_total / 1e3 / n, e.count // n) for e in top])
+               top=[(e.key, e.self_device_time_total / 1e3 / n, e.count // n) for e in top],
+               device_ms={e.key: e.self_device_time_total / 1e3 / n for e in kernels})
     if host:
         out.update(host_top=host_profile(torch, eng, name=host_name or (
             "host_profile.txt" if paged else "host_profile_contiguous.txt")),
@@ -2864,6 +2990,80 @@ def serve_path(torch, label, cfg, params, prompts, kernels, launched, ref=None, 
         print(f"{label}: host time per decode step under cProfile (tottime):")
         for key, ms, cnt in prof["host_top"]:
             print(f"      {ms:8.3f} ms/step  {cnt:6d}x  {key[:90]}")
+    return stats
+
+
+def serving7b_3e(torch, kernels):
+    """3e: LlamaConfig.serving7b() (NF4 at blocksize 128, bf16 scales, W4A8
+    decode: the JAX package's single-chip 7B serving preset) at full width
+    and depth, random weights from seed 0, through the paged engine:
+    max_batch 32, 32 prompts of phase 3's kind, 16 new tokens each. The
+    1024-row prefill takes kernel G; every launch of A (225 a decode step at
+    32 live rows) its tensor-core body. Then four decode steps at 32 live
+    rows profiled (kernels per step, device busy and idle share against the
+    unprofiled median step, A's device ms), and 2 layers at 7B width card
+    against CPU: 2 prompts (a 64-row prefill and decode steps on A's
+    tensor-core body), logits under phase 5's limits, tokens under the gap
+    rule."""
+    from bitsandbytes_sycl_tpu_torch.models.llama import LlamaConfig, init_params
+
+    label = "[3e] serving7b"
+    t0 = time.perf_counter()
+    cfg = LlamaConfig.serving7b()
+    params = init_params(cfg, seed=0, device="cuda")
+    prompts = prompts_from_seed(0, 32, cfg.vocab_size)
+    n_lin = 7 * cfg.num_layers + 1
+    reset_counts(kernels)
+    outs, wall, steps = serve(torch, cfg, params, prompts, 16, max_batch=32)
+    counts = read_counts(kernels)
+    need(all(len(o) == 16 for o in outs), f"{label}: wrong output lengths {[len(o) for o in outs]}")
+    need(all(0 <= t < cfg.vocab_size for o in outs for t in o), f"{label}: token id out of range")
+    need(counts["w4a8_grouped"] == n_lin, f"{label}: the 1024-row prefill launched kernel G"
+                                          f" {counts['w4a8_grouped']} times, not {n_lin}")
+    need(counts["w4a8_gemv"] == n_lin * len(steps) and counts["w4a8_gemv.tc"] == counts["w4a8_gemv"],
+         f"{label}: kernel A launched {counts['w4a8_gemv']} times ({counts['w4a8_gemv.tc']} on its"
+         f" tensor-core body) over {len(steps)} decode steps of {n_lin} linears")
+    need_new_bodies(counts, label)
+    steps = sorted(steps)
+    median = steps[len(steps) // 2] * 1e3
+    prof = profile_steps(torch, cfg, params, prompts, paged=True, host=False, max_batch=32)
+    per = prof["launches_per_step"]
+    need(per.get("w4a8_gemv.tc") == per.get("w4a8_gemv") == n_lin,
+         f"{label}: A launched {per.get('w4a8_gemv')} times a profiled step, {per.get('w4a8_gemv.tc')}"
+         " on its tensor-core body")
+    need_new_bodies(counts, label, per_step=per, a_body="tc")
+    busy = prof["device_busy_ms"]
+    a_ms = {k: v for k, v in prof["device_ms"].items() if "w4a8_tc_kernel" in k or "quant_rows" in k}
+    stats = dict(tokens=sum(map(len, outs)), wall_s=wall, decode_steps=len(steps),
+                 decode_ms_per_step_median=median,
+                 decode_ms_per_step_quartiles=[steps[len(steps) // 4] * 1e3,
+                                               steps[3 * len(steps) // 4] * 1e3],
+                 launches=counts, profile=prof, a_device_ms=a_ms,
+                 device_idle_share=None if not busy else 1 - busy / median)
+    print(f"{label}: {stats['tokens']} tokens in {wall:.2f} s; {len(steps)} decode steps at 32 rows,"
+          f" median {median:.2f} ms/step (quartiles {stats['decode_ms_per_step_quartiles'][0]:.2f}-"
+          f"{stats['decode_ms_per_step_quartiles'][1]:.2f}); launches {counts}", flush=True)
+    print(f"{label}: profiled decode step (B=32): wall {prof['wall_ms']:.2f} ms, "
+          + (f"device busy {busy:.2f} ms of the {median:.2f} ms median step (idle "
+             f"{stats['device_idle_share']:.0%})" if busy else "device busy not measured")
+          + f"; {prof['kernels_per_step']:.0f} kernels per step; A's device ms per step "
+          + json.dumps({k[:60]: round(v, 4) for k, v in a_ms.items()}))
+    for key, ms, cnt in prof["top"]:
+        print(f"      {ms:8.3f} ms/step  {cnt:5d}x  {key[:90]}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    p_gpu = init_params(cfg2, seed=1, device="cuda")  # quantized on the card, then copied
+    p_cpu = to_cuda(torch, p_gpu, device="cpu")
+    reset_counts(kernels)
+    stats["card_vs_cpu"] = engine_card_vs_cpu(torch, label, cfg2, p_cpu, p_gpu, prompts[:2], new=3,
+                                              paged=True)
+    c2 = read_counts(kernels)
+    need(c2["w4a8_gemv"] > 0 and c2["w4a8_gemv.tc"] == c2["w4a8_gemv"],
+         f"{label} card vs CPU: A launched {c2['w4a8_gemv']} times, {c2['w4a8_gemv.tc']} on its"
+         " tensor-core body")
+    stats["seconds"] = time.perf_counter() - t0
     return stats
 
 
@@ -6893,6 +7093,7 @@ def main() -> int:
         t0 = time.perf_counter()
         print("[2] kernels vs plain versions (cold L2, median of per-call CUDA-event times)")
         check_linears(torch, report)
+        phases["kernels_linears_s"] = time.perf_counter() - t0
         # phase 11f, run here beside phase 2's times of A and before any
         # other profiler: a profiler started after others had stopped
         # caught none of A's launches in its window
@@ -6903,7 +7104,9 @@ def main() -> int:
         t1 = time.perf_counter()
         check_dequant4(torch, report, e_old()["old"])
         phases["dequant4_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
         check_repeatable(torch, report)
+        phases["kernels_repeatable_s"] = time.perf_counter() - t1
         check_routes(torch, report)
         check_prefill(torch, report)
         check_paged(torch, report)
@@ -6914,7 +7117,9 @@ def main() -> int:
         print(f"[2] {n_wide} cases of C and H at head_dim 256 (and 384 to 1024) on their new"
               f" bodies: within 1%, the faults outside, 100 launches bit for bit", flush=True)
         check_int8(torch, report)
+        t1 = time.perf_counter()
         n_edges = check_edges(torch)
+        phases["kernels_edges_s"] = time.perf_counter() - t1
         print(f"[2] {n_edges} edge-case comparisons (odd rows, f32/bias, all B modes, ragged G"
               f" planes, W8A8 at few rows, C/D/H options, I at odd rows) ok")
         n_opt = check_optim8(torch, report)
@@ -6957,6 +7162,13 @@ def main() -> int:
         for k in ("w4a8_gemv", "prefill_attn_int8", "paged_attn_int8"):
             need(counts[k] > 0, f"the serving path never launched {k}")
         need_new_bodies(counts, "7B paged serve")
+        n_lin = 7 * cfg.num_layers + 1
+        need(counts["w4a8_gemv.tc"] > 0 and counts["w4a8_gemv.tc"] % n_lin == 0,
+             f"7B paged serve: {counts['w4a8_gemv.tc']} launches of A's tensor-core body, not"
+             f" {n_lin} a prefill")
+        print(f"[3] prefill batches of 32-128 rows: {counts['w4a8_gemv.tc']} launches of A, all on"
+              f" its tensor-core body ({counts['w4a8_gemv.tc'] // n_lin} prefills x {n_lin});"
+              f" decode {counts['w4a8_gemv.fused']} on its fused body", flush=True)
         main_counts = counts
         prof = profile_steps(torch, cfg, params, prompts)
         need_new_bodies(counts, "7B paged serve", per_step=prof["launches_per_step"])
@@ -6994,6 +7206,11 @@ def main() -> int:
         need(per_step.get("decode_attn_int8") == cfg.num_layers,
              f"contiguous decode: kernel H launched {per_step.get('decode_attn_int8')} times per step")
         phases["contiguous_s"] = time.perf_counter() - t0
+
+        # 3e. the serving7b preset (NF4 bs 128) at 32 live rows: kernel A's
+        # tensor-core body on every linear of every decode step
+        serving7b_stats = serving7b_3e(torch, KERNELS)
+        phases["serving7b_3e_s"] = serving7b_stats["seconds"]
 
         # 3b. long prompts at full 7B width and depth, then chunked prefill
         t0 = time.perf_counter()
@@ -7250,13 +7467,24 @@ def main() -> int:
               "w4a8_grouped": {"wgmma": long_counts["rows 2048"]["w4a8_grouped.wgmma"]},
               "prefill_attn_int8": {"tc": main_counts["prefill_attn_int8.tc"]},
               "paged_attn_int8": {"split": main_counts["paged_attn_int8.split"]},
-              "w4a8_gemv": {"fused": main_counts["w4a8_gemv.fused"]},
+              "w4a8_gemv": {"fused": main_counts["w4a8_gemv.fused"],
+                            "tc": main_counts["w4a8_gemv.tc"],
+                            "simt": main_counts["w4a8_gemv"] - main_counts["w4a8_gemv.fused"]
+                            - main_counts["w4a8_gemv.tc"]},
               "decode_attn_int8": {"split": contig_stats["launches"]["decode_attn_int8.split"]},
               "dequant_int8": {"tiled": long_counts["rows 4096"]["dequant_int8.tiled"]},
               "dequantize_transposed": {
                   "tma": long_counts["rows 256"]["dequantize_transposed.tma"],
                   "unaligned": long_counts["rows 256"]["dequantize_transposed"]
                   - long_counts["rows 256"]["dequantize_transposed.tma"]}}
+    # kernel A's tensor-core body on its phase 3e path (serving7b, 32 rows)
+    sc3e = serving7b_stats["launches"]
+    sources["w4a8_gemv (tc)"] = ("bitsandbytes_sycl_tpu/ops/matmul_w4a8.py:65",
+                                 "serving7b decode at 32 rows (phase 3e)", sc3e["w4a8_gemv.tc"])
+    bodies["w4a8_gemv (tc)"] = {"fused": sc3e["w4a8_gemv.fused"], "tc": sc3e["w4a8_gemv.tc"],
+                                "simt": sc3e["w4a8_gemv"] - sc3e["w4a8_gemv.fused"]
+                                - sc3e["w4a8_gemv.tc"]}
+    per_step["w4a8_gemv (tc)"] = serving7b_stats["profile"]["launches_per_step"]["w4a8_gemv.tc"]
     # the branches of slice 10, each with its phase 3d path (the kernel's
     # source file is the base name's)
     lean_per = lean_stats["profile"]["launches_per_step"]
@@ -7337,6 +7565,7 @@ def main() -> int:
         json.dump(dict(card=card, kernels=report, serve=serve_stats, long_prompts=long_stats,
                        chunked=chunk_stats, contiguous=contig_stats, w8a8_prefill=w8a8_stats,
                        int8=int8_stats, qlora=train_stats, lean=lean_stats, library=library_stats,
+                       serving7b=serving7b_stats,
                        serving=serving_stats, families=family_stats, checkpoints=ckpt_stats,
                        parallel=parallel_stats,
                        phases=phases), f,
@@ -7452,6 +7681,67 @@ DECODE_PROBE_PARTS = {  # A's fused and H's split bodies: copies alone against m
                          "launch alone (copies and math off)": ("BNB_PROBE_NO_COPY",
                                                                 "BNB_PROBE_NO_MATH")},
 }
+
+
+TC_PROBE_PARTS = {  # A's tensor-core body, one part switched off
+    "no copies": ("BNB_PROBE_NO_COPY",),
+    "no quantization launch": ("BNB_PROBE_NO_PROLOGUE",),
+    "no decode": ("BNB_PROBE_NO_DECODE",),
+    "no products": ("BNB_PROBE_NO_MMA",),
+    "no folds": ("BNB_PROBE_NO_FOLD",),
+    "launch alone (all off)": ("BNB_PROBE_NO_COPY", "BNB_PROBE_NO_PROLOGUE", "BNB_PROBE_NO_DECODE",
+                               "BNB_PROBE_NO_MMA", "BNB_PROBE_NO_FOLD"),
+}
+
+
+def probe_tc(torch, out):
+    """Where the time of A's tensor-core body goes, at 16, 32 and 128 rows
+    (blocksize 64) and 32 rows (blocksize 128) of 4096 x 4096 and 32000 x
+    4096: timed as built and built with one part switched off
+    (TC_PROBE_PARTS; those builds compute wrong results), then at every
+    split count of the 7B shapes' A_TC_CELLS rows."""
+    from bitsandbytes_sycl_tpu_torch.ops import _build
+    from bitsandbytes_sycl_tpu_torch.ops import matmul_w4a8 as mw
+    from bitsandbytes_sycl_tpu_torch.ops.common import LaunchPlan, quantize_4bit_native, sm_count
+
+    built = _build.build_variants({part: ("w4a8_gemv", macros)
+                                   for part, macros in TC_PROBE_PARTS.items()})
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    sms = sm_count(torch.device("cuda"))
+    for N, K in SHAPES_7B:
+        W = torch.randn((N, K), generator=gen, device="cuda") / K ** 0.5
+        for bs in sorted({b for b, _ in A_TC_CELLS if K % (2 * b) == 0}):
+            w = quantize_4bit_native(W, bs, "nf4", absmax_dtype=torch.bfloat16)
+            for M in [m for b, m in A_TC_CELLS if b == bs]:
+                x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+                plan = mw.gemv_plan(M, N, K, bs, sms)
+                label = f"N={N} K={K} bs={bs} M={M}"
+                if (N, K) in ((4096, 4096), (32000, 4096)) and (bs, M) in (
+                        (64, 16), (64, 32), (64, 128), (128, 32)):
+                    for part in ["real"] + list(TC_PROBE_PARTS):
+                        old = _build.use_library("w4a8_gemv", built[part]) if part != "real" else None
+                        us = time_cold(torch, lambda: mw._gemv_launch(
+                            x, w, None, torch.bfloat16, plan), iters=20) * 1e3
+                        if old is not None:
+                            _build.use_library("w4a8_gemv", old)
+                        out["tc_parts"].append(dict(shape=label, part=part, us=us))
+                        print(f"w4a8_gemv tc {label}: {part:24s} {us:.1f} us", flush=True)
+                steps, unit = -(-(K // 2) // 64), math.lcm(bs, 64) // 64
+                seen = set()
+                for ks in (1, 2, 3, 4, 6, 8, 12, 16, plan.ksplit):
+                    per = unit * -(-(steps // unit) // ks)
+                    p2 = LaunchPlan("tc", plan.bm, per, -(-steps // per), plan.bn)
+                    if p2.ksplit in seen:
+                        continue
+                    seen.add(p2.ksplit)
+                    us = time_cold(torch, lambda: mw._gemv_launch(x, w, None, torch.bfloat16, p2),
+                                   iters=20) * 1e3
+                    out["tc_splits"].append(dict(shape=label, plan=tuple(p2), picked=p2 == plan,
+                                                 ctas=N // p2.bn * p2.ksplit * -(-M // p2.bm), us=us))
+                    print(f"w4a8_gemv tc {label} {tuple(p2)}{' (picked)' if p2 == plan else ''}:"
+                          f" {us:.1f} us", flush=True)
+            del w
+        del W
 
 
 def probe_decode(torch, out):
@@ -8056,9 +8346,10 @@ def probe_main(only=None) -> int:
     same for C's tensor-core and D's split bodies (probe_attention), for
     A's fused and H's split bodies (probe_decode), for J's and K's
     leaf-table bodies and J's LUT and two-pass branches (probe_optim), for
-    F's tiled and I's wgmma bodies (probe_int8) and for E's TMA body
-    (probe_dequant); with ``only`` ("attention", "decode", "optim", "int8"
-    or "dequant") that one alone. Lines go to stdout and
+    F's tiled and I's wgmma bodies (probe_int8), for E's TMA body
+    (probe_dequant) and for A's tensor-core body (probe_tc); with ``only``
+    ("attention", "decode", "optim", "int8", "dequant" or "tc") that one
+    alone. Lines go to stdout and
     chiprun_out/probe.json."""
     import torch
 
@@ -8083,7 +8374,7 @@ def probe_main(only=None) -> int:
     out = dict(card=card, sms=sms, plans=[], parts=[], fit={}, picks=[], attention_parts=[],
                decode_parts=[], gemv_splits=[], decode_splits=[], optim_parts=[], optim_grids=[],
                optim_clusters=[], optim_routes=[], int8_parts=[], int8_plans=[], dequant_parts=[],
-               dequant_plans=[])
+               dequant_plans=[], tc_parts=[], tc_splits=[])
     if only in (None, "attention"):
         probe_attention(torch, out)
     if only in (None, "decode"):
@@ -8094,6 +8385,8 @@ def probe_main(only=None) -> int:
         probe_int8(torch, out)
     if only in (None, "dequant"):
         probe_dequant(torch, out)
+    if only in (None, "tc"):
+        probe_tc(torch, out)
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = []
     for N, K in ([] if attention_only else [(4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096)]):
@@ -8230,6 +8523,6 @@ if __name__ == "__main__":
         sys.exit(time_optim_main(sys.argv[2] if len(sys.argv) > 2 else None))
     if sys.argv[1:2] == ["--probe"]:
         sys.exit(probe_main(only=sys.argv[2] if sys.argv[2:3] in (["attention"], ["decode"], ["optim"],
-                                                                ["int8"], ["dequant"])
+                                                                ["int8"], ["dequant"], ["tc"])
                             else None))
     sys.exit(main())

@@ -9,7 +9,8 @@ the K splits partition the quantization blocks in order within a plane,
 and that the body is the one the shape and dtype call for; for C the body;
 for D and H the body and that the splits partition a row's used pages or
 tiles; for A the body, its row tile and that the splits partition the
-64-row stages; for F that the persistent CTAs take every tile once and the
+64-row stages (for its tensor-core body also whole quantization blocks,
+column tiles that cover N and at most one row pass per 128 rows); for F that the persistent CTAs take every tile once and the
 tiles write every output byte once; for I the wgmma width, that the
 splits partition the 128-byte K steps, and the stage bytes and ring the
 kernel takes; for E that the route is its predicate, that the tiles
@@ -258,13 +259,24 @@ def test_decode_plan_takes_no_lengths():
 
 
 # kernel A: (M, N, K, bs) -> body. The fused body takes M <= 8 rows at
-# blocksize 32 or 64 with N and K multiples of 128; other rows (up to 128)
-# and blocksizes keep the SIMT body.
+# blocksize 32 or 64 with N and K multiples of 128; the tensor-core body
+# every other call at a blocksize that is a multiple of 32 (the route's
+# rows: up to 128, up to 256 at blocksize 256; a ragged last stage at
+# blocksize 32 and 96; blocks of 96 and 160 rows, which end inside a
+# 64-row stage, split only where a block ends); the SIMT body the other
+# blocksizes.
 GEMV_CASES = (
     [((M, N, K, 64), "fused") for N, K in SHAPES_7B for M in (1, 2, 3, 4, 5, 8)]
-    + [((M, N, K, 64), "simt") for N, K in SHAPES_7B for M in (9, 16, 64, 128)]
+    + [((M, N, K, 64), "tc") for N, K in SHAPES_7B for M in (9, 16, 32, 64, 100, 128)]
+    + [((M, N, K, 128), "tc") for N, K in SHAPES_7B for M in (1, 4, 9, 32, 128)]
+    + [((M, N, K, 256), "tc") for N, K in SHAPES_7B if K % 512 == 0 for M in (1, 129, 200, 256)]
+    + [((M, N, K, 32), "tc") for N, K in SHAPES_7B for M in (9, 128)]
     + [((1, 384, 1152, 64), "fused"), ((8, 256, 1152, 32), "fused"), ((4, 256, 2048, 32), "fused"),
-       ((4, 256, 1024, 128), "simt"), ((4, 256, 1024, 16), "simt"), ((3, 384, 512, 256), "simt")]
+       ((4, 256, 1024, 128), "tc"), ((4, 256, 1024, 16), "simt"), ((3, 384, 512, 256), "tc"),
+       ((5, 256, 1088, 32), "tc"), ((100, 384, 1088, 32), "tc"), ((17, 128, 1024, 512), "tc"),
+       ((128, 256, 1024, 16), "simt"), ((9, 256, 960, 48), "simt"), ((65, 384, 1152, 8), "simt"),
+       ((9, 256, 1536, 96), "tc"), ((100, 256, 960, 96), "tc"), ((4, 4096, 6144, 96), "tc"),
+       ((128, 384, 1920, 160), "tc"), ((17, 4096, 3840, 160), "tc")]
 )
 
 
@@ -281,14 +293,24 @@ def test_gemv_plan(case, body):
         bounds = [min(s * 8 * plan.per, nbh) for s in range(plan.ksplit + 1)]
         assert bounds[-1] == nbh and all(a < b for a, b in zip(bounds, bounds[1:]))
         return
-    assert M <= GEMV_FUSED_MAX_M and plan.bm in (1, 2, 4, 8) and plan.bm >= M > plan.bm // 2
-    # the K splits: whole 64-row stages, in order, none empty, covering the
-    # half-plane once; no more splits than stages; quantized x within 32 KB
-    steps = K // 2 // 64
+    # the K splits: whole 64-row stages (the last may hold 32), in order,
+    # none empty, covering the half-plane once; no more splits than stages
+    steps = -(-(K // 2) // 64)
     bounds = [min(s * plan.per, steps) for s in range(plan.ksplit + 1)]
     assert bounds[0] == 0 and bounds[-1] == steps
     assert all(a < b for a, b in zip(bounds, bounds[1:]))
     assert plan.ksplit <= steps
+    if body == "tc":
+        # 128-column tiles (64 from 64 rows) cover N; a pass of bm rows, at
+        # most ceil(M / 128) passes; every split boundary falls on a
+        # quantization block
+        assert plan.bn == (64 if plan.bm >= 64 else 128) and N % plan.bn == 0
+        assert plan.bm in (16, 32, 64, 128) and plan.bm >= min(M, 128)
+        assert -(-M // plan.bm) <= -(-M // 128)
+        assert all(b * 64 % bs == 0 for b in bounds[:-1])
+        assert plan.ksplit == 1 or plan.per * 64 % bs == 0
+        return
+    assert M <= GEMV_FUSED_MAX_M and plan.bm in (1, 2, 4, 8) and plan.bm >= M > plan.bm // 2
     assert plan.bm * 2 * plan.per * 64 <= 32768
     # at the 7B shapes the grid holds about one CTA per SM
     if (N, K) in SHAPES_7B:
